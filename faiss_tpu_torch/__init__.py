@@ -4,10 +4,13 @@ A port of ``faiss_tpu`` (JAX on a TPU) to one NVIDIA H100, module by module
 beside the original, which stays the reference it is tested against. This
 package imports torch and numpy, never jax or faiss_tpu.
 
-The slice ported so far: the flat index with bf16 storage, L2 and IP, add /
-search / search_async, the fused search (four hand-written CUDA kernels in
-``csrc/``, built with nvcc at first use) with its exactness certificate and
-two-tier fallback, and the plain path.
+The slices ported so far: the flat index with f32 storage (the default, as
+in ``faiss_tpu``: master rows, bf16 (hi, lo) planes, exact split statistics,
+``keep_master=False`` pair-only storage, the hi_exact dispatch on
+integer-valued data) and with bf16 storage; L2 and IP, add / search /
+search_async, the fused search (hand-written CUDA kernels in ``csrc/``,
+built with nvcc at first use) with its exactness certificates and two-tier
+fallback, and the plain path.
 
     TorchIndexFlat, TorchSearchToken, index_numpy_to_torch
     MetricType, StorageType

@@ -1,58 +1,88 @@
-// Group-max sweep: phase 1 of the fused bf16 search.
+// Group-max sweep: phase 1 of the fused search, bf16 and f32 storage.
 //
-// Replaces faiss_tpu/ops/pallas_fused.py _kernel_qpair (2 query planes) and
-// _kernel_q1 (1 plane), with their shared _epilogue, as launched by
-// _sweep_call from groupmax_scores. For every query q and every 128-row
-// group g of the database it writes
+// Replaces four Pallas kernel bodies of faiss_tpu/ops/pallas_fused.py, all
+// launched by _sweep_call from groupmax_scores, with their shared _epilogue:
+//   bf16 rows v:                _kernel_qpair  acc = qh·v + ql·v
+//                               _kernel_q1     acc = q1·v
+//   f32 rows as bf16 planes     _kernel_split  acc = qh·dh + qh·dl + ql·dh
+//   (v ≈ dh + dl):              _kernel_split2 acc = q1·dh + q1·dl
+// (qh, ql: the bit-mask split of the fp32 query; q1: the query rounded to
+// bf16, RNE). For every query q and every 128-row group g it writes
 //     gm[q, g] = max over rows r of g of  s(q, r),
 //     s = 2·acc − vn[r]  (L2)   or   acc − vn[r]  (IP),
-//     acc = Σ_p (q_p · v_r)     over the bf16 query planes p,
 // where vn is the pre-masked norm stream (+inf on rows past ntotal, so
 // their score is −inf). The nq×nv score matrix never reaches memory.
 //
 // Arithmetic (what the certificate ops/fused._sweep_eps assumes): each
-// plane has its own fp32 accumulator, summed over d by sequential fmaf
-// (CUDA-core FMA, round to nearest). bf16×bf16 products are exact in fp32,
-// so a plane errs ≤ d·u·‖q_p‖·‖v‖; the planes add once at the end, as the
-// two dot_generals of _kernel_qpair do. One accumulator over 2·d
-// interleaved terms would exceed the (d+2)·u budget. No tensor cores: their
+// product term has its own fp32 accumulator, summed over d by sequential
+// fmaf (CUDA-core FMA, round to nearest), and the terms add once at the
+// end, left to right in the order above (as the dot_generals of the Pallas
+// kernels do). bf16×bf16 products are exact in fp32, so a term a·b errs
+// ≤ d·u·‖a‖·‖b‖ (u = 2^-24). With ‖qh‖, ‖q1‖ ≤ Q + R, ‖ql‖ = L, ‖dh‖ ≤ V,
+// ‖dl‖ ≤ s0 the three f32 terms err ≤ d·u·[(Q+R)·(V+s0) + L·V] and the two
+// final adds ≤ 2·u·(the same sum), which is the (d+2)·u·[(Q+R)·(V+s0) + L·V]
+// that _sweep_eps charges (bf16: s0 = 0). One accumulator over the 2·d or
+// 3·d interleaved terms would exceed that budget. No tensor cores: their
 // fp32 accumulation is not proven round-to-nearest.
 //
-// What bounds it on an H100: fp32 FMA throughput. At nq=104, 1M×128 one plane
-// is 13.3 G FMA against 256 MB of rows; the rows are read once from device
+// What bounds it on an H100: fp32 FMA throughput. At nq=104, 1M×128 one
+// product term is 13.3 G FMA (bf16: 1-2 terms against 256 MB of rows; f32:
+// 2-3 terms against 512 MB of planes); the rows are read once from device
 // memory and then from L2 by the other query tiles of the same group.
-// Design: one block per (group, 32-query tile), blocks of one group
-// adjacent in launch order so the group's 32 KB stays in L2; one thread per
-// row keeps 32 (or 64) accumulators in registers and reads each 16-byte row
-// chunk once for all 32 queries; the query tile is staged in shared memory
-// (fp32, d in chunks of 64, ≤ 16 KB) and read as broadcast float4s. The
-// 128-row max is a warp shuffle max plus one shared-memory step.
+// Design: one block per (group, QT-query tile), blocks of one group
+// adjacent in launch order so the group's 32 KB per plane stays in L2; one
+// thread per row keeps QT accumulators per term in registers and reads each
+// 16-byte row chunk once for all QT queries; the query tile is staged in
+// shared memory (fp32, d in chunks of 64) and read as broadcast float4s.
+// The 128-row max is a warp shuffle max plus one shared-memory step.
+// QT per route: 32 for bf16 (32/64 accumulators; 77/151 registers) and
+// for _kernel_split2 (64 accumulators; 138 registers); 16 for
+// _kernel_split (48 accumulators; 127 registers, no spills). nvcc
+// -Xptxas -v for sm_90a reports no spills for these four; at this shape
+// _kernel_split ran 3.04 ms at QT=16, 3.44 at QT=32 (232 registers) and
+// 3.63 at QT=8 (CUDA events, NVIDIA H100 80GB HBM3, 700.00 W).
 #include "common.cuh"
 
 namespace {
 
-constexpr int QT = 32;   // queries per block
 constexpr int DT = 64;   // d chunk staged in shared memory
 
-template <int PLANES, bool L2>
+__device__ __forceinline__ float dot8(const float* a, const float (&x)[8],
+                                      float s) {
+  const float4 a0 = *reinterpret_cast<const float4*>(a);
+  const float4 a1 = *reinterpret_cast<const float4*>(a + 4);
+  s = fmaf(a0.x, x[0], s); s = fmaf(a0.y, x[1], s);
+  s = fmaf(a0.z, x[2], s); s = fmaf(a0.w, x[3], s);
+  s = fmaf(a1.x, x[4], s); s = fmaf(a1.y, x[5], s);
+  s = fmaf(a1.z, x[6], s); s = fmaf(a1.w, x[7], s);
+  return s;
+}
+
+// QP query planes (1, 2), DP db planes (1 = bf16 rows, 2 = (hi, lo));
+// NT product terms: QP for one db plane, QP + 1 for two.
+template <int QP, int DP, int QT, bool L2>
 __global__ void __launch_bounds__(ft::GROUP)
 sweep_groupmax_kernel(const uint16_t* __restrict__ q_hi,
                       const uint16_t* __restrict__ q_lo,
                       const uint16_t* __restrict__ db,
+                      const uint16_t* __restrict__ db_lo,
                       const float* __restrict__ vn,
                       float* __restrict__ gm,
                       int nq, int d, int ngroups, int nqt) {
-  __shared__ __align__(16) float qs[PLANES][QT][DT];
+  constexpr int NT = DP == 1 ? QP : QP + 1;
+  __shared__ __align__(16) float qs[QP][QT][DT];
   __shared__ float red[ft::GROUP / 32][QT];
 
   const int g = blockIdx.x / nqt;
   const int q0 = (blockIdx.x % nqt) * QT;
   const size_t row = static_cast<size_t>(g) * ft::GROUP + threadIdx.x;
-  const uint4* v = reinterpret_cast<const uint4*>(db + row * d);
+  const uint4* v0 = reinterpret_cast<const uint4*>(db + row * d);
+  const uint4* v1 =
+      DP == 2 ? reinterpret_cast<const uint4*>(db_lo + row * d) : nullptr;
 
-  float acc[PLANES][QT];
+  float acc[NT][QT];
 #pragma unroll
-  for (int p = 0; p < PLANES; ++p)
+  for (int p = 0; p < NT; ++p)
 #pragma unroll
     for (int j = 0; j < QT; ++j) acc[p][j] = 0.f;
 
@@ -65,28 +95,25 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q_hi,
       if (q0 + j < nq && e < dn) {
         const size_t off = static_cast<size_t>(q0 + j) * d + d0 + e;
         a = ft::bf16_to_f32(q_hi[off]);
-        if (PLANES == 2) b = ft::bf16_to_f32(q_lo[off]);
+        if constexpr (QP == 2) b = ft::bf16_to_f32(q_lo[off]);
       }
       qs[0][j][e] = a;
-      if (PLANES == 2) qs[PLANES - 1][j][e] = b;
+      if constexpr (QP == 2) qs[QP - 1][j][e] = b;
     }
     __syncthreads();
     for (int e = 0; e < dn; e += 8) {
-      float x[8];
-      ft::unpack8(__ldg(v + (d0 + e) / 8), x);
+      float x0[8], x1[8];
+      ft::unpack8(__ldg(v0 + (d0 + e) / 8), x0);
+      if constexpr (DP == 2) ft::unpack8(__ldg(v1 + (d0 + e) / 8), x1);
 #pragma unroll
-      for (int p = 0; p < PLANES; ++p) {
-#pragma unroll
-        for (int j = 0; j < QT; ++j) {
-          const float4 a0 = *reinterpret_cast<const float4*>(&qs[p][j][e]);
-          const float4 a1 = *reinterpret_cast<const float4*>(&qs[p][j][e + 4]);
-          float s = acc[p][j];
-          s = fmaf(a0.x, x[0], s); s = fmaf(a0.y, x[1], s);
-          s = fmaf(a0.z, x[2], s); s = fmaf(a0.w, x[3], s);
-          s = fmaf(a1.x, x[4], s); s = fmaf(a1.y, x[5], s);
-          s = fmaf(a1.z, x[6], s); s = fmaf(a1.w, x[7], s);
-          acc[p][j] = s;
-        }
+      for (int j = 0; j < QT; ++j) {
+        // terms in the order of the Pallas kernels: q0·v0, then q0·v1
+        // (two db planes) or q1·v0 (one), then q1·v0 (two db planes)
+        acc[0][j] = dot8(&qs[0][j][e], x0, acc[0][j]);
+        if constexpr (DP == 2)
+          acc[1][j] = dot8(&qs[0][j][e], x1, acc[1][j]);
+        if constexpr (QP == 2)
+          acc[NT - 1][j] = dot8(&qs[QP - 1][j][e], x0, acc[NT - 1][j]);
       }
     }
   }
@@ -96,7 +123,8 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q_hi,
 #pragma unroll
   for (int j = 0; j < QT; ++j) {
     float a = acc[0][j];
-    if (PLANES == 2) a = a + acc[PLANES - 1][j];
+#pragma unroll
+    for (int p = 1; p < NT; ++p) a = a + acc[p][j];
     const float s = ft::warp_max((L2 ? 2.f * a : a) - vr);
     if (lane == 0) red[w][j] = s;
   }
@@ -110,41 +138,47 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q_hi,
   }
 }
 
-template <int PLANES>
+template <int QP, int DP, int QT>
 void launch(const void* q_hi, const void* q_lo, const void* db,
-            const void* vn, void* gm, int nq, int d, int ngroups, int l2,
-            cudaStream_t stream) {
+            const void* db_lo, const void* vn, void* gm, int nq, int d,
+            int ngroups, int l2, cudaStream_t stream) {
   const int nqt = (nq + QT - 1) / QT;
   const dim3 grid(static_cast<unsigned>(static_cast<long long>(ngroups) * nqt));
   auto* qh = static_cast<const uint16_t*>(q_hi);
   auto* ql = static_cast<const uint16_t*>(q_lo);
   auto* v = static_cast<const uint16_t*>(db);
+  auto* vl = static_cast<const uint16_t*>(db_lo);
   auto* n = static_cast<const float*>(vn);
   auto* out = static_cast<float*>(gm);
   if (l2)
-    sweep_groupmax_kernel<PLANES, true><<<grid, ft::GROUP, 0, stream>>>(
-        qh, ql, v, n, out, nq, d, ngroups, nqt);
+    sweep_groupmax_kernel<QP, DP, QT, true><<<grid, ft::GROUP, 0, stream>>>(
+        qh, ql, v, vl, n, out, nq, d, ngroups, nqt);
   else
-    sweep_groupmax_kernel<PLANES, false><<<grid, ft::GROUP, 0, stream>>>(
-        qh, ql, v, n, out, nq, d, ngroups, nqt);
+    sweep_groupmax_kernel<QP, DP, QT, false><<<grid, ft::GROUP, 0, stream>>>(
+        qh, ql, v, vl, n, out, nq, d, ngroups, nqt);
 }
 
 }  // namespace
 
 // q_hi, q_lo: (nq, d) bf16 query planes (q_lo unread when planes == 1);
-// db: (≥ ngroups·128, d) bf16 rows; vn: (ngroups·128,) pre-masked norms;
-// gm: (nq, ngroups) f32 out. d % 8 == 0, 16-byte aligned pointers.
+// db: (≥ ngroups·128, d) bf16 rows, or the hi plane when db_lo is given;
+// db_lo: the lo plane, or null for bf16 rows; vn: (ngroups·128,)
+// pre-masked norms; gm: (nq, ngroups) f32 out. d % 8 == 0, 16-byte aligned.
 extern "C" int ft_sweep_groupmax(const void* q_hi, const void* q_lo,
-                                 int planes, const void* db, const void* vn,
-                                 void* gm, int nq, int d, int ngroups, int l2,
-                                 void* stream) {
+                                 int planes, const void* db, const void* db_lo,
+                                 const void* vn, void* gm, int nq, int d,
+                                 int ngroups, int l2, void* stream) {
   if (nq <= 0 || ngroups <= 0 || d <= 0 || d % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (planes == 1)
-    launch<1>(q_hi, q_lo, db, vn, gm, nq, d, ngroups, l2, s);
+  if (planes == 1 && db_lo == nullptr)
+    launch<1, 1, 32>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
+  else if (planes == 2 && db_lo == nullptr)
+    launch<2, 1, 32>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
+  else if (planes == 1)
+    launch<1, 2, 32>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
   else if (planes == 2)
-    launch<2>(q_hi, q_lo, db, vn, gm, nq, d, ngroups, l2, s);
+    launch<2, 2, 16>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

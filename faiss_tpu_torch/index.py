@@ -1,6 +1,7 @@
-"""TorchIndexFlat: the flat (brute-force) exact-search index, bf16 storage.
+"""TorchIndexFlat: the flat (brute-force) exact-search index, f32 and bf16
+storage.
 
-Counterpart of ``faiss_tpu/index.py``'s TpuIndexFlat (bf16 route):
+Counterpart of ``faiss_tpu/index.py``'s TpuIndexFlat (f32 and bf16 routes):
 
     faiss_tpu                      faiss_tpu_torch
     ---------                      ---------------
@@ -13,11 +14,18 @@ Behaviour kept:
   * k is clamped to ntotal with sentinel fill beyond (+inf / -inf distance,
     label -1); an empty index returns all sentinels;
   * ids are int32 on the device, int64 at the API;
+  * storage defaults to f32, as in the JAX package: the f32 master, its
+    bf16 (hi, lo) planes and the exact split statistics; keep_master=False
+    keeps only the planes on the device and ranks by hi + lo;
   * the fused path (ops/fused.py: sweep → select → rescore → final select,
-    four CUDA kernels) returns a per-query certificate; uncertified queries
+    CUDA kernels) returns a per-query certificate; uncertified queries
     re-run in two tiers (make_selective_fallback): the two-plane sweep when
     the search ran the one-plane sweep, then the plain path, which is exact
     by construction;
+  * f32 storage on integer-valued data (split statistics exactly zero)
+    takes the hi_exact dispatch: the fused path sweeps and rescores the hi
+    plane alone with the bf16 kernels, the cost gate sees 2 bytes/element,
+    and the one-plane sweep policy applies as for bf16;
   * the plain path is an fp32 GEMM + stable top-k, chunked over the db.
 
 PyTorch runs eagerly, so there is no compiled-program cache: each search
@@ -153,27 +161,27 @@ def make_selective_fallback(index, queries: torch.Tensor, nq: int, k: int, *,
 
 
 class TorchIndexFlat:
-    """Flat exact-search index over bf16 rows on one device.
+    """Flat exact-search index over f32 or bf16 rows on one device.
 
     ``device`` defaults to "cuda" and raises when CUDA is absent; "cpu"
-    runs every kernel's plain PyTorch version (how the tests run it)."""
+    runs every kernel's plain PyTorch version (how the tests run it).
+    ``keep_master=False`` (f32 only) keeps the exact rows in host memory
+    for reconstruct and only the bf16 (hi, lo) planes on the device."""
 
     def __init__(self, d: int, metric=MetricType.L2,
-                 storage=StorageType.BFLOAT16, device="cuda",
-                 tuning: Optional[KernelTuning] = None):
+                 storage=StorageType.FLOAT32, device="cuda",
+                 tuning: Optional[KernelTuning] = None,
+                 keep_master: bool = True):
         self.metric = MetricType.coerce(metric)
         self.storage_type = StorageType.coerce(storage)
-        if self.storage_type is not StorageType.BFLOAT16:
-            raise NotImplementedError(
-                f"storage {self.storage_type.value}: the port stores bf16 "
-                "only so far")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' to "
                                "run the plain versions of the kernels")
         self.caps = query_device_capabilities(self.device)
         self.tuning = tuning if tuning is not None else self.caps.tuning
-        self.store = DeviceStore(d, self.device)
+        self.store = DeviceStore(d, self.device, self.storage_type,
+                                 keep_master=keep_master)
         self._force_plain = False
         # searches whose certificate failed and re-ran on an exact path
         self.fused_fallbacks = 0
@@ -229,25 +237,37 @@ class TorchIndexFlat:
         """Enqueue one search of the padded queries ``q``. Returns (packed
         result tensor, whether the fused path ran, whether it ran the
         one-plane sweep); nothing is copied to the host."""
+        st = self.store
         nt = self.ntotal
         nv_eff = _round_up(nt, ROW_TILE)
-        d_pad = self.store.d_pad
+        d_pad = st.d_pad
         k_eff = min(k, nv_eff)
         use_direct = (self.metric is MetricType.L2
                       and nv_eff <= dist_ops.DIRECT_PATH_MAX_NV * 4
                       and nq_pad * nv_eff * d_pad <= DIRECT_PATH_MAX_ELEMS)
+        # hi_exact: the exact split statistics (mirrored to the host by
+        # add, so reading them here waits for nothing) prove the lo and
+        # residual planes zero; the sweep then reads 2 bytes per element
+        stats_zero = st.has_split and st.split_stats_host() == (0.0, 0.0)
+        pair_sweep = st.has_split and not stats_zero
         use_fused = (not force_plain and not self._force_plain
                      and not use_direct
                      and fused.fused_path_eligible(
                          metric=self.metric, k=k, nv_eff=nv_eff,
-                         d_pad=d_pad, nq_pad=nq_pad))
-        db, norms = self.store.db, self.store.norms
+                         d_pad=d_pad, nq_pad=nq_pad,
+                         itemsize=4 if pair_sweep else 2))
         if use_fused:
             passes = 2 if (full_sweep or nq_pad in self._no_reduced_sweep) \
-                else fused.pick_sweep_passes(nq_pad)
+                else fused.pick_sweep_passes(nq_pad, pair_sweep)
+            split = {}
+            if st.has_split:
+                split = dict(db_split=(st.db_hi, st.db_lo),
+                             pair_only=st.pair_only,
+                             split_stats=st.split_stats, hi_exact=stats_zero)
             vals, ids, cert = fused.fused_search(
-                q, db, norms, nt, k=k, metric=self.metric, nv_eff=nv_eff,
-                sweep_passes=passes)
+                q, st.db if st.db is not None else st.db_hi, st.norms, nt,
+                k=k, metric=self.metric, nv_eff=nv_eff, sweep_passes=passes,
+                **split)
             if self.metric is MetricType.L2:
                 # the kernels' scores omit the rank-invariant −‖q‖²
                 vals = vals - torch.sum(q * q, dim=-1)[:, None]
@@ -255,13 +275,21 @@ class TorchIndexFlat:
             return _pack(dists, labels, cert), True, passes == 1
 
         def block(start: int, width: int) -> torch.Tensor:
-            rows = db[start: start + width]
-            if use_direct:
-                s = dist_ops.direct_l2_scores(q, rows)
+            end = start + width
+            norms = st.norms[start:end]
+            if st.pair_only:
+                hi, lo = st.db_hi[start:end], st.db_lo[start:end]
+                if use_direct:
+                    s = dist_ops.direct_l2_scores(
+                        q, hi.to(torch.float32) + lo.to(torch.float32))
+                else:
+                    s = dist_ops.pair_scores(q, hi, lo, norms, self.metric)
+            elif use_direct:
+                s = dist_ops.direct_l2_scores(q, st.db[start:end])
             else:
-                s = dist_ops.matmul_scores(q, rows, norms[start: start + width],
+                s = dist_ops.matmul_scores(q, st.db[start:end], norms,
                                            self.metric)
-            col = torch.arange(start, start + width, device=s.device)
+            col = torch.arange(start, end, device=s.device)
             return s.masked_fill((col >= nt)[None, :], float("-inf"))
 
         chunk = self.tuning.chunk_v
@@ -307,18 +335,23 @@ class TorchIndexFlat:
         return self.search_async(x, k).wait()
 
     def describe(self) -> str:
+        st = self.store
+        hi_exact = ""
+        if st.has_split and self.ntotal:
+            hi_exact = f"hi_exact={st.split_stats_host() == (0.0, 0.0)}, "
         return (
             f"TorchIndexFlat(d={self.d}, metric={self.metric.value}, "
             f"storage={self.storage_type.value}, ntotal={self.ntotal}, "
-            f"capacity={self.store.capacity}, d_pad={self.store.d_pad}, "
+            f"capacity={st.capacity}, d_pad={st.d_pad}, "
             f"device={self.device}, force_plain={self._force_plain}, "
             f"fused_fallbacks={self.fused_fallbacks}, "
             f"reduced_sweep_disabled_shapes={sorted(self._no_reduced_sweep)}, "
-            f"bytes={self.store.nbytes()})\n" + self.caps.describe())
+            f"{hi_exact}pair_only={st.pair_only}, "
+            f"bytes={st.nbytes()})\n" + self.caps.describe())
 
 
 def index_numpy_to_torch(xb: np.ndarray, metric=MetricType.L2,
-                         storage=StorageType.BFLOAT16,
+                         storage=StorageType.FLOAT32,
                          device="cuda") -> TorchIndexFlat:
     """Build a TorchIndexFlat directly from an (n, d) fp32 matrix."""
     xb = np.ascontiguousarray(xb, dtype=np.float32)

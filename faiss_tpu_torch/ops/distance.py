@@ -1,5 +1,5 @@
 """Distance stage of the plain path (counterpart of
-``faiss_tpu/ops/distance.py``, bf16 storage).
+``faiss_tpu/ops/distance.py``, bf16 and f32 storage).
 
 The plain path is the port's exact oracle and the tier-2 fallback of the
 fused path. Scores are larger-is-better:
@@ -40,14 +40,15 @@ def exact_fp32_matmul():
 
 def matmul_scores(
     queries: torch.Tensor,            # (nq, d) fp32
-    db: torch.Tensor,                 # (nv, d) bf16
+    db: torch.Tensor,                 # (nv, d) bf16 or f32
     db_norms: Optional[torch.Tensor],  # (nv,) fp32, required for L2
     metric: MetricType,
 ) -> torch.Tensor:
     """(nq, nv) fp32 scores via one fp32 GEMM.
 
-    Both operands go to fp32 before the product: ``bf16 @ bf16`` returns
-    bf16 in PyTorch and would round every score. Each fp32 product
+    Both operands go to fp32 before the product (a no-op for f32 rows):
+    ``bf16 @ bf16`` returns bf16 in PyTorch and would round every score.
+    Each fp32 product
     q_i·v_i rounds once and the sum accumulates in fp32, so the result is
     fp32-true w.r.t. the stored rows, as the JAX package's exact 3-way
     query split is (both within d·u·‖q‖·‖v‖)."""
@@ -59,6 +60,22 @@ def matmul_scores(
         db_norms = l2norm.l2_norm_squared(db)
     q_norms = l2norm.l2_norm_squared(queries)
     return 2.0 * dots - q_norms[:, None] - db_norms[None, :]
+
+
+def pair_scores(
+    queries: torch.Tensor,            # (nq, d) fp32
+    db_hi: torch.Tensor,              # (nv, d) bf16 hi plane
+    db_lo: torch.Tensor,              # (nv, d) bf16 lo plane
+    db_norms: Optional[torch.Tensor],  # (nv,) fp32, required for L2
+    metric: MetricType,
+) -> torch.Tensor:
+    """(nq, nv) scores for pair-only storage (f32 with keep_master=False):
+    fp32-true against the stored hi + lo values. The fp32 sum hi + lo is
+    exact, so this is matmul_scores over the pair-represented rows. (The
+    JAX package's ``pair_scores`` splits the query too and drops its
+    ~2^-16 residual; here the query stays fp32, as in the fused rescore.)"""
+    rows = db_hi.to(torch.float32) + db_lo.to(torch.float32)
+    return matmul_scores(queries, rows, db_norms, metric)
 
 
 def direct_l2_scores(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
-"""Fused bf16 search: group-max sweep → group nomination → gather-rescore →
+"""Fused search: group-max sweep → group nomination → gather-rescore →
 final top-k, with a per-query exactness certificate.
 
-Counterpart of the bf16 route of ``faiss_tpu/ops/pallas_fused.py``. The
-nq×nv score matrix is never materialized:
+Counterpart of the bf16 and f32 routes of ``faiss_tpu/ops/pallas_fused.py``.
+The nq×nv score matrix is never materialized:
 
   phase 1  sweep_groupmax   per 128-row group, the max of the masked score
-                            s = 2·q·v − ‖v‖² (L2) or q·v (IP) (−‖q‖² is
-                            rank-invariant and re-added by the index)
+           / sweep_split    s = 2·q·v − ‖v‖² (L2) or q·v (IP) (−‖q‖² is
+                            rank-invariant and re-added by the index);
+                            bf16 rows, or the f32 rows' bf16 (hi, lo) planes
   phase 2  select_groups    the top-(k+GROUP_PAD) groups per query, and
                             t = the max group-max among the others
   phase 3  rescore_groups   the nominated groups' rows scored fp32-true
@@ -18,28 +19,43 @@ could beat the k-th rescored score; the certificate
 |sweep score − rescore score|) proves per query that none can. An
 uncertified query is re-run by the index on an exact path.
 
-The four phases are CUDA kernels (``csrc/*.cu``) behind the wrappers of
+f32 storage (``db_split`` = the (hi, lo) planes) rescores in two stages:
+stage 3a scores every candidate against hi + lo (the pair mode of
+rescore_groups), select_groups nominates the top k + F32_CAND_PAD of them
+and returns t2, the max unselected pair score; stage 3b scores those
+against the f32 master with one exact fp32 batched product. A second
+certificate ``vals[k-1] ≥ t2 + ε₂`` (``_pair_rescore_eps``) proves no
+unselected candidate could win. Pair-only storage (no master on the device)
+ranks by hi + lo and ends after stage 3a; integer-valued data (split
+statistics exactly zero, ``hi_exact``) sweeps and rescores the hi plane alone
+with the bf16 kernels, bit for bit the same scores.
+
+The phases are CUDA kernels (``csrc/*.cu``) behind the wrappers of
 ``ops/kernels.py``. Each has its plain PyTorch version here (``*_plain``):
-the wrappers run it for CPU tensors, the tests hold it against the JAX package, and the
-chip smoke run holds each kernel against it on the card.
+the wrappers run it for CPU tensors, the tests hold it against the JAX
+package, and the chip smoke run holds each kernel against it on the card.
+Stage 3b is a plain product on purpose: the JAX package computes it outside
+any Pallas kernel too.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..dtypes import MetricType
 from ..storage import split_f32_bf16
 from .distance import exact_fp32_matmul
+from .topk import topk_scores
 # the kernel wrappers, under the names of their JAX counterparts' roles
 from .kernels import GROUP  # rows per candidate group
 from .kernels import final_select, rescore_groups, select_groups
-from .kernels import sweep_groupmax
+from .kernels import sweep_groupmax, sweep_split
 
 GROUP_PAD = 4         # groups nominated beyond k (certificate margin)
+F32_CAND_PAD = 22     # f32 stage 3a: candidates beyond k given stage 3b
 NEG_INF = float("-inf")
 
 # Dispatch gate (fused_path_eligible). The minimum size and the cost-model
@@ -48,8 +64,9 @@ FUSED_MIN_NV = 8192
 FUSED_GATHER_BUDGET = 1 << 30     # cap on the phase-3 gather volume
 PLAIN_SCORE_BYTES = 8.0           # plain path: write + read of each fp32 score
 PLAIN_TOPK_BYTES_PER_K16 = 1.0    # + k/16 bytes/score for its top-k
-# At nq_pad ≥ this the sweep runs one RNE-rounded query plane (certified
-# with single_pass=True; an uncertified query re-runs with two planes).
+# At nq_pad ≥ this the bf16 sweep runs one RNE-rounded query plane
+# (certified with single_pass=True; an uncertified query re-runs with two
+# planes). f32 pair storage always sweeps two query planes.
 REDUCED_SWEEP_MIN_NQ = 32
 # What the select kernels take: one bitmask row of ≤ 16384 columns, and
 # extraction loops of ≤ 40 steps. Larger shapes go to the plain path.
@@ -60,12 +77,17 @@ SELECT_MAX_KG = 40
 _U32 = 2.0 ** -24          # fp32 unit roundoff, round to nearest
 _QUANT_V = 1.0 + 2.0 ** -8  # max ‖v_stored‖ / ‖v‖ under RNE bf16 quantization
 _EPS_SLACK = 1.0 + 2.0 ** -10  # strictness + rounding of the ε computation
+# envelopes of max‖v_lo‖ / max‖v − hi − lo‖ relative to V, used only when
+# the exact split statistics are not given
+_LO_REL = 2.0 ** -7
+_RESID_REL = 2.0 ** -15
 _BIG = 1 << 30
 
 
-def pick_sweep_passes(nq_pad: int) -> int:
-    """1 (reduced, certified) query plane for large batches, else 2."""
-    return 1 if nq_pad >= REDUCED_SWEEP_MIN_NQ else 2
+def pick_sweep_passes(nq_pad: int, pair_storage: bool = False) -> int:
+    """1 (reduced, certified) query plane for large bf16 batches, else 2.
+    Pair storage never reduces, as in the JAX package."""
+    return 1 if nq_pad >= REDUCED_SWEEP_MIN_NQ and not pair_storage else 2
 
 
 def _premask_norms(db_norms: torch.Tensor, ntotal: int, nv_eff: int,
@@ -90,29 +112,54 @@ def query_planes(queries_f32: torch.Tensor, sweep_passes: int):
 
 def groupmax_scores(queries_f32: torch.Tensor, db: torch.Tensor,
                     vn: torch.Tensor, *, metric: MetricType,
-                    sweep_passes: int = 2) -> torch.Tensor:
+                    sweep_passes: int = 2,
+                    db_split=None) -> torch.Tensor:
     """(nq_pad, nv_eff/128) per-group max of the masked sweep scores, the
-    bf16 route of ``faiss_tpu``'s groupmax_scores. Takes the pre-masked norm
-    stream ``vn`` (length nv_eff), which the rescore reuses."""
+    bf16 and pair routes of ``faiss_tpu``'s groupmax_scores. Takes the
+    pre-masked norm stream ``vn`` (length nv_eff), which the rescore reuses.
+    With ``db_split`` = (hi, lo) it runs the pair sweep over the planes
+    (``db`` unread), else the bf16 sweep over ``db``."""
     q_hi, q_lo = query_planes(queries_f32, sweep_passes)
+    if db_split is not None:
+        return sweep_split(q_hi, q_lo, db_split[0], db_split[1], vn,
+                           metric=metric)
     return sweep_groupmax(q_hi, q_lo, db, vn, metric=metric)
 
 
 # -- plain versions of the kernels ----------------------------------------
 
 
-def sweep_groupmax_plain(q_hi, q_lo, db, vn, *, metric: MetricType):
-    """Plain version of the sweep kernel: full (nq, nv_eff) scores, then a
-    max per 128 columns. One fp32 product per plane (bf16×bf16 products are
-    exact), planes added at the end as in the kernel."""
+def _plain_epilogue(acc, vn, metric: MetricType):
     nv_eff = vn.shape[0]
-    v = db[:nv_eff].to(torch.float32)
+    s = (2.0 * acc if metric is MetricType.L2 else acc) - vn[None, :]
+    return torch.amax(s.view(s.shape[0], nv_eff // GROUP, GROUP), dim=-1)
+
+
+def sweep_groupmax_plain(q_hi, q_lo, db, vn, *, metric: MetricType):
+    """Plain version of the bf16 sweep kernel: full (nq, nv_eff) scores,
+    then a max per 128 columns. One fp32 product per plane (bf16×bf16
+    products are exact), planes added at the end as in the kernel."""
+    v = db[: vn.shape[0]].to(torch.float32)
     with exact_fp32_matmul():
         acc = q_hi.to(torch.float32) @ v.T
         if q_lo is not None:
             acc = acc + q_lo.to(torch.float32) @ v.T
-    s = (2.0 * acc if metric is MetricType.L2 else acc) - vn[None, :]
-    return torch.amax(s.view(s.shape[0], nv_eff // GROUP, GROUP), dim=-1)
+    return _plain_epilogue(acc, vn, metric)
+
+
+def sweep_split_plain(q_hi, q_lo, db_hi, db_lo, vn, *, metric: MetricType):
+    """Plain version of the pair sweep kernel: one fp32 product per term,
+    qh·dh, qh·dl, then ql·dh (two query planes), added left to right as in
+    the kernel and the Pallas _kernel_split / _kernel_split2."""
+    nv_eff = vn.shape[0]
+    dh = db_hi[:nv_eff].to(torch.float32)
+    dl = db_lo[:nv_eff].to(torch.float32)
+    qh = q_hi.to(torch.float32)
+    with exact_fp32_matmul():
+        acc = qh @ dh.T + qh @ dl.T
+        if q_lo is not None:
+            acc = acc + q_lo.to(torch.float32) @ dh.T
+    return _plain_epilogue(acc, vn, metric)
 
 
 def select_groups_plain(gm: torch.Tensor, kg: int):
@@ -165,15 +212,31 @@ def candidate_columns(gidx: torch.Tensor) -> torch.Tensor:
     return (gidx[:, :, None] * GROUP + offs).reshape(gidx.shape[0], -1)
 
 
-def rescore_groups_plain(queries, db, vn, gidx, *, metric: MetricType):
+def rescore_groups_plain(queries, db, vn, gidx, *, metric: MetricType,
+                         db2=None):
     """Plain version of the rescore kernel: gather the nominated groups'
-    rows, one fp32 batched product with the fp32 queries, same epilogue."""
-    nq, d = queries.shape
+    rows (hi + lo in the pair mode, an exact fp32 sum), one fp32 batched
+    product with the fp32 queries, same epilogue."""
     cols = candidate_columns(gidx).to(torch.int64)
     rows = db[cols].to(torch.float32)                      # (nq, kg·128, d)
+    if db2 is not None:
+        rows = rows + db2[cols].to(torch.float32)
     with exact_fp32_matmul():
         dots = torch.bmm(rows, queries[:, :, None])[:, :, 0]
     return (2.0 * dots if metric is MetricType.L2 else dots) - vn[cols]
+
+
+def rescore_exact(queries, db, db_norms, cols, *, metric: MetricType):
+    """(nq, m) scores of the rows ``cols`` (nq, m) against the f32 master:
+    the gathered rows times the fp32 queries in one batched product, true
+    fp32 (stage 3b, and the single-stage f32 rescore). Raw norms: the
+    caller masks columns past ntotal."""
+    cols = cols.to(torch.int64)
+    with exact_fp32_matmul():
+        dots = torch.bmm(db[cols], queries[:, :, None])[:, :, 0]
+    if metric is MetricType.L2:
+        return 2.0 * dots - db_norms[cols]
+    return dots
 
 
 # -- certificate ------------------------------------------------------------
@@ -181,23 +244,30 @@ def rescore_groups_plain(queries, db, vn, gidx, *, metric: MetricType):
 
 def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
                nv_eff: int, *, metric: MetricType, d_pad: int,
-               single_pass: bool = False) -> torch.Tensor:
+               single_pass: bool = False, pair_sweep: bool = False,
+               split_stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-query strict upper bound ε on |sweep score − rescore score| for
-    any stored row: the bf16 case of ``faiss_tpu``'s _sweep_eps, derived
-    for this port's own arithmetic.
+    any stored row: ``faiss_tpu``'s _sweep_eps, derived for this port's
+    own arithmetic.
 
     Notation: u = 2^-24; Q = ‖q‖; R = ‖q − Σ q_planes‖ (computed exactly:
     the bit-mask split makes the subtractions exact); L = ‖q_lo‖;
-    N = max stored ‖v‖² (pre-quantization), V = √N·(1+2^-8) ≥ max‖v_stored‖.
+    N = max stored ‖v‖² (pre-quantization), V = √N·(1+2^-8) ≥ max‖v_stored‖;
+    pair sweep: s0 ≥ max‖v_lo‖, s1 ≥ max‖v − v_hi − v_lo‖ (the exact
+    running split statistics, else the envelopes 2^-7·V and 2^-15·V).
 
-      (1) dropped query residual              R·V
-      (2) sweep accumulation                  (d+2)·u·[(Q+R)·V + L·V]
-          csrc/sweep_groupmax.cu: per plane a sequential fmaf chain of
-          exact bf16×bf16 products (≤ d·u·‖plane‖·V each, round to
-          nearest), the planes added once
+      (1) dropped terms                       R·V
+          pair sweep, also                    L·s0 + (Q+R)·s1
+          (q_lo·v_lo, and (q_hi + q_lo)·(v − v_hi − v_lo))
+      (2) sweep accumulation                  (d+2)·u·[(Q+R)·(V+s0) + L·V]
+          csrc/sweep_groupmax.cu: per product term a sequential fmaf chain
+          of exact bf16×bf16 products (a·b errs ≤ d·u·‖a‖·‖b‖, round to
+          nearest; ‖q_hi‖, ‖q_rne‖ ≤ Q+R, ‖v_hi‖ ≤ V, ‖v_lo‖ ≤ s0), the
+          ≤ 3 terms added once (+2·u); bf16 rows: s0 = 0
       (3) rescore accumulation                2·d·u·Q·V
           csrc/rescore_groups.cu: a sequential fmaf chain of fp32 q times
-          exactly widened bf16 v, ≤ d·u·Q·V
+          exactly widened rows, ≤ d·u·Q·V; f32 stage 3b: an fp32 product
+          in any order, ≤ d·u·Q·V to first order
       (4) L2 epilogues fl(2·dot − ‖v‖²) on both sides and the rounding of
           fl(t + ε) in the comparison: 3·u·(2QV + N); IP: 2·u·Q·V
       (5) ×2 on (1)-(3) for L2; ×(1+2^-10) to make the bound strict and
@@ -216,9 +286,52 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
     Q = torch.sqrt(torch.sum(q * q, dim=-1))
     N = torch.amax(db_norms[:nv_eff])
     V = torch.sqrt(N) * _QUANT_V
-    eps = (R * V
-           + (d_pad + 2.0) * _U32 * ((Q + R) * V + L * V)
+    if pair_sweep:
+        s0, s1 = _stats_or_envelopes(split_stats, V)
+        drop = R * V + L * s0 + (Q + R) * s1
+    else:
+        s0 = 0.0
+        drop = R * V
+    eps = (drop
+           + (d_pad + 2.0) * _U32 * ((Q + R) * (V + s0) + L * V)
            + 2.0 * d_pad * _U32 * Q * V)
+    return _epilogue_eps(eps, Q, V, N, metric)
+
+
+def _pair_rescore_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
+                      nv_eff: int, *, metric: MetricType, d_pad: int,
+                      split_stats: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Tier-2 bound of the f32 two-stage rescore: strict upper bound ε₂ on
+    |pair rescore(x) − exact rescore(x)| for any stored row x, where the
+    pair rescore is stage 3a (rescore_groups' pair mode: one fmaf chain of
+    fp32 q against the exact fp32 sum hi + lo) and the exact rescore is
+    stage 3b (an fp32 product against the f32 master). ``faiss_tpu``'s
+    _pair_rescore_eps, which holds for this arithmetic:
+      dropped term         Q·s1              (q·(v − hi − lo); q is not split)
+      pair accumulation    (d+6)·u·Q·(V+s0+s1)  (the chain errs
+                                              ≤ d·u·Q·‖hi + lo‖ ≤ d·u·Q·(V+s1))
+      exact accumulation   2·d·u·Q·V
+      epilogues and the fl(t2 + ε₂) comparison as in _sweep_eps (4), (5).
+    """
+    Q = torch.sqrt(torch.sum(queries_f32 * queries_f32, dim=-1))
+    N = torch.amax(db_norms[:nv_eff])
+    V = torch.sqrt(N) * _QUANT_V
+    s0, s1 = _stats_or_envelopes(split_stats, V)
+    eps = (Q * s1
+           + (d_pad + 6.0) * _U32 * Q * (V + s0 + s1)
+           + 2.0 * d_pad * _U32 * Q * V)
+    return _epilogue_eps(eps, Q, V, N, metric)
+
+
+def _stats_or_envelopes(split_stats, V):
+    if split_stats is not None:
+        return split_stats[0], split_stats[1]
+    return _LO_REL * V, _RESID_REL * V
+
+
+def _epilogue_eps(eps, Q, V, N, metric: MetricType):
+    """Terms (4) and (5) of _sweep_eps, shared by both bounds."""
     if metric is MetricType.L2:
         eps = 2.0 * eps + 3.0 * _U32 * (2.0 * Q * V + N)
     else:
@@ -231,7 +344,8 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
 
 def fused_search(
     queries_f32: torch.Tensor,   # (nq_pad, d_pad) fp32
-    db: torch.Tensor,            # (capacity, d_pad) bf16
+    db: torch.Tensor,            # (capacity, d_pad) bf16 rows, f32 master,
+                                 # or db_hi when pair_only
     db_norms: torch.Tensor,      # (capacity,) fp32 ‖v‖² (pre-quantization)
     ntotal: int,
     *,
@@ -239,12 +353,16 @@ def fused_search(
     metric: MetricType,
     nv_eff: int,
     sweep_passes: int = 2,
+    db_split=None,               # f32 storage: the (db_hi, db_lo) planes
+    pair_only: bool = False,     # the device holds only the planes
+    split_stats: Optional[torch.Tensor] = None,  # (2,) exact plane maxima
+    hi_exact: bool = False,      # caller-proven split_stats == (0, 0)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(scores (nq_pad, k_eff) descending, ids (nq_pad, k_eff) int32,
     certified (nq_pad,) bool), k_eff = min(k, nv_eff). ``certified[i]``
-    proves row i is the exact top-k of the stored database, ties to the
-    lowest id; the caller re-runs the others on an exact path. No host
-    synchronisation happens in here."""
+    proves row i is the exact top-k of the stored database (the f32 master,
+    or hi + lo when pair_only), ties to the lowest id; the caller re-runs
+    the others on an exact path. No host synchronisation happens in here."""
     nq_pad, d_pad = queries_f32.shape
     k_eff = min(k, nv_eff)
     ngroups = nv_eff // GROUP
@@ -253,38 +371,85 @@ def fused_search(
         raise ValueError(
             f"fused search takes kg ≤ {SELECT_MAX_KG} and ngroups ≤ "
             f"{SELECT_MAX_GROUPS} (kg={kg}, ngroups={ngroups})")
+    pair_sweep = db_split is not None
+    if hi_exact and not pair_sweep:
+        raise ValueError("hi_exact requires the (hi, lo) planes")
     vn = _premask_norms(db_norms, ntotal, nv_eff, metric)
 
-    gm = groupmax_scores(queries_f32, db, vn, metric=metric,
-                         sweep_passes=sweep_passes)
+    # hi_exact: v == v_hi on every stored row, so the bf16 kernels over the
+    # hi plane compute the pair program's scores bit for bit (every dropped
+    # term is an exact +0.0); ε with stats (0, 0) charges them nothing
+    gm = groupmax_scores(
+        queries_f32, db_split[0] if hi_exact else db, vn, metric=metric,
+        sweep_passes=sweep_passes,
+        db_split=None if hi_exact or not pair_sweep else db_split)
     gidx, t = select_groups(gm, kg)
-    s = rescore_groups(queries_f32, db, vn, gidx, metric=metric)
     cols = candidate_columns(gidx)
+    t2 = None
+    if not pair_sweep:
+        s = rescore_groups(queries_f32, db, vn, gidx, metric=metric)
+    else:
+        hi, lo = db_split[0], None if hi_exact else db_split[1]
+        m = k_eff + F32_CAND_PAD
+        if pair_only:
+            # no master on the device: hi + lo is the stored database
+            s = rescore_groups(queries_f32, hi, vn, gidx, metric=metric,
+                               db2=lo)
+        elif m < kg * GROUP:
+            # two-stage: pair scores nominate m candidates (3a), the
+            # master rescores them exactly (3b); t2 feeds the tier-2 bound
+            s_pair = rescore_groups(queries_f32, hi, vn, gidx, metric=metric,
+                                    db2=lo)
+            if m <= SELECT_MAX_KG:
+                ppos, t2 = select_groups(s_pair, m)     # ascending positions
+                cols = torch.gather(cols, 1, ppos.to(torch.int64))
+            else:
+                _, ppos = topk_scores(s_pair, m)
+                ppos = ppos.to(torch.int64)
+                t2 = torch.gather(s_pair, 1, ppos[:, m - 1:])[:, 0]
+                # ascending ids keep the lowest-id tie order downstream
+                cols = torch.sort(torch.gather(cols, 1, ppos), dim=1).values
+            s = rescore_exact(queries_f32, db, db_norms, cols, metric=metric)
+        else:
+            # single stage: too few candidates for stage 3a to thin out
+            s = rescore_exact(queries_f32, db, db_norms, cols, metric=metric)
     s = s.masked_fill(cols >= ntotal, NEG_INF)
-    vals, pos = final_select(s, k_eff)
+    if k_eff <= SELECT_MAX_KG and k_eff < s.shape[1]:
+        vals, pos = final_select(s, k_eff)
+    else:
+        vals, pos = topk_scores(s, k_eff)
     ids = torch.gather(cols, 1, pos.to(torch.int64))
 
     eps = _sweep_eps(queries_f32, db_norms, nv_eff, metric=metric,
-                     d_pad=d_pad, single_pass=sweep_passes == 1)
+                     d_pad=d_pad, single_pass=sweep_passes == 1,
+                     pair_sweep=pair_sweep, split_stats=split_stats)
     certified = (t == NEG_INF) | (vals[:, k_eff - 1] >= t + eps)
+    if t2 is not None:
+        eps2 = _pair_rescore_eps(queries_f32, db_norms, nv_eff, metric=metric,
+                                 d_pad=d_pad, split_stats=split_stats)
+        certified &= (t2 == NEG_INF) | (vals[:, k_eff - 1] >= t2 + eps2)
     return vals, ids, certified
 
 
 def fused_path_eligible(*, metric: MetricType, k: int, nv_eff: int,
-                        d_pad: int, nq_pad: int = 128) -> bool:
+                        d_pad: int, nq_pad: int = 128,
+                        itemsize: int = 2) -> bool:
     """Dispatch gate, the JAX package's traffic cost model: the plain path
     pays for materializing the nq×nv fp32 scores and a k-scaled top-k over
     them, the fused path for the candidate gather. Its coefficients are
-    carried from the JAX package, not measured on this card. Shapes the
+    carried from the JAX package, not measured on this card. ``itemsize``
+    is the swept bytes per element: 4 for the f32 pair (d_pad ≤ 1024, and
+    the gather reads two planes), 2 for bf16 rows and hi_exact. Shapes the
     select kernels do not take (kg > 40, ngroups > 16384) return False and
     run on the plain path."""
-    if nv_eff < FUSED_MIN_NV or d_pad > 2048:
+    pair_sweep = itemsize == 4
+    if nv_eff < FUSED_MIN_NV or d_pad > (1024 if pair_sweep else 2048):
         return False
     ngroups = nv_eff // GROUP
     kg = min(k + GROUP_PAD, ngroups)
     if kg > SELECT_MAX_KG or ngroups > SELECT_MAX_GROUPS:
         return False
-    gather_bytes = nq_pad * kg * GROUP * d_pad * 2
+    gather_bytes = nq_pad * kg * GROUP * d_pad * (4 if pair_sweep else 2)
     if gather_bytes > FUSED_GATHER_BUDGET:
         return False
     plain_extra = nq_pad * nv_eff * (

@@ -1,6 +1,6 @@
 """The fused path's CUDA kernels: build, ctypes bindings, wrappers, counts.
 
-The four kernels live in ``faiss_tpu_torch/csrc/*.cu`` behind a plain C
+The kernels live in ``faiss_tpu_torch/csrc/*.cu`` behind a plain C
 interface. At first use they are compiled with ``nvcc`` for ``sm_90a`` into
 one shared library under ``faiss_tpu_torch/_build/``, named by a hash of the
 sources and flags (written to a temporary file, then renamed, so a reader
@@ -45,10 +45,13 @@ GROUP = 128   # rows per candidate group (csrc/common.cuh ft::GROUP)
 _lib_handle: Optional[ctypes.CDLL] = None
 
 launches = {
-    "sweep_groupmax_1": 0,   # one query plane  (replaces _kernel_q1)
-    "sweep_groupmax_2": 0,   # two query planes (replaces _kernel_qpair)
+    "sweep_groupmax_1": 0,   # bf16 rows, one query plane  (_kernel_q1)
+    "sweep_groupmax_2": 0,   # bf16 rows, two query planes (_kernel_qpair)
+    "sweep_split_3": 0,      # f32 (hi, lo) planes, 3 terms (_kernel_split)
+    "sweep_split_2": 0,      # f32 (hi, lo) planes, 2 terms (_kernel_split2)
     "select_groups": 0,
-    "rescore_groups": 0,
+    "rescore_groups": 0,     # bf16 rows (_rescore_kernel)
+    "rescore_groups_pair": 0,  # f32 hi + lo planes (_rescore_kernel, db2)
     "final_select": 0,
 }
 
@@ -110,9 +113,9 @@ def _lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
         sigs = {
-            "ft_sweep_groupmax": [P, P, I, P, P, P, I, I, I, I, P],
+            "ft_sweep_groupmax": [P, P, I, P, P, P, P, I, I, I, I, P],
             "ft_select_groups": [P, P, P, I, I, I, P],
-            "ft_rescore_groups": [P, P, P, P, P, I, I, I, I, I, P],
+            "ft_rescore_groups": [P, P, P, P, P, P, I, I, I, I, I, P],
             "ft_final_select": [P, P, P, I, I, I, P],
         }
         for name, argtypes in sigs.items():
@@ -164,35 +167,61 @@ def _launch(name: str, fn_name: str, *args) -> None:
     launches[name] += 1
 
 
-def sweep_groupmax(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
-                   db: torch.Tensor, vn: torch.Tensor, *,
-                   metric: MetricType) -> torch.Tensor:
-    """(nq, nv_eff/128) group maxes of the masked sweep scores, with
-    nv_eff = len(vn); one query plane when ``q_lo`` is None, else two."""
+def _sweep(counter, q_hi, q_lo, db, db_lo, vn, metric) -> torch.Tensor:
+    """Launch ft_sweep_groupmax after the checks both sweep wrappers share."""
     planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
-    if not _on_cuda(*planes, db, vn):
-        from .fused import sweep_groupmax_plain
-        return sweep_groupmax_plain(q_hi, q_lo, db, vn, metric=metric)
+    dbs = (db,) if db_lo is None else (db, db_lo)
     for i, p in enumerate(planes):
         _check(p, f"q_plane{i}", torch.bfloat16, 2)
-    _check(db, "db", torch.bfloat16, 2)
+    for i, p in enumerate(dbs):
+        _check(p, f"db_plane{i}", torch.bfloat16, 2)
     _check(vn, "vn", torch.float32, 1)
     nq, d = q_hi.shape
     nv_eff = vn.shape[0]
-    if any(p.shape != q_hi.shape for p in planes) or db.shape[1] != d:
-        raise ValueError("query planes and db disagree on shape")
+    if any(p.shape != q_hi.shape for p in planes) \
+            or any(p.shape != db.shape for p in dbs) or db.shape[1] != d:
+        raise ValueError("query planes and db planes disagree on shape")
     if d % 8 or nv_eff % GROUP or nv_eff > db.shape[0]:
         raise ValueError(f"need d % 8 == 0 and 128 | nv_eff ≤ capacity "
                          f"(d={d}, nv_eff={nv_eff}, cap={db.shape[0]})")
     ngroups = nv_eff // GROUP
     gm = torch.empty((nq, ngroups), dtype=torch.float32, device=db.device)
     with torch.cuda.device(db.device):
-        _launch(f"sweep_groupmax_{len(planes)}", "ft_sweep_groupmax",
+        _launch(counter, "ft_sweep_groupmax",
                 q_hi.data_ptr(), planes[-1].data_ptr(), len(planes),
-                db.data_ptr(), vn.data_ptr(), gm.data_ptr(),
+                db.data_ptr(), None if db_lo is None else db_lo.data_ptr(),
+                vn.data_ptr(), gm.data_ptr(),
                 _int32(nq, "nq"), _int32(d, "d"), _int32(ngroups, "ngroups"),
                 int(metric is MetricType.L2))
     return gm
+
+
+def sweep_groupmax(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
+                   db: torch.Tensor, vn: torch.Tensor, *,
+                   metric: MetricType) -> torch.Tensor:
+    """(nq, nv_eff/128) group maxes of the masked sweep scores over bf16
+    rows, with nv_eff = len(vn); one query plane when ``q_lo`` is None,
+    else two."""
+    planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
+    if not _on_cuda(*planes, db, vn):
+        from .fused import sweep_groupmax_plain
+        return sweep_groupmax_plain(q_hi, q_lo, db, vn, metric=metric)
+    return _sweep(f"sweep_groupmax_{len(planes)}", q_hi, q_lo, db, None, vn,
+                  metric)
+
+
+def sweep_split(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
+                db_hi: torch.Tensor, db_lo: torch.Tensor, vn: torch.Tensor,
+                *, metric: MetricType) -> torch.Tensor:
+    """(nq, nv_eff/128) group maxes of the f32 pair sweep over the bf16
+    (hi, lo) planes: qh·dh + qh·dl + ql·dh with two query planes (3 terms),
+    q1·dh + q1·dl when ``q_lo`` is None (2 terms)."""
+    planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
+    if not _on_cuda(*planes, db_hi, db_lo, vn):
+        from .fused import sweep_split_plain
+        return sweep_split_plain(q_hi, q_lo, db_hi, db_lo, vn, metric=metric)
+    return _sweep(f"sweep_split_{len(planes) + 1}", q_hi, q_lo, db_hi, db_lo,
+                  vn, metric)
 
 
 def select_groups(gm: torch.Tensor, kg: int):
@@ -214,28 +243,37 @@ def select_groups(gm: torch.Tensor, kg: int):
 
 
 def rescore_groups(queries: torch.Tensor, db: torch.Tensor, vn: torch.Tensor,
-                   gidx: torch.Tensor, *, metric: MetricType) -> torch.Tensor:
-    """(nq, kg·128) fp32 scores of each query's nominated groups."""
-    if not _on_cuda(queries, db, vn, gidx):
+                   gidx: torch.Tensor, *, metric: MetricType,
+                   db2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(nq, kg·128) fp32 scores of each query's nominated groups, against
+    the bf16 rows ``db``, or against hi + lo when ``db2`` (the lo plane of
+    f32 storage) is given."""
+    dbs = (db,) if db2 is None else (db, db2)
+    if not _on_cuda(queries, *dbs, vn, gidx):
         from .fused import rescore_groups_plain
-        return rescore_groups_plain(queries, db, vn, gidx, metric=metric)
+        return rescore_groups_plain(queries, db, vn, gidx, metric=metric,
+                                    db2=db2)
     _check(queries, "queries", torch.float32, 2)
-    _check(db, "db", torch.bfloat16, 2)
+    for i, p in enumerate(dbs):
+        _check(p, f"db_plane{i}", torch.bfloat16, 2)
     _check(vn, "vn", torch.float32, 1)
     _check(gidx, "gidx", torch.int32, 2)
     nq, d = queries.shape
     kg = gidx.shape[1]
     nv_eff = vn.shape[0]
-    if db.shape[1] != d or gidx.shape[0] != nq:
-        raise ValueError("queries, db and gidx disagree on shape")
+    if any(p.shape != db.shape for p in dbs) or db.shape[1] != d \
+            or gidx.shape[0] != nq:
+        raise ValueError("queries, db planes and gidx disagree on shape")
     if d % 8 or nv_eff % GROUP or nv_eff > db.shape[0] or kg == 0:
         raise ValueError(f"need d % 8 == 0, 128 | nv_eff ≤ capacity, kg > 0 "
                          f"(d={d}, nv_eff={nv_eff}, kg={kg})")
     out = torch.empty((nq, kg * GROUP), dtype=torch.float32,
                       device=db.device)
     with torch.cuda.device(db.device):
-        _launch("rescore_groups", "ft_rescore_groups", queries.data_ptr(),
-                db.data_ptr(), vn.data_ptr(), gidx.data_ptr(), out.data_ptr(),
+        _launch("rescore_groups" if db2 is None else "rescore_groups_pair",
+                "ft_rescore_groups", queries.data_ptr(), db.data_ptr(),
+                None if db2 is None else db2.data_ptr(), vn.data_ptr(),
+                gidx.data_ptr(), out.data_ptr(),
                 _int32(nq, "nq"), _int32(d, "d"), _int32(kg, "kg"),
                 _int32(nv_eff // GROUP, "ngroups"),
                 int(metric is MetricType.L2))

@@ -92,7 +92,7 @@ def test_independent_build_matches_jax(open_gate, data, metric, jmetric):
     their fp32 norm sums may differ in the last ulp."""
     xb, xq = data
     jidx = _jax_index(xb, jmetric)
-    idx = TorchIndexFlat(D, metric=metric, device="cpu")
+    idx = TorchIndexFlat(D, metric=metric, storage="bf16", device="cpu")
     idx.add(xb)
     np.testing.assert_array_equal(bits_of(idx.store.db[:NV]),
                                   jio._raw_bits(jidx.store, NV))
@@ -113,7 +113,7 @@ def test_plain_path_matches_jax(data, metric, jmetric):
     xb, xq = data
     jidx = _jax_index(xb, jmetric)
     jidx.set_force_xla(True)
-    idx = TorchIndexFlat(D, metric=metric, device="cpu",
+    idx = TorchIndexFlat(D, metric=metric, storage="bf16", device="cpu",
                          tuning=KernelTuning(chunk_v=6144))
     idx.add(xb)
     idx.set_force_plain(True)
@@ -130,7 +130,7 @@ def test_sentinels_match_jax(metric, jmetric, n, k):
     stored rows (n=100 takes the direct L2 path in both packages)."""
     xb, xq = make_data(max(n, 1), 3, D, seed=5)
     jidx = TpuIndexFlat(D, metric=jmetric, storage="bf16")
-    idx = TorchIndexFlat(D, metric=metric, device="cpu")
+    idx = TorchIndexFlat(D, metric=metric, storage="bf16", device="cpu")
     if n:
         jidx.add(xb[:n])
         idx.add(xb[:n])
@@ -158,7 +158,7 @@ def test_bad_arguments():
     with pytest.raises(IndexError):
         idx.reconstruct(50)
     with pytest.raises(NotImplementedError):
-        TorchIndexFlat(D, storage="f32", device="cpu")
+        TorchIndexFlat(D, storage="f16", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             TorchIndexFlat(D)             # the default device is "cuda"
@@ -166,7 +166,7 @@ def test_bad_arguments():
 
 def test_search_async_and_reconstruct(open_gate, data):
     xb, xq = data
-    idx = index_numpy_to_torch(xb, device="cpu")
+    idx = index_numpy_to_torch(xb, storage="bf16", device="cpu")
     tok = idx.search_async(xq, K)
     assert tok.is_ready()
     D1, I1 = tok.wait()
@@ -194,7 +194,7 @@ def test_duplicated_vectors_fall_back_like_jax(open_gate, nq):
     xb = np.tile(row, (9000, 1))
     xq = rng.standard_normal((nq, D)).astype(np.float32)
     jidx = _jax_index(xb, METRICS[0][1])
-    idx = TorchIndexFlat(D, device="cpu")
+    idx = TorchIndexFlat(D, storage="bf16", device="cpu")
     idx.add(xb)
     _, I_j = jidx.search(xq, K)
     _, I_t = idx.search(xq, K)

@@ -189,6 +189,8 @@ def test_fused_search_refuses_unported_shapes(data):
     dict(k=10, nv_eff=4096, d_pad=128),                   # below FUSED_MIN_NV
     dict(k=10, nv_eff=16384, d_pad=128, nq_pad=8),        # tiny: plain wins
     dict(k=10, nv_eff=4 << 20, d_pad=128),                # > 16384 groups
+    dict(k=10, nv_eff=1 << 20, d_pad=128, itemsize=4),    # f32 pair sweep
+    dict(k=36, nv_eff=1 << 17, d_pad=128, nq_pad=8, itemsize=4),
 ])
 def test_eligibility_gate(metric, jmetric, kw):
     got = fused.fused_path_eligible(metric=metric, **kw)
