@@ -11,20 +11,34 @@ it. Each path's launch counts are zeroed just before it and read just after:
   f32       TorchIndexFlat() (f32, the default), Gaussian, L2 and IP
   f32_sift  integer data in [0, 255] (bench.py's f32_sift), L2: hi_exact
   pair      f32 with keep_master=False (hi + lo planes only), L2
+  int8      TorchIndexFlat(storage="int8"), Gaussian, L2 and IP (scales
+            trained on the one add batch)
+  f16       TorchIndexFlat(storage="f16"), Gaussian, L2 and IP, and an
+            nq=8 L2 search (two query planes)
 
 plus nq=8 (two-plane bf16 sweep) and a duplicated-vector index whose
 certificate fails, so both fallback tiers run. Before the searches each
 kernel is held against its plain PyTorch version at the main paths' shapes
 (nq_pad 104, d 128, nv_eff 1,000,448, kg 14, k 10), both timed with CUDA
 events. Recall@10 must be 1.0 against an fp64 oracle over the stored
-database (bf16 rows, the f32 master, or hi + lo).
+database (bf16 rows, the f32 master, hi + lo, the f16 values, or the int8
+codes times the scales) and the stored norms.
 
 Exits non-zero, printing no result, when CUDA is absent or any phase fails.
-The last two lines of stdout are the kernel table and the result:
+The last three lines of stdout are the card's name and power limit
+(nvidia-smi), the kernel table and the result:
     {"kernels": [{"name", "route", "source", "replaces", "launches",
-                  "max_abs_err", "ms", "plain_ms"}, ...]}
+                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms"}, ...]}
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
-Imports nothing of jax or faiss_tpu.
+``bound_ms`` is the least time the card could take for the kernel's work at
+these shapes: the larger of its bytes (each input read once, each output
+written once; the rescores read only the gathered rows) over 3.35 TB/s and
+its operations over the data sheet's peak for their type (bf16 or f16
+products 989 TFLOP/s, int8 1979 TOP/s, fp32 FMA outside the tensor cores
+67 TFLOP/s). ``library_ms`` times the one PyTorch call that computes the
+same function, where there is one (``torch.topk`` for the selects), else
+null. Imports nothing of jax or faiss_tpu.
 """
 
 import json
@@ -37,6 +51,8 @@ NV, D, NQ, K = 1_000_000, 128, 100, 10
 SEED = 42
 REPS = 20
 PF = "faiss_tpu/ops/pallas_fused.py"
+HBM_BPS = 3.35e12                                  # H100 SXM data sheet
+PEAK = {"bf16": 989e12, "f16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 
 def check(cond, msg: str) -> None:
@@ -69,13 +85,20 @@ def _within(torch, a, b, eps, what):
 
 
 def _certificate_eps(idx, q, metric):
-    """The two-plane certificate bound of the index's own sweep (bf16, or
-    the f32 pair with the stored split statistics), (nq_pad, 1)."""
+    """The two-plane certificate bound of the index's own sweep (bf16, the
+    f32 or f16 pair with the stored split statistics, or int8's), (nq_pad,
+    1)."""
+    from faiss_tpu_torch import StorageType
     from faiss_tpu_torch.ops import fused
 
     st = idx.store
+    if st.storage is StorageType.INT8:
+        return fused._sweep_eps_int8(q, st.scales, st.int_norm_max, st.norms,
+                                     idx.ntotal, metric=metric,
+                                     d_pad=st.d_pad)[:, None]
     return fused._sweep_eps(q, st.norms, idx.ntotal, metric=metric,
-                            d_pad=st.d_pad, pair_sweep=st.has_split,
+                            d_pad=st.d_pad,
+                            pair_sweep=st.split_stats is not None,
                             split_stats=st.split_stats)[:, None]
 
 
@@ -87,6 +110,70 @@ def _shapes(idx, xq, metric):
     nv_eff = _round_up(idx.ntotal, ROW_TILE)   # as TorchIndexFlat does
     vn = fused._premask_norms(idx.store.norms, idx.ntotal, nv_eff, metric)
     return q, nq_pad, nv_eff, vn
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes, ops, kind):
+    """(bound ms, what bounds it): the larger of bytes over the HBM rate
+    and operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / PEAK[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _sweep_bound(planes, dbs, vn, gm, terms, kind, extra=()):
+    """A sweep reads its query planes, the nv_eff rows of each db plane
+    and the norm stream once and writes the group maxes; it does `terms`
+    products of (nq, d) by (d, nv_eff)."""
+    nq, d = planes[0].shape
+    nv = vn.shape[0]
+    nbytes = _nbytes(*planes, vn, gm, *extra) + sum(
+        nv * d * t.element_size() for t in dbs)
+    return _bound(nbytes, 2.0 * terms * nq * nv * d, kind)
+
+
+def _rescore_bound(q, row_bytes, gidx, s):
+    """A rescore reads the query, the group ids, the nominated rows and
+    their norms once and writes the scores: fp32 dots outside the tensor
+    cores (an fp32-true product)."""
+    nq, d = q.shape
+    m = s.shape[1]
+    return _bound(_nbytes(q, gidx, s) + nq * m * (d * row_bytes + 4),
+                  2.0 * nq * m * d, "fp32")
+
+
+def _row(torch, err, kern, plain, reps, bound, lib=None):
+    """(max error, kernel ms, plain ms, (bound ms, bound by), library ms)."""
+    return (err, cuda_ms(torch, kern, reps), cuda_ms(torch, plain, 5), bound,
+            None if lib is None else cuda_ms(torch, lib, reps))
+
+
+def _selects(torch, rows, gm, s_fn, kg):
+    """K8 over ``gm`` and K9 over the scores ``s_fn(gidx)`` rescores: equal
+    bits to their plain versions; torch.topk is the library call."""
+    from faiss_tpu_torch.ops import fused, kernels
+
+    gidx, t = kernels.select_groups(gm, kg)
+    gidx_p, t_p = fused.select_groups_plain(gm, kg)
+    check(torch.equal(gidx, gidx_p) and torch.equal(t, t_p),
+          "select_groups differs from its plain version")
+    rows["select_groups"] = _row(
+        torch, 0.0, lambda: kernels.select_groups(gm, kg),
+        lambda: fused.select_groups_plain(gm, kg), 50,
+        _bound(_nbytes(gm, gidx, t), 0, "fp32"),
+        lambda: torch.topk(gm, kg + 1))
+    s = s_fn(gidx)
+    vals, pos = kernels.final_select(s, K)
+    vals_p, pos_p = fused.final_select_plain(s, K)
+    check(torch.equal(vals, vals_p) and torch.equal(pos, pos_p),
+          "final_select differs from its plain version")
+    rows["final_select"] = _row(
+        torch, 0.0, lambda: kernels.final_select(s, K),
+        lambda: fused.final_select_plain(s, K), 50,
+        _bound(_nbytes(s, vals, pos), 0, "fp32"), lambda: torch.topk(s, K))
 
 
 def phase_kernels(torch, idx, xq, metric):
@@ -106,36 +193,26 @@ def phase_kernels(torch, idx, xq, metric):
         gm = kernels.sweep_groupmax(qh, ql, db, vn, metric=metric)
         gm_p = fused.sweep_groupmax_plain(qh, ql, db, vn, metric=metric)
         err = _within(torch, gm, gm_p, eps, f"sweep_groupmax planes={passes}")
-        rows[f"sweep_groupmax_{passes}"] = (err, cuda_ms(
-            torch, lambda: kernels.sweep_groupmax(qh, ql, db, vn,
-                                                  metric=metric), 20),
-            cuda_ms(torch, lambda: fused.sweep_groupmax_plain(
-                qh, ql, db, vn, metric=metric), 5))
+        planes = (qh,) if ql is None else (qh, ql)
+        rows[f"sweep_groupmax_{passes}"] = _row(
+            torch, err,
+            lambda: kernels.sweep_groupmax(qh, ql, db, vn, metric=metric),
+            lambda: fused.sweep_groupmax_plain(qh, ql, db, vn, metric=metric),
+            20, _sweep_bound(planes, (db,), vn, gm, passes, "bf16"))
     check(gm.shape == (nq_pad, nv_eff // 128), "gm shape")
 
-    gidx, t = kernels.select_groups(gm, kg)
-    gidx_p, t_p = fused.select_groups_plain(gm, kg)
-    check(torch.equal(gidx, gidx_p) and torch.equal(t, t_p),
-          "select_groups differs from its plain version")
-    rows["select_groups"] = (0.0, cuda_ms(
-        torch, lambda: kernels.select_groups(gm, kg), 50),
-        cuda_ms(torch, lambda: fused.select_groups_plain(gm, kg), 5))
+    def rescore(gidx):
+        s = kernels.rescore_groups(q, db, vn, gidx, metric=metric)
+        s_p = fused.rescore_groups_plain(q, db, vn, gidx, metric=metric)
+        rows["rescore_groups"] = _row(
+            torch, _within(torch, s, s_p, eps, "rescore_groups"),
+            lambda: kernels.rescore_groups(q, db, vn, gidx, metric=metric),
+            lambda: fused.rescore_groups_plain(q, db, vn, gidx,
+                                               metric=metric),
+            50, _rescore_bound(q, 2, gidx, s))
+        return s
 
-    s = kernels.rescore_groups(q, db, vn, gidx, metric=metric)
-    s_p = fused.rescore_groups_plain(q, db, vn, gidx, metric=metric)
-    rows["rescore_groups"] = (_within(torch, s, s_p, eps, "rescore_groups"),
-                              cuda_ms(torch, lambda: kernels.rescore_groups(
-                                  q, db, vn, gidx, metric=metric), 50),
-                              cuda_ms(torch, lambda: fused.rescore_groups_plain(
-                                  q, db, vn, gidx, metric=metric), 5))
-
-    vals, pos = kernels.final_select(s, K)
-    vals_p, pos_p = fused.final_select_plain(s, K)
-    check(torch.equal(vals, vals_p) and torch.equal(pos, pos_p),
-          "final_select differs from its plain version")
-    rows["final_select"] = (0.0, cuda_ms(
-        torch, lambda: kernels.final_select(s, K), 50),
-        cuda_ms(torch, lambda: fused.final_select_plain(s, K), 5))
+    _selects(torch, rows, gm, rescore, kg)
     _print_rows(metric, rows)
     return rows
 
@@ -159,11 +236,13 @@ def phase_f32_kernels(torch, idx, xq, metric):
         gm = kernels.sweep_split(qh, ql, hi, lo, vn, metric=metric)
         gm_p = fused.sweep_split_plain(qh, ql, hi, lo, vn, metric=metric)
         name = f"sweep_split_{passes + 1}"
-        rows[name] = (_within(torch, gm, gm_p, eps, name), cuda_ms(
-            torch, lambda: kernels.sweep_split(qh, ql, hi, lo, vn,
-                                               metric=metric), 20),
-            cuda_ms(torch, lambda: fused.sweep_split_plain(
-                qh, ql, hi, lo, vn, metric=metric), 5))
+        planes = (qh,) if ql is None else (qh, ql)
+        rows[name] = _row(
+            torch, _within(torch, gm, gm_p, eps, name),
+            lambda: kernels.sweep_split(qh, ql, hi, lo, vn, metric=metric),
+            lambda: fused.sweep_split_plain(qh, ql, hi, lo, vn,
+                                            metric=metric),
+            20, _sweep_bound(planes, (hi, lo), vn, gm, passes + 1, "bf16"))
         if passes == 2:
             gidx, _ = kernels.select_groups(gm, K + fused.GROUP_PAD)
     eps2 = fused._pair_rescore_eps(q, st.norms, idx.ntotal, metric=metric,
@@ -171,30 +250,133 @@ def phase_f32_kernels(torch, idx, xq, metric):
                                    split_stats=st.split_stats)[:, None]
     s = kernels.rescore_groups(q, hi, vn, gidx, metric=metric, db2=lo)
     s_p = fused.rescore_groups_plain(q, hi, vn, gidx, metric=metric, db2=lo)
-    rows["rescore_groups_pair"] = (
-        _within(torch, s, s_p, eps2, "rescore_groups_pair"),
-        cuda_ms(torch, lambda: kernels.rescore_groups(
-            q, hi, vn, gidx, metric=metric, db2=lo), 50),
-        cuda_ms(torch, lambda: fused.rescore_groups_plain(
-            q, hi, vn, gidx, metric=metric, db2=lo), 5))
+    rows["rescore_groups_pair"] = _row(
+        torch, _within(torch, s, s_p, eps2, "rescore_groups_pair"),
+        lambda: kernels.rescore_groups(q, hi, vn, gidx, metric=metric,
+                                       db2=lo),
+        lambda: fused.rescore_groups_plain(q, hi, vn, gidx, metric=metric,
+                                           db2=lo),
+        50, _rescore_bound(q, 4, gidx, s))
+    _print_rows(metric, rows)
+    return rows
+
+
+def _rescore_term(torch, q, v_max, norms, nv, d, metric):
+    """(nq, 1) bound on |kernel − plain| for two fp32-true rescores of the
+    same rows: each errs ≤ d·u·‖q‖·V, plus both epilogues."""
+    from faiss_tpu_torch.ops import fused
+
+    Q = torch.sqrt(torch.sum(q * q, dim=-1))
+    N = torch.amax(norms[:nv])
+    return fused._epilogue_eps(2.0 * d * fused._U32 * Q * v_max, Q, v_max, N,
+                               metric)[:, None]
+
+
+def phase_int8_kernels(torch, idx, xq, metric):
+    """K5 and K10's int8 mode against their plain versions at the main
+    path's shapes: K5 equal bit for bit (exact integer dots, the same
+    three roundings in the same order; else it fails, though ε_int8 would
+    bound it), the rescore within its rescore term."""
+    from faiss_tpu_torch.ops import fused, kernels
+
+    q, nq_pad, nv_eff, vn = _shapes(idx, xq, metric)
+    st = idx.store
+    db, scales = st.db, st.scales
+    q1, q2, b1, b2 = fused.int8_query_pair(q, scales)
+    beta = torch.stack([b1, b2], dim=1)
+    rows = {}
+    gm = kernels.sweep_int8(q1, q2, db, vn, beta, metric=metric)
+    gm_p = fused.sweep_int8_plain(q1, q2, db, vn, beta, metric=metric)
+    fin = torch.isfinite(gm_p)
+    check(torch.equal(fin, torch.isfinite(gm))
+          and bool((gm[fin] == gm_p[fin]).all()),
+          "sweep_int8 differs from its plain version")
+    check(gm.shape == (nq_pad, nv_eff // 128), "int8 gm shape")
+    rows["sweep_int8"] = _row(
+        torch, 0.0,
+        lambda: kernels.sweep_int8(q1, q2, db, vn, beta, metric=metric),
+        lambda: fused.sweep_int8_plain(q1, q2, db, vn, beta, metric=metric),
+        20, _sweep_bound((q1, q2), (db,), vn, gm, 2, "int8", extra=(beta,)))
+    gidx, _ = kernels.select_groups(gm, K + fused.GROUP_PAD)
+    qs = q * scales[None, :]
+    s = kernels.rescore_groups(qs, db, vn, gidx, metric=metric)
+    s_p = fused.rescore_groups_plain(qs, db, vn, gidx, metric=metric)
+    term = _rescore_term(torch, qs, st.int_norm_max, st.norms, nv_eff,
+                         st.d_pad, metric)
+    rows["rescore_groups_int8"] = _row(
+        torch, _within(torch, s, s_p, term, "rescore_groups_int8"),
+        lambda: kernels.rescore_groups(qs, db, vn, gidx, metric=metric),
+        lambda: fused.rescore_groups_plain(qs, db, vn, gidx, metric=metric),
+        50, _rescore_bound(qs, 1, gidx, s))
+    _print_rows(metric, rows)
+    return rows
+
+
+def phase_f16_kernels(torch, idx, xq, metric):
+    """K6 (two query planes) and K7 (one) against their plain version
+    within the pair ε with the f16 split statistics (single_pass for K7),
+    K10's f16 mode within its rescore term."""
+    from faiss_tpu_torch.ops import fused, kernels
+
+    q, nq_pad, nv_eff, vn = _shapes(idx, xq, metric)
+    st = idx.store
+    db = st.db
+    rows = {}
+    for passes in (2, 1):
+        qh, ql = fused.query_planes(q, passes)
+        eps = fused._sweep_eps(q, st.norms, idx.ntotal, metric=metric,
+                               d_pad=st.d_pad, single_pass=passes == 1,
+                               pair_sweep=True,
+                               split_stats=st.split_stats)[:, None]
+        gm = kernels.sweep_f16(qh, ql, db, vn, metric=metric)
+        gm_p = fused.sweep_f16_plain(qh, ql, db, vn, metric=metric)
+        name = f"sweep_f16_{passes}"
+        planes = (qh,) if ql is None else (qh, ql)
+        rows[name] = _row(
+            torch, _within(torch, gm, gm_p, eps, name),
+            lambda: kernels.sweep_f16(qh, ql, db, vn, metric=metric),
+            lambda: fused.sweep_f16_plain(qh, ql, db, vn, metric=metric),
+            20, _sweep_bound(planes, (db,), vn, gm, passes + 1, "f16"))
+        if passes == 2:
+            gidx, _ = kernels.select_groups(gm, K + fused.GROUP_PAD)
+    v_max = torch.sqrt(torch.amax(st.norms)) * fused._QUANT_V
+    term = _rescore_term(torch, q, v_max, st.norms, nv_eff, st.d_pad, metric)
+    s = kernels.rescore_groups(q, db, vn, gidx, metric=metric)
+    s_p = fused.rescore_groups_plain(q, db, vn, gidx, metric=metric)
+    rows["rescore_groups_f16"] = _row(
+        torch, _within(torch, s, s_p, term, "rescore_groups_f16"),
+        lambda: kernels.rescore_groups(q, db, vn, gidx, metric=metric),
+        lambda: fused.rescore_groups_plain(q, db, vn, gidx, metric=metric),
+        50, _rescore_bound(q, 2, gidx, s))
     _print_rows(metric, rows)
     return rows
 
 
 def _print_rows(metric, rows):
-    for name, (err, ms, pms) in rows.items():
+    for name, (err, ms, pms, (bms, by), lms) in rows.items():
+        lib = "" if lms is None else f"  torch {lms:.4f} ms"
         print(f"  {metric.value:>2} {name:<19} max_abs_err={err:.3e} "
-              f"kernel {ms:.4f} ms  plain {pms:.4f} ms", flush=True)
+              f"kernel {ms:.4f} ms  plain {pms:.4f} ms  bound {bms:.4f} ms "
+              f"({by}){lib}", flush=True)
 
 
 def stored_rows(torch, idx):
     """The stored database the index certifies, as fp64: the bf16 rows, the
-    f32 master, or hi + lo when pair only."""
+    f32 master, hi + lo when pair only, the f16 values, or the int8 codes
+    times the scales (the decode of ``reconstruct``)."""
+    from faiss_tpu_torch import StorageType
+    from faiss_tpu_torch.storage import decode_f16_bits
+
     st, n = idx.store, idx.ntotal
     if st.pair_only:
         return (st.db_hi[:n, : idx.d].to(torch.float64)
                 + st.db_lo[:n, : idx.d].to(torch.float64))
-    return st.db[:n, : idx.d].to(torch.float64)
+    rows = st.db[:n, : idx.d]
+    if st.storage is StorageType.INT8:
+        rows = rows.to(torch.float32) * st.scales[None, : idx.d]
+    elif st.storage is StorageType.FLOAT16:
+        rows = decode_f16_bits(rows)
+    return rows.to(torch.float64)
 
 
 def oracle_check(torch, idx, xq, metric, D, I):
@@ -224,8 +406,9 @@ def oracle_check(torch, idx, xq, metric, D, I):
 def drive(torch, label, idx, xq, metric):
     """One checked search, REPS timed searches (host clock, copy-back
     included) and one search_async, through the user entry points."""
+    nq = len(xq)
     D_, I_ = idx.search(xq, K)
-    check(D_.shape == (NQ, K) and I_.shape == (NQ, K), f"{label}: shape")
+    check(D_.shape == (nq, K) and I_.shape == (nq, K), f"{label}: shape")
     check(np.isfinite(D_).all() and (I_ >= 0).all(), f"{label}: sentinels")
     rec, rel = oracle_check(torch, idx, xq, metric, D_, I_)
     check(rec == 1.0, f"{label} {metric.value}: recall@{K} {rec} != 1.0")
@@ -238,10 +421,10 @@ def drive(torch, label, idx, xq, metric):
     Da, Ia = tok.wait()
     check(tok.is_ready() and np.array_equal(Ia, I_)
           and np.array_equal(Da, D_), f"{label}: search_async differs")
-    print(f"search {label} {metric.value}: recall@{K}={rec} "
+    print(f"search {label} {metric.value} nq={nq}: recall@{K}={rec} "
           f"max |D - D_oracle| = {rel:.2e} ε "
           f"ms/batch={ms:.4f} (host clock, incl. copy-back) "
-          f"QPS={NQ / ms * 1e3:.1f} "
+          f"QPS={nq / ms * 1e3:.1f} "
           f"fused_fallbacks={idx.fused_fallbacks}", flush=True)
     return I_
 
@@ -268,7 +451,8 @@ def pipelined(torch, label, runs):
         q, _, nq_pad = idx._prep_queries(xq)
         pipe_ms = cuda_ms(torch, lambda: idx._run_search_fn(
             q, K, nq_pad, force_plain=False), REPS)
-        print(f"search {label} {metric.value}: pipelined ms/batch="
+        print(f"search {label} {metric.value} nq={len(xq)}: pipelined "
+              f"ms/batch="
               f"{pipe_ms:.4f} (CUDA events, {REPS} searches enqueued back "
               f"to back)", flush=True)
 
@@ -313,20 +497,30 @@ def main() -> int:
     f32 = {m: build_index(torch, ft, xb, m) for m in (L2, IP)}
     sift = build_index(torch, ft, xb_i, L2)
     pair = build_index(torch, ft, xb, L2, keep_master=False)
+    int8 = {m: build_index(torch, ft, xb, m, storage="int8") for m in (L2, IP)}
+    f16 = {m: build_index(torch, ft, xb, m, storage="f16") for m in (L2, IP)}
     check("hi_exact=True" in sift.describe(), "f32_sift is not hi_exact")
     check("hi_exact=False" in f32[L2].describe(), "Gaussian f32 is hi_exact")
+    check(all(i.is_trained for i in int8.values()), "int8 is not trained")
+    check(all(i.store.f16_clean() for i in f16.values()),
+          "Gaussian f16 is not clean")
 
     print("kernels vs plain (main-path shapes):", flush=True)
     by_metric = [phase_kernels(torch, idx, xq, m) for m, idx in bf16.items()]
     by_metric += [phase_f32_kernels(torch, idx, xq, m)
                   for m, idx in f32.items()]
-    # the table keeps the L2 times and the larger error of the two metrics
+    by_metric += [phase_int8_kernels(torch, idx, xq, m)
+                  for m, idx in int8.items()]
+    by_metric += [phase_f16_kernels(torch, idx, xq, m)
+                  for m, idx in f16.items()]
+    # the table keeps the L2 times and bound and the larger error of the
+    # two metrics
     rows = {}
     for r in by_metric:
-        for key, (err, ms, pms) in r.items():
+        for key, row in r.items():
             prev = rows.get(key)
-            rows[key] = (err, ms, pms) if prev is None \
-                else (max(prev[0], err),) + prev[1:]
+            rows[key] = row if prev is None \
+                else (max(prev[0], row[0]),) + prev[1:]
     k4_launches = kernels.launches["sweep_split_2"]
 
     # -- the main paths, through the user entry points ---------------------
@@ -350,10 +544,24 @@ def main() -> int:
     counts["pair"] = main_path(torch, "pair", [(pair, xq, L2)],
                                ("sweep_split_3", "rescore_groups_pair",
                                 "select_groups", "final_select"))
+    int8_runs = [(idx, xq, m) for m, idx in int8.items()]
+    counts["int8"] = main_path(torch, "int8", int8_runs,
+                               ("sweep_int8", "rescore_groups_int8",
+                                "select_groups", "final_select"))
+    # nq=8 sweeps two query planes (K6) from the start, whatever the
+    # one-plane certificate does at nq=100
+    f16_runs = [(idx, xq, m) for m, idx in f16.items()]
+    f16_runs.append((f16[L2], xq[:8], L2))
+    counts["f16"] = main_path(torch, "f16", f16_runs,
+                              ("sweep_f16_1", "sweep_f16_2",
+                               "rescore_groups_f16", "select_groups",
+                               "final_select"))
     pipelined(torch, "bf16", bf16_runs)
     pipelined(torch, "f32", f32_runs)
     pipelined(torch, "f32_sift", [(sift, xq_i, L2)])
     pipelined(torch, "pair", [(pair, xq, L2)])
+    pipelined(torch, "int8", int8_runs)
+    pipelined(torch, "f16", f16_runs)
 
     # keep_master=False ranks by hi + lo: its own plain path (pair_scores)
     # must return the same ids
@@ -410,18 +618,25 @@ def main() -> int:
         "sweep_split_2": ("sweep_groupmax.cu", f"{PF}:204",
                           "no index route reaches _kernel_split2: launches "
                           "counted in the kernel phase"),
+        "sweep_int8": ("sweep_int8.cu", f"{PF}:219", None),
+        "sweep_f16_2": ("sweep_groupmax.cu", f"{PF}:259", None),
+        "sweep_f16_1": ("sweep_groupmax.cu", f"{PF}:281", None),
         "select_groups": ("select_groups.cu", f"{PF}:739", None),
         "rescore_groups": ("rescore_groups.cu", f"{PF}:1050", None),
         "rescore_groups_pair": ("rescore_groups.cu", f"{PF}:1074", None),
+        "rescore_groups_int8": ("rescore_groups.cu", f"{PF}:1045", None),
+        "rescore_groups_f16": ("rescore_groups.cu", f"{PF}:1035", None),
         "final_select": ("final_select.cu", f"{PF}:809", None),
     }
     table = []
     for key, (src, rep, note) in meta.items():
         n = k4_launches if note else sum(c[key] for c in counts.values())
+        err, ms, pms, (bms, by), lms = rows[key]
         entry = {"name": key, "route": "cuda",
                  "source": f"faiss_tpu_torch/csrc/{src}", "replaces": rep,
-                 "launches": n, "max_abs_err": rows[key][0],
-                 "ms": rows[key][1], "plain_ms": rows[key][2]}
+                 "launches": n, "max_abs_err": err, "ms": ms,
+                 "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                 "library_ms": lms}
         if note:
             entry["note"] = note
         table.append(entry)

@@ -7,10 +7,12 @@ package imports torch and numpy, never jax or faiss_tpu.
 The slices ported so far: the flat index with f32 storage (the default, as
 in ``faiss_tpu``: master rows, bf16 (hi, lo) planes, exact split statistics,
 ``keep_master=False`` pair-only storage, the hi_exact dispatch on
-integer-valued data) and with bf16 storage; L2 and IP, add / search /
-search_async, the fused search (hand-written CUDA kernels in ``csrc/``,
-built with nvcc at first use) with its exactness certificates and two-tier
-fallback, and the plain path.
+integer-valued data), with bf16 storage, with f16 storage (the f16 bit
+patterns, decoded in the kernels) and with int8 storage (per-dimension
+scales, trained once); L2 and IP, add / train / search / search_async, the
+fused search (hand-written CUDA kernels in ``csrc/``, built with nvcc at
+first use) with its exactness certificates and two-tier fallback, and the
+plain path.
 
     TorchIndexFlat, TorchSearchToken, index_numpy_to_torch
     MetricType, StorageType

@@ -1,6 +1,7 @@
-// Helpers shared by the four kernels of faiss_tpu_torch: bf16 unpacking,
-// NaN-propagating max, and warp/block reductions. Plain C interface only
-// (no PyTorch headers), so nvcc builds the library in seconds.
+// Helpers shared by the kernels of faiss_tpu_torch: bf16, f16 and int8
+// unpacking, NaN-propagating max, and warp/block reductions. Plain C
+// interface only (no PyTorch headers), so nvcc builds the library in
+// seconds.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,6 +30,48 @@ __device__ __forceinline__ void unpack8(const uint4 w, float (&x)[8]) {
   x[2] = bf16_lo(w.y); x[3] = bf16_hi(w.y);
   x[4] = bf16_lo(w.z); x[5] = bf16_hi(w.z);
   x[6] = bf16_lo(w.w); x[7] = bf16_hi(w.w);
+}
+
+// An f16 bit pattern (low 16 bits of h) widened to its EXACT fp32 value,
+// with every e=31 pattern, NaN included, mapped to ±inf by its sign bit:
+// the contract of faiss_tpu.storage.decode_f16_bits (__half2float would
+// keep NaN as NaN). Normal values rebias the exponent (15 → 127) in the
+// integer domain; zero and subnormals are the mantissa (an integer
+// < 1024, exact in fp32) times 2^-24, exact and normal in fp32.
+__device__ __forceinline__ float f16_to_f32(uint32_t h) {
+  const uint32_t m = h & 0x7FFFu;
+  float f = m < 0x400u ? static_cast<float>(m) * 5.9604644775390625e-8f
+                       : __uint_as_float((m << 13) + (112u << 23));
+  if (m >= 0x7C00u) f = __uint_as_float(0x7F800000u);   // +inf
+  return __uint_as_float(__float_as_uint(f) | ((h & 0x8000u) << 16));
+}
+
+// The eight f16 of a 16-byte row chunk, decoded to fp32.
+__device__ __forceinline__ void unpack8_f16(const uint4 w, float (&x)[8]) {
+  x[0] = f16_to_f32(w.x); x[1] = f16_to_f32(w.x >> 16);
+  x[2] = f16_to_f32(w.y); x[3] = f16_to_f32(w.y >> 16);
+  x[4] = f16_to_f32(w.z); x[5] = f16_to_f32(w.z >> 16);
+  x[6] = f16_to_f32(w.w); x[7] = f16_to_f32(w.w >> 16);
+}
+
+// The exact (hi, lo) bf16 pair of a decoded f16 value, as
+// faiss_tpu.storage.split_f16_bits forms it: hi its truncation to bf16,
+// lo = f − hi (≤ 3 significant bits, so the subtraction is exact), and
+// lo = 0 where f is ±inf.
+__device__ __forceinline__ void split_pair(float f, float& hi, float& lo) {
+  hi = __uint_as_float(__float_as_uint(f) & 0xFFFF0000u);
+  lo = isfinite(f) ? __fsub_rn(f, hi) : 0.f;
+}
+
+// The sixteen int8 codes of a 16-byte row chunk, widened to fp32 (exact).
+__device__ __forceinline__ void unpack16_i8(const uint4 w, float (&x)[16]) {
+  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      x[4 * k + b] = static_cast<float>(
+          static_cast<int8_t>((ws[k] >> (8 * b)) & 0xFFu));
 }
 
 // max that propagates NaN, like jnp.max and torch.amax (fmaxf drops it)

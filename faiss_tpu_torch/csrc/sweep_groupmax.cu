@@ -1,17 +1,29 @@
-// Group-max sweep: phase 1 of the fused search, bf16 and f32 storage.
+// Group-max sweep: phase 1 of the fused search, bf16, f32 and f16 storage.
 //
-// Replaces four Pallas kernel bodies of faiss_tpu/ops/pallas_fused.py, all
+// Replaces six Pallas kernel bodies of faiss_tpu/ops/pallas_fused.py, all
 // launched by _sweep_call from groupmax_scores, with their shared _epilogue:
 //   bf16 rows v:                _kernel_qpair  acc = qh·v + ql·v
 //                               _kernel_q1     acc = q1·v
 //   f32 rows as bf16 planes     _kernel_split  acc = qh·dh + qh·dl + ql·dh
 //   (v ≈ dh + dl):              _kernel_split2 acc = q1·dh + q1·dl
+//   f16 bits, decoded in-       _kernel_f16_pair  acc = qh·dh + qh·dl + ql·dh
+//   register to the exact       _kernel_f16_1     acc = q1·dh + q1·dl
+//   pair (v == dh + dl):
 // (qh, ql: the bit-mask split of the fp32 query; q1: the query rounded to
 // bf16, RNE). For every query q and every 128-row group g it writes
 //     gm[q, g] = max over rows r of g of  s(q, r),
 //     s = 2·acc − vn[r]  (L2)   or   acc − vn[r]  (IP),
 // where vn is the pre-masked norm stream (+inf on rows past ntotal, so
 // their score is −inf). The nq×nv score matrix never reaches memory.
+//
+// f16 rows (ft_sweep_f16): each 16-byte chunk holds 8 f16 patterns; each
+// decodes to its exact fp32 value f (e=31 → ±inf, common.cuh f16_to_f32)
+// and splits into dh = f truncated to bf16 and dl = f − dh (exact, ≤ 3
+// bits; 0 where f is ±inf), the pair that faiss_tpu.storage.split_f16_bits
+// forms. From there the arithmetic is the f32 pair sweep's, term for term,
+// so _sweep_eps(pair_sweep=True) with the f16 split statistics (s1 = 0 on
+// finite data: dh + dl == f) holds as derived below. The kernel reads
+// 2 bytes per element where the f32 planes take 4.
 //
 // Arithmetic (what the certificate ops/fused._sweep_eps assumes): each
 // product term has its own fp32 accumulator, summed over d by sequential
@@ -36,11 +48,14 @@
 // shared memory (fp32, d in chunks of 64) and read as broadcast float4s.
 // The 128-row max is a warp shuffle max plus one shared-memory step.
 // QT per route: 32 for bf16 (32/64 accumulators; 77/151 registers) and
-// for _kernel_split2 (64 accumulators; 138 registers); 16 for
-// _kernel_split (48 accumulators; 127 registers, no spills). nvcc
-// -Xptxas -v for sm_90a reports no spills for these four; at this shape
-// _kernel_split ran 3.04 ms at QT=16, 3.44 at QT=32 (232 registers) and
-// 3.63 at QT=8 (CUDA events, NVIDIA H100 80GB HBM3, 700.00 W).
+// for _kernel_split2 / _kernel_f16_1 (64 accumulators; 138 / 128
+// registers); 16 for _kernel_split / _kernel_f16_pair (48 accumulators;
+// 127 / 122 registers). nvcc -Xptxas -v for sm_90a reports no spills but
+// 8 bytes for _kernel_f16_1. At this shape _kernel_split ran 3.04 ms at
+// QT=16, 3.44 at QT=32 (232 registers) and 3.63 at QT=8; the f16 rows,
+// with half the bytes and the decode, ran 2.87 ms (pair) and 2.05 ms (one
+// plane) against 3.07 and 2.12 for the f32 planes (CUDA events, NVIDIA
+// H100 80GB HBM3, 700.00 W).
 #include "common.cuh"
 
 namespace {
@@ -58,9 +73,13 @@ __device__ __forceinline__ float dot8(const float* a, const float (&x)[8],
   return s;
 }
 
-// QP query planes (1, 2), DP db planes (1 = bf16 rows, 2 = (hi, lo));
-// NT product terms: QP for one db plane, QP + 1 for two.
-template <int QP, int DP, int QT, bool L2>
+// Row formats: bf16 rows (one db plane), the f32 rows' bf16 (hi, lo)
+// planes, or f16 bits decoded to the (hi, lo) pair in-register.
+enum Rows { ROWS = 0, PAIR = 1, F16 = 2 };
+
+// QP query planes (1, 2), DB the row format; NT product terms: QP for one
+// db plane, QP + 1 for two (DP = 2: the pair formats).
+template <int QP, int DB, int QT, bool L2>
 __global__ void __launch_bounds__(ft::GROUP)
 sweep_groupmax_kernel(const uint16_t* __restrict__ q_hi,
                       const uint16_t* __restrict__ q_lo,
@@ -69,6 +88,7 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q_hi,
                       const float* __restrict__ vn,
                       float* __restrict__ gm,
                       int nq, int d, int ngroups, int nqt) {
+  constexpr int DP = DB == ROWS ? 1 : 2;
   constexpr int NT = DP == 1 ? QP : QP + 1;
   __shared__ __align__(16) float qs[QP][QT][DT];
   __shared__ float red[ft::GROUP / 32][QT];
@@ -78,7 +98,7 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q_hi,
   const size_t row = static_cast<size_t>(g) * ft::GROUP + threadIdx.x;
   const uint4* v0 = reinterpret_cast<const uint4*>(db + row * d);
   const uint4* v1 =
-      DP == 2 ? reinterpret_cast<const uint4*>(db_lo + row * d) : nullptr;
+      DB == PAIR ? reinterpret_cast<const uint4*>(db_lo + row * d) : nullptr;
 
   float acc[NT][QT];
 #pragma unroll
@@ -103,8 +123,14 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q_hi,
     __syncthreads();
     for (int e = 0; e < dn; e += 8) {
       float x0[8], x1[8];
-      ft::unpack8(__ldg(v0 + (d0 + e) / 8), x0);
-      if constexpr (DP == 2) ft::unpack8(__ldg(v1 + (d0 + e) / 8), x1);
+      if constexpr (DB == F16) {
+        ft::unpack8_f16(__ldg(v0 + (d0 + e) / 8), x0);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) ft::split_pair(x0[i], x0[i], x1[i]);
+      } else {
+        ft::unpack8(__ldg(v0 + (d0 + e) / 8), x0);
+        if constexpr (DB == PAIR) ft::unpack8(__ldg(v1 + (d0 + e) / 8), x1);
+      }
 #pragma unroll
       for (int j = 0; j < QT; ++j) {
         // terms in the order of the Pallas kernels: q0·v0, then q0·v1
@@ -138,7 +164,7 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q_hi,
   }
 }
 
-template <int QP, int DP, int QT>
+template <int QP, int DB, int QT>
 void launch(const void* q_hi, const void* q_lo, const void* db,
             const void* db_lo, const void* vn, void* gm, int nq, int d,
             int ngroups, int l2, cudaStream_t stream) {
@@ -151,10 +177,10 @@ void launch(const void* q_hi, const void* q_lo, const void* db,
   auto* n = static_cast<const float*>(vn);
   auto* out = static_cast<float*>(gm);
   if (l2)
-    sweep_groupmax_kernel<QP, DP, QT, true><<<grid, ft::GROUP, 0, stream>>>(
+    sweep_groupmax_kernel<QP, DB, QT, true><<<grid, ft::GROUP, 0, stream>>>(
         qh, ql, v, vl, n, out, nq, d, ngroups, nqt);
   else
-    sweep_groupmax_kernel<QP, DP, QT, false><<<grid, ft::GROUP, 0, stream>>>(
+    sweep_groupmax_kernel<QP, DB, QT, false><<<grid, ft::GROUP, 0, stream>>>(
         qh, ql, v, vl, n, out, nq, d, ngroups, nqt);
 }
 
@@ -172,13 +198,31 @@ extern "C" int ft_sweep_groupmax(const void* q_hi, const void* q_lo,
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (planes == 1 && db_lo == nullptr)
-    launch<1, 1, 32>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
+    launch<1, ROWS, 32>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
   else if (planes == 2 && db_lo == nullptr)
-    launch<2, 1, 32>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
+    launch<2, ROWS, 32>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
   else if (planes == 1)
-    launch<1, 2, 32>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
+    launch<1, PAIR, 32>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
   else if (planes == 2)
-    launch<2, 2, 16>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
+    launch<2, PAIR, 16>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As ft_sweep_groupmax, over f16 rows: db (≥ ngroups·128, d) f16 bit
+// patterns, decoded in-register; 3 product terms with two query planes
+// (_kernel_f16_pair), 2 with one (_kernel_f16_1).
+extern "C" int ft_sweep_f16(const void* q_hi, const void* q_lo, int planes,
+                            const void* db, const void* vn, void* gm, int nq,
+                            int d, int ngroups, int l2, void* stream) {
+  if (nq <= 0 || ngroups <= 0 || d <= 0 || d % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (planes == 1)
+    launch<1, F16, 32>(q_hi, q_lo, db, nullptr, vn, gm, nq, d, ngroups, l2, s);
+  else if (planes == 2)
+    launch<2, F16, 16>(q_hi, q_lo, db, nullptr, vn, gm, nq, d, ngroups, l2, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

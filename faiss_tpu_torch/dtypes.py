@@ -16,8 +16,7 @@ import numpy as np
 
 class StorageType(enum.Enum):
     """On-device vector storage precision. Queries and accumulation stay
-    fp32. The port stores bf16 only so far; the other members exist so that
-    files written by ``faiss_tpu`` parse, and an index refuses them."""
+    fp32. The port stores all four, as ``faiss_tpu`` does."""
 
     FLOAT32 = "float32"
     FLOAT16 = "float16"

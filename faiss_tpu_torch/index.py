@@ -1,7 +1,7 @@
-"""TorchIndexFlat: the flat (brute-force) exact-search index, f32 and bf16
-storage.
+"""TorchIndexFlat: the flat (brute-force) exact-search index, with f32,
+bf16, f16 and int8 storage.
 
-Counterpart of ``faiss_tpu/index.py``'s TpuIndexFlat (f32 and bf16 routes):
+Counterpart of ``faiss_tpu/index.py``'s TpuIndexFlat:
 
     faiss_tpu                      faiss_tpu_torch
     ---------                      ---------------
@@ -26,6 +26,11 @@ Behaviour kept:
     takes the hi_exact dispatch: the fused path sweeps and rescores the hi
     plane alone with the bf16 kernels, the cost gate sees 2 bytes/element,
     and the one-plane sweep policy applies as for bf16;
+  * f16 storage follows the bf16 sweep policy (one query plane at
+    nq_pad ≥ 32, tier-1 rerun with two) but is certified with the pair ε
+    over its decoded (hi, lo) split statistics; int8 storage always sweeps
+    two exact integer passes, so it never takes a tier-1 rerun, and needs
+    its scales (``train``, or the first add batch);
   * the plain path is an fp32 GEMM + stable top-k, chunked over the db.
 
 PyTorch runs eagerly, so there is no compiled-program cache: each search
@@ -45,7 +50,7 @@ from .ops import distance as dist_ops
 from .ops import fused
 from .ops import topk as topk_ops
 from .resources import KernelTuning, query_device_capabilities
-from .storage import ROW_TILE, DeviceStore, _round_up
+from .storage import ROW_TILE, DeviceStore, _round_up, decode_f16_bits
 
 # queries pad to a multiple of this many rows
 NQ_PAD = 8
@@ -161,7 +166,8 @@ def make_selective_fallback(index, queries: torch.Tensor, nq: int, k: int, *,
 
 
 class TorchIndexFlat:
-    """Flat exact-search index over f32 or bf16 rows on one device.
+    """Flat exact-search index over f32, bf16, f16 or int8 rows on one
+    device.
 
     ``device`` defaults to "cuda" and raises when CUDA is absent; "cpu"
     runs every kernel's plain PyTorch version (how the tests run it).
@@ -196,6 +202,17 @@ class TorchIndexFlat:
     @property
     def ntotal(self) -> int:
         return self.store.ntotal
+
+    @property
+    def is_trained(self) -> bool:
+        """Float storage needs no training; int8 is trained once its scales
+        are frozen (``train``, or auto-train on the first add batch)."""
+        return self.store.is_trained
+
+    def train(self, x: np.ndarray) -> None:
+        """Freeze int8 per-dimension scales from a sample (a no-op for float
+        storage; a second train raises)."""
+        self.store.train(x)
 
     def set_force_plain(self, force: bool) -> None:
         """Run the plain path even where the fused path is eligible
@@ -242,7 +259,9 @@ class TorchIndexFlat:
         nv_eff = _round_up(nt, ROW_TILE)
         d_pad = st.d_pad
         k_eff = min(k, nv_eff)
-        use_direct = (self.metric is MetricType.L2
+        is_int8 = st.storage is StorageType.INT8
+        is_f16 = st.storage is StorageType.FLOAT16
+        use_direct = (self.metric is MetricType.L2 and not is_int8
                       and nv_eff <= dist_ops.DIRECT_PATH_MAX_NV * 4
                       and nq_pad * nv_eff * d_pad <= DIRECT_PATH_MAX_ELEMS)
         # hi_exact: the exact split statistics (mirrored to the host by
@@ -255,15 +274,22 @@ class TorchIndexFlat:
                      and fused.fused_path_eligible(
                          metric=self.metric, k=k, nv_eff=nv_eff,
                          d_pad=d_pad, nq_pad=nq_pad,
-                         itemsize=4 if pair_sweep else 2))
+                         itemsize=4 if pair_sweep else 1 if is_int8 else 2,
+                         dtype=st.row_dtype))
         if use_fused:
+            # f16 is not pair storage for this policy (one plane at large
+            # nq_pad, as bf16), though its certificate is the pair ε
             passes = 2 if (full_sweep or nq_pad in self._no_reduced_sweep) \
-                else fused.pick_sweep_passes(nq_pad, pair_sweep)
+                else fused.pick_sweep_passes(nq_pad, pair_sweep or is_int8)
             split = {}
             if st.has_split:
                 split = dict(db_split=(st.db_hi, st.db_lo),
                              pair_only=st.pair_only,
                              split_stats=st.split_stats, hi_exact=stats_zero)
+            elif is_f16:
+                split = dict(split_stats=st.split_stats)
+            elif is_int8:
+                split = dict(scales=st.scales, int_norm_max=st.int_norm_max)
             vals, ids, cert = fused.fused_search(
                 q, st.db if st.db is not None else st.db_hi, st.norms, nt,
                 k=k, metric=self.metric, nv_eff=nv_eff, sweep_passes=passes,
@@ -284,6 +310,15 @@ class TorchIndexFlat:
                         q, hi.to(torch.float32) + lo.to(torch.float32))
                 else:
                     s = dist_ops.pair_scores(q, hi, lo, norms, self.metric)
+            elif is_int8:
+                s = dist_ops.int8_scores(q, st.scales, st.db[start:end],
+                                         norms, self.metric)
+            elif is_f16:
+                rows = st.db[start:end]
+                if use_direct:
+                    s = dist_ops.direct_l2_scores(q, decode_f16_bits(rows))
+                else:
+                    s = dist_ops.f16_scores(q, rows, norms, self.metric)
             elif use_direct:
                 s = dist_ops.direct_l2_scores(q, st.db[start:end])
             else:
@@ -336,9 +371,13 @@ class TorchIndexFlat:
 
     def describe(self) -> str:
         st = self.store
-        hi_exact = ""
-        if st.has_split and self.ntotal:
-            hi_exact = f"hi_exact={st.split_stats_host() == (0.0, 0.0)}, "
+        note = ""
+        if st.storage is StorageType.INT8:
+            note = f"int8_clipped_fraction={st.int8_clipped_fraction:.2e}, "
+        elif st.storage is StorageType.FLOAT16:
+            note = f"f16_clean={st.f16_clean()}, "
+        elif st.has_split and self.ntotal:
+            note = f"hi_exact={st.split_stats_host() == (0.0, 0.0)}, "
         return (
             f"TorchIndexFlat(d={self.d}, metric={self.metric.value}, "
             f"storage={self.storage_type.value}, ntotal={self.ntotal}, "
@@ -346,7 +385,7 @@ class TorchIndexFlat:
             f"device={self.device}, force_plain={self._force_plain}, "
             f"fused_fallbacks={self.fused_fallbacks}, "
             f"reduced_sweep_disabled_shapes={sorted(self._no_reduced_sweep)}, "
-            f"{hi_exact}pair_only={st.pair_only}, "
+            f"{note}pair_only={st.pair_only}, "
             f"bytes={st.nbytes()})\n" + self.caps.describe())
 
 

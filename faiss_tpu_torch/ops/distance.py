@@ -1,5 +1,5 @@
 """Distance stage of the plain path (counterpart of
-``faiss_tpu/ops/distance.py``, bf16 and f32 storage).
+``faiss_tpu/ops/distance.py``, for every storage mode).
 
 The plain path is the port's exact oracle and the tier-2 fallback of the
 fused path. Scores are larger-is-better:
@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 
 from ..dtypes import MetricType
+from ..storage import decode_f16_bits
 from . import l2norm
 
 DIRECT_PATH_MAX_NV = 256    # tiny db: exact per-pair L2, no expanded form
@@ -76,6 +77,40 @@ def pair_scores(
     ~2^-16 residual; here the query stays fp32, as in the fused rescore.)"""
     rows = db_hi.to(torch.float32) + db_lo.to(torch.float32)
     return matmul_scores(queries, rows, db_norms, metric)
+
+
+def f16_scores(
+    queries: torch.Tensor,            # (nq, d) fp32
+    dbits: torch.Tensor,              # (nv, d) float16 (the stored f16 bits)
+    db_norms: Optional[torch.Tensor],  # (nv,) fp32, required for L2
+    metric: MetricType,
+) -> torch.Tensor:
+    """(nq, nv) scores against f16 storage: the rows decoded EXACTLY to fp32
+    (e=31 patterns to ±inf, ``storage.decode_f16_bits``), then
+    matmul_scores. The JAX package's ``f16_scores`` runs its pair GEMM with
+    a split query and drops a ~2^-16 query residual; here the query stays
+    fp32, as in the fused rescore (the deviation of ``pair_scores``)."""
+    return matmul_scores(queries, decode_f16_bits(dbits), db_norms, metric)
+
+
+def int8_scores(
+    queries: torch.Tensor,            # (nq, d) fp32
+    scales: torch.Tensor,             # (d,) fp32 per-dimension scales
+    vq: torch.Tensor,                 # (nv, d) int8 codes
+    db_norms: torch.Tensor,           # (nv,) fp32 norms of the DECODED rows
+    metric: MetricType,
+) -> torch.Tensor:
+    """(nq, nv) fp32-true scores against the decoded int8 database, the
+    port of ``faiss_tpu.ops.distance.int8_scores``: q·(s∘v_q) = (q∘s)·v_q,
+    so the query absorbs the scales and the codes widen to fp32 exactly;
+    one fp32 product, the arithmetic class of the fused rescore."""
+    qs = queries * scales[None, :]
+    with exact_fp32_matmul():
+        dots = qs @ vq.to(torch.float32).T
+    if metric is MetricType.INNER_PRODUCT:
+        return dots
+    q_norms = l2norm.l2_norm_squared(queries)
+    return 2.0 * dots - q_norms[:, None] - db_norms[None, :]
 
 
 def direct_l2_scores(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """Fused search: group-max sweep → group nomination → gather-rescore →
 final top-k, with a per-query exactness certificate.
 
-Counterpart of the bf16 and f32 routes of ``faiss_tpu/ops/pallas_fused.py``.
-The nq×nv score matrix is never materialized:
+Counterpart of ``faiss_tpu/ops/pallas_fused.py``'s routes for the four
+storage modes. The nq×nv score matrix is never materialized:
 
   phase 1  sweep_groupmax   per 128-row group, the max of the masked score
            / sweep_split    s = 2·q·v − ‖v‖² (L2) or q·v (IP) (−‖q‖² is
-                            rank-invariant and re-added by the index);
-                            bf16 rows, or the f32 rows' bf16 (hi, lo) planes
+           / sweep_f16      rank-invariant and re-added by the index);
+           / sweep_int8     bf16 rows, the f32 rows' bf16 (hi, lo) planes,
+                            f16 bits decoded to the exact (hi, lo) pair, or
+                            int8 codes against the query's int8 expansion
   phase 2  select_groups    the top-(k+GROUP_PAD) groups per query, and
                             t = the max group-max among the others
   phase 3  rescore_groups   the nominated groups' rows scored fp32-true
@@ -30,6 +32,13 @@ ranks by hi + lo and ends after stage 3a; integer-valued data (split
 statistics exactly zero, ``hi_exact``) sweeps and rescores the hi plane alone
 with the bf16 kernels, bit for bit the same scores.
 
+f16 storage sweeps the decoded pair with the pair sweep's arithmetic and
+certificate (``_sweep_eps(pair_sweep=True)`` with the f16 split
+statistics) and rescores the decoded rows in one stage. int8 storage sweeps
+two exact integer passes over the query's residual expansion
+(``int8_query_pair``), rescores the codes against q∘s, and is certified by
+``_sweep_eps_int8``: both sides score the decoded database s∘v_q.
+
 The phases are CUDA kernels (``csrc/*.cu``) behind the wrappers of
 ``ops/kernels.py``. Each has its plain PyTorch version here (``*_plain``):
 the wrappers run it for CPU tensors, the tests hold it against the JAX
@@ -46,13 +55,13 @@ from typing import Optional, Tuple
 import torch
 
 from ..dtypes import MetricType
-from ..storage import split_f32_bf16
+from ..storage import decode_f16_bits, split_f16_bits, split_f32_bf16
 from .distance import exact_fp32_matmul
 from .topk import topk_scores
 # the kernel wrappers, under the names of their JAX counterparts' roles
 from .kernels import GROUP  # rows per candidate group
 from .kernels import final_select, rescore_groups, select_groups
-from .kernels import sweep_groupmax, sweep_split
+from .kernels import sweep_f16, sweep_groupmax, sweep_int8, sweep_split
 
 GROUP_PAD = 4         # groups nominated beyond k (certificate margin)
 F32_CAND_PAD = 22     # f32 stage 3a: candidates beyond k given stage 3b
@@ -64,9 +73,10 @@ FUSED_MIN_NV = 8192
 FUSED_GATHER_BUDGET = 1 << 30     # cap on the phase-3 gather volume
 PLAIN_SCORE_BYTES = 8.0           # plain path: write + read of each fp32 score
 PLAIN_TOPK_BYTES_PER_K16 = 1.0    # + k/16 bytes/score for its top-k
-# At nq_pad ≥ this the bf16 sweep runs one RNE-rounded query plane
+# At nq_pad ≥ this the bf16 and f16 sweeps run one RNE-rounded query plane
 # (certified with single_pass=True; an uncertified query re-runs with two
-# planes). f32 pair storage always sweeps two query planes.
+# planes). f32 pair storage always sweeps two query planes, and int8 two
+# integer passes.
 REDUCED_SWEEP_MIN_NQ = 32
 # What the select kernels take: one bitmask row of ≤ 16384 columns, and
 # extraction loops of ≤ 40 steps. Larger shapes go to the plain path.
@@ -85,8 +95,9 @@ _BIG = 1 << 30
 
 
 def pick_sweep_passes(nq_pad: int, pair_storage: bool = False) -> int:
-    """1 (reduced, certified) query plane for large bf16 batches, else 2.
-    Pair storage never reduces, as in the JAX package."""
+    """1 (reduced, certified) query plane for large bf16 or f16 batches,
+    else 2. Pair storage (f32 planes, and int8) never reduces, as in the
+    JAX package."""
     return 1 if nq_pad >= REDUCED_SWEEP_MIN_NQ and not pair_storage else 2
 
 
@@ -115,15 +126,41 @@ def groupmax_scores(queries_f32: torch.Tensor, db: torch.Tensor,
                     sweep_passes: int = 2,
                     db_split=None) -> torch.Tensor:
     """(nq_pad, nv_eff/128) per-group max of the masked sweep scores, the
-    bf16 and pair routes of ``faiss_tpu``'s groupmax_scores. Takes the
+    bf16, pair and f16 routes of ``faiss_tpu``'s groupmax_scores. Takes the
     pre-masked norm stream ``vn`` (length nv_eff), which the rescore reuses.
     With ``db_split`` = (hi, lo) it runs the pair sweep over the planes
-    (``db`` unread), else the bf16 sweep over ``db``."""
+    (``db`` unread); over float16 rows (f16 bits) the f16 sweep; else the
+    bf16 sweep over ``db``. (int8 rows: ``int8_groupmax_scores``.)"""
     q_hi, q_lo = query_planes(queries_f32, sweep_passes)
     if db_split is not None:
         return sweep_split(q_hi, q_lo, db_split[0], db_split[1], vn,
                            metric=metric)
+    if db.dtype == torch.float16:
+        return sweep_f16(q_hi, q_lo, db, vn, metric=metric)
     return sweep_groupmax(q_hi, q_lo, db, vn, metric=metric)
+
+
+def int8_query_pair(queries_f32: torch.Tensor, scales: torch.Tensor):
+    """qs = q∘s ≈ β₁·q₁ + β₂·q₂ with q₁, q₂ int8 (q₂ quantizes the first
+    residual): the port of ``faiss_tpu``'s ``_int8_query_pair``, op for op.
+    Returns (q₁, q₂, β₁, β₂)."""
+    qs = queries_f32 * scales[None, :]
+    b1 = torch.clamp_min(torch.amax(torch.abs(qs), dim=1), 1e-30) / 127.0
+    q1 = torch.clamp(torch.round(qs / b1[:, None]), -127.0, 127.0)
+    r = qs - b1[:, None] * q1
+    b2 = torch.clamp_min(torch.amax(torch.abs(r), dim=1), 1e-30) / 127.0
+    q2 = torch.clamp(torch.round(r / b2[:, None]), -127.0, 127.0)
+    return q1.to(torch.int8), q2.to(torch.int8), b1, b2
+
+
+def int8_groupmax_scores(queries_f32: torch.Tensor, db: torch.Tensor,
+                         vn: torch.Tensor, scales: torch.Tensor, *,
+                         metric: MetricType) -> torch.Tensor:
+    """(nq_pad, nv_eff/128) group maxes of the int8 sweep: ``faiss_tpu``'s
+    groupmax_scores int8 branch, over the int8 codes ``db``."""
+    q1, q2, b1, b2 = int8_query_pair(queries_f32, scales)
+    return sweep_int8(q1, q2, db, vn, torch.stack([b1, b2], dim=1),
+                      metric=metric)
 
 
 # -- plain versions of the kernels ----------------------------------------
@@ -160,6 +197,28 @@ def sweep_split_plain(q_hi, q_lo, db_hi, db_lo, vn, *, metric: MetricType):
         if q_lo is not None:
             acc = acc + q_lo.to(torch.float32) @ dh.T
     return _plain_epilogue(acc, vn, metric)
+
+
+def sweep_f16_plain(q_hi, q_lo, dbits, vn, *, metric: MetricType):
+    """Plain version of the f16 sweep kernel: the rows decoded and split to
+    the exact (hi, lo) pair (``storage.split_f16_bits``), then the pair
+    sweep's plain version, term for term (_kernel_f16_pair /
+    _kernel_f16_1)."""
+    hi, lo = split_f16_bits(dbits[: vn.shape[0]])
+    return sweep_split_plain(q_hi, q_lo, hi, lo, vn, metric=metric)
+
+
+def sweep_int8_plain(q1, q2, db, vn, beta, *, metric: MetricType):
+    """Plain version of the int8 sweep kernel. The two integer dots come
+    from fp64 products of the integer-valued planes, exact because every
+    partial sum is an integer below 2^53 (``torch.matmul`` takes no int8 on
+    CUDA); then f32(a₁)·β₁ + f32(a₂)·β₂ with the kernel's three roundings
+    in its order, so the two agree bit for bit."""
+    v = db[: vn.shape[0]].to(torch.float64)
+    a1 = (q1.to(torch.float64) @ v.T).to(torch.float32)
+    a2 = (q2.to(torch.float64) @ v.T).to(torch.float32)
+    dots = a1 * beta[:, 0:1] + a2 * beta[:, 1:2]
+    return _plain_epilogue(dots, vn, metric)
 
 
 def select_groups_plain(gm: torch.Tensor, kg: int):
@@ -215,10 +274,14 @@ def candidate_columns(gidx: torch.Tensor) -> torch.Tensor:
 def rescore_groups_plain(queries, db, vn, gidx, *, metric: MetricType,
                          db2=None):
     """Plain version of the rescore kernel: gather the nominated groups'
-    rows (hi + lo in the pair mode, an exact fp32 sum), one fp32 batched
-    product with the fp32 queries, same epilogue."""
+    rows, widened exactly to fp32 (bf16 and int8 by conversion, f16 bits by
+    ``storage.decode_f16_bits``; hi + lo in the pair mode, an exact fp32
+    sum), one fp32 batched product with the fp32 queries (q∘s for int8),
+    same epilogue."""
     cols = candidate_columns(gidx).to(torch.int64)
-    rows = db[cols].to(torch.float32)                      # (nq, kg·128, d)
+    rows = db[cols]                                        # (nq, kg·128, d)
+    rows = decode_f16_bits(rows) if rows.dtype == torch.float16 \
+        else rows.to(torch.float32)
     if db2 is not None:
         rows = rows + db2[cols].to(torch.float32)
     with exact_fp32_matmul():
@@ -324,6 +387,53 @@ def _pair_rescore_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
     return _epilogue_eps(eps, Q, V, N, metric)
 
 
+def _sweep_eps_int8(queries_f32: torch.Tensor, scales: torch.Tensor,
+                    int_norm_max: torch.Tensor, db_norms: torch.Tensor,
+                    nv_eff: int, *, metric: MetricType,
+                    d_pad: int) -> torch.Tensor:
+    """Per-query strict upper bound ε on |int8 sweep score − rescore score|
+    for any stored row: ``faiss_tpu``'s _sweep_eps_int8, term for term,
+    with the conversion term it misses.
+
+    Both sides score the SAME stored codes v_q against the SAME computed
+    qs = fl(q∘s) and subtract the same stored decoded norm, so the common
+    target is qs·v_q:
+      sweep   = fl(fl(β₁·f32(a₁)) + fl(β₂·f32(a₂))), a_i = q_i·v_q exact
+                int32 dots (csrc/sweep_int8.cu)
+      rescore = one fmaf chain of qs against the exactly widened codes
+                (csrc/rescore_groups.cu INT8)
+    Notation: u = 2^-24, Qs = ‖qs‖, Vq = max‖v_q‖ (``int_norm_max``),
+    R1 = ‖qs − β₁q₁‖, Rs = ‖qs − β₁q₁ − β₂q₂‖, N = max stored norm.
+      (1) dropped residual                    Rs·Vq
+      (2) the β multiplies and the add        3·u·(Qs + 2·R1 + Rs)·Vq
+          (‖β₁q₁‖ ≤ Qs + R1, ‖β₂q₂‖ ≤ R1 + Rs, |a_i| ≤ ‖q_i‖·Vq)
+      (2') the conversions f32(a_i), inexact once |a_i| can pass 2^24,
+          i.e. when 127²·d_pad ≥ 2^24 (d_pad ≥ 1041): each errs ≤ u·|a_i|,
+          times β_i ≤ u·‖β_i q_i‖·Vq, together u·(Qs + 2·R1 + Rs)·Vq. The
+          JAX bound assumes them exact (|a_i| ≤ 127²·d < 2^24 holds only
+          for d ≤ 1040, yet its gate admits d_pad 2048); below that d_pad
+          this bound equals the JAX one.
+      (3) rescore accumulation                2·d·u·Qs·Vq (the chain errs
+          ≤ d·u·Qs·Vq)
+      (4), (5) epilogues, comparison, ×2 for L2 and the strictness slack
+          as in _sweep_eps (with Qs, Vq for Q, V).
+    """
+    q1, q2, b1, b2 = int8_query_pair(queries_f32, scales)
+    qs = queries_f32 * scales[None, :]
+    r1 = qs - b1[:, None] * q1.to(torch.float32)
+    resid = r1 - b2[:, None] * q2.to(torch.float32)
+    Rs = torch.sqrt(torch.sum(resid * resid, dim=-1))
+    R1 = torch.sqrt(torch.sum(r1 * r1, dim=-1))
+    Qs = torch.sqrt(torch.sum(qs * qs, dim=-1))
+    N = torch.amax(db_norms[:nv_eff])
+    Vq = int_norm_max
+    roundings = 3.0 + (1.0 if 127 * 127 * d_pad >= 2 ** 24 else 0.0)
+    eps = (Rs * Vq
+           + roundings * _U32 * (Qs + 2.0 * R1 + Rs) * Vq
+           + 2.0 * d_pad * _U32 * Qs * Vq)
+    return _epilogue_eps(eps, Qs, Vq, N, metric)
+
+
 def _stats_or_envelopes(split_stats, V):
     if split_stats is not None:
         return split_stats[0], split_stats[1]
@@ -345,8 +455,10 @@ def _epilogue_eps(eps, Q, V, N, metric: MetricType):
 def fused_search(
     queries_f32: torch.Tensor,   # (nq_pad, d_pad) fp32
     db: torch.Tensor,            # (capacity, d_pad) bf16 rows, f32 master,
-                                 # or db_hi when pair_only
-    db_norms: torch.Tensor,      # (capacity,) fp32 ‖v‖² (pre-quantization)
+                                 # db_hi when pair_only, f16 bits (float16)
+                                 # or int8 codes
+    db_norms: torch.Tensor,      # (capacity,) fp32 ‖v‖² (pre-quantization;
+                                 # int8: of the decoded rows)
     ntotal: int,
     *,
     k: int,
@@ -356,13 +468,19 @@ def fused_search(
     db_split=None,               # f32 storage: the (db_hi, db_lo) planes
     pair_only: bool = False,     # the device holds only the planes
     split_stats: Optional[torch.Tensor] = None,  # (2,) exact plane maxima
+                                 # (f32, and f16 over the decoded pair)
     hi_exact: bool = False,      # caller-proven split_stats == (0, 0)
+    scales: Optional[torch.Tensor] = None,        # int8: (d_pad,) scales
+    int_norm_max: Optional[torch.Tensor] = None,  # int8: () max ‖v_q‖
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(scores (nq_pad, k_eff) descending, ids (nq_pad, k_eff) int32,
     certified (nq_pad,) bool), k_eff = min(k, nv_eff). ``certified[i]``
     proves row i is the exact top-k of the stored database (the f32 master,
-    or hi + lo when pair_only), ties to the lowest id; the caller re-runs
-    the others on an exact path. No host synchronisation happens in here."""
+    hi + lo when pair_only, the f16 values, the decoded int8 rows), ties to
+    the lowest id; the caller re-runs the others on an exact path. The
+    route follows the storage: ``db_split`` (f32), float16 rows (f16), int8
+    rows (needs ``scales`` and ``int_norm_max``), else bf16 rows. No host
+    synchronisation happens in here."""
     nq_pad, d_pad = queries_f32.shape
     k_eff = min(k, nv_eff)
     ngroups = nv_eff // GROUP
@@ -372,22 +490,31 @@ def fused_search(
             f"fused search takes kg ≤ {SELECT_MAX_KG} and ngroups ≤ "
             f"{SELECT_MAX_GROUPS} (kg={kg}, ngroups={ngroups})")
     pair_sweep = db_split is not None
+    is_int8 = db.dtype == torch.int8
     if hi_exact and not pair_sweep:
         raise ValueError("hi_exact requires the (hi, lo) planes")
+    if is_int8 and (scales is None or int_norm_max is None):
+        raise ValueError("int8 rows need scales and int_norm_max")
     vn = _premask_norms(db_norms, ntotal, nv_eff, metric)
 
     # hi_exact: v == v_hi on every stored row, so the bf16 kernels over the
     # hi plane compute the pair program's scores bit for bit (every dropped
     # term is an exact +0.0); ε with stats (0, 0) charges them nothing
-    gm = groupmax_scores(
-        queries_f32, db_split[0] if hi_exact else db, vn, metric=metric,
-        sweep_passes=sweep_passes,
-        db_split=None if hi_exact or not pair_sweep else db_split)
+    if is_int8:
+        gm = int8_groupmax_scores(queries_f32, db, vn, scales, metric=metric)
+    else:
+        gm = groupmax_scores(
+            queries_f32, db_split[0] if hi_exact else db, vn, metric=metric,
+            sweep_passes=sweep_passes,
+            db_split=None if hi_exact or not pair_sweep else db_split)
     gidx, t = select_groups(gm, kg)
     cols = candidate_columns(gidx)
     t2 = None
     if not pair_sweep:
-        s = rescore_groups(queries_f32, db, vn, gidx, metric=metric)
+        # bf16 and f16 rows against q; int8 codes against q∘s, so that the
+        # scores are those of the decoded rows the norms belong to
+        q_resc = queries_f32 * scales[None, :] if is_int8 else queries_f32
+        s = rescore_groups(q_resc, db, vn, gidx, metric=metric)
     else:
         hi, lo = db_split[0], None if hi_exact else db_split[1]
         m = k_eff + F32_CAND_PAD
@@ -420,9 +547,15 @@ def fused_search(
         vals, pos = topk_scores(s, k_eff)
     ids = torch.gather(cols, 1, pos.to(torch.int64))
 
-    eps = _sweep_eps(queries_f32, db_norms, nv_eff, metric=metric,
-                     d_pad=d_pad, single_pass=sweep_passes == 1,
-                     pair_sweep=pair_sweep, split_stats=split_stats)
+    if is_int8:
+        eps = _sweep_eps_int8(queries_f32, scales, int_norm_max, db_norms,
+                              nv_eff, metric=metric, d_pad=d_pad)
+    else:
+        # f16 sweeps the decoded pair: the pair ε with the f16 statistics
+        eps = _sweep_eps(queries_f32, db_norms, nv_eff, metric=metric,
+                         d_pad=d_pad, single_pass=sweep_passes == 1,
+                         pair_sweep=pair_sweep or db.dtype == torch.float16,
+                         split_stats=split_stats)
     certified = (t == NEG_INF) | (vals[:, k_eff - 1] >= t + eps)
     if t2 is not None:
         eps2 = _pair_rescore_eps(queries_f32, db_norms, nv_eff, metric=metric,
@@ -433,17 +566,21 @@ def fused_search(
 
 def fused_path_eligible(*, metric: MetricType, k: int, nv_eff: int,
                         d_pad: int, nq_pad: int = 128,
-                        itemsize: int = 2) -> bool:
+                        itemsize: int = 2, dtype=None) -> bool:
     """Dispatch gate, the JAX package's traffic cost model: the plain path
     pays for materializing the nq×nv fp32 scores and a k-scaled top-k over
     them, the fused path for the candidate gather. Its coefficients are
     carried from the JAX package, not measured on this card. ``itemsize``
     is the swept bytes per element: 4 for the f32 pair (d_pad ≤ 1024, and
-    the gather reads two planes), 2 for bf16 rows and hi_exact. Shapes the
-    select kernels do not take (kg > 40, ngroups > 16384) return False and
-    run on the plain path."""
+    the gather reads two planes), 2 for bf16 rows, hi_exact and f16, 1 for
+    int8 (its gather counted at 2 bytes, as the JAX gate counts it);
+    ``dtype`` the stored rows' torch dtype: f16 (torch.float16) takes
+    d_pad ≤ 1024, as in the JAX gate. Shapes the select kernels do not take
+    (kg > 40, ngroups > 16384) return False and run on the plain path."""
     pair_sweep = itemsize == 4
-    if nv_eff < FUSED_MIN_NV or d_pad > (1024 if pair_sweep else 2048):
+    is_f16 = dtype == torch.float16
+    if nv_eff < FUSED_MIN_NV or d_pad > (
+            1024 if pair_sweep or is_f16 else 2048):
         return False
     ngroups = nv_eff // GROUP
     kg = min(k + GROUP_PAD, ngroups)

@@ -1,11 +1,12 @@
 """The fused path's CUDA kernels: build, ctypes bindings, wrappers, counts.
 
 The kernels live in ``faiss_tpu_torch/csrc/*.cu`` behind a plain C
-interface. At first use they are compiled with ``nvcc`` for ``sm_90a`` into
-one shared library under ``faiss_tpu_torch/_build/``, named by a hash of the
-sources and flags (written to a temporary file, then renamed, so a reader
-never sees half a library), and loaded with ``ctypes``. Importing this
-module builds nothing.
+interface. At first use they are compiled with ``nvcc`` for ``sm_90a``, one
+nvcc per source, all started together, and linked into one shared library
+under ``faiss_tpu_torch/_build/``, named by a hash of the sources and flags
+(written to a temporary file, then renamed, so a reader never sees half a
+library), and loaded with ``ctypes``. Importing this module builds
+nothing.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor goes to
 the kernel's plain PyTorch version in ``ops/fused.py``; a CUDA tensor goes
@@ -37,7 +38,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")       # per source, with -c
 
 GROUP = 128   # rows per candidate group (csrc/common.cuh ft::GROUP)
 
@@ -49,11 +50,23 @@ launches = {
     "sweep_groupmax_2": 0,   # bf16 rows, two query planes (_kernel_qpair)
     "sweep_split_3": 0,      # f32 (hi, lo) planes, 3 terms (_kernel_split)
     "sweep_split_2": 0,      # f32 (hi, lo) planes, 2 terms (_kernel_split2)
+    "sweep_int8": 0,         # int8 codes, two exact passes (_kernel_int8)
+    "sweep_f16_2": 0,        # f16 bits, 3 terms (_kernel_f16_pair)
+    "sweep_f16_1": 0,        # f16 bits, 2 terms (_kernel_f16_1)
     "select_groups": 0,
     "rescore_groups": 0,     # bf16 rows (_rescore_kernel)
     "rescore_groups_pair": 0,  # f32 hi + lo planes (_rescore_kernel, db2)
+    "rescore_groups_int8": 0,  # int8 codes against q∘s (_rescore_kernel)
+    "rescore_groups_f16": 0,   # f16 bits (_rescore_kernel, int16 mode)
     "final_select": 0,
 }
+
+# ft_rescore_groups' row formats (csrc/rescore_groups.cu enum Rows) and
+# their launch counters, by the dtype of the rows; the pair mode apart
+_RESCORE_FMT = {torch.bfloat16: (0, "rescore_groups"),
+                torch.int8: (2, "rescore_groups_int8"),
+                torch.float16: (3, "rescore_groups_f16")}
+_RESCORE_PAIR = (1, "rescore_groups_pair")
 
 
 def reset_launches() -> None:
@@ -85,25 +98,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfaiss_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands side by side; once all have ended, raise with the
+    first failure's command and errors."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True))
+             for c in cmds]
+    failed = []
+    for c, p in procs:
+        _, err = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{err}")
+    if failed:
+        raise RuntimeError(failed[0])
+
+
 def build() -> Path:
-    """Compile every ``csrc/*.cu`` into one library (once per source hash)."""
+    """Compile every ``csrc/*.cu`` (in parallel) and link them into one
+    library, once per source hash."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{r.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [os.path.join(tmp, p.stem + ".o") for p in srcs]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                  for p, o in zip(srcs, objs)])
+        lib = os.path.join(tmp, out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 
@@ -114,8 +139,10 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         sigs = {
             "ft_sweep_groupmax": [P, P, I, P, P, P, P, I, I, I, I, P],
+            "ft_sweep_f16": [P, P, I, P, P, P, I, I, I, I, P],
+            "ft_sweep_int8": [P, P, P, P, P, P, I, I, I, I, P],
             "ft_select_groups": [P, P, P, I, I, I, P],
-            "ft_rescore_groups": [P, P, P, P, P, P, I, I, I, I, I, P],
+            "ft_rescore_groups": [P, P, P, P, P, P, I, I, I, I, I, I, P],
             "ft_final_select": [P, P, P, I, I, I, P],
         }
         for name, argtypes in sigs.items():
@@ -167,31 +194,41 @@ def _launch(name: str, fn_name: str, *args) -> None:
     launches[name] += 1
 
 
-def _sweep(counter, q_hi, q_lo, db, db_lo, vn, metric) -> torch.Tensor:
-    """Launch ft_sweep_groupmax after the checks both sweep wrappers share."""
-    planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
-    dbs = (db,) if db_lo is None else (db, db_lo)
+def _check_sweep(planes, dbs, vn, *, q_dtype, db_dtype, align: int):
+    """The checks every sweep wrapper shares; returns (nq, d, ngroups)."""
     for i, p in enumerate(planes):
-        _check(p, f"q_plane{i}", torch.bfloat16, 2)
+        _check(p, f"q_plane{i}", q_dtype, 2)
     for i, p in enumerate(dbs):
-        _check(p, f"db_plane{i}", torch.bfloat16, 2)
+        _check(p, f"db_plane{i}", db_dtype, 2)
     _check(vn, "vn", torch.float32, 1)
-    nq, d = q_hi.shape
+    nq, d = planes[0].shape
+    db = dbs[0]
     nv_eff = vn.shape[0]
-    if any(p.shape != q_hi.shape for p in planes) \
+    if any(p.shape != planes[0].shape for p in planes) \
             or any(p.shape != db.shape for p in dbs) or db.shape[1] != d:
         raise ValueError("query planes and db planes disagree on shape")
-    if d % 8 or nv_eff % GROUP or nv_eff > db.shape[0]:
-        raise ValueError(f"need d % 8 == 0 and 128 | nv_eff ≤ capacity "
+    if d % align or nv_eff % GROUP or nv_eff > db.shape[0]:
+        raise ValueError(f"need d % {align} == 0 and 128 | nv_eff ≤ capacity "
                          f"(d={d}, nv_eff={nv_eff}, cap={db.shape[0]})")
-    ngroups = nv_eff // GROUP
+    return _int32(nq, "nq"), _int32(d, "d"), _int32(nv_eff // GROUP, "ngroups")
+
+
+def _sweep(counter, q_hi, q_lo, db, db_lo, vn, metric,
+           f16: bool = False) -> torch.Tensor:
+    """Launch ft_sweep_groupmax (bf16 rows or planes) or, with ``f16``,
+    ft_sweep_f16 (f16 rows) after the shared checks."""
+    planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
+    dbs = (db,) if db_lo is None else (db, db_lo)
+    nq, d, ngroups = _check_sweep(
+        planes, dbs, vn, q_dtype=torch.bfloat16,
+        db_dtype=torch.float16 if f16 else torch.bfloat16, align=8)
     gm = torch.empty((nq, ngroups), dtype=torch.float32, device=db.device)
+    head = (q_hi.data_ptr(), planes[-1].data_ptr(), len(planes), db.data_ptr())
+    if not f16:
+        head += (None if db_lo is None else db_lo.data_ptr(),)
     with torch.cuda.device(db.device):
-        _launch(counter, "ft_sweep_groupmax",
-                q_hi.data_ptr(), planes[-1].data_ptr(), len(planes),
-                db.data_ptr(), None if db_lo is None else db_lo.data_ptr(),
-                vn.data_ptr(), gm.data_ptr(),
-                _int32(nq, "nq"), _int32(d, "d"), _int32(ngroups, "ngroups"),
+        _launch(counter, "ft_sweep_f16" if f16 else "ft_sweep_groupmax",
+                *head, vn.data_ptr(), gm.data_ptr(), nq, d, ngroups,
                 int(metric is MetricType.L2))
     return gm
 
@@ -224,6 +261,43 @@ def sweep_split(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
                   vn, metric)
 
 
+def sweep_f16(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
+              db: torch.Tensor, vn: torch.Tensor, *,
+              metric: MetricType) -> torch.Tensor:
+    """(nq, nv_eff/128) group maxes over f16 rows (float16, the stored
+    bits), each decoded in-register to its exact (hi, lo) bf16 pair:
+    qh·dh + qh·dl + ql·dh with two query planes (_kernel_f16_pair),
+    q1·dh + q1·dl when ``q_lo`` is None (_kernel_f16_1)."""
+    planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
+    if not _on_cuda(*planes, db, vn):
+        from .fused import sweep_f16_plain
+        return sweep_f16_plain(q_hi, q_lo, db, vn, metric=metric)
+    return _sweep(f"sweep_f16_{len(planes)}", q_hi, q_lo, db, None, vn, metric,
+                  f16=True)
+
+
+def sweep_int8(q1: torch.Tensor, q2: torch.Tensor, db: torch.Tensor,
+               vn: torch.Tensor, beta: torch.Tensor, *,
+               metric: MetricType) -> torch.Tensor:
+    """(nq, nv_eff/128) group maxes over int8 codes of
+    β₁·(q₁·v) + β₂·(q₂·v), the two integer dots exact (_kernel_int8);
+    ``beta`` is (nq, 2) f32."""
+    if not _on_cuda(q1, q2, db, vn, beta):
+        from .fused import sweep_int8_plain
+        return sweep_int8_plain(q1, q2, db, vn, beta, metric=metric)
+    nq, d, ngroups = _check_sweep((q1, q2), (db,), vn, q_dtype=torch.int8,
+                                  db_dtype=torch.int8, align=16)
+    _check(beta, "beta", torch.float32, 2)
+    if beta.shape != (nq, 2):
+        raise ValueError(f"beta: expected ({nq}, 2), got {tuple(beta.shape)}")
+    gm = torch.empty((nq, ngroups), dtype=torch.float32, device=db.device)
+    with torch.cuda.device(db.device):
+        _launch("sweep_int8", "ft_sweep_int8", q1.data_ptr(), q2.data_ptr(),
+                db.data_ptr(), vn.data_ptr(), beta.data_ptr(), gm.data_ptr(),
+                nq, d, ngroups, int(metric is MetricType.L2))
+    return gm
+
+
 def select_groups(gm: torch.Tensor, kg: int):
     """(ascending top-kg group ids (nq, kg) int32, threshold t (nq,) f32)."""
     if not _on_cuda(gm):
@@ -246,16 +320,23 @@ def rescore_groups(queries: torch.Tensor, db: torch.Tensor, vn: torch.Tensor,
                    gidx: torch.Tensor, *, metric: MetricType,
                    db2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(nq, kg·128) fp32 scores of each query's nominated groups, against
-    the bf16 rows ``db``, or against hi + lo when ``db2`` (the lo plane of
-    f32 storage) is given."""
+    the rows ``db``: bf16 rows, int8 codes (pass the queries times the
+    scales), f16 bits decoded exactly, or hi + lo when ``db2`` (the lo
+    plane of f32 storage) is given with the bf16 hi plane."""
     dbs = (db,) if db2 is None else (db, db2)
     if not _on_cuda(queries, *dbs, vn, gidx):
         from .fused import rescore_groups_plain
         return rescore_groups_plain(queries, db, vn, gidx, metric=metric,
                                     db2=db2)
+    if db.dtype not in _RESCORE_FMT or (db2 is not None
+                                        and db.dtype != torch.bfloat16):
+        raise TypeError(f"rescore_groups takes bf16, int8 or float16 rows "
+                        f"(a lo plane with bf16 only), got {db.dtype}")
+    fmt, counter = _RESCORE_FMT[db.dtype] if db2 is None else _RESCORE_PAIR
+    align = 16 if db.dtype == torch.int8 else 8
     _check(queries, "queries", torch.float32, 2)
     for i, p in enumerate(dbs):
-        _check(p, f"db_plane{i}", torch.bfloat16, 2)
+        _check(p, f"db_plane{i}", db.dtype, 2)
     _check(vn, "vn", torch.float32, 1)
     _check(gidx, "gidx", torch.int32, 2)
     nq, d = queries.shape
@@ -264,19 +345,18 @@ def rescore_groups(queries: torch.Tensor, db: torch.Tensor, vn: torch.Tensor,
     if any(p.shape != db.shape for p in dbs) or db.shape[1] != d \
             or gidx.shape[0] != nq:
         raise ValueError("queries, db planes and gidx disagree on shape")
-    if d % 8 or nv_eff % GROUP or nv_eff > db.shape[0] or kg == 0:
-        raise ValueError(f"need d % 8 == 0, 128 | nv_eff ≤ capacity, kg > 0 "
-                         f"(d={d}, nv_eff={nv_eff}, kg={kg})")
+    if d % align or nv_eff % GROUP or nv_eff > db.shape[0] or kg == 0:
+        raise ValueError(f"need d % {align} == 0, 128 | nv_eff ≤ capacity, "
+                         f"kg > 0 (d={d}, nv_eff={nv_eff}, kg={kg})")
     out = torch.empty((nq, kg * GROUP), dtype=torch.float32,
                       device=db.device)
     with torch.cuda.device(db.device):
-        _launch("rescore_groups" if db2 is None else "rescore_groups_pair",
-                "ft_rescore_groups", queries.data_ptr(), db.data_ptr(),
+        _launch(counter, "ft_rescore_groups", queries.data_ptr(), db.data_ptr(),
                 None if db2 is None else db2.data_ptr(), vn.data_ptr(),
                 gidx.data_ptr(), out.data_ptr(),
                 _int32(nq, "nq"), _int32(d, "d"), _int32(kg, "kg"),
                 _int32(nv_eff // GROUP, "ngroups"),
-                int(metric is MetricType.L2))
+                int(metric is MetricType.L2), fmt)
     return out
 
 

@@ -1,0 +1,108 @@
+"""Where the time of one faiss_tpu_torch search goes, on one CUDA card.
+
+    python scripts/torch_profile.py [--configs bf16,f32,f32_sift,pair,int8,f16]
+                                    [--searches 20] [--nv 1000000]
+
+Builds each configuration at SIFT1M shape (nv×128, nq=100, k=10; data from
+numpy.random.default_rng(42) as chip_smoke.py and bench.py make it), runs
+two warm-up searches (the first may pin the one-plane shape), then
+torch.profiler over ``--searches`` synchronous ``search`` calls. Prints one
+line per configuration: device time per batch by part (the sweep kernel,
+the group select, the rescore, the final select, every other kernel and
+copy), device busy, host wall per batch (profiler on) and the device's idle
+share, plus the card's name and power limit. Imports nothing of jax or
+faiss_tpu; exits 1 without a card.
+"""
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+D, NQ, K = 128, 100, 10
+PARTS = (("sweep", ("sweep_groupmax_kernel", "sweep_int8_kernel")),
+         ("select_groups", ("select_groups_kernel",)),
+         ("rescore", ("rescore_groups_kernel",)),
+         ("final_select", ("final_select_kernel",)))
+
+
+def profile(torch, idx, xq, searches: int) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    for _ in range(2):
+        idx.search(xq, K)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(searches):
+            idx.search(xq, K)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / searches * 1e3
+    out = {name: 0.0 for name, _ in PARTS}
+    other = 0.0
+    for evt in prof.events():       # the card's kernels, copies and sets
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.time_range.elapsed_us()
+        part = next((name for name, keys in PARTS
+                     if any(k in evt.name for k in keys)), None)
+        if part is None:
+            other += us
+        else:
+            out[part] += us
+    out = {k: v / searches / 1e3 for k, v in out.items()}
+    out["other"] = other / searches / 1e3
+    busy = sum(out.values())
+    out.update(device_busy=busy, host_wall=wall,
+               idle_share=1.0 - busy / wall,
+               fused_fallbacks=idx.fused_fallbacks)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--configs", default="bf16,f32,f32_sift,pair,int8,f16")
+    ap.add_argument("--searches", type=int, default=20)
+    ap.add_argument("--nv", type=int, default=1_000_000)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_profile: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import faiss_tpu_torch as ft
+
+    rng = np.random.default_rng(42)
+    xb = rng.standard_normal((args.nv, D), dtype=np.float32)
+    xq = rng.standard_normal((NQ, D), dtype=np.float32)
+    xb_i = rng.integers(0, 256, (args.nv, D)).astype(np.float32)
+    xq_i = rng.integers(0, 256, (NQ, D)).astype(np.float32)
+    configs = {"bf16": (xb, xq, dict(storage="bf16")),
+               "f32": (xb, xq, {}),
+               "f32_sift": (xb_i, xq_i, {}),
+               "pair": (xb, xq, dict(keep_master=False)),
+               "int8": (xb, xq, dict(storage="int8")),
+               "f16": (xb, xq, dict(storage="f16"))}
+    print(ft.gpu_name_and_power_limit(), flush=True)
+    for name in args.configs.split(","):
+        base, queries, kw = configs[name]
+        idx = ft.TorchIndexFlat(D, device="cuda", **kw)
+        idx.add(base)
+        torch.cuda.synchronize()
+        row = profile(torch, idx, queries, args.searches)
+        print(json.dumps({"config": name, "metric": "l2",
+                          "ms_per_batch": row}), flush=True)
+        del idx
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

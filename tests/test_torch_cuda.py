@@ -10,9 +10,18 @@ bit for bit; sweep and rescore within the query's two-plane ε, which bounds
 the accumulation error of both sides (f32 planes: the pair sweep's ε, and
 ε₂ of ``_pair_rescore_eps`` for the pair rescore).
 
-The f32 certificate soundness cases (``check_sweep_eps_sound``,
-``check_pair_eps_sound``) take a device: tests/test_torch_f32.py runs them
-on the plain versions on the CPU, this module on the kernels.
+int8 (K5 ``sweep_int8``, K10's int8 mode) and f16 (K6 ``sweep_f16_2``, K7
+``sweep_f16_1``, K10's f16 mode): K5 equals its plain version bit for bit
+(exact integer dots, then the same three roundings in the same order); the
+f16 sweeps within the pair ε; the rescores within the rescore term of
+their bound (``rescore_term``); the in-kernel f16 decode equals the plain
+decode on all 65,536 patterns.
+
+The certificate soundness cases (``check_sweep_eps_sound``,
+``check_pair_eps_sound``, ``check_sweep_eps_sound_f16``,
+``check_int8_eps_sound``) take a device: tests/test_torch_f32.py,
+test_torch_f16.py and test_torch_int8.py run them on the plain versions on
+the CPU, this module on the kernels.
 """
 
 import time
@@ -23,7 +32,9 @@ import torch
 
 from faiss_tpu_torch import MetricType, TorchIndexFlat
 from faiss_tpu_torch.ops import distance, fused, kernels
-from faiss_tpu_torch.storage import split_f32_bf16, split_stats
+from faiss_tpu_torch.storage import (decode_f16_bits, encode_f16_bits,
+                                     flush_f16_subnormals,
+                                     split_f32_bf16, split_stats)
 
 pytestmark = pytest.mark.cuda
 
@@ -356,3 +367,304 @@ def test_index_f32_integer_data_takes_hi_exact(dev, monkeypatch):
     D2, I2 = idx.search(xq, 10)
     np.testing.assert_array_equal(I1, I2)
     np.testing.assert_array_equal(D1, D2)
+
+
+# -- int8 storage: K5 and K10's int8 mode -----------------------------------
+
+
+def rescore_term(q, v_max, norms, nv, d, metric):
+    """(nq,) bound on |rescore − rescore'| for two fp32-true rescores of
+    the same rows: each errs ≤ d·u·‖q‖·V, plus the epilogues (the rescore
+    terms (3)-(5) of ``_sweep_eps``). ``q``: the fp32 query the rescore
+    multiplies (q∘s for int8), ``v_max``: max‖v‖ of the rows it reads."""
+    Q = torch.sqrt(torch.sum(q * q, dim=-1))
+    N = torch.amax(norms[:nv])
+    return fused._epilogue_eps(2.0 * d * fused._U32 * Q * v_max, Q, v_max, N,
+                               metric)
+
+
+def int8_db(dev, nv, d, ntotal, seed=0):
+    """Random codes in [-127, 127] with edge rows: all +127, all -127, a
+    zero row, alternating ±127; rows past ntotal zero. Returns (codes,
+    scales, decoded norms, int_norm_max) on ``dev``."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-127, 128, (nv, d)).astype(np.int8)
+    codes[1], codes[2], codes[3] = 127, -127, 0
+    codes[4] = np.where(np.arange(d) % 2 == 0, 127, -127)
+    codes[ntotal:] = 0
+    scales = (rng.random(d).astype(np.float32) + 0.5) / 127.0
+    c = torch.from_numpy(codes).to(dev)
+    s = torch.from_numpy(scales).to(dev)
+    dec = c.to(torch.float32) * s[None, :]
+    cf = c.to(torch.float32)
+    return (c, s, torch.sum(dec * dec, dim=-1),
+            torch.sqrt(torch.amax(torch.sum(cf * cf, dim=-1))))
+
+
+def _equal_or_same_nonfinite(a, b):
+    fin = torch.isfinite(b)
+    assert torch.equal(fin, torch.isfinite(a))
+    assert bool((a[fin] == b[fin]).all()), float((a[fin] - b[fin]).abs().max())
+    assert bool((a[~fin].nan_to_num() == b[~fin].nan_to_num()).all())
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("nq,d", [(8, 16), (37, 144), (104, 128), (16, 1152)])
+def test_int8_sweep_and_rescore_match_plain(dev, metric, nq, d):
+    """K5 equal to its plain version bit for bit on edge codes (±127 rows,
+    a zero row, rows past ntotal; d 1152 passes 2^24 in the int32 dots);
+    K10's int8 mode within its rescore term, the masked rows −inf."""
+    nv, ntotal = 8192, 8000
+    codes, scales, norms, inm = int8_db(dev, nv, d, ntotal, seed=d)
+    q = torch.randn((nq, d), generator=torch.Generator().manual_seed(1))
+    q = (q * 3.0).to(dev)
+    q[0] = 1.0 / scales                    # q∘s all ones: q₁ all 127
+    vn = fused._premask_norms(norms, ntotal, nv, metric)
+    q1, q2, b1, b2 = fused.int8_query_pair(q, scales)
+    beta = torch.stack([b1, b2], dim=1)
+    n0 = kernels.launches["sweep_int8"]
+    gm = kernels.sweep_int8(q1, q2, codes, vn, beta, metric=metric)
+    assert kernels.launches["sweep_int8"] == n0 + 1
+    _equal_or_same_nonfinite(
+        gm, fused.sweep_int8_plain(q1, q2, codes, vn, beta, metric=metric))
+    gidx, _ = kernels.select_groups(gm, 14)
+    gidx[:, -1] = nv // 128 - 1            # the partly stored last group
+    gidx = torch.sort(gidx, dim=1)[0].contiguous()
+    qs = q * scales[None, :]
+    n0 = kernels.launches["rescore_groups_int8"]
+    s = kernels.rescore_groups(qs, codes, vn, gidx, metric=metric)
+    assert kernels.launches["rescore_groups_int8"] == n0 + 1
+    s_p = fused.rescore_groups_plain(qs, codes, vn, gidx, metric=metric)
+    assert bool(torch.isneginf(s[:, -128:]).all())   # group 63: past ntotal
+    _within_eps(s, s_p, rescore_term(qs, inm, norms, nv, d, metric))
+    torch.cuda.synchronize()
+
+
+def check_int8_eps_sound(dev, metric, d: int = 1152, nq: int = 8):
+    """|int8 sweep − rescore| ≤ ε (``_sweep_eps_int8``) on every row of
+    adversarial codes: rows of ±127 (a few ±125) sharing the queries' sign
+    pattern, so the exact dots a_i pass 2^24 and their conversions to f32
+    round (at d = 1152). Groups hold one row 128 times, so the check is
+    pointwise; k = nv nominates every group. Returns (ε, a₁) for the
+    caller's checks."""
+    nv = 2048
+    rng = np.random.default_rng(d)
+    sign = np.where(rng.random(d) < 0.5, -1, 1)
+    base = np.where(rng.random((nv // 128, d)) < 0.03, -1, 1) * sign
+    mag = np.where(rng.random((nv // 128, d)) < 0.05, 125, 127)
+    codes = np.repeat((base * mag).astype(np.int8), 128, axis=0)
+    xq = (sign * (1.0 + 0.02 * rng.random((nq, d)))).astype(np.float32)
+    c = torch.from_numpy(codes).to(dev)
+    scales = torch.ones((d,), device=dev)
+    cf = c.to(torch.float32)
+    norms = torch.sum(cf * cf, dim=-1)
+    inm = torch.sqrt(torch.amax(norms))
+    q = torch.from_numpy(xq).to(dev)
+    vn = fused._premask_norms(norms, nv, nv, metric)
+    gm = fused.int8_groupmax_scores(q, c, vn, scales, metric=metric)
+    vals, ids, cert = fused.fused_search(
+        q, c, norms, nv, k=nv, metric=metric, nv_eff=nv, scales=scales,
+        int_norm_max=inm)
+    assert bool(cert.all())
+    s = torch.full((nq, nv), float("nan"), device=dev)
+    s.scatter_(1, ids.to(torch.int64), vals)
+    resc_gmax = s.view(nq, nv // 128, 128).amax(-1)
+    eps = fused._sweep_eps_int8(q, scales, inm, norms, nv, metric=metric,
+                                d_pad=d)
+    gap = (resc_gmax - gm).abs()
+    assert bool((gap <= eps[:, None]).all()), float((gap - eps[:, None]).max())
+    q1 = fused.int8_query_pair(q, scales)[0]
+    a1 = q1.to(torch.float64) @ c[::128].to(torch.float64).T
+    return eps, a1
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+def test_int8_eps_sound_on_kernels(dev, metric):
+    _, a1 = check_int8_eps_sound(dev, metric, nq=64)
+    assert float(a1.abs().max()) > 2 ** 24
+
+
+# -- f16 storage: K6, K7 and K10's f16 mode ----------------------------------
+
+
+def f16_db(dev, x: np.ndarray):
+    """f16 rows as the store keeps them: RNE, subnormals flushed; the fp32
+    norms of the input; the split statistics of the decoded pair."""
+    xd = torch.from_numpy(x).to(dev)
+    bits = flush_f16_subnormals(encode_f16_bits(xd))
+    v32 = decode_f16_bits(bits)
+    return (bits, (xd * xd).sum(-1),
+            split_stats(v32, *split_f32_bf16(v32)))
+
+
+def all_f16_patterns(dev):
+    """The 65,536 f16 bit patterns as a float16 tensor."""
+    return torch.arange(-32768, 32768, dtype=torch.int32).to(
+        torch.int16).view(torch.float16).to(dev)
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("nq,d,passes", [(8, 8, 2), (37, 136, 1),
+                                         (37, 136, 2), (104, 128, 1),
+                                         (104, 128, 2)])
+def test_f16_sweep_and_rescore_match_plain(dev, metric, nq, d, passes):
+    """K6 (two planes) and K7 (one) within the pair ε, K10's f16 mode
+    within its rescore term, on finite rows; a last group partly stored."""
+    nv, ntotal = 8192, 8000
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn((nv, d), generator=g) * 3.0
+    x[ntotal:] = 0
+    bits, norms, stats = f16_db(dev, x.numpy())
+    q = torch.randn((nq, d), generator=torch.Generator().manual_seed(1)).to(dev)
+    vn = fused._premask_norms(norms, ntotal, nv, metric)
+    qh, ql = fused.query_planes(q, passes)
+    name = f"sweep_f16_{passes}"
+    n0 = kernels.launches[name]
+    gm = kernels.sweep_f16(qh, ql, bits, vn, metric=metric)
+    assert kernels.launches[name] == n0 + 1
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                           single_pass=passes == 1, pair_sweep=True,
+                           split_stats=stats)
+    _within_eps(gm, fused.sweep_f16_plain(qh, ql, bits, vn, metric=metric),
+                eps)
+    gidx, _ = kernels.select_groups(gm, 14)
+    gidx[:, -1] = nv // 128 - 1
+    gidx = torch.sort(gidx, dim=1)[0].contiguous()
+    n0 = kernels.launches["rescore_groups_f16"]
+    s = kernels.rescore_groups(q, bits, vn, gidx, metric=metric)
+    assert kernels.launches["rescore_groups_f16"] == n0 + 1
+    assert bool(torch.isneginf(s[:, -128:]).all())   # group 63: past ntotal
+    v_max = torch.sqrt(torch.amax(norms)) * fused._QUANT_V
+    _within_eps(s, fused.rescore_groups_plain(q, bits, vn, gidx,
+                                              metric=metric),
+                rescore_term(q, v_max, norms, nv, d, metric))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("passes", [1, 2])
+def test_f16_sweeps_on_inf_and_nan_patterns(dev, passes):
+    """Rows holding ±inf and NaN patterns (each decodes to ±inf): the
+    kernel's group maxes equal the plain version's in place and kind of
+    every non-finite entry, and within ε elsewhere (the ε of the finite
+    rows: the clean groups)."""
+    nv, d, nq = 4096, 64, 40
+    rng = np.random.default_rng(passes)
+    x = rng.standard_normal((nv, d)).astype(np.float32)
+    bits, norms, _ = f16_db(dev, x)
+    h = bits.view(torch.int16).clone()
+    for r, pat in ((5, 0x7C00), (300, -0x0400), (301, 0x7E01),
+                   (302, -0x0100), (2000, 0x7C00), (2000 + 7, -0x0400)):
+        h[r, r % d] = pat                  # +inf, -inf, NaN, -NaN, both
+    dirty = h.view(torch.float16)
+    q = torch.randn((nq, d), generator=torch.Generator().manual_seed(3))
+    q = q.to(dev)
+    clean_stats = f16_db(dev, x)[2]
+    for metric in METRICS:
+        vn = fused._premask_norms(norms, nv, nv, metric)
+        qh, ql = fused.query_planes(q, passes)
+        gm = kernels.sweep_f16(qh, ql, dirty, vn, metric=metric)
+        gm_p = fused.sweep_f16_plain(qh, ql, dirty, vn, metric=metric)
+        fin = torch.isfinite(gm_p)
+        assert not bool(fin.all())
+        assert torch.equal(fin, torch.isfinite(gm))
+        assert bool((gm[~fin].nan_to_num() == gm_p[~fin].nan_to_num()).all())
+        eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                               single_pass=passes == 1, pair_sweep=True,
+                               split_stats=clean_stats)
+        err = torch.where(fin, (gm - gm_p).abs(), torch.zeros_like(gm))
+        assert bool((err <= eps[:, None]).all())
+
+
+def test_f16_decode_in_kernel_on_every_pattern(dev):
+    """The rescore kernel's f16 decode on all 65,536 patterns equals the
+    plain decode (NaN → ±inf): row r holds pattern r in column 0 and zeros
+    elsewhere, the query is e₀, so each score is 1·f + 0·0 + … = f (no
+    inf·0). A −0 pattern scores +0, which compares equal."""
+    pats = all_f16_patterns(dev)
+    nv, d = pats.shape[0], 8
+    db = torch.zeros((nv, d), dtype=torch.float16, device=dev)
+    db[:, 0] = pats
+    q = torch.zeros((1, d), device=dev)
+    q[0, 0] = 1.0
+    vn = torch.zeros((nv,), device=dev)
+    gidx = torch.arange(nv // 128, dtype=torch.int32, device=dev)[None, :]
+    s = kernels.rescore_groups(q, db, vn, gidx.contiguous(),
+                               metric=MetricType.INNER_PRODUCT)
+    want = decode_f16_bits(pats)
+    assert not bool(want.isnan().any())
+    assert bool((s[0] == want).all())
+
+
+# the f16 rows of the soundness cases: (sweep passes, metric, db scale,
+# const groups); 1e4 keeps |x| < 65504 (4.5σ at this size)
+CERT_CASES_F16 = [
+    (2, MetricType.L2, 1.0, True),
+    (2, MetricType.L2, 1e4, True),       # norm-skewed
+    (1, MetricType.L2, 1e4, False),
+    (2, MetricType.INNER_PRODUCT, 1e4, True),
+    (1, MetricType.INNER_PRODUCT, 1.0, True),
+]
+
+
+def check_sweep_eps_sound_f16(dev, case: int, nq: int = 64) -> None:
+    """|f16 sweep group max − best rescore of the group| ≤ the pair ε with
+    the f16 split statistics, for every (query, group); k = nv nominates
+    every group, so the search rescores every row."""
+    passes, metric, scale, const = CERT_CASES_F16[case]
+    nv, d = 2048, 128
+    rng = np.random.default_rng(9100 + case)
+    if const:
+        xb = np.repeat(rng.standard_normal((nv // 128, d)).astype(np.float32),
+                       128, axis=0)
+    else:
+        xb = rng.standard_normal((nv, d)).astype(np.float32)
+    xb = _planted(xb * np.float32(scale))
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
+    q = q.to(dev)
+    bits, norms, stats = f16_db(dev, xb)
+    vn = fused._premask_norms(norms, nv, nv, metric)
+    gm = fused.groupmax_scores(q, bits, vn, metric=metric, sweep_passes=passes)
+    vals, ids, cert = fused.fused_search(
+        q, bits, norms, nv, k=nv, metric=metric, nv_eff=nv,
+        sweep_passes=passes, split_stats=stats)
+    assert bool(cert.all())
+    s = torch.full((nq, nv), float("nan"), device=dev)
+    s.scatter_(1, ids.to(torch.int64), vals)
+    assert not bool(s.isnan().any())
+    resc_gmax = s.view(nq, nv // 128, 128).amax(-1)
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                           single_pass=passes == 1, pair_sweep=True,
+                           split_stats=stats)[:, None]
+    gap = (resc_gmax - gm).abs()
+    assert bool((gap <= eps).all()), float((gap - eps).max())
+
+
+@pytest.mark.parametrize("case", range(len(CERT_CASES_F16)))
+def test_sweep_eps_sound_f16_on_kernels(dev, case):
+    check_sweep_eps_sound_f16(dev, case, nq=256)
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("storage", ["int8", "f16"])
+def test_index_int8_f16_fused_matches_plain(dev, metric, storage,
+                                            monkeypatch):
+    """The index's fused path launches the slice's kernels and returns the
+    plain path's ids; int8 auto-trains on the first batch."""
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    rng = np.random.default_rng(7)
+    xb = rng.standard_normal((50_000, 96), dtype=np.float32)
+    xq = rng.standard_normal((40, 96), dtype=np.float32)
+    idx = TorchIndexFlat(96, metric=metric, storage=storage, device=dev)
+    idx.add(xb)
+    assert idx.is_trained
+    want = (("sweep_int8", "rescore_groups_int8") if storage == "int8"
+            else ("sweep_f16_1", "rescore_groups_f16"))
+    before = dict(kernels.launches)
+    D1, I1 = idx.search(xq, 10)
+    assert all(kernels.launches[n] > before[n] for n in
+               want + ("select_groups", "final_select"))
+    idx.set_force_plain(True)
+    D2, I2 = idx.search(xq, 10)
+    np.testing.assert_array_equal(I1, I2)
+    np.testing.assert_allclose(D1, D2, rtol=1e-5, atol=1e-3)

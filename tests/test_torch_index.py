@@ -157,8 +157,12 @@ def test_bad_arguments():
         idx.add(np.zeros((2, D - 1), np.float32))
     with pytest.raises(IndexError):
         idx.reconstruct(50)
-    with pytest.raises(NotImplementedError):
-        TorchIndexFlat(D, storage="f16", device="cpu")
+    with pytest.raises(ValueError):
+        TorchIndexFlat(D, storage="f8", device="cpu")
+    with pytest.raises(RuntimeError):              # int8 scales frozen
+        i8 = TorchIndexFlat(D, storage="int8", device="cpu")
+        i8.train(np.ones((4, D), np.float32))
+        i8.train(np.ones((4, D), np.float32))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             TorchIndexFlat(D)             # the default device is "cuda"

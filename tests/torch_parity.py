@@ -53,3 +53,19 @@ def assert_within_eps(a, b, eps, what=""):
     assert not bad.any(), (
         f"{what}: {int(bad.sum())} entries beyond ε, worst "
         f"{(err - eps).max():.3e} over")
+
+
+def assert_ids_match(I_a, I_b, D_b, eps, what=""):
+    """Ids equal rank for rank, except where two stored rows score within
+    the query's ε of each other (a near-tie below the fp32 rescores'
+    resolution may order either way in the two packages): each id of
+    ``I_a`` off its place in ``I_b`` must sit at a rank of ``I_b`` whose
+    distance is within ε of this rank's, or, past the end of ``I_b``, within
+    ε of its last distance."""
+    I_a, I_b, D_b = np.asarray(I_a), np.asarray(I_b), np.asarray(D_b)
+    eps = np.broadcast_to(np.asarray(eps, np.float64).reshape(-1), (len(I_b),))
+    for r, p in np.argwhere(I_a != I_b):
+        where = np.nonzero(I_b[r] == I_a[r, p])[0]
+        other = D_b[r, where[0]] if where.size else D_b[r, -1]
+        assert abs(float(D_b[r, p]) - float(other)) <= eps[r], (
+            f"{what}: row {r} rank {p}: id {I_a[r, p]} vs {I_b[r, p]}")
