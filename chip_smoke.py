@@ -16,13 +16,25 @@ it. Each path's launch counts are zeroed just before it and read just after:
   f16       TorchIndexFlat(storage="f16"), Gaussian, L2 and IP, and an
             nq=8 L2 search (two query planes)
 
+  f32_10m   the slice's main path: TorchIndexFlat() (f32), L2, 10,000,000
+            rows (the 1M of the other paths, then 9M from
+            default_rng(SEED + 2) in 1M batches): 78,128 groups, so the
+            sweep also writes its supergroup maxes and phase 2 goes
+            hierarchical; its plain path's time at the same size beside it
+  surface   the flat surface at 1M through its entry points: filtered f32
+            and bf16 searches, a k=64 f32 search, rescore_select=True on the
+            bf16, int8 and f16 stores, merge_from, remove_ids, range_search,
+            IndexShardsHost and TorchIndexIDMap2 over it
+
 plus nq=8 (two-plane bf16 sweep) and a duplicated-vector index whose
 certificate fails, so both fallback tiers run. Before the searches each
 kernel is held against its plain PyTorch version at the main paths' shapes
 (nq_pad 104, d 128, nv_eff 1,000,448, kg 14, k 10), both timed with CUDA
-events. Recall@10 must be 1.0 against an fp64 oracle over the stored
-database (bf16 rows, the f32 master, hi + lo, the f16 values, or the int8
-codes times the scales) and the stored norms.
+events: the sweeps' supergroup-max output (every format, both metrics) and
+the rescore-select kernel (bf16, int8, f16) bit for bit. Recall@K must be
+1.0 against an fp64 oracle over the stored database (bf16 rows, the f32
+master, hi + lo, the f16 values, or the int8 codes times the scales) and
+the stored norms, computed on the card in chunks of 1M rows.
 
 Exits non-zero, printing no result, when CUDA is absent or any phase fails.
 The last three lines of stdout are the card's name and power limit
@@ -48,8 +60,10 @@ import time
 import numpy as np
 
 NV, D, NQ, K = 1_000_000, 128, 100, 10
+NV_10M = 10_000_000
 SEED = 42
 REPS = 20
+ORACLE_CHUNK = 1 << 20
 PF = "faiss_tpu/ops/pallas_fused.py"
 HBM_BPS = 3.35e12                                  # H100 SXM data sheet
 PEAK = {"bf16": 989e12, "f16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -124,13 +138,14 @@ def _bound(nbytes, ops, kind):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _sweep_bound(planes, dbs, vn, gm, terms, kind, extra=()):
+def _sweep_bound(planes, dbs, vn, gm, terms, kind, extra=(), extra_bytes=0):
     """A sweep reads its query planes, the nv_eff rows of each db plane
-    and the norm stream once and writes the group maxes; it does `terms`
-    products of (nq, d) by (d, nv_eff)."""
+    and the norm stream once and writes the group maxes (and, with
+    ``extra_bytes``, the supergroup maxes); it does `terms` products of
+    (nq, d) by (d, nv_eff)."""
     nq, d = planes[0].shape
     nv = vn.shape[0]
-    nbytes = _nbytes(*planes, vn, gm, *extra) + sum(
+    nbytes = _nbytes(*planes, vn, gm, *extra) + extra_bytes + sum(
         nv * d * t.element_size() for t in dbs)
     return _bound(nbytes, 2.0 * terms * nq * nv * d, kind)
 
@@ -143,6 +158,53 @@ def _rescore_bound(q, row_bytes, gidx, s):
     m = s.shape[1]
     return _bound(_nbytes(q, gidx, s) + nq * m * (d * row_bytes + 4),
                   2.0 * nq * m * d, "fp32")
+
+
+def _block_max(torch, name, launch):
+    """The sweep ``launch(with_block_max)``'s second output against the
+    plain amax over the (nq, ngroups/8, 8) view of its gm, bit for bit, and
+    its gm against the one-output launch's, bit for bit."""
+    from faiss_tpu_torch.ops import fused
+
+    gm, bmax = launch(True)
+    want = fused.block_max_plain(gm)
+    check(torch.equal(bmax.view(torch.int32), want.view(torch.int32)),
+          f"{name}: block max differs from amax of its group maxes")
+    check(torch.equal(gm.view(torch.int32), launch(False).view(torch.int32)),
+          f"{name}: the block-max launch's group maxes differ")
+
+
+def _rescore_select(torch, rows, name, idx, q, db, vn, gidx, metric,
+                    row_bytes, eps):
+    """K11 against K10 → candidate_drop → K9 on the same gidx, bit for bit
+    in values and ids, and against its plain version within the rescore
+    term ``eps`` (the two are fp32-true in different orders)."""
+    from faiss_tpu_torch.ops import fused, kernels
+
+    nt = idx.ntotal
+    vals, ids = kernels.rescore_select_groups(q, db, vn, gidx, nt, k=K,
+                                              metric=metric)
+    s = kernels.rescore_groups(q, db, vn, gidx, metric=metric)
+    v2, p2 = kernels.final_select(
+        s.masked_fill(fused.candidate_drop(gidx, nt), float("-inf")), K)
+    ids2 = torch.gather(fused.candidate_columns(gidx), 1, p2.to(torch.int64))
+    check(torch.equal(vals.view(torch.int32), v2.view(torch.int32))
+          and torch.equal(ids, ids2),
+          f"{name}: differs from rescore_groups → final_select")
+    vp, _ = fused.rescore_select_groups_plain(q, db, vn, gidx, nt, k=K,
+                                              metric=metric)
+    err = _within(torch, vals, vp, eps, name)
+    nq, d = q.shape
+    m = gidx.shape[1] * 128
+    bound = _bound(_nbytes(q, gidx, vals, ids) + nq * m * (d * row_bytes + 4),
+                   2.0 * nq * m * d, "fp32")
+    rows[name] = _row(
+        torch, err,
+        lambda: kernels.rescore_select_groups(q, db, vn, gidx, nt, k=K,
+                                              metric=metric),
+        lambda: fused.rescore_select_groups_plain(q, db, vn, gidx, nt, k=K,
+                                                  metric=metric),
+        50, bound)
 
 
 def _row(torch, err, kern, plain, reps, bound, lib=None):
@@ -199,6 +261,9 @@ def phase_kernels(torch, idx, xq, metric):
             lambda: kernels.sweep_groupmax(qh, ql, db, vn, metric=metric),
             lambda: fused.sweep_groupmax_plain(qh, ql, db, vn, metric=metric),
             20, _sweep_bound(planes, (db,), vn, gm, passes, "bf16"))
+        _block_max(torch, f"sweep_groupmax_{passes}",
+                   lambda bm: kernels.sweep_groupmax(
+                       qh, ql, db, vn, metric=metric, with_block_max=bm))
     check(gm.shape == (nq_pad, nv_eff // 128), "gm shape")
 
     def rescore(gidx):
@@ -210,6 +275,8 @@ def phase_kernels(torch, idx, xq, metric):
             lambda: fused.rescore_groups_plain(q, db, vn, gidx,
                                                metric=metric),
             50, _rescore_bound(q, 2, gidx, s))
+        _rescore_select(torch, rows, "rescore_select", idx, q, db, vn, gidx,
+                        metric, 2, eps)
         return s
 
     _selects(torch, rows, gm, rescore, kg)
@@ -243,7 +310,19 @@ def phase_f32_kernels(torch, idx, xq, metric):
             lambda: fused.sweep_split_plain(qh, ql, hi, lo, vn,
                                             metric=metric),
             20, _sweep_bound(planes, (hi, lo), vn, gm, passes + 1, "bf16"))
+        def launch(bm, qh=qh, ql=ql):
+            return kernels.sweep_split(qh, ql, hi, lo, vn, metric=metric,
+                                       with_block_max=bm)
+        _block_max(torch, name, launch)
         if passes == 2:
+            # the main path's format, K3, times the two-output launch
+            rows["sweep_block_max"] = _row(
+                torch, 0.0, lambda: launch(True),
+                lambda: fused.sweep_split_plain(qh, ql, hi, lo, vn,
+                                                metric=metric,
+                                                with_block_max=True),
+                20, _sweep_bound(planes, (hi, lo), vn, gm, 3, "bf16",
+                                 extra_bytes=_nbytes(gm) // 8))
             gidx, _ = kernels.select_groups(gm, K + fused.GROUP_PAD)
     eps2 = fused._pair_rescore_eps(q, st.norms, idx.ntotal, metric=metric,
                                    d_pad=st.d_pad,
@@ -297,6 +376,10 @@ def phase_int8_kernels(torch, idx, xq, metric):
         lambda: kernels.sweep_int8(q1, q2, db, vn, beta, metric=metric),
         lambda: fused.sweep_int8_plain(q1, q2, db, vn, beta, metric=metric),
         20, _sweep_bound((q1, q2), (db,), vn, gm, 2, "int8", extra=(beta,)))
+    _block_max(torch, "sweep_int8",
+               lambda bm: kernels.sweep_int8(q1, q2, db, vn, beta,
+                                             metric=metric,
+                                             with_block_max=bm))
     gidx, _ = kernels.select_groups(gm, K + fused.GROUP_PAD)
     qs = q * scales[None, :]
     s = kernels.rescore_groups(qs, db, vn, gidx, metric=metric)
@@ -308,6 +391,8 @@ def phase_int8_kernels(torch, idx, xq, metric):
         lambda: kernels.rescore_groups(qs, db, vn, gidx, metric=metric),
         lambda: fused.rescore_groups_plain(qs, db, vn, gidx, metric=metric),
         50, _rescore_bound(qs, 1, gidx, s))
+    _rescore_select(torch, rows, "rescore_select_int8", idx, qs, db, vn, gidx,
+                    metric, 1, term)
     _print_rows(metric, rows)
     return rows
 
@@ -337,6 +422,9 @@ def phase_f16_kernels(torch, idx, xq, metric):
             lambda: kernels.sweep_f16(qh, ql, db, vn, metric=metric),
             lambda: fused.sweep_f16_plain(qh, ql, db, vn, metric=metric),
             20, _sweep_bound(planes, (db,), vn, gm, passes + 1, "f16"))
+        _block_max(torch, name,
+                   lambda bm: kernels.sweep_f16(qh, ql, db, vn, metric=metric,
+                                                with_block_max=bm))
         if passes == 2:
             gidx, _ = kernels.select_groups(gm, K + fused.GROUP_PAD)
     v_max = torch.sqrt(torch.amax(st.norms)) * fused._QUANT_V
@@ -348,6 +436,8 @@ def phase_f16_kernels(torch, idx, xq, metric):
         lambda: kernels.rescore_groups(q, db, vn, gidx, metric=metric),
         lambda: fused.rescore_groups_plain(q, db, vn, gidx, metric=metric),
         50, _rescore_bound(q, 2, gidx, s))
+    _rescore_select(torch, rows, "rescore_select_f16", idx, q, db, vn, gidx,
+                    metric, 2, term)
     _print_rows(metric, rows)
     return rows
 
@@ -360,73 +450,92 @@ def _print_rows(metric, rows):
               f"({by}){lib}", flush=True)
 
 
-def stored_rows(torch, idx):
-    """The stored database the index certifies, as fp64: the bf16 rows, the
-    f32 master, hi + lo when pair only, the f16 values, or the int8 codes
-    times the scales (the decode of ``reconstruct``)."""
-    from faiss_tpu_torch import StorageType
+def _rows64(torch, idx, rows):
+    """The stored rows ``rows`` (a slice or an index tensor) decoded to
+    fp64, and their stored norms."""
     from faiss_tpu_torch.storage import decode_f16_bits
 
-    st, n = idx.store, idx.ntotal
+    st = idx.store
     if st.pair_only:
-        return (st.db_hi[:n, : idx.d].to(torch.float64)
-                + st.db_lo[:n, : idx.d].to(torch.float64))
-    rows = st.db[:n, : idx.d]
-    if st.storage is StorageType.INT8:
-        rows = rows.to(torch.float32) * st.scales[None, : idx.d]
-    elif st.storage is StorageType.FLOAT16:
-        rows = decode_f16_bits(rows)
-    return rows.to(torch.float64)
+        v = (st.db_hi[rows][..., : idx.d].to(torch.float64)
+             + st.db_lo[rows][..., : idx.d].to(torch.float64))
+    else:
+        v = st.db[rows][..., : idx.d]
+        if st.scales is not None:
+            v = v.to(torch.float32) * st.scales[: idx.d]
+        elif v.dtype == torch.float16:
+            v = decode_f16_bits(v)
+        v = v.to(torch.float64)
+    return v, st.norms[rows].to(torch.float64)
 
 
-def oracle_check(torch, idx, xq, metric, D, I):
-    """recall@K and max |D − D_oracle| / ε against an fp64 oracle over the
+def oracle_check(torch, idx, xq, metric, D, I, k=K, admit=None):
+    """recall@k and max |D − D_oracle| / ε against an fp64 oracle over the
     stored database and the stored fp32 norms (the ranking the index
-    certifies), computed on the card. ε is the query's two-plane
-    certificate bound, which covers the rescore's fp32 error."""
+    certifies; only the rows ``admit``, a host bool mask, lets through),
+    computed on the card in chunks of ORACLE_CHUNK rows with a running
+    stable top-k. ε is the query's two-plane certificate bound, which
+    covers the rescore's fp32 error."""
     from faiss_tpu_torch import MetricType
 
-    v = stored_rows(torch, idx)
-    q = torch.from_numpy(np.asarray(xq, np.float64)).to(v.device)
-    s = q @ v.T
-    if metric is MetricType.L2:
-        s = 2.0 * s - idx.store.norms[: idx.ntotal].to(torch.float64)
-    ref = torch.sort(s, dim=1, descending=True, stable=True)[1][:, :K]
-    got = torch.gather(s, 1, torch.from_numpy(I).to(v.device))
-    if metric is MetricType.L2:
-        got = (q * q).sum(1, keepdim=True) - got
+    l2 = metric is MetricType.L2
+    q = torch.from_numpy(np.asarray(xq, np.float64)).to(idx.store.norms.device)
+    top_v = top_i = None
+    for i0 in range(0, idx.ntotal, ORACLE_CHUNK):
+        n = min(ORACLE_CHUNK, idx.ntotal - i0)
+        v, nrm = _rows64(torch, idx, slice(i0, i0 + n))
+        s = q @ v.T
+        if l2:
+            s = 2.0 * s - nrm
+        if admit is not None:
+            ok = torch.from_numpy(admit[i0:i0 + n]).to(s.device)
+            s = s.masked_fill(~ok, float("-inf"))
+        v, i = torch.sort(s, dim=1, descending=True, stable=True)
+        v, i = v[:, :k], i[:, :k] + i0
+        if top_v is not None:   # the running list holds the lower ids
+            v, pos = torch.sort(torch.cat([top_v, v], 1), dim=1,
+                                descending=True, stable=True)
+            i = torch.gather(torch.cat([top_i, i], 1), 1, pos)
+            v, i = v[:, :k], i[:, :k]
+        top_v, top_i = v, i
+    rows, nrm = _rows64(torch, idx, torch.from_numpy(I).to(q.device))
+    got = torch.einsum("qd,qkd->qk", q, rows)
+    got = (q * q).sum(1, keepdim=True) - 2.0 * got + nrm if l2 else got
     qp, nq, _ = idx._prep_queries(xq)
     eps = _certificate_eps(idx, qp, metric)[:nq]
     rel = np.abs(got.cpu().numpy() - D) / eps.cpu().numpy()
-    ref = ref.cpu().numpy()
+    ref = top_i.cpu().numpy()
     hits = sum(len(set(a) & set(b)) for a, b in zip(ref.tolist(), I.tolist()))
     return hits / ref.size, float(rel.max())
 
 
-def drive(torch, label, idx, xq, metric):
-    """One checked search, REPS timed searches (host clock, copy-back
-    included) and one search_async, through the user entry points."""
+def drive(torch, label, idx, xq, metric, k=K, params=None, admit=None,
+          reps=REPS):
+    """One checked search, ``reps`` timed searches (host clock, copy-back
+    included) and one search_async, through the user entry points, with
+    the search parameters ``params`` (their selector as the host mask
+    ``admit``, for the oracle). Returns (D, I, host ms/batch)."""
     nq = len(xq)
-    D_, I_ = idx.search(xq, K)
-    check(D_.shape == (nq, K) and I_.shape == (nq, K), f"{label}: shape")
+    D_, I_ = idx.search(xq, k, params=params)
+    check(D_.shape == (nq, k) and I_.shape == (nq, k), f"{label}: shape")
     check(np.isfinite(D_).all() and (I_ >= 0).all(), f"{label}: sentinels")
-    rec, rel = oracle_check(torch, idx, xq, metric, D_, I_)
-    check(rec == 1.0, f"{label} {metric.value}: recall@{K} {rec} != 1.0")
+    rec, rel = oracle_check(torch, idx, xq, metric, D_, I_, k, admit)
+    check(rec == 1.0, f"{label} {metric.value}: recall@{k} {rec} != 1.0")
     check(rel <= 1.0, f"{label} {metric.value}: distance error {rel:.2e} ε")
     t0 = time.perf_counter()
-    for _ in range(REPS):
-        idx.search(xq, K)
-    ms = (time.perf_counter() - t0) / REPS * 1e3
-    tok = idx.search_async(xq, K)
+    for _ in range(reps):
+        idx.search(xq, k, params=params)
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    tok = idx.search_async(xq, k, params=params)
     Da, Ia = tok.wait()
     check(tok.is_ready() and np.array_equal(Ia, I_)
           and np.array_equal(Da, D_), f"{label}: search_async differs")
-    print(f"search {label} {metric.value} nq={nq}: recall@{K}={rec} "
+    print(f"search {label} {metric.value} nq={nq} k={k}: recall@{k}={rec} "
           f"max |D - D_oracle| = {rel:.2e} ε "
           f"ms/batch={ms:.4f} (host clock, incl. copy-back) "
           f"QPS={nq / ms * 1e3:.1f} "
           f"fused_fallbacks={idx.fused_fallbacks}", flush=True)
-    return I_
+    return D_, I_, ms
 
 
 def main_path(torch, label, runs, need):
@@ -455,6 +564,173 @@ def pipelined(torch, label, runs):
               f"ms/batch="
               f"{pipe_ms:.4f} (CUDA events, {REPS} searches enqueued back "
               f"to back)", flush=True)
+
+
+def phase_f32_10m(torch, ft, xb, xq):
+    """The slice's main path: f32, L2, 10M rows (xb, then 9M rows from
+    default_rng(SEED + 2) in 1M batches, so the host never holds more than
+    2M rows at once). 78,128 groups: the 3-term pair sweep also writes its
+    supergroup maxes and phase 2 ranks those first. Counts zeroed just
+    before the search loop and read just after; then the pipelined time and
+    the plain path's time at the same size, with its ids. Frees the index
+    before it returns."""
+    from faiss_tpu_torch import MetricType
+    from faiss_tpu_torch.ops import kernels
+
+    L2 = MetricType.L2
+    t0 = time.perf_counter()
+    idx = ft.TorchIndexFlat(D, metric=L2, device="cuda")
+    idx.add(xb)
+    rng = np.random.default_rng(SEED + 2)
+    for _ in range((NV_10M - NV) // NV):
+        idx.add(rng.standard_normal((NV, D), dtype=np.float32))
+    torch.cuda.synchronize()
+    check(idx.ntotal == NV_10M, f"f32_10m: ntotal {idx.ntotal}")
+    print(f"add f32_10m: {time.perf_counter() - t0:.3f} s, capacity "
+          f"{idx.store.capacity}, {idx.store.nbytes() / 1e9:.3f} GB",
+          flush=True)
+    kernels.reset_launches()
+    _, I_f, _ = drive(torch, "f32_10m", idx, xq, L2)
+    counts = dict(kernels.launches)
+    print(f"launches in the f32_10m main-path run: {counts}", flush=True)
+    check(counts["sweep_split_3"] > 0
+          and counts["sweep_block_max"] == counts["sweep_split_3"],
+          "f32_10m: the sweep did not write its supergroup maxes")
+    for key in ("select_groups", "rescore_groups_pair", "final_select"):
+        check(counts[key] > 0, f"f32_10m: kernel {key} was never launched")
+    pipelined(torch, "f32_10m", [(idx, xq, L2)])
+    idx.set_force_plain(True)
+    idx.search(xq, K)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        _, I_p = idx.search(xq, K)
+    plain_ms = (time.perf_counter() - t0) / 3 * 1e3
+    check(np.array_equal(I_p, I_f), "f32_10m: plain ids differ from fused")
+    print(f"search f32_10m l2 nq={len(xq)}: plain path ms/batch="
+          f"{plain_ms:.4f} (host clock, set_force_plain, 3 searches), ids "
+          f"equal to the fused path's; fused_fallbacks={idx.fused_fallbacks}",
+          flush=True)
+    del idx
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _fused_call(idx, xq, **kw):
+    """fused.fused_search over the index's store, as TorchIndexFlat calls
+    it (two query planes), for the rescore_select comparison."""
+    from faiss_tpu_torch import StorageType
+    from faiss_tpu_torch.ops import fused
+    from faiss_tpu_torch.storage import ROW_TILE, _round_up
+
+    st = idx.store
+    q, _, _ = idx._prep_queries(xq)
+    extra = {}
+    if st.storage is StorageType.INT8:
+        extra = dict(scales=st.scales, int_norm_max=st.int_norm_max)
+    elif st.storage is StorageType.FLOAT16:
+        extra = dict(split_stats=st.split_stats)
+    return fused.fused_search(q, st.db, st.norms, idx.ntotal, k=K,
+                              metric=idx.metric,
+                              nv_eff=_round_up(idx.ntotal, ROW_TILE),
+                              sweep_passes=2, **extra, **kw)
+
+
+def phase_surface(torch, ft, xb, xq, f32, bf16, int8, f16):
+    """The flat surface at 1M through its entry points, L2, with the counts
+    zeroed just before and read just after: filtered searches (kept on the
+    fused kernels), k=64, rescore_select=True, merge_from, remove_ids,
+    range_search, IndexShardsHost and TorchIndexIDMap2."""
+    from faiss_tpu_torch import MetricType
+    from faiss_tpu_torch.ops import kernels
+
+    L2 = MetricType.L2
+    rng = np.random.default_rng(SEED + 3)
+    sweeps = lambda: sum(n for key, n in kernels.launches.items()  # noqa
+                         if key.startswith("sweep_"))
+    kernels.reset_launches()
+
+    sel = (ft.IDSelectorRange(0, NV // 2)
+           | ft.IDSelectorBatch(rng.choice(NV, NV // 100, replace=False)))
+    admit = sel.is_member(np.arange(NV, dtype=np.int64))
+    for name, idx in (("f32", f32), ("bf16", bf16)):
+        n0 = sweeps()
+        _, I_, _ = drive(torch, f"filtered {name}", idx, xq, L2,
+                         params=ft.SearchParams(sel=sel), admit=admit, reps=3)
+        check(sweeps() > n0, f"filtered {name}: left the fused kernels")
+        check(admit[I_].all(), f"filtered {name}: a filtered row came back")
+    drive(torch, "k=64 f32", f32, xq, L2, k=64, reps=3)
+
+    for name, idx in (("bf16", bf16), ("int8", int8), ("f16", f16)):
+        a = _fused_call(idx, xq, rescore_select=True)
+        b = _fused_call(idx, xq)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"rescore_select {name}: differs from the default route")
+    print("rescore_select=True: ids, values and certificates equal the "
+          "default route's on bf16, int8 and f16", flush=True)
+
+    half = NV // 2
+    parts = (xb[:half], xb[half:])
+    a, b, whole = (ft.TorchIndexFlat(D, storage="bf16", device="cuda")
+                   for _ in range(3))
+    a.add(parts[0])
+    b.add(parts[1])
+    for part in parts:
+        whole.add(part)
+    a.merge_from(b)
+    check(b.ntotal == 0 and a.ntotal == NV, "merge_from: counts")
+    Da, Ia = a.search(xq, K)
+    Dw, Iw = whole.search(xq, K)
+    check(np.array_equal(Ia, Iw) and np.array_equal(Da, Dw),
+          "merge_from: search differs from the index built by the same adds")
+    print("merge_from: two 500,000-row bf16 indexes search as the one built "
+          "by the same adds, bit for bit in D and I", flush=True)
+    rm = rng.choice(NV, NV // 10, replace=False)
+    check(a.remove_ids(rm) == NV // 10 and a.ntotal == NV - NV // 10,
+          "remove_ids: counts")
+    drive(torch, "after remove_ids bf16", a, xq, L2, reps=3)
+    del a, b, whole
+
+    D100, _ = f32.search(xq, 100)
+    radius = float(np.median(D100[:, -1]))
+    lims, Dr, Ir = f32.range_search(xq, radius)
+    q64 = torch.from_numpy(xq.astype(np.float64)).to(f32.store.norms.device)
+    v, nrm = _rows64(torch, f32, slice(0, NV))
+    d64 = ((q64 * q64).sum(1, keepdim=True) - 2.0 * (q64 @ v.T)
+           + nrm).cpu().numpy()
+    del v
+    near = 0
+    for r in range(len(xq)):
+        want = set(np.nonzero(d64[r] < radius)[0].tolist())
+        got = set(Ir[lims[r]:lims[r + 1]].tolist())
+        diff = np.array(sorted(want ^ got), np.int64)
+        check(np.all(np.abs(d64[r, diff] - radius) <= 1e-4 * radius),
+              f"range_search: query {r} differs from the oracle's set")
+        near += diff.size
+    print(f"range_search f32 radius {radius:.4f}: {lims[-1] / len(xq):.1f} "
+          f"hits a query, equal to the fp64 oracle's set but for {near} "
+          f"rows within 1e-4·radius of the radius", flush=True)
+
+    w = ft.TorchIndexIDMap2(ft.IndexShardsHost(
+        [ft.TorchIndexFlat(D, storage="bf16", device="cuda")
+         for _ in range(2)]))
+    w.add_with_ids(parts[0], 10 * np.arange(half))
+    w.add_with_ids(parts[1], 10 * np.arange(half, NV))
+    I1 = bf16.search(xq, K)[1]
+    check(np.array_equal(w.index.search(xq, K)[1], I1),
+          "IndexShardsHost: ids differ from the 1M index's")
+    check(np.array_equal(w.search(xq, K)[1], 10 * I1),
+          "TorchIndexIDMap2: labels are not 10x the ids")
+    for i in (0, NV // 8, half, NV - 1):
+        check(np.array_equal(w.reconstruct(10 * i), bf16.reconstruct(i)),
+              f"TorchIndexIDMap2: reconstruct({10 * i})")
+    del w
+    counts = dict(kernels.launches)
+    print(f"launches in the surface run: {counts}", flush=True)
+    for key in ("rescore_select", "rescore_select_int8",
+                "rescore_select_f16"):
+        check(counts[key] > 0, f"surface: kernel {key} was never launched")
+    torch.cuda.empty_cache()
+    return counts
 
 
 def build_index(torch, ft, xb, metric, **kw):
@@ -611,6 +887,13 @@ def main() -> int:
           f"{dup.fused_fallbacks}, ids = plain path's; launches {nd}",
           flush=True)
 
+    # the slice's main path, then the surface; each frees what it builds
+    counts["f32_10m"] = phase_f32_10m(torch, ft, xb, xq)
+    counts["surface"] = phase_surface(torch, ft, xb, xq, f32[L2], bf16[L2],
+                                      int8[L2], f16[L2])
+
+    k11_note = ("reached through fused_search(rescore_select=True): "
+                "launches counted in the surface phase")
     meta = {
         "sweep_groupmax_1": ("sweep_groupmax.cu", f"{PF}:190", None),
         "sweep_groupmax_2": ("sweep_groupmax.cu", f"{PF}:174", None),
@@ -627,10 +910,15 @@ def main() -> int:
         "rescore_groups_int8": ("rescore_groups.cu", f"{PF}:1045", None),
         "rescore_groups_f16": ("rescore_groups.cu", f"{PF}:1035", None),
         "final_select": ("final_select.cu", f"{PF}:809", None),
+        "sweep_block_max": ("sweep_groupmax.cu", f"{PF}:155", None),
+        "rescore_select": ("rescore_select.cu", f"{PF}:1195", k11_note),
+        "rescore_select_int8": ("rescore_select.cu", f"{PF}:1195", k11_note),
+        "rescore_select_f16": ("rescore_select.cu", f"{PF}:1195", k11_note),
     }
     table = []
     for key, (src, rep, note) in meta.items():
-        n = k4_launches if note else sum(c[key] for c in counts.values())
+        n = k4_launches if key == "sweep_split_2" \
+            else sum(c[key] for c in counts.values())
         err, ms, pms, (bms, by), lms = rows[key]
         entry = {"name": key, "route": "cuda",
                  "source": f"faiss_tpu_torch/csrc/{src}", "replaces": rep,
@@ -640,6 +928,8 @@ def main() -> int:
         if note:
             entry["note"] = note
         table.append(entry)
+    check(all(e["launches"] > 0 for e in table),
+          "a kernel of the table was never launched")
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

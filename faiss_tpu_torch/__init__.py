@@ -11,25 +11,43 @@ integer-valued data), with bf16 storage, with f16 storage (the f16 bit
 patterns, decoded in the kernels) and with int8 storage (per-dimension
 scales, trained once); L2 and IP, add / train / search / search_async, the
 fused search (hand-written CUDA kernels in ``csrc/``, built with nvcc at
-first use) with its exactness certificates and two-tier fallback, and the
-plain path.
+first use) with its exactness certificates and two-tier fallback at any
+index size and k, and the plain path; the rest of the flat surface:
+selectors, range_search, remove_ids, merge_from, assign,
+search_and_reconstruct, vectors_numpy, the IDMap wrappers, host-merged
+shards and ``.npz`` save and load.
 
     TorchIndexFlat, TorchSearchToken, index_numpy_to_torch
+    TorchIndexIDMap, TorchIndexIDMap2, IndexShardsHost,
+    merge_search_results
+    IDSelector*, SearchParams (and the faiss spellings SearchParameters,
+    SearchParametersIVF)
     MetricType, StorageType
-    load_index, index_from_arrays     (files saved by faiss_tpu.save_index)
+    save_index, load_index, index_from_arrays  (faiss_tpu's .npz format)
     query_device_capabilities, gpu_name_and_power_limit
 """
 
 from .dtypes import MetricType, StorageType
+from .idmap import TorchIndexIDMap, TorchIndexIDMap2
 from .index import TorchIndexFlat, TorchSearchToken, index_numpy_to_torch
-from .io import index_from_arrays, load_index
+from .io import index_from_arrays, load_index, save_index
+from .multi import IndexShardsHost, merge_search_results
 from .resources import (DeviceCapabilities, KernelTuning,
                         gpu_name_and_power_limit, query_device_capabilities)
+from .selector import (IDSelector, IDSelectorAnd, IDSelectorBatch,
+                       IDSelectorMask, IDSelectorNot, IDSelectorOr,
+                       IDSelectorRange, SearchParameters, SearchParametersIVF,
+                       SearchParams, reject_ivf_params)
 
 __all__ = [
     "MetricType", "StorageType",
     "TorchIndexFlat", "TorchSearchToken", "index_numpy_to_torch",
-    "index_from_arrays", "load_index",
+    "TorchIndexIDMap", "TorchIndexIDMap2", "IndexShardsHost",
+    "merge_search_results",
+    "IDSelector", "IDSelectorRange", "IDSelectorBatch", "IDSelectorMask",
+    "IDSelectorNot", "IDSelectorAnd", "IDSelectorOr", "SearchParams",
+    "SearchParameters", "SearchParametersIVF", "reject_ivf_params",
+    "index_from_arrays", "load_index", "save_index",
     "DeviceCapabilities", "KernelTuning", "gpu_name_and_power_limit",
     "query_device_capabilities",
 ]

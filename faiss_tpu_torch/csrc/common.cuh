@@ -124,9 +124,25 @@ __device__ __forceinline__ bool bit_set(const uint32_t* bits, int c) {
   return (bits[c >> 5] >> (c & 31)) & 1u;
 }
 
+// max(*addr, v) stored at addr, atomically, for fp32 values: the sweeps'
+// supergroup-max output, whose buffer the wrapper fills with -inf. A value
+// with the sign bit clear wins by a signed-integer max of the bits, one with
+// it set by an unsigned min; both orders agree with the fp32 order on
+// non-NaN values, -0.0 and +0.0 included, so the result is the exact max
+// in any order of arrival. NaN is not propagated as torch.amax does: a NaN
+// with the sign bit clear wins over every value, one with it set loses to
+// every value (garbage in; the phase-2 sort keeps its ids in range).
+__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
+  if (__float_as_uint(v) >> 31)
+    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
+  else
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+}
+
 // One max-extraction step of the select kernels (faiss_tpu _select_kernel
 // and _final_select_kernel), over the row x[0, n) with the extracted set in
-// the shared bitmask `excl`:
+// the shared bitmask `excl` (x in global memory, read through the read-only
+// cache, or with GLOBAL = false in shared memory):
 //   m   = max over xm, where xm = -inf on extracted columns, else x
 //   col = the lowest column with xm == m; with SKIP_EXTRACTED it must also
 //         not be extracted yet (the final select's `& ~excl`), without it
@@ -134,18 +150,19 @@ __device__ __forceinline__ bool bit_set(const uint32_t* bits, int c) {
 //         select's rule). BIG when no column matches (m is NaN).
 // Two block reductions per step; each thread walks its columns in
 // ascending order, so its first match is its lowest.
-template <int NT, bool SKIP_EXTRACTED>
+template <int NT, bool SKIP_EXTRACTED, bool GLOBAL = true>
 __device__ __forceinline__ void extract_step(
     const float* __restrict__ x, int n, const uint32_t* excl,
     float* fscratch, int* iscratch, float& m_out, int& col_out) {
   float m = -INFINITY;
   for (int c = threadIdx.x; c < n; c += NT)
-    m = nan_max(m, bit_set(excl, c) ? -INFINITY : __ldg(x + c));
+    m = nan_max(m, bit_set(excl, c) ? -INFINITY
+                                    : (GLOBAL ? __ldg(x + c) : x[c]));
   m = block_max<NT>(m, fscratch);
   int col = BIG;
   for (int c = threadIdx.x; c < n; c += NT) {
     const bool ex = bit_set(excl, c);
-    const float xm = ex ? -INFINITY : __ldg(x + c);
+    const float xm = ex ? -INFINITY : (GLOBAL ? __ldg(x + c) : x[c]);
     if (xm == m && !(SKIP_EXTRACTED && ex)) {
       col = c;
       break;

@@ -16,6 +16,18 @@
 // where vn is the pre-masked norm stream (+inf on rows past ntotal, so
 // their score is −inf). The nq×nv score matrix never reaches memory.
 //
+// Second output (with a non-null bmax; _sweep_call(block_max=True) and the
+// shared _epilogue's second out_ref, pallas_fused.py:155-171, :360-370):
+//     bmax[q, b] = max over the SUPERGROUP of groups 8b … 8b+7 of gm[q, ·],
+// (nq, ngroups/8), written by the same launch. A block owns one group, so
+// a supergroup spans 8 blocks: each block folds its group max into bmax
+// with common.cuh atomic_max_f32, into a buffer the wrapper fills with
+// −inf. A max is exact, so bmax equals the plain amax over the
+// (nq, ngroups/8, 8) view of gm bit for bit, whatever the order of the
+// atomics; only a NaN group max behaves otherwise (see atomic_max_f32).
+// Phase 2 reads it from HIER_MIN_GROUPS groups on (ops/fused.py
+// _top_groups_from_bmax); ngroups % 8 == 0 there.
+//
 // f16 rows (ft_sweep_f16): each 16-byte chunk holds 8 f16 patterns; each
 // decodes to its exact fp32 value f (e=31 → ±inf, common.cuh f16_to_f32)
 // and splits into dh = f truncated to bf16 and dl = f − dh (exact, ≤ 3
@@ -86,7 +98,7 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q_hi,
                       const uint16_t* __restrict__ db,
                       const uint16_t* __restrict__ db_lo,
                       const float* __restrict__ vn,
-                      float* __restrict__ gm,
+                      float* __restrict__ gm, float* __restrict__ bmax,
                       int nq, int d, int ngroups, int nqt) {
   constexpr int DP = DB == ROWS ? 1 : 2;
   constexpr int NT = DP == 1 ? QP : QP + 1;
@@ -161,13 +173,16 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q_hi,
 #pragma unroll
     for (int i = 1; i < ft::GROUP / 32; ++i) m = ft::nan_max(m, red[i][j]);
     gm[static_cast<size_t>(q0 + j) * ngroups + g] = m;
+    if (bmax != nullptr)
+      ft::atomic_max_f32(
+          bmax + static_cast<size_t>(q0 + j) * (ngroups / 8) + g / 8, m);
   }
 }
 
 template <int QP, int DB, int QT>
 void launch(const void* q_hi, const void* q_lo, const void* db,
-            const void* db_lo, const void* vn, void* gm, int nq, int d,
-            int ngroups, int l2, cudaStream_t stream) {
+            const void* db_lo, const void* vn, void* gm, void* bmax, int nq,
+            int d, int ngroups, int l2, cudaStream_t stream) {
   const int nqt = (nq + QT - 1) / QT;
   const dim3 grid(static_cast<unsigned>(static_cast<long long>(ngroups) * nqt));
   auto* qh = static_cast<const uint16_t*>(q_hi);
@@ -176,12 +191,13 @@ void launch(const void* q_hi, const void* q_lo, const void* db,
   auto* vl = static_cast<const uint16_t*>(db_lo);
   auto* n = static_cast<const float*>(vn);
   auto* out = static_cast<float*>(gm);
+  auto* bm = static_cast<float*>(bmax);
   if (l2)
     sweep_groupmax_kernel<QP, DB, QT, true><<<grid, ft::GROUP, 0, stream>>>(
-        qh, ql, v, vl, n, out, nq, d, ngroups, nqt);
+        qh, ql, v, vl, n, out, bm, nq, d, ngroups, nqt);
   else
     sweep_groupmax_kernel<QP, DB, QT, false><<<grid, ft::GROUP, 0, stream>>>(
-        qh, ql, v, vl, n, out, nq, d, ngroups, nqt);
+        qh, ql, v, vl, n, out, bm, nq, d, ngroups, nqt);
 }
 
 }  // namespace
@@ -189,22 +205,29 @@ void launch(const void* q_hi, const void* q_lo, const void* db,
 // q_hi, q_lo: (nq, d) bf16 query planes (q_lo unread when planes == 1);
 // db: (≥ ngroups·128, d) bf16 rows, or the hi plane when db_lo is given;
 // db_lo: the lo plane, or null for bf16 rows; vn: (ngroups·128,)
-// pre-masked norms; gm: (nq, ngroups) f32 out. d % 8 == 0, 16-byte aligned.
+// pre-masked norms; gm: (nq, ngroups) f32 out; bmax: null, or the
+// (nq, ngroups/8) supergroup maxes, filled with -inf by the caller
+// (ngroups % 8 == 0). d % 8 == 0, 16-byte aligned.
 extern "C" int ft_sweep_groupmax(const void* q_hi, const void* q_lo,
                                  int planes, const void* db, const void* db_lo,
-                                 const void* vn, void* gm, int nq, int d,
-                                 int ngroups, int l2, void* stream) {
-  if (nq <= 0 || ngroups <= 0 || d <= 0 || d % 8 != 0)
+                                 const void* vn, void* gm, void* bmax, int nq,
+                                 int d, int ngroups, int l2, void* stream) {
+  if (nq <= 0 || ngroups <= 0 || d <= 0 || d % 8 != 0
+      || (bmax != nullptr && ngroups % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (planes == 1 && db_lo == nullptr)
-    launch<1, ROWS, 32>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
+    launch<1, ROWS, 32>(q_hi, q_lo, db, db_lo, vn, gm, bmax, nq, d, ngroups,
+                        l2, s);
   else if (planes == 2 && db_lo == nullptr)
-    launch<2, ROWS, 32>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
+    launch<2, ROWS, 32>(q_hi, q_lo, db, db_lo, vn, gm, bmax, nq, d, ngroups,
+                        l2, s);
   else if (planes == 1)
-    launch<1, PAIR, 32>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
+    launch<1, PAIR, 32>(q_hi, q_lo, db, db_lo, vn, gm, bmax, nq, d, ngroups,
+                        l2, s);
   else if (planes == 2)
-    launch<2, PAIR, 16>(q_hi, q_lo, db, db_lo, vn, gm, nq, d, ngroups, l2, s);
+    launch<2, PAIR, 16>(q_hi, q_lo, db, db_lo, vn, gm, bmax, nq, d, ngroups,
+                        l2, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -214,15 +237,19 @@ extern "C" int ft_sweep_groupmax(const void* q_hi, const void* q_lo,
 // patterns, decoded in-register; 3 product terms with two query planes
 // (_kernel_f16_pair), 2 with one (_kernel_f16_1).
 extern "C" int ft_sweep_f16(const void* q_hi, const void* q_lo, int planes,
-                            const void* db, const void* vn, void* gm, int nq,
-                            int d, int ngroups, int l2, void* stream) {
-  if (nq <= 0 || ngroups <= 0 || d <= 0 || d % 8 != 0)
+                            const void* db, const void* vn, void* gm,
+                            void* bmax, int nq, int d, int ngroups, int l2,
+                            void* stream) {
+  if (nq <= 0 || ngroups <= 0 || d <= 0 || d % 8 != 0
+      || (bmax != nullptr && ngroups % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (planes == 1)
-    launch<1, F16, 32>(q_hi, q_lo, db, nullptr, vn, gm, nq, d, ngroups, l2, s);
+    launch<1, F16, 32>(q_hi, q_lo, db, nullptr, vn, gm, bmax, nq, d, ngroups,
+                       l2, s);
   else if (planes == 2)
-    launch<2, F16, 16>(q_hi, q_lo, db, nullptr, vn, gm, nq, d, ngroups, l2, s);
+    launch<2, F16, 16>(q_hi, q_lo, db, nullptr, vn, gm, bmax, nq, d, ngroups,
+                       l2, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

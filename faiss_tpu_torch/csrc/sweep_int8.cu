@@ -11,7 +11,10 @@
 //     dot = fl(fl(β₁·f32(a₁)) + fl(β₂·f32(a₂)))
 //     s   = 2·dot − vn[r]  (L2)   or   dot − vn[r]  (IP),
 // with vn the pre-masked stream of the stored decoded norms (+inf past
-// ntotal), as in sweep_groupmax.cu.
+// ntotal), as in sweep_groupmax.cu, and, with a non-null bmax, the
+// supergroup maxes bmax[q, b] = max of gm[q, 8b … 8b+7] (the _epilogue's
+// second output), folded in with common.cuh atomic_max_f32 exactly as
+// sweep_groupmax.cu does.
 //
 // Arithmetic (what ops/fused._sweep_eps_int8 charges). The dots are exact;
 // the combine is written with __fmul_rn / __fadd_rn so that nvcc cannot
@@ -51,7 +54,8 @@ __global__ void __launch_bounds__(ft::GROUP)
 sweep_int8_kernel(const int8_t* __restrict__ q1, const int8_t* __restrict__ q2,
                   const int8_t* __restrict__ db, const float* __restrict__ vn,
                   const float* __restrict__ beta, float* __restrict__ gm,
-                  int nq, int d, int ngroups, int nqt) {
+                  float* __restrict__ bmax, int nq, int d, int ngroups,
+                  int nqt) {
   __shared__ __align__(16) int qs[2][QT][DT / 4];
   __shared__ float red[ft::GROUP / 32][QT];
 
@@ -119,6 +123,9 @@ sweep_int8_kernel(const int8_t* __restrict__ q1, const int8_t* __restrict__ q2,
 #pragma unroll
     for (int i = 1; i < ft::GROUP / 32; ++i) m = ft::nan_max(m, red[i][j]);
     gm[static_cast<size_t>(q0 + j) * ngroups + g] = m;
+    if (bmax != nullptr)
+      ft::atomic_max_f32(
+          bmax + static_cast<size_t>(q0 + j) * (ngroups / 8) + g / 8, m);
   }
 }
 
@@ -126,12 +133,15 @@ sweep_int8_kernel(const int8_t* __restrict__ q1, const int8_t* __restrict__ q2,
 
 // q1, q2: (nq, d) int8 query planes; db: (≥ ngroups·128, d) int8 codes;
 // vn: (ngroups·128,) pre-masked norms; beta: (nq, 2) f32 (β₁, β₂);
-// gm: (nq, ngroups) f32 out. d % 16 == 0, 16-byte aligned.
+// gm: (nq, ngroups) f32 out; bmax: null, or the (nq, ngroups/8)
+// supergroup maxes, filled with -inf by the caller (ngroups % 8 == 0).
+// d % 16 == 0, 16-byte aligned.
 extern "C" int ft_sweep_int8(const void* q1, const void* q2, const void* db,
                              const void* vn, const void* beta, void* gm,
-                             int nq, int d, int ngroups, int l2,
+                             void* bmax, int nq, int d, int ngroups, int l2,
                              void* stream) {
-  if (nq <= 0 || ngroups <= 0 || d <= 0 || d % 16 != 0)
+  if (nq <= 0 || ngroups <= 0 || d <= 0 || d % 16 != 0
+      || (bmax != nullptr && ngroups % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nqt = (nq + QT - 1) / QT;
   const dim3 grid(static_cast<unsigned>(static_cast<long long>(ngroups) * nqt));
@@ -142,11 +152,12 @@ extern "C" int ft_sweep_int8(const void* q1, const void* q2, const void* db,
   auto* n = static_cast<const float*>(vn);
   auto* be = static_cast<const float*>(beta);
   auto* out = static_cast<float*>(gm);
+  auto* bm = static_cast<float*>(bmax);
   if (l2)
     sweep_int8_kernel<true><<<grid, ft::GROUP, 0, s>>>(
-        a, b, v, n, be, out, nq, d, ngroups, nqt);
+        a, b, v, n, be, out, bm, nq, d, ngroups, nqt);
   else
     sweep_int8_kernel<false><<<grid, ft::GROUP, 0, s>>>(
-        a, b, v, n, be, out, nq, d, ngroups, nqt);
+        a, b, v, n, be, out, bm, nq, d, ngroups, nqt);
   return static_cast<int>(cudaGetLastError());
 }

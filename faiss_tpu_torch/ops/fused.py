@@ -12,8 +12,16 @@ storage modes. The nq×nv score matrix is never materialized:
                             int8 codes against the query's int8 expansion
   phase 2  select_groups    the top-(k+GROUP_PAD) groups per query, and
                             t = the max group-max among the others
+                            (kg ≤ 40, ≤ 16384 groups; else _top_groups,
+                            and from HIER_MIN_GROUPS groups on
+                            _top_groups_from_bmax over the sweep's second
+                            output, the per-1024-row supergroup maxes)
   phase 3  rescore_groups   the nominated groups' rows scored fp32-true
-  final    final_select     the top-k of the rescored candidates
+  final    final_select     the top-k of the rescored candidates (k ≤ 40,
+                            else a stable sort); with rescore_select=True
+                            rescore_select_groups does phase 3 and the
+                            final top-k in one kernel (k ≤ 32; bf16, int8,
+                            f16 rows)
 
 Every true top-k row lies in a nominated group unless a non-nominated group
 could beat the k-th rescored score; the certificate
@@ -39,12 +47,19 @@ two exact integer passes over the query's residual expansion
 (``int8_query_pair``), rescores the codes against q∘s, and is certified by
 ``_sweep_eps_int8``: both sides score the decoded database s∘v_q.
 
+A selector (``sel``, a (capacity,) bool stream) folds into the same
+pre-masked norm stream as padding, so every kernel scores a filtered row
+−inf; the f32 rescores against the master (stage 3b, single stage) read
+the raw norms and mask with ``sel`` again.
+
 The phases are CUDA kernels (``csrc/*.cu``) behind the wrappers of
 ``ops/kernels.py``. Each has its plain PyTorch version here (``*_plain``):
 the wrappers run it for CPU tensors, the tests hold it against the JAX
 package, and the chip smoke run holds each kernel against it on the card.
-Stage 3b is a plain product on purpose: the JAX package computes it outside
-any Pallas kernel too.
+Stage 3b and the phase 2 of large shapes (``_top_groups``,
+``_top_groups_from_bmax``: stable sorts, gathers, a scatter of −inf and a
+row max) are plain PyTorch on purpose: the JAX package computes them
+outside any Pallas kernel too.
 """
 
 from __future__ import annotations
@@ -60,7 +75,9 @@ from .distance import exact_fp32_matmul
 from .topk import topk_scores
 # the kernel wrappers, under the names of their JAX counterparts' roles
 from .kernels import GROUP  # rows per candidate group
-from .kernels import final_select, rescore_groups, select_groups
+from .kernels import SUPERGROUP  # groups per block max (1024 rows)
+from .kernels import (final_select, rescore_groups, rescore_select_groups,
+                      select_groups)
 from .kernels import sweep_f16, sweep_groupmax, sweep_int8, sweep_split
 
 GROUP_PAD = 4         # groups nominated beyond k (certificate margin)
@@ -79,9 +96,16 @@ PLAIN_TOPK_BYTES_PER_K16 = 1.0    # + k/16 bytes/score for its top-k
 # integer passes.
 REDUCED_SWEEP_MIN_NQ = 32
 # What the select kernels take: one bitmask row of ≤ 16384 columns, and
-# extraction loops of ≤ 40 steps. Larger shapes go to the plain path.
+# extraction loops of ≤ 40 steps. Larger shapes select with stable sorts
+# (_top_groups, topk_scores), as the JAX package selects them in XLA.
 SELECT_MAX_GROUPS = 16384
 SELECT_MAX_KG = 40
+# From this many groups on, phase 2 ranks the sweep's supergroup maxes
+# first (_top_groups_from_bmax), as the JAX package does (carried from it,
+# not measured on this card).
+HIER_MIN_GROUPS = 65536
+# rescore_select=True: the one-kernel rescore + top-k takes k ≤ this
+RESCORE_SELECT_MAX_K = 32
 
 # Certificate constants (derivation in _sweep_eps)
 _U32 = 2.0 ** -24          # fp32 unit roundoff, round to nearest
@@ -102,15 +126,19 @@ def pick_sweep_passes(nq_pad: int, pair_storage: bool = False) -> int:
 
 
 def _premask_norms(db_norms: torch.Tensor, ntotal: int, nv_eff: int,
-                   metric: MetricType) -> torch.Tensor:
+                   metric: MetricType,
+                   sel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(nv_eff,) norm stream with the validity mask folded in: ‖v‖² (L2) or
-    0 (IP) on rows < ntotal, +inf past it, so every kernel scores padding
-    −inf without a per-row compare."""
-    past = torch.arange(nv_eff, device=db_norms.device) >= ntotal
+    0 (IP) on rows < ntotal that the selector stream ``sel`` (a (capacity,)
+    bool, or None) admits, +inf elsewhere, so every kernel scores padding
+    and filtered rows −inf without a per-row compare."""
+    out = torch.arange(nv_eff, device=db_norms.device) >= ntotal
+    if sel is not None:
+        out |= ~sel[:nv_eff]
     vn = db_norms[:nv_eff] if metric is MetricType.L2 \
         else torch.zeros((nv_eff,), dtype=torch.float32,
                          device=db_norms.device)
-    return vn.masked_fill(past, math.inf)
+    return vn.masked_fill(out, math.inf)
 
 
 def query_planes(queries_f32: torch.Tensor, sweep_passes: int):
@@ -123,21 +151,23 @@ def query_planes(queries_f32: torch.Tensor, sweep_passes: int):
 
 def groupmax_scores(queries_f32: torch.Tensor, db: torch.Tensor,
                     vn: torch.Tensor, *, metric: MetricType,
-                    sweep_passes: int = 2,
-                    db_split=None) -> torch.Tensor:
+                    sweep_passes: int = 2, db_split=None,
+                    with_block_max: bool = False):
     """(nq_pad, nv_eff/128) per-group max of the masked sweep scores, the
     bf16, pair and f16 routes of ``faiss_tpu``'s groupmax_scores. Takes the
     pre-masked norm stream ``vn`` (length nv_eff), which the rescore reuses.
     With ``db_split`` = (hi, lo) it runs the pair sweep over the planes
     (``db`` unread); over float16 rows (f16 bits) the f16 sweep; else the
-    bf16 sweep over ``db``. (int8 rows: ``int8_groupmax_scores``.)"""
+    bf16 sweep over ``db``. (int8 rows: ``int8_groupmax_scores``.) With
+    ``with_block_max`` it returns (gm, the (nq_pad, nv_eff/1024) supergroup
+    maxes of the same launch)."""
     q_hi, q_lo = query_planes(queries_f32, sweep_passes)
+    kw = dict(metric=metric, with_block_max=with_block_max)
     if db_split is not None:
-        return sweep_split(q_hi, q_lo, db_split[0], db_split[1], vn,
-                           metric=metric)
+        return sweep_split(q_hi, q_lo, db_split[0], db_split[1], vn, **kw)
     if db.dtype == torch.float16:
-        return sweep_f16(q_hi, q_lo, db, vn, metric=metric)
-    return sweep_groupmax(q_hi, q_lo, db, vn, metric=metric)
+        return sweep_f16(q_hi, q_lo, db, vn, **kw)
+    return sweep_groupmax(q_hi, q_lo, db, vn, **kw)
 
 
 def int8_query_pair(queries_f32: torch.Tensor, scales: torch.Tensor):
@@ -155,24 +185,37 @@ def int8_query_pair(queries_f32: torch.Tensor, scales: torch.Tensor):
 
 def int8_groupmax_scores(queries_f32: torch.Tensor, db: torch.Tensor,
                          vn: torch.Tensor, scales: torch.Tensor, *,
-                         metric: MetricType) -> torch.Tensor:
+                         metric: MetricType, with_block_max: bool = False):
     """(nq_pad, nv_eff/128) group maxes of the int8 sweep: ``faiss_tpu``'s
-    groupmax_scores int8 branch, over the int8 codes ``db``."""
+    groupmax_scores int8 branch, over the int8 codes ``db`` (and the
+    supergroup maxes with ``with_block_max``, as groupmax_scores)."""
     q1, q2, b1, b2 = int8_query_pair(queries_f32, scales)
     return sweep_int8(q1, q2, db, vn, torch.stack([b1, b2], dim=1),
-                      metric=metric)
+                      metric=metric, with_block_max=with_block_max)
 
 
 # -- plain versions of the kernels ----------------------------------------
 
 
-def _plain_epilogue(acc, vn, metric: MetricType):
+def block_max_plain(gm: torch.Tensor) -> torch.Tensor:
+    """Plain version of the sweeps' second output: the max of each
+    SUPERGROUP consecutive groups, (nq, ngroups/8)."""
+    nq, ng = gm.shape
+    if ng % SUPERGROUP:
+        raise ValueError(f"block max needs ngroups % {SUPERGROUP} == 0 "
+                         f"(ngroups={ng})")
+    return torch.amax(gm.view(nq, ng // SUPERGROUP, SUPERGROUP), dim=-1)
+
+
+def _plain_epilogue(acc, vn, metric: MetricType, with_block_max: bool):
     nv_eff = vn.shape[0]
     s = (2.0 * acc if metric is MetricType.L2 else acc) - vn[None, :]
-    return torch.amax(s.view(s.shape[0], nv_eff // GROUP, GROUP), dim=-1)
+    gm = torch.amax(s.view(s.shape[0], nv_eff // GROUP, GROUP), dim=-1)
+    return (gm, block_max_plain(gm)) if with_block_max else gm
 
 
-def sweep_groupmax_plain(q_hi, q_lo, db, vn, *, metric: MetricType):
+def sweep_groupmax_plain(q_hi, q_lo, db, vn, *, metric: MetricType,
+                         with_block_max: bool = False):
     """Plain version of the bf16 sweep kernel: full (nq, nv_eff) scores,
     then a max per 128 columns. One fp32 product per plane (bf16×bf16
     products are exact), planes added at the end as in the kernel."""
@@ -181,10 +224,11 @@ def sweep_groupmax_plain(q_hi, q_lo, db, vn, *, metric: MetricType):
         acc = q_hi.to(torch.float32) @ v.T
         if q_lo is not None:
             acc = acc + q_lo.to(torch.float32) @ v.T
-    return _plain_epilogue(acc, vn, metric)
+    return _plain_epilogue(acc, vn, metric, with_block_max)
 
 
-def sweep_split_plain(q_hi, q_lo, db_hi, db_lo, vn, *, metric: MetricType):
+def sweep_split_plain(q_hi, q_lo, db_hi, db_lo, vn, *, metric: MetricType,
+                      with_block_max: bool = False):
     """Plain version of the pair sweep kernel: one fp32 product per term,
     qh·dh, qh·dl, then ql·dh (two query planes), added left to right as in
     the kernel and the Pallas _kernel_split / _kernel_split2."""
@@ -196,19 +240,22 @@ def sweep_split_plain(q_hi, q_lo, db_hi, db_lo, vn, *, metric: MetricType):
         acc = qh @ dh.T + qh @ dl.T
         if q_lo is not None:
             acc = acc + q_lo.to(torch.float32) @ dh.T
-    return _plain_epilogue(acc, vn, metric)
+    return _plain_epilogue(acc, vn, metric, with_block_max)
 
 
-def sweep_f16_plain(q_hi, q_lo, dbits, vn, *, metric: MetricType):
+def sweep_f16_plain(q_hi, q_lo, dbits, vn, *, metric: MetricType,
+                    with_block_max: bool = False):
     """Plain version of the f16 sweep kernel: the rows decoded and split to
     the exact (hi, lo) pair (``storage.split_f16_bits``), then the pair
     sweep's plain version, term for term (_kernel_f16_pair /
     _kernel_f16_1)."""
     hi, lo = split_f16_bits(dbits[: vn.shape[0]])
-    return sweep_split_plain(q_hi, q_lo, hi, lo, vn, metric=metric)
+    return sweep_split_plain(q_hi, q_lo, hi, lo, vn, metric=metric,
+                             with_block_max=with_block_max)
 
 
-def sweep_int8_plain(q1, q2, db, vn, beta, *, metric: MetricType):
+def sweep_int8_plain(q1, q2, db, vn, beta, *, metric: MetricType,
+                     with_block_max: bool = False):
     """Plain version of the int8 sweep kernel. The two integer dots come
     from fp64 products of the integer-valued planes, exact because every
     partial sum is an integer below 2^53 (``torch.matmul`` takes no int8 on
@@ -218,7 +265,7 @@ def sweep_int8_plain(q1, q2, db, vn, beta, *, metric: MetricType):
     a1 = (q1.to(torch.float64) @ v.T).to(torch.float32)
     a2 = (q2.to(torch.float64) @ v.T).to(torch.float32)
     dots = a1 * beta[:, 0:1] + a2 * beta[:, 1:2]
-    return _plain_epilogue(dots, vn, metric)
+    return _plain_epilogue(dots, vn, metric, with_block_max)
 
 
 def select_groups_plain(gm: torch.Tensor, kg: int):
@@ -271,6 +318,22 @@ def candidate_columns(gidx: torch.Tensor) -> torch.Tensor:
     return (gidx[:, :, None] * GROUP + offs).reshape(gidx.shape[0], -1)
 
 
+def candidate_drop(gidx: torch.Tensor, ntotal: int) -> torch.Tensor:
+    """(nq, kg·128) True on the candidates of ``candidate_columns(gidx)``
+    that the final top-k must not see: rows past ntotal, and the rows of a
+    nominated group that repeats the one before it (``gidx`` is ascending,
+    so a repeat is adjacent). Repeats come from the group select's padding:
+    when fewer than kg groups score finitely (a selector admitting few
+    rows), it pads the nominated set with group ngroups − 1, whose stored
+    rows would otherwise come back once per copy. (faiss_tpu keeps this
+    fault on its default route; its _rescore_select_kernel drops repeats by
+    id.)"""
+    rep = torch.zeros_like(gidx, dtype=torch.bool)
+    rep[:, 1:] = gidx[:, 1:] == gidx[:, :-1]
+    return ((candidate_columns(gidx) >= ntotal)
+            | rep.repeat_interleave(GROUP, dim=1))
+
+
 def rescore_groups_plain(queries, db, vn, gidx, *, metric: MetricType,
                          db2=None):
     """Plain version of the rescore kernel: gather the nominated groups'
@@ -289,6 +352,20 @@ def rescore_groups_plain(queries, db, vn, gidx, *, metric: MetricType,
     return (2.0 * dots if metric is MetricType.L2 else dots) - vn[cols]
 
 
+def rescore_select_groups_plain(queries, db, vn, gidx, ntotal: int, *,
+                                k: int, metric: MetricType):
+    """Plain version of the rescore-select kernel: ``rescore_groups_plain``,
+    the mask of ``candidate_drop`` (rows ≥ ntotal, repeated rows),
+    ``final_select_plain``, and the selected columns mapped to row ids
+    through ``candidate_columns``; the JAX package's own bar for
+    _rescore_select_kernel is this chain's result."""
+    s = rescore_groups_plain(queries, db, vn, gidx, metric=metric)
+    vals, pos = final_select_plain(
+        s.masked_fill(candidate_drop(gidx, ntotal), NEG_INF), k)
+    return vals, torch.gather(candidate_columns(gidx), 1,
+                              pos.to(torch.int64))
+
+
 def rescore_exact(queries, db, db_norms, cols, *, metric: MetricType):
     """(nq, m) scores of the rows ``cols`` (nq, m) against the f32 master:
     the gathered rows times the fp32 queries in one batched product, true
@@ -300,6 +377,58 @@ def rescore_exact(queries, db, db_norms, cols, *, metric: MetricType):
     if metric is MetricType.L2:
         return 2.0 * dots - db_norms[cols]
     return dots
+
+
+# -- phase 2 beyond the select kernel ------------------------------------------
+
+
+def _top_idx(x: torch.Tensor, k: int) -> torch.Tensor:
+    """int64 columns of the top-k of each row, ties to the lowest column
+    (``lax.top_k``'s order; ``torch.topk`` promises none)."""
+    return topk_scores(x, k)[1].to(torch.int64)
+
+
+def _max_without(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row max of ``x`` with the columns ``idx`` set to −inf."""
+    return torch.amax(x.scatter(1, idx, NEG_INF), dim=-1)
+
+
+def _top_groups(gmax: torch.Tensor, kg: int, ngroups: int):
+    """(top-kg group ids (nq, kg) int64, unordered, and t = the max group
+    max among the non-nominated groups, −inf when all are nominated): the
+    port of ``faiss_tpu``'s _top_groups without ``approx``, op for op, with
+    stable sorts for ``lax.top_k``. From 65536 groups it goes hierarchical
+    over supergroup maxes it reduces itself."""
+    nq = gmax.shape[0]
+    if ngroups < 65536 or ngroups % SUPERGROUP or kg * SUPERGROUP > ngroups:
+        gidx = _top_idx(gmax, kg)
+        if kg >= ngroups:
+            return gidx, torch.full((nq,), NEG_INF, dtype=torch.float32,
+                                    device=gmax.device)
+        return gidx, _max_without(gmax, gidx)
+    return _top_groups_from_bmax(gmax, block_max_plain(gmax), kg, ngroups)
+
+
+def _top_groups_from_bmax(gmax: torch.Tensor, bmax: torch.Tensor, kg: int,
+                          ngroups: int):
+    """_top_groups' hierarchical route, fed by the sweep's own supergroup
+    maxes (``with_block_max``): the port of ``faiss_tpu``'s
+    _top_groups_from_bmax. The top-kg supergroups by block max provably
+    hold the top-kg groups (a block's max bounds its groups); the top-kg of
+    their kg·8 groups are nominated, and t is the max of the unnominated
+    candidates and of the unnominated blocks."""
+    nq = gmax.shape[0]
+    bidx = _top_idx(bmax, kg)
+    offs = torch.arange(SUPERGROUP, device=gmax.device)
+    cand_cols = (torch.sort(bidx, dim=-1).values[:, :, None] * SUPERGROUP
+                 + offs).reshape(nq, kg * SUPERGROUP)
+    cand = torch.gather(gmax, 1, cand_cols)
+    pos = _top_idx(cand, kg)
+    gidx = torch.gather(cand_cols, 1, pos)
+    t = _max_without(cand, pos)
+    if kg < ngroups // SUPERGROUP:
+        t = torch.maximum(t, _max_without(bmax, bidx))
+    return gidx, t
 
 
 # -- certificate ------------------------------------------------------------
@@ -472,44 +601,83 @@ def fused_search(
     hi_exact: bool = False,      # caller-proven split_stats == (0, 0)
     scales: Optional[torch.Tensor] = None,        # int8: (d_pad,) scales
     int_norm_max: Optional[torch.Tensor] = None,  # int8: () max ‖v_q‖
+    sel: Optional[torch.Tensor] = None,  # (capacity,) bool selector stream
+    rescore_select: bool = False,  # one-kernel rescore + top-k (opt-in)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(scores (nq_pad, k_eff) descending, ids (nq_pad, k_eff) int32,
     certified (nq_pad,) bool), k_eff = min(k, nv_eff). ``certified[i]``
     proves row i is the exact top-k of the stored database (the f32 master,
-    hi + lo when pair_only, the f16 values, the decoded int8 rows), ties to
-    the lowest id; the caller re-runs the others on an exact path. The
-    route follows the storage: ``db_split`` (f32), float16 rows (f16), int8
-    rows (needs ``scales`` and ``int_norm_max``), else bf16 rows. No host
+    hi + lo when pair_only, the f16 values, the decoded int8 rows) among
+    the rows ``sel`` admits, ties to the lowest id; the caller re-runs the
+    others on an exact path. The route follows the storage: ``db_split``
+    (f32), float16 rows (f16), int8 rows (needs ``scales`` and
+    ``int_norm_max``), else bf16 rows; f32 rows without the planes (K10's
+    f32-rows mode, the IVF fine scan's) are not ported. ``rescore_select``
+    runs phase 3 and the final top-k as one kernel where it applies (bf16,
+    int8 and f16 rows, k_eff ≤ 32), as ``faiss_tpu`` does. No host
     synchronisation happens in here."""
     nq_pad, d_pad = queries_f32.shape
     k_eff = min(k, nv_eff)
     ngroups = nv_eff // GROUP
     kg = min(k_eff + GROUP_PAD, ngroups)
-    if kg > SELECT_MAX_KG or ngroups > SELECT_MAX_GROUPS:
-        raise ValueError(
-            f"fused search takes kg ≤ {SELECT_MAX_KG} and ngroups ≤ "
-            f"{SELECT_MAX_GROUPS} (kg={kg}, ngroups={ngroups})")
     pair_sweep = db_split is not None
     is_int8 = db.dtype == torch.int8
+    if db.dtype == torch.float32 and not pair_sweep:
+        raise ValueError("f32 rows need the (hi, lo) planes (db_split)")
     if hi_exact and not pair_sweep:
         raise ValueError("hi_exact requires the (hi, lo) planes")
     if is_int8 and (scales is None or int_norm_max is None):
         raise ValueError("int8 rows need scales and int_norm_max")
-    vn = _premask_norms(db_norms, ntotal, nv_eff, metric)
+    vn = _premask_norms(db_norms, ntotal, nv_eff, metric, sel)
 
+    # phase 1, and phase 2: at ≥ HIER_MIN_GROUPS groups the sweep also
+    # writes the supergroup maxes, and phase 2 ranks those first
+    hier = (ngroups >= HIER_MIN_GROUPS and ngroups % SUPERGROUP == 0
+            and kg < ngroups // SUPERGROUP and kg * SUPERGROUP <= ngroups)
     # hi_exact: v == v_hi on every stored row, so the bf16 kernels over the
     # hi plane compute the pair program's scores bit for bit (every dropped
     # term is an exact +0.0); ε with stats (0, 0) charges them nothing
     if is_int8:
-        gm = int8_groupmax_scores(queries_f32, db, vn, scales, metric=metric)
+        gm = int8_groupmax_scores(queries_f32, db, vn, scales, metric=metric,
+                                  with_block_max=hier)
     else:
         gm = groupmax_scores(
             queries_f32, db_split[0] if hi_exact else db, vn, metric=metric,
             sweep_passes=sweep_passes,
-            db_split=None if hi_exact or not pair_sweep else db_split)
-    gidx, t = select_groups(gm, kg)
+            db_split=None if hi_exact or not pair_sweep else db_split,
+            with_block_max=hier)
+    if not hier and kg <= SELECT_MAX_KG and ngroups <= SELECT_MAX_GROUPS:
+        gidx, t = select_groups(gm, kg)         # ascending int32 already
+    else:
+        gidx, t = (_top_groups_from_bmax(gm[0], gm[1], kg, ngroups) if hier
+                   else _top_groups(gm, kg, ngroups))
+        gidx = torch.sort(gidx, dim=-1).values.to(torch.int32)
+
+    if is_int8:
+        eps = _sweep_eps_int8(queries_f32, scales, int_norm_max, db_norms,
+                              nv_eff, metric=metric, d_pad=d_pad)
+    else:
+        # f16 sweeps the decoded pair: the pair ε with the f16 statistics
+        eps = _sweep_eps(queries_f32, db_norms, nv_eff, metric=metric,
+                         d_pad=d_pad, single_pass=sweep_passes == 1,
+                         pair_sweep=pair_sweep or db.dtype == torch.float16,
+                         split_stats=split_stats)
+    if rescore_select and k_eff <= RESCORE_SELECT_MAX_K and not pair_sweep:
+        # bf16 and f16 rows against q, int8 codes against q∘s; the
+        # certificate is the sweep's alone, as in faiss_tpu
+        q_resc = queries_f32 * scales[None, :] if is_int8 else queries_f32
+        vals, ids = rescore_select_groups(q_resc, db, vn, gidx, ntotal,
+                                          k=k_eff, metric=metric)
+        certified = (t == NEG_INF) | (vals[:, k_eff - 1] >= t + eps)
+        return vals, ids, certified
+
     cols = candidate_columns(gidx)
+    drop = candidate_drop(gidx, ntotal)
     t2 = None
+    # the rescores against the f32 master read the raw norms: a filtered
+    # row must be masked again there (it reaches stage 3b only when the
+    # selector leaves fewer than m live candidates)
+    sel_remask = False
     if not pair_sweep:
         # bf16 and f16 rows against q; int8 codes against q∘s, so that the
         # scores are those of the decoded rows the norms belong to
@@ -526,36 +694,38 @@ def fused_search(
             # two-stage: pair scores nominate m candidates (3a), the
             # master rescores them exactly (3b); t2 feeds the tier-2 bound
             s_pair = rescore_groups(queries_f32, hi, vn, gidx, metric=metric,
-                                    db2=lo)
-            if m <= SELECT_MAX_KG:
+                                    db2=lo).masked_fill(drop, NEG_INF)
+            if m <= SELECT_MAX_KG and s_pair.shape[1] <= SELECT_MAX_GROUPS:
                 ppos, t2 = select_groups(s_pair, m)     # ascending positions
-                cols = torch.gather(cols, 1, ppos.to(torch.int64))
+                ppos = ppos.to(torch.int64)
             else:
                 _, ppos = topk_scores(s_pair, m)
                 ppos = ppos.to(torch.int64)
                 t2 = torch.gather(s_pair, 1, ppos[:, m - 1:])[:, 0]
                 # ascending ids keep the lowest-id tie order downstream
-                cols = torch.sort(torch.gather(cols, 1, ppos), dim=1).values
+                ppos = torch.gather(
+                    ppos, 1, torch.sort(torch.gather(cols, 1, ppos),
+                                        dim=1, stable=True).indices)
+            # a dropped candidate (a repeat, a padding or filtered row) that
+            # stage 3a had to take stays dropped after the raw rescore
+            cols = torch.gather(cols, 1, ppos)
+            drop = torch.gather(drop, 1, ppos)
             s = rescore_exact(queries_f32, db, db_norms, cols, metric=metric)
+            sel_remask = sel is not None
         else:
             # single stage: too few candidates for stage 3a to thin out
             s = rescore_exact(queries_f32, db, db_norms, cols, metric=metric)
-    s = s.masked_fill(cols >= ntotal, NEG_INF)
-    if k_eff <= SELECT_MAX_KG and k_eff < s.shape[1]:
+            sel_remask = sel is not None
+    if sel_remask:
+        drop |= ~sel[cols.to(torch.int64)]
+    s = s.masked_fill(drop, NEG_INF)
+    if (k_eff <= SELECT_MAX_KG
+            and k_eff < s.shape[1] <= SELECT_MAX_GROUPS):
         vals, pos = final_select(s, k_eff)
     else:
         vals, pos = topk_scores(s, k_eff)
     ids = torch.gather(cols, 1, pos.to(torch.int64))
 
-    if is_int8:
-        eps = _sweep_eps_int8(queries_f32, scales, int_norm_max, db_norms,
-                              nv_eff, metric=metric, d_pad=d_pad)
-    else:
-        # f16 sweeps the decoded pair: the pair ε with the f16 statistics
-        eps = _sweep_eps(queries_f32, db_norms, nv_eff, metric=metric,
-                         d_pad=d_pad, single_pass=sweep_passes == 1,
-                         pair_sweep=pair_sweep or db.dtype == torch.float16,
-                         split_stats=split_stats)
     certified = (t == NEG_INF) | (vals[:, k_eff - 1] >= t + eps)
     if t2 is not None:
         eps2 = _pair_rescore_eps(queries_f32, db_norms, nv_eff, metric=metric,
@@ -575,8 +745,11 @@ def fused_path_eligible(*, metric: MetricType, k: int, nv_eff: int,
     the gather reads two planes), 2 for bf16 rows, hi_exact and f16, 1 for
     int8 (its gather counted at 2 bytes, as the JAX gate counts it);
     ``dtype`` the stored rows' torch dtype: f16 (torch.float16) takes
-    d_pad ≤ 1024, as in the JAX gate. Shapes the select kernels do not take
-    (kg > 40, ngroups > 16384) return False and run on the plain path."""
+    d_pad ≤ 1024, as in the JAX gate. Any k and any number of groups the
+    JAX gate admits pass (phase 2 and the final top-k fall back to stable
+    sorts past the select kernels' limits). Not carried: the JAX gate's
+    refusal of d_pad > 128 shapes whose sweep tile breaks Mosaic's
+    8-sublane rule (``_pick_block_v``); the CUDA sweeps have no such tile."""
     pair_sweep = itemsize == 4
     is_f16 = dtype == torch.float16
     if nv_eff < FUSED_MIN_NV or d_pad > (
@@ -584,8 +757,6 @@ def fused_path_eligible(*, metric: MetricType, k: int, nv_eff: int,
         return False
     ngroups = nv_eff // GROUP
     kg = min(k + GROUP_PAD, ngroups)
-    if kg > SELECT_MAX_KG or ngroups > SELECT_MAX_GROUPS:
-        return False
     gather_bytes = nq_pad * kg * GROUP * d_pad * (4 if pair_sweep else 2)
     if gather_bytes > FUSED_GATHER_BUDGET:
         return False

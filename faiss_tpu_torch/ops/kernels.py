@@ -59,6 +59,13 @@ launches = {
     "rescore_groups_int8": 0,  # int8 codes against q∘s (_rescore_kernel)
     "rescore_groups_f16": 0,   # f16 bits (_rescore_kernel, int16 mode)
     "final_select": 0,
+    # rescore + final top-k in one kernel (_rescore_select_kernel), by rows
+    "rescore_select": 0,       # bf16 rows
+    "rescore_select_int8": 0,  # int8 codes against q∘s
+    "rescore_select_f16": 0,   # f16 bits
+    # every sweep launch above that also wrote the supergroup maxes (the
+    # _epilogue's second output), counted beside the sweep's own count
+    "sweep_block_max": 0,
 }
 
 # ft_rescore_groups' row formats (csrc/rescore_groups.cu enum Rows) and
@@ -67,6 +74,12 @@ _RESCORE_FMT = {torch.bfloat16: (0, "rescore_groups"),
                 torch.int8: (2, "rescore_groups_int8"),
                 torch.float16: (3, "rescore_groups_f16")}
 _RESCORE_PAIR = (1, "rescore_groups_pair")
+# ft_rescore_select's formats and counters (csrc/rescore_select.cu)
+_SELECT_FMT = {torch.bfloat16: (0, "rescore_select"),
+               torch.int8: (2, "rescore_select_int8"),
+               torch.float16: (3, "rescore_select_f16")}
+SUPERGROUP = 8   # groups per block-max entry (faiss_tpu SUPERGROUP)
+RESCORE_SELECT_MAX_CAND = 36 * GROUP   # csrc/rescore_select.cu MAX_CAND
 
 
 def reset_launches() -> None:
@@ -138,12 +151,14 @@ def _lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
         sigs = {
-            "ft_sweep_groupmax": [P, P, I, P, P, P, P, I, I, I, I, P],
-            "ft_sweep_f16": [P, P, I, P, P, P, I, I, I, I, P],
-            "ft_sweep_int8": [P, P, P, P, P, P, I, I, I, I, P],
+            "ft_sweep_groupmax": [P, P, I, P, P, P, P, P, I, I, I, I, P],
+            "ft_sweep_f16": [P, P, I, P, P, P, P, I, I, I, I, P],
+            "ft_sweep_int8": [P, P, P, P, P, P, P, I, I, I, I, P],
             "ft_select_groups": [P, P, P, I, I, I, P],
             "ft_rescore_groups": [P, P, P, P, P, P, I, I, I, I, I, I, P],
             "ft_final_select": [P, P, P, I, I, I, P],
+            "ft_rescore_select": [P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                                  P],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -194,6 +209,26 @@ def _launch(name: str, fn_name: str, *args) -> None:
     launches[name] += 1
 
 
+def _sweep_outputs(nq: int, ngroups: int, device, with_block_max: bool):
+    """The group-max output and, with ``with_block_max``, the supergroup
+    maxes filled with −inf for the kernels' atomic max (None otherwise)."""
+    gm = torch.empty((nq, ngroups), dtype=torch.float32, device=device)
+    if not with_block_max:
+        return gm, None
+    if ngroups % SUPERGROUP:
+        raise ValueError(f"block max needs ngroups % {SUPERGROUP} == 0 "
+                         f"(ngroups={ngroups})")
+    return gm, torch.full((nq, ngroups // SUPERGROUP), float("-inf"),
+                          dtype=torch.float32, device=device)
+
+
+def _sweep_result(gm, bmax):
+    if bmax is None:
+        return gm
+    launches["sweep_block_max"] += 1
+    return gm, bmax
+
+
 def _check_sweep(planes, dbs, vn, *, q_dtype, db_dtype, align: int):
     """The checks every sweep wrapper shares; returns (nq, d, ngroups)."""
     for i, p in enumerate(planes):
@@ -213,8 +248,8 @@ def _check_sweep(planes, dbs, vn, *, q_dtype, db_dtype, align: int):
     return _int32(nq, "nq"), _int32(d, "d"), _int32(nv_eff // GROUP, "ngroups")
 
 
-def _sweep(counter, q_hi, q_lo, db, db_lo, vn, metric,
-           f16: bool = False) -> torch.Tensor:
+def _sweep(counter, q_hi, q_lo, db, db_lo, vn, metric, with_block_max,
+           f16: bool = False):
     """Launch ft_sweep_groupmax (bf16 rows or planes) or, with ``f16``,
     ft_sweep_f16 (f16 rows) after the shared checks."""
     planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
@@ -222,80 +257,89 @@ def _sweep(counter, q_hi, q_lo, db, db_lo, vn, metric,
     nq, d, ngroups = _check_sweep(
         planes, dbs, vn, q_dtype=torch.bfloat16,
         db_dtype=torch.float16 if f16 else torch.bfloat16, align=8)
-    gm = torch.empty((nq, ngroups), dtype=torch.float32, device=db.device)
+    gm, bmax = _sweep_outputs(nq, ngroups, db.device, with_block_max)
     head = (q_hi.data_ptr(), planes[-1].data_ptr(), len(planes), db.data_ptr())
     if not f16:
         head += (None if db_lo is None else db_lo.data_ptr(),)
     with torch.cuda.device(db.device):
         _launch(counter, "ft_sweep_f16" if f16 else "ft_sweep_groupmax",
-                *head, vn.data_ptr(), gm.data_ptr(), nq, d, ngroups,
+                *head, vn.data_ptr(), gm.data_ptr(),
+                None if bmax is None else bmax.data_ptr(), nq, d, ngroups,
                 int(metric is MetricType.L2))
-    return gm
+    return _sweep_result(gm, bmax)
+
+
+# Every sweep wrapper returns the (nq, nv_eff/128) group maxes gm, or with
+# ``with_block_max`` the pair (gm, bmax), bmax (nq, nv_eff/1024) the max of
+# each 8 consecutive groups, written by the same launch (ngroups % 8 == 0).
 
 
 def sweep_groupmax(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
                    db: torch.Tensor, vn: torch.Tensor, *,
-                   metric: MetricType) -> torch.Tensor:
-    """(nq, nv_eff/128) group maxes of the masked sweep scores over bf16
-    rows, with nv_eff = len(vn); one query plane when ``q_lo`` is None,
-    else two."""
+                   metric: MetricType, with_block_max: bool = False):
+    """Group maxes of the masked sweep scores over bf16 rows, with
+    nv_eff = len(vn); one query plane when ``q_lo`` is None, else two."""
     planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
     if not _on_cuda(*planes, db, vn):
         from .fused import sweep_groupmax_plain
-        return sweep_groupmax_plain(q_hi, q_lo, db, vn, metric=metric)
+        return sweep_groupmax_plain(q_hi, q_lo, db, vn, metric=metric,
+                                    with_block_max=with_block_max)
     return _sweep(f"sweep_groupmax_{len(planes)}", q_hi, q_lo, db, None, vn,
-                  metric)
+                  metric, with_block_max)
 
 
 def sweep_split(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
                 db_hi: torch.Tensor, db_lo: torch.Tensor, vn: torch.Tensor,
-                *, metric: MetricType) -> torch.Tensor:
-    """(nq, nv_eff/128) group maxes of the f32 pair sweep over the bf16
-    (hi, lo) planes: qh·dh + qh·dl + ql·dh with two query planes (3 terms),
-    q1·dh + q1·dl when ``q_lo`` is None (2 terms)."""
+                *, metric: MetricType, with_block_max: bool = False):
+    """Group maxes of the f32 pair sweep over the bf16 (hi, lo) planes:
+    qh·dh + qh·dl + ql·dh with two query planes (3 terms), q1·dh + q1·dl
+    when ``q_lo`` is None (2 terms)."""
     planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
     if not _on_cuda(*planes, db_hi, db_lo, vn):
         from .fused import sweep_split_plain
-        return sweep_split_plain(q_hi, q_lo, db_hi, db_lo, vn, metric=metric)
+        return sweep_split_plain(q_hi, q_lo, db_hi, db_lo, vn, metric=metric,
+                                 with_block_max=with_block_max)
     return _sweep(f"sweep_split_{len(planes) + 1}", q_hi, q_lo, db_hi, db_lo,
-                  vn, metric)
+                  vn, metric, with_block_max)
 
 
 def sweep_f16(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
               db: torch.Tensor, vn: torch.Tensor, *,
-              metric: MetricType) -> torch.Tensor:
-    """(nq, nv_eff/128) group maxes over f16 rows (float16, the stored
-    bits), each decoded in-register to its exact (hi, lo) bf16 pair:
-    qh·dh + qh·dl + ql·dh with two query planes (_kernel_f16_pair),
-    q1·dh + q1·dl when ``q_lo`` is None (_kernel_f16_1)."""
+              metric: MetricType, with_block_max: bool = False):
+    """Group maxes over f16 rows (float16, the stored bits), each decoded
+    in-register to its exact (hi, lo) bf16 pair: qh·dh + qh·dl + ql·dh with
+    two query planes (_kernel_f16_pair), q1·dh + q1·dl when ``q_lo`` is
+    None (_kernel_f16_1)."""
     planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
     if not _on_cuda(*planes, db, vn):
         from .fused import sweep_f16_plain
-        return sweep_f16_plain(q_hi, q_lo, db, vn, metric=metric)
+        return sweep_f16_plain(q_hi, q_lo, db, vn, metric=metric,
+                               with_block_max=with_block_max)
     return _sweep(f"sweep_f16_{len(planes)}", q_hi, q_lo, db, None, vn, metric,
-                  f16=True)
+                  with_block_max, f16=True)
 
 
 def sweep_int8(q1: torch.Tensor, q2: torch.Tensor, db: torch.Tensor,
                vn: torch.Tensor, beta: torch.Tensor, *,
-               metric: MetricType) -> torch.Tensor:
-    """(nq, nv_eff/128) group maxes over int8 codes of
-    β₁·(q₁·v) + β₂·(q₂·v), the two integer dots exact (_kernel_int8);
-    ``beta`` is (nq, 2) f32."""
+               metric: MetricType, with_block_max: bool = False):
+    """Group maxes over int8 codes of β₁·(q₁·v) + β₂·(q₂·v), the two
+    integer dots exact (_kernel_int8); ``beta`` is (nq, 2) f32."""
     if not _on_cuda(q1, q2, db, vn, beta):
         from .fused import sweep_int8_plain
-        return sweep_int8_plain(q1, q2, db, vn, beta, metric=metric)
+        return sweep_int8_plain(q1, q2, db, vn, beta, metric=metric,
+                                with_block_max=with_block_max)
     nq, d, ngroups = _check_sweep((q1, q2), (db,), vn, q_dtype=torch.int8,
                                   db_dtype=torch.int8, align=16)
     _check(beta, "beta", torch.float32, 2)
     if beta.shape != (nq, 2):
         raise ValueError(f"beta: expected ({nq}, 2), got {tuple(beta.shape)}")
-    gm = torch.empty((nq, ngroups), dtype=torch.float32, device=db.device)
+    gm, bmax = _sweep_outputs(nq, ngroups, db.device, with_block_max)
     with torch.cuda.device(db.device):
         _launch("sweep_int8", "ft_sweep_int8", q1.data_ptr(), q2.data_ptr(),
                 db.data_ptr(), vn.data_ptr(), beta.data_ptr(), gm.data_ptr(),
+                None if bmax is None else bmax.data_ptr(),
                 nq, d, ngroups, int(metric is MetricType.L2))
-    return gm
+    return _sweep_result(gm, bmax)
 
 
 def select_groups(gm: torch.Tensor, kg: int):
@@ -375,3 +419,47 @@ def final_select(s: torch.Tensor, k: int):
         _launch("final_select", "ft_final_select", s.data_ptr(),
                 vals.data_ptr(), pos.data_ptr(), _int32(nq, "nq"), ncand, k)
     return vals, pos
+
+
+def rescore_select_groups(queries: torch.Tensor, db: torch.Tensor,
+                          vn: torch.Tensor, gidx: torch.Tensor, ntotal: int,
+                          *, k: int, metric: MetricType):
+    """(descending top-k scores (nq, k) f32, their row ids (nq, k) int32)
+    of each query's nominated groups (ascending ``gidx``), rescored against
+    bf16 rows, int8 codes (pass the queries times the scales) or f16 bits:
+    ``rescore_groups`` → the mask of ``fused.candidate_drop`` →
+    ``final_select`` → the row ids, in one kernel
+    (_rescore_select_kernel)."""
+    if not _on_cuda(queries, db, vn, gidx):
+        from .fused import rescore_select_groups_plain
+        return rescore_select_groups_plain(queries, db, vn, gidx, ntotal,
+                                           k=k, metric=metric)
+    if db.dtype not in _SELECT_FMT:
+        raise TypeError(f"rescore_select_groups takes bf16, int8 or float16 "
+                        f"rows, got {db.dtype}")
+    fmt, counter = _SELECT_FMT[db.dtype]
+    align = 16 if db.dtype == torch.int8 else 8
+    _check(queries, "queries", torch.float32, 2)
+    _check(db, "db", db.dtype, 2)
+    _check(vn, "vn", torch.float32, 1)
+    _check(gidx, "gidx", torch.int32, 2)
+    nq, d = queries.shape
+    kg = gidx.shape[1]
+    nv_eff = vn.shape[0]
+    if db.shape[1] != d or gidx.shape[0] != nq:
+        raise ValueError("queries, db and gidx disagree on shape")
+    if (d % align or d > 2048 or nv_eff % GROUP or nv_eff > db.shape[0]
+            or not 0 < kg * GROUP <= RESCORE_SELECT_MAX_CAND
+            or not 0 < k <= kg * GROUP):
+        raise ValueError(f"need d % {align} == 0, d ≤ 2048, 128 | nv_eff ≤ "
+                         f"capacity, kg ≤ 36, 0 < k ≤ kg·128 (d={d}, "
+                         f"nv_eff={nv_eff}, kg={kg}, k={k})")
+    vals = torch.empty((nq, k), dtype=torch.float32, device=db.device)
+    ids = torch.empty((nq, k), dtype=torch.int32, device=db.device)
+    with torch.cuda.device(db.device):
+        _launch(counter, "ft_rescore_select", queries.data_ptr(),
+                db.data_ptr(), vn.data_ptr(), gidx.data_ptr(),
+                vals.data_ptr(), ids.data_ptr(), _int32(nq, "nq"), d, kg,
+                _int32(nv_eff // GROUP, "ngroups"), max(0, min(ntotal, nv_eff)),
+                k, int(metric is MetricType.L2), fmt)
+    return vals, ids

@@ -3,7 +3,9 @@
 
 Ties go to the LOWEST index, as ``lax.top_k`` sends them. ``torch.topk``
 promises no order among equal values, so every selection here is a stable
-descending sort followed by a slice. All functions take larger-is-better
+descending sort followed by a slice. The sort key is the fp32 total order
+that ``lax.top_k`` ranks by (−0.0 below +0.0), so the two packages pick
+the same columns bit for bit. All functions take larger-is-better fp32
 scores and return (scores, int32 ids) sorted descending.
 """
 
@@ -17,8 +19,10 @@ import torch
 def topk_scores(scores: torch.Tensor,
                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over the last axis, ties to the lowest column."""
-    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k].to(torch.int32)
+    bits = scores.contiguous().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)     # fp32 total order
+    idx = torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.gather(scores, -1, idx), idx.to(torch.int32)
 
 
 def merge_topk(vals_a: torch.Tensor, ids_a: torch.Tensor,

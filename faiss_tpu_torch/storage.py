@@ -429,6 +429,80 @@ class DeviceStore:
         self._host_rows = []
         self.ntotal = self.capacity = 0
 
+    def merge_storage(self, other: "DeviceStore") -> None:
+        """Append ``other``'s rows as they are stored (the device half of
+        merge_from): the row bits or planes, the stored norms (so f32, bf16
+        and f16 keep their pre-quantization norms), the pair-only host
+        master. The statistics union exactly: split_stats and int_norm_max
+        as maxima, the f16 dirty count and the int8 clipped count as sums.
+        The layouts must match (storage, d, pair_only); int8 needs the same
+        scales (an empty untrained store adopts ``other``'s). The host
+        mirrors refresh as after an add."""
+        if other is self:
+            raise ValueError("cannot merge a store into itself")
+        if (other.storage is not self.storage or other.d != self.d
+                or other.pair_only != self.pair_only):
+            raise ValueError("merge: storage layouts differ")
+        if self.storage is StorageType.INT8 and other.is_trained:
+            theirs = other.scales.to(self.device)
+            if not self.is_trained and self.ntotal == 0:
+                self.scales = theirs.clone()        # adopt the grid
+            elif not torch.equal(self.scales, theirs):
+                raise ValueError(
+                    "merge: int8 indexes must share the trained scales "
+                    "(requantization would not be exact)")
+        n = other.ntotal
+        if n == 0:
+            return
+        self._check_count(n)
+        host = other.reconstruct_n(0, n) if self.pair_only else None
+        rows = {name: getattr(other, name)[:n, : self.d].to(self.device)
+                for name, _, _ in self._buffers()
+                if name != "norms"}
+        if other.split_stats is not None:
+            self._bump_split_stats(other.split_stats.to(self.device))
+            if self.has_split:
+                self.split_stats_host()
+        if other._f16_dirty is not None:
+            od = other._f16_dirty.to(self.device)
+            self._f16_dirty = od if self._f16_dirty is None \
+                else self._f16_dirty + od
+            self._f16_clean_host = None
+        if other.int_norm_max is not None:
+            self._bump_int_norm(other.int_norm_max.to(self.device))
+        if other._int8_clipped is not None:
+            oc = other._int8_clipped.to(self.device)
+            self._int8_clipped = oc if self._int8_clipped is None \
+                else self._int8_clipped + oc
+            self._int8_elems += other._int8_elems
+        if host is not None:
+            self._host_rows.append(host)
+        self._append(other.norms[:n].to(self.device), **rows)
+
+    def remove_rows(self, keep: np.ndarray) -> None:
+        """Keep only the rows ``keep`` (ascending, unique) in their order:
+        the device half of remove_ids' stable renumbering. Every stored
+        buffer compacts in place (survivors to the front, the freed rows
+        zeroed), the capacity stays, and so does the pair-only host master.
+        The statistics stay as they are: removal can only lower the maxima
+        and counts behind them, so they remain sound bounds."""
+        keep = np.asarray(keep, np.int64)
+        n_new = int(keep.size)
+        if n_new == self.ntotal:
+            return
+        if n_new == 0:
+            self.reset()   # keeps the int8 scales
+            return
+        idx = torch.from_numpy(keep).to(self.device)
+        for name, _, _ in self._buffers():
+            buf = getattr(self, name)
+            buf[:n_new] = buf[idx]
+            buf[n_new: self.ntotal] = 0
+        if self.pair_only:
+            rows = self.reconstruct_n(0, self.ntotal)
+            self._host_rows = [rows[keep]]
+        self.ntotal = n_new
+
     def reconstruct_n(self, i0: int, n: int) -> np.ndarray:
         """(n, d) fp32 decode of stored rows [i0, i0 + n): the bf16 or f16
         values, the int8 codes times the scales, or the exact f32 master
@@ -449,6 +523,32 @@ class DeviceStore:
         if not (0 <= key < self.ntotal):
             raise IndexError(f"key {key} out of range [0, {self.ntotal})")
         return self.reconstruct_n(key, 1)[0]
+
+    def reconstruct_batch(self, keys) -> np.ndarray:
+        """(len(keys), d) fp32 decode of any stored ids, the bits
+        reconstruct returns: one device gather and one copy."""
+        keys = np.asarray(keys, np.int64).ravel()
+        if keys.size == 0:
+            return np.zeros((0, self.d), np.float32)
+        if keys.min() < 0 or keys.max() >= self.ntotal:
+            raise IndexError(
+                f"reconstruct_batch: ids outside [0, {self.ntotal})")
+        if self.pair_only:
+            return np.ascontiguousarray(
+                self.reconstruct_n(0, self.ntotal)[keys])
+        idx = torch.from_numpy(keys).to(self.device)
+        rows = self.db[idx, : self.d].to(torch.float32)
+        if self.storage is StorageType.INT8:
+            rows = rows * self.scales[None, : self.d]
+        return rows.cpu().numpy()
+
+    def vectors_numpy(self) -> Optional[np.ndarray]:
+        """f32 storage: the (ntotal, d) rows as stored; None otherwise."""
+        if self.storage is not StorageType.FLOAT32:
+            return None
+        if self.ntotal == 0:
+            return np.zeros((0, self.d), np.float32)
+        return self.reconstruct_n(0, self.ntotal)
 
     def nbytes(self) -> int:
         """Device bytes of every stored buffer."""

@@ -1,15 +1,18 @@
 """Where the time of one faiss_tpu_torch search goes, on one CUDA card.
 
-    python scripts/torch_profile.py [--configs bf16,f32,f32_sift,pair,int8,f16]
+    python scripts/torch_profile.py [--configs bf16,f32,f32_sift,pair,int8,f16,
+                                               f32_10m]
                                     [--searches 20] [--nv 1000000]
 
 Builds each configuration at SIFT1M shape (nv×128, nq=100, k=10; data from
-numpy.random.default_rng(42) as chip_smoke.py and bench.py make it), runs
+numpy.random.default_rng(42) as chip_smoke.py and bench.py make it; f32_10m
+is f32 over 10·nv rows, the nv of the others then 9·nv from
+default_rng(44) in batches of nv, as chip_smoke.py's main path), runs
 two warm-up searches (the first may pin the one-plane shape), then
 torch.profiler over ``--searches`` synchronous ``search`` calls. Prints one
 line per configuration: device time per batch by part (the sweep kernel,
-the group select, the rescore, the final select, every other kernel and
-copy), device busy, host wall per batch (profiler on) and the device's idle
+the group select, the rescore, the final select, torch's sorts, every other
+kernel and copy), device busy, host wall per batch (profiler on) and the device's idle
 share, plus the card's name and power limit. Imports nothing of jax or
 faiss_tpu; exits 1 without a card.
 """
@@ -26,7 +29,10 @@ D, NQ, K = 128, 100, 10
 PARTS = (("sweep", ("sweep_groupmax_kernel", "sweep_int8_kernel")),
          ("select_groups", ("select_groups_kernel",)),
          ("rescore", ("rescore_groups_kernel",)),
-         ("final_select", ("final_select_kernel",)))
+         ("final_select", ("final_select_kernel",)),
+         # torch's stable sorts: phase 2 past the select kernel's limits
+         # (_top_groups, _top_groups_from_bmax) and topk_scores
+         ("sorts", ("RadixSort", "radix_sort", "SortKernel", "sort_")))
 
 
 def profile(torch, idx, xq, searches: int) -> dict:
@@ -67,7 +73,8 @@ def profile(torch, idx, xq, searches: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--configs", default="bf16,f32,f32_sift,pair,int8,f16")
+    ap.add_argument("--configs",
+                    default="bf16,f32,f32_sift,pair,int8,f16,f32_10m")
     ap.add_argument("--searches", type=int, default=20)
     ap.add_argument("--nv", type=int, default=1_000_000)
     args = ap.parse_args()
@@ -89,16 +96,22 @@ def main() -> int:
                "f32_sift": (xb_i, xq_i, {}),
                "pair": (xb, xq, dict(keep_master=False)),
                "int8": (xb, xq, dict(storage="int8")),
-               "f16": (xb, xq, dict(storage="f16"))}
+               "f16": (xb, xq, dict(storage="f16")),
+               "f32_10m": (xb, xq, {})}
     print(ft.gpu_name_and_power_limit(), flush=True)
     for name in args.configs.split(","):
         base, queries, kw = configs[name]
         idx = ft.TorchIndexFlat(D, device="cuda", **kw)
         idx.add(base)
+        if name == "f32_10m":
+            more = np.random.default_rng(44)
+            for _ in range(9):
+                idx.add(more.standard_normal((args.nv, D), dtype=np.float32))
         torch.cuda.synchronize()
         row = profile(torch, idx, queries, args.searches)
         print(json.dumps({"config": name, "metric": "l2",
-                          "ms_per_batch": row}), flush=True)
+                          "ntotal": idx.ntotal, "ms_per_batch": row}),
+              flush=True)
         del idx
         torch.cuda.empty_cache()
     return 0

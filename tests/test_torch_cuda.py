@@ -668,3 +668,169 @@ def test_index_int8_f16_fused_matches_plain(dev, metric, storage,
     D2, I2 = idx.search(xq, 10)
     np.testing.assert_array_equal(I1, I2)
     np.testing.assert_allclose(D1, D2, rtol=1e-5, atol=1e-3)
+
+
+# -- the flat surface: block max (the sweeps' second output), K11 -----------
+
+
+def _sweep_cases(dev, metric, nq, d, seed):
+    """One (name, launch) per sweep format on one random database: each
+    launch(with_block_max) calls that format's wrapper. Rows from 7100 on
+    are past ntotal: the last supergroup is all −inf."""
+    nv, ntotal = 8192, 7100
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((nv, d), generator=g) * 3.0
+    x[ntotal:] = 0
+    q = torch.randn((nq, d), generator=torch.Generator().manual_seed(1)).to(dev)
+    db, hi, lo, _, norms = _f32_db(x.numpy(), dev)
+    vn = fused._premask_norms(norms, ntotal, nv, metric)
+    bf, bits = db.to(torch.bfloat16), f16_db(dev, x.numpy())[0]
+    codes, scales, n8, _ = int8_db(dev, nv, d, ntotal, seed=seed)
+    vn8 = fused._premask_norms(n8, ntotal, nv, metric)
+    cases = []
+    for passes in (1, 2):
+        qh, ql = fused.query_planes(q, passes)
+        cases += [
+            (f"sweep_groupmax_{passes}", lambda bm, qh=qh, ql=ql:
+             kernels.sweep_groupmax(qh, ql, bf, vn, metric=metric,
+                                    with_block_max=bm)),
+            (f"sweep_split_{passes + 1}", lambda bm, qh=qh, ql=ql:
+             kernels.sweep_split(qh, ql, hi, lo, vn, metric=metric,
+                                 with_block_max=bm)),
+            (f"sweep_f16_{passes}", lambda bm, qh=qh, ql=ql:
+             kernels.sweep_f16(qh, ql, bits, vn, metric=metric,
+                               with_block_max=bm))]
+    q1, q2, b1, b2 = fused.int8_query_pair(q, scales)
+    beta = torch.stack([b1, b2], dim=1)
+    cases.append(("sweep_int8", lambda bm: kernels.sweep_int8(
+        q1, q2, codes, vn8, beta, metric=metric, with_block_max=bm)))
+    return cases
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("nq,d", [(8, 16), (37, 144), (104, 128)])
+def test_block_max_equals_amax_of_group_max(dev, metric, nq, d):
+    """Every sweep format's second output equals the plain amax over the
+    (nq, ngroups/8, 8) view of the same launch's gm, bit for bit (a max is
+    exact), including the all −inf supergroup past ntotal; the gm of a
+    block-max launch equals that of a plain launch; each such launch counts
+    once in sweep_block_max."""
+    for name, launch in _sweep_cases(dev, metric, nq, d, seed=d):
+        n0 = dict(kernels.launches)
+        gm, bmax = launch(True)
+        assert kernels.launches[name] == n0[name] + 1
+        assert kernels.launches["sweep_block_max"] == \
+            n0["sweep_block_max"] + 1
+        want = fused.block_max_plain(gm)
+        assert bmax.shape == (nq, 8)
+        assert torch.equal(bmax, want), name
+        assert torch.equal(bmax.view(torch.int32), want.view(torch.int32))
+        assert bool(torch.isneginf(bmax[:, -1]).all())
+        assert not bool(torch.isneginf(bmax[:, :-1]).any())
+        assert torch.equal(gm, launch(False)), name
+    torch.cuda.synchronize()
+
+
+def test_block_max_refuses_ragged_supergroups(dev):
+    q = torch.zeros((8, 16), dtype=torch.bfloat16, device=dev)
+    db = torch.zeros((1152, 16), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):            # 9 groups: not a multiple of 8
+        kernels.sweep_groupmax(q, None, db, torch.zeros(1152, device=dev),
+                               metric=MetricType.L2, with_block_max=True)
+
+
+def _dup_rows(nv, d, seed):
+    """Every row four times (exact ties everywhere), as
+    tests/test_pallas_fused.py:524 builds them."""
+    rng = np.random.default_rng(seed)
+    return np.tile(rng.standard_normal((nv // 4, d)).astype(np.float32),
+                   (4, 1))
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "f16"])
+@pytest.mark.parametrize("k", [1, 12, 32])
+def test_rescore_select_matches_rescore_then_final_select(dev, metric, fmt, k):
+    """K11 equals K10 → the ntotal mask → K9 → the row ids bit for bit, in
+    values and ids, on duplicated rows with rows past ntotal nominated."""
+    nv, d, nq = 16384, 64, 16
+    ntotal = nv - 300
+    x = _dup_rows(nv, d, seed=77)
+    x[ntotal:] = 0
+    xd = torch.from_numpy(x).to(dev)
+    norms = (xd * xd).sum(-1)
+    if fmt == "bf16":
+        db, qmul = xd.to(torch.bfloat16), None
+    elif fmt == "f16":
+        db, qmul = f16_db(dev, x)[0], None
+    else:
+        db, qmul, norms, _ = int8_db(dev, nv, d, ntotal, seed=5)
+    q = torch.randn((nq, d), generator=torch.Generator().manual_seed(2))
+    q = q.to(dev)
+    if qmul is not None:
+        q = q * qmul[None, :]
+    vn = fused._premask_norms(norms, ntotal, nv, metric)
+    kg = min(k + 4, 36)
+    g = torch.Generator().manual_seed(k)
+    gidx = torch.sort(torch.randperm(nv // 128, generator=g)[:kg]).values
+    gidx = gidx[None, :].repeat(nq, 1)
+    gidx[:, -1] = nv // 128 - 1            # the partly stored last group
+    gidx = torch.sort(gidx, dim=1).values.to(torch.int32).to(dev).contiguous()
+    counter = {"bf16": "rescore_select", "int8": "rescore_select_int8",
+               "f16": "rescore_select_f16"}[fmt]
+    n0 = kernels.launches[counter]
+    vals, ids = kernels.rescore_select_groups(q, db, vn, gidx, ntotal, k=k,
+                                              metric=metric)
+    assert kernels.launches[counter] == n0 + 1
+    cols = fused.candidate_columns(gidx)
+    s = kernels.rescore_groups(q, db, vn, gidx, metric=metric)
+    v2, p2 = kernels.final_select(
+        s.masked_fill(fused.candidate_drop(gidx, ntotal), float("-inf")), k)
+    ids2 = torch.gather(cols, 1, p2.to(torch.int64))
+    assert torch.equal(vals.view(torch.int32), v2.view(torch.int32))
+    assert torch.equal(ids, ids2)
+    vp, ip = fused.rescore_select_groups_plain(q, db, vn, gidx, ntotal, k=k,
+                                               metric=metric)
+    assert torch.equal(ids, ip)
+
+
+def test_filtered_fallback_keeps_filtering(dev, monkeypatch):
+    """Duplicated rows: the one-plane certificate fails, and both fallback
+    tiers run under the selector; every returned id is admitted."""
+    from faiss_tpu_torch import IDSelectorRange, SearchParams
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    row = np.random.default_rng(1).standard_normal(64).astype(np.float32)
+    idx = TorchIndexFlat(64, storage="bf16", device=dev)
+    idx.add(np.tile(row, (20_000, 1)))
+    xq = np.random.default_rng(2).standard_normal((32, 64)).astype(np.float32)
+    kernels.reset_launches()
+    p = SearchParams(sel=IDSelectorRange(5000, 15000))   # ~78 groups
+    D, I = idx.search(xq, 10, params=p)
+    n = dict(kernels.launches)
+    assert idx.fused_fallbacks == 1
+    assert n["sweep_groupmax_1"] == 1 and n["sweep_groupmax_2"] == 1
+    np.testing.assert_array_equal(I, np.tile(np.arange(5000, 5010), (32, 1)))
+
+
+def test_f32_stage3b_masks_the_selector_again(dev, monkeypatch):
+    """The selector admits 5 rows, fewer than the m = k + 22 candidates of
+    stage 3b: the filtered candidates, scored −inf by stage 3a, must not
+    come back from the master's raw rescore."""
+    from faiss_tpu_torch import IDSelectorBatch, SearchParams
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    rng = np.random.default_rng(8)
+    xb = rng.standard_normal((20_000, 64)).astype(np.float32)
+    xq = rng.standard_normal((16, 64)).astype(np.float32)
+    idx = TorchIndexFlat(64, device=dev)
+    idx.add(xb)
+    keep = np.array([3, 999, 4096, 12345, 19999])
+    before = kernels.launches["rescore_groups_pair"]
+    D, I = idx.search(xq, 10, params=SearchParams(sel=IDSelectorBatch(keep)))
+    assert kernels.launches["rescore_groups_pair"] > before
+    assert (I[:, 5:] == -1).all() and np.isinf(D[:, 5:]).all()
+    d2 = ((xq[:, None, :] - xb[keep][None]) ** 2).sum(-1)
+    np.testing.assert_array_equal(np.sort(I[:, :5], 1),
+                                  np.tile(keep, (16, 1)))
+    np.testing.assert_array_equal(I[:, :5], keep[np.argsort(d2, 1)])

@@ -300,9 +300,9 @@ def test_index_matches_jax(open_gate, gauss, tmp_path, monkeypatch, metric,
     calls = []
     sweep = fused.sweep_f16
 
-    def record(q_hi, q_lo, db, vn, *, metric):
+    def record(q_hi, q_lo, db, vn, **kw):
         calls.append(q_lo is None)
-        return sweep(q_hi, q_lo, db, vn, metric=metric)
+        return sweep(q_hi, q_lo, db, vn, **kw)
 
     monkeypatch.setattr(fused, "sweep_f16", record)
     stored = st.db[:NV_IDX, :D].to(torch.float32).numpy()
@@ -352,9 +352,9 @@ def test_duplicates_fall_back_and_pin_like_jax(open_gate, monkeypatch):
     calls = []
     sweep = fused.sweep_f16
 
-    def record(q_hi, q_lo, db, vn, *, metric):
+    def record(q_hi, q_lo, db, vn, **kw):
         calls.append(q_lo is None)
-        return sweep(q_hi, q_lo, db, vn, metric=metric)
+        return sweep(q_hi, q_lo, db, vn, **kw)
 
     monkeypatch.setattr(fused, "sweep_f16", record)
     _, I_j = jidx.search(xq, 10)

@@ -300,9 +300,9 @@ def test_integer_data_takes_hi_exact_like_jax(open_gate, monkeypatch, metric,
     calls = []
     sweep = fused.sweep_groupmax
 
-    def record(q_hi, q_lo, db, vn, *, metric):
+    def record(q_hi, q_lo, db, vn, **kw):
         calls.append((q_lo is None, db is idx.store.db_hi))
-        return sweep(q_hi, q_lo, db, vn, metric=metric)
+        return sweep(q_hi, q_lo, db, vn, **kw)
 
     monkeypatch.setattr(fused, "sweep_groupmax", record)
     monkeypatch.setattr(fused, "sweep_split", None)   # never the pair sweep
