@@ -25,6 +25,19 @@ it. Each path's launch counts are zeroed just before it and read just after:
             and bf16 searches, a k=64 f32 search, rescore_select=True on the
             bf16, int8 and f16 stores, merge_from, remove_ids, range_search,
             IndexShardsHost and TorchIndexIDMap2 over it
+  ivf_1m    the IVF slice's main path: TorchIndexIVFFlat(128, 4096), the
+            "IVF4096,Flat" of faiss's benchs/bench_gpu_sift1m.py, over
+            1,000,000 rows of a Gaussian mixture (4,096 centres 5·N(0, 1),
+            N(0, 1) noise; scripts/bench_ivf_r4.py's recipe, data from
+            default_rng(SEED + 3)), trained (Kmeans + balancing) three times
+            with one seed for f32, bf16 and int8 lists (centroids equal bit
+            for bit), then searched at nprobe 1, 16, 64 and 4096 (f32) and
+            16 and 4096 (bf16, int8): the fine scan on K10 (f32 rows: the
+            last TPU kernel), the dense route on the fused kernels; recall
+            1.0 against an fp64 oracle over the probed lists of the index's
+            own coarse step; a flat f32 index over the same rows as the
+            control; then range_search, remove_ids, merge_from, a filtered
+            search, save / load and TorchIndexIDMap2 with nprobe
 
 plus nq=8 (two-plane bf16 sweep) and a duplicated-vector index whose
 certificate fails, so both fallback tiers run. Before the searches each
@@ -45,10 +58,11 @@ The last three lines of stdout are the card's name and power limit
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 ``bound_ms`` is the least time the card could take for the kernel's work at
 these shapes: the larger of its bytes (each input read once, each output
-written once; the rescores read only the gathered rows) over 3.35 TB/s and
-its operations over the data sheet's peak for their type (bf16 or f16
-products 989 TFLOP/s, int8 1979 TOP/s, fp32 FMA outside the tensor cores
-67 TFLOP/s). ``library_ms`` times the one PyTorch call that computes the
+written once; the rescores read the rows of each distinct group their
+result needs once, the IVF fine scan's dead budget positions left out)
+over 3.35 TB/s and its operations over the data sheet's peak for their
+type (bf16 or f16 products 989 TFLOP/s, int8 1979 TOP/s, fp32 FMA outside
+the tensor cores 67 TFLOP/s). ``library_ms`` times the one PyTorch call that computes the
 same function, where there is one (``torch.topk`` for the selects), else
 null. Imports nothing of jax or faiss_tpu.
 """
@@ -61,6 +75,7 @@ import numpy as np
 
 NV, D, NQ, K = 1_000_000, 128, 100, 10
 NV_10M = 10_000_000
+NLIST = 4096                       # IVF4096,Flat (benchs/bench_gpu_sift1m.py)
 SEED = 42
 REPS = 20
 ORACLE_CHUNK = 1 << 20
@@ -98,22 +113,26 @@ def _within(torch, a, b, eps, what):
     return float(err.max())
 
 
-def _certificate_eps(idx, q, metric):
-    """The two-plane certificate bound of the index's own sweep (bf16, the
-    f32 or f16 pair with the stored split statistics, or int8's), (nq_pad,
-    1)."""
-    from faiss_tpu_torch import StorageType
+def _eps(q, norms, n, d_pad, metric, scales=None, int_norm_max=None,
+         split_stats=None):
+    """(nq_pad, 1) two-plane certificate bound over the stored rows: int8's
+    when ``scales`` is given, the pair sweep's with ``split_stats`` (f32,
+    f16), else bf16's; it covers one fp32-true scoring of a stored row."""
     from faiss_tpu_torch.ops import fused
 
+    if scales is not None:
+        return fused._sweep_eps_int8(q, scales, int_norm_max, norms, n,
+                                     metric=metric, d_pad=d_pad)[:, None]
+    return fused._sweep_eps(q, norms, n, metric=metric, d_pad=d_pad,
+                            pair_sweep=split_stats is not None,
+                            split_stats=split_stats)[:, None]
+
+
+def _certificate_eps(idx, q, metric):
+    """The two-plane certificate bound of the flat index's own sweep."""
     st = idx.store
-    if st.storage is StorageType.INT8:
-        return fused._sweep_eps_int8(q, st.scales, st.int_norm_max, st.norms,
-                                     idx.ntotal, metric=metric,
-                                     d_pad=st.d_pad)[:, None]
-    return fused._sweep_eps(q, st.norms, idx.ntotal, metric=metric,
-                            d_pad=st.d_pad,
-                            pair_sweep=st.split_stats is not None,
-                            split_stats=st.split_stats)[:, None]
+    return _eps(q, st.norms, idx.ntotal, st.d_pad, metric, st.scales,
+                st.int_norm_max, st.split_stats)
 
 
 def _shapes(idx, xq, metric):
@@ -150,14 +169,18 @@ def _sweep_bound(planes, dbs, vn, gm, terms, kind, extra=(), extra_bytes=0):
     return _bound(nbytes, 2.0 * terms * nq * nv * d, kind)
 
 
-def _rescore_bound(q, row_bytes, gidx, s):
-    """A rescore reads the query, the group ids, the nominated rows and
-    their norms once and writes the scores: fp32 dots outside the tensor
-    cores (an fp32-true product)."""
-    nq, d = q.shape
-    m = s.shape[1]
-    return _bound(_nbytes(q, gidx, s) + nq * m * (d * row_bytes + 4),
-                  2.0 * nq * m * d, "fp32")
+def _rescore_bound(q, row_bytes, gidx, *outs, live=None):
+    """A rescore reads the query, the group ids, and the rows and norms of
+    each distinct group its result needs once (a group that several
+    queries nominate is read once), and writes its outputs; it does fp32
+    dots outside the tensor cores (an fp32-true product) for the needed
+    (query, group) positions. ``live``: the positions the result needs
+    (the IVF fine scan's okc; None: all)."""
+    d = q.shape[1]
+    need = gidx if live is None else gidx[live]
+    groups = int(need.unique().numel())
+    return _bound(_nbytes(q, gidx, *outs) + groups * 128 * (d * row_bytes + 4),
+                  2.0 * need.numel() * 128 * d, "fp32")
 
 
 def _block_max(torch, name, launch):
@@ -194,10 +217,7 @@ def _rescore_select(torch, rows, name, idx, q, db, vn, gidx, metric,
     vp, _ = fused.rescore_select_groups_plain(q, db, vn, gidx, nt, k=K,
                                               metric=metric)
     err = _within(torch, vals, vp, eps, name)
-    nq, d = q.shape
-    m = gidx.shape[1] * 128
-    bound = _bound(_nbytes(q, gidx, vals, ids) + nq * m * (d * row_bytes + 4),
-                   2.0 * nq * m * d, "fp32")
+    bound = _rescore_bound(q, row_bytes, gidx, vals, ids)
     rows[name] = _row(
         torch, err,
         lambda: kernels.rescore_select_groups(q, db, vn, gidx, nt, k=K,
@@ -469,6 +489,20 @@ def _rows64(torch, idx, rows):
     return v, st.norms[rows].to(torch.float64)
 
 
+def _merge_top(torch, top, s, i0, k):
+    """One step of a running stable top-k over row chunks: the chunk's
+    scores ``s`` (rows i0…) merged into ``top`` = (values, ids), which
+    holds the lower ids, so ties go to the lowest id."""
+    v, i = torch.sort(s, dim=1, descending=True, stable=True)
+    v, i = v[:, :k], i[:, :k] + i0
+    if top is not None:
+        v, pos = torch.sort(torch.cat([top[0], v], 1), dim=1,
+                            descending=True, stable=True)
+        i = torch.gather(torch.cat([top[1], i], 1), 1, pos)
+        v, i = v[:, :k], i[:, :k]
+    return v, i
+
+
 def oracle_check(torch, idx, xq, metric, D, I, k=K, admit=None):
     """recall@k and max |D − D_oracle| / ε against an fp64 oracle over the
     stored database and the stored fp32 norms (the ranking the index
@@ -480,7 +514,7 @@ def oracle_check(torch, idx, xq, metric, D, I, k=K, admit=None):
 
     l2 = metric is MetricType.L2
     q = torch.from_numpy(np.asarray(xq, np.float64)).to(idx.store.norms.device)
-    top_v = top_i = None
+    top = None
     for i0 in range(0, idx.ntotal, ORACLE_CHUNK):
         n = min(ORACLE_CHUNK, idx.ntotal - i0)
         v, nrm = _rows64(torch, idx, slice(i0, i0 + n))
@@ -490,14 +524,8 @@ def oracle_check(torch, idx, xq, metric, D, I, k=K, admit=None):
         if admit is not None:
             ok = torch.from_numpy(admit[i0:i0 + n]).to(s.device)
             s = s.masked_fill(~ok, float("-inf"))
-        v, i = torch.sort(s, dim=1, descending=True, stable=True)
-        v, i = v[:, :k], i[:, :k] + i0
-        if top_v is not None:   # the running list holds the lower ids
-            v, pos = torch.sort(torch.cat([top_v, v], 1), dim=1,
-                                descending=True, stable=True)
-            i = torch.gather(torch.cat([top_i, i], 1), 1, pos)
-            v, i = v[:, :k], i[:, :k]
-        top_v, top_i = v, i
+        top = _merge_top(torch, top, s, i0, k)
+    top_i = top[1]
     rows, nrm = _rows64(torch, idx, torch.from_numpy(I).to(q.device))
     got = torch.einsum("qd,qkd->qk", q, rows)
     got = (q * q).sum(1, keepdim=True) - 2.0 * got + nrm if l2 else got
@@ -733,6 +761,356 @@ def phase_surface(torch, ft, xb, xq, f32, bf16, int8, f16):
     return counts
 
 
+def ivf_data():
+    """1M rows and NQ queries of the Gaussian mixture of
+    scripts/bench_ivf_r4.py's make_data (4,096 centres 5·N(0, 1), each row
+    a centre plus N(0, 1) noise; NQ + 8 queries drawn, the first NQ kept),
+    from default_rng(SEED + 3)."""
+    rng = np.random.default_rng(SEED + 3)
+    cents = (5.0 * rng.standard_normal((NLIST, D))).astype(np.float32)
+    xb = cents[rng.integers(0, NLIST, NV)] + rng.standard_normal(
+        (NV, D), dtype=np.float32)
+    xq = cents[rng.integers(0, NLIST, NQ + 8)] + rng.standard_normal(
+        (NQ + 8, D), dtype=np.float32)
+    return xb.astype(np.float32), xq[:NQ].astype(np.float32)
+
+
+def ivf_oracle(torch, idx, xq, nprobe, k=K, admit=None):
+    """fp64 top-k over the stored rows of the lists the index probes (every
+    row at nprobe = nlist): the lists come from the index's own coarse step
+    (``_probe``, which its search calls), the rows' lists from its stored
+    assignment; the rows decoded to fp64 (f32, the bf16 values, the int8
+    codes times the scales) with the stored norms; only the rows ``admit``
+    (a host bool mask over the ids) lets through. Computed on the card in
+    chunks of ORACLE_CHUNK rows with a running stable top-k. Returns
+    (ids (nq, k), fp64 distances (nq, k)) on the host."""
+    from faiss_tpu_torch import MetricType
+
+    l2 = idx.metric is MetricType.L2
+    q, nq = idx._prep_search(xq, None)[:2]
+    rows, norms = idx._rows_by_id()
+    assign = torch.from_numpy(idx._assignments()).to(q.device)
+    probed = None
+    if nprobe < idx.nlist:
+        probe = idx._probe(q, nprobe)[:nq].to(torch.int64)
+        probed = torch.zeros((nq, idx.nlist), dtype=torch.bool,
+                             device=q.device)
+        probed.scatter_(1, probe, True)
+    q64 = torch.from_numpy(xq.astype(np.float64)).to(q.device)
+    top = None
+    for i0 in range(0, idx.ntotal, ORACLE_CHUNK):
+        i1 = min(idx.ntotal, i0 + ORACLE_CHUNK)
+        v = rows[i0:i1, : idx.d].to(torch.float64)
+        if idx._scales is not None:
+            v = v * idx._scales[: idx.d].to(torch.float64)
+        s = q64 @ v.T
+        if l2:
+            s = 2.0 * s - norms[i0:i1].to(torch.float64)
+        if probed is not None:
+            s = s.masked_fill(~probed[:, assign[i0:i1]], float("-inf"))
+        if admit is not None:
+            ok = torch.from_numpy(admit[i0:i1]).to(s.device)
+            s = s.masked_fill(~ok, float("-inf"))
+        top = _merge_top(torch, top, s, i0, k)
+    top_v, top_i = top
+    if l2:
+        top_v = (q64 * q64).sum(1, keepdim=True) - top_v
+    return top_i.cpu().numpy(), top_v.cpu().numpy()
+
+
+def _ivf_term(torch, idx, xq):
+    """(nq, 1) bound on |D − D_oracle| over the IVF index's stored rows.
+    Every IVF route returns fp32-true scores of the stored rows (K10 and
+    the fused route's rescore; the plain dense sweep's exact fp32 GEMM),
+    each within one scoring's d·u·Q·V and its epilogue (``_rescore_term``
+    charges two); for L2 add the fp32 ‖q‖² (≤ d·u·‖q‖²) and the
+    subtraction (≤ u·|D|). Q: ‖q‖, or ‖q∘s‖ against int8 codes; V: the
+    largest stored row (int8: the largest ‖codes‖; bf16: the f32 norm's
+    rounding allowance on top)."""
+    from faiss_tpu_torch import MetricType, StorageType
+    from faiss_tpu_torch.ops import fused
+
+    q, nq = idx._prep_search(xq, None)[:2]
+    qe = idx._qeff(q)
+    norms = idx._norms
+    if idx._scales is not None:
+        v_max = idx._int8_qn
+    else:
+        v_max = torch.sqrt(torch.amax(norms))
+        if idx.storage_type is StorageType.BFLOAT16:
+            v_max = v_max * fused._QUANT_V
+    term = _rescore_term(torch, qe, v_max, norms, norms.shape[0], idx.d_pad,
+                         idx.metric)
+    if idx.metric is MetricType.L2:
+        qq = torch.sum(q * q, dim=-1)[:, None]
+        qn = torch.sqrt(torch.sum(qe * qe, dim=-1))[:, None]
+        term = term + fused._U32 * ((idx.d_pad + 1) * qq + 2.0 * qn * v_max
+                                    + torch.amax(norms))
+    return term[:nq].cpu().numpy()
+
+
+def _recall(I, ref):
+    return sum(len(set(a) & set(b))
+               for a, b in zip(I.tolist(), ref.tolist())) / ref.size
+
+
+def drive_ivf(torch, label, idx, xq, nprobe, flat_I, need, counts,
+              reps=REPS):
+    """One checked IVF search at ``nprobe`` with the counts zeroed just
+    before and read just after (every kernel in ``need`` must have
+    launched; the counts add into ``counts``): recall@K = 1.0 against the
+    fp64 oracle over the probed lists (all rows at nprobe = nlist), |D −
+    D_oracle| within the rescore term (``_ivf_term``); ``reps`` timed
+    searches (host clock, copy-back included), one search_async equal to
+    search; then, after the read, the pipelined time (CUDA events, REPS
+    searches enqueued back to back). The recall against the flat exact
+    top-K ``flat_I`` (None: not printed) is printed, not bounded: IVF
+    recall depends on the data."""
+    from faiss_tpu_torch.ops import kernels
+
+    idx.nprobe = nprobe
+    kernels.reset_launches()
+    D_, I_ = idx.search(xq, K)
+    check(D_.shape == (len(xq), K) and np.isfinite(D_).all()
+          and (I_ >= 0).all(), f"{label}: shape or sentinels")
+    ref_i, ref_d = ivf_oracle(torch, idx, xq, nprobe)
+    rec = _recall(I_, ref_i)
+    rel = float((np.abs(D_ - ref_d) / _ivf_term(torch, idx, xq)).max())
+    check(rec == 1.0, f"{label}: recall@{K} {rec} != 1.0 over the probed "
+                      f"lists")
+    check(rel <= 1.0, f"{label}: distance error {rel:.2e} of the term")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        idx.search(xq, K)
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    tok = idx.search_async(xq, K)
+    Da, Ia = tok.wait()
+    check(tok.is_ready() and np.array_equal(Ia, I_)
+          and np.array_equal(Da, D_), f"{label}: search_async differs")
+    n = dict(kernels.launches)
+    for key in need:
+        check(n[key] > 0, f"{label}: kernel {key} was never launched")
+    for key, v in n.items():
+        counts[key] = counts.get(key, 0) + v
+    pipe = cuda_ms(torch, lambda: idx._search_packed(xq, K), REPS)
+    print(f"search {label} nprobe={nprobe} nq={len(xq)} k={K}: recall@{K}="
+          f"{rec} over the probed lists, max |D - D_oracle| = {rel:.2e} of "
+          f"the rescore term, "
+          f"recall against the flat exact top-{K} "
+          f"{'n/a' if flat_I is None else _recall(I_, flat_I)}; "
+          f"ms/batch={ms:.4f} (host clock, incl. copy-back), pipelined "
+          f"{pipe:.4f} (CUDA events, {REPS} enqueued); fused_fallbacks="
+          f"{idx.fused_fallbacks}; launches {({k: v for k, v in n.items() if v})}",
+          flush=True)
+    return D_, I_
+
+
+def _k10_f32_row(torch, idx, xq):
+    """K10's f32-rows mode against its plain version at the nprobe-16
+    shapes of the f32 IVF index (its own probe, chunk layout and
+    pre-masked norms), within the rescore term d·u·Q·V of each side."""
+    from faiss_tpu_torch import ivf as ivf_mod
+    from faiss_tpu_torch.ops import fused, kernels
+
+    q, _, nq_pad, nprobe, nbudget, _ = idx._prep_search(xq, None)
+    check(nprobe == 16, "K10 f32 row: the index is not at nprobe 16")
+    cidx, okc = ivf_mod._chunk_ids(idx._probe(q, nprobe), idx._counts_dev,
+                                   idx._ctable, nbudget)
+    nv = idx._data.shape[0]
+    vn = fused._premask_norms(idx._norms, nv, nv, idx.metric, idx._ids >= 0)
+    db = idx._data
+    s = kernels.rescore_groups(q, db, vn, cidx, metric=idx.metric)
+    s_p = fused.rescore_groups_plain(q, db, vn, cidx, metric=idx.metric)
+    v_max = torch.sqrt(torch.amax(idx._norms))
+    term = _rescore_term(torch, q, v_max, idx._norms, nv, idx.d_pad,
+                         idx.metric)
+    row = _row(torch, _within(torch, s, s_p, term, "rescore_groups_f32"),
+               lambda: kernels.rescore_groups(q, db, vn, cidx,
+                                              metric=idx.metric),
+               lambda: fused.rescore_groups_plain(q, db, vn, cidx,
+                                                  metric=idx.metric),
+               50, _rescore_bound(q, 4, cidx, s, live=okc))
+    chunk_mb = 128 * idx.d_pad * 4 / 1e6
+    live = int(okc.sum())
+    distinct = int(cidx[okc].unique().numel())
+    print(f"K10 f32 rows at nprobe 16: nq_pad {nq_pad}, nbudget {nbudget} "
+          f"chunks; positions {cidx.numel()}, live {live} (dead share "
+          f"{1 - live / cidx.numel():.4f}, the dead at chunk 0); rows read "
+          f"by the launch {cidx.numel() * chunk_mb:.1f} MB, by its live "
+          f"positions {live * chunk_mb:.1f} MB, distinct live chunks "
+          f"{distinct} ({distinct * chunk_mb:.1f} MB, the bound's)",
+          flush=True)
+    _print_rows(idx.metric, {"rescore_groups_f32": row})
+    return row
+
+
+def _build_ivf(torch, ft, xb, storage):
+    t0 = time.perf_counter()
+    idx = ft.TorchIndexIVFFlat(D, NLIST, storage=storage, device="cuda")
+    idx.train(xb)
+    st = idx.train_stats
+    t1 = time.perf_counter()
+    idx.add(xb)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    sizes = idx.list_sizes()
+    print(f"ivf {storage}: train {t1 - t0:.3f} s (Kmeans {st['kmeans_s']:.3f}"
+          f" s, balance {st['balance_s']:.3f} s), objective "
+          f"{np.array2string(st['obj'], precision=1, max_line_width=200)}; "
+          f"add {t2 - t1:.3f} s, pool {idx.pool_bytes() / 1e9:.3f} GB; list "
+          f"sizes max {sizes.max()} mean {sizes.mean():.2f} (cap "
+          f"{st['cap']}); {idx.describe()}", flush=True)
+    return idx
+
+
+def phase_ivf_1m(torch, ft):
+    """The IVF slice's main path (see the module docstring). Returns (the
+    launch counts of its counted runs, the K10 f32 kernel row). Frees what
+    it builds."""
+    import tempfile
+
+    from faiss_tpu_torch import MetricType
+    from faiss_tpu_torch.ops import kernels
+
+    xb, xq = ivf_data()
+    t0 = time.perf_counter()
+    flat = ft.TorchIndexFlat(D, device="cuda")
+    flat.add(xb)
+    _, flat_I = flat.search(xq, K)
+    t1 = time.perf_counter()
+    for _ in range(REPS):
+        flat.search(xq, K)
+    flat_ms = (time.perf_counter() - t1) / REPS * 1e3
+    q, _, nq_pad = flat._prep_queries(xq)
+    flat_pipe = cuda_ms(torch, lambda: flat._run_search_fn(
+        q, K, nq_pad, force_plain=False), REPS)
+    print(f"ivf_1m control: flat f32 over the same rows, built and searched "
+          f"in {t1 - t0:.3f} s; ms/batch={flat_ms:.4f} (host clock), "
+          f"pipelined {flat_pipe:.4f}", flush=True)
+    del flat
+    torch.cuda.empty_cache()
+
+    ivf = {s: _build_ivf(torch, ft, xb, s) for s in ("f32", "bf16", "int8")}
+    for s in ("bf16", "int8"):
+        check(np.array_equal(ivf[s]._centroids, ivf["f32"]._centroids),
+              f"ivf_1m: {s} training gave other centroids than f32's")
+    print("ivf_1m: the f32, bf16 and int8 trainings gave bit-equal "
+          "centroids", flush=True)
+
+    counts = {}
+    gather = {"f32": ("rescore_groups_f32",), "bf16": ("rescore_groups",),
+              "int8": ("rescore_groups_int8",)}
+    dense = {"f32": (),
+             "bf16": ("sweep_groupmax_2", "select_groups", "rescore_groups",
+                      "final_select"),
+             "int8": ("sweep_int8", "select_groups", "rescore_groups_int8",
+                      "final_select")}
+    runs = [("f32", npb) for npb in (1, 16, 64, NLIST)]
+    runs += [(s, npb) for s in ("bf16", "int8") for npb in (16, NLIST)]
+    for s, npb in runs:
+        drive_ivf(torch, f"ivf {s}", ivf[s], xq, npb, flat_I,
+                  dense[s] if npb == NLIST else gather[s], counts)
+    print(f"launches in the ivf_1m main-path runs: {counts}", flush=True)
+
+    f32 = ivf["f32"]
+    f32.nprobe = 16
+    k10 = _k10_f32_row(torch, f32, xq)
+
+    # -- the surface at 1M, as checks ----------------------------------------
+    D16, I16 = f32.search(xq, K)
+    radius = float(np.median(D16[:, -1]))
+    lims, _, Ir = f32.range_search(xq, radius)
+    ref_i, ref_d = ivf_oracle(torch, f32, xq, 16, k=4096)
+    near = 0
+    for r in range(len(xq)):
+        ok = ref_i[r][np.isfinite(ref_d[r])]
+        dd = ref_d[r][np.isfinite(ref_d[r])]
+        check(dd[-1] >= radius, f"range oracle: k too small for query {r}")
+        want = set(ok[dd < radius].tolist())
+        got = set(Ir[lims[r]:lims[r + 1]].tolist())
+        diff = np.array(sorted(want ^ got), np.int64)
+        dist = dict(zip(ok.tolist(), dd.tolist()))
+        check(all(abs(dist.get(int(i), np.inf) - radius) <= 1e-4 * radius
+                  for i in diff), f"ivf range_search: query {r} differs")
+        near += diff.size
+    print(f"ivf range_search f32 nprobe=16 radius {radius:.4f}: "
+          f"{lims[-1] / len(xq):.1f} hits a query, the fp64 oracle's set "
+          f"within the probed lists but for {near} rows within 1e-4·radius",
+          flush=True)
+
+    rng = np.random.default_rng(SEED + 4)
+    sel = (ft.IDSelectorRange(0, NV // 2)
+           | ft.IDSelectorBatch(rng.choice(NV, NV // 100, replace=False)))
+    admit = sel.is_member(np.arange(NV, dtype=np.int64))
+    Df, If = f32.search(xq, K, params=ft.SearchParams(sel=sel))
+    ref_i, _ = ivf_oracle(torch, f32, xq, 16, admit=admit)
+    check(_recall(If, ref_i) == 1.0 and admit[If[If >= 0]].all(),
+          "ivf filtered search differs from the oracle over admitted rows")
+    print("ivf filtered search f32 nprobe=16: recall@10 = 1.0 over the "
+          "admitted rows of the probed lists", flush=True)
+
+    int8 = ivf["int8"]
+    int8.nprobe = 16
+    Di, Ii = int8.search(xq, K)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/ivf_int8.npz"
+        t0 = time.perf_counter()
+        ft.save_index(int8, path)
+        back = ft.load_index(path)
+        t1 = time.perf_counter()
+    Db, Ib = back.search(xq, K)
+    check(np.array_equal(Ib, Ii) and np.array_equal(Db, Di)
+          and np.array_equal(back._assignments(), int8._assignments()),
+          "ivf save/load: results differ")
+    print(f"ivf save_index / load_index int8: {t1 - t0:.3f} s, the same "
+          f"routing and results bit for bit", flush=True)
+    del back
+
+    half = NV // 2
+    a, b, whole = (ft.TorchIndexIVFFlat(D, NLIST, nprobe=16, device="cuda")
+                   for _ in range(3))
+    for x in (a, b, whole):
+        x._set_centroids(f32._centroids, quantizer=f32.quantizer)
+    a.add(xb[:half])
+    b.add(xb[half:])
+    whole.add(xb[:half])
+    whole.add(xb[half:])
+    a.merge_from(b)
+    check(b.ntotal == 0 and a.ntotal == NV, "ivf merge_from: counts")
+    Da, Ia = a.search(xq, K)
+    Dw, Iw = whole.search(xq, K)
+    check(np.array_equal(Ia, Iw) and np.array_equal(Da, Dw),
+          "ivf merge_from: differs from the index built by the same adds")
+    print("ivf merge_from: two 500,000-row f32 halves search as the index "
+          "built by the same two adds, bit for bit", flush=True)
+    del a, b, whole
+
+    w = ft.TorchIndexIDMap2(ft.TorchIndexIVFFlat(D, NLIST, storage="bf16",
+                                                 nprobe=1, device="cuda"))
+    w.index._set_centroids(f32._centroids, quantizer=f32.quantizer)
+    w.add_with_ids(xb, 10 * np.arange(NV))
+    bf16 = ivf["bf16"]
+    bf16.nprobe = 16
+    _, Ib16 = bf16.search(xq, K)
+    check(np.array_equal(w.search(xq, K, params=ft.SearchParams(nprobe=16))[1],
+                         10 * Ib16), "TorchIndexIDMap2 over IVF: labels")
+    for i in (0, NV // 3, NV - 1):
+        check(np.array_equal(w.reconstruct(10 * i), bf16.reconstruct(i)),
+              f"TorchIndexIDMap2 over IVF: reconstruct({10 * i})")
+    print("TorchIndexIDMap2 over bf16 IVF with SearchParams(nprobe=16): "
+          "labels 10x the index's, reconstruct by custom id", flush=True)
+    del w
+
+    rm = rng.choice(NV, NV // 10, replace=False)
+    check(f32.remove_ids(rm) == NV // 10 and f32.ntotal == NV - NV // 10,
+          "ivf remove_ids: counts")
+    drive_ivf(torch, "ivf f32 after remove_ids", f32, xq, 16, None,
+              ("rescore_groups_f32",), {}, reps=3)
+    del ivf, f32, int8, bf16
+    torch.cuda.empty_cache()
+    return counts, k10
+
+
 def build_index(torch, ft, xb, metric, **kw):
     t0 = time.perf_counter()
     idx = ft.TorchIndexFlat(D, metric=metric, device="cuda", **kw)
@@ -755,6 +1133,7 @@ def main() -> int:
     from faiss_tpu_torch.ops import kernels
 
     L2, IP = MetricType.L2, MetricType.INNER_PRODUCT
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = ft.gpu_name_and_power_limit()
     print(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
@@ -887,10 +1266,14 @@ def main() -> int:
           f"{dup.fused_fallbacks}, ids = plain path's; launches {nd}",
           flush=True)
 
-    # the slice's main path, then the surface; each frees what it builds
+    # the 10M main path, the surface, then the IVF slice's main path; each
+    # frees what it builds
     counts["f32_10m"] = phase_f32_10m(torch, ft, xb, xq)
     counts["surface"] = phase_surface(torch, ft, xb, xq, f32[L2], bf16[L2],
                                       int8[L2], f16[L2])
+    del bf16, f32, sift, pair, int8, f16, dup, idx
+    torch.cuda.empty_cache()
+    counts["ivf_1m"], rows["rescore_groups_f32"] = phase_ivf_1m(torch, ft)
 
     k11_note = ("reached through fused_search(rescore_select=True): "
                 "launches counted in the surface phase")
@@ -909,6 +1292,9 @@ def main() -> int:
         "rescore_groups_pair": ("rescore_groups.cu", f"{PF}:1074", None),
         "rescore_groups_int8": ("rescore_groups.cu", f"{PF}:1045", None),
         "rescore_groups_f16": ("rescore_groups.cu", f"{PF}:1035", None),
+        "rescore_groups_f32": ("rescore_groups.cu", f"{PF}:1040",
+                               "the IVF fine scan: launches counted in the "
+                               "ivf_1m phase"),
         "final_select": ("final_select.cu", f"{PF}:809", None),
         "sweep_block_max": ("sweep_groupmax.cu", f"{PF}:155", None),
         "rescore_select": ("rescore_select.cu", f"{PF}:1195", k11_note),
@@ -930,6 +1316,8 @@ def main() -> int:
         table.append(entry)
     check(all(e["launches"] > 0 for e in table),
           "a kernel of the table was never launched")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
+          f"included", flush=True)
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

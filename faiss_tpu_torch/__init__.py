@@ -1,4 +1,4 @@
-"""faiss_tpu_torch: exact (flat) vector search on PyTorch + CUDA.
+"""faiss_tpu_torch: exact (flat) and IVF vector search on PyTorch + CUDA.
 
 A port of ``faiss_tpu`` (JAX on a TPU) to one NVIDIA H100, module by module
 beside the original, which stays the reference it is tested against. This
@@ -15,9 +15,13 @@ first use) with its exactness certificates and two-tier fallback at any
 index size and k, and the plain path; the rest of the flat surface:
 selectors, range_search, remove_ids, merge_from, assign,
 search_and_reconstruct, vectors_numpy, the IDMap wrappers, host-merged
-shards and ``.npz`` save and load.
+shards and ``.npz`` save and load; k-means with balanced training and the
+functional knn; IVF-Flat on the chunk-paged pool (f32, bf16 and int8
+lists), its fine scan on K10 (f32 rows included) and its dense route on
+the fused search.
 
     TorchIndexFlat, TorchSearchToken, index_numpy_to_torch
+    TorchIndexIVFFlat, Kmeans, kmeans_clustering, knn, pairwise_distances
     TorchIndexIDMap, TorchIndexIDMap2, IndexShardsHost,
     merge_search_results
     IDSelector*, SearchParams (and the faiss spellings SearchParameters,
@@ -27,10 +31,12 @@ shards and ``.npz`` save and load.
     query_device_capabilities, gpu_name_and_power_limit
 """
 
+from .clustering import Kmeans, kmeans_clustering, knn, pairwise_distances
 from .dtypes import MetricType, StorageType
 from .idmap import TorchIndexIDMap, TorchIndexIDMap2
 from .index import TorchIndexFlat, TorchSearchToken, index_numpy_to_torch
 from .io import index_from_arrays, load_index, save_index
+from .ivf import TorchIndexIVFFlat
 from .multi import IndexShardsHost, merge_search_results
 from .resources import (DeviceCapabilities, KernelTuning,
                         gpu_name_and_power_limit, query_device_capabilities)
@@ -42,6 +48,8 @@ from .selector import (IDSelector, IDSelectorAnd, IDSelectorBatch,
 __all__ = [
     "MetricType", "StorageType",
     "TorchIndexFlat", "TorchSearchToken", "index_numpy_to_torch",
+    "TorchIndexIVFFlat", "Kmeans", "kmeans_clustering", "knn",
+    "pairwise_distances",
     "TorchIndexIDMap", "TorchIndexIDMap2", "IndexShardsHost",
     "merge_search_results",
     "IDSelector", "IDSelectorRange", "IDSelectorBatch", "IDSelectorMask",

@@ -1,13 +1,16 @@
 // Gather-rescore: phase 3 of the fused search (stage 3a for f32 storage).
 //
 // Replaces faiss_tpu/ops/pallas_fused.py _rescore_kernel (with
-// _rescore_dots), as launched by rescore_groups_pallas, in four of its
+// _rescore_dots), as launched by rescore_groups_pallas, in all five of its
 // modes, one row format each:
 //   BF16  bf16 rows (db2=None)
 //   PAIR  the f32 pair mode, db2 = the lo plane (body :1074-1076)
 //   INT8  int8 codes (_rescore_dots :1045-1047, fused route :1720-1731),
 //         scored against qs = q∘s (the caller passes qs)
 //   F16   f16 bit patterns (the int16 mode, _rescore_dots :1035-1039)
+//   F32   f32 rows (_rescore_dots :1040-1044), the IVF fine scan
+//         (faiss_tpu/ivf.py :397-426): gidx holds pool chunk ids, one
+//         128-row chunk per group, ngroups = the pool's chunk capacity
 // For query q and its j-th nominated group g = gidx[q, j] it writes, for
 // the 128 rows r of g,
 //     out[q, j·128 + (r − 128·g)] = 2·(q·v_r) − vn[r]  (L2)
@@ -32,12 +35,19 @@
 // against the stored pair and errs ≤ d·u·Q·‖hi + lo‖ ≤ d·u·Q·(V + s1),
 // inside the (d+6)·u·Q·(V + s0 + s1) that _pair_rescore_eps charges the
 // pair rescore (Q = ‖q‖, V ≥ max‖v‖, s0 ≥ max‖lo‖, s1 ≥ max‖v − hi − lo‖).
+// F32: ONE chain over the stored fp32 row, erring ≤ d·u·Q·V, where the JAX
+// kernel splits q and v three ways into bf16 and sums nine exact-product
+// passes; both are fp32-true to the stored row within d·u·Q·V, so two rows
+// that score within that bound may order differently in the two packages.
+// The IVF gather routes carry no certificate, so no ε changes.
 //
 // What bounds it on an H100: the gather, nq·kg·128·d elements of rows read
 // by id in 256-byte runs (d=128: 46 MB at nq=104, kg=14 for bf16 and f16,
-// 93 MB for the pair, 23 MB for int8). Design: one block of 128 threads
-// per (query, rank); thread r owns row r of the group and reads it as
-// 16-byte vectors (8 elements, or 16 int8 codes, per plane and step); q is
+// 93 MB for the pair, 23 MB for int8; for F32 the IVF fine scan's
+// nq·nbudget·128·d·4 bytes, 436 MB at nq=104, nbudget=64). Design: one
+// block of 128 threads per (query, rank); thread r owns row r of the group
+// and reads it as 16-byte vectors (8 elements, 16 int8 codes or 4 fp32, per
+// plane and step); q is
 // staged in shared memory (fp32, d in chunks of 1024, 4 KB) and read as a
 // broadcast. A group id past the end is clamped into range, so a bad id
 // cannot read out of bounds.
@@ -47,7 +57,7 @@ namespace {
 
 constexpr int DT = 1024;   // d chunk of the query staged in shared memory
 
-enum Rows { BF16 = 0, PAIR = 1, INT8 = 2, F16 = 3 };
+enum Rows { BF16 = 0, PAIR = 1, INT8 = 2, F16 = 3, F32 = 4 };
 
 template <bool L2, int FMT>
 __global__ void __launch_bounds__(ft::GROUP)
@@ -57,8 +67,9 @@ rescore_groups_kernel(const float* __restrict__ q,
                       const float* __restrict__ vn,
                       const int32_t* __restrict__ gidx,
                       float* __restrict__ out, int d, int kg, int ngroups) {
-  constexpr int EPC = FMT == INT8 ? 16 : 8;   // elements per 16-byte chunk
-  constexpr int ESZ = FMT == INT8 ? 1 : 2;    // bytes per element
+  // elements per 16-byte chunk, bytes per element
+  constexpr int EPC = FMT == INT8 ? 16 : FMT == F32 ? 4 : 8;
+  constexpr int ESZ = FMT == INT8 ? 1 : FMT == F32 ? 4 : 2;
   __shared__ __align__(16) float qs[DT];
 
   const int qi = blockIdx.x / kg, j = blockIdx.x % kg;
@@ -81,6 +92,11 @@ rescore_groups_kernel(const float* __restrict__ q,
       const uint4 w = __ldg(v + (d0 + e) / EPC);
       if constexpr (FMT == INT8) {
         ft::unpack16_i8(w, x);
+      } else if constexpr (FMT == F32) {
+        x[0] = __uint_as_float(w.x);
+        x[1] = __uint_as_float(w.y);
+        x[2] = __uint_as_float(w.z);
+        x[3] = __uint_as_float(w.w);
       } else if constexpr (FMT == F16) {
         ft::unpack8_f16(w, x);
       } else {
@@ -122,15 +138,15 @@ void launch(const float* q, const void* db, const uint16_t* db2,
 }  // namespace
 
 // q: (nq, d) f32; db: (≥ ngroups·128, d) rows in format fmt (0 bf16 rows,
-// 1 the bf16 hi plane with db2 = the lo plane, 2 int8 codes, 3 f16 bits);
-// db2: the lo plane (fmt 1) or null; vn: (ngroups·128,) f32;
+// 1 the bf16 hi plane with db2 = the lo plane, 2 int8 codes, 3 f16 bits,
+// 4 f32 rows); db2: the lo plane (fmt 1) or null; vn: (ngroups·128,) f32;
 // gidx: (nq, kg) int32; out: (nq, kg·128) f32. 16-byte aligned, and
-// d % 8 == 0 (d % 16 == 0 for int8).
+// d % 8 == 0 (d % 16 == 0 for int8, d % 4 == 0 for f32).
 extern "C" int ft_rescore_groups(const void* q, const void* db, const void* db2,
                                  const void* vn, const void* gidx, void* out,
                                  int nq, int d, int kg, int ngroups, int l2,
                                  int fmt, void* stream) {
-  const int align = fmt == INT8 ? 16 : 8;
+  const int align = fmt == INT8 ? 16 : fmt == F32 ? 4 : 8;
   if (nq <= 0 || kg <= 0 || ngroups <= 0 || d <= 0 || d % align != 0
       || (fmt == PAIR) != (db2 != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -145,6 +161,7 @@ extern "C" int ft_rescore_groups(const void* q, const void* db, const void* db2,
     case PAIR: launch<PAIR>(qq, db, v2, n, gi, o, nq, d, kg, ngroups, l2, s); break;
     case INT8: launch<INT8>(qq, db, v2, n, gi, o, nq, d, kg, ngroups, l2, s); break;
     case F16: launch<F16>(qq, db, v2, n, gi, o, nq, d, kg, ngroups, l2, s); break;
+    case F32: launch<F32>(qq, db, v2, n, gi, o, nq, d, kg, ngroups, l2, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

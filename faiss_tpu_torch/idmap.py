@@ -1,5 +1,6 @@
 """Custom-id wrappers: faiss::IndexIDMap / IndexIDMap2, after
-``faiss_tpu/idmap.py``, over TorchIndexFlat or IndexShardsHost.
+``faiss_tpu/idmap.py``, over TorchIndexFlat, TorchIndexIVFFlat or
+IndexShardsHost.
 
   * ``add_with_ids(x, ids)`` stores the caller's int64 ids; plain ``add``
     raises, as faiss::IndexIDMap::add does.
@@ -49,8 +50,10 @@ def _translate(id_map: np.ndarray, labels: np.ndarray) -> np.ndarray:
 
 
 class TorchIndexIDMap:
-    """faiss::IndexIDMap over a TorchIndexFlat or an IndexShardsHost
-    (composition: the inner index stays usable on its own)."""
+    """faiss::IndexIDMap over a TorchIndexFlat, a TorchIndexIVFFlat or an
+    IndexShardsHost (composition: the inner index stays usable on its own).
+    ``params.nprobe`` passes through to the inner index, which an IVF
+    index honours and a flat one rejects."""
 
     def __init__(self, index):
         self.index = index

@@ -140,6 +140,31 @@ class TorchSearchToken:
         return self._event.query()
 
 
+class ConcatSearchToken:
+    """Handle over the row-chunk tokens of ONE logical search (the IVF
+    index splits a query batch whose score array would pass its gather
+    budget; ``faiss_tpu``'s ConcatSearchToken). Every chunk is enqueued
+    before this is returned; ``wait()`` concatenates their results in query
+    order."""
+
+    def __init__(self, toks):
+        self._toks = toks
+        self._result = None
+
+    def wait(self) -> Tuple[np.ndarray, np.ndarray]:
+        if self._result is None:
+            parts = [t.wait() for t in self._toks]
+            self._result = (
+                np.concatenate([p[0] for p in parts], axis=0),
+                np.concatenate([p[1] for p in parts], axis=0))
+            self._toks = None
+        return self._result
+
+    def is_ready(self) -> bool:
+        return self._result is not None or all(
+            t.is_ready() for t in self._toks)
+
+
 def _range_csr(run_range, nq: int, metric: MetricType):
     """range_search's passes and CSR assembly (``faiss_tpu``'s _range_csr):
     ``run_range(cap)`` returns host (counts (nchunks, nq_pad), vals, ids,

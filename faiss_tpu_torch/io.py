@@ -1,4 +1,5 @@
-"""Saving and loading flat indexes in ``faiss_tpu``'s ``.npz`` format.
+"""Saving and loading flat and IVF indexes in ``faiss_tpu``'s ``.npz``
+format.
 
 The file holds ``meta`` (JSON: format, d, metric, storage, ntotal,
 wrapper), ``vectors`` (float32 rows, the stored bf16 or f16 bit patterns
@@ -15,6 +16,13 @@ file's.) What the JAX loader derives from the rows, the port derives too:
 the f32 planes and split statistics, the f16 split statistics and
 dirty-pattern count, and the int8 ``int_norm_max``. Only numpy reads and
 writes the file.
+
+An IVF file (meta ``kind="ivf"``, ``nlist``, ``nprobe``) also holds the
+``centroids`` (nlist, d) and ``assign``, the list of every row; its rows
+and norms are in insertion-id order. Loading installs the centroids and
+restores each row into its saved list (``_add_preassigned``), never
+re-routing it, so an index built by ``faiss_tpu`` routes and searches the
+same lists here.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 from .dtypes import MetricType, StorageType
 from .idmap import TorchIndexIDMap, TorchIndexIDMap2
 from .index import TorchIndexFlat
+from .ivf import TorchIndexIVFFlat
 
 _FORMAT_VERSION = 1
 
@@ -37,21 +46,61 @@ _ROWS = {StorageType.BFLOAT16: (np.int16, torch.bfloat16),
          StorageType.FLOAT32: (np.float32, torch.float32)}
 
 
+def _host_rows(rows: torch.Tensor) -> np.ndarray:
+    """Stored rows as the file holds them: f32 and int8 as they are, bf16
+    and f16 as their uint16 bit patterns."""
+    rows = rows.cpu()
+    if rows.dtype in (torch.bfloat16, torch.float16):
+        return rows.view(torch.int16).numpy().view(np.uint16)
+    return rows.numpy()
+
+
+def _ivf_arrays(index: TorchIndexIVFFlat):
+    """(meta fields, arrays) of an IVF index: the centroids, the saved
+    routing, the stored rows and norms in insertion-id order."""
+    if not index.is_trained:
+        raise ValueError("cannot save an untrained IVF index")
+    d = index.d
+    extra = {"centroids": index._centroids}
+    if index.storage_type is StorageType.INT8:
+        extra["scales"] = index._scales[:d].cpu().numpy()
+    if index.ntotal:
+        rows, norms = index._rows_by_id()
+        vectors, norms = _host_rows(rows[:, :d]), norms.cpu().numpy()
+    else:
+        vectors = np.zeros((0, d), np.float32)
+        norms = np.zeros((0,), np.float32)
+    extra["assign"] = index._assignments()
+    return (dict(kind="ivf", nlist=index.nlist, nprobe=index.nprobe),
+            vectors, norms, extra)
+
+
 def save_index(index, path: str) -> None:
-    """Write a TorchIndexFlat, or a TorchIndexIDMap(2) over one, to ``path``
-    (.npz), exactly: the stored bits and norms, not a decoded copy."""
+    """Write a TorchIndexFlat or TorchIndexIVFFlat, or a TorchIndexIDMap(2)
+    over one, to ``path`` (.npz), exactly: the stored bits and norms, not
+    a decoded copy (an IVF index also its centroids and routing)."""
     wrapper = id_map = None
     if isinstance(index, TorchIndexIDMap):
         wrapper = "idmap2" if isinstance(index, TorchIndexIDMap2) else "idmap"
         id_map = np.asarray(index.id_map, np.int64)
         index = index.index
-    if not isinstance(index, TorchIndexFlat):
-        raise TypeError(f"save_index takes a TorchIndexFlat or an IDMap "
-                        f"over one, got {type(index).__name__}")
-    st, nt, d = index.store, index.ntotal, index.d
+    if not isinstance(index, (TorchIndexFlat, TorchIndexIVFFlat)):
+        raise TypeError(f"save_index takes a TorchIndexFlat, a "
+                        f"TorchIndexIVFFlat or an IDMap over one, got "
+                        f"{type(index).__name__}")
+    nt, d = index.ntotal, index.d
     meta = {"format": _FORMAT_VERSION, "d": d, "metric": index.metric.value,
             "storage": index.storage_type.value, "ntotal": nt,
             "wrapper": wrapper}
+    if isinstance(index, TorchIndexIVFFlat):
+        fields, vectors, norms, extra = _ivf_arrays(index)
+        meta.update(fields)
+        if id_map is not None:
+            extra["id_map"] = id_map
+        np.savez_compressed(path, meta=json.dumps(meta), vectors=vectors,
+                            norms=norms, **extra)
+        return
+    st = index.store
     if nt == 0:
         vectors = np.zeros((0, d), np.float32)
         norms = np.zeros((0,), np.float32)
@@ -60,11 +109,7 @@ def save_index(index, path: str) -> None:
         if st.pair_only:
             vectors = st.reconstruct_n(0, nt)     # the exact host master
         else:
-            vectors = st.db[:nt, :d].cpu()
-            if vectors.dtype in (torch.bfloat16, torch.float16):
-                vectors = vectors.view(torch.int16).numpy().view(np.uint16)
-            else:
-                vectors = vectors.numpy()
+            vectors = _host_rows(st.db[:nt, :d])
     extra = {}
     if index.storage_type is StorageType.INT8:
         extra["scales"] = st.scales[:d].cpu().numpy()
@@ -74,42 +119,78 @@ def save_index(index, path: str) -> None:
                         norms=norms, **extra)
 
 
+def _ivf_from_arrays(meta: dict, vectors, norms, device, scales,
+                     centroids, assign) -> TorchIndexIVFFlat:
+    """A TorchIndexIVFFlat with the file's centroids (and int8 scales),
+    each row restored into its saved list, bits and norms as stored."""
+    if centroids is None or assign is None:
+        raise ValueError("an IVF file needs its centroids and assign")
+    idx = TorchIndexIVFFlat(
+        int(meta["d"]), int(meta["nlist"]),
+        metric=MetricType.coerce(meta["metric"]),
+        storage=StorageType.coerce(meta["storage"]),
+        nprobe=int(meta["nprobe"]), device=device)
+    if idx.storage_type is StorageType.INT8:
+        if scales is None:
+            raise ValueError("an int8 file needs its scales")
+        idx._set_scales(scales)
+    idx._set_centroids(np.asarray(centroids, np.float32))
+    n = int(meta["ntotal"])
+    if n:
+        np_dtype, dtype = _ROWS[idx.storage_type]
+        rows = torch.zeros((n, idx.d_pad), dtype=dtype)
+        rows[:, : idx.d] = torch.from_numpy(
+            np.ascontiguousarray(vectors).view(np_dtype)).view(dtype)
+        idx._add_preassigned(
+            rows, torch.from_numpy(np.ascontiguousarray(norms, np.float32)),
+            np.asarray(assign, np.int64))
+    return idx
+
+
 def index_from_arrays(meta: dict, vectors: np.ndarray, norms: np.ndarray,
                       device="cuda", keep_master: bool = True,
-                      scales: np.ndarray = None, id_map: np.ndarray = None):
-    """TorchIndexFlat from the arrays of a saved flat index (``scales``:
-    int8 only), inside its TorchIndexIDMap(2) when the file has one
-    (``id_map``). ``keep_master=False`` loads f32 rows into pair-only
-    storage."""
+                      scales: np.ndarray = None, id_map: np.ndarray = None,
+                      centroids: np.ndarray = None,
+                      assign: np.ndarray = None):
+    """TorchIndexFlat, or TorchIndexIVFFlat for an IVF file (``centroids``
+    and ``assign``), from the arrays of a saved index (``scales``: int8
+    only), inside its TorchIndexIDMap(2) when the file has one
+    (``id_map``). ``keep_master=False`` loads flat f32 rows into pair-only
+    storage. The arrays of a ``faiss_tpu`` file carry its state across: an
+    IVF index routes every row to the list the JAX index put it in."""
     if meta.get("format") != _FORMAT_VERSION:
         raise ValueError(f"unsupported index format {meta.get('format')}")
-    if meta.get("kind", "flat") != "flat":
-        raise NotImplementedError(
-            f"only flat indexes load into the port so far, not "
-            f"{meta.get('kind')!r}")
+    kind = meta.get("kind", "flat")
+    if kind not in ("flat", "ivf"):
+        raise ValueError(f"unknown index kind {kind!r}")
     wrapper = meta.get("wrapper")
     if wrapper not in (None, "idmap", "idmap2"):
         raise ValueError(f"unknown wrapper {wrapper!r}")
     if wrapper is not None and id_map is None:
         raise ValueError("an IDMap file needs its id_map")
-    idx = TorchIndexFlat(int(meta["d"]), metric=MetricType.coerce(meta["metric"]),
-                         storage=StorageType.coerce(meta["storage"]),
-                         device=device, keep_master=keep_master)
     n = int(meta["ntotal"])
-    if vectors.shape != (n, idx.d) or norms.shape != (n,):
+    if vectors.shape != (n, int(meta["d"])) or norms.shape != (n,):
         raise ValueError(
             f"arrays disagree with meta: vectors {vectors.shape}, "
-            f"norms {norms.shape}, ntotal {n}, d {idx.d}")
-    if idx.storage_type is StorageType.INT8:
-        if scales is None:
-            raise ValueError("an int8 file needs its scales")
-        idx.store.set_scales(scales)    # frozen, also for an empty index
-    if n:
-        np_dtype, dtype = _ROWS[idx.storage_type]
-        rows = np.ascontiguousarray(vectors).view(np_dtype)
-        idx.store.add_raw(torch.from_numpy(rows).view(dtype),
-                          torch.from_numpy(np.ascontiguousarray(norms,
-                                                                np.float32)))
+            f"norms {norms.shape}, ntotal {n}, d {meta['d']}")
+    if kind == "ivf":
+        idx = _ivf_from_arrays(meta, vectors, norms, device, scales,
+                               centroids, assign)
+    else:
+        idx = TorchIndexFlat(int(meta["d"]),
+                             metric=MetricType.coerce(meta["metric"]),
+                             storage=StorageType.coerce(meta["storage"]),
+                             device=device, keep_master=keep_master)
+        if idx.storage_type is StorageType.INT8:
+            if scales is None:
+                raise ValueError("an int8 file needs its scales")
+            idx.store.set_scales(scales)  # frozen, also for an empty index
+        if n:
+            np_dtype, dtype = _ROWS[idx.storage_type]
+            rows = np.ascontiguousarray(vectors).view(np_dtype)
+            idx.store.add_raw(torch.from_numpy(rows).view(dtype),
+                              torch.from_numpy(np.ascontiguousarray(
+                                  norms, np.float32)))
     if wrapper is None:
         return idx
     out = (TorchIndexIDMap2 if wrapper == "idmap2" else TorchIndexIDMap)(idx)
@@ -118,13 +199,12 @@ def index_from_arrays(meta: dict, vectors: np.ndarray, norms: np.ndarray,
 
 
 def load_index(path: str, device="cuda", keep_master: bool = True):
-    """Load a flat index, or an IDMap / IDMap2 over one, written by
+    """Load a flat or IVF index, or an IDMap / IDMap2 over one, written by
     ``save_index`` or ``faiss_tpu.save_index`` (any storage)."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
+        arrays = {name: z[name] if name in z.files else None
+                  for name in ("scales", "id_map", "centroids", "assign")}
         vectors, norms = z["vectors"], z["norms"]
-        scales = z["scales"] if "scales" in z.files else None
-        id_map = z["id_map"] if "id_map" in z.files else None
     return index_from_arrays(meta, vectors, norms, device=device,
-                             keep_master=keep_master, scales=scales,
-                             id_map=id_map)
+                             keep_master=keep_master, **arrays)

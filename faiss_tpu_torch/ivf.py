@@ -1,0 +1,802 @@
+"""TorchIndexIVFFlat: the IVF-Flat index (faiss::IndexIVFFlat) on the
+chunk-paged pool, with f32, bf16 and int8 lists.
+
+Counterpart of ``faiss_tpu/ivf.py``'s TpuIndexIVFFlat:
+
+  * storage is a CHUNK-PAGED POOL: one (npool·128, d_pad) device tensor of
+    128-row chunks (the pool doubles as it grows; existing slots never
+    move), per-slot norms and insertion ids (−1 in empty slots), and an
+    (nlist, maxc) int32 PAGE TABLE mapping list l's j-th chunk to its pool
+    chunk. Device memory, the fine scan and the dense sweep all follow the
+    occupancy, never nlist × the longest list;
+  * train: ``clustering.Kmeans`` (spherical for IP), then
+    ``balance_centroids`` on the same subsample (no list beyond ~2× the
+    mean, so the fine scan's static chunk budget stops paying k-means'
+    skew); int8 freezes its per-dimension scales from the same sample;
+  * add: the coarse assignment is one fp32 GEMM against the centroids and
+    the first argmax (ties to the lowest list id); slot arithmetic is host
+    numpy on the counts mirror; the rows land with one scatter. int8 rows
+    are quantised on the card (norms of the decoded rows, the running
+    max ‖codes‖); f32 and bf16 norms are summed in f64 on the host;
+  * search: the coarse probe is ``matmul_scores`` against the centroids
+    and the top nprobe by ``topk_scores`` (``_probe``); the probed lists'
+    occupied chunks are laid out per query (``_chunk_ids``) under a static
+    budget (``_chunk_budget``: the nprobe fattest lists, rounded to two
+    significant bits) and fed as group ids to K10 (``kernels.
+    rescore_groups``: f32 rows, bf16 rows, or int8 codes against q∘s),
+    with ``ngroups`` = the pool's capacity and slot validity (``ids ≥ 0``,
+    and the selector) folded into the pre-masked norm stream. Dead budget
+    positions point at chunk 0 and are masked to −inf after the kernel;
+    then the top-k by ``topk_scores``, slot → id, and −‖q‖² restored;
+  * nprobe == nlist takes the DENSE route over the used pool prefix: f32
+    sweeps ``matmul_scores`` block by block into ``chunked_topk_scores``;
+    bf16 and int8 take the flat ``fused.fused_search`` (two query planes,
+    the occupancy as its selector) with the certificate, whose failed
+    queries re-run on the plain dense sweep when the token is waited on;
+  * range_search gathers the probed chunks' rows in blocks of 8 queries
+    (``_probed_scores``) and reuses the flat index's ``_range_csr``.
+
+Distances are exact within the probed lists (fp32-true against the stored
+rows), so nprobe == nlist reproduces the flat index; smaller nprobe trades
+recall as in faiss. What stays behind from the JAX class: the SMEM budget
+of its query split (a v5e limit), the interpret-mode rank depth of its
+kernel, the XLA chunk-take block as a search route (queries pad to 8 here,
+so the kernel route always applies), and the DIRECT_BV alignment that
+gates its dense fused route (a Mosaic compile hazard): the port takes the
+fused dense route on any non-empty bf16 / int8 pool.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import selector as sel_mod
+from .clustering import Kmeans, balance_centroids
+from .dtypes import MetricType, StorageType, worst_distance
+from .index import (NQ_PAD, ConcatSearchToken, TorchIndexFlat,
+                    TorchSearchToken, _finalize, _pack, _range_csr, _unpack)
+from .ops import distance as dist_ops
+from .ops import fused, kernels
+from .ops.distance import exact_fp32_matmul
+from .ops.topk import chunked_topk_scores, topk_scores
+from .storage import D_ALIGN, D_ALIGN_INT8, _round_up, quantize_int8
+
+__all__ = ["TorchIndexIVFFlat"]
+
+_CHUNK = kernels.GROUP        # rows per pool chunk = K10's group
+_QB = 8                       # queries per range_search gather block
+_POOL0 = 8                    # first pool capacity (chunks), then doubling
+_GATHER_BUDGET = 512 << 20    # bytes of fine-scan scores per dispatch
+_ASSIGN_BLK = 8192            # coarse-assign rows per GEMM block
+_DENSE_BLOCK = 256 << 20      # bytes of one dense-sweep score block
+
+
+def _stage(name: str):
+    """A profiler range around one stage of the gather search (``ivf.*``,
+    read by scripts/torch_profile.py); no work when no profiler is on."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+def _chunk_ids(probe: torch.Tensor, counts: torch.Tensor,
+               ctable: torch.Tensor, nbudget: int):
+    """The probed lists' OCCUPIED chunks laid out per query, in probe order:
+    (cidx (nq, nbudget) int32 pool chunk ids, okc (nq, nbudget) bool,
+    False on positions past the query's chunks, which point at chunk 0 and
+    must be masked by the caller). ``counts`` (nlist,) int64 list sizes,
+    ``ctable`` (nlist, maxc) int32 the page table."""
+    maxc = ctable.shape[1]
+    ccnt = -(-counts[probe.to(torch.int64)] // _CHUNK)     # (nq, nprobe)
+    offs = torch.cumsum(ccnt, dim=-1) - ccnt               # exclusive prefix
+    pos = torch.arange(nbudget, device=probe.device).expand(
+        probe.shape[0], nbudget).contiguous()
+    # owner of position p = the last probed list whose offset ≤ p
+    li = torch.searchsorted(offs.contiguous(), pos, right=True) - 1
+    li = torch.clamp(li, 0, probe.shape[1] - 1)
+    within = pos - torch.gather(offs, 1, li)
+    okc = within < torch.gather(ccnt, 1, li)
+    lst = torch.gather(probe.to(torch.int64), 1, li)
+    cidx = ctable.reshape(-1)[lst * maxc + torch.where(okc, within, 0)]
+    return torch.where(okc, cidx, 0), okc
+
+
+def _round_budget(b: int) -> int:
+    """A chunk budget rounded up to ~2 significant bits (≤ 25 % slack)."""
+    b = max(b, 1)
+    step = 1 << max(0, b.bit_length() - 3)
+    return -(-b // step) * step
+
+
+def _chunk_budget(counts: np.ndarray, nprobe: int) -> int:
+    """The static per-query chunk budget: the sum of the ``nprobe`` largest
+    per-list chunk counts, an upper bound over ANY probe set (results are
+    complete within the probed lists), rounded by _round_budget."""
+    ccnt = -(-counts.astype(np.int64) // _CHUNK)
+    top = np.sort(ccnt)[-nprobe:] if nprobe < ccnt.size else ccnt
+    return _round_budget(int(top.sum()))
+
+
+class TorchIndexIVFFlat:
+    """faiss::IndexIVFFlat. ``storage``: f32 (exact fp32 distances), bf16
+    (2 B/element, distances fp32-true to the stored rows) or int8 (1
+    B/element; per-dimension scales frozen by ``train``, norms of the
+    decoded rows, exact distances against the decoded database).
+    ``device`` defaults to "cuda" and raises without a card; "cpu" runs
+    every kernel's plain version."""
+
+    def __init__(self, d: int, nlist: int, metric=MetricType.L2,
+                 storage=StorageType.FLOAT32, nprobe: int = 1,
+                 device="cuda", train_niter: int = 10, seed: int = 1234,
+                 balance: float = 2.0):
+        self.d, self.nlist = int(d), int(nlist)
+        if self.d <= 0 or self.nlist <= 0:
+            raise ValueError(f"bad IVF config: d={d}, nlist={nlist}")
+        self.metric = MetricType.coerce(metric)
+        self.storage_type = StorageType.coerce(storage)
+        if self.storage_type is StorageType.FLOAT16:
+            raise ValueError(
+                "TorchIndexIVFFlat supports f32/bf16/int8 storage (f16 is a "
+                "flat-index feature)")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                               "run the plain versions of the kernels")
+        self.nprobe = int(nprobe)
+        self.train_niter = int(train_niter)
+        self.seed = int(seed)
+        # train-time list balancing (balance_centroids); 0 / None disables
+        self.balance = float(balance) if balance else 0.0
+        is_int8 = self.storage_type is StorageType.INT8
+        self.d_pad = _round_up(self.d, D_ALIGN_INT8 if is_int8 else D_ALIGN)
+        self._dtype = {StorageType.FLOAT32: torch.float32,
+                       StorageType.BFLOAT16: torch.bfloat16,
+                       StorageType.INT8: torch.int8}[self.storage_type]
+        self.quantizer: Optional[TorchIndexFlat] = None   # over the centroids
+        self._centroids: Optional[np.ndarray] = None      # (nlist, d) host
+        self._cents = None     # (nlist_pad, d_pad) f32 device
+        self._cnorms = None    # (nlist_pad,) f32, +inf on the pad rows
+        self._scales = None    # int8: (d_pad,) f32 device, frozen
+        self.fused_fallbacks = 0   # dense-fused certificate reruns
+        # what the last train took: Kmeans and balancing seconds (host
+        # clock), the objective series, the balancing cap on list sizes
+        self.train_stats: dict = {}
+        self.reset()
+
+    @property
+    def is_trained(self) -> bool:
+        return self.quantizer is not None and (
+            self.storage_type is not StorageType.INT8
+            or self._scales is not None)
+
+    # -- train ----------------------------------------------------------------
+    def train(self, x: np.ndarray) -> None:
+        """Train the coarse quantizer (Kmeans, then balance_centroids on the
+        same subsample); int8 also freezes its scales from ``x``. A trained
+        index ignores the call, as faiss does."""
+        if self.is_trained:
+            return
+        x = np.ascontiguousarray(x, np.float32)
+        if self.storage_type is StorageType.INT8 and self._scales is None:
+            self._set_scales(np.maximum(np.abs(x).max(axis=0) / 127.0,
+                                        1e-12).astype(np.float32))
+        if self.quantizer is not None:
+            return
+        spherical = self.metric is MetricType.INNER_PRODUCT
+        t0 = time.perf_counter()
+        km = Kmeans(self.d, self.nlist, niter=self.train_niter,
+                    seed=self.seed, metric=self.metric, spherical=spherical,
+                    device=self.device)
+        km.train(x)      # ends on a copy to the host: the time is the card's
+        self.train_stats = {"kmeans_s": time.perf_counter() - t0,
+                            "obj": km.obj, "balance_s": 0.0}
+        if not (self.balance and self.nlist > 1):
+            self._set_centroids(km.centroids, quantizer=km.index)
+            return
+        # the subsample Kmeans.train draws first from the same seed
+        t0 = time.perf_counter()
+        sub = x
+        cap_n = self.nlist * km.max_points_per_centroid
+        if len(sub) > cap_n:
+            rng = np.random.default_rng(self.seed)
+            sub = sub[rng.choice(len(sub), cap_n, replace=False)]
+        self._set_centroids(balance_centroids(
+            sub, km.centroids, cap_ratio=self.balance, metric=self.metric,
+            spherical=spherical, device=self.device))
+        self.train_stats["balance_s"] = time.perf_counter() - t0
+        self.train_stats["cap"] = max(
+            int(np.ceil(self.balance * len(sub) / self.nlist)), 2)
+
+    def _set_scales(self, scales: np.ndarray) -> None:
+        """Install frozen int8 scales (train and the loader)."""
+        sp = np.ones((self.d_pad,), np.float32)   # pad dims: q is 0 there
+        sp[: self.d] = np.asarray(scales, np.float32)[: self.d]
+        self._scales = torch.from_numpy(sp).to(self.device)
+
+    def _set_centroids(self, centroids: np.ndarray, quantizer=None) -> None:
+        """Install trained centroids (train, the loader, a shared
+        quantizer): +inf norms on the padded rows score them −inf."""
+        centroids = np.ascontiguousarray(centroids, np.float32)
+        if centroids.shape != (self.nlist, self.d):
+            raise ValueError(f"expected ({self.nlist}, {self.d}) centroids, "
+                             f"got {centroids.shape}")
+        if quantizer is None:
+            quantizer = TorchIndexFlat(self.d, metric=self.metric,
+                                       device=self.device)
+            quantizer.add(centroids)
+        self.quantizer = quantizer
+        self._centroids = centroids.copy()
+        nl_pad = _round_up(self.nlist, 8)
+        c = np.zeros((nl_pad, self.d_pad), np.float32)
+        c[: self.nlist, : self.d] = centroids
+        cn = np.full((nl_pad,), np.inf, np.float32)
+        cn[: self.nlist] = (centroids.astype(np.float64) ** 2).sum(1)
+        self._cents = torch.from_numpy(c).to(self.device)
+        self._cnorms = torch.from_numpy(cn).to(self.device)
+
+    # -- add ------------------------------------------------------------------
+    def _ensure_pool(self, need_chunks: int, need_maxc: int) -> None:
+        """Grow the pool (by doubling; slots keep their place) and the page
+        table's width to hold ``need_chunks`` allocated chunks and
+        ``need_maxc`` chunks on the fattest list."""
+        new_pool = self.npool if self.npool else _POOL0
+        while need_chunks > new_pool:
+            new_pool *= 2
+        if new_pool != self.npool:
+            rows = new_pool * _CHUNK
+            old = self.npool * _CHUNK
+            for name, shape, dtype, fill in (
+                    ("_data", (rows, self.d_pad), self._dtype, 0),
+                    ("_norms", (rows,), torch.float32, 0),
+                    ("_ids", (rows,), torch.int32, -1)):
+                buf = torch.full(shape, fill, dtype=dtype, device=self.device)
+                if old:
+                    buf[:old] = getattr(self, name)
+                setattr(self, name, buf)
+            self._chunk_list = np.concatenate([
+                self._chunk_list,
+                np.full(new_pool - self.npool, -1, np.int32)])
+            self.npool = new_pool
+        if need_maxc > self.maxc:
+            new_maxc = max(self.maxc, 1)
+            while need_maxc > new_maxc:
+                new_maxc *= 2
+            self._ctable_host = np.pad(
+                self._ctable_host, ((0, 0), (0, new_maxc - self.maxc)))
+            self.maxc = new_maxc
+
+    def _coarse_assign(self, x: np.ndarray):
+        """(the batch padded to d_pad on the device, (n,) int64 host list
+        ids): one copy to the card, then the coarse GEMM and the first
+        argmax in blocks of _ASSIGN_BLK rows (the quantizer's arithmetic;
+        padded centroid rows score −inf)."""
+        n = x.shape[0]
+        xp = torch.zeros((n, self.d_pad), dtype=torch.float32)
+        xp[:, : self.d] = torch.from_numpy(x)
+        xd = xp.to(self.device)
+        assign = torch.cat([
+            torch.argmax(dist_ops.matmul_scores(
+                xd[i0:i0 + _ASSIGN_BLK], self._cents, self._cnorms,
+                self.metric), dim=-1)
+            for i0 in range(0, n, _ASSIGN_BLK)])
+        return xd, assign.cpu().numpy()
+
+    def add(self, x: np.ndarray) -> None:
+        if not self.is_trained:
+            raise RuntimeError(
+                "IndexIVFFlat requires train() before add (faiss throws the "
+                "same way, faiss/IndexIVF.cpp)")
+        x = np.ascontiguousarray(x, np.float32)
+        if x.ndim != 2 or x.shape[1] != self.d:
+            raise ValueError(f"expected (n, {self.d}) vectors, got {x.shape}")
+        n = x.shape[0]
+        if n == 0:
+            return
+        if self.ntotal + n > np.iinfo(np.int32).max:
+            raise ValueError("index size would exceed 2^31-1 vectors")
+        xd, assign = self._coarse_assign(x)
+        if self.storage_type is StorageType.INT8:
+            # on the card with the frozen scales; norms of the DECODED rows
+            codes, norms, _, clip = quantize_int8(xd, self._scales)
+            self._int8_clipped = (clip if self._int8_clipped is None
+                                  else self._int8_clipped + clip)
+            self._int8_elems += n * self.d
+            self._add_preassigned(codes, norms, assign)
+            return
+        # pre-quantization norms, summed in f64 on the host (the storage
+        # contract every oracle subtracts), 65,536 rows at a time
+        norms = np.empty(n, np.float32)
+        for i0 in range(0, n, 1 << 16):
+            norms[i0:i0 + (1 << 16)] = (
+                x[i0:i0 + (1 << 16)].astype(np.float64) ** 2).sum(1)
+        self._add_preassigned(xd.to(self._dtype), torch.from_numpy(norms),
+                              assign)
+
+    def _add_preassigned(self, rows: torch.Tensor, norms: torch.Tensor,
+                         assign: np.ndarray) -> None:
+        """Insert rows whose list is already decided: add, merge_from and
+        the loader (which restores a saved routing, never re-routes).
+        ``rows`` (n, d_pad) in the stored dtype, ``norms`` (n,) f32 as
+        stored, ``assign`` (n,) host list ids. Slots are host arithmetic on
+        the counts mirror, stable within each list."""
+        n = rows.shape[0]
+        assign = np.asarray(assign, np.int64)
+        new_counts = self._counts.astype(np.int64) + np.bincount(
+            assign, minlength=self.nlist)
+        need_c = -(-new_counts // _CHUNK)            # chunks per list after
+        grow = (need_c - self._list_nchunks).astype(np.int64)
+        total_new = int(grow.sum())
+        self._ensure_pool(self._used_chunks + total_new, int(need_c.max()))
+        if total_new:
+            # fresh pool chunks to the growing lists, in list order
+            ll = np.repeat(np.arange(self.nlist, dtype=np.int64), grow)
+            j = np.arange(total_new) - np.repeat(np.cumsum(grow) - grow, grow)
+            new_chunks = self._used_chunks + np.arange(total_new,
+                                                       dtype=np.int64)
+            self._ctable_host[ll, self._list_nchunks[ll] + j] = new_chunks
+            self._chunk_list[new_chunks] = ll
+            self._used_chunks += total_new
+            self._list_nchunks = need_c.astype(np.int32)
+        order = np.argsort(assign, kind="stable")
+        sa = assign[order]
+        rank = np.arange(n) - np.searchsorted(sa, sa)
+        pos = self._counts.astype(np.int64)[sa] + rank  # index within list
+        slots = np.empty(n, np.int64)
+        slots[order] = (self._ctable_host[sa, pos // _CHUNK].astype(np.int64)
+                        * _CHUNK + pos % _CHUNK)
+        sl = torch.from_numpy(slots).to(self.device)
+        self._data[sl] = rows.to(self.device)
+        self._norms[sl] = norms.to(self.device)
+        self._ids[sl] = torch.arange(self.ntotal, self.ntotal + n,
+                                     dtype=torch.int32, device=self.device)
+        if self.storage_type is StorageType.INT8:
+            # running max ‖codes‖: the dense fused route's certificate
+            q = rows.to(torch.float32)
+            qn = torch.sqrt(torch.amax(torch.sum(q * q, dim=-1)))
+            self._int8_qn = qn if self._int8_qn is None \
+                else torch.maximum(self._int8_qn, qn)
+        self._ctable = torch.from_numpy(self._ctable_host).to(self.device)
+        self._counts = new_counts.astype(np.int32)
+        self._counts_dev = torch.from_numpy(new_counts).to(self.device)
+        self._slot_of = np.concatenate([self._slot_of, slots])
+        self.ntotal += n
+
+    def _assignments(self) -> np.ndarray:
+        """(ntotal,) list id of every insertion id."""
+        return self._chunk_list[self._slot_of // _CHUNK].astype(np.int64)
+
+    def _rows_by_id(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The stored rows (ntotal, d_pad) and norms in insertion-id order,
+        on the device, bits as stored."""
+        sl = torch.from_numpy(self._slot_of).to(self.device)
+        return self._data[sl], self._norms[sl]
+
+    # -- search ---------------------------------------------------------------
+    def _prep_search(self, x: np.ndarray, params):
+        """Validation, the probe width, the chunk budget, the selector
+        stream (by SLOT, through the id → slot map) and the queries padded
+        to 8 rows on the device."""
+        if not self.is_trained:
+            raise RuntimeError("IndexIVFFlat requires train() before search")
+        x = np.ascontiguousarray(x, np.float32)
+        if x.ndim == 1:
+            x = x[None, :]
+        if x.ndim != 2 or x.shape[1] != self.d:
+            raise ValueError(f"expected (n, {self.d}) queries, got {x.shape}")
+        nq = x.shape[0]
+        sel = None
+        # validate first: no id vector for a search without a selector
+        if sel_mod.selector_mask(params, np.empty(0, np.int64)) is not None:
+            mask = sel_mod.selector_mask(
+                params, np.arange(self.ntotal, dtype=np.int64))
+            if not mask.all():
+                s = np.zeros((self.npool * _CHUNK,), bool)
+                s[self._slot_of[mask]] = True
+                sel = torch.from_numpy(s).to(self.device)
+        req = getattr(params, "nprobe", None) if params is not None else None
+        nprobe = min(req if req is not None else self.nprobe, self.nlist)
+        nbudget = _chunk_budget(self._counts, nprobe) if self.npool else 1
+        nq_pad = max(NQ_PAD, _round_up(nq, NQ_PAD))
+        footprint = nq_pad * nbudget * _CHUNK * 4
+        if nprobe < self.nlist and footprint > _GATHER_BUDGET:
+            raise ValueError(
+                f"IVF fine scan working set would be {footprint >> 20} MB "
+                f"(nprobe={nprobe}, chunk budget={nbudget}); lower nprobe "
+                "(oversized query batches are split automatically: hitting "
+                "this means even one 8-query block exceeds the budget)")
+        q = torch.zeros((nq_pad, self.d_pad), dtype=torch.float32,
+                        pin_memory=self.device.type == "cuda")
+        q[:nq, : self.d] = torch.from_numpy(x)
+        return (q.to(self.device, non_blocking=True), nq, nq_pad, nprobe,
+                nbudget, sel)
+
+    def _probe(self, q: torch.Tensor, nprobe: int) -> torch.Tensor:
+        """The coarse step: (nq_pad, nprobe) int32 list ids, best first,
+        ties to the lowest list id (the quantizer's arithmetic)."""
+        with _stage("ivf.coarse_gemm"):
+            cs = dist_ops.matmul_scores(q, self._cents, self._cnorms,
+                                        self.metric)
+        with _stage("ivf.top_nprobe"):
+            return topk_scores(cs, nprobe)[1]
+
+    def _qeff(self, q: torch.Tensor) -> torch.Tensor:
+        """The dot-side query: q, or q∘s against int8 codes."""
+        return q * self._scales[None, :] if self._scales is not None else q
+
+    def _fine_scan(self, q, k: int, nprobe: int, nbudget: int, sel):
+        """The gather route: K10 over the probed chunks → (scores (nq_pad,
+        k_eff) with −‖q‖², insertion ids (nq_pad, k_eff))."""
+        probe = self._probe(q, nprobe)
+        with _stage("ivf.chunk_ids"):
+            cidx, okc = _chunk_ids(probe, self._counts_dev, self._ctable,
+                                   nbudget)
+        with _stage("ivf.k10"):
+            occ = self._ids >= 0             # slot validity (adds, removals)
+            nslots = self._data.shape[0]
+            vn = fused._premask_norms(self._norms, nslots, nslots,
+                                      self.metric,
+                                      occ if sel is None else occ & sel)
+            s = kernels.rescore_groups(self._qeff(q), self._data, vn, cidx,
+                                       metric=self.metric)
+        with _stage("ivf.top_k"):
+            # dead budget positions point at chunk 0: mask them after the
+            # kernel
+            s = s.masked_fill(~okc.repeat_interleave(_CHUNK, dim=1),
+                              float("-inf"))
+            v, pos = topk_scores(s, min(k, s.shape[1]))
+            pos = pos.to(torch.int64)
+            slot = (torch.gather(cidx, 1, pos // _CHUNK).to(torch.int64)
+                    * _CHUNK + pos % _CHUNK)
+            if self.metric is MetricType.L2:
+                # the kernel's scores omit the rank-invariant −‖q‖²
+                v = v - torch.sum(q * q, dim=-1)[:, None]
+            return v, self._ids[slot]
+
+    def _nsweep(self) -> int:
+        """The dense route's sweep width: the used chunk prefix rounded by
+        _round_budget (the doubling headroom never enters it)."""
+        return min(_round_budget(self._used_chunks) * _CHUNK,
+                   self.npool * _CHUNK)
+
+    def _dense_fused_ok(self) -> bool:
+        """bf16 and int8 pools take the fused dense route (int8 once its
+        certificate's max ‖codes‖ exists); f32 keeps the plain sweep (the
+        pool has no (hi, lo) planes for the fused f32 program)."""
+        return (self.storage_type is not StorageType.FLOAT32
+                and self._used_chunks > 0
+                and (self._scales is None or self._int8_qn is not None))
+
+    def _dense_fused(self, q, k: int, sel):
+        """nprobe == nlist on bf16 / int8: ``fused_search`` over the used
+        pool prefix, the occupancy (and the selector) as its selector
+        stream. → (scores, ids, certified)."""
+        nslots = self._nsweep()
+        occ = self._ids >= 0
+        int8 = {}
+        if self.storage_type is StorageType.INT8:
+            int8 = dict(scales=self._scales, int_norm_max=self._int8_qn)
+        v, slot, cert = fused.fused_search(
+            q, self._data, self._norms, nslots, k=k, metric=self.metric,
+            nv_eff=nslots, sweep_passes=2,
+            sel=occ if sel is None else occ & sel, **int8)
+        if self.metric is MetricType.L2:
+            v = v - torch.sum(q * q, dim=-1)[:, None]
+        return v, self._ids[slot.to(torch.int64)], cert
+
+    def _dense_plain(self, q, k: int, sel):
+        """nprobe == nlist, the plain sweep: fp32-true scores of the used
+        pool prefix block by block into the running stable top-k (the
+        f32 route, and the certificate fallback of the fused one)."""
+        nslots = self._nsweep()
+        nq_pad = q.shape[0]
+        occ = self._ids >= 0
+        ok = occ if sel is None else occ & sel
+        blk = nslots
+        while blk % 2 == 0 and blk * nq_pad * 4 > _DENSE_BLOCK:
+            blk //= 2
+
+        def score_blk(start: int) -> torch.Tensor:
+            rows = self._data[start:start + blk]
+            ns = self._norms[start:start + blk]
+            if self._scales is not None:
+                s = dist_ops.int8_scores(q, self._scales, rows, ns,
+                                         self.metric)
+            else:
+                s = dist_ops.matmul_scores(q, rows, ns, self.metric)
+            return s.masked_fill(~ok[None, start:start + blk], float("-inf"))
+
+        v, slot = chunked_topk_scores(score_blk, nslots, blk,
+                                      min(k, nslots))
+        return v, self._ids[slot.to(torch.int64)]
+
+    def _search_packed(self, x: np.ndarray, k: int, params=None,
+                       force_plain_dense: bool = False):
+        """Enqueue one search: (packed result or None for the empty index,
+        nq, the certificate fallback or None). Nothing waits for the
+        device."""
+        if k <= 0:
+            raise ValueError(f"k must be positive, got {k}")
+        q, nq, _, nprobe, nbudget, sel = self._prep_search(x, params)
+        if self.ntotal == 0:
+            return None, nq, None
+        cert = None
+        if nprobe < self.nlist:
+            v, lab = self._fine_scan(q, k, nprobe, nbudget, sel)
+        elif self._dense_fused_ok() and not force_plain_dense:
+            v, lab, cert = self._dense_fused(q, k, sel)
+        else:
+            v, lab = self._dense_plain(q, k, sel)
+        dists, labels = _finalize(v, lab, self.ntotal, k, self.metric)
+        if cert is None:
+            return (_pack(dists, labels, torch.ones_like(dists[:, 0],
+                                                         dtype=torch.bool)),
+                    nq, None)
+        x_host = np.ascontiguousarray(x, np.float32).reshape(-1, self.d)
+
+        def fallback(cert_h, d0, i0):
+            d_out = np.array(d0[:nq], np.float32)
+            i_out = np.array(i0[:nq], np.int64)
+            bad = np.nonzero(~cert_h[:nq])[0]
+            if bad.size == 0:           # only padding rows failed
+                return d_out, i_out
+            self.fused_fallbacks += 1
+            packed, _, _ = self._search_packed(x_host[bad], k, params,
+                                               force_plain_dense=True)
+            d2, i2, _ = _unpack(packed.cpu().numpy(), k)
+            d_out[bad] = d2[: bad.size]
+            i_out[bad] = i2[: bad.size]
+            return d_out, i_out
+
+        return _pack(dists, labels, cert), nq, fallback
+
+    def _nq_cap(self, nprobe: int) -> Optional[int]:
+        """Most query rows per gather dispatch: the fine scan materializes
+        (nq_pad, nbudget·128) f32 scores, so the batch, not only nprobe,
+        drives the working set. Larger batches split on this cap."""
+        if not self.npool or nprobe >= self.nlist:
+            return None      # the dense route bounds its own blocks
+        nbudget = _chunk_budget(self._counts, nprobe)
+        cap = _GATHER_BUDGET // max(nbudget * _CHUNK * 4, 1)
+        return max(NQ_PAD, cap // NQ_PAD * NQ_PAD)
+
+    def search_async(self, x: np.ndarray, k: int, params=None):
+        """Non-blocking search: a TorchSearchToken, or a ConcatSearchToken
+        over the row chunks of a batch whose scores would pass the gather
+        budget (all chunks enqueued up front). The gather routes are exact
+        within the probed lists; the bf16 / int8 dense route ships the
+        fused certificate and wait() re-runs its failed queries."""
+        xa = np.ascontiguousarray(x, np.float32)
+        if xa.ndim == 2 and self.is_trained:
+            req = (getattr(params, "nprobe", None)
+                   if params is not None else None)
+            cap = self._nq_cap(
+                min(req if req is not None else self.nprobe, self.nlist))
+            if cap is not None and xa.shape[0] > cap:
+                return ConcatSearchToken([
+                    self.search_async(xa[i0:i0 + cap], k, params=params)
+                    for i0 in range(0, xa.shape[0], cap)])
+        packed, nq, fallback = self._search_packed(x, k, params)
+        if packed is None:
+            return TorchSearchToken(None, nq, k, result=(
+                np.full((nq, k), worst_distance(self.metric), np.float32),
+                np.full((nq, k), -1, np.int64)))
+        return TorchSearchToken(packed, nq, k, fallback=fallback)
+
+    def search(self, x: np.ndarray, k: int,
+               params=None) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k over the nprobe closest lists: exact distances within them
+        (nprobe == nlist is exhaustive). ``params``: a selector (filtered
+        rows mask out like empty slots) and / or an nprobe override."""
+        return self.search_async(x, k, params=params).wait()
+
+    def assign(self, x: np.ndarray, k: int = 1) -> np.ndarray:
+        return self.search(x, k)[1]
+
+    # -- range search -----------------------------------------------------------
+    def _probed_scores(self, qeff, qn, probe, nbudget: int, sel):
+        """Scores of a block of queries against the rows of their probed
+        chunks, gathered: (scores (nb, nbudget·128), −inf on dead
+        positions, empty and filtered slots; insertion ids (nb, ncand)).
+        fp32-true against the stored rows, with −‖q‖² (L2)."""
+        nb = qeff.shape[0]
+        cidx, okc = _chunk_ids(probe, self._counts_dev, self._ctable, nbudget)
+        ci = cidx.to(torch.int64)
+        cand = self._data.view(-1, _CHUNK, self.d_pad)[ci].reshape(
+            nb, nbudget * _CHUNK, self.d_pad).to(torch.float32)
+        cnn = self._norms.view(-1, _CHUNK)[ci].reshape(nb, -1)
+        cid = self._ids.view(-1, _CHUNK)[ci].reshape(nb, -1)
+        valid = (okc.repeat_interleave(_CHUNK, dim=1) & (cid >= 0))
+        if sel is not None:
+            valid &= sel.view(-1, _CHUNK)[ci].reshape(nb, -1)
+        with exact_fp32_matmul():
+            dots = torch.bmm(cand, qeff[:, :, None])[:, :, 0]
+        s = (2.0 * dots - cnn - qn[:, None]
+             if self.metric is MetricType.L2 else dots)
+        return s.masked_fill(~valid, float("-inf")), cid
+
+    def range_search(self, x: np.ndarray, radius: float, params=None):
+        """All rows within ``radius`` in the nprobe probed lists (faiss
+        IndexIVF::range_search: complete within the probe; nprobe == nlist
+        is exhaustive), faiss's CSR layout (lims, D, I), best first, ties
+        to the lowest id; the strict criterion of the flat index."""
+        q, nq, nq_pad, nprobe, nbudget, sel = self._prep_search(x, params)
+        if self.ntotal == 0:
+            return (np.zeros(nq + 1, np.int64), np.empty(0, np.float32),
+                    np.empty(0, np.int64))
+        if _QB * nbudget * _CHUNK * self.d_pad * 4 > _GATHER_BUDGET:
+            raise ValueError(
+                f"IVF range_search would gather too much per block "
+                f"(nprobe={nprobe}, chunk budget={nbudget}); lower nprobe")
+        thr = float(np.float32(-radius if self.metric is MetricType.L2
+                               else radius))
+        probe = self._probe(q, nprobe)
+        qeff = self._qeff(q)
+        qn = torch.sum(q * q, dim=-1)
+        ncand = nbudget * _CHUNK
+
+        def run(rcap: int):
+            rc = min(rcap, ncand)
+            nh, vs, gs = [], [], []
+            for b in range(0, nq_pad, _QB):
+                s, cid = self._probed_scores(qeff[b:b + _QB], qn[b:b + _QB],
+                                             probe[b:b + _QB], nbudget, sel)
+                hit = s > thr            # strict, as the flat index
+                nh.append(hit.sum(dim=-1, dtype=torch.int32))
+                v, i = topk_scores(s.masked_fill(~hit, float("-inf")), rc)
+                vs.append(v)
+                gs.append(torch.gather(cid, 1, i.to(torch.int64)))
+            return (torch.cat(nh).view(1, nq_pad).cpu().numpy(),
+                    torch.cat(vs).view(1, nq_pad, rc).cpu().numpy(),
+                    torch.cat(gs).view(1, nq_pad, rc).cpu().numpy(), rc)
+
+        return _range_csr(run, nq, self.metric)
+
+    # -- the rest of the surface ---------------------------------------------
+    def remove_ids(self, ids) -> int:
+        """Remove by insertion id with faiss's stable renumbering (the
+        survivors keep their order, ids shift down). Each list compacts:
+        one device gather over the slot axis, the bookkeeping host
+        arithmetic on the id → slot map."""
+        ids = np.unique(np.asarray(ids, np.int64).ravel())
+        if ids.size == 0:
+            return 0
+        if ids[0] < 0 or ids[-1] >= self.ntotal:
+            raise IndexError(
+                f"remove_ids: ids outside [0, {self.ntotal}): "
+                f"[{ids[0]}, {ids[-1]}]")
+        keep = np.setdiff1d(np.arange(self.ntotal, dtype=np.int64), ids,
+                            assume_unique=True)
+        if keep.size == 0:
+            self.reset()
+            return int(ids.size)
+        old_slots = self._slot_of[keep]            # survivors, new-id order
+        lists = self._chunk_list[old_slots // _CHUNK].astype(np.int64)
+        # a list's pool-slot order is its insertion order (its page-table
+        # row is ascending by construction): compact each list in it
+        order = np.lexsort((old_slots, lists))
+        sl, so = lists[order], old_slots[order]
+        rank = np.arange(keep.size) - np.searchsorted(sl, sl)
+        # list l owns the pool chunks [base[l], base[l] + need_c[l])
+        newcnt = np.bincount(sl, minlength=self.nlist)
+        need_c = -(-newcnt // _CHUNK)
+        base = np.cumsum(need_c) - need_c
+        new_used = int(need_c.sum())
+        new_slots_sorted = ((base[sl] + rank // _CHUNK) * _CHUNK
+                            + rank % _CHUNK)
+        perm = np.zeros((self.npool * _CHUNK,), np.int64)
+        perm[new_slots_sorted] = so
+        new_ids_flat = np.full((self.npool * _CHUNK,), -1, np.int32)
+        new_ids_flat[new_slots_sorted] = np.arange(
+            keep.size, dtype=np.int64)[order]
+        # hole slots gather stale rows; their id is −1, so every route
+        # masks them
+        pj = torch.from_numpy(perm).to(self.device)
+        self._data = self._data[pj]
+        self._norms = self._norms[pj]
+        self._ids = torch.from_numpy(new_ids_flat).to(self.device)
+        self._ctable_host[:] = 0
+        ll = np.repeat(np.arange(self.nlist, dtype=np.int64), need_c)
+        jj = np.arange(new_used) - np.repeat(base, need_c)
+        self._ctable_host[ll, jj] = np.arange(new_used)
+        self._ctable = torch.from_numpy(self._ctable_host).to(self.device)
+        self._chunk_list[:] = -1
+        self._chunk_list[:new_used] = ll
+        self._list_nchunks = need_c.astype(np.int32)
+        self._used_chunks = new_used
+        self._counts = newcnt.astype(np.int32)
+        self._counts_dev = torch.from_numpy(newcnt.astype(np.int64)).to(
+            self.device)
+        slot_of = np.empty(keep.size, np.int64)
+        slot_of[new_ids_flat[new_slots_sorted]] = new_slots_sorted
+        self._slot_of = slot_of
+        self.ntotal = keep.size
+        return int(ids.size)
+
+    def merge_from(self, other: "TorchIndexIVFFlat") -> None:
+        """faiss::IndexIVF::merge_from: append ``other``'s rows (ids
+        continue at ntotal, in order) and reset ``other``. The saved
+        routing, stored bits and norms move as they are (never re-routed).
+        d, metric, nlist and storage must match; int8 also the scales."""
+        if other is self:
+            raise ValueError("cannot merge an index into itself")
+        if (other.d != self.d or other.metric is not self.metric
+                or other.nlist != self.nlist
+                or other.storage_type is not self.storage_type):
+            raise ValueError(
+                "merge_from: d/metric/nlist/storage mismatch "
+                f"(({self.d}, {self.metric}, {self.nlist}, "
+                f"{self.storage_type}) vs ({other.d}, {other.metric}, "
+                f"{other.nlist}, {other.storage_type}))")
+        if not (self.is_trained and other.is_trained):
+            raise RuntimeError("merge_from requires both indexes trained")
+        if self.storage_type is StorageType.INT8 and not torch.equal(
+                self._scales, other._scales.to(self.device)):
+            raise ValueError(
+                "merge_from: int8 scale grids differ: codes are not "
+                "bit-compatible (re-add through float instead)")
+        if other.ntotal:
+            rows, norms = other._rows_by_id()
+            self._add_preassigned(rows, norms, other._assignments())
+        other.reset()
+
+    def reconstruct(self, key: int) -> np.ndarray:
+        """The stored row of insertion id ``key`` (int8: codes × scales)."""
+        if not 0 <= key < self.ntotal:
+            raise IndexError(f"id {key} out of range [0, {self.ntotal})")
+        row = self._data[int(self._slot_of[key])].to(torch.float32)
+        if self._scales is not None:
+            row = row * self._scales
+        return row[: self.d].cpu().numpy()
+
+    def reset(self) -> None:
+        """Drop the vectors; the trained quantizer and the int8 scales stay
+        (faiss: is_trained persists)."""
+        self.ntotal = 0
+        self.npool = 0          # pool capacity (chunks; doubles)
+        self.maxc = 0           # page-table width (chunks)
+        self._used_chunks = 0   # pool allocation top
+        self._data = self._norms = self._ids = None
+        self._ctable_host = np.zeros((self.nlist, 0), np.int32)
+        self._ctable = None
+        self._chunk_list = np.empty(0, np.int32)    # pool chunk → list
+        self._list_nchunks = np.zeros(self.nlist, np.int32)
+        self._counts = np.zeros(self.nlist, np.int32)   # host mirror
+        self._counts_dev = None
+        self._slot_of = np.empty(0, np.int64)       # insertion id → slot
+        self._int8_clipped = None
+        self._int8_elems = 0
+        self._int8_qn = None    # running max ‖codes‖ (device scalar)
+
+    def list_sizes(self) -> np.ndarray:
+        """Per-list occupancy (faiss invlists->list_size)."""
+        return self._counts.copy()
+
+    def pool_bytes(self) -> int:
+        """Device bytes of the pool (rows, norms, ids) and page table."""
+        bufs = (self._data, self._norms, self._ids, self._ctable)
+        return sum(b.numel() * b.element_size() for b in bufs
+                   if b is not None)
+
+    def describe(self) -> str:
+        # load = live rows per allocated pool slot
+        load = (self._counts.sum() / (self._used_chunks * _CHUNK)
+                if self._used_chunks else 0.0)
+        int8_note = ""
+        if self.storage_type is StorageType.INT8:
+            frac = (float(self._int8_clipped) / self._int8_elems
+                    if self._int8_elems and self._int8_clipped is not None
+                    else 0.0)
+            int8_note = f", int8_clipped_fraction={frac:.2e}"
+        return (
+            f"TorchIndexIVFFlat(d={self.d}, nlist={self.nlist}, "
+            f"nprobe={self.nprobe}, metric={self.metric.value}, "
+            f"storage={self.storage_type.value}, ntotal={self.ntotal}, "
+            f"pool={self._used_chunks}/{self.npool}x{_CHUNK}, "
+            f"bucket_load={load:.2f}, "
+            f"fused_fallbacks={self.fused_fallbacks}, "
+            f"trained={self.is_trained}, device={self.device}{int8_note})")

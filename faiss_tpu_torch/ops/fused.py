@@ -339,8 +339,9 @@ def rescore_groups_plain(queries, db, vn, gidx, *, metric: MetricType,
     """Plain version of the rescore kernel: gather the nominated groups'
     rows, widened exactly to fp32 (bf16 and int8 by conversion, f16 bits by
     ``storage.decode_f16_bits``; hi + lo in the pair mode, an exact fp32
-    sum), one fp32 batched product with the fp32 queries (q∘s for int8),
-    same epilogue."""
+    sum; f32 rows, the IVF fine scan's, as stored: the conversion is a
+    no-op), one fp32 batched product with the fp32 queries (q∘s for int8),
+    same epilogue. Group ids must lie in range (the kernel clamps them)."""
     cols = candidate_columns(gidx).to(torch.int64)
     rows = db[cols]                                        # (nq, kg·128, d)
     rows = decode_f16_bits(rows) if rows.dtype == torch.float16 \
@@ -611,8 +612,9 @@ def fused_search(
     the rows ``sel`` admits, ties to the lowest id; the caller re-runs the
     others on an exact path. The route follows the storage: ``db_split``
     (f32), float16 rows (f16), int8 rows (needs ``scales`` and
-    ``int_norm_max``), else bf16 rows; f32 rows without the planes (K10's
-    f32-rows mode, the IVF fine scan's) are not ported. ``rescore_select``
+    ``int_norm_max``), else bf16 rows; f32 rows without the planes are
+    refused (K10's f32-rows mode serves the IVF fine scan, which calls
+    ``rescore_groups`` itself). ``rescore_select``
     runs phase 3 and the final top-k as one kernel where it applies (bf16,
     int8 and f16 rows, k_eff ≤ 32), as ``faiss_tpu`` does. No host
     synchronisation happens in here."""

@@ -58,6 +58,7 @@ launches = {
     "rescore_groups_pair": 0,  # f32 hi + lo planes (_rescore_kernel, db2)
     "rescore_groups_int8": 0,  # int8 codes against q∘s (_rescore_kernel)
     "rescore_groups_f16": 0,   # f16 bits (_rescore_kernel, int16 mode)
+    "rescore_groups_f32": 0,   # f32 rows: the IVF fine scan (f32 mode)
     "final_select": 0,
     # rescore + final top-k in one kernel (_rescore_select_kernel), by rows
     "rescore_select": 0,       # bf16 rows
@@ -68,12 +69,14 @@ launches = {
     "sweep_block_max": 0,
 }
 
-# ft_rescore_groups' row formats (csrc/rescore_groups.cu enum Rows) and
-# their launch counters, by the dtype of the rows; the pair mode apart
-_RESCORE_FMT = {torch.bfloat16: (0, "rescore_groups"),
-                torch.int8: (2, "rescore_groups_int8"),
-                torch.float16: (3, "rescore_groups_f16")}
-_RESCORE_PAIR = (1, "rescore_groups_pair")
+# ft_rescore_groups' row formats (csrc/rescore_groups.cu enum Rows), their
+# launch counters and the row width d must be a multiple of (16-byte
+# vectors), by the dtype of the rows; the pair mode apart
+_RESCORE_FMT = {torch.bfloat16: (0, "rescore_groups", 8),
+                torch.int8: (2, "rescore_groups_int8", 16),
+                torch.float16: (3, "rescore_groups_f16", 8),
+                torch.float32: (4, "rescore_groups_f32", 4)}
+_RESCORE_PAIR = (1, "rescore_groups_pair", 8)
 # ft_rescore_select's formats and counters (csrc/rescore_select.cu)
 _SELECT_FMT = {torch.bfloat16: (0, "rescore_select"),
                torch.int8: (2, "rescore_select_int8"),
@@ -365,8 +368,10 @@ def rescore_groups(queries: torch.Tensor, db: torch.Tensor, vn: torch.Tensor,
                    db2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(nq, kg·128) fp32 scores of each query's nominated groups, against
     the rows ``db``: bf16 rows, int8 codes (pass the queries times the
-    scales), f16 bits decoded exactly, or hi + lo when ``db2`` (the lo
-    plane of f32 storage) is given with the bf16 hi plane."""
+    scales), f16 bits decoded exactly, f32 rows (the IVF fine scan: gidx
+    holds pool chunk ids, in any order), or hi + lo when ``db2`` (the lo
+    plane of f32 storage) is given with the bf16 hi plane. A group id
+    outside [0, nv_eff/128) is clamped into range."""
     dbs = (db,) if db2 is None else (db, db2)
     if not _on_cuda(queries, *dbs, vn, gidx):
         from .fused import rescore_groups_plain
@@ -374,10 +379,11 @@ def rescore_groups(queries: torch.Tensor, db: torch.Tensor, vn: torch.Tensor,
                                     db2=db2)
     if db.dtype not in _RESCORE_FMT or (db2 is not None
                                         and db.dtype != torch.bfloat16):
-        raise TypeError(f"rescore_groups takes bf16, int8 or float16 rows "
-                        f"(a lo plane with bf16 only), got {db.dtype}")
-    fmt, counter = _RESCORE_FMT[db.dtype] if db2 is None else _RESCORE_PAIR
-    align = 16 if db.dtype == torch.int8 else 8
+        raise TypeError(f"rescore_groups takes bf16, int8, float16 or "
+                        f"float32 rows (a lo plane with bf16 only), got "
+                        f"{db.dtype}")
+    fmt, counter, align = _RESCORE_FMT[db.dtype] if db2 is None \
+        else _RESCORE_PAIR
     _check(queries, "queries", torch.float32, 2)
     for i, p in enumerate(dbs):
         _check(p, f"db_plane{i}", db.dtype, 2)

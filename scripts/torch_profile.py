@@ -1,7 +1,7 @@
 """Where the time of one faiss_tpu_torch search goes, on one CUDA card.
 
     python scripts/torch_profile.py [--configs bf16,f32,f32_sift,pair,int8,f16,
-                                               f32_10m]
+                                               f32_10m,ivf_1m,ivf_1m_dense]
                                     [--searches 20] [--nv 1000000]
 
 Builds each configuration at SIFT1M shape (nv×128, nq=100, k=10; data from
@@ -15,6 +15,16 @@ the group select, the rescore, the final select, torch's sorts, every other
 kernel and copy), device busy, host wall per batch (profiler on) and the device's idle
 share, plus the card's name and power limit. Imports nothing of jax or
 faiss_tpu; exits 1 without a card.
+
+ivf_1m is chip_smoke.py's IVF main path: TorchIndexIVFFlat(128, 4096), f32
+lists, trained and filled with the nv rows of chip_smoke.ivf_data (the
+Gaussian mixture), searched at nprobe 16 (the fine scan on K10's f32
+rows); ivf_1m_dense the same index at nprobe 4096 (the plain dense sweep).
+For ivf_1m the line also splits the device time by stage (``stages``):
+the kernel time inside the span on the card of each profiler range that
+``TorchIndexIVFFlat`` opens in its gather search (``ivf.coarse_gemm``,
+``ivf.top_nprobe``, ``ivf.chunk_ids``, ``ivf.k10`` with its pre-masked
+norms, ``ivf.top_k`` with the slot → id map), read from the same profile.
 """
 
 import argparse
@@ -35,29 +45,55 @@ PARTS = (("sweep", ("sweep_groupmax_kernel", "sweep_int8_kernel")),
          ("sorts", ("RadixSort", "radix_sort", "SortKernel", "sort_")))
 
 
-def profile(torch, idx, xq, searches: int) -> dict:
+def device_events(torch, fn, reps: int):
+    """torch.profiler over ``reps`` calls of fn (after one warm-up): the
+    (name, µs) of every kernel, copy and set the card ran, the host wall
+    time per call in ms, and the device µs under each ``ivf.*`` range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    for _ in range(2):
-        idx.search(xq, K)
+    fn()
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(searches):
-            idx.search(xq, K)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / searches * 1e3
-    out = {name: 0.0 for name, _ in PARTS}
-    other = 0.0
-    for evt in prof.events():       # the card's kernels, copies and sets
+        wall = (time.perf_counter() - t0) / reps * 1e3
+    events, work, spans = [], [], []
+    for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
-        us = evt.time_range.elapsed_us()
-        part = next((name for name, keys in PARTS
-                     if any(k in evt.name for k in keys)), None)
+        tr = evt.time_range
+        if getattr(evt, "is_user_annotation", False):
+            # a range's span on the card, from its first kernel's start to
+            # its last one's end: not work itself
+            if evt.name.startswith("ivf."):
+                spans.append((evt.name, tr.start, tr.end))
+        else:
+            events.append((evt.name, tr.elapsed_us()))
+            work.append((tr.start, tr.end))
+    # one stream, launched in order by one thread: the work inside a
+    # range's span is the work that range launched (the kernels of the
+    # ctypes wrappers hang under no torch op, so the host tree misses them)
+    stages = {}
+    for name, a, b in spans:
+        stages[name] = stages.get(name, 0.0) + sum(
+            e - s for s, e in work if a <= s and e <= b)
+    return events, wall, stages
+
+
+def profile(torch, idx, xq, searches: int) -> dict:
+    idx.search(xq, K)       # with device_events' warm-up: two searches
+    events, wall, stages = device_events(torch, lambda: idx.search(xq, K),
+                                         searches)
+    out = {name: 0.0 for name, _ in PARTS}
+    other = 0.0
+    for name, us in events:
+        part = next((p for p, keys in PARTS
+                     if any(k in name for k in keys)), None)
         if part is None:
             other += us
         else:
@@ -68,13 +104,30 @@ def profile(torch, idx, xq, searches: int) -> dict:
     out.update(device_busy=busy, host_wall=wall,
                idle_share=1.0 - busy / wall,
                fused_fallbacks=idx.fused_fallbacks)
+    if stages:
+        out["stages"] = {k[len("ivf."):]: v / searches / 1e3
+                         for k, v in stages.items()}
     return out
+
+
+def build_ivf(ft, torch, nv: int):
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    chip_smoke.NV = nv
+    xb, xq = chip_smoke.ivf_data()
+    idx = ft.TorchIndexIVFFlat(D, chip_smoke.NLIST, device="cuda")
+    idx.train(xb)
+    idx.add(xb)
+    torch.cuda.synchronize()
+    return idx, xq
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--configs",
-                    default="bf16,f32,f32_sift,pair,int8,f16,f32_10m")
+                    default="bf16,f32,f32_sift,pair,int8,f16,f32_10m,ivf_1m,"
+                            "ivf_1m_dense")
     ap.add_argument("--searches", type=int, default=20)
     ap.add_argument("--nv", type=int, default=1_000_000)
     args = ap.parse_args()
@@ -99,7 +152,18 @@ def main() -> int:
                "f16": (xb, xq, dict(storage="f16")),
                "f32_10m": (xb, xq, {})}
     print(ft.gpu_name_and_power_limit(), flush=True)
+    ivf = None
     for name in args.configs.split(","):
+        if name.startswith("ivf_1m"):
+            if ivf is None:
+                ivf = build_ivf(ft, torch, args.nv)
+            idx, queries = ivf
+            idx.nprobe = idx.nlist if name == "ivf_1m_dense" else 16
+            row = profile(torch, idx, queries, args.searches)
+            print(json.dumps({"config": name, "metric": "l2",
+                              "ntotal": idx.ntotal, "nprobe": idx.nprobe,
+                              "ms_per_batch": row}), flush=True)
+            continue
         base, queries, kw = configs[name]
         idx = ft.TorchIndexFlat(D, device="cuda", **kw)
         idx.add(base)

@@ -17,6 +17,11 @@ f16 sweeps within the pair ε; the rescores within the rescore term of
 their bound (``rescore_term``); the in-kernel f16 decode equals the plain
 decode on all 65,536 patterns.
 
+K10's f32-rows mode (``rescore_groups_f32``, the IVF fine scan) within
+the rescore term, on random and adversarial rows, with chunk ids past the
+pool clamped; TorchIndexIVFFlat on the card against the same index on the
+CPU (integer data: exact scores, so ids and distances equal).
+
 The certificate soundness cases (``check_sweep_eps_sound``,
 ``check_pair_eps_sound``, ``check_sweep_eps_sound_f16``,
 ``check_int8_eps_sound``) take a device: tests/test_torch_f32.py,
@@ -60,7 +65,8 @@ def _within_eps(a, b, eps):
     fin = torch.isfinite(b)
     assert torch.equal(fin, torch.isfinite(a))
     err = torch.where(fin, (a - b).abs(), torch.zeros_like(a))
-    assert bool((err <= eps[:, None]).all()), float(err.max())
+    eps = eps if eps.dim() == 2 else eps[:, None]   # per entry, or per row
+    assert bool((err <= eps).all()), float(err.max())
 
 
 @pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
@@ -381,6 +387,21 @@ def rescore_term(q, v_max, norms, nv, d, metric):
     N = torch.amax(norms[:nv])
     return fused._epilogue_eps(2.0 * d * fused._U32 * Q * v_max, Q, v_max, N,
                                metric)
+
+
+def rescore_term_rows(q, rows, gidx, d, metric):
+    """(nq, nb·128) ``rescore_term`` entry by entry, in fp64: ‖q‖ of the
+    entry's query, ‖v‖ and ‖v‖² of the one row it scores (row gidx·128 +
+    r of ``rows``). A pool's largest row does not loosen the bound of the
+    others, so a rescore that drops or truncates part of d fails on the
+    ordinary rows beside huge ones."""
+    q, rows = q.to(torch.float64), rows.to(torch.float64)
+    Q = torch.sqrt(torch.sum(q * q, dim=-1))[:, None]
+    r = (gidx.to(torch.int64)[:, :, None] * 128
+         + torch.arange(128, device=gidx.device)).reshape(gidx.shape[0], -1)
+    N = torch.sum(rows * rows, dim=-1)[r]
+    V = torch.sqrt(N)
+    return fused._epilogue_eps(2.0 * d * fused._U32 * Q * V, Q, V, N, metric)
 
 
 def int8_db(dev, nv, d, ntotal, seed=0):
@@ -834,3 +855,142 @@ def test_f32_stage3b_masks_the_selector_again(dev, monkeypatch):
     np.testing.assert_array_equal(np.sort(I[:, :5], 1),
                                   np.tile(keep, (16, 1)))
     np.testing.assert_array_equal(I[:, :5], keep[np.argsort(d2, 1)])
+
+
+# -- K10 f32 rows and the IVF index (the IVF slice) ---------------------------
+
+
+def f32_pool(dev, npool, d, seed=0):
+    """An f32 chunk pool of npool·128 rows: Gaussian rows with edge rows
+    (±2^20, a zero row, alternating ±1, one tiny row), and empty slots
+    (norm +inf in the pre-masked stream); returns (rows, raw norms, the
+    pre-masked L2 / IP streams via ``occ``)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((npool * 128, d)).astype(np.float32)
+    x[1], x[2], x[3] = 2.0 ** 20, -(2.0 ** 20), 0.0
+    x[4] = np.where(np.arange(d) % 2 == 0, 1.0, -1.0)
+    x[5] = 1e-30
+    occ = rng.random(npool * 128) > 0.1
+    x[~occ] = 0.0
+    rows = torch.from_numpy(x).to(dev)
+    return rows, (rows * rows).sum(-1), torch.from_numpy(occ).to(dev)
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("nq,d,npool,nbudget", [(8, 16, 24, 7),
+                                                (104, 128, 64, 64),
+                                                (16, 132, 9, 30)])
+def test_rescore_f32_matches_plain(dev, metric, nq, d, npool, nbudget):
+    """K10 f32 rows against its plain version within the rescore term of
+    each entry's own row (each side fp32-true, ≤ d·u·Q·‖v‖), on chunk ids
+    in any order, repeated (dead budget positions point at chunk 0), and
+    past the pool (clamped by the kernel: the plain version is given the
+    clamped ids). The bound has teeth: the plain version with the last 4
+    elements of d dropped breaks it on most entries."""
+    rows, norms, occ = f32_pool(dev, npool, d)
+    nv = npool * 128
+    vn = fused._premask_norms(norms, nv, nv, metric, occ)
+    rng = np.random.default_rng(nq)
+    g = rng.integers(0, npool, (nq, nbudget)).astype(np.int32)
+    g[:, -2:] = 0                          # dead positions
+    g[0, 0], g[1, 0] = npool + 3, 1 << 30  # past the pool
+    g[2, 1] = -5
+    gidx = torch.from_numpy(g).to(dev)
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
+    q = q.to(dev)
+    n0 = kernels.launches["rescore_groups_f32"]
+    s = kernels.rescore_groups(q, rows, vn, gidx, metric=metric)
+    assert kernels.launches["rescore_groups_f32"] == n0 + 1
+    gc = gidx.clamp(0, npool - 1)
+    s_p = fused.rescore_groups_plain(q, rows, vn, gc, metric=metric)
+    term = rescore_term_rows(q, rows, gc, d, metric)
+    _within_eps(s, s_p, term)
+    cut = rows.clone()
+    cut[:, -4:] = 0.0
+    s_cut = fused.rescore_groups_plain(q, cut, vn, gc, metric=metric)
+    fin = torch.isfinite(s_p)
+    assert float(((s_cut - s_p).abs() > term)[fin].double().mean()) > 0.5
+    torch.cuda.synchronize()
+
+
+def test_rescore_f32_refuses_bad_rows(dev):
+    q = torch.zeros((8, 6), device=dev)
+    rows = torch.zeros((256, 6), device=dev)
+    g = torch.zeros((8, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                # d % 4 != 0
+        kernels.rescore_groups(q, rows, torch.zeros(256, device=dev), g,
+                               metric=MetricType.L2)
+    with pytest.raises(TypeError):                 # f64 rows
+        kernels.rescore_groups(q, rows.double(), torch.zeros(256, device=dev),
+                               g, metric=MetricType.L2)
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_ivf_on_card_matches_cpu(dev, metric, storage):
+    """The same IVF index (centroids and scales carried from a CPU-trained
+    one) on the card and on the CPU, on integer data: the gather routes
+    (nprobe 1, 5) through K10, the dense route (f32: the plain sweep;
+    bf16, int8: the fused kernels), range_search, remove_ids; ids equal,
+    and distances equal (f32, bf16: every score is exact on integer data)
+    or within the rescore term (int8: the decoded rows are not integers,
+    and each side errs ≤ d·u·‖q∘s‖·max‖codes‖)."""
+    from faiss_tpu_torch import TorchIndexIVFFlat
+
+    rng = np.random.default_rng(7)
+    cents = rng.integers(-20, 20, (24, 32)).astype(np.float32)
+    xb = cents[rng.integers(0, 24, 20_000)] + rng.integers(-3, 4, (20_000, 32))
+    xb = xb.astype(np.float32)
+    xq = xb[rng.choice(20_000, 37, replace=False)] + 1.0
+    cpu = TorchIndexIVFFlat(32, 24, metric=metric, storage=storage,
+                            device="cpu", seed=3)
+    cpu.train(xb)
+    gpu = TorchIndexIVFFlat(32, 24, metric=metric, storage=storage,
+                            device=dev, seed=3)
+    if storage == "int8":
+        gpu._set_scales(cpu._scales.cpu().numpy()[:32])
+    gpu._set_centroids(cpu._centroids)
+    for part in (xb[:12_000], xb[12_000:]):
+        cpu.add(part)
+        gpu.add(part)
+    np.testing.assert_array_equal(cpu._assignments(), gpu._assignments())
+    eps = np.zeros((len(xq), 1))
+    if storage == "int8":
+        q = torch.zeros((len(xq), cpu.d_pad))
+        q[:, :32] = torch.from_numpy(xq)
+        eps = rescore_term(q * cpu._scales, cpu._int8_qn, cpu._norms,
+                           cpu._norms.shape[0], cpu.d_pad,
+                           metric).numpy()[:, None]
+    kernels.reset_launches()
+    for nprobe in (1, 5, 24):
+        cpu.nprobe = gpu.nprobe = nprobe
+        Dc, Ic = cpu.search(xq, 10)
+        Dg, Ig = gpu.search(xq, 10)
+        np.testing.assert_array_equal(Ig, Ic)
+        assert (np.abs(Dg - Dc) <= eps).all(), np.abs(Dg - Dc).max()
+    n = dict(kernels.launches)
+    gather = {"f32": "rescore_groups_f32", "bf16": "rescore_groups",
+              "int8": "rescore_groups_int8"}[storage]
+    assert n[gather] >= 2
+    if storage != "f32":
+        assert n["select_groups"] > 0 and n["final_select"] > 0
+    cpu.nprobe = gpu.nprobe = 5
+    r = float(np.quantile(((xq[:, None] - xb[None, :2000]) ** 2).sum(-1),
+                          0.01)) if metric is MetricType.L2 else 2000.0
+    lc, Dc, Ic = cpu.range_search(xq, r)
+    lg, Dg, Ig = gpu.range_search(xq, r)
+    np.testing.assert_array_equal(lg, lc)
+    if storage != "int8":
+        np.testing.assert_array_equal(Ig, Ic)
+        np.testing.assert_array_equal(Dg, Dc)
+    else:   # hits within ε of each other may order either way
+        for i in range(len(xq)):
+            sl = slice(lc[i], lc[i + 1])
+            assert set(Ig[sl]) == set(Ic[sl])
+            assert (np.abs(np.sort(Dg[sl]) - np.sort(Dc[sl])) <= eps[i]).all()
+    rm = np.arange(0, 20_000, 3)
+    assert cpu.remove_ids(rm) == gpu.remove_ids(rm) == rm.size
+    Dc, Ic = cpu.search(xq, 10)
+    Dg, Ig = gpu.search(xq, 10)
+    np.testing.assert_array_equal(Ig, Ic)
+    torch.cuda.synchronize()
