@@ -42,9 +42,14 @@ it. Each path's launch counts are zeroed just before it and read just after:
 plus nq=8 (two-plane bf16 sweep) and a duplicated-vector index whose
 certificate fails, so both fallback tiers run. Before the searches each
 kernel is held against its plain PyTorch version at the main paths' shapes
-(nq_pad 104, d 128, nv_eff 1,000,448, kg 14, k 10), both timed with CUDA
-events: the sweeps' supergroup-max output (every format, both metrics) and
-the rescore-select kernel (bf16, int8, f16) bit for bit. Recall@K must be
+(nq_pad 104, d 128, nv_eff 1,000,448, kg 14, k 10; K9 also at the f32
+path's 32 candidates, K3 with its supergroup maxes also at 10M): the
+sweeps' supergroup-max output (every format, both metrics), K9, and the
+rescore-select kernel (bf16, int8, f16) bit for bit, K3 within the pair ε
+with its tensor-core term (``_sweep_eps(accum="mma")``). Kernels and their
+library calls are timed on the device (``graph_ms``: a CUDA graph of the
+reps, replayed between CUDA events), the plain versions eagerly
+(``cuda_ms``). Recall@K must be
 1.0 against an fp64 oracle over the stored database (bf16 rows, the f32
 master, hi + lo, the f16 values, or the int8 codes times the scales) and
 the stored norms, computed on the card in chunks of 1M rows.
@@ -90,7 +95,10 @@ def check(cond, msg: str) -> None:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of fn over reps launches (after one warm-up)."""
+    """Mean time of fn over reps calls enqueued back to back (after one
+    warm-up), CUDA events around them: the device time where the device is
+    the bottleneck, else the host's launch rate. The plain versions and
+    the pipelined searches are timed so."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -101,6 +109,31 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Device time of one call of fn: reps calls captured in one CUDA graph
+    (after one eager warm-up), the graph replayed once to warm it and once
+    between CUDA events, so the host's launch cost drops out. The kernels'
+    ctypes launches go on torch.cuda.current_stream(), the capture stream
+    there; each capture adds its reps launches to the wrappers' counts."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
 
 
 def _within(torch, a, b, eps, what):
@@ -227,10 +260,13 @@ def _rescore_select(torch, rows, name, idx, q, db, vn, gidx, metric,
         50, bound)
 
 
-def _row(torch, err, kern, plain, reps, bound, lib=None):
-    """(max error, kernel ms, plain ms, (bound ms, bound by), library ms)."""
-    return (err, cuda_ms(torch, kern, reps), cuda_ms(torch, plain, 5), bound,
-            None if lib is None else cuda_ms(torch, lib, reps))
+def _row(torch, err, kern, plain, reps, bound, lib=None, plain_reps=5):
+    """(max error, kernel ms, plain ms, (bound ms, bound by), library ms):
+    the kernel and the library call by graph replay, the plain version
+    eagerly."""
+    return (err, graph_ms(torch, kern, reps),
+            cuda_ms(torch, plain, plain_reps), bound,
+            None if lib is None else graph_ms(torch, lib, reps))
 
 
 def _selects(torch, rows, gm, s_fn, kg):
@@ -247,15 +283,23 @@ def _selects(torch, rows, gm, s_fn, kg):
         lambda: fused.select_groups_plain(gm, kg), 50,
         _bound(_nbytes(gm, gidx, t), 0, "fp32"),
         lambda: torch.topk(gm, kg + 1))
-    s = s_fn(gidx)
+    rows["final_select"] = _k9_row(torch, s_fn(gidx))
+
+
+def _k9_row(torch, s):
+    """K9 over the scores s against its plain version, bit for bit in
+    values and columns; torch.topk is the library call."""
+    from faiss_tpu_torch.ops import fused, kernels
+
     vals, pos = kernels.final_select(s, K)
     vals_p, pos_p = fused.final_select_plain(s, K)
-    check(torch.equal(vals, vals_p) and torch.equal(pos, pos_p),
-          "final_select differs from its plain version")
-    rows["final_select"] = _row(
-        torch, 0.0, lambda: kernels.final_select(s, K),
-        lambda: fused.final_select_plain(s, K), 50,
-        _bound(_nbytes(s, vals, pos), 0, "fp32"), lambda: torch.topk(s, K))
+    check(torch.equal(vals.view(torch.int32), vals_p.view(torch.int32))
+          and torch.equal(pos, pos_p),
+          f"final_select at {tuple(s.shape)} differs from its plain version")
+    return _row(torch, 0.0, lambda: kernels.final_select(s, K),
+                lambda: fused.final_select_plain(s, K), 50,
+                _bound(_nbytes(s, vals, pos), 0, "fp32"),
+                lambda: torch.topk(s, K))
 
 
 def phase_kernels(torch, idx, xq, metric):
@@ -306,8 +350,11 @@ def phase_kernels(torch, idx, xq, metric):
 
 def phase_f32_kernels(torch, idx, xq, metric):
     """The f32 kernels against their plain versions at the main path's
-    shapes: the pair sweep with 3 terms (K3) and 2 (K4) within the pair
-    sweep's ε, the pair rescore within ε₂ of _pair_rescore_eps."""
+    shapes: the pair sweep with 3 terms (K3, on the tensor cores: the pair
+    ε with accum="mma") and 2 (K4, fmaf chains: the pair ε), its
+    supergroup maxes bit for bit, the pair rescore within ε₂ of
+    _pair_rescore_eps, and K9 at the f32 path's own width (stage 3b's
+    k + 22 candidates, ``final_select_32``)."""
     from faiss_tpu_torch.ops import fused, kernels
 
     q, nq_pad, nv_eff, vn = _shapes(idx, xq, metric)
@@ -318,8 +365,8 @@ def phase_f32_kernels(torch, idx, xq, metric):
         qh, ql = fused.query_planes(q, passes)
         eps = fused._sweep_eps(q, st.norms, idx.ntotal, metric=metric,
                                d_pad=st.d_pad, single_pass=passes == 1,
-                               pair_sweep=True,
-                               split_stats=st.split_stats)[:, None]
+                               pair_sweep=True, split_stats=st.split_stats,
+                               accum="mma" if passes == 2 else "fmaf")[:, None]
         gm = kernels.sweep_split(qh, ql, hi, lo, vn, metric=metric)
         gm_p = fused.sweep_split_plain(qh, ql, hi, lo, vn, metric=metric)
         name = f"sweep_split_{passes + 1}"
@@ -335,14 +382,6 @@ def phase_f32_kernels(torch, idx, xq, metric):
                                        with_block_max=bm)
         _block_max(torch, name, launch)
         if passes == 2:
-            # the main path's format, K3, times the two-output launch
-            rows["sweep_block_max"] = _row(
-                torch, 0.0, lambda: launch(True),
-                lambda: fused.sweep_split_plain(qh, ql, hi, lo, vn,
-                                                metric=metric,
-                                                with_block_max=True),
-                20, _sweep_bound(planes, (hi, lo), vn, gm, 3, "bf16",
-                                 extra_bytes=_nbytes(gm) // 8))
             gidx, _ = kernels.select_groups(gm, K + fused.GROUP_PAD)
     eps2 = fused._pair_rescore_eps(q, st.norms, idx.ntotal, metric=metric,
                                    d_pad=st.d_pad,
@@ -356,6 +395,15 @@ def phase_f32_kernels(torch, idx, xq, metric):
         lambda: fused.rescore_groups_plain(q, hi, vn, gidx, metric=metric,
                                            db2=lo),
         50, _rescore_bound(q, 4, gidx, s))
+    # stage 3a → its select → stage 3b, as fused_search runs them: K9's
+    # (nq_pad, k + 22) input on the f32 path
+    m = K + fused.F32_CAND_PAD
+    ppos, _ = kernels.select_groups(
+        s.masked_fill(fused.candidate_drop(gidx, idx.ntotal), float("-inf")),
+        m)
+    cols = torch.gather(fused.candidate_columns(gidx), 1, ppos.to(torch.int64))
+    rows["final_select_32"] = _k9_row(
+        torch, fused.rescore_exact(q, st.db, st.norms, cols, metric=metric))
     _print_rows(metric, rows)
     return rows
 
@@ -627,6 +675,7 @@ def phase_f32_10m(torch, ft, xb, xq):
     for key in ("select_groups", "rescore_groups_pair", "final_select"):
         check(counts[key] > 0, f"f32_10m: kernel {key} was never launched")
     pipelined(torch, "f32_10m", [(idx, xq, L2)])
+    k3_row = _k3_block_max_10m(torch, idx, xq)
     idx.set_force_plain(True)
     idx.search(xq, K)
     t0 = time.perf_counter()
@@ -640,7 +689,49 @@ def phase_f32_10m(torch, ft, xb, xq):
           flush=True)
     del idx
     torch.cuda.empty_cache()
-    return counts
+    return counts, k3_row
+
+
+def _k3_block_max_10m(torch, idx, xq):
+    """K3 with its supergroup maxes at the f32_10m shapes (nq_pad 104,
+    78,128 groups): the maxes bit for bit against
+    block_max_plain of its gm, the gm within the MMA ε of the plain version
+    (timed once: it builds ≈ 27 GB of fp32 copies and products), the
+    kernel by graph replay; the table's ``sweep_block_max`` row."""
+    from faiss_tpu_torch import MetricType
+    from faiss_tpu_torch.ops import fused, kernels
+
+    L2 = MetricType.L2
+    q, nq_pad, nv_eff, vn = _shapes(idx, xq, L2)
+    st = idx.store
+    hi, lo = st.db_hi, st.db_lo
+    qh, ql = fused.query_planes(q, 2)
+
+    def launch():
+        return kernels.sweep_split(qh, ql, hi, lo, vn, metric=L2,
+                                   with_block_max=True)
+
+    def plain():
+        return fused.sweep_split_plain(qh, ql, hi, lo, vn, metric=L2,
+                                       with_block_max=True)
+
+    gm, bmax = launch()
+    check(torch.equal(bmax.view(torch.int32),
+                      fused.block_max_plain(gm).view(torch.int32)),
+          "f32_10m: K3's block max differs from amax of its group maxes")
+    eps = fused._sweep_eps(q, st.norms, idx.ntotal, metric=L2,
+                           d_pad=st.d_pad, pair_sweep=True,
+                           split_stats=st.split_stats, accum="mma")[:, None]
+    err = _within(torch, gm, plain()[0], eps, "f32_10m sweep_split_3")
+    row = _row(torch, err, launch, plain, 10,
+               _sweep_bound((qh, ql), (hi, lo), vn, gm, 3, "bf16",
+                            extra=(bmax,)), plain_reps=1)
+    print(f"K3 + block max at 10M (nq_pad {nq_pad}, nv_eff {nv_eff}):",
+          flush=True)
+    _print_rows(L2, {"sweep_block_max": row})
+    del gm, bmax
+    torch.cuda.empty_cache()
+    return row
 
 
 def _fused_call(idx, xq, **kw):
@@ -1268,7 +1359,8 @@ def main() -> int:
 
     # the 10M main path, the surface, then the IVF slice's main path; each
     # frees what it builds
-    counts["f32_10m"] = phase_f32_10m(torch, ft, xb, xq)
+    counts["f32_10m"], rows["sweep_block_max"] = phase_f32_10m(torch, ft, xb,
+                                                               xq)
     counts["surface"] = phase_surface(torch, ft, xb, xq, f32[L2], bf16[L2],
                                       int8[L2], f16[L2])
     del bf16, f32, sift, pair, int8, f16, dup, idx
@@ -1280,7 +1372,7 @@ def main() -> int:
     meta = {
         "sweep_groupmax_1": ("sweep_groupmax.cu", f"{PF}:190", None),
         "sweep_groupmax_2": ("sweep_groupmax.cu", f"{PF}:174", None),
-        "sweep_split_3": ("sweep_groupmax.cu", f"{PF}:239", None),
+        "sweep_split_3": ("sweep_split_mma.cu", f"{PF}:239", None),
         "sweep_split_2": ("sweep_groupmax.cu", f"{PF}:204",
                           "no index route reaches _kernel_split2: launches "
                           "counted in the kernel phase"),
@@ -1296,7 +1388,9 @@ def main() -> int:
                                "the IVF fine scan: launches counted in the "
                                "ivf_1m phase"),
         "final_select": ("final_select.cu", f"{PF}:809", None),
-        "sweep_block_max": ("sweep_groupmax.cu", f"{PF}:155", None),
+        "sweep_block_max": ("sweep_split_mma.cu", f"{PF}:155",
+                            "timed on K3 at 10M (the f32_10m phase), its "
+                            "main path; every sweep writes it"),
         "rescore_select": ("rescore_select.cu", f"{PF}:1195", k11_note),
         "rescore_select_int8": ("rescore_select.cu", f"{PF}:1195", k11_note),
         "rescore_select_f16": ("rescore_select.cu", f"{PF}:1195", k11_note),
@@ -1313,6 +1407,11 @@ def main() -> int:
                  "library_ms": lms}
         if note:
             entry["note"] = note
+        if key == "final_select":
+            # K9 at the f32 path's width, (nq_pad, k + 22)
+            err, ms, pms, (bms, by), lms = rows["final_select_32"]
+            entry["at_ncand_32"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                                    "bound_by": by, "library_ms": lms}
         table.append(entry)
     check(all(e["launches"] > 0 for e in table),
           "a kernel of the table was never launched")

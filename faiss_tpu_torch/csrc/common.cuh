@@ -11,6 +11,9 @@ namespace ft {
 
 constexpr int GROUP = 128;      // rows per candidate group (faiss_tpu GROUP)
 constexpr int BIG = 1 << 30;    // "no column" (faiss_tpu's big sentinel)
+// The NaN the final selects emit on a row holding a NaN: torch's and
+// numpy's float('nan') as fp32 bits, what fused.final_select_plain writes
+constexpr uint32_t QNAN = 0x7fc00000u;
 
 // Two bf16 values packed in one 32-bit word, element 0 in the low half.
 // A bf16 is the high half of an fp32, so widening is a shift: exact.
@@ -139,10 +142,11 @@ __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
     atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
 }
 
-// One max-extraction step of the select kernels (faiss_tpu _select_kernel
-// and _final_select_kernel), over the row x[0, n) with the extracted set in
-// the shared bitmask `excl` (x in global memory, read through the read-only
-// cache, or with GLOBAL = false in shared memory):
+// One max-extraction step of the select kernels (K8's _select_kernel, and
+// K11's extraction in _final_select_kernel's order), over the row x[0, n)
+// with the extracted set in the shared bitmask `excl` (x in global memory,
+// read through the read-only cache, or with GLOBAL = false in shared
+// memory):
 //   m   = max over xm, where xm = -inf on extracted columns, else x
 //   col = the lowest column with xm == m; with SKIP_EXTRACTED it must also
 //         not be extracted yet (the final select's `& ~excl`), without it

@@ -1,59 +1,353 @@
-// Final top-k: the last step of the fused bf16 search.
+// Final top-k: the last step of the fused search (K9).
 //
 // Replaces faiss_tpu/ops/pallas_fused.py _final_select_kernel, as launched
 // by final_select_pallas. Per row of the (nq, ncand) rescored candidate
-// scores: k max-extractions emitting the values in DESCENDING order with
-// their columns, ties to the lowest column. A tie may only go to a column
-// not yet extracted (`& ~excl`), so a row of all -inf yields columns
-// 0, 1, 2, ... as lax.top_k does. A NaN maximum matches no column: the
-// value is NaN and the column clamps to ncand-1, keeping gathers in bounds.
+// scores: the k largest in DESCENDING order with their columns, ties to the
+// lowest column, so a row of all -inf yields columns 0, 1, 2, ... as
+// lax.top_k does. A NaN anywhere in a row makes every output of that row
+// (NaN, ncand - 1): the Pallas kernel's max propagates NaN and no column
+// matches it; the clamp keeps the caller's gathers in bounds. The value
+// emitted for a column is that column's own score, bit for bit: -0.0 and
+// +0.0 compare equal, so on such a tie the lower column wins and keeps its
+// own sign (the NaN of a NaN row is the canonical ft::QNAN).
+// fused.final_select_plain is the definition.
 //
-// What bounds it on an H100: latency of 2·k block reductions per row over
-// ncand floats (1792 at k=10; L1/L2-resident); a few µs in all. Design: the
-// extraction core of select_groups.cu (ft::extract_step), one block of 256
-// threads per row, the extracted set as a shared-memory bitmask.
+// What bounds it on an H100: latency, not bytes (104 × 1792 floats, 0.75 MB,
+// is 0.2 µs of device memory). The kernel it replaces ran k extractions,
+// each re-reading the row with two block-wide reductions. Design: a row is
+// read once and selected in one pass over registers, by one warp (up to 512
+// columns, four rows a block), four (up to 2048) or eight (up to 16384):
+//   1. each warp reads its share of the row once from device memory
+//      (16-byte loads, eight in flight a lane, when the row is 16-byte
+//      aligned) into the row's shared memory, and a NaN flag is voted;
+//   2. each lane takes the order-preserving 32-bit keys of its columns
+//      (-0.0 given +0.0's key) into registers, at most 64;
+//   3. the k-th largest key T is found bit by bit from the top, starting
+//      below the leading bits that every key shares: a step counts the keys
+//      ≥ prefix | bit (compares into four partial counts, a warp reduction
+//      __reduce_add_sync, and across a row's warps one exchange through
+//      shared memory and one barrier) and keeps the bit while the count
+//      stays ≥ k; it stops as soon as exactly k keys are ≥ the prefix;
+//   4. one pass in column order, 32 columns at a time, collects the keys
+//      above T and the lowest-column ones equal to it (ballots and prefix
+//      counts; a warp's slots follow those of the warps before it) into k
+//      slots;
+//   5. a bitonic sort of 64 slots (two a lane, shuffles) in the row's first
+//      warp orders them by (key descending, column ascending).
+// No barrier runs inside a loop over k. A 256-bin radix select over shared
+// histograms (__match_any_sync, atomics) was tried first and ran behind
+// torch.topk at (104, 1792): each element's chain of shared loads, matches
+// and atomics left the warp waiting, where the bitwise search compares
+// registers side by side (PERF.md has the times).
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 256;
 constexpr int MAX_COLS = 16384;   // faiss_tpu SELECT_MAX_GROUPS
+constexpr int MAX_K = 40;         // faiss_tpu SELECT_MAX_KG (≤ 64 sort slots)
+constexpr int SLOTS = 64;
+constexpr int LOADS = 8;          // 16-byte loads in flight a lane
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(NT)
-final_select_kernel(const float* __restrict__ s, float* __restrict__ vals,
-                    int32_t* __restrict__ pos, int ncand, int k) {
-  __shared__ uint32_t excl[MAX_COLS / 32];
-  __shared__ float fs[NT / 32];
-  __shared__ int is[NT / 32];
+// Order-preserving key of an fp32 bit pattern (NaN excluded): larger value,
+// larger key; -0.0 takes +0.0's key, since the two compare equal. The least
+// key of a value, -inf's, is 0x007fffff: 0 marks "no column".
+__device__ __forceinline__ uint32_t order_key(uint32_t b) {
+  if (b == 0x80000000u) b = 0u;
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
 
-  const float* x = s + static_cast<size_t>(blockIdx.x) * ncand;
-  for (int i = threadIdx.x; i < (ncand + 31) / 32; i += NT) excl[i] = 0u;
-  __syncthreads();
+__device__ __forceinline__ bool is_nan_bits(uint32_t b) {
+  return (b & 0x7fffffffu) > 0x7f800000u;
+}
 
-  for (int j = 0; j < k; ++j) {
-    float m;
-    int col;
-    ft::extract_step<NT, true>(x, ncand, excl, fs, is, m, col);
-    if (threadIdx.x == 0) {
-      const size_t o = static_cast<size_t>(blockIdx.x) * k + j;
-      vals[o] = m;
-      pos[o] = min(col, ncand - 1);
-      if (col < ncand) excl[col >> 5] |= 1u << (col & 31);
+// A lane's count of its keys ≥ thr, in four partial counts so that the
+// compares run side by side.
+template <int PER>
+__device__ __forceinline__ uint32_t count_ge(const uint32_t (&key)[PER],
+                                             uint32_t thr) {
+  uint32_t c[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < PER; ++j) c[j & 3] += key[j] >= thr;
+  return (c[0] + c[1]) + (c[2] + c[3]);
+}
+
+// The barrier of a row's warps: the warp itself, or the block, which then
+// holds one row.
+template <int WPR>
+__device__ __forceinline__ void row_sync() {
+  if constexpr (WPR == 1)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+// op over the row's WPR warps of one value a warp (each already reduced
+// over its lanes). The exchange words alternate between two halves, so one
+// barrier a call suffices.
+template <int WPR, typename Op>
+__device__ __forceinline__ uint32_t row_reduce(uint32_t v, uint32_t* xch,
+                                               int sub, int lane, int& half,
+                                               Op op) {
+  if constexpr (WPR == 1) {
+    return v;
+  } else {
+    uint32_t* buf = xch + half * 2 * WPR;
+    half ^= 1;
+    if (lane == 0) buf[sub] = v;
+    __syncthreads();
+    uint32_t r = buf[0];
+#pragma unroll
+    for (int i = 1; i < WPR; ++i) r = op(r, buf[i]);
+    return r;
+  }
+}
+
+// One row per WPR warps (PER keys a lane each), several rows a block when
+// WPR is 1. Shared memory of a row: its bits (ncp words: ncand rounded up
+// to 4), SLOTS keys, SLOTS columns, 4·WPR exchange words. Warp `sub` of a
+// row owns the columns [sub·cw, sub·cw + cw) (cw a multiple of 32); its key
+// j in lane l is column sub·cw + 32j + l (0 past the row).
+template <int PER, int WPR>
+__global__ void final_select_kernel(const float* __restrict__ s,
+                                    float* __restrict__ vals,
+                                    int32_t* __restrict__ pos, int nq,
+                                    int ncand, int ncp, int cw, int k) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int sub = warp % WPR;
+  const int row = blockIdx.x * (blockDim.x / (32 * WPR)) + warp / WPR;
+  if (row >= nq) return;   // only with WPR 1: no block barrier follows
+  uint32_t* x = smem + static_cast<size_t>(warp / WPR)
+                           * (ncp + 2 * SLOTS + 4 * WPR);
+  uint32_t* skey = x + ncp;
+  uint32_t* scol = skey + SLOTS;
+  uint32_t* xch = scol + SLOTS;
+  const float* src = s + static_cast<size_t>(row) * ncand;
+  const int c0 = sub * cw;
+  const int c1 = max(c0, min(c0 + cw, ncand));
+  const auto add = [](uint32_t a, uint32_t b) { return a + b; };
+  int half = 0;
+
+  // 1. the warp's columns, once, into shared memory: LOADS 16-byte loads in
+  // flight a lane before the first store (c0 is a multiple of 32)
+  bool nan = false;
+  if ((ncand & 3) == 0) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(src + c0);
+    uint4* x4 = reinterpret_cast<uint4*>(x + c0);
+    const int n4 = (c1 - c0) / 4;
+    for (int i0 = lane; i0 < n4; i0 += 32 * LOADS) {
+      uint4 v[LOADS];
+#pragma unroll
+      for (int u = 0; u < LOADS; ++u)
+        if (i0 + 32 * u < n4) v[u] = __ldg(s4 + i0 + 32 * u);
+#pragma unroll
+      for (int u = 0; u < LOADS; ++u)
+        if (i0 + 32 * u < n4) {
+          x4[i0 + 32 * u] = v[u];
+          nan |= is_nan_bits(v[u].x) | is_nan_bits(v[u].y)
+                 | is_nan_bits(v[u].z) | is_nan_bits(v[u].w);
+        }
+    }
+  } else {
+    for (int i = c0 + lane; i < c1; i += 32) {
+      const uint32_t b = __float_as_uint(__ldg(src + i));
+      x[i] = b;
+      nan |= is_nan_bits(b);
+    }
+  }
+  float* vo = vals + static_cast<size_t>(row) * k;
+  int32_t* po = pos + static_cast<size_t>(row) * k;
+  const uint32_t any_nan = row_reduce<WPR>(
+      static_cast<uint32_t>(__any_sync(FULL, nan)), xch, sub, lane, half,
+      [](uint32_t a, uint32_t b) { return a | b; });
+  if (any_nan) {
+    for (int j = lane; sub == 0 && j < k; j += 32) {
+      vo[j] = __uint_as_float(ft::QNAN);
+      po[j] = ncand - 1;
+    }
+    return;
+  }
+  __syncwarp();
+
+  // 2. the keys, into registers
+  uint32_t key[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int c = c0 + 32 * j + lane;
+    key[j] = c < c1 ? order_key(x[c]) : 0u;
+  }
+
+  // 3. T: the largest t with count(key ≥ t) ≥ k; `exact` once that count
+  // is k itself, and every key ≥ t is taken (a padding key, 0, never is).
+  // The leading bits that every key of the row shares are T's: the search
+  // starts below them (scores of one query share sign and most exponent
+  // bits).
+  uint32_t all = 0xffffffffu, any = 0u;
+#pragma unroll
+  for (int j = 0; j < PER; ++j)
+    if (c0 + 32 * j + lane < c1) {
+      all &= key[j];
+      any |= key[j];
+    }
+  all = row_reduce<WPR>(__reduce_and_sync(FULL, all), xch, sub, lane, half,
+                        [](uint32_t a, uint32_t b) { return a & b; });
+  any = row_reduce<WPR>(__reduce_or_sync(FULL, any), xch, sub, lane, half,
+                        [](uint32_t a, uint32_t b) { return a | b; });
+  const uint32_t differ = all ^ any;   // 0 where every key agrees
+  const int top = differ == 0u ? -1 : 31 - __clz(differ);
+  // (2u << 31 wraps to 0: no bit is shared)
+  uint32_t t = top < 0 ? all : all & ~((2u << top) - 1u);
+  bool exact = false;
+  for (int b = top; b >= 0; --b) {
+    const uint32_t cand = t | (1u << b);
+    const uint32_t c = row_reduce<WPR>(
+        __reduce_add_sync(FULL, count_ge(key, cand)), xch, sub, lane, half,
+        add);
+    if (c >= static_cast<uint32_t>(k)) {
+      t = cand;
+      if (c == static_cast<uint32_t>(k)) {
+        exact = true;
+        break;
+      }
+    }
+  }
+
+  // 4. collect in column order: slots [0, k - need) the keys above T (or,
+  // when exact, ≥ T), slots [k - need, k) the lowest-column keys equal to
+  // T; a warp's first slots follow those of the warps before it (t + 1
+  // does not wrap: t ≤ +inf's key 0xff800000)
+  const uint32_t n_above = __reduce_add_sync(FULL, count_ge(key, t + 1u));
+  const uint32_t n_from_t = __reduce_add_sync(FULL, count_ge(key, t));
+  const uint32_t w_up = exact ? n_from_t : n_above;
+  const uint32_t w_eq = exact ? 0u : n_from_t - n_above;
+  int n_up = 0, n_eq = 0, need = 0;
+  if constexpr (WPR == 1) {
+    need = k - static_cast<int>(w_up);
+  } else {
+    uint32_t* buf = xch + half * 2 * WPR;
+    if (lane == 0) {
+      buf[sub] = w_up;
+      buf[WPR + sub] = w_eq;
     }
     __syncthreads();
+    int up_all = 0;
+#pragma unroll
+    for (int i = 0; i < WPR; ++i) {
+      if (i < sub) {
+        n_up += static_cast<int>(buf[i]);
+        n_eq += static_cast<int>(buf[WPR + i]);
+      }
+      up_all += static_cast<int>(buf[i]);
+    }
+    need = k - up_all;
   }
+  const unsigned lower = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const bool up = exact ? key[j] >= t : key[j] > t;
+    const bool eq = !exact && key[j] == t;
+    const unsigned bu = __ballot_sync(FULL, up);
+    const unsigned be = __ballot_sync(FULL, eq);
+    const int pu = n_up + __popc(bu & lower);
+    const int pe = n_eq + __popc(be & lower);
+    const uint32_t col = static_cast<uint32_t>(c0 + 32 * j + lane);
+    if (up) {
+      skey[pu] = key[j];
+      scol[pu] = col;
+    }
+    if (eq && pe < need) {
+      skey[k - need + pe] = key[j];
+      scol[k - need + pe] = col;
+    }
+    n_up += __popc(bu);
+    n_eq += __popc(be);
+  }
+  row_sync<WPR>();
+  if (sub != 0) return;
+
+  // 5. bitonic sort, descending, of (key << 32 | ~column): larger key
+  // first, then lower column; empty slots are 0 and sort last
+  uint64_t v[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int slot = lane + 32 * r;
+    v[r] = slot < k ? (static_cast<uint64_t>(skey[slot]) << 32)
+                          | static_cast<uint32_t>(~scol[slot])
+                    : 0ull;
+  }
+#pragma unroll
+  for (int size = 2; size <= SLOTS; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride == 32) {   // the pair (lane, lane + 32): one lane's two
+        const uint64_t hi = v[0] > v[1] ? v[0] : v[1];
+        const uint64_t lo = v[0] > v[1] ? v[1] : v[0];
+        v[0] = hi;
+        v[1] = lo;
+      } else {
+        const bool low = (lane & stride) == 0;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint64_t p = __shfl_xor_sync(FULL, v[r], stride);
+          const bool desc = ((lane + 32 * r) & size) == 0;
+          v[r] = low == desc ? (v[r] > p ? v[r] : p) : (v[r] < p ? v[r] : p);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int slot = lane + 32 * r;
+    if (slot < k) {
+      const uint32_t col = ~static_cast<uint32_t>(v[r]);
+      vo[slot] = __uint_as_float(x[col]);
+      po[slot] = static_cast<int32_t>(col);
+    }
+  }
+}
+
+template <int PER, int WPR>
+cudaError_t launch(const float* s, float* vals, int32_t* pos, int nq,
+                   int ncand, int k, cudaStream_t stream) {
+  const int ncp = (ncand + 3) & ~3;
+  const int cw = ((ncand + WPR - 1) / WPR + 31) / 32 * 32;
+  const int rows = WPR == 1 ? 4 : 1;   // rows a block
+  const size_t smem =
+      static_cast<size_t>(rows) * (ncp + 2 * SLOTS + 4 * WPR) * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        final_select_kernel<PER, WPR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  final_select_kernel<PER, WPR>
+      <<<(nq + rows - 1) / rows, 32 * WPR * rows, smem, stream>>>(
+          s, vals, pos, nq, ncand, ncp, cw, k);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// s: (nq, ncand) f32; vals: (nq, k) f32 out; pos: (nq, k) int32 out.
-// 1 ≤ k ≤ ncand ≤ 16384.
+// s: (nq, ncand) f32, 16-byte aligned; vals: (nq, k) f32 out; pos: (nq, k)
+// int32 out. 1 ≤ k ≤ 40, k ≤ ncand ≤ 16384.
 extern "C" int ft_final_select(const void* s, void* vals, void* pos, int nq,
                                int ncand, int k, void* stream) {
-  if (nq <= 0 || ncand <= 0 || ncand > MAX_COLS || k <= 0 || k > ncand)
+  if (nq <= 0 || ncand <= 0 || ncand > MAX_COLS || k <= 0 || k > MAX_K
+      || k > ncand)
     return static_cast<int>(cudaErrorInvalidValue);
-  final_select_kernel<<<nq, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(s), static_cast<float*>(vals),
-      static_cast<int32_t*>(pos), ncand, k);
-  return static_cast<int>(cudaGetLastError());
+  auto* x = static_cast<const float*>(s);
+  auto* v = static_cast<float*>(vals);
+  auto* p = static_cast<int32_t*>(pos);
+  auto st = static_cast<cudaStream_t>(stream);
+  // one warp a row up to 512 columns, 4 up to 2048, 8 beyond; ≤ 64 keys a
+  // lane
+  const cudaError_t e =
+      ncand <= 32    ? launch<1, 1>(x, v, p, nq, ncand, k, st)
+      : ncand <= 128 ? launch<4, 1>(x, v, p, nq, ncand, k, st)
+      : ncand <= 512 ? launch<16, 1>(x, v, p, nq, ncand, k, st)
+      : ncand <= 2048 ? launch<16, 4>(x, v, p, nq, ncand, k, st)
+                      : launch<64, 8>(x, v, p, nq, ncand, k, st);
+  return static_cast<int>(e);
 }

@@ -16,10 +16,12 @@
 //
 // Arithmetic: the score of a row is the same fmaf chain as K10's format in
 // rescore_groups.cu (q fp32 in shared memory, the row widened exactly,
-// e ascending over d, one rounding per step), and the extraction is the
-// same ft::extract_step as K9's, so the result equals rescore_groups →
-// mask → final_select → gather of the row ids bit for bit, in values and
-// in ids. Padding and filtered rows score −inf through vn (+inf there).
+// e ascending over d, one rounding per step), and the extraction
+// (ft::extract_step, k block-wide steps) picks what K9's one-pass select
+// picks: descending, ties to the lowest column not yet extracted, each
+// column's own score emitted (ft::QNAN on a row holding a NaN). So the
+// result equals rescore_groups → mask → final_select → gather of the row
+// ids bit for bit, in values and in ids. Padding and filtered rows score −inf through vn (+inf there).
 // The Pallas body carries a running top-k across rank steps and emits id
 // 1 << 30 in lanes that find only −inf; here all kg·128 scores sit in
 // shared memory at once and a −inf lane takes the lowest column not yet
@@ -108,7 +110,8 @@ rescore_select_kernel(const float* __restrict__ q, const void* __restrict__ db,
     if (threadIdx.x == 0) {
       const int c = min(col, ncand - 1);
       const size_t o = static_cast<size_t>(qi) * k + j;
-      vals[o] = m;
+      // the column's own score (m's bits but on a -0.0 / +0.0 tie), as K9
+      vals[o] = col < ncand ? s[col] : __uint_as_float(ft::QNAN);
       ids[o] = g[c / ft::GROUP] * ft::GROUP + c % ft::GROUP;
       if (col < ncand) excl[col >> 5] |= 1u << (col & 31);
     }

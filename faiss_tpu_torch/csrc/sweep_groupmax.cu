@@ -1,16 +1,18 @@
 // Group-max sweep: phase 1 of the fused search, bf16, f32 and f16 storage.
 //
-// Replaces six Pallas kernel bodies of faiss_tpu/ops/pallas_fused.py, all
+// Replaces five Pallas kernel bodies of faiss_tpu/ops/pallas_fused.py, all
 // launched by _sweep_call from groupmax_scores, with their shared _epilogue:
 //   bf16 rows v:                _kernel_qpair  acc = qh·v + ql·v
 //                               _kernel_q1     acc = q1·v
-//   f32 rows as bf16 planes     _kernel_split  acc = qh·dh + qh·dl + ql·dh
-//   (v ≈ dh + dl):              _kernel_split2 acc = q1·dh + q1·dl
+//   f32 rows as bf16 planes     _kernel_split2 acc = q1·dh + q1·dl
+//   (v ≈ dh + dl):
 //   f16 bits, decoded in-       _kernel_f16_pair  acc = qh·dh + qh·dl + ql·dh
 //   register to the exact       _kernel_f16_1     acc = q1·dh + q1·dl
 //   pair (v == dh + dl):
 // (qh, ql: the bit-mask split of the fp32 query; q1: the query rounded to
-// bf16, RNE). For every query q and every 128-row group g it writes
+// bf16, RNE). The f32 planes with two query planes, _kernel_split, run on
+// the tensor cores in sweep_split_mma.cu. For every query q and every
+// 128-row group g it writes
 //     gm[q, g] = max over rows r of g of  s(q, r),
 //     s = 2·acc − vn[r]  (L2)   or   acc − vn[r]  (IP),
 // where vn is the pre-masked norm stream (+inf on rows past ntotal, so
@@ -37,21 +39,21 @@
 // finite data: dh + dl == f) holds as derived below. The kernel reads
 // 2 bytes per element where the f32 planes take 4.
 //
-// Arithmetic (what the certificate ops/fused._sweep_eps assumes): each
-// product term has its own fp32 accumulator, summed over d by sequential
-// fmaf (CUDA-core FMA, round to nearest), and the terms add once at the
-// end, left to right in the order above (as the dot_generals of the Pallas
-// kernels do). bf16×bf16 products are exact in fp32, so a term a·b errs
-// ≤ d·u·‖a‖·‖b‖ (u = 2^-24). With ‖qh‖, ‖q1‖ ≤ Q + R, ‖ql‖ = L, ‖dh‖ ≤ V,
-// ‖dl‖ ≤ s0 the three f32 terms err ≤ d·u·[(Q+R)·(V+s0) + L·V] and the two
-// final adds ≤ 2·u·(the same sum), which is the (d+2)·u·[(Q+R)·(V+s0) + L·V]
-// that _sweep_eps charges (bf16: s0 = 0). One accumulator over the 2·d or
-// 3·d interleaved terms would exceed that budget. No tensor cores: their
-// fp32 accumulation is not proven round-to-nearest.
+// Arithmetic (what the certificate ops/fused._sweep_eps assumes with its
+// default accum="fmaf"): each product term has its own fp32 accumulator,
+// summed over d by sequential fmaf (CUDA-core FMA, round to nearest), and
+// the terms add once at the end, left to right in the order above (as the
+// dot_generals of the Pallas kernels do). bf16×bf16 products are exact in
+// fp32, so a term a·b errs ≤ d·u·‖a‖·‖b‖ (u = 2^-24). With ‖qh‖, ‖q1‖ ≤
+// Q + R, ‖ql‖ = L, ‖dh‖ ≤ V, ‖dl‖ ≤ s0 the three terms err
+// ≤ d·u·[(Q+R)·(V+s0) + L·V] and the two final adds ≤ 2·u·(the same sum),
+// which is the (d+2)·u·[(Q+R)·(V+s0) + L·V] that _sweep_eps charges (bf16:
+// s0 = 0). One accumulator over the 2·d or 3·d interleaved terms would
+// exceed that budget.
 //
 // What bounds it on an H100: fp32 FMA throughput. At nq=104, 1M×128 one
 // product term is 13.3 G FMA (bf16: 1-2 terms against 256 MB of rows; f32:
-// 2-3 terms against 512 MB of planes); the rows are read once from device
+// 2 terms against 512 MB of planes); the rows are read once from device
 // memory and then from L2 by the other query tiles of the same group.
 // Design: one block per (group, QT-query tile), blocks of one group
 // adjacent in launch order so the group's 32 KB per plane stays in L2; one
@@ -61,13 +63,12 @@
 // The 128-row max is a warp shuffle max plus one shared-memory step.
 // QT per route: 32 for bf16 (32/64 accumulators; 77/151 registers) and
 // for _kernel_split2 / _kernel_f16_1 (64 accumulators; 138 / 128
-// registers); 16 for _kernel_split / _kernel_f16_pair (48 accumulators;
-// 127 / 122 registers). nvcc -Xptxas -v for sm_90a reports no spills but
-// 8 bytes for _kernel_f16_1. At this shape _kernel_split ran 3.04 ms at
-// QT=16, 3.44 at QT=32 (232 registers) and 3.63 at QT=8; the f16 rows,
-// with half the bytes and the decode, ran 2.87 ms (pair) and 2.05 ms (one
-// plane) against 3.07 and 2.12 for the f32 planes (CUDA events, NVIDIA
-// H100 80GB HBM3, 700.00 W).
+// registers); 16 for _kernel_f16_pair (48 accumulators; 122 registers).
+// nvcc -Xptxas -v for sm_90a reports no spills but 8 bytes for
+// _kernel_f16_1. At this shape the f16 rows, with half the bytes and the
+// decode, ran 2.87 ms (pair) and 2.05 ms (one plane) against 3.07 and 2.12
+// for the f32 planes on this template (CUDA events, NVIDIA H100 80GB HBM3,
+// 700.00 W).
 #include "common.cuh"
 
 namespace {
@@ -204,7 +205,8 @@ void launch(const void* q_hi, const void* q_lo, const void* db,
 
 // q_hi, q_lo: (nq, d) bf16 query planes (q_lo unread when planes == 1);
 // db: (≥ ngroups·128, d) bf16 rows, or the hi plane when db_lo is given;
-// db_lo: the lo plane, or null for bf16 rows; vn: (ngroups·128,)
+// db_lo: the lo plane (with one query plane; two go to
+// ft_sweep_split_mma), or null for bf16 rows; vn: (ngroups·128,)
 // pre-masked norms; gm: (nq, ngroups) f32 out; bmax: null, or the
 // (nq, ngroups/8) supergroup maxes, filled with -inf by the caller
 // (ngroups % 8 == 0). d % 8 == 0, 16-byte aligned.
@@ -224,9 +226,6 @@ extern "C" int ft_sweep_groupmax(const void* q_hi, const void* q_lo,
                         l2, s);
   else if (planes == 1)
     launch<1, PAIR, 32>(q_hi, q_lo, db, db_lo, vn, gm, bmax, nq, d, ngroups,
-                        l2, s);
-  else if (planes == 2)
-    launch<2, PAIR, 16>(q_hi, q_lo, db, db_lo, vn, gm, bmax, nq, d, ngroups,
                         l2, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);

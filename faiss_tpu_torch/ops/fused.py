@@ -26,8 +26,9 @@ storage modes. The nq×nv score matrix is never materialized:
 Every true top-k row lies in a nominated group unless a non-nominated group
 could beat the k-th rescored score; the certificate
 ``vals[k-1] ≥ t + ε`` (ε from ``_sweep_eps``, a strict bound on
-|sweep score − rescore score|) proves per query that none can. An
-uncertified query is re-run by the index on an exact path.
+|sweep score − rescore score|, with the tensor-core accumulation term where
+the f32 planes' two-plane sweep ran on the card) proves per query that none
+can. An uncertified query is re-run by the index on an exact path.
 
 f32 storage (``db_split`` = the (hi, lo) planes) rescores in two stages:
 stage 3a scores every candidate against hi + lo (the pair mode of
@@ -295,7 +296,11 @@ def select_groups_plain(gm: torch.Tensor, kg: int):
 def final_select_plain(s: torch.Tensor, k: int):
     """Plain version of the final select, step for step the Pallas
     ``_final_select_kernel``: k max-extractions in descending order, ties
-    to the lowest column not yet extracted, columns clamped to ncand−1."""
+    to the lowest column not yet extracted, columns clamped to ncand−1.
+    Each value is its column's own score, bit for bit (the extraction's
+    max, but on a −0.0 / +0.0 tie, where the max's sign depends on the
+    order of the reduction); a row holding a NaN gives (NaN, ncand−1)
+    everywhere, the NaN being float('nan')."""
     nq, nc = s.shape
     iota = torch.arange(nc, device=s.device, dtype=torch.int32)[None, :]
     excl = torch.zeros_like(s, dtype=torch.bool)
@@ -307,8 +312,11 @@ def final_select_plain(s: torch.Tensor, k: int):
         col = torch.amin(torch.where((xm == m) & ~excl, iota, _BIG), dim=-1,
                          keepdim=True)
         excl |= iota == col
-        vals[:, j] = m[:, 0]
-        pos[:, j] = torch.clamp(col[:, 0], max=nc - 1)
+        c = torch.clamp(col, max=nc - 1)
+        vals[:, j] = torch.where(col[:, 0] < nc,
+                                 torch.gather(s, 1, c.to(torch.int64))[:, 0],
+                                 math.nan)
+        pos[:, j] = c[:, 0]
     return vals, pos
 
 
@@ -438,10 +446,13 @@ def _top_groups_from_bmax(gmax: torch.Tensor, bmax: torch.Tensor, kg: int,
 def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
                nv_eff: int, *, metric: MetricType, d_pad: int,
                single_pass: bool = False, pair_sweep: bool = False,
-               split_stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+               split_stats: Optional[torch.Tensor] = None,
+               accum: str = "fmaf") -> torch.Tensor:
     """Per-query strict upper bound ε on |sweep score − rescore score| for
     any stored row: ``faiss_tpu``'s _sweep_eps, derived for this port's
-    own arithmetic.
+    own arithmetic. ``accum`` names the sweep's accumulation: "fmaf" (the
+    default, and the JAX bound) or "mma", the tensor-core pair sweep with
+    two query planes (csrc/sweep_split_mma.cu); only term (2) differs.
 
     Notation: u = 2^-24; Q = ‖q‖; R = ‖q − Σ q_planes‖ (computed exactly:
     the bit-mask split makes the subtractions exact); L = ‖q_lo‖;
@@ -457,6 +468,17 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
           of exact bf16×bf16 products (a·b errs ≤ d·u·‖a‖·‖b‖, round to
           nearest; ‖q_hi‖, ‖q_rne‖ ≤ Q+R, ‖v_hi‖ ≤ V, ‖v_lo‖ ≤ s0), the
           ≤ 3 terms added once (+2·u); bf16 rows: s0 = 0
+          accum="mma":                 (36·⌈d/16⌉ + 2)·u·[(Q+R)·(V+s0) + L·V]
+          csrc/sweep_split_mma.cu: per product term one fp32 wgmma
+          accumulator over ⌈d/16⌉ k-steps, each adding 16 exact bf16×bf16
+          products to it in a sum not proven round-to-nearest. The model
+          charges a step 2u·M for each of its 17 addends (M the largest
+          addend magnitude: alignment by truncation, no guard bits) and
+          2u·|result| for the normalisation; with every product and
+          partial sum ≤ ‖a‖·‖b‖ (to first order) a step errs
+          ≤ 36·u·‖a‖·‖b‖, a term ≤ 36·⌈d/16⌉·u·‖a‖·‖b‖; the norms above and
+          the two round-to-nearest adds of the terms give the budget
+          (≈ 2.2× the fmaf one at d = 128)
       (3) rescore accumulation                2·d·u·Q·V
           csrc/rescore_groups.cu: a sequential fmaf chain of fp32 q times
           exactly widened rows, ≤ d·u·Q·V; f32 stage 3b: an fp32 product
@@ -486,9 +508,18 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
         s0 = 0.0
         drop = R * V
     eps = (drop
-           + (d_pad + 2.0) * _U32 * ((Q + R) * (V + s0) + L * V)
+           + _accum_coeff(d_pad, accum) * _U32 * ((Q + R) * (V + s0) + L * V)
            + 2.0 * d_pad * _U32 * Q * V)
     return _epilogue_eps(eps, Q, V, N, metric)
+
+
+def _accum_coeff(d_pad: int, accum: str) -> float:
+    """Term (2) of _sweep_eps over u·[(Q+R)·(V+s0) + L·V]."""
+    if accum == "fmaf":
+        return d_pad + 2.0
+    if accum == "mma":
+        return 36.0 * math.ceil(d_pad / 16) + 2.0
+    raise ValueError(f"accum must be 'fmaf' or 'mma', got {accum!r}")
 
 
 def _pair_rescore_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
@@ -659,11 +690,16 @@ def fused_search(
         eps = _sweep_eps_int8(queries_f32, scales, int_norm_max, db_norms,
                               nv_eff, metric=metric, d_pad=d_pad)
     else:
-        # f16 sweeps the decoded pair: the pair ε with the f16 statistics
+        # f16 sweeps the decoded pair: the pair ε with the f16 statistics;
+        # the f32 planes' two-plane sweep ran on the tensor cores (K3) when
+        # the queries lie on the card
+        mma = (pair_sweep and not hi_exact and sweep_passes == 2
+               and queries_f32.is_cuda)
         eps = _sweep_eps(queries_f32, db_norms, nv_eff, metric=metric,
                          d_pad=d_pad, single_pass=sweep_passes == 1,
                          pair_sweep=pair_sweep or db.dtype == torch.float16,
-                         split_stats=split_stats)
+                         split_stats=split_stats,
+                         accum="mma" if mma else "fmaf")
     if rescore_select and k_eff <= RESCORE_SELECT_MAX_K and not pair_sweep:
         # bf16 and f16 rows against q, int8 codes against q∘s; the
         # certificate is the sweep's alone, as in faiss_tpu

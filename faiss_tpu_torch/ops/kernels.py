@@ -48,7 +48,8 @@ _lib_handle: Optional[ctypes.CDLL] = None
 launches = {
     "sweep_groupmax_1": 0,   # bf16 rows, one query plane  (_kernel_q1)
     "sweep_groupmax_2": 0,   # bf16 rows, two query planes (_kernel_qpair)
-    "sweep_split_3": 0,      # f32 (hi, lo) planes, 3 terms (_kernel_split)
+    "sweep_split_3": 0,      # f32 (hi, lo) planes, 3 terms (_kernel_split),
+                             # on the tensor cores (csrc/sweep_split_mma.cu)
     "sweep_split_2": 0,      # f32 (hi, lo) planes, 2 terms (_kernel_split2)
     "sweep_int8": 0,         # int8 codes, two exact passes (_kernel_int8)
     "sweep_f16_2": 0,        # f16 bits, 3 terms (_kernel_f16_pair)
@@ -83,6 +84,7 @@ _SELECT_FMT = {torch.bfloat16: (0, "rescore_select"),
                torch.float16: (3, "rescore_select_f16")}
 SUPERGROUP = 8   # groups per block-max entry (faiss_tpu SUPERGROUP)
 RESCORE_SELECT_MAX_CAND = 36 * GROUP   # csrc/rescore_select.cu MAX_CAND
+FINAL_SELECT_MAX_K = 40   # csrc/final_select.cu MAX_K (fused.SELECT_MAX_KG)
 
 
 def reset_launches() -> None:
@@ -155,6 +157,7 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         sigs = {
             "ft_sweep_groupmax": [P, P, I, P, P, P, P, P, I, I, I, I, P],
+            "ft_sweep_split_mma": [P, P, P, P, P, P, P, I, I, I, I, P],
             "ft_sweep_f16": [P, P, I, P, P, P, P, I, I, I, I, P],
             "ft_sweep_int8": [P, P, P, P, P, P, P, I, I, I, I, P],
             "ft_select_groups": [P, P, P, I, I, I, P],
@@ -295,15 +298,31 @@ def sweep_split(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
                 db_hi: torch.Tensor, db_lo: torch.Tensor, vn: torch.Tensor,
                 *, metric: MetricType, with_block_max: bool = False):
     """Group maxes of the f32 pair sweep over the bf16 (hi, lo) planes:
-    qh·dh + qh·dl + ql·dh with two query planes (3 terms), q1·dh + q1·dl
-    when ``q_lo`` is None (2 terms)."""
+    qh·dh + qh·dl + ql·dh with two query planes (3 terms, on the tensor
+    cores: certify with ``_sweep_eps(accum="mma")``), q1·dh + q1·dl when
+    ``q_lo`` is None (2 terms, fmaf chains)."""
     planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
     if not _on_cuda(*planes, db_hi, db_lo, vn):
         from .fused import sweep_split_plain
         return sweep_split_plain(q_hi, q_lo, db_hi, db_lo, vn, metric=metric,
                                  with_block_max=with_block_max)
-    return _sweep(f"sweep_split_{len(planes) + 1}", q_hi, q_lo, db_hi, db_lo,
-                  vn, metric, with_block_max)
+    if q_lo is None:
+        return _sweep("sweep_split_2", q_hi, None, db_hi, db_lo, vn, metric,
+                      with_block_max)
+    # two query planes: the tensor-core kernel (K3), whose accumulation the
+    # certificate charges with _sweep_eps(accum="mma")
+    nq, d, ngroups = _check_sweep(planes, (db_hi, db_lo), vn,
+                                  q_dtype=torch.bfloat16,
+                                  db_dtype=torch.bfloat16, align=8)
+    _int32(ngroups * GROUP, "nv_eff")
+    gm, bmax = _sweep_outputs(nq, ngroups, db_hi.device, with_block_max)
+    with torch.cuda.device(db_hi.device):
+        _launch("sweep_split_3", "ft_sweep_split_mma", q_hi.data_ptr(),
+                q_lo.data_ptr(), db_hi.data_ptr(), db_lo.data_ptr(),
+                vn.data_ptr(), gm.data_ptr(),
+                None if bmax is None else bmax.data_ptr(), nq, d, ngroups,
+                int(metric is MetricType.L2))
+    return _sweep_result(gm, bmax)
 
 
 def sweep_f16(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
@@ -411,14 +430,16 @@ def rescore_groups(queries: torch.Tensor, db: torch.Tensor, vn: torch.Tensor,
 
 
 def final_select(s: torch.Tensor, k: int):
-    """(descending top-k values (nq, k) f32, their columns (nq, k) int32)."""
+    """(descending top-k values (nq, k) f32, their columns (nq, k) int32),
+    ties to the lowest column; each value is its column's own score."""
     if not _on_cuda(s):
         from .fused import final_select_plain
         return final_select_plain(s, k)
     _check(s, "s", torch.float32, 2)
     nq, ncand = s.shape
-    if not 0 < k <= ncand <= 16384:
-        raise ValueError(f"need 0 < k ≤ ncand ≤ 16384 (k={k}, ncand={ncand})")
+    if not (0 < k <= FINAL_SELECT_MAX_K and k <= ncand <= 16384):
+        raise ValueError(f"need 0 < k ≤ {FINAL_SELECT_MAX_K}, k ≤ ncand ≤ "
+                         f"16384 (k={k}, ncand={ncand})")
     vals = torch.empty((nq, k), dtype=torch.float32, device=s.device)
     pos = torch.empty((nq, k), dtype=torch.int32, device=s.device)
     with torch.cuda.device(s.device):

@@ -36,7 +36,8 @@ from pathlib import Path
 import numpy as np
 
 D, NQ, K = 128, 100, 10
-PARTS = (("sweep", ("sweep_groupmax_kernel", "sweep_int8_kernel")),
+PARTS = (("sweep", ("sweep_groupmax_kernel", "sweep_int8_kernel",
+                    "sweep_split_mma_kernel")),
          ("select_groups", ("select_groups_kernel",)),
          ("rescore", ("rescore_groups_kernel",)),
          ("final_select", ("final_select_kernel",)),

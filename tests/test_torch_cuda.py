@@ -27,6 +27,13 @@ The certificate soundness cases (``check_sweep_eps_sound``,
 ``check_int8_eps_sound``) take a device: tests/test_torch_f32.py,
 test_torch_f16.py and test_torch_int8.py run them on the plain versions on
 the CPU, this module on the kernels.
+
+K3 runs on the tensor cores (``csrc/sweep_split_mma.cu``): it is held to
+``_sweep_eps(accum="mma")`` (the budget of tests/test_torch_mma_eps.py),
+its supergroup maxes bit for bit, also on the truncation adversary's rows.
+K9 (``csrc/final_select.cu``, one pass) equals its plain version bit for
+bit, values included, on tie-heavy, −inf, NaN and ±0 rows; K11 and K10 → K9
+agree bit for bit on a −0.0 / +0.0 tie.
 """
 
 import time
@@ -107,6 +114,87 @@ def test_selects_match_plain_bitwise(dev, ncols, kg):
     v, p = kernels.final_select(x, k)
     v_p, p_p = fused.final_select_plain(x, k)
     assert torch.equal(p, p_p) and torch.equal(v, v_p)
+
+
+def _k9_rows(ncand: int, seed: int) -> torch.Tensor:
+    """Rows for K9: tie-heavy integers, all −inf, partly −inf, ±0 ties
+    (with and without larger values), a NaN among integers, all NaN,
+    Gaussian, all equal, and +inf ties."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 4, (12, ncand), generator=g).float()
+    x[1] = float("-inf")
+    x[2, ::3] = float("-inf")
+    signs = torch.rand((ncand,), generator=g) < 0.5
+    x[3] = torch.where(signs, -0.0, 0.0)
+    x[4] = torch.where(signs, -0.0, -1.0)
+    x[4, ncand // 3] = 0.0
+    x[5, ncand // 2] = float("nan")
+    x[6] = float("nan")
+    x[7] = torch.randn((ncand,), generator=g)
+    x[8] = 5.0
+    x[9, ::2] = float("inf")
+    x[10] = torch.where(signs, 0.0, -0.0)
+    x[10, -1] = 1.0
+    return x
+
+
+K9_CASES = [(nc, k) for nc in (32, 37, 1792, 16384) for k in (1, 10, 40)
+            if k < nc]
+
+
+@pytest.mark.parametrize("ncand,k", K9_CASES)
+def test_final_select_one_pass_bitwise(dev, ncand, k):
+    """K9 against final_select_plain bit for bit, values included (the
+    column's own −0.0 or +0.0 on a zero tie; float('nan') on a NaN row),
+    at the main path's widths 32 and 1792, ncand 37 (the scalar loads) and
+    16384 (one row a block)."""
+    x = _k9_rows(ncand, seed=ncand + k).to(dev)
+    n0 = kernels.launches["final_select"]
+    v, p = kernels.final_select(x, k)
+    assert kernels.launches["final_select"] == n0 + 1
+    v_p, p_p = fused.final_select_plain(x, k)
+    assert torch.equal(p, p_p)
+    assert torch.equal(v.view(torch.int32), v_p.view(torch.int32))
+    assert bool((p[6] == ncand - 1).all()) and bool(v[6].isnan().all())
+    assert torch.equal(p[1], torch.arange(k, dtype=torch.int32, device=dev))
+
+
+def test_final_select_refuses_k_past_40(dev):
+    with pytest.raises(ValueError):
+        kernels.final_select(torch.zeros((4, 100), device=dev), 41)
+
+
+@pytest.mark.parametrize("neg_first", [True, False])
+def test_rescore_select_keeps_the_sign_of_a_zero_tie(dev, neg_first):
+    """A −0.0 / +0.0 tie at the top of every query's candidates: a row whose
+    products underflow to −0.0 (1e-30 · −1e-30), a zero row (+0.0), all
+    others below zero (IP). K11 and K10 → K9 emit the lower column's own
+    zero, bit for bit the same, and the ids of the plain chain."""
+    nv, d, nq, k = 1024, 64, 4, 3
+    x = np.full((nv, d), -1.0, np.float32)
+    neg = np.full(d, -1e-30, np.float32)
+    x[0], x[1] = (neg, 0.0) if neg_first else (0.0, neg)
+    db = torch.from_numpy(x).to(torch.bfloat16).to(dev)
+    norms = torch.from_numpy((x.astype(np.float64) ** 2).sum(1)).float()
+    metric = MetricType.INNER_PRODUCT
+    vn = fused._premask_norms(norms.to(dev), nv, nv, metric)
+    q = torch.full((nq, d), 1e-30, device=dev)
+    gidx = torch.arange(nv // 128, dtype=torch.int32, device=dev)
+    gidx = gidx[None, :].repeat(nq, 1).contiguous()
+    vals, ids = kernels.rescore_select_groups(q, db, vn, gidx, nv, k=k,
+                                              metric=metric)
+    s = kernels.rescore_groups(q, db, vn, gidx, metric=metric)
+    v2, p2 = kernels.final_select(
+        s.masked_fill(fused.candidate_drop(gidx, nv), float("-inf")), k)
+    ids2 = torch.gather(fused.candidate_columns(gidx), 1, p2.to(torch.int64))
+    assert torch.equal(vals.view(torch.int32), v2.view(torch.int32))
+    assert torch.equal(ids, ids2)
+    zero = torch.tensor(-0.0 if neg_first else 0.0, device=dev)
+    assert bool((vals[:, 0].view(torch.int32) == zero.view(torch.int32)).all())
+    assert bool((ids[:, :2] == torch.tensor([0, 1], device=dev)).all())
+    _, ip = fused.rescore_select_groups_plain(q, db, vn, gidx, nv, k=k,
+                                              metric=metric)
+    assert torch.equal(ids, ip)
 
 
 def test_selects_stay_in_bounds_on_nan(dev):
@@ -232,7 +320,8 @@ def check_sweep_eps_sound(dev, case: int, nq: int = 64) -> None:
     """|sweep group max − best exact master score of the group| ≤ ε for
     every (query, group); with const groups every row of a group is the
     same, so the check is pointwise. k = nv nominates every group, so the
-    search rescores every row (the single-stage f32 branch)."""
+    search rescores every row (the single-stage f32 branch). On the card
+    two query planes run K3 on the tensor cores: ε with accum="mma"."""
     passes, metric, scale, const = CERT_CASES_F32[case]
     nv, d = 2048, 128
     rng = np.random.default_rng(9000 + case)
@@ -256,9 +345,11 @@ def check_sweep_eps_sound(dev, case: int, nq: int = 64) -> None:
     s.scatter_(1, ids.to(torch.int64), vals)
     assert not bool(s.isnan().any())
     resc_gmax = s.view(nq, nv // 128, 128).amax(-1)
+    mma = dev.type == "cuda" and passes == 2
     eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
                            single_pass=passes == 1, pair_sweep=True,
-                           split_stats=stats)[:, None]
+                           split_stats=stats,
+                           accum="mma" if mma else "fmaf")[:, None]
     gap = (resc_gmax - gm).abs()
     assert bool((gap <= eps).all()), float((gap - eps).max())
     assert float(eps.max()) >= float(gap.max())
@@ -291,9 +382,10 @@ def check_pair_eps_sound(dev, case: int, nq: int = 64) -> None:
 @pytest.mark.parametrize("nq,d,passes", [(8, 8, 1), (37, 136, 2),
                                          (37, 136, 1), (104, 128, 2)])
 def test_split_sweep_and_pair_rescore_match_plain(dev, metric, nq, d, passes):
-    """K3 (two query planes) and K4 (one) against sweep_split_plain, and
-    the pair rescore against its plain version, at odd shapes: nq 37, d 136,
-    and a last group only partly stored (ntotal 8000 of 8192)."""
+    """K3 (two query planes, tensor cores: the MMA ε) and K4 (one) against
+    sweep_split_plain, and the pair rescore against its plain version, at
+    odd shapes: nq 37, d 136, and a last group only partly stored (ntotal
+    8000 of 8192)."""
     nv, ntotal = 8192, 8000
     g = torch.Generator().manual_seed(d)
     x = torch.randn((nv, d), generator=g) * 3.0
@@ -308,7 +400,8 @@ def test_split_sweep_and_pair_rescore_match_plain(dev, metric, nq, d, passes):
     assert kernels.launches[name] == n0 + 1
     eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
                            single_pass=passes == 1, pair_sweep=True,
-                           split_stats=stats)
+                           split_stats=stats,
+                           accum="mma" if passes == 2 else "fmaf")
     _within_eps(gm, fused.sweep_split_plain(qh, ql, hi, lo, vn, metric=metric),
                 eps)
     gidx, _ = kernels.select_groups(gm, 14)
@@ -325,6 +418,88 @@ def test_split_sweep_and_pair_rescore_match_plain(dev, metric, nq, d, passes):
 @pytest.mark.parametrize("case", range(len(CERT_CASES_F32)))
 def test_sweep_eps_sound_on_kernels(dev, case):
     check_sweep_eps_sound(dev, case, nq=256)
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("d", [8, 136, 128, 1024])
+@pytest.mark.parametrize("nq", [8, 37, 104, 300])
+def test_k3_tensor_core_sweep_matches_plain(dev, metric, nq, d):
+    """K3 on the tensor cores against sweep_split_plain within
+    _sweep_eps(accum="mma"), with a last group partly stored (ntotal 8000 of
+    8192) and one wholly past ntotal; its supergroup maxes equal
+    block_max_plain of the same launch's gm bit for bit, and that gm the
+    one-output launch's. nq 300: three query tiles; d 8 and 136: the
+    zero-filled k-tail; d 1024: the query planes ride the ring."""
+    nv, ntotal = 8192, 8000
+    g = torch.Generator().manual_seed(nq * 10_000 + d)
+    x = torch.randn((nv, d), generator=g) * 3.0
+    x[ntotal:] = 0
+    db, hi, lo, stats, norms = _f32_db(x.numpy(), dev)
+    q = torch.randn((nq, d), generator=torch.Generator().manual_seed(nq))
+    q = q.to(dev)
+    vn = fused._premask_norms(norms, ntotal, nv, metric)
+    qh, ql = fused.query_planes(q, 2)
+    n0 = dict(kernels.launches)
+    gm, bmax = kernels.sweep_split(qh, ql, hi, lo, vn, metric=metric,
+                                   with_block_max=True)
+    assert kernels.launches["sweep_split_3"] == n0["sweep_split_3"] + 1
+    assert kernels.launches["sweep_split_2"] == n0["sweep_split_2"]
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                           pair_sweep=True, split_stats=stats, accum="mma")
+    _within_eps(gm, fused.sweep_split_plain(qh, ql, hi, lo, vn, metric=metric),
+                eps)
+    assert bool(torch.isneginf(gm[:, -1]).all())
+    assert not bool(torch.isneginf(gm[:, :-1]).any())
+    assert torch.equal(bmax.view(torch.int32),
+                       fused.block_max_plain(gm).view(torch.int32))
+    one = kernels.sweep_split(qh, ql, hi, lo, vn, metric=metric)
+    assert torch.equal(gm.view(torch.int32), one.view(torch.int32))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+def test_k3_truncation_adversary_within_mma_eps(dev, metric):
+    """The truncation adversary of tests/test_torch_mma_eps.py on K3: the
+    query [1, s, …, s] and rows [1, −s, …, −s] (s² just under ulp(1), so a
+    truncating sum drops every product but the first; group j's rows scaled
+    per group by 2^j): |group max − exact score| ≤ _sweep_eps(accum="mma")
+    pointwise (every row of a group is the same)."""
+    d, nv, nq = 128, 1024, 8
+    s = np.float32(2.0 ** -12 * 1.4140625)
+    a = np.full(d, s, np.float32)
+    a[0] = 1.0
+    row = -a
+    row[0] = 1.0
+    scale = np.repeat(2.0 ** np.arange(nv // 128), 128).astype(np.float32)
+    xb = row[None, :] * scale[:, None]
+    db, hi, lo, stats, norms = _f32_db(xb, dev)
+    q = torch.from_numpy(np.tile(a, (nq, 1))).to(dev)
+    vn = fused._premask_norms(norms, nv, nv, metric)
+    gm = fused.groupmax_scores(q, db, vn, metric=metric, sweep_passes=2,
+                               db_split=(hi, lo))
+    dot = (xb[::128].astype(np.float64) @ a.astype(np.float64))
+    exact = torch.from_numpy(dot).to(dev)[None, :].expand(nq, -1)
+    if metric is MetricType.L2:
+        exact = 2.0 * exact - norms[::128].double()[None, :]
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                           pair_sweep=True, split_stats=stats, accum="mma")
+    gap = (gm.double() - exact).abs()
+    assert bool((gap <= eps[:, None].double()).all()), float(gap.max())
+
+
+def test_f32_search_runs_the_tensor_core_sweep(dev, monkeypatch):
+    """An f32 index's search on the card sweeps with K3 (two query planes,
+    the tensor cores), never K4, and certifies every query."""
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    rng = np.random.default_rng(11)
+    idx = TorchIndexFlat(64, device=dev)
+    idx.add(rng.standard_normal((20_000, 64), dtype=np.float32))
+    kernels.reset_launches()
+    idx.search(rng.standard_normal((40, 64), dtype=np.float32), 10)
+    n = dict(kernels.launches)
+    assert n["sweep_split_3"] == 1 and n["sweep_split_2"] == 0, n
+    assert n["final_select"] == 1 and idx.fused_fallbacks == 0
 
 
 @pytest.mark.parametrize("case", range(len(T2_CASES)))

@@ -1,0 +1,254 @@
+"""The certificate's tensor-core budget (``_sweep_eps(accum="mma")``), on the
+CPU.
+
+The f32 planes' two-plane sweep (K3, ``csrc/sweep_split_mma.cu``) sums its
+bf16×bf16 products on the tensor cores, whose fp32 accumulation is not
+proven round-to-nearest. ``_sweep_eps`` charges its term (2) as
+(36·⌈d/16⌉ + 2)·u·[(Q+R)·(V+s0) + L·V] there; the default ("fmaf") keeps the
+CUDA-core budget (d+2)·u·[…], which is the JAX package's bound.
+
+Checked here: the budget term by term against a float64 recomputation
+(rtol 1e-6, the fp32 rounding of the port's computation); that it is never
+below the fmaf budget; that the default still equals the JAX bound (rtol
+1e-6); and a numpy emulator of the model's worst case, every addend of a
+16-product k-step truncated at the largest addend's exponent and the sum
+truncated to 24 bits, on adversarial rows: its error stays within the new
+term (2), and on the truncation adversary exceeds the fmaf term, so the new
+budget is needed for that arithmetic. tests/test_torch_cuda.py holds the
+kernel itself to the budget on the card.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from faiss_tpu.ops import pallas_fused as pf
+from faiss_tpu_torch.ops import fused
+from faiss_tpu_torch.storage import split_f32_bf16, split_stats
+
+from torch_parity import METRIC_IDS, METRICS
+
+U = 2.0 ** -24
+D_PADS = [8, 128, 136, 1024]
+
+
+def _case(d, seed=0, scale=1.0, nv=512, nq=12):
+    rng = np.random.default_rng(seed)
+    xb = (rng.standard_normal((nv, d)) * scale).astype(np.float32)
+    xq = rng.standard_normal((nq, d)).astype(np.float32)
+    db = torch.from_numpy(xb)
+    hi, lo = split_f32_bf16(db)
+    return (torch.from_numpy(xq), (db * db).sum(-1),
+            split_stats(db, hi, lo))
+
+
+def _want(q, norms, stats, metric, d_pad, single_pass, coeff):
+    """_sweep_eps(pair_sweep=True) recomputed in float64 from its
+    definition, with term (2)'s multiple ``coeff``."""
+    q64 = q.double()
+    if single_pass:
+        resid = q64 - q.to(torch.bfloat16).double()
+        lo = torch.zeros_like(q64)
+    else:
+        qh, ql = split_f32_bf16(q)
+        lo = ql.double()
+        resid = q64 - qh.double() - lo
+    R = resid.norm(dim=-1)
+    L = lo.norm(dim=-1)
+    Q = q64.norm(dim=-1)
+    N = norms.double().max()
+    V = N.sqrt() * (1 + 2.0 ** -8)
+    s0, s1 = (float(x) for x in stats)
+    drop = R * V + L * s0 + (Q + R) * s1
+    eps = (drop + coeff * U * ((Q + R) * (V + s0) + L * V)
+           + 2.0 * d_pad * U * Q * V)
+    if metric.value == "l2":
+        eps = 2.0 * eps + 3.0 * U * (2.0 * Q * V + N)
+    else:
+        eps = eps + 2.0 * U * Q * V
+    return (1 + 2.0 ** -10) * eps
+
+
+@pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
+@pytest.mark.parametrize("d_pad", D_PADS)
+@pytest.mark.parametrize("single_pass", [False, True])
+def test_mma_budget_term_by_term(metric, jmetric, d_pad, single_pass):
+    q, norms, stats = _case(64, seed=d_pad)
+    got = fused._sweep_eps(q, norms, norms.shape[0], metric=metric,
+                           d_pad=d_pad, single_pass=single_pass,
+                           pair_sweep=True, split_stats=stats, accum="mma")
+    coeff = 36 * math.ceil(d_pad / 16) + 2
+    want = _want(q, norms, stats, metric, d_pad, single_pass, coeff)
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=1e-6)
+    fmaf = _want(q, norms, stats, metric, d_pad, single_pass, d_pad + 2)
+    np.testing.assert_allclose(
+        fused._sweep_eps(q, norms, norms.shape[0], metric=metric,
+                         d_pad=d_pad, single_pass=single_pass,
+                         pair_sweep=True, split_stats=stats).double().numpy(),
+        fmaf.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
+@pytest.mark.parametrize("d_pad", D_PADS)
+def test_mma_budget_not_below_fmaf(metric, jmetric, d_pad):
+    q, norms, stats = _case(64, seed=1, scale=1e3)
+    for st in (stats, None):
+        kw = dict(metric=metric, d_pad=d_pad, pair_sweep=True,
+                  split_stats=st)
+        mma = fused._sweep_eps(q, norms, 512, accum="mma", **kw)
+        fmaf = fused._sweep_eps(q, norms, 512, **kw)
+        # 36·⌈d/16⌉ + 2 > d + 2 for every d ≥ 1
+        assert bool((mma > fmaf).all())
+
+
+@pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
+@pytest.mark.parametrize("pair_sweep", [False, True])
+def test_default_budget_is_the_jax_bound(metric, jmetric, pair_sweep):
+    q, norms, stats = _case(128, seed=5)
+    st = stats if pair_sweep else None
+    got = fused._sweep_eps(q, norms, 512, metric=metric, d_pad=128,
+                           pair_sweep=pair_sweep, split_stats=st)
+    same = fused._sweep_eps(q, norms, 512, metric=metric, d_pad=128,
+                            pair_sweep=pair_sweep, split_stats=st,
+                            accum="fmaf")
+    want = pf._sweep_eps(jnp.asarray(q.numpy()), jnp.asarray(norms.numpy()),
+                         512, metric=jmetric, d_pad=128,
+                         pair_sweep=pair_sweep,
+                         split_stats=None if st is None
+                         else jnp.asarray(st.numpy()))
+    assert torch.equal(got, same)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def test_unknown_accumulation_is_refused():
+    q, norms, stats = _case(16)
+    with pytest.raises(ValueError):
+        fused._sweep_eps(q, norms, 512, metric=METRICS[0][0], d_pad=16,
+                         accum="tf32")
+
+
+# -- the model's worst case, emulated ----------------------------------------
+
+
+def _trunc(x, e):
+    """x truncated toward zero to a multiple of 2^(e − 23): the bits below
+    a 24-bit significand at exponent e."""
+    q = np.ldexp(1.0, e - 23)
+    return np.trunc(x / q) * q
+
+
+def _exponent(m):
+    """e with m in [2^e, 2^(e+1)) (0 where m == 0)."""
+    return np.where(m > 0, np.frexp(m)[1] - 1, 0)
+
+
+def mma_chain(a, b):
+    """(n,) the model's worst case of one wgmma accumulator over a (d,)
+    against the rows of b (n, d), both bf16-valued float64: per k-step of
+    16, every addend (the accumulator and 16 exact products) truncated at
+    the largest addend's exponent, their sum (exact in float64) truncated
+    to 24 bits."""
+    acc = np.zeros(b.shape[0])
+    for j in range(0, a.shape[0], 16):
+        add = np.concatenate([acc[:, None], a[j:j + 16] * b[:, j:j + 16]],
+                             axis=1)
+        e = _exponent(np.abs(add).max(axis=1))
+        s = _trunc(add, e[:, None]).sum(axis=1)
+        acc = _trunc(s, _exponent(np.abs(s)))
+    return acc
+
+
+def _bf16(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(
+        torch.bfloat16).double().numpy()
+
+
+def _term_check(a, b):
+    """(error, ‖a‖·‖b‖) of the emulated chain a·b, per row of b."""
+    exact = b @ a
+    err = np.abs(mma_chain(a, b) - exact)
+    return err, np.linalg.norm(a) * np.linalg.norm(b, axis=1)
+
+
+def _adversaries(d):
+    """bf16-valued (query, rows) pairs: the truncation adversary (one unit
+    product, the others just under its ulp and of the other sign, each of
+    which a truncating sum drops), cancellation across k-steps, and
+    norm-skewed Gaussian rows."""
+    s = 2.0 ** -12 * 1.4140625            # s² just under 2^-23 = ulp(1)
+    a = np.full(d, s)
+    a[0] = 1.0
+    rows = np.tile(-a, (4, 1))
+    rows[:, 0] = 1.0
+    rows[1, 1:] *= 0.75
+    rows[2, 17:] = 0.0                    # only the first k-step drops
+    yield "truncation", a, _bf16(rows)
+    rng = np.random.default_rng(d)
+    a = _bf16(rng.standard_normal(d))
+    big = _bf16(np.abs(rng.standard_normal(d)) * 1e4)
+    rows = np.stack([np.where(np.arange(d) < 16, big, -big),
+                     np.where(np.arange(d) < d // 2, big, -big[::-1]),
+                     _bf16(rng.standard_normal(d) * 1e-3)])
+    yield "cancellation", np.abs(a), rows
+    rows = rng.standard_normal((64, d)) * 1e4
+    rows[::8] *= 1e-4                     # norm-skewed
+    yield "skewed", a, _bf16(rows)
+
+
+@pytest.mark.parametrize("d", [128, 136])
+def test_emulated_truncating_sum_within_mma_term(d):
+    steps = math.ceil(d / 16)
+    seen = {}
+    for name, a, rows in _adversaries(d):
+        err, ab = _term_check(a, rows)
+        assert bool((err <= 36 * steps * U * ab).all()), name
+        seen[name] = float((err / ab).max())
+    # the fmaf budget (d·u per term) is too small for this arithmetic: the
+    # truncation adversary loses ≈ 2u·‖a‖·‖b‖ on each of its d − 1 products
+    assert seen["truncation"] > d * U
+    assert seen["truncation"] > 1.9 * (d - 1) * U
+
+
+@pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
+def test_emulated_pair_sweep_within_mma_eps(metric, jmetric):
+    """The three emulated accumulators of the pair sweep added left to
+    right in fp32, and its epilogue, against the exact score of the stored
+    f32 row: within _sweep_eps(accum="mma") on Gaussian and norm-skewed rows
+    (CERT_CASES_F32's 1e4) and on the truncation adversary's row."""
+    d, nq = 128, 6
+    rng = np.random.default_rng(17)
+    xb = (rng.standard_normal((96, d)) * 1e4).astype(np.float32)
+    xb[::5] *= np.float32(1e-4)
+    s = 2.0 ** -12 * 1.4140625
+    adv = np.full(d, s, np.float32)
+    adv[0] = 1.0
+    xb[1] = -adv
+    xb[1, 0] = 1.0
+    xq = rng.standard_normal((nq, d)).astype(np.float32)
+    xq[0] = adv
+    q, db = torch.from_numpy(xq), torch.from_numpy(xb)
+    qh, ql = (p.double().numpy() for p in split_f32_bf16(q))
+    dh, dl = (p.double().numpy() for p in split_f32_bf16(db))
+    norms = (db * db).sum(-1)
+    stats = split_stats(db, *split_f32_bf16(db))
+    eps = fused._sweep_eps(q, norms, 96, metric=metric, d_pad=d,
+                           pair_sweep=True, split_stats=stats,
+                           accum="mma").double().numpy()
+    x64 = xb.astype(np.float64)
+    for i in range(nq):
+        t1 = mma_chain(qh[i], dh).astype(np.float32)
+        t2 = mma_chain(qh[i], dl).astype(np.float32)
+        t3 = mma_chain(ql[i], dh).astype(np.float32)
+        acc = (t1 + t2) + t3                                 # fp32, RN
+        # both sides subtract the same stored fp32 norms (0 for IP)
+        vn = norms.numpy() if metric.value == "l2" \
+            else np.zeros(96, np.float32)
+        got = (np.float32(2) * acc if metric.value == "l2" else acc) - vn
+        exact = x64 @ xq[i].astype(np.float64)
+        if metric.value == "l2":
+            exact = 2.0 * exact - vn.astype(np.float64)
+        assert bool((np.abs(got - exact) <= eps[i]).all()), i
