@@ -43,10 +43,11 @@ plus nq=8 (two-plane bf16 sweep) and a duplicated-vector index whose
 certificate fails, so both fallback tiers run. Before the searches each
 kernel is held against its plain PyTorch version at the main paths' shapes
 (nq_pad 104, d 128, nv_eff 1,000,448, kg 14, k 10; K9 also at the f32
-path's 32 candidates, K3 with its supergroup maxes also at 10M): the
-sweeps' supergroup-max output (every format, both metrics), K9, and the
-rescore-select kernel (bf16, int8, f16) bit for bit, K3 within the pair ε
-with its tensor-core term (``_sweep_eps(accum="mma")``). Kernels and their
+path's 32 candidates, K8 at its stage-3a 1792 candidates with m = 32, K3
+with its supergroup maxes also at 10M): the sweeps' supergroup-max output
+(every format, both metrics), K8, K9, and the rescore-select kernel (bf16,
+int8, f16) bit for bit, K3 and K1 (the tensor-core sweeps) within their ε
+with the tensor-core term (``_sweep_eps(accum="mma")``). Kernels and their
 library calls are timed on the device (``graph_ms``: a CUDA graph of the
 reps, replayed between CUDA events), the plain versions eagerly
 (``cuda_ms``). Recall@K must be
@@ -147,10 +148,11 @@ def _within(torch, a, b, eps, what):
 
 
 def _eps(q, norms, n, d_pad, metric, scales=None, int_norm_max=None,
-         split_stats=None):
+         split_stats=None, accum="fmaf"):
     """(nq_pad, 1) two-plane certificate bound over the stored rows: int8's
     when ``scales`` is given, the pair sweep's with ``split_stats`` (f32,
-    f16), else bf16's; it covers one fp32-true scoring of a stored row."""
+    f16), else bf16's, with the sweep accumulation ``accum``; it covers one
+    fp32-true scoring of a stored row."""
     from faiss_tpu_torch.ops import fused
 
     if scales is not None:
@@ -158,14 +160,15 @@ def _eps(q, norms, n, d_pad, metric, scales=None, int_norm_max=None,
                                      metric=metric, d_pad=d_pad)[:, None]
     return fused._sweep_eps(q, norms, n, metric=metric, d_pad=d_pad,
                             pair_sweep=split_stats is not None,
-                            split_stats=split_stats)[:, None]
+                            split_stats=split_stats, accum=accum)[:, None]
 
 
-def _certificate_eps(idx, q, metric):
-    """The two-plane certificate bound of the flat index's own sweep."""
+def _certificate_eps(idx, q, metric, accum="fmaf"):
+    """The two-plane certificate bound of the flat index's own sweep, with
+    the sweep accumulation ``accum`` ("mma": K1, K3 on the tensor cores)."""
     st = idx.store
     return _eps(q, st.norms, idx.ntotal, st.d_pad, metric, st.scales,
-                st.int_norm_max, st.split_stats)
+                st.int_norm_max, st.split_stats, accum)
 
 
 def _shapes(idx, xq, metric):
@@ -269,20 +272,38 @@ def _row(torch, err, kern, plain, reps, bound, lib=None, plain_reps=5):
             None if lib is None else graph_ms(torch, lib, reps))
 
 
-def _selects(torch, rows, gm, s_fn, kg):
-    """K8 over ``gm`` and K9 over the scores ``s_fn(gidx)`` rescores: equal
-    bits to their plain versions; torch.topk is the library call."""
+def _k8_check(torch, gm, kg):
+    """K8 over ``gm`` against its plain version: ids and t bit for bit (t
+    is the lowest unnominated column's own value at their max). Returns
+    the kernel's (gidx, t)."""
     from faiss_tpu_torch.ops import fused, kernels
 
     gidx, t = kernels.select_groups(gm, kg)
     gidx_p, t_p = fused.select_groups_plain(gm, kg)
-    check(torch.equal(gidx, gidx_p) and torch.equal(t, t_p),
-          "select_groups differs from its plain version")
-    rows["select_groups"] = _row(
-        torch, 0.0, lambda: kernels.select_groups(gm, kg),
-        lambda: fused.select_groups_plain(gm, kg), 50,
-        _bound(_nbytes(gm, gidx, t), 0, "fp32"),
-        lambda: torch.topk(gm, kg + 1))
+    check(torch.equal(gidx, gidx_p)
+          and torch.equal(t.view(torch.int32), t_p.view(torch.int32)),
+          f"select_groups at {tuple(gm.shape)}, kg {kg} differs from its "
+          f"plain version")
+    return gidx, t
+
+
+def _k8_row(torch, gm, kg):
+    """K8's kernel row over ``gm``; torch.topk(gm, kg + 1) is the library
+    call (the top kg and the threshold t in one call)."""
+    from faiss_tpu_torch.ops import fused, kernels
+
+    gidx, t = kernels.select_groups(gm, kg)
+    return _row(torch, 0.0, lambda: kernels.select_groups(gm, kg),
+                lambda: fused.select_groups_plain(gm, kg), 50,
+                _bound(_nbytes(gm, gidx, t), 0, "fp32"),
+                lambda: torch.topk(gm, kg + 1))
+
+
+def _selects(torch, rows, gm, s_fn, kg):
+    """K8 over ``gm`` and K9 over the scores ``s_fn(gidx)`` rescores: equal
+    bits to their plain versions; torch.topk is the library call."""
+    gidx, _ = _k8_check(torch, gm, kg)
+    rows["select_groups"] = _k8_row(torch, gm, kg)
     rows["final_select"] = _k9_row(torch, s_fn(gidx))
 
 
@@ -305,7 +326,8 @@ def _k9_row(torch, s):
 def phase_kernels(torch, idx, xq, metric):
     """The bf16 kernels against their plain versions at the main path's
     shapes. Sweep and rescore: |kernel − plain| ≤ the query's two-plane ε
-    (it bounds the accumulation error of both sides). Selects: equal bits."""
+    (it bounds the accumulation error of both sides; K1, on the tensor
+    cores, with accum="mma"). Selects: equal bits."""
     from faiss_tpu_torch.ops import fused, kernels
 
     q, nq_pad, nv_eff, vn = _shapes(idx, xq, metric)
@@ -318,7 +340,9 @@ def phase_kernels(torch, idx, xq, metric):
         qh, ql = fused.query_planes(q, passes)
         gm = kernels.sweep_groupmax(qh, ql, db, vn, metric=metric)
         gm_p = fused.sweep_groupmax_plain(qh, ql, db, vn, metric=metric)
-        err = _within(torch, gm, gm_p, eps, f"sweep_groupmax planes={passes}")
+        err = _within(torch, gm, gm_p, _certificate_eps(
+            idx, q, metric, fused.sweep_accum("bf16", passes, q.device)),
+            f"sweep_groupmax planes={passes}")
         planes = (qh,) if ql is None else (qh, ql)
         rows[f"sweep_groupmax_{passes}"] = _row(
             torch, err,
@@ -395,12 +419,14 @@ def phase_f32_kernels(torch, idx, xq, metric):
         lambda: fused.rescore_groups_plain(q, hi, vn, gidx, metric=metric,
                                            db2=lo),
         50, _rescore_bound(q, 4, gidx, s))
-    # stage 3a → its select → stage 3b, as fused_search runs them: K9's
-    # (nq_pad, k + 22) input on the f32 path
+    # stage 3a → its select (K8 over kg·128 candidates, m = k + 22) → stage
+    # 3b, as fused_search runs them: K9's (nq_pad, k + 22) input on the f32
+    # path
     m = K + fused.F32_CAND_PAD
-    ppos, _ = kernels.select_groups(
-        s.masked_fill(fused.candidate_drop(gidx, idx.ntotal), float("-inf")),
-        m)
+    s_pair = s.masked_fill(fused.candidate_drop(gidx, idx.ntotal),
+                           float("-inf"))
+    ppos, _ = _k8_check(torch, s_pair, m)
+    rows["select_groups_1792"] = _k8_row(torch, s_pair, m)
     cols = torch.gather(fused.candidate_columns(gidx), 1, ppos.to(torch.int64))
     rows["final_select_32"] = _k9_row(
         torch, fused.rescore_exact(q, st.db, st.norms, cols, metric=metric))
@@ -1371,7 +1397,7 @@ def main() -> int:
                 "launches counted in the surface phase")
     meta = {
         "sweep_groupmax_1": ("sweep_groupmax.cu", f"{PF}:190", None),
-        "sweep_groupmax_2": ("sweep_groupmax.cu", f"{PF}:174", None),
+        "sweep_groupmax_2": ("sweep_split_mma.cu", f"{PF}:174", None),
         "sweep_split_3": ("sweep_split_mma.cu", f"{PF}:239", None),
         "sweep_split_2": ("sweep_groupmax.cu", f"{PF}:204",
                           "no index route reaches _kernel_split2: launches "
@@ -1407,11 +1433,14 @@ def main() -> int:
                  "library_ms": lms}
         if note:
             entry["note"] = note
-        if key == "final_select":
-            # K9 at the f32 path's width, (nq_pad, k + 22)
-            err, ms, pms, (bms, by), lms = rows["final_select_32"]
-            entry["at_ncand_32"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
-                                    "bound_by": by, "library_ms": lms}
+        # K9 at the f32 path's stage-3b width, (nq_pad, k + 22); K8 at its
+        # stage-3a shape, (nq_pad, kg·128) with m = k + 22
+        at = {"final_select": ("at_ncand_32", "final_select_32"),
+              "select_groups": ("at_ncols_1792", "select_groups_1792")}
+        if key in at:
+            err, ms, pms, (bms, by), lms = rows[at[key][1]]
+            entry[at[key][0]] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                                 "bound_by": by, "library_ms": lms}
         table.append(entry)
     check(all(e["launches"] > 0 for e in table),
           "a kernel of the table was never launched")

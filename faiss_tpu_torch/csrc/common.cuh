@@ -142,32 +142,25 @@ __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
     atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
 }
 
-// One max-extraction step of the select kernels (K8's _select_kernel, and
-// K11's extraction in _final_select_kernel's order), over the row x[0, n)
-// with the extracted set in the shared bitmask `excl` (x in global memory,
-// read through the read-only cache, or with GLOBAL = false in shared
-// memory):
+// One max-extraction step of the rescore-select kernel (K11's extraction in
+// _final_select_kernel's order), over the row x[0, n) in shared memory with
+// the extracted set in the shared bitmask `excl`:
 //   m   = max over xm, where xm = -inf on extracted columns, else x
-//   col = the lowest column with xm == m; with SKIP_EXTRACTED it must also
-//         not be extracted yet (the final select's `& ~excl`), without it
-//         an already-extracted column may win a tie at -inf (the group
-//         select's rule). BIG when no column matches (m is NaN).
+//   col = the lowest column with xm == m that is not extracted yet (the
+//         final select's `& ~excl`); BIG when no column matches (m is NaN).
 // Two block reductions per step; each thread walks its columns in
 // ascending order, so its first match is its lowest.
-template <int NT, bool SKIP_EXTRACTED, bool GLOBAL = true>
+template <int NT>
 __device__ __forceinline__ void extract_step(
-    const float* __restrict__ x, int n, const uint32_t* excl,
-    float* fscratch, int* iscratch, float& m_out, int& col_out) {
+    const float* x, int n, const uint32_t* excl, float* fscratch,
+    int* iscratch, float& m_out, int& col_out) {
   float m = -INFINITY;
   for (int c = threadIdx.x; c < n; c += NT)
-    m = nan_max(m, bit_set(excl, c) ? -INFINITY
-                                    : (GLOBAL ? __ldg(x + c) : x[c]));
+    m = nan_max(m, bit_set(excl, c) ? -INFINITY : x[c]);
   m = block_max<NT>(m, fscratch);
   int col = BIG;
   for (int c = threadIdx.x; c < n; c += NT) {
-    const bool ex = bit_set(excl, c);
-    const float xm = ex ? -INFINITY : (GLOBAL ? __ldg(x + c) : x[c]);
-    if (xm == m && !(SKIP_EXTRACTED && ex)) {
+    if (!bit_set(excl, c) && x[c] == m) {
       col = c;
       break;
     }

@@ -16,7 +16,8 @@
 // is 0.2 µs of device memory). The kernel it replaces ran k extractions,
 // each re-reading the row with two block-wide reductions. Design: a row is
 // read once and selected in one pass over registers, by one warp (up to 512
-// columns, four rows a block), four (up to 2048) or eight (up to 16384):
+// columns, four rows a block), four (up to 2048) or eight (up to 16384);
+// steps 1-3 are row_select.cuh's, shared with the group select (K8):
 //   1. each warp reads its share of the row once from device memory
 //      (16-byte loads, eight in flight a lane, when the row is 16-byte
 //      aligned) into the row's shared memory, and a NaN flag is voted;
@@ -39,69 +40,15 @@
 // torch.topk at (104, 1792): each element's chain of shared loads, matches
 // and atomics left the warp waiting, where the bitwise search compares
 // registers side by side (PERF.md has the times).
-#include "common.cuh"
+#include "row_select.cuh"
 
 namespace {
+
+using rs::FULL;
 
 constexpr int MAX_COLS = 16384;   // faiss_tpu SELECT_MAX_GROUPS
 constexpr int MAX_K = 40;         // faiss_tpu SELECT_MAX_KG (≤ 64 sort slots)
 constexpr int SLOTS = 64;
-constexpr int LOADS = 8;          // 16-byte loads in flight a lane
-constexpr unsigned FULL = 0xffffffffu;
-
-// Order-preserving key of an fp32 bit pattern (NaN excluded): larger value,
-// larger key; -0.0 takes +0.0's key, since the two compare equal. The least
-// key of a value, -inf's, is 0x007fffff: 0 marks "no column".
-__device__ __forceinline__ uint32_t order_key(uint32_t b) {
-  if (b == 0x80000000u) b = 0u;
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-__device__ __forceinline__ bool is_nan_bits(uint32_t b) {
-  return (b & 0x7fffffffu) > 0x7f800000u;
-}
-
-// A lane's count of its keys ≥ thr, in four partial counts so that the
-// compares run side by side.
-template <int PER>
-__device__ __forceinline__ uint32_t count_ge(const uint32_t (&key)[PER],
-                                             uint32_t thr) {
-  uint32_t c[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int j = 0; j < PER; ++j) c[j & 3] += key[j] >= thr;
-  return (c[0] + c[1]) + (c[2] + c[3]);
-}
-
-// The barrier of a row's warps: the warp itself, or the block, which then
-// holds one row.
-template <int WPR>
-__device__ __forceinline__ void row_sync() {
-  if constexpr (WPR == 1)
-    __syncwarp();
-  else
-    __syncthreads();
-}
-
-// op over the row's WPR warps of one value a warp (each already reduced
-// over its lanes). The exchange words alternate between two halves, so one
-// barrier a call suffices.
-template <int WPR, typename Op>
-__device__ __forceinline__ uint32_t row_reduce(uint32_t v, uint32_t* xch,
-                                               int sub, int lane, int& half,
-                                               Op op) {
-  if constexpr (WPR == 1) {
-    return v;
-  } else {
-    uint32_t* buf = xch + half * 2 * WPR;
-    half ^= 1;
-    if (lane == 0) buf[sub] = v;
-    __syncthreads();
-    uint32_t r = buf[0];
-#pragma unroll
-    for (int i = 1; i < WPR; ++i) r = op(r, buf[i]);
-    return r;
-  }
-}
 
 // One row per WPR warps (PER keys a lane each), several rows a block when
 // WPR is 1. Shared memory of a row: its bits (ncp words: ncand rounded up
@@ -127,39 +74,13 @@ __global__ void final_select_kernel(const float* __restrict__ s,
   const float* src = s + static_cast<size_t>(row) * ncand;
   const int c0 = sub * cw;
   const int c1 = max(c0, min(c0 + cw, ncand));
-  const auto add = [](uint32_t a, uint32_t b) { return a + b; };
   int half = 0;
 
-  // 1. the warp's columns, once, into shared memory: LOADS 16-byte loads in
-  // flight a lane before the first store (c0 is a multiple of 32)
-  bool nan = false;
-  if ((ncand & 3) == 0) {
-    const uint4* s4 = reinterpret_cast<const uint4*>(src + c0);
-    uint4* x4 = reinterpret_cast<uint4*>(x + c0);
-    const int n4 = (c1 - c0) / 4;
-    for (int i0 = lane; i0 < n4; i0 += 32 * LOADS) {
-      uint4 v[LOADS];
-#pragma unroll
-      for (int u = 0; u < LOADS; ++u)
-        if (i0 + 32 * u < n4) v[u] = __ldg(s4 + i0 + 32 * u);
-#pragma unroll
-      for (int u = 0; u < LOADS; ++u)
-        if (i0 + 32 * u < n4) {
-          x4[i0 + 32 * u] = v[u];
-          nan |= is_nan_bits(v[u].x) | is_nan_bits(v[u].y)
-                 | is_nan_bits(v[u].z) | is_nan_bits(v[u].w);
-        }
-    }
-  } else {
-    for (int i = c0 + lane; i < c1; i += 32) {
-      const uint32_t b = __float_as_uint(__ldg(src + i));
-      x[i] = b;
-      nan |= is_nan_bits(b);
-    }
-  }
+  // 1. the warp's columns, once, into shared memory
+  const bool nan = rs::load_row(src, x, ncand, c0, c1, lane);
   float* vo = vals + static_cast<size_t>(row) * k;
   int32_t* po = pos + static_cast<size_t>(row) * k;
-  const uint32_t any_nan = row_reduce<WPR>(
+  const uint32_t any_nan = rs::row_reduce<WPR>(
       static_cast<uint32_t>(__any_sync(FULL, nan)), xch, sub, lane, half,
       [](uint32_t a, uint32_t b) { return a | b; });
   if (any_nan) {
@@ -171,55 +92,20 @@ __global__ void final_select_kernel(const float* __restrict__ s,
   }
   __syncwarp();
 
-  // 2. the keys, into registers
+  // 2. the keys, into registers; 3. T (`exact`: every key ≥ t is taken)
   uint32_t key[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int c = c0 + 32 * j + lane;
-    key[j] = c < c1 ? order_key(x[c]) : 0u;
-  }
-
-  // 3. T: the largest t with count(key ≥ t) ≥ k; `exact` once that count
-  // is k itself, and every key ≥ t is taken (a padding key, 0, never is).
-  // The leading bits that every key of the row shares are T's: the search
-  // starts below them (scores of one query share sign and most exponent
-  // bits).
-  uint32_t all = 0xffffffffu, any = 0u;
-#pragma unroll
-  for (int j = 0; j < PER; ++j)
-    if (c0 + 32 * j + lane < c1) {
-      all &= key[j];
-      any |= key[j];
-    }
-  all = row_reduce<WPR>(__reduce_and_sync(FULL, all), xch, sub, lane, half,
-                        [](uint32_t a, uint32_t b) { return a & b; });
-  any = row_reduce<WPR>(__reduce_or_sync(FULL, any), xch, sub, lane, half,
-                        [](uint32_t a, uint32_t b) { return a | b; });
-  const uint32_t differ = all ^ any;   // 0 where every key agrees
-  const int top = differ == 0u ? -1 : 31 - __clz(differ);
-  // (2u << 31 wraps to 0: no bit is shared)
-  uint32_t t = top < 0 ? all : all & ~((2u << top) - 1u);
-  bool exact = false;
-  for (int b = top; b >= 0; --b) {
-    const uint32_t cand = t | (1u << b);
-    const uint32_t c = row_reduce<WPR>(
-        __reduce_add_sync(FULL, count_ge(key, cand)), xch, sub, lane, half,
-        add);
-    if (c >= static_cast<uint32_t>(k)) {
-      t = cand;
-      if (c == static_cast<uint32_t>(k)) {
-        exact = true;
-        break;
-      }
-    }
-  }
+  rs::load_keys(x, c0, c1, lane, key);
+  bool exact;
+  const uint32_t t =
+      rs::kth_key<PER, WPR>(key, c0, c1, lane, sub, xch, half, k, exact);
 
   // 4. collect in column order: slots [0, k - need) the keys above T (or,
   // when exact, ≥ T), slots [k - need, k) the lowest-column keys equal to
   // T; a warp's first slots follow those of the warps before it (t + 1
   // does not wrap: t ≤ +inf's key 0xff800000)
-  const uint32_t n_above = __reduce_add_sync(FULL, count_ge(key, t + 1u));
-  const uint32_t n_from_t = __reduce_add_sync(FULL, count_ge(key, t));
+  const uint32_t n_above =
+      __reduce_add_sync(FULL, rs::count_ge(key, t + 1u));
+  const uint32_t n_from_t = __reduce_add_sync(FULL, rs::count_ge(key, t));
   const uint32_t w_up = exact ? n_from_t : n_above;
   const uint32_t w_eq = exact ? 0u : n_from_t - n_above;
   int n_up = 0, n_eq = 0, need = 0;
@@ -264,7 +150,7 @@ __global__ void final_select_kernel(const float* __restrict__ s,
     n_up += __popc(bu);
     n_eq += __popc(be);
   }
-  row_sync<WPR>();
+  rs::row_sync<WPR>();
   if (sub != 0) return;
 
   // 5. bitonic sort, descending, of (key << 32 | ~column): larger key
@@ -316,12 +202,8 @@ cudaError_t launch(const float* s, float* vals, int32_t* pos, int nq,
   const int rows = WPR == 1 ? 4 : 1;   // rows a block
   const size_t smem =
       static_cast<size_t>(rows) * (ncp + 2 * SLOTS + 4 * WPR) * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        final_select_kernel<PER, WPR>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = rs::set_smem(final_select_kernel<PER, WPR>, smem);
+  if (e != cudaSuccess) return e;
   final_select_kernel<PER, WPR>
       <<<(nq + rows - 1) / rows, 32 * WPR * rows, smem, stream>>>(
           s, vals, pos, nq, ncand, ncp, cw, k);

@@ -106,7 +106,7 @@ rescore_select_kernel(const float* __restrict__ q, const void* __restrict__ db,
   for (int j = 0; j < k; ++j) {
     float m;
     int col;
-    ft::extract_step<NT, true, false>(s, ncand, excl, fs, is, m, col);
+    ft::extract_step<NT>(s, ncand, excl, fs, is, m, col);
     if (threadIdx.x == 0) {
       const int c = min(col, ncand - 1);
       const size_t o = static_cast<size_t>(qi) * k + j;

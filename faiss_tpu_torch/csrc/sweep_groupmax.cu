@@ -1,17 +1,17 @@
 // Group-max sweep: phase 1 of the fused search, bf16, f32 and f16 storage.
 //
-// Replaces five Pallas kernel bodies of faiss_tpu/ops/pallas_fused.py, all
+// Replaces four Pallas kernel bodies of faiss_tpu/ops/pallas_fused.py, all
 // launched by _sweep_call from groupmax_scores, with their shared _epilogue:
-//   bf16 rows v:                _kernel_qpair  acc = qh·v + ql·v
-//                               _kernel_q1     acc = q1·v
+//   bf16 rows v:                _kernel_q1     acc = q1·v
 //   f32 rows as bf16 planes     _kernel_split2 acc = q1·dh + q1·dl
 //   (v ≈ dh + dl):
 //   f16 bits, decoded in-       _kernel_f16_pair  acc = qh·dh + qh·dl + ql·dh
 //   register to the exact       _kernel_f16_1     acc = q1·dh + q1·dl
 //   pair (v == dh + dl):
 // (qh, ql: the bit-mask split of the fp32 query; q1: the query rounded to
-// bf16, RNE). The f32 planes with two query planes, _kernel_split, run on
-// the tensor cores in sweep_split_mma.cu. For every query q and every
+// bf16, RNE). The sweeps with two query planes over bf16 rows
+// (_kernel_qpair) and over the f32 planes (_kernel_split) run on the
+// tensor cores in sweep_split_mma.cu. For every query q and every
 // 128-row group g it writes
 //     gm[q, g] = max over rows r of g of  s(q, r),
 //     s = 2·acc − vn[r]  (L2)   or   acc − vn[r]  (IP),
@@ -52,7 +52,7 @@
 // exceed that budget.
 //
 // What bounds it on an H100: fp32 FMA throughput. At nq=104, 1M×128 one
-// product term is 13.3 G FMA (bf16: 1-2 terms against 256 MB of rows; f32:
+// product term is 13.3 G FMA (bf16: 1 term against 256 MB of rows; f32:
 // 2 terms against 512 MB of planes); the rows are read once from device
 // memory and then from L2 by the other query tiles of the same group.
 // Design: one block per (group, QT-query tile), blocks of one group
@@ -61,9 +61,9 @@
 // 16-byte row chunk once for all QT queries; the query tile is staged in
 // shared memory (fp32, d in chunks of 64) and read as broadcast float4s.
 // The 128-row max is a warp shuffle max plus one shared-memory step.
-// QT per route: 32 for bf16 (32/64 accumulators; 77/151 registers) and
-// for _kernel_split2 / _kernel_f16_1 (64 accumulators; 138 / 128
-// registers); 16 for _kernel_f16_pair (48 accumulators; 122 registers).
+// QT per route: 32 for bf16 (32 accumulators; 77 registers) and for
+// _kernel_split2 / _kernel_f16_1 (64 accumulators; 138 / 128 registers);
+// 16 for _kernel_f16_pair (48 accumulators; 122 registers).
 // nvcc -Xptxas -v for sm_90a reports no spills but 8 bytes for
 // _kernel_f16_1. At this shape the f16 rows, with half the bytes and the
 // decode, ran 2.87 ms (pair) and 2.05 ms (one plane) against 3.07 and 2.12
@@ -203,13 +203,13 @@ void launch(const void* q_hi, const void* q_lo, const void* db,
 
 }  // namespace
 
-// q_hi, q_lo: (nq, d) bf16 query planes (q_lo unread when planes == 1);
-// db: (≥ ngroups·128, d) bf16 rows, or the hi plane when db_lo is given;
-// db_lo: the lo plane (with one query plane; two go to
-// ft_sweep_split_mma), or null for bf16 rows; vn: (ngroups·128,)
-// pre-masked norms; gm: (nq, ngroups) f32 out; bmax: null, or the
-// (nq, ngroups/8) supergroup maxes, filled with -inf by the caller
-// (ngroups % 8 == 0). d % 8 == 0, 16-byte aligned.
+// q_hi: (nq, d) bf16, the one query plane (two planes, over bf16 rows or
+// the f32 planes, go to ft_sweep_split_mma; q_lo is unread); db:
+// (≥ ngroups·128, d) bf16 rows, or the hi plane when db_lo is given; db_lo:
+// the lo plane, or null for bf16 rows; vn: (ngroups·128,) pre-masked
+// norms; gm: (nq, ngroups) f32 out; bmax: null, or the (nq, ngroups/8)
+// supergroup maxes, filled with -inf by the caller (ngroups % 8 == 0).
+// d % 8 == 0, 16-byte aligned.
 extern "C" int ft_sweep_groupmax(const void* q_hi, const void* q_lo,
                                  int planes, const void* db, const void* db_lo,
                                  const void* vn, void* gm, void* bmax, int nq,
@@ -220,9 +220,6 @@ extern "C" int ft_sweep_groupmax(const void* q_hi, const void* q_lo,
   auto s = static_cast<cudaStream_t>(stream);
   if (planes == 1 && db_lo == nullptr)
     launch<1, ROWS, 32>(q_hi, q_lo, db, db_lo, vn, gm, bmax, nq, d, ngroups,
-                        l2, s);
-  else if (planes == 2 && db_lo == nullptr)
-    launch<2, ROWS, 32>(q_hi, q_lo, db, db_lo, vn, gm, bmax, nq, d, ngroups,
                         l2, s);
   else if (planes == 1)
     launch<1, PAIR, 32>(q_hi, q_lo, db, db_lo, vn, gm, bmax, nq, d, ngroups,

@@ -27,8 +27,9 @@ Every true top-k row lies in a nominated group unless a non-nominated group
 could beat the k-th rescored score; the certificate
 ``vals[k-1] ≥ t + ε`` (ε from ``_sweep_eps``, a strict bound on
 |sweep score − rescore score|, with the tensor-core accumulation term where
-the f32 planes' two-plane sweep ran on the card) proves per query that none
-can. An uncertified query is re-run by the index on an exact path.
+a two-plane sweep ran on the card, over bf16 rows or the f32 planes:
+``sweep_accum``) proves per query that none can. An uncertified query is
+re-run by the index on an exact path.
 
 f32 storage (``db_split`` = the (hi, lo) planes) rescores in two stages:
 stage 3a scores every candidate against hi + lo (the pair mode of
@@ -77,6 +78,7 @@ from .topk import topk_scores
 # the kernel wrappers, under the names of their JAX counterparts' roles
 from .kernels import GROUP  # rows per candidate group
 from .kernels import SUPERGROUP  # groups per block max (1024 rows)
+from .kernels import SELECT_MAX_GROUPS, SELECT_MAX_KG
 from .kernels import (final_select, rescore_groups, rescore_select_groups,
                       select_groups)
 from .kernels import sweep_f16, sweep_groupmax, sweep_int8, sweep_split
@@ -96,11 +98,10 @@ PLAIN_TOPK_BYTES_PER_K16 = 1.0    # + k/16 bytes/score for its top-k
 # planes). f32 pair storage always sweeps two query planes, and int8 two
 # integer passes.
 REDUCED_SWEEP_MIN_NQ = 32
-# What the select kernels take: one bitmask row of ≤ 16384 columns, and
-# extraction loops of ≤ 40 steps. Larger shapes select with stable sorts
-# (_top_groups, topk_scores), as the JAX package selects them in XLA.
-SELECT_MAX_GROUPS = 16384
-SELECT_MAX_KG = 40
+# What the select kernels take: rows of ≤ SELECT_MAX_GROUPS (16384)
+# columns and ≤ SELECT_MAX_KG (40) picks, faiss_tpu's limits (imported
+# above). Larger shapes select with stable sorts (_top_groups,
+# topk_scores), as the JAX package selects them in XLA.
 # From this many groups on, phase 2 ranks the sweep's supergroup maxes
 # first (_top_groups_from_bmax), as the JAX package does (carried from it,
 # not measured on this card).
@@ -273,7 +274,10 @@ def select_groups_plain(gm: torch.Tensor, kg: int):
     """Plain version of the group select, step for step the Pallas
     ``_select_kernel``: kg max-extractions (ties to the lowest column; a
     −inf tie may re-pick a marked column), t = max of the rest, then the
-    marked set in ascending order, padded and clamped to ngroups−1."""
+    marked set in ascending order, padded and clamped to ngroups−1. t is
+    the value of the lowest unmarked column holding that max, bit for bit
+    (the max alone takes the reduction order's sign on a −0.0 / +0.0 tie);
+    −inf when every column is marked, NaN on a row holding a NaN."""
     nq, ng = gm.shape
     iota = torch.arange(ng, device=gm.device, dtype=torch.int32)[None, :]
     excl = torch.zeros_like(gm, dtype=torch.bool)
@@ -282,7 +286,13 @@ def select_groups_plain(gm: torch.Tensor, kg: int):
         m = torch.amax(xm, dim=-1, keepdim=True)
         j = torch.amin(torch.where(xm == m, iota, _BIG), dim=-1, keepdim=True)
         excl |= iota == j
-    t = torch.amax(gm.masked_fill(excl, NEG_INF), dim=-1)
+    xm = gm.masked_fill(excl, NEG_INF)
+    m = torch.amax(xm, dim=-1, keepdim=True)
+    col = torch.amin(torch.where((xm == m) & ~excl, iota, _BIG), dim=-1,
+                     keepdim=True)
+    t = torch.where(col < ng,
+                    torch.gather(gm, 1, torch.clamp(col, max=ng - 1)
+                                 .to(torch.int64)), m)[:, 0]
     out = torch.empty((nq, kg), dtype=torch.int32, device=gm.device)
     emitted = torch.zeros_like(excl)
     for j in range(kg):
@@ -451,8 +461,9 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
     """Per-query strict upper bound ε on |sweep score − rescore score| for
     any stored row: ``faiss_tpu``'s _sweep_eps, derived for this port's
     own arithmetic. ``accum`` names the sweep's accumulation: "fmaf" (the
-    default, and the JAX bound) or "mma", the tensor-core pair sweep with
-    two query planes (csrc/sweep_split_mma.cu); only term (2) differs.
+    default, and the JAX bound) or "mma", the tensor-core sweeps with two
+    query planes (csrc/sweep_split_mma.cu: the f32 planes' and the bf16
+    rows'; ``sweep_accum`` picks it by route); only term (2) differs.
 
     Notation: u = 2^-24; Q = ‖q‖; R = ‖q − Σ q_planes‖ (computed exactly:
     the bit-mask split makes the subtractions exact); L = ‖q_lo‖;
@@ -477,8 +488,8 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
           2u·|result| for the normalisation; with every product and
           partial sum ≤ ‖a‖·‖b‖ (to first order) a step errs
           ≤ 36·u·‖a‖·‖b‖, a term ≤ 36·⌈d/16⌉·u·‖a‖·‖b‖; the norms above and
-          the two round-to-nearest adds of the terms give the budget
-          (≈ 2.2× the fmaf one at d = 128)
+          the ≤ 2 round-to-nearest adds of the terms give the budget
+          (≈ 2.2× the fmaf one at d = 128); bf16 rows: two terms, s0 = 0
       (3) rescore accumulation                2·d·u·Q·V
           csrc/rescore_groups.cu: a sequential fmaf chain of fp32 q times
           exactly widened rows, ≤ d·u·Q·V; f32 stage 3b: an fp32 product
@@ -511,6 +522,23 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
            + _accum_coeff(d_pad, accum) * _U32 * ((Q + R) * (V + s0) + L * V)
            + 2.0 * d_pad * _U32 * Q * V)
     return _epilogue_eps(eps, Q, V, N, metric)
+
+
+SWEEP_ROUTES = ("bf16", "pair", "hi_exact", "f16", "int8")
+
+
+def sweep_accum(route: str, sweep_passes: int, device) -> str:
+    """The accumulation ``_sweep_eps`` must charge for the sweep that
+    ``route`` ran: "mma" where two query planes ran on the tensor cores on
+    the card, over the f32 planes (K3, "pair") or over bf16 rows (K1,
+    "bf16", and "hi_exact", whose sweep is the bf16 kernel over the hi
+    plane); "fmaf" for one query plane, the f16 and int8 routes, and every
+    CPU tensor (the plain versions; the JAX bound)."""
+    if route not in SWEEP_ROUTES:
+        raise ValueError(f"route must be one of {SWEEP_ROUTES}, got {route!r}")
+    mma = (torch.device(device).type == "cuda" and sweep_passes == 2
+           and route in ("bf16", "pair", "hi_exact"))
+    return "mma" if mma else "fmaf"
 
 
 def _accum_coeff(d_pad: int, accum: str) -> float:
@@ -691,15 +719,17 @@ def fused_search(
                               nv_eff, metric=metric, d_pad=d_pad)
     else:
         # f16 sweeps the decoded pair: the pair ε with the f16 statistics;
-        # the f32 planes' two-plane sweep ran on the tensor cores (K3) when
-        # the queries lie on the card
-        mma = (pair_sweep and not hi_exact and sweep_passes == 2
-               and queries_f32.is_cuda)
+        # two query planes over bf16 rows (K1) or the f32 planes (K3) ran
+        # on the tensor cores when the queries lie on the card
+        is_f16 = db.dtype == torch.float16
+        route = ("f16" if is_f16 else "hi_exact" if hi_exact
+                 else "pair" if pair_sweep else "bf16")
         eps = _sweep_eps(queries_f32, db_norms, nv_eff, metric=metric,
                          d_pad=d_pad, single_pass=sweep_passes == 1,
-                         pair_sweep=pair_sweep or db.dtype == torch.float16,
+                         pair_sweep=pair_sweep or is_f16,
                          split_stats=split_stats,
-                         accum="mma" if mma else "fmaf")
+                         accum=sweep_accum(route, sweep_passes,
+                                           queries_f32.device))
     if rescore_select and k_eff <= RESCORE_SELECT_MAX_K and not pair_sweep:
         # bf16 and f16 rows against q, int8 codes against q∘s; the
         # certificate is the sweep's alone, as in faiss_tpu

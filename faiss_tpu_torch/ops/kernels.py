@@ -47,7 +47,8 @@ _lib_handle: Optional[ctypes.CDLL] = None
 
 launches = {
     "sweep_groupmax_1": 0,   # bf16 rows, one query plane  (_kernel_q1)
-    "sweep_groupmax_2": 0,   # bf16 rows, two query planes (_kernel_qpair)
+    "sweep_groupmax_2": 0,   # bf16 rows, two query planes (_kernel_qpair),
+                             # on the tensor cores (csrc/sweep_split_mma.cu)
     "sweep_split_3": 0,      # f32 (hi, lo) planes, 3 terms (_kernel_split),
                              # on the tensor cores (csrc/sweep_split_mma.cu)
     "sweep_split_2": 0,      # f32 (hi, lo) planes, 2 terms (_kernel_split2)
@@ -85,6 +86,10 @@ _SELECT_FMT = {torch.bfloat16: (0, "rescore_select"),
 SUPERGROUP = 8   # groups per block-max entry (faiss_tpu SUPERGROUP)
 RESCORE_SELECT_MAX_CAND = 36 * GROUP   # csrc/rescore_select.cu MAX_CAND
 FINAL_SELECT_MAX_K = 40   # csrc/final_select.cu MAX_K (fused.SELECT_MAX_KG)
+# what the group select takes (csrc/select_groups.cu MAX_KG, MAX_COLS):
+# faiss_tpu's SELECT_MAX_KG and SELECT_MAX_GROUPS
+SELECT_MAX_KG = 40
+SELECT_MAX_GROUPS = 16384
 
 
 def reset_launches() -> None:
@@ -284,14 +289,19 @@ def sweep_groupmax(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
                    db: torch.Tensor, vn: torch.Tensor, *,
                    metric: MetricType, with_block_max: bool = False):
     """Group maxes of the masked sweep scores over bf16 rows, with
-    nv_eff = len(vn); one query plane when ``q_lo`` is None, else two."""
+    nv_eff = len(vn); one query plane when ``q_lo`` is None (fmaf chains),
+    else two: qh·v + ql·v on the tensor cores (K1, certify with
+    ``_sweep_eps(accum="mma")``)."""
     planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
     if not _on_cuda(*planes, db, vn):
         from .fused import sweep_groupmax_plain
         return sweep_groupmax_plain(q_hi, q_lo, db, vn, metric=metric,
                                     with_block_max=with_block_max)
-    return _sweep(f"sweep_groupmax_{len(planes)}", q_hi, q_lo, db, None, vn,
-                  metric, with_block_max)
+    if q_lo is None:
+        return _sweep("sweep_groupmax_1", q_hi, None, db, None, vn, metric,
+                      with_block_max)
+    return _sweep_mma("sweep_groupmax_2", q_hi, q_lo, db, None, vn, metric,
+                      with_block_max)
 
 
 def sweep_split(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
@@ -309,16 +319,25 @@ def sweep_split(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
     if q_lo is None:
         return _sweep("sweep_split_2", q_hi, None, db_hi, db_lo, vn, metric,
                       with_block_max)
-    # two query planes: the tensor-core kernel (K3), whose accumulation the
-    # certificate charges with _sweep_eps(accum="mma")
-    nq, d, ngroups = _check_sweep(planes, (db_hi, db_lo), vn,
+    return _sweep_mma("sweep_split_3", q_hi, q_lo, db_hi, db_lo, vn, metric,
+                      with_block_max)
+
+
+def _sweep_mma(counter, q_hi, q_lo, db, db_lo, vn, metric, with_block_max):
+    """Launch ft_sweep_split_mma, the tensor-core sweep with two query
+    planes (whose accumulation the certificate charges with
+    ``_sweep_eps(accum="mma")``): over the f32 planes db, db_lo (K3), or
+    over bf16 rows db when ``db_lo`` is None (K1)."""
+    dbs = (db,) if db_lo is None else (db, db_lo)
+    nq, d, ngroups = _check_sweep((q_hi, q_lo), dbs, vn,
                                   q_dtype=torch.bfloat16,
                                   db_dtype=torch.bfloat16, align=8)
     _int32(ngroups * GROUP, "nv_eff")
-    gm, bmax = _sweep_outputs(nq, ngroups, db_hi.device, with_block_max)
-    with torch.cuda.device(db_hi.device):
-        _launch("sweep_split_3", "ft_sweep_split_mma", q_hi.data_ptr(),
-                q_lo.data_ptr(), db_hi.data_ptr(), db_lo.data_ptr(),
+    gm, bmax = _sweep_outputs(nq, ngroups, db.device, with_block_max)
+    with torch.cuda.device(db.device):
+        _launch(counter, "ft_sweep_split_mma", q_hi.data_ptr(),
+                q_lo.data_ptr(), db.data_ptr(),
+                None if db_lo is None else db_lo.data_ptr(),
                 vn.data_ptr(), gm.data_ptr(),
                 None if bmax is None else bmax.data_ptr(), nq, d, ngroups,
                 int(metric is MetricType.L2))
@@ -365,15 +384,16 @@ def sweep_int8(q1: torch.Tensor, q2: torch.Tensor, db: torch.Tensor,
 
 
 def select_groups(gm: torch.Tensor, kg: int):
-    """(ascending top-kg group ids (nq, kg) int32, threshold t (nq,) f32)."""
+    """(ascending top-kg group ids (nq, kg) int32, threshold t (nq,) f32,
+    the lowest unnominated column's own value at their max)."""
     if not _on_cuda(gm):
         from .fused import select_groups_plain
         return select_groups_plain(gm, kg)
     _check(gm, "gm", torch.float32, 2)
     nq, ngroups = gm.shape
-    if not 0 < kg <= ngroups <= 16384:
-        raise ValueError(f"need 0 < kg ≤ ngroups ≤ 16384 "
-                         f"(kg={kg}, ngroups={ngroups})")
+    if not (0 < kg <= SELECT_MAX_KG and kg <= ngroups <= SELECT_MAX_GROUPS):
+        raise ValueError(f"need 0 < kg ≤ {SELECT_MAX_KG}, kg ≤ ngroups ≤ "
+                         f"{SELECT_MAX_GROUPS} (kg={kg}, ngroups={ngroups})")
     gidx = torch.empty((nq, kg), dtype=torch.int32, device=gm.device)
     t = torch.empty((nq,), dtype=torch.float32, device=gm.device)
     with torch.cuda.device(gm.device):

@@ -1,28 +1,42 @@
-"""K3 (csrc/sweep_split_mma.cu) against variants of itself, on one CUDA card.
+"""The tensor-core sweeps (csrc/sweep_split_mma.cu: K3 over the f32 planes,
+K1 over bf16 rows) against variants of themselves, on one CUDA card.
 
-    python scripts/k3_variants.py [--nv 1000448,10000384] [--reps 10]
+    python scripts/k3_variants.py [--kernels k3,k1] [--nv 1000448,10000384]
+                                  [--reps 10]
 
 Each variant is a patched copy of the kernel's source, built with nvcc into
 its own library and called through ``ft_sweep_split_mma`` on the same
-inputs (nq 104, d 128, L2, with the supergroup maxes; the planes of
-Gaussian rows):
+inputs (nq 104, d 128, L2, with the supergroup maxes; Gaussian rows: K3
+their f32 planes, K1 their bf16 values):
 
-  kernel      the source as it is
-  no_mma      the products left out: the TMA ring and its barriers alone
-  no_load     the row tiles' loads left out: the products alone (on stale
-              shared memory)
-  wait0       each stage released only once its own products have ended
-              (wgmma.wait_group 0), not once the next chunk's are issued
-  n128        one m64n128k16 a term over a whole group (192 accumulators,
-              setmaxnreg 232 for the consumers, 40 for a producer
-              warpgroup, 384 threads)
-  even_split  the groups split evenly over the blocks, a supergroup shared
-              by two blocks folded with ft::atomic_max_f32
+  kernel        the source as it is
+  no_mma        the products left out: the TMA ring and its barriers alone
+  no_load       the row tiles' loads left out: the products alone (on stale
+                shared memory)
+  K3 only:
+  norms_late    each tile's norms loaded in its epilogue, after its
+                products have drained, not before its products
+  ordered       the two warpgroups take turns issuing a tile's products
+                (K1's schedule)
+  wait0         each stage released only once its own products have ended
+                (wgmma.wait_group 0), not once the next chunk's are issued
+  even_split    the groups split evenly over the blocks, a supergroup
+                shared by two blocks folded with ft::atomic_max_f32
+  K1 only:
+  no_rs         the query planes' A fragments from shared memory (TMA), as
+                at d > 128 and in K3, not from registers
+  no_order      the warpgroups issue their products side by side, without
+                turns, so their epilogues coincide (K3's schedule)
+  first         no_rs, no_order and K3's norms_late together: the first
+                design, K3's schedule with one db plane
+  n128          wgmma's N side 128 rows (K1_BN): one m64n128k16 a term over
+                a whole group, 2 × 64 accumulators, 8 stages of 16 KB
+  n128_no_mma, n128_no_load   the same two cuts of n128
 
 Times are graph replays (chip_smoke.graph_ms) in two rounds; every variant
 that computes must give the kernel's group maxes bit for bit, and supergroup
-maxes equal to block_max_plain of them. Last, the kernel (through
-kernels.sweep_split) on the truncation adversary of
+maxes equal to block_max_plain of them. Last, each kernel (through
+kernels.sweep_split, kernels.sweep_groupmax) on the truncation adversary of
 tests/test_torch_mma_eps.py: its error, in units of ‖q‖·‖v‖·u (u = 2^-24),
 where a sum that truncates every addend at the largest one's exponent
 loses ≈ 254 and round to nearest ≈ 0. Prints the card's name and power
@@ -49,64 +63,73 @@ def _patch(text, pairs):
     return text
 
 
-MMA = """          wgmma_64x64(acc1, dqh + 2 * ks, dvh + 2 * ks, acc);
-          wgmma_64x64(acc2, dqh + 2 * ks, dvl + 2 * ks, acc);
-          wgmma_64x64(acc3, dql + 2 * ks, dvh + 2 * ks, acc);"""
+MMA = """      if constexpr (RS) {
+        wgmma_rs_64x64(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
+        wgmma_rs_64x64(acc[1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
+        continue;
+      }
+      wgmma<BN>(acc[0], dqh + 2 * ks, dvh + 2 * ks, on);
+      if constexpr (DBP == 2) {
+        const uint64_t dvl = sw128_desc(b + S::B_PLANE);
+        wgmma<BN>(acc[1], dqh + 2 * ks, dvl + 2 * ks, on);
+      }
+      wgmma<BN>(acc[S::TERMS - 1], dql + 2 * ks, dvh + 2 * ks, on);"""
 ROW_LOADS = """          mbar_expect_tx(full + stage, stage_bytes);"""
 ROW_TMA = """          tma_load(&tv_hi, st, full + stage, kc * KC, row);
-          tma_load(&tv_lo, st + B_PLANE, full + stage, kc * KC, row);"""
-DEFER = """        wgmma_commit();
-        wgmma_wait_prev();   // the chunk before this one has been read
-        if (prev >= 0 && t == 0) mbar_arrive(empty + prev);
-        prev = stage;"""
-HALF_END = """      if (t == 0) mbar_arrive(empty + prev);
+          if constexpr (DBP == 2)
+            tma_load(&tv_lo, st + S::B_PLANE, full + stage, kc * KC, row);"""
+DEFER = """    wgmma_commit();
+    wgmma_wait_prev();   // the chunk before this one has been read
+    if (prev >= 0 && t == 0) mbar_arrive(empty + prev);
+    prev = stage;"""
+TILE_END = """      if (t == 0) mbar_arrive(empty + prev);
+      prev = -1;
 """
-WAIT0 = """        wgmma_commit();
-        wgmma_wait_all();
-        if (t == 0) mbar_arrive(empty + stage);
-        prev = -1;"""
-
-
-def _n128(text):
-    """One m64n128k16 a term over the whole group, setmaxnreg."""
-    ops = ", ".join(f"%{i}" for i in range(64))
-    outs = ", ".join(f'"+f"(d[{i}])' for i in range(64))
-    wg = ('__device__ __forceinline__ void wgmma_64x64(float (&d)[64], '
-          'uint64_t da,\n    uint64_t db, int scale_d) {\n  asm volatile(\n'
-          '      "{\\n .reg .pred p;\\n setp.ne.b32 p, %66, 0;\\n"\n'
-          '      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "\n'
-          f'      "{{{ops}}}, %64, %65, p, 1, 1, 0, 0;\\n}}\\n"\n'
-          f'      : {outs}\n      : "l"(da), "l"(db), "r"(scale_d));\n}}\n\n')
-    i0 = text.index("__device__ __forceinline__ void wgmma_64x64(")
-    i1 = text.index("__device__ __forceinline__ void wgmma_fence()")
-    text = text[:i0] + wg + text[i1:]
-    return _patch(text, [
-        ("constexpr int NTHREADS = NCONS + 32;",
-         "constexpr int NTHREADS = NCONS + 128;"),
-        ("constexpr int HALF = 64;", "constexpr int HALF = 128;"),
-        ("void fence_regs(float (&d)[32]) {\n#pragma unroll\n"
-         "  for (int i = 0; i < 32; ++i)",
-         "void fence_regs(float (&d)[64]) {\n#pragma unroll\n"
-         "  for (int i = 0; i < 64; ++i)"),
-        ("  if (warp == NCONS / 32) {\n    // producer: one thread issues "
-         "every load\n    if (lane != 0) return;",
-         "  if (warp >= NCONS / 32) {\n    asm volatile(\"setmaxnreg.dec."
-         "sync.aligned.u32 40;\\n\" ::: \"memory\");\n"
-         "    if (warp != NCONS / 32 || lane != 0) return;"),
-        ("      for (int h = 0; h < 2; ++h)\n",
-         "      for (int h = 0; h < 1; ++h)\n"),
-        ("  const int wg = warp >> 2;",
-         "  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 232;\\n\" ::: "
-         "\"memory\");\n  const int wg = warp >> 2;"),
-        ("  float acc1[32], acc2[32], acc3[32];\n#pragma unroll\n"
-         "  for (int i = 0; i < 32; ++i)",
-         "  float acc1[64], acc2[64], acc3[64];\n#pragma unroll\n"
-         "  for (int i = 0; i < 64; ++i)"),
-        ("    for (int h = 0; h < 2; ++h) {\n",
-         "    for (int h = 0; h < 1; ++h) {\n"),
-        ("      for (int j = 0; j < 8; ++j) {\n        const float2 w",
-         "      for (int j = 0; j < 16; ++j) {\n        const float2 w"),
-    ])
+WAIT0 = """    wgmma_commit();
+    wgmma_wait_all();
+    if (t == 0) mbar_arrive(empty + stage);
+    prev = -1;"""
+K1_N = "constexpr int K1_BN = 64;"
+ORDERED = "static constexpr bool ORDERED = DBP == 1;"
+RS_AT = "  if constexpr (DBP == 1 && BN == 64)\n"
+NORMS = "      norms(w, g, h);\n"
+WAIT_ALL = ("      wgmma_wait_all();   // the tile's last chunk, and its "
+            "accumulators\n")
+NO_MMA = "      (void)on;"
+# n128: the m64n128k16 wgmma (64 accumulators a thread) beside m64n64k16
+WGMMA_N = """  static_assert(N == 64, "wgmma: N = 64 only");
+  wgmma_64x64(d, da, db, scale_d);"""
+WGMMA_N128 = """  if constexpr (N == 64)
+    wgmma_64x64(d, da, db, scale_d);
+  else
+    wgmma_64x128(d, da, db, scale_d);"""
+WGMMA_AT = "// The wgmma of an N = BN tile:"
+W128 = r'''__device__ __forceinline__ void wgmma_64x128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+'''
 
 
 def _even_split(text):
@@ -138,28 +161,48 @@ def _even_split(text):
     ])
 
 
-def variants(text):
-    return {
-        "kernel": text,
-        "no_mma": _patch(text, [(MMA, "          (void)acc;")]),
-        "no_load": _patch(text, [(ROW_LOADS,
-                                  "          mbar_arrive(full + stage);"),
-                                 (ROW_TMA, "")]),
-        "wait0": _patch(text, [(DEFER, WAIT0), (HALF_END, "")]),
-        "n128": _n128(text),
-        "even_split": _even_split(text),
-    }
+def _cuts(text):
+    """The kernel without its products, and without its row loads."""
+    return {"no_mma": _patch(text, [(MMA, NO_MMA)]),
+            "no_load": _patch(text, [(ROW_LOADS,
+                                      "          mbar_arrive(full + stage);"),
+                                     (ROW_TMA, "")])}
+
+
+def variants(text, kernel):
+    """{name: source}: K3's variants, or K1's (``kernel`` "k1")."""
+    base = {"kernel": text, **_cuts(text)}
+    late = [(NORMS, ""), (WAIT_ALL, WAIT_ALL + NORMS)]
+    if kernel == "k1":
+        free = _patch(text, [(ORDERED,
+                              "static constexpr bool ORDERED = false;")])
+        n128 = _patch(text, [(K1_N, "constexpr int K1_BN = 128;"),
+                             (WGMMA_N, WGMMA_N128),
+                             (WGMMA_AT, W128 + "\n" + WGMMA_AT)])
+        no_rs = [(RS_AT, "  if constexpr (false)\n")]
+        base.update({"no_rs": _patch(text, no_rs),
+                     "no_order": free,
+                     "first": _patch(free, no_rs + late),
+                     "n128": n128,
+                     **{f"n128_{k}": v for k, v in _cuts(n128).items()}})
+    else:
+        base.update({"norms_late": _patch(text, late),
+                     "ordered": _patch(text, [(
+                         ORDERED, "static constexpr bool ORDERED = true;")]),
+                     "wait0": _patch(text, [(DEFER, WAIT0), (TILE_END, "")]),
+                     "even_split": _even_split(text)})
+    return base
 
 
 def build(kernels, tmp, srcs):
     """{name: ctypes library} built side by side from {name: source}."""
     procs = {}
-    common = (SRC.parent / "common.cuh").read_text()
     for name, text in srcs.items():
         d = Path(tmp) / name
         d.mkdir()
         (d / "k.cu").write_text(text)
-        (d / "common.cuh").write_text(common)
+        for h in SRC.parent.glob("*.cuh"):
+            (d / h.name).write_text(h.read_text())
         procs[name] = subprocess.Popen(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-Xptxas", "-v",
              "-o", str(d / "lib.so"), str(d / "k.cu")],
@@ -180,10 +223,12 @@ def build(kernels, tmp, srcs):
     return libs
 
 
-def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType):
-    """K3's largest |dot − exact| on query [1, s, …, s] against rows
-    [1, −s, …, −s] scaled by 2^j in group j (s = 2^-12·1.4140625: s² is
-    just under ulp(1) = 2^-23), IP, over ‖q‖·‖v‖·u of the row's group."""
+def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
+                    kernel):
+    """The kernel's largest |dot − exact| on query [1, s, …, s] against
+    rows [1, −s, …, −s] scaled by 2^j in group j (s = 2^-12·1.4140625: s² is
+    just under ulp(1) = 2^-23), IP, over ‖q‖·‖v‖·u of the row's group: K3
+    over the rows' f32 planes, K1 over the rows in bf16 (exact there)."""
     d, nq, ng = 128, 8, 8
     s = 2.0 ** -12 * 1.4140625
     a = torch.full((d,), s, dtype=torch.float64)
@@ -193,19 +238,77 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType):
     scale = 2.0 ** torch.arange(ng, dtype=torch.float64)
     x = (row[None, :] * scale[:, None]).repeat_interleave(128, dim=0)
     dev = torch.device("cuda")
-    hi, lo = split_f32_bf16(x.float().to(dev))
     qh, ql = fused.query_planes(a.float().to(dev).expand(nq, d).contiguous(),
                                 2)
     vn = torch.zeros((ng * 128,), device=dev)
-    gm = kernels.sweep_split(qh, ql, hi, lo, vn,
-                             metric=MetricType.INNER_PRODUCT)
+    ip = MetricType.INNER_PRODUCT
+    if kernel == "k1":
+        gm = kernels.sweep_groupmax(qh, ql, x.to(dev).to(torch.bfloat16), vn,
+                                    metric=ip)
+    else:
+        hi, lo = split_f32_bf16(x.float().to(dev))
+        gm = kernels.sweep_split(qh, ql, hi, lo, vn, metric=ip)
     exact = (x[::128] @ a).to(dev)
     unit = torch.linalg.norm(a) * torch.linalg.norm(x[::128], dim=1) * 2.0 ** -24
     return float(((gm.double() - exact) / unit.to(dev)).abs().max())
 
 
+def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
+                  reps, gen):
+    """Each variant once (the computing ones bit for bit against the
+    kernel's gm, their supergroup maxes against block_max_plain), then
+    timed by graph replay in two rounds, at nq 104, d 128, L2."""
+    from faiss_tpu_torch.storage import split_f32_bf16
+
+    dev = torch.device("cuda")
+    nq, d = 104, 128
+    x = torch.randn((nv, d), device=dev, generator=gen)
+    if kernel == "k1":
+        hi, lo = x.to(torch.bfloat16), None
+    else:
+        hi, lo = split_f32_bf16(x)
+    vn = fused._premask_norms((x * x).sum(-1), nv, nv, MetricType.L2)
+    del x
+    qh, ql = fused.query_planes(
+        torch.randn((nq, d), device=dev, generator=gen), 2)
+    ng = nv // 128
+    gm = torch.empty((nq, ng), device=dev)
+    bm = torch.empty((nq, ng // 8), device=dev)
+    ref = None
+    for rnd in range(2):
+        for name, lib in libs.items():
+            def run(lib=lib, name=name):
+                bm.fill_(float("-inf"))
+                rc = lib.ft_sweep_split_mma(
+                    qh.data_ptr(), ql.data_ptr(), hi.data_ptr(),
+                    None if lo is None else lo.data_ptr(), vn.data_ptr(),
+                    gm.data_ptr(), bm.data_ptr(), nq, d, ng, 1,
+                    torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"{name}: launch failed ({rc})")
+            run()
+            torch.cuda.synchronize()
+            note = ""
+            if not name.endswith(("no_mma", "no_load")):
+                if ref is None:
+                    ref = gm.clone()
+                same = torch.equal(gm.view(torch.int32), ref.view(torch.int32))
+                bits = torch.equal(bm.view(torch.int32),
+                                   fused.block_max_plain(gm).view(torch.int32))
+                if not (same and bits):
+                    raise RuntimeError(f"{kernel} {name} differs from the "
+                                       f"kernel at nv {nv}")
+                note = " (gm and bmax bit for bit)"
+            ms = chip_smoke.graph_ms(torch, run, reps)
+            print(f"{kernel} nv {nv} round {rnd} {name}: {ms:.4f} ms{note}",
+                  flush=True)
+    del hi, lo, gm, bm
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", default="k3,k1")
     ap.add_argument("--nv", default="1000448,10000384")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args()
@@ -222,57 +325,26 @@ def main() -> int:
     from faiss_tpu_torch.storage import split_f32_bf16
 
     print(ft.gpu_name_and_power_limit(), flush=True)
-    dev = torch.device("cuda")
+    which = args.kernels.split(",")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    nq, d = 104, 128
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(kernels, tmp, variants(SRC.read_text()))
-        for nv in (int(x) for x in args.nv.split(",")):
-            x = torch.randn((nv, d), device=dev, generator=gen)
-            hi, lo = split_f32_bf16(x)
-            vn = fused._premask_norms((x * x).sum(-1), nv, nv, MetricType.L2)
-            del x
-            qh, ql = fused.query_planes(
-                torch.randn((nq, d), device=dev, generator=gen), 2)
-            ng = nv // 128
-            gm = torch.empty((nq, ng), device=dev)
-            bm = torch.empty((nq, ng // 8), device=dev)
-            ref = None
-            for rnd in range(2):
-                for name, lib in libs.items():
-                    def run(lib=lib):
-                        bm.fill_(float("-inf"))
-                        rc = lib.ft_sweep_split_mma(
-                            qh.data_ptr(), ql.data_ptr(), hi.data_ptr(),
-                            lo.data_ptr(), vn.data_ptr(), gm.data_ptr(),
-                            bm.data_ptr(), nq, d, ng, 1,
-                            torch.cuda.current_stream().cuda_stream)
-                        if rc != 0:
-                            raise RuntimeError(f"{name}: launch failed ({rc})")
-                    run()
-                    torch.cuda.synchronize()
-                    note = ""
-                    if not name.startswith("no_"):
-                        if ref is None:
-                            ref = gm.clone()
-                        same = torch.equal(gm.view(torch.int32),
-                                           ref.view(torch.int32))
-                        bits = torch.equal(
-                            bm.view(torch.int32),
-                            fused.block_max_plain(gm).view(torch.int32))
-                        if not (same and bits):
-                            raise RuntimeError(f"{name} differs from the "
-                                               f"kernel at nv {nv}")
-                        note = " (gm and bmax bit for bit)"
-                    ms = chip_smoke.graph_ms(torch, run, args.reps)
-                    print(f"nv {nv} round {rnd} {name}: {ms:.4f} ms{note}",
-                          flush=True)
-            del hi, lo, gm, bm
-            torch.cuda.empty_cache()
-    err = adversary_error(torch, fused, kernels, split_f32_bf16, MetricType)
-    print(f"kernel on the truncation adversary: error {err:.2f} "
-          f"‖q‖·‖v‖·u (a truncating sum ≈ 254, round to nearest ≈ 0)",
-          flush=True)
+        srcs = {f"{k}/{name}": text for k in which
+                for name, text in variants(SRC.read_text(), k).items()}
+        for k in which:
+            (Path(tmp) / k).mkdir()
+        libs = build(kernels, tmp, srcs)
+        for k in which:
+            mine = {n.split("/")[1]: lib for n, lib in libs.items()
+                    if n.startswith(k + "/")}
+            for nv in (int(x) for x in args.nv.split(",")):
+                time_variants(torch, chip_smoke, fused, MetricType, mine, k,
+                              nv, args.reps, gen)
+    for k in which:
+        err = adversary_error(torch, fused, kernels, split_f32_bf16,
+                              MetricType, k)
+        print(f"{k} on the truncation adversary: error {err:.2f} "
+              f"‖q‖·‖v‖·u (a truncating sum ≈ 254, round to nearest ≈ 0)",
+              flush=True)
     return 0
 
 

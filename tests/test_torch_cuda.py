@@ -28,12 +28,14 @@ The certificate soundness cases (``check_sweep_eps_sound``,
 test_torch_f16.py and test_torch_int8.py run them on the plain versions on
 the CPU, this module on the kernels.
 
-K3 runs on the tensor cores (``csrc/sweep_split_mma.cu``): it is held to
-``_sweep_eps(accum="mma")`` (the budget of tests/test_torch_mma_eps.py),
-its supergroup maxes bit for bit, also on the truncation adversary's rows.
-K9 (``csrc/final_select.cu``, one pass) equals its plain version bit for
-bit, values included, on tie-heavy, −inf, NaN and ±0 rows; K11 and K10 → K9
-agree bit for bit on a −0.0 / +0.0 tie.
+K3 and K1 run on the tensor cores (``csrc/sweep_split_mma.cu``): they are
+held to ``_sweep_eps(accum="mma")`` (the budget of
+tests/test_torch_mma_eps.py, which ``fused.sweep_accum`` picks for them),
+their supergroup maxes bit for bit, also on the truncation adversary's
+rows. K9 (``csrc/final_select.cu``) and K8 (``csrc/select_groups.cu``),
+both one pass, equal their plain versions bit for bit (K8's t by value on
+a NaN row) on tie-heavy, −inf, NaN, ±0 and +inf rows and K8's −inf
+re-pick; K11 and K10 → K9 agree bit for bit on a −0.0 / +0.0 tie.
 """
 
 import time
@@ -84,7 +86,9 @@ def test_sweep_and_rescore_match_plain(dev, metric, nq, d, passes):
     db, norms = _db(dev, nv, d, ntotal)
     q = torch.randn((nq, d), generator=torch.Generator().manual_seed(1)).to(dev)
     vn = fused._premask_norms(norms, ntotal, nv, metric)
-    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d)
+    # two query planes run K1 on the tensor cores: its ε is the mma one
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                           accum=fused.sweep_accum("bf16", passes, dev))
     qh, ql = fused.query_planes(q, passes)
     n0 = kernels.launches[f"sweep_groupmax_{passes}"]
     gm = kernels.sweep_groupmax(qh, ql, db, vn, metric=metric)
@@ -140,6 +144,62 @@ def _k9_rows(ncand: int, seed: int) -> torch.Tensor:
 
 K9_CASES = [(nc, k) for nc in (32, 37, 1792, 16384) for k in (1, 10, 40)
             if k < nc]
+
+
+def _k8_rows(ncols: int, seed: int) -> torch.Tensor:
+    """Rows for K8: _k9_rows' (tie-heavy, all −inf, partly −inf, ±0 ties, a
+    NaN, all NaN, Gaussian, all equal, +inf ties), then the −inf re-pick
+    (fewer than kg finite columns) with column 0 finite and with column 0
+    −inf, a −0.0 column 0 among −inf, and the ±0 ties below larger
+    values."""
+    x = _k9_rows(ncols, seed)
+    extra = torch.full((4, ncols), float("-inf"))
+    few = torch.arange(min(5, ncols))
+    extra[0, few * (ncols // 5)] = torch.tensor([1.0, 3.0, -2.0, 3.0, 0.5])[
+        : len(few)]
+    extra[1, few * (ncols // 5) + (ncols > 5)] = 2.0
+    extra[1, 0] = float("-inf")
+    extra[2, 0] = -0.0
+    g = torch.Generator().manual_seed(seed + 1)
+    signs = torch.rand((ncols,), generator=g) < 0.5
+    extra[3] = torch.where(signs, -0.0, 0.0)
+    extra[3, ::7] = 1.0
+    return torch.cat([x, extra])
+
+
+# (nq, ngroups, kg): the flat phase 2's (104, 7816, 14), the f32 stage 3a's
+# (104, 1792, 32), the widest (24, 16384, 40), and kg = ngroups and ragged
+# widths in the four-rows-a-block layout
+K8_CASES = [(104, 7816, 14), (104, 1792, 32), (24, 16384, 40), (4, 12, 12),
+            (5, 37, 36)]
+
+
+@pytest.mark.parametrize("nq,ngroups,kg", K8_CASES)
+def test_group_select_one_pass_bitwise(dev, nq, ngroups, kg):
+    """K8 against select_groups_plain: ids bit for bit, t equal by value
+    (its bits too, but on a NaN row, where both are NaN) on _k8_rows, taken
+    nq rows at a time (the last batch filled with Gaussian rows)."""
+    rows = _k8_rows(ngroups, seed=ngroups + kg)
+    g = torch.Generator().manual_seed(kg)
+    for i in range(0, rows.shape[0], nq):
+        x = torch.randn((nq, ngroups), generator=g)
+        part = rows[i:i + nq]
+        x[: part.shape[0]] = part
+        x = x.to(dev)
+        n0 = kernels.launches["select_groups"]
+        gi, t = kernels.select_groups(x, kg)
+        assert kernels.launches["select_groups"] == n0 + 1
+        gi_p, t_p = fused.select_groups_plain(x, kg)
+        assert torch.equal(gi, gi_p)
+        nan = t_p.isnan()
+        assert torch.equal(nan, t.isnan())
+        assert torch.equal(t[~nan].view(torch.int32),
+                           t_p[~nan].view(torch.int32))
+
+
+def test_group_select_refuses_kg_past_40(dev):
+    with pytest.raises(ValueError):
+        kernels.select_groups(torch.zeros((4, 100), device=dev), 41)
 
 
 @pytest.mark.parametrize("ncand,k", K9_CASES)
@@ -485,6 +545,90 @@ def test_k3_truncation_adversary_within_mma_eps(dev, metric):
                            pair_sweep=True, split_stats=stats, accum="mma")
     gap = (gm.double() - exact).abs()
     assert bool((gap <= eps[:, None].double()).all()), float(gap.max())
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("d", [8, 72, 136, 128, 1024])
+@pytest.mark.parametrize("nq", [8, 37, 104, 300])
+def test_k1_tensor_core_sweep_matches_plain(dev, metric, nq, d):
+    """K1 (bf16 rows, two query planes) on the tensor cores against
+    sweep_groupmax_plain within _sweep_eps(accum="mma"), with a last group
+    partly stored (ntotal 8000 of 8192) and one wholly past ntotal; its
+    supergroup maxes equal block_max_plain of the same launch's gm bit for
+    bit, and that gm the one-output launch's. nq 300: three query tiles; d
+    72 and 128: the query planes as A fragments in registers (72: with a
+    zero-filled k-tail); d 8 and 136: the k-tail from shared memory; d
+    1024: the query planes ride the ring."""
+    nv, ntotal = 8192, 8000
+    db, norms = _db(dev, nv, d, ntotal, seed=nq * 10_000 + d)
+    q = torch.randn((nq, d), generator=torch.Generator().manual_seed(nq))
+    q = q.to(dev)
+    vn = fused._premask_norms(norms, ntotal, nv, metric)
+    qh, ql = fused.query_planes(q, 2)
+    n0 = dict(kernels.launches)
+    gm, bmax = kernels.sweep_groupmax(qh, ql, db, vn, metric=metric,
+                                      with_block_max=True)
+    assert kernels.launches["sweep_groupmax_2"] == n0["sweep_groupmax_2"] + 1
+    assert kernels.launches["sweep_split_3"] == n0["sweep_split_3"]
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d, accum="mma")
+    _within_eps(gm, fused.sweep_groupmax_plain(qh, ql, db, vn, metric=metric),
+                eps)
+    assert bool(torch.isneginf(gm[:, -1]).all())
+    assert not bool(torch.isneginf(gm[:, :-1]).any())
+    assert torch.equal(bmax.view(torch.int32),
+                       fused.block_max_plain(gm).view(torch.int32))
+    one = kernels.sweep_groupmax(qh, ql, db, vn, metric=metric)
+    assert torch.equal(gm.view(torch.int32), one.view(torch.int32))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+def test_k1_truncation_adversary_within_mma_eps(dev, metric):
+    """The truncation adversary of tests/test_torch_mma_eps.py on K1: bf16
+    rows [1, −s, …, −s] scaled per group by 2^j against the query [1, s,
+    …, s] (bf16-valued: its lo plane is zero): |group max − exact score| ≤
+    _sweep_eps(accum="mma") pointwise (every row of a group is the same)."""
+    d, nv, nq = 128, 1024, 8
+    s = np.float32(2.0 ** -12 * 1.4140625)
+    a = np.full(d, s, np.float32)
+    a[0] = 1.0
+    row = -a
+    row[0] = 1.0
+    scale = np.repeat(2.0 ** np.arange(nv // 128), 128).astype(np.float32)
+    xb = row[None, :] * scale[:, None]
+    db = torch.from_numpy(xb).to(dev)
+    assert torch.equal(db.to(torch.bfloat16).float(), db)
+    norms = (db.double() ** 2).sum(-1).float()
+    q = torch.from_numpy(np.tile(a, (nq, 1))).to(dev)
+    vn = fused._premask_norms(norms, nv, nv, metric)
+    gm = fused.groupmax_scores(q, db.to(torch.bfloat16), vn, metric=metric,
+                               sweep_passes=2)
+    dot = (xb[::128].astype(np.float64) @ a.astype(np.float64))
+    exact = torch.from_numpy(dot).to(dev)[None, :].expand(nq, -1)
+    if metric is MetricType.L2:
+        exact = 2.0 * exact - norms[::128].double()[None, :]
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d, accum="mma")
+    gap = (gm.double() - exact).abs()
+    assert bool((gap <= eps[:, None].double()).all()), float(gap.max())
+
+
+def test_bf16_search_launch_counts(dev, monkeypatch):
+    """A bf16 index's search at nq 8 on the card sweeps two query planes
+    from the start: one launch each of K1 (on the tensor cores), K8, K10
+    and K9, none of K2 or K3, and no fallback under the mma ε."""
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    rng = np.random.default_rng(12)
+    idx = TorchIndexFlat(64, storage="bf16", device=dev)
+    idx.add(rng.standard_normal((20_000, 64), dtype=np.float32))
+    kernels.reset_launches()
+    idx.search(rng.standard_normal((8, 64), dtype=np.float32), 10)
+    n = dict(kernels.launches)
+    assert idx.fused_fallbacks == 0
+    assert n["sweep_groupmax_1"] == 0 and n["sweep_split_3"] == 0, n
+    for key in ("sweep_groupmax_2", "select_groups", "rescore_groups",
+                "final_select"):
+        assert n[key] == 1, n
 
 
 def test_f32_search_runs_the_tensor_core_sweep(dev, monkeypatch):

@@ -1,21 +1,26 @@
 """The certificate's tensor-core budget (``_sweep_eps(accum="mma")``), on the
 CPU.
 
-The f32 planes' two-plane sweep (K3, ``csrc/sweep_split_mma.cu``) sums its
-bf16×bf16 products on the tensor cores, whose fp32 accumulation is not
-proven round-to-nearest. ``_sweep_eps`` charges its term (2) as
-(36·⌈d/16⌉ + 2)·u·[(Q+R)·(V+s0) + L·V] there; the default ("fmaf") keeps the
-CUDA-core budget (d+2)·u·[…], which is the JAX package's bound.
+The two-plane sweeps on the card (``csrc/sweep_split_mma.cu``: K3 over the
+f32 planes, K1 over bf16 rows) sum their bf16×bf16 products on the tensor
+cores, whose fp32 accumulation is not proven round-to-nearest.
+``_sweep_eps`` charges their term (2) as (36·⌈d/16⌉ + 2)·u·[(Q+R)·(V+s0) +
+L·V] (bf16 rows: s0 = 0); the default ("fmaf") keeps the CUDA-core budget
+(d+2)·u·[…], which is the JAX package's bound. ``sweep_accum`` picks the
+budget from the route, the query planes and the device.
 
 Checked here: the budget term by term against a float64 recomputation
-(rtol 1e-6, the fp32 rounding of the port's computation); that it is never
-below the fmaf budget; that the default still equals the JAX bound (rtol
-1e-6); and a numpy emulator of the model's worst case, every addend of a
-16-product k-step truncated at the largest addend's exponent and the sum
-truncated to 24 bits, on adversarial rows: its error stays within the new
-term (2), and on the truncation adversary exceeds the fmaf term, so the new
-budget is needed for that arithmetic. tests/test_torch_cuda.py holds the
-kernel itself to the budget on the card.
+(rtol 1e-6, the fp32 rounding of the port's computation), for the pair and
+the bf16 rows; that it is never below the fmaf budget; that the default
+still equals the JAX bound (rtol 1e-6); ``sweep_accum`` route by route, and
+that fused_search asks it for the route it swept; and a numpy emulator of
+the model's worst case, every addend of a 16-product k-step truncated at
+the largest addend's exponent and the sum truncated to 24 bits, on
+adversarial rows: its error stays within the new term (2), and on the
+truncation adversary exceeds the fmaf term, so the new budget is needed
+for that arithmetic; the emulated pair sweep (three accumulators) and bf16
+sweep (two) stay within the whole ε. tests/test_torch_cuda.py holds the
+kernels themselves to the budget on the card.
 """
 
 import math
@@ -48,7 +53,8 @@ def _case(d, seed=0, scale=1.0, nv=512, nq=12):
 
 def _want(q, norms, stats, metric, d_pad, single_pass, coeff):
     """_sweep_eps(pair_sweep=True) recomputed in float64 from its
-    definition, with term (2)'s multiple ``coeff``."""
+    definition, with term (2)'s multiple ``coeff``; with ``stats`` None,
+    _sweep_eps(pair_sweep=False), the bf16 rows' (s0 = s1 = 0)."""
     q64 = q.double()
     if single_pass:
         resid = q64 - q.to(torch.bfloat16).double()
@@ -62,8 +68,8 @@ def _want(q, norms, stats, metric, d_pad, single_pass, coeff):
     Q = q64.norm(dim=-1)
     N = norms.double().max()
     V = N.sqrt() * (1 + 2.0 ** -8)
-    s0, s1 = (float(x) for x in stats)
-    drop = R * V + L * s0 + (Q + R) * s1
+    s0, s1 = (0.0, 0.0) if stats is None else (float(x) for x in stats)
+    drop = R * V if stats is None else R * V + L * s0 + (Q + R) * s1
     eps = (drop + coeff * U * ((Q + R) * (V + s0) + L * V)
            + 2.0 * d_pad * U * Q * V)
     if metric.value == "l2":
@@ -90,6 +96,27 @@ def test_mma_budget_term_by_term(metric, jmetric, d_pad, single_pass):
                          d_pad=d_pad, single_pass=single_pass,
                          pair_sweep=True, split_stats=stats).double().numpy(),
         fmaf.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
+@pytest.mark.parametrize("d_pad", D_PADS)
+@pytest.mark.parametrize("single_pass", [False, True])
+def test_mma_budget_bf16_rows_term_by_term(metric, jmetric, d_pad,
+                                           single_pass):
+    """The bf16 rows' budget (pair_sweep=False: s0 = 0, no split terms), the
+    one K1 is certified with: (36·⌈d/16⌉ + 2)·u·[(Q+R)·V + L·V] for term
+    (2), the rest as the fmaf default's."""
+    q, norms, _ = _case(64, seed=100 + d_pad)
+    got = fused._sweep_eps(q, norms, norms.shape[0], metric=metric,
+                           d_pad=d_pad, single_pass=single_pass, accum="mma")
+    coeff = 36 * math.ceil(d_pad / 16) + 2
+    want = _want(q, norms, None, metric, d_pad, single_pass, coeff)
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=1e-6)
+    fmaf = _want(q, norms, None, metric, d_pad, single_pass, d_pad + 2)
+    np.testing.assert_allclose(
+        fused._sweep_eps(q, norms, norms.shape[0], metric=metric,
+                         d_pad=d_pad, single_pass=single_pass
+                         ).double().numpy(), fmaf.numpy(), rtol=1e-6)
 
 
 @pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
@@ -129,6 +156,56 @@ def test_unknown_accumulation_is_refused():
     with pytest.raises(ValueError):
         fused._sweep_eps(q, norms, 512, metric=METRICS[0][0], d_pad=16,
                          accum="tf32")
+
+
+# (route, query planes, device) → the accumulation its sweep charges: the
+# two-plane sweeps on the card run on the tensor cores (K3 over the f32
+# planes, K1 over bf16 rows and hi_exact's hi plane); one plane (K2, K4),
+# f16 (K6, K7), int8 (K5) and every CPU tensor keep the fmaf bound
+ACCUM_CASES = [
+    ("pair", 2, "cuda", "mma"), ("bf16", 2, "cuda", "mma"),
+    ("hi_exact", 2, "cuda", "mma"),
+    ("pair", 1, "cuda", "fmaf"), ("bf16", 1, "cuda", "fmaf"),
+    ("hi_exact", 1, "cuda", "fmaf"),
+    ("f16", 2, "cuda", "fmaf"), ("f16", 1, "cuda", "fmaf"),
+    ("int8", 2, "cuda", "fmaf"),
+] + [(r, p, "cpu", "fmaf") for r in fused.SWEEP_ROUTES for p in (1, 2)]
+
+
+@pytest.mark.parametrize("route,passes,device,want", ACCUM_CASES)
+def test_sweep_accum_by_route(route, passes, device, want):
+    assert fused.sweep_accum(route, passes, torch.device(device)) == want
+
+
+def test_sweep_accum_refuses_unknown_routes():
+    with pytest.raises(ValueError):
+        fused.sweep_accum("f32", 2, torch.device("cuda"))
+
+
+def test_fused_search_names_its_route(monkeypatch):
+    """fused_search asks sweep_accum for the route it swept, with its
+    passes and the queries' device, and certifies with the answer."""
+    seen = []
+    real = fused.sweep_accum
+    monkeypatch.setattr(fused, "sweep_accum", lambda r, p, dev: (
+        seen.append((r, p, torch.device(dev).type)) or real(r, p, dev)))
+    rng = np.random.default_rng(4)
+    nv, d = 1024, 16
+    xb = torch.from_numpy(rng.integers(-3, 4, (nv, d)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((8, d)).astype(np.float32))
+    norms = (xb * xb).sum(-1)
+    hi, lo = split_f32_bf16(xb)
+    kw = dict(k=5, metric=METRICS[0][0], nv_eff=nv)
+    fused.fused_search(q, xb.to(torch.bfloat16), norms, nv, **kw)
+    fused.fused_search(q, xb.to(torch.bfloat16), norms, nv, sweep_passes=1,
+                       **kw)
+    fused.fused_search(q, xb, norms, nv, db_split=(hi, lo), **kw)
+    fused.fused_search(q, xb, norms, nv, db_split=(hi, lo), hi_exact=True,
+                       split_stats=torch.zeros(2), **kw)
+    fused.fused_search(q, xb.to(torch.float16), norms, nv,
+                       split_stats=torch.zeros(2), **kw)
+    assert seen == [("bf16", 2, "cpu"), ("bf16", 1, "cpu"), ("pair", 2, "cpu"),
+                    ("hi_exact", 2, "cpu"), ("f16", 2, "cpu")]
 
 
 # -- the model's worst case, emulated ----------------------------------------
@@ -252,3 +329,48 @@ def test_emulated_pair_sweep_within_mma_eps(metric, jmetric):
         if metric.value == "l2":
             exact = 2.0 * exact - vn.astype(np.float64)
         assert bool((np.abs(got - exact) <= eps[i]).all()), i
+
+
+def _near_bf16_query(a, seed):
+    """An fp32 query whose bit-mask hi plane is the bf16-valued ``a`` and
+    whose lo plane is not zero: a times (1 + δ), 0 ≤ δ < 2^-9, so the
+    two-plane sweep runs both of its terms."""
+    rng = np.random.default_rng(seed)
+    return (a * (1.0 + rng.random(a.shape) * 2.0 ** -9)).astype(np.float32)
+
+
+@pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
+@pytest.mark.parametrize("adversary", ["truncation", "cancellation", "skewed"])
+@pytest.mark.parametrize("d", [128, 136])
+def test_emulated_bf16_sweep_within_mma_eps(metric, jmetric, adversary, d):
+    """K1's arithmetic emulated: the two accumulators qh·v and ql·v of the
+    model's worst case (``mma_chain``), added once in fp32, and the
+    epilogue, against the exact score of the stored bf16 row: within
+    _sweep_eps(pair_sweep=False, accum="mma") on the truncation,
+    cancellation and skewed adversaries. On the truncation adversary the
+    emulated error exceeds the fmaf budget's accumulation term, so the
+    tensor-core term is needed there."""
+    name, a, rows = [c for c in _adversaries(d) if c[0] == adversary][0]
+    xq = np.stack([_near_bf16_query(a, seed) for seed in range(3)])
+    q = torch.from_numpy(xq)
+    qh, ql = (p.double().numpy() for p in split_f32_bf16(q))
+    assert np.array_equal(qh[0], a) and np.abs(ql).sum() > 0
+    norms = torch.from_numpy((rows * rows).sum(1).astype(np.float32))
+    n = rows.shape[0]
+    eps = fused._sweep_eps(q, norms, n, metric=metric, d_pad=d,
+                           accum="mma").double().numpy()
+    l2 = metric.value == "l2"
+    vn = norms.numpy() if l2 else np.zeros(n, np.float32)
+    for i in range(len(xq)):
+        acc = (mma_chain(qh[i], rows).astype(np.float32)
+               + mma_chain(ql[i], rows).astype(np.float32))    # fp32, RN
+        got = (np.float32(2) * acc if l2 else acc) - vn
+        exact = rows @ xq[i].astype(np.float64)
+        if l2:
+            exact = 2.0 * exact - vn.astype(np.float64)
+        err = np.abs(got - exact)
+        assert bool((err <= eps[i]).all()), (name, i)
+        if name == "truncation":
+            qn = np.linalg.norm(qh[i]) + np.linalg.norm(ql[i])
+            fmaf_term = (d + 2) * U * qn * np.linalg.norm(rows, axis=1)
+            assert bool((err > (2.0 if l2 else 1.0) * fmaf_term)[:2].all())

@@ -102,19 +102,60 @@ def _select_cases():
     ties[5, 40:] = -np.inf                  # fewer finite columns than kg
     ties[7, ::3] = -np.inf
     rand = rng.standard_normal((16, 256)).astype(np.float32)
+    # the rows the one-pass select (K8) must get right, 8 × 300 (not a
+    # multiple of 32)
+    nan = rng.integers(0, 4, (8, 300)).astype(np.float32)
+    nan[1, 17] = np.nan
+    nan[2] = np.nan
+    nan[3, ::7] = np.nan
+    zeros = np.where(rng.random((8, 300)) < 0.5, -0.0, 0.0).astype(np.float32)
+    zeros[1, 150:] = -1.0                   # zeros then negatives
+    zeros[2, ::5] = 1.0                     # ±0 ties below the picks: t = ±0
+    zeros[3, 299] = 2.0
+    infs = rng.standard_normal((8, 300)).astype(np.float32)
+    infs[:, ::3] = np.inf                   # +inf ties, 100 a row
+    infs[1, :] = np.inf
+    infs[2, ::3] = -np.inf
+    repick = np.full((8, 300), -np.inf, np.float32)
+    repick[0, 0] = 1.0                      # column 0 finite, 5 finite: re-pick
+    repick[0, [7, 40, 41, 299]] = [3.0, -2.0, 3.0, 0.5]
+    repick[1, [7, 40, 41, 299]] = [3.0, -2.0, 3.0, 0.5]   # column 0 −inf
+    repick[3, 0] = -0.0
+    repick[4, 299] = np.inf
+    repick[5, 100:113] = np.arange(13)      # 13 finite of kg 14
     return {"ties": (ties, 14), "random": (rand, 14),
             "kg_eq_ngroups": (rand[:, :12].copy(), 12),
-            "kg_gt_ngroups": (ties[:, :8].copy(), 11)}
+            "kg_gt_ngroups": (ties[:, :8].copy(), 11),
+            "nan": (nan, 14), "signed_zeros": (zeros, 14),
+            "pos_inf_ties": (infs, 14), "neg_inf_repick": (repick, 14),
+            "ragged_37": (ties[:, :37].copy(), 14),
+            "kg_eq_ngroups_ties": (ties[:, :40].copy(), 40),
+            "kg_eq_ngroups_repick": (repick[:, 280:].copy(), 20)}
 
 
 @pytest.mark.parametrize("case", list(_select_cases()))
 def test_select_groups_matches_pallas(case):
+    """The group select's plain version against _select_kernel (interpret)
+    on ties, NaN rows (nothing nominated, t NaN), ±0 and +inf ties, the −inf
+    re-pick of column 0 (finite or −inf there), ragged widths and kg =
+    ngroups: ids equal, t equal by value (−0.0 == +0.0)."""
     x, kg = _select_cases()[case]
     gidx_j, t_j = pf.select_groups_pallas(jnp.asarray(x), kg, x.shape[1],
                                           interpret=True)
     gidx, t = kernels.select_groups(torch.from_numpy(x), kg)
     np.testing.assert_array_equal(gidx.numpy(), np.asarray(gidx_j))
     np.testing.assert_array_equal(t.numpy(), np.asarray(t_j))
+
+
+def test_select_groups_t_is_the_columns_own_value():
+    """On a −0.0 / +0.0 tie among the unnominated columns t carries the
+    lowest such column's sign, bit for bit, whichever sign it has."""
+    x = np.full((2, 64), -1.0, np.float32)
+    x[:, :4] = 5.0                           # the nominated four
+    x[0, [10, 20]] = [-0.0, 0.0]
+    x[1, [10, 20]] = [0.0, -0.0]
+    _, t = kernels.select_groups(torch.from_numpy(x), 4)
+    assert t.numpy().view(np.uint32).tolist() == [0x80000000, 0]
 
 
 @pytest.mark.parametrize("case", ["ties", "random", "all_neg_inf"])
