@@ -45,12 +45,14 @@ kernel is held against its plain PyTorch version at the main paths' shapes
 (nq_pad 104, d 128, nv_eff 1,000,448, kg 14, k 10; K9 also at the f32
 path's 32 candidates, K8 at its stage-3a 1792 candidates with m = 32, K3
 with its supergroup maxes also at 10M): the sweeps' supergroup-max output
-(every format, both metrics), K8, K9, and the rescore-select kernel (bf16,
-int8, f16) bit for bit, K3 and K1 (the tensor-core sweeps) within their ε
-with the tensor-core term (``_sweep_eps(accum="mma")``). Kernels and their
-library calls are timed on the device (``graph_ms``: a CUDA graph of the
-reps, replayed between CUDA events), the plain versions eagerly
-(``cuda_ms``). Recall@K must be
+(every format, both metrics), K8, K9, K5 (int8, on the integer tensor
+cores) and the rescore-select kernel (bf16, int8, f16) bit for bit, K3, K1
+and K6 (the tensor-core sweeps with float sums) within their ε with the
+tensor-core term (``_sweep_eps(accum="mma")``), and the three also on the
+truncation adversary of tests/test_torch_mma_eps.py, their errors printed.
+Kernels and their library calls are timed on the device (``graph_ms``: a
+CUDA graph of the reps, replayed between CUDA events), the plain versions
+eagerly (``cuda_ms``). Recall@K must be
 1.0 against an fp64 oracle over the stored database (bf16 rows, the f32
 master, hi + lo, the f16 values, or the int8 codes times the scales) and
 the stored norms, computed on the card in chunks of 1M rows.
@@ -492,9 +494,10 @@ def phase_int8_kernels(torch, idx, xq, metric):
 
 
 def phase_f16_kernels(torch, idx, xq, metric):
-    """K6 (two query planes) and K7 (one) against their plain version
-    within the pair ε with the f16 split statistics (single_pass for K7),
-    K10's f16 mode within its rescore term."""
+    """K6 (two query planes, on the tensor cores: accum="mma") and K7 (one)
+    against their plain version within the pair ε with the f16 split
+    statistics (single_pass for K7), K10's f16 mode within its rescore
+    term."""
     from faiss_tpu_torch.ops import fused, kernels
 
     q, nq_pad, nv_eff, vn = _shapes(idx, xq, metric)
@@ -505,8 +508,9 @@ def phase_f16_kernels(torch, idx, xq, metric):
         qh, ql = fused.query_planes(q, passes)
         eps = fused._sweep_eps(q, st.norms, idx.ntotal, metric=metric,
                                d_pad=st.d_pad, single_pass=passes == 1,
-                               pair_sweep=True,
-                               split_stats=st.split_stats)[:, None]
+                               pair_sweep=True, split_stats=st.split_stats,
+                               accum=fused.sweep_accum("f16", passes,
+                                                       q.device))[:, None]
         gm = kernels.sweep_f16(qh, ql, db, vn, metric=metric)
         gm_p = fused.sweep_f16_plain(qh, ql, db, vn, metric=metric)
         name = f"sweep_f16_{passes}"
@@ -534,6 +538,56 @@ def phase_f16_kernels(torch, idx, xq, metric):
                     metric, 2, term)
     _print_rows(metric, rows)
     return rows
+
+
+def phase_truncation_adversary(torch, dev="cuda"):
+    """The tensor-core sweeps with float sums (K3 over the f32 planes, K1
+    over bf16 rows, K6 over f16 bits) on the truncation adversary of
+    tests/test_torch_mma_eps.py: the query [1, s, …, s] against rows
+    [1, −s, …, −s] scaled by 2^j in group j (s = 2^-12·1.4140625, s² just
+    under ulp(1) = 2^-23; exact in bf16 and in f16), IP. Each kernel's
+    error must stay within _sweep_eps(accum="mma"); it is printed in units
+    of ‖q‖·‖v‖·u (u = 2^-24; a sum that truncates every addend at the
+    largest one's exponent loses ≈ 254, round to nearest ≈ 0)."""
+    from faiss_tpu_torch import MetricType
+    from faiss_tpu_torch.ops import fused, kernels
+    from faiss_tpu_torch.storage import split_f32_bf16, split_stats
+
+    d, nq, ng = 128, 8, 8
+    a = torch.full((d,), 2.0 ** -12 * 1.4140625, dtype=torch.float64)
+    a[0] = 1.0
+    row = -a
+    row[0] = 1.0
+    x64 = (row[None, :] * 2.0 ** torch.arange(ng, dtype=torch.float64)[:, None]
+           ).repeat_interleave(128, dim=0)
+    x = x64.float().to(dev)
+    q = a.float().to(dev).expand(nq, d).contiguous()
+    qh, ql = fused.query_planes(q, 2)
+    hi, lo = split_f32_bf16(x)
+    stats = split_stats(x, hi, lo)
+    ip = MetricType.INNER_PRODUCT
+    vn = torch.zeros((ng * 128,), device=dev)
+    exact = (x64[::128] @ a).to(dev)[None, :]
+    unit = (torch.linalg.norm(a) * torch.linalg.norm(x64[::128], dim=1)
+            * 2.0 ** -24).to(dev)[None, :]
+    runs = {"sweep_split_3": (kernels.sweep_split, (hi, lo), stats),
+            "sweep_groupmax_2": (kernels.sweep_groupmax,
+                                 (x.to(torch.bfloat16),), None),
+            "sweep_f16_2": (kernels.sweep_f16, (x.to(torch.float16),),
+                            stats)}
+    errs = {}
+    for name, (fn, dbs, st) in runs.items():
+        gap = (fn(qh, ql, *dbs, vn, metric=ip).double() - exact).abs()
+        eps = fused._sweep_eps(q, (x * x).sum(-1), ng * 128, metric=ip,
+                               d_pad=d, pair_sweep=st is not None,
+                               split_stats=st, accum="mma")[:, None]
+        check(bool((gap <= eps.double()).all()),
+              f"{name}: beyond the mma ε on the truncation adversary")
+        errs[name] = float((gap / unit).max())
+    print("truncation adversary (error in ‖q‖·‖v‖·u; a truncating sum ≈ 254,"
+          " round to nearest ≈ 0; within the mma ε): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in errs.items()), flush=True)
+    return errs
 
 
 def _print_rows(metric, rows):
@@ -1285,6 +1339,7 @@ def main() -> int:
                   for m, idx in int8.items()]
     by_metric += [phase_f16_kernels(torch, idx, xq, m)
                   for m, idx in f16.items()]
+    phase_truncation_adversary(torch)
     # the table keeps the L2 times and bound and the larger error of the
     # two metrics
     rows = {}
@@ -1402,8 +1457,8 @@ def main() -> int:
         "sweep_split_2": ("sweep_groupmax.cu", f"{PF}:204",
                           "no index route reaches _kernel_split2: launches "
                           "counted in the kernel phase"),
-        "sweep_int8": ("sweep_int8.cu", f"{PF}:219", None),
-        "sweep_f16_2": ("sweep_groupmax.cu", f"{PF}:259", None),
+        "sweep_int8": ("sweep_split_mma.cu", f"{PF}:219", None),
+        "sweep_f16_2": ("sweep_split_mma.cu", f"{PF}:259", None),
         "sweep_f16_1": ("sweep_groupmax.cu", f"{PF}:281", None),
         "select_groups": ("select_groups.cu", f"{PF}:739", None),
         "rescore_groups": ("rescore_groups.cu", f"{PF}:1050", None),

@@ -1,104 +1,136 @@
-// The sweeps with two query planes on the tensor cores: the f32 pair sweep
-// (K3) and the bf16 rows' sweep (K1), one kernel template over the number
-// of db planes.
+// The sweeps with two query planes on the tensor cores, one kernel template
+// over four row formats (ft_sweep_mma's fmt, enum Fmt):
+//   BF16_ROWS   K1, the bf16 rows               acc = qh·v + ql·v
+//   F32_PLANES  K3, the f32 rows' bf16 planes   acc = (qh·dh + qh·dl) + ql·dh
+//   F16_BITS    K6, the f16 bits, decoded to    acc = (qh·dh + qh·dl) + ql·dh
+//               their exact bf16 pair (dh, dl)
+//   INT8_CODES  K5, the int8 codes v            dot = fl(fl(β₁·f32(q₁·v))
+//                                                       + fl(β₂·f32(q₂·v)))
+// (each product term its own accumulator, the terms added once at the end,
+// left to right).
 //
-// Replaces faiss_tpu/ops/pallas_fused.py _kernel_split (:239) and
-// _kernel_qpair (:174), launched by _sweep_call (:376) from
-// groupmax_scores, with their shared _epilogue. The fp32 query is its
-// bit-mask split qh, ql. The f32 rows are stored as bf16 planes dh, dl
-// (v ≈ dh + dl); the bf16 rows are v itself. For every query q and 128-row
-// group g:
-//     K3: acc = (qh·dh + qh·dl) + ql·dh    (three fp32 accumulators, added
-//     K1: acc = qh·v + ql·v                 (two)  once at the end, left to
-//                                                  right)
+// Replaces faiss_tpu/ops/pallas_fused.py _kernel_qpair (:174), _kernel_split
+// (:239), _kernel_f16_pair (:259) and _kernel_int8 (:219), launched by
+// _sweep_call (:376) from groupmax_scores, with their shared _epilogue. The
+// fp32 query is its bit-mask split qh, ql (bf16); the int8 route's q∘s its
+// residual expansion β₁·q₁ + β₂·q₂ (ops/fused.int8_query_pair: q₁, q₂ int8,
+// β₁, β₂ f32 per query). For every query q and 128-row group g:
 //     gm[q, g] = max over the rows r of g of  2·acc − vn[r]  (L2)
 //                                         or    acc − vn[r]  (IP)
-// with vn the pre-masked norm stream (+inf on padding and filtered rows).
-// With a non-null bmax it also writes the supergroup maxes
+// (acc = dot for int8), with vn the pre-masked norm stream (+inf on padding
+// and filtered rows). With a non-null bmax it also writes the supergroup
+// maxes
 //     bmax[q, b] = max of gm[q, 8b … 8b+7]
 // (_sweep_call(block_max=True), the _epilogue's second output), which equal
 // fused.block_max_plain(gm) bit for bit: a block owns whole supergroups and
 // folds their 8 group maxes itself, so no atomics are needed.
 //
-// What bounds it on an H100: at nq 104 (a query tile of 128), 1M×128 K3
-// reads 512 MB of planes (0.155 ms at 3.35 TB/s) for 3 × 104 × 1M × 128
+// What bounds it on an H100, at nq 104 (a query tile of 128) over 1M×128:
+// K3 reads 512 MB of planes (0.155 ms at 3.35 TB/s) for 3 × 104 × 1M × 128
 // FMAs, 8.0e10 FLOP (0.08 ms at 989 TFLOP/s in bf16); on CUDA cores the
 // same work needs 1.19 ms at the 67 TFLOP/s fp32 peak, so the products run
 // on the tensor cores (wgmma, bf16 in, fp32 accumulate) and the bytes bound
 // it. K1 reads half the bytes (256 MB, 0.079 ms) for two thirds of the
-// products. Design:
-//   - one block per SM (persistent), 288 threads: two consumer warpgroups,
-//     one per 64 queries of the block's 128-query tile (wgmma's M side),
-//     and one producer warp;
+// products. K6 reads K1's bytes for K3's products (operations bound it:
+// 0.081 ms). K5 reads 128 MB of codes (0.040 ms) for 2 × 104 × 1M × 128
+// int8 MACs on the integer tensor cores (wgmma s8 × s8, s32 accumulate:
+// 0.027 ms at 1979 TOP/s). Design:
+//   - one block per SM (persistent): two consumer warpgroups, one per 64
+//     queries of the block's 128-query tile (wgmma's M side), one producer
+//     warp and, for F16_BITS, three decode warps beside it in the third
+//     warpgroup (288 or 384 threads: four warps on one of the SM's four
+//     register files would cap a thread at 128 registers, and the consumers
+//     need 144);
 //   - the block walks a contiguous run of whole supergroups (8 groups);
-//     each group is 128 / BN tiles of BN rows (wgmma's N side: 64 for K3,
-//     BN for K1); each tile runs over d in chunks of 64;
+//     each group is 128 / BN tiles of BN rows (wgmma's N side, 64); each
+//     tile runs over d in chunks of one 128-byte row (KC: 64 two-byte
+//     elements, 128 int8 codes);
 //   - the producer's TMA loads each (group, tile, chunk) tile of each db
-//     plane (BN rows × 64 bf16, 128-byte swizzled) into a ring of stages
-//     in shared memory (up to 8 of K3's 16 KB, 16 of K1's 8 KB at BN 64),
-//     with full / empty mbarriers; the query planes' chunks (128 × 64 each)
-//     stay resident for d ≤ 256, else ride each stage;
-//   - a consumer runs its products × 4 k-steps of wgmma m64nBNk16 per
-//     chunk, one accumulator set of BN/2 registers per term, and releases
-//     a stage once the next chunk's products are issued (wgmma.wait_group
-//     1); the tile's norms are loaded before its products; per tile the
-//     epilogue runs in registers: 2·((a1 + a2) + a3) − vn (K1: 2·(a1 + a2)
-//     − vn), a max over the thread's columns and a 4-lane shuffle; the
-//     group max goes to gm, and at a supergroup's end to bmax;
+//     plane (BN rows × 128 bytes, 128-byte swizzled) into a ring of stages
+//     in shared memory (8 of 16 KB, or 16 of 8 KB), with full / empty
+//     mbarriers; the query planes' chunks (128 × 128 bytes each) stay
+//     resident for up to 4 chunks, else ride each stage; a tile's BN norms
+//     come with its first chunk (a bulk copy completing on the same full
+//     barrier) into a ring of their own beside the stages, so no consumer
+//     waits on device memory for them (a per-thread load at each tile's
+//     start measured slower, most for K5's one-chunk tiles);
+//   - F16_BITS: the ring holds the raw f16 tile; the decode warps wait
+//     for it, rewrite it in place as the hi tile and write the lo tile
+//     beside it (the 128-byte swizzle is a function of the byte address
+//     and both types are 2 bytes wide, so element (r, k) has the same
+//     offset in all three: element for element, no index arithmetic),
+//     fence their generic-proxy writes for the async proxy
+//     (fence.proxy.async) and arrive on the stage's decoded mbarrier,
+//     which the consumers wait for in place of the full one; from there
+//     the products are K3's;
+//   - a consumer runs its products × 4 k-steps of wgmma per chunk (bf16
+//     m64n64k16, int8 m64n64k32: 32 bytes a step either way, so the
+//     shared-memory descriptor advances by 2), one accumulator set of 32
+//     registers per term (fp32, or s32 for int8), and releases a stage
+//     once the next chunk's products are issued (wgmma.wait_group 1); the
+//     tile's norms are read from shared memory with its first chunk; per
+//     tile the epilogue runs in registers, a max over the thread's columns
+//     and a 4-lane shuffle; the group max goes to gm, and at a supergroup's
+//     end to bmax;
 //   - K1: the two warpgroups take turns issuing a tile's products (named
 //     barriers), so that one's epilogue runs under the other's products;
-//     where d takes two k chunks (64 < d ≤ 128, the main path's 128) its
-//     query planes are wgmma A fragments in registers (64 registers, read
-//     once from device memory), which halves the shared-memory reads of
-//     the products;
-//   - a d that is not a multiple of 64 gets its k-tail zero-filled by TMA
-//     (out-of-bounds fill); its k-steps add exact zeros.
-// scripts/k3_variants.py times the kernels against patched copies of
-// themselves (CUDA graph replay, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
-// has the numbers): at 1M K3 takes ≈ 0.21 ms, its loads and barriers alone
-// ≈ 0.19, its products alone ≈ 0.18, so the two overlap and the loads
-// bound it; K1 takes ≈ 0.15 ms (1.9× its bound), its loads, barriers and
-// epilogues alone ≈ 0.12, its products alone ≈ 0.135: the two overlap
-// imperfectly, and a chunk's steps (full-barrier wait, wait_group, the
-// tile's epilogue and turn) cost more than its 8 KB take to arrive.
-// Slower, and dropped: releasing a stage only
-// once its own products end (wgmma.wait_group 0); N = 128 (K3: one
-// m64n128k16 a term, 192 accumulators, setmaxnreg 232 / 40, 384 threads;
-// K1: 2 × 64 accumulators); an even split by groups with the shared
-// supergroups folded by atomics (equal at 1M, slower at 10M); loading the
-// norms in the epilogue; for K1, two accumulator sets with a tile's
-// epilogue under the next tile's first chunk (ptxas serializes the wgmma
-// when accumulator registers are read while another wgmma is pending,
-// C7514); for K3, the turns (no gain at 10M). nvcc -Xptxas -v: K3 144
-// registers, K1 168 with A in registers (8 bytes of stack), 114 without;
-// no spills.
+//   - one db plane in the products (K1, K5): where the query planes fit 8
+//     k-steps (K1 at 64 < d ≤ 128, the main path's 128; K5 at d ≤ 128, one
+//     chunk) they are wgmma A fragments in registers (read once from
+//     device memory), which halves the shared-memory reads of the
+//     products;
+//   - a d that is not a multiple of KC gets its k-tail zero-filled by TMA
+//     (out-of-bounds fill): its k-steps add exact zeros (an f16 zero
+//     decodes to the pair (0, 0)).
+// scripts/k3_variants.py times each kernel against patched copies of
+// itself (no products, no loads, the rejected designs; CUDA graph replay,
+// NVIDIA H100 80GB HBM3, 700.00 W; PERF.md has the numbers and says what
+// binds each). Slower, and dropped (K3, K1): releasing a stage only once its
+// own products end (wgmma.wait_group 0); N = 128; an even split by groups
+// with the shared supergroups folded by atomics; loading the norms from
+// device memory (in the epilogue, or before the products); for K1, two
+// accumulator sets with a tile's epilogue under the
+// next tile's first chunk (ptxas serializes the wgmma when accumulator
+// registers are read while another wgmma is pending, C7514); for K3, the
+// turns. nvcc -Xptxas -v: PERF.md §6.
 // The TMA descriptors come from cuTensorMapEncodeTiled, reached through the
 // runtime's driver entry point, so the library needs no -lcuda.
 //
 // Arithmetic (what the certificate ops/fused._sweep_eps(accum="mma")
-// assumes). Each product term a·b (a a query plane, b a db plane, d long)
-// accumulates in one fp32 wgmma accumulator over ⌈d/16⌉ k-steps. A k-step
-// adds 16 bf16×bf16 products, each exact in fp32, to the accumulator D;
-// the tensor core's sum is not proven round-to-nearest and may lack guard
-// bits (Fasi, Higham, Mikaitis, Pranesh, PeerJ CS 2021, on earlier NVIDIA
-// tensor cores: alignment to the largest exponent by truncation, then a
-// truncating normalisation). The model charges each step j:
+// assumes for BF16_ROWS, F32_PLANES and F16_BITS). Each product term a·b (a
+// a query plane, b a db plane, d long) accumulates in one fp32 wgmma
+// accumulator over ⌈d/16⌉ k-steps. A k-step adds 16 bf16×bf16 products,
+// each exact in fp32, to the accumulator D; the tensor core's sum is not
+// proven round-to-nearest and may lack guard bits (Fasi, Higham, Mikaitis,
+// Pranesh, PeerJ CS 2021, on earlier NVIDIA tensor cores: alignment to the
+// largest exponent by truncation, then a truncating normalisation). The
+// model charges each step j:
 //   - every one of its 17 addends (16 products and D) may lose up to
 //     2u·M_j, M_j the largest addend magnitude (u = 2^-24; the unit in the
 //     last place at M_j's exponent is ≤ 2u·M_j);
 //   - the normalisation of the result may lose 2u·|D_j|.
 // With |products|, |D_j| ≤ ‖a‖·‖b‖ (Cauchy-Schwarz, to first order), a step
 // errs ≤ (17·2u + 2u)·‖a‖·‖b‖ = 36u·‖a‖·‖b‖, a term ≤ 36·⌈d/16⌉·u·‖a‖·‖b‖.
-// K3's three terms (‖qh‖·‖dh‖ ≤ (Q+R)·V, ‖qh‖·‖dl‖ ≤ (Q+R)·s0, ‖ql‖·‖dh‖
-// ≤ L·V) then add in two round-to-nearest fp32 adds (≤ 2u·the same sum):
+// The three pair terms (‖qh‖·‖dh‖ ≤ (Q+R)·V, ‖qh‖·‖dl‖ ≤ (Q+R)·s0,
+// ‖ql‖·‖dh‖ ≤ L·V) then add in two round-to-nearest fp32 adds (≤ 2u·the
+// same sum):
 //     (36·⌈d/16⌉ + 2)·u·[(Q+R)·(V+s0) + L·V],
-// about 2.2× the (d+2)·u of the CUDA-core fmaf chains at d = 128. K1's two
+// about 2.2× the (d+2)·u of the CUDA-core fmaf chains at d = 128. K6's
+// decoded pair is K3's planes exactly (dh + dl == v, s1 = 0 on finite
+// data), so the same budget holds with the f16 split statistics. K1's two
 // (‖qh‖·‖v‖ ≤ (Q+R)·V, ‖ql‖·‖v‖ ≤ L·V) add in one (≤ u·the sum): the same
 // budget with s0 = 0, as _sweep_eps(accum="mma") charges bf16 rows.
 // tests/test_torch_mma_eps.py emulates the model's truncating block sums on
 // adversarial rows. A k-step past d adds exact zeros to D, the largest
 // addend, and loses nothing: ⌈d/16⌉ steps are charged.
+// INT8_CODES: the s32 sums of int8 × int8 products are exact in any order
+// (|q_i·v| ≤ 127²·d < 2³¹ for every d the gate admits), and the epilogue
+// makes fused.sweep_int8_plain's three roundings in its order, written
+// with __fmul_rn / __fadd_rn so that nvcc cannot contract them: K5 equals
+// its plain version bit for bit, and _sweep_eps_int8 charges it as it
+// charges any exact sweep.
 #include <cuda.h>   // CUtensorMap and its enums (types only)
+#include <cuda_fp16.h>
 
 #include <type_traits>
 
@@ -107,28 +139,43 @@
 namespace {
 
 constexpr int NCONS = 256;             // two consumer warpgroups
-constexpr int NTHREADS = NCONS + 32;   // and one producer warp
 constexpr int QTILE = 128;             // queries a block
-constexpr int KC = 64;                 // d chunk: 64 bf16 = one 128-byte row
-constexpr int A_PLANE = QTILE * KC * 2;            // 16 KB
+constexpr int ROW_BYTES = 128;         // one swizzled row: a k chunk
+constexpr int A_PLANE = QTILE * ROW_BYTES;         // 16 KB
 constexpr int A_BYTES = 2 * A_PLANE;               // both query planes
-constexpr int MAX_RESIDENT_KC = 4;     // resident query planes up to d 256
+constexpr int MAX_RESIDENT_KC = 4;     // resident query planes up to 4 chunks
 constexpr int MAX_STAGES = 16;
 constexpr int K1_BN = 64;              // K1's N side (bf16 rows)
 
-// The shapes of one instance: DBP db planes (2: K3's f32 planes, 1: K1's
-// bf16 rows), BN rows a wgmma N side.
-template <int DBP, int BN>
-struct Shape {
-  static constexpr int TERMS = DBP == 2 ? 3 : 2;   // product terms
+// ft_sweep_mma's row formats
+enum Fmt { BF16_ROWS = 0, F32_PLANES = 1, F16_BITS = 2, INT8_CODES = 3 };
+
+// The shapes of one row format.
+template <int F>
+struct Rows {
+  static constexpr bool INT8 = F == INT8_CODES;
+  static constexpr int EW = INT8 ? 1 : 2;          // bytes an element
+  static constexpr int KC = ROW_BYTES / EW;        // elements a k chunk
+  // db planes in the products (K3, K6: dh and dl), and of them the ones
+  // TMA loads (K6 loads the f16 bits into dh's slot and decodes them)
+  static constexpr int PLANES = F == F32_PLANES || F == F16_BITS ? 2 : 1;
+  static constexpr int LOADS = F == F32_PLANES ? 2 : 1;
+  static constexpr bool DECODE = F == F16_BITS;
+  static constexpr int TERMS = PLANES == 2 ? 3 : 2;  // product terms
+  static constexpr int BN = F == BF16_ROWS ? K1_BN : 64;
   static constexpr int ACC = BN / 2;               // accumulators a term
   static constexpr int TILES = ft::GROUP / BN;     // N tiles a group
-  static constexpr int B_PLANE = BN * KC * 2;      // one db plane's tile
-  static constexpr int B_BYTES = DBP * B_PLANE;
-  // stages of ≥ 16 KB: 8 (K3's measured ring); K1's 8 KB tiles: 16
+  static constexpr int B_PLANE = BN * ROW_BYTES;   // one db plane's tile
+  static constexpr int B_BYTES = PLANES * B_PLANE;
+  static constexpr int B_TX = LOADS * B_PLANE;     // of them, by TMA
+  // stages of ≥ 16 KB: 8 (K3's measured ring); 8 KB tiles: 16
   static constexpr int STAGES = B_BYTES >= 16384 ? 8 : MAX_STAGES;
-  // the warpgroups take turns issuing a tile's products (K1)
-  static constexpr bool ORDERED = DBP == 1;
+  // the warpgroups take turns issuing a tile's products (K1; K5 ran
+  // faster without, its tiles one chunk long)
+  static constexpr bool ORDERED = F == BF16_ROWS;
+  static constexpr int NDEC = DECODE ? 96 : 0;     // the decode warps
+  static constexpr int NTHREADS = NCONS + NDEC + 32;
+  using acc_t = std::conditional_t<INT8, int, float>;
 };
 
 // -- PTX wrappers --------------------------------------------------------
@@ -177,9 +224,26 @@ __device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global to shared memory, both 16-byte
+// aligned; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before the
+// async proxy's reads (wgmma) and writes (TMA) that follow them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // wgmma shared-memory descriptor of a K-major tile of 128-byte rows, 128-byte
 // swizzled as TMA writes it: 8-row atoms 1024 bytes apart (SBO), layout type
-// 1 (SWIZZLE_128B). The next 16-element k-step is 32 bytes on: +2.
+// 1 (SWIZZLE_128B). The next k-step is 32 bytes on: +2.
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   return static_cast<uint64_t>((smem_addr(p) & 0x3FFFFu) >> 4)
          | (static_cast<uint64_t>(1) << 16)       // LBO (unused here)
@@ -232,11 +296,69 @@ __device__ __forceinline__ void wgmma_rs_64x64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D (64×64 s32) = A·B + (scale_d ? D : 0), A 64×32 and B 32×64 int8, both
+// K-major in shared memory (the integer form takes no scale or transpose
+// operands).
+__device__ __forceinline__ void wgmma_s8_64x64(int (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The same with A from registers: mma.m16n8k32's A fragment (a[0] row
+// lane/4, columns 4·(lane%4) + {0 … 3}; a[1] 8 rows down; a[2], a[3] 16
+// columns on), four int8 a register. In bytes this is the bf16 fragment's
+// layout: a register holds the 4 bytes at 4·(lane%4) (+16) of its row.
+__device__ __forceinline__ void wgmma_s8_rs_64x64(int (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
                                       uint64_t db, int scale_d) {
   static_assert(N == 64, "wgmma: N = 64 only");
   wgmma_64x64(d, da, db, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void wgmma(int (&d)[N / 2], uint64_t da,
+                                      uint64_t db, int scale_d) {
+  wgmma_s8_64x64(d, da, db, scale_d);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  wgmma_rs_64x64(d, a, db, scale_d);
+}
+__device__ __forceinline__ void wgmma_rs(int (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  wgmma_s8_rs_64x64(d, a, db, scale_d);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -267,45 +389,100 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
 
-// The score of accumulator entry i: the terms added left to right, then
-// the epilogue.
+// Two f16 patterns (element 0 in the low half) → their exact bf16 pairs
+// (hi, lo), packed the same way: common.cuh f16_to_f32 and split_pair,
+// element for element, in fewer instructions. An e=31 pattern loses its
+// mantissa, so NaN decodes to ±inf as inf does (the contract of
+// faiss_tpu.storage.decode_f16_bits); cvt.f32.f16 is exact on every other
+// pattern, subnormals included; hi is the fp32 value's high half (its
+// truncation to bf16), lo = f − hi (≤ 3 significant bits: exact, and its
+// fp32 value is its bf16 one), 0 where f is ±inf.
+__device__ __forceinline__ void split_f16x2(uint32_t w, uint32_t& hi,
+                                            uint32_t& lo) {
+  const uint32_t e31 = __vcmpeq2(w & 0x7C007C00u, 0x7C007C00u);
+  w &= ~(e31 & 0x03FF03FFu);
+  const uint32_t b0 = __float_as_uint(
+      __half2float(__ushort_as_half(static_cast<unsigned short>(w))));
+  const uint32_t b1 = __float_as_uint(
+      __half2float(__ushort_as_half(static_cast<unsigned short>(w >> 16))));
+  hi = __byte_perm(b0, b1, 0x7632);
+  const float l0 = __fsub_rn(__uint_as_float(b0),
+                             __uint_as_float(b0 & 0xFFFF0000u));
+  const float l1 = __fsub_rn(__uint_as_float(b1),
+                             __uint_as_float(b1 & 0xFFFF0000u));
+  lo = __byte_perm(__float_as_uint(l0), __float_as_uint(l1), 0x7632) & ~e31;
+}
+
+// Eight f16 patterns (16 bytes) → the 16 bytes of their hi and lo halves.
+__device__ __forceinline__ void split_f16x8(const uint4 w, uint4& hi,
+                                            uint4& lo) {
+  split_f16x2(w.x, hi.x, lo.x);
+  split_f16x2(w.y, hi.y, lo.y);
+  split_f16x2(w.z, hi.z, lo.z);
+  split_f16x2(w.w, hi.w, lo.w);
+}
+
+// The score of accumulator entry i: the terms added left to right (int8:
+// β₁·f32(a₁) + β₂·f32(a₂), beta the entry's query's (β₁, β₂)), then the
+// epilogue.
 template <bool L2, int TERMS, int ACC>
 __device__ __forceinline__ float score(const float (&acc)[TERMS][ACC], int i,
-                                       float v) {
+                                       float v, float2) {
   float a = __fadd_rn(acc[0][i], acc[1][i]);
   if constexpr (TERMS == 3) a = __fadd_rn(a, acc[2][i]);
+  return __fsub_rn(L2 ? __fmul_rn(2.f, a) : a, v);
+}
+template <bool L2, int TERMS, int ACC>
+__device__ __forceinline__ float score(const int (&acc)[TERMS][ACC], int i,
+                                       float v, float2 beta) {
+  const float a = __fadd_rn(__fmul_rn(__int2float_rn(acc[0][i]), beta.x),
+                            __fmul_rn(__int2float_rn(acc[1][i]), beta.y));
   return __fsub_rn(L2 ? __fmul_rn(2.f, a) : a, v);
 }
 
 // -- the kernel ----------------------------------------------------------
 
-// tv_lo: the lo plane's map with DBP 2 (unread with DBP 1). RS (K1 with
-// two k chunks, 64 < d ≤ 128): the query planes q_hi, q_lo (nq, d) are
-// read once into registers as wgmma's A fragments, not by TMA, and only
-// the rows ride the ring (nkc is 2).
-template <bool L2, int DBP, int BN, bool RS>
-__global__ void __launch_bounds__(NTHREADS, 1)
+// Maps: tq_hi, tq_lo the query planes (qh, ql; q₁, q₂), tv_hi the db plane
+// TMA loads (the bf16 rows, the hi plane, the f16 bits, the int8 codes),
+// tv_lo the f32 rows' lo plane (unread otherwise). beta: (nq, 2) β₁, β₂
+// (INT8_CODES only). RSK chunks of the query planes (1, 2; 0: none) are
+// read once from q_hi, q_lo (nq, d) into registers as wgmma's A fragments,
+// not by TMA, and only the rows ride the ring (nkc is RSK).
+template <int F, bool L2, int RSK>
+__global__ void __launch_bounds__(Rows<F>::NTHREADS, 1)
 sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
                        const __grid_constant__ CUtensorMap tq_lo,
                        const __grid_constant__ CUtensorMap tv_hi,
                        const __grid_constant__ CUtensorMap tv_lo,
-                       const uint16_t* __restrict__ q_hi,
-                       const uint16_t* __restrict__ q_lo,
-                       const float* __restrict__ vn, float* __restrict__ gm,
+                       const uint8_t* __restrict__ q_hi,
+                       const uint8_t* __restrict__ q_lo,
+                       const float* __restrict__ vn,
+                       const float* __restrict__ beta, float* __restrict__ gm,
                        float* __restrict__ bmax, int nq, int d, int ngroups,
                        int nkc, int resident, int nstages) {
-  static_assert(!RS || (DBP == 1 && BN == 64), "RS: K1 at N = 64");
-  using S = Shape<DBP, BN>;
+  using S = Rows<F>;
+  constexpr bool RS = RSK > 0;
+  static_assert(!RS || (S::PLANES == 1 && S::BN == 64),
+                "RS: one db plane at N = 64");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int stage_bytes = resident ? S::B_BYTES : A_BYTES + S::B_BYTES;
   uint8_t* a_res = smem;
   uint8_t* ring = smem + (resident && !RS ? nkc * A_BYTES : 0);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + nstages * stage_bytes);
+  float* nring = reinterpret_cast<float*>(ring + nstages * stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(nring + nstages * S::BN);
   uint64_t* empty = full + nstages;
-  uint64_t* a_bar = empty + nstages;
+  uint64_t* decoded = empty + nstages;   // F16_BITS: the decoded tiles
+  uint64_t* a_bar = decoded + nstages;
+  // the consumers' "stage ready": the decoded tile, or the loaded one
+  uint64_t* ready = S::DECODE ? decoded : full;
 
   // this block's run of whole supergroups, and its 128-query tile
   const int nsg = (ngroups + 7) / 8;
@@ -320,6 +497,7 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
     for (int s = 0; s < nstages; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, 2);     // one arrival per consumer warpgroup
+      mbar_init(decoded + s, S::NDEC > 0 ? S::NDEC : 1);
     }
     mbar_init(a_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -327,14 +505,14 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp == NCONS / 32) {
+  if (warp == (NCONS + S::NDEC) / 32) {
     // producer: one thread issues every load
     if (lane != 0) return;
     if (resident && !RS) {
       mbar_expect_tx(a_bar, nkc * A_BYTES);
       for (int kc = 0; kc < nkc; ++kc) {
-        tma_load(&tq_hi, a_res + kc * A_BYTES, a_bar, kc * KC, q_tile);
-        tma_load(&tq_lo, a_res + kc * A_BYTES + A_PLANE, a_bar, kc * KC,
+        tma_load(&tq_hi, a_res + kc * A_BYTES, a_bar, kc * S::KC, q_tile);
+        tma_load(&tq_lo, a_res + kc * A_BYTES + A_PLANE, a_bar, kc * S::KC,
                  q_tile);
       }
     }
@@ -345,22 +523,59 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
         for (int kc = 0; kc < nkc; ++kc) {
           mbar_wait(empty + stage, phase ^ 1u);
           uint8_t* st = ring + stage * stage_bytes;
-          mbar_expect_tx(full + stage, stage_bytes);
+          mbar_expect_tx(full + stage,
+                         (resident ? S::B_TX : A_BYTES + S::B_TX)
+                             + (kc == 0 ? S::BN * 4 : 0));
           if (!resident) {
-            tma_load(&tq_hi, st, full + stage, kc * KC, q_tile);
-            tma_load(&tq_lo, st + A_PLANE, full + stage, kc * KC, q_tile);
+            tma_load(&tq_hi, st, full + stage, kc * S::KC, q_tile);
+            tma_load(&tq_lo, st + A_PLANE, full + stage, kc * S::KC, q_tile);
             st += A_BYTES;
           }
-          const int row = g * ft::GROUP + h * BN;
-          tma_load(&tv_hi, st, full + stage, kc * KC, row);
-          if constexpr (DBP == 2)
-            tma_load(&tv_lo, st + S::B_PLANE, full + stage, kc * KC, row);
+          const int row = g * ft::GROUP + h * S::BN;
+          if (kc == 0)   // the tile's norms, with its first chunk
+            bulk_load(nring + stage * S::BN, vn + row, S::BN * 4,
+                      full + stage);
+          tma_load(&tv_hi, st, full + stage, kc * S::KC, row);
+          if constexpr (S::LOADS == 2)
+            tma_load(&tv_lo, st + S::B_PLANE, full + stage, kc * S::KC, row);
           if (++stage == nstages) {
             stage = 0;
             phase ^= 1u;
           }
         }
     return;
+  }
+  if constexpr (S::DECODE) {
+    if (warp >= NCONS / 32) {
+      // decode warps: each loaded f16 tile becomes the (hi, lo) tiles in
+      // place, 16 bytes a thread and step
+      const int t = threadIdx.x - NCONS;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int g = g0; g < g1; ++g)
+        for (int h = 0; h < S::TILES; ++h)
+          for (int kc = 0; kc < nkc; ++kc) {
+            mbar_wait(full + stage, phase);
+            uint4* b = reinterpret_cast<uint4*>(
+                ring + stage * stage_bytes + (resident ? 0 : A_BYTES));
+#pragma unroll 2
+            for (int i = t; i < S::B_PLANE / 16; i += S::NDEC) {
+              uint4 hi, lo;
+              split_f16x8(b[i], hi, lo);
+              b[i] = hi;
+              b[i + S::B_PLANE / 16] = lo;
+            }
+            // each thread's writes, fenced for the async proxy and released
+            // by its own arrival
+            fence_proxy_async();
+            mbar_arrive(decoded + stage);
+            if (++stage == nstages) {
+              stage = 0;
+              phase ^= 1u;
+            }
+          }
+      return;
+    }
   }
 
   // consumers: warpgroup wg owns queries q_tile + 64·wg … +63; a thread
@@ -376,38 +591,54 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
   int stage = 0, prev = -1;
   uint32_t phase = 0;
   float m0 = -INFINITY, m1 = -INFINITY, bm0 = -INFINITY, bm1 = -INFINITY;
-  using Acc = float[S::TERMS][S::ACC];   // K3: qh·dh, qh·dl, ql·dh; K1:
-                                         // qh·v, ql·v
-  using Norms = float2[BN / 8];
+  using T = typename S::acc_t;
+  using Acc = T[S::TERMS][S::ACC];   // K3, K6: qh·dh, qh·dl, ql·dh; K1:
+                                     // qh·v, ql·v; K5: q₁·v, q₂·v
+  using Norms = float2[S::BN / 8];
+  // the (β₁, β₂) of the thread's two queries (K5)
+  float2 be0 = make_float2(0.f, 0.f), be1 = be0;
+  if constexpr (S::INT8) {
+    if (q0 < nq) be0 = __ldg(reinterpret_cast<const float2*>(beta) + q0);
+    if (q1 < nq) be1 = __ldg(reinterpret_cast<const float2*>(beta) + q1);
+  }
 
-  // RS: the warpgroup's 64 rows of both query planes for d ≤ 128 (8 k-steps
-  // of 16), as A fragments; zero past nq and d (the rows' k-tail is zero
-  // too: TMA's out-of-bounds fill)
-  uint32_t aq[2][RS ? 8 : 1][4];
+  // RS: the warpgroup's 64 rows of both query planes for RSK chunks (4
+  // k-steps of 32 bytes each), as A fragments; zero past nq and d (the
+  // rows' k-tail is zero too: TMA's out-of-bounds fill)
+  uint32_t aq[2][RS ? 4 * RSK : 1][4];
   if constexpr (RS) {
-    const int kq = 2 * (lane & 3);
-    auto frag = [&](const uint16_t* q, int row, int k) -> uint32_t {
-      return row < nq && k < d
+    const int row_bytes = d * S::EW;
+    const int kb = 4 * (lane & 3);
+    auto frag = [&](const uint8_t* q, int row, int k) -> uint32_t {
+      return row < nq && k < row_bytes
                  ? __ldg(reinterpret_cast<const uint32_t*>(
-                       q + static_cast<size_t>(row) * d + k))
+                       q + static_cast<size_t>(row) * row_bytes + k))
                  : 0u;
     };
 #pragma unroll
     for (int p = 0; p < 2; ++p)
 #pragma unroll
-      for (int ks = 0; ks < 8; ++ks) {
-        const uint16_t* q = p == 0 ? q_hi : q_lo;
-        aq[p][ks][0] = frag(q, q0, 16 * ks + kq);
-        aq[p][ks][1] = frag(q, q1, 16 * ks + kq);
-        aq[p][ks][2] = frag(q, q0, 16 * ks + kq + 8);
-        aq[p][ks][3] = frag(q, q1, 16 * ks + kq + 8);
+      for (int ks = 0; ks < 4 * RSK; ++ks) {
+        const uint8_t* q = p == 0 ? q_hi : q_lo;
+        aq[p][ks][0] = frag(q, q0, 32 * ks + kb);
+        aq[p][ks][1] = frag(q, q1, 32 * ks + kb);
+        aq[p][ks][2] = frag(q, q0, 32 * ks + kb + 16);
+        aq[p][ks][3] = frag(q, q1, 32 * ks + kb + 16);
       }
   }
 
-  // one chunk's products into acc; then, once the chunk before it has been
-  // read (wgmma.wait_group 1), that chunk's stage goes back to the producer
+  // one chunk's products into acc (and, with the tile's first chunk, its
+  // norms into w); then, once the chunk before it has been read
+  // (wgmma.wait_group 1), that chunk's stage goes back to the producer
+  Norms w;
   auto issue = [&](Acc& acc, int kc) {
-    mbar_wait(full + stage, phase);
+    mbar_wait(ready + stage, phase);
+    if (kc == 0) {
+      const float* v = nring + stage * S::BN + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < S::BN / 8; ++j)
+        w[j] = *reinterpret_cast<const float2*>(v + 8 * j);
+    }
     const uint8_t* st = ring + stage * stage_bytes;
     const uint8_t* a = resident ? a_res + kc * A_BYTES : st;
     const uint8_t* b = resident ? st : st + A_BYTES;
@@ -419,16 +650,16 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
     for (int ks = 0; ks < 4; ++ks) {
       const int on = (kc | ks) != 0;   // step 0 starts from zero
       if constexpr (RS) {
-        wgmma_rs_64x64(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
-        wgmma_rs_64x64(acc[1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
+        wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
+        wgmma_rs(acc[1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
         continue;
       }
-      wgmma<BN>(acc[0], dqh + 2 * ks, dvh + 2 * ks, on);
-      if constexpr (DBP == 2) {
+      wgmma<S::BN>(acc[0], dqh + 2 * ks, dvh + 2 * ks, on);
+      if constexpr (S::PLANES == 2) {
         const uint64_t dvl = sw128_desc(b + S::B_PLANE);
-        wgmma<BN>(acc[1], dqh + 2 * ks, dvl + 2 * ks, on);
+        wgmma<S::BN>(acc[1], dqh + 2 * ks, dvl + 2 * ks, on);
       }
-      wgmma<BN>(acc[S::TERMS - 1], dql + 2 * ks, dvh + 2 * ks, on);
+      wgmma<S::BN>(acc[S::TERMS - 1], dql + 2 * ks, dvh + 2 * ks, on);
     }
     wgmma_commit();
     wgmma_wait_prev();   // the chunk before this one has been read
@@ -439,27 +670,18 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
       phase ^= 1u;
     }
   };
-  // the tile's norms, loaded before its products so that they have arrived
-  // by its epilogue
-  auto norms = [&](Norms& w, int g, int h) {
-    const float* v = vn + static_cast<size_t>(g) * ft::GROUP + h * BN
-                     + 2 * (lane & 3);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-      w[j] = __ldg(reinterpret_cast<const float2*>(v + 8 * j));
-  };
   // a tile's epilogue into the group's running maxes (its accumulators
   // complete: the compiler may not read them before the wait)
   auto fold = [&](Acc& acc, const Norms& w) {
 #pragma unroll
     for (int p = 0; p < S::TERMS; ++p) fence_regs(acc[p]);
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+    for (int j = 0; j < S::BN / 8; ++j) {
       const int i = 4 * j;
-      m0 = ft::nan_max(m0, score<L2>(acc, i, w[j].x));
-      m0 = ft::nan_max(m0, score<L2>(acc, i + 1, w[j].y));
-      m1 = ft::nan_max(m1, score<L2>(acc, i + 2, w[j].x));
-      m1 = ft::nan_max(m1, score<L2>(acc, i + 3, w[j].y));
+      m0 = ft::nan_max(m0, score<L2>(acc, i, w[j].x, be0));
+      m0 = ft::nan_max(m0, score<L2>(acc, i + 1, w[j].y, be0));
+      m1 = ft::nan_max(m1, score<L2>(acc, i + 2, w[j].x, be1));
+      m1 = ft::nan_max(m1, score<L2>(acc, i + 3, w[j].y, be1));
     }
   };
   // the group's max to gm (the 4 lanes of a row hold its 128 columns
@@ -495,14 +717,12 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
   const bool ordered = S::ORDERED && 2 * nkc <= nstages;
   const int ntiles = (g1 - g0) * S::TILES;
   Acc acc = {};
-  Norms w;
   for (int g = g0, i = 0; g < g1; ++g) {
     for (int h = 0; h < S::TILES; ++h, ++i) {
-      norms(w, g, h);
       if (ordered && (wg == 1 || i > 0)) named_sync(1 + wg);
       if constexpr (RS) {   // kc a constant: aq's index
         issue(acc, 0);
-        issue(acc, 1);
+        if constexpr (RSK == 2) issue(acc, 1);
       } else {
         for (int kc = 0; kc < nkc; ++kc) issue(acc, kc);
       }
@@ -544,17 +764,19 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A (rows, d) row-major bf16 plane as a tensor map of 64 × box_rows tiles,
-// 128-byte swizzled; out-of-bounds elements read as zero.
-bool plane_map(EncodeTiled enc, CUtensorMap* map, const void* base, int d,
-               int rows, int box_rows) {
+// A (rows, d) row-major plane of `type` (2 or 1 bytes an element) as a
+// tensor map of one 128-byte row × box_rows tiles, 128-byte swizzled;
+// out-of-bounds elements read as zero.
+bool plane_map(EncodeTiled enc, CUtensorMap* map, CUtensorMapDataType type,
+               const void* base, int d, int rows, int box_rows) {
+  const int ew = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {KC, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * ew};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(ROW_BYTES / ew),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(base), dims, strides, box, elem,
+  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -568,12 +790,20 @@ struct DeviceInfo {
   bool attr_set = false;
 };
 
-template <bool L2, int DBP, int BN, bool RS>
-cudaError_t launch(const CUtensorMap (&maps)[4], const void* q_hi,
-                   const void* q_lo, const float* vn, float* gm,
-                   float* bmax, int nq, int d, int ngroups,
+struct Args {
+  const void* q_hi;
+  const void* q_lo;
+  const float* vn;
+  const float* beta;
+  float* gm;
+  float* bmax;
+  int nq, d, ngroups;
+};
+
+template <int F, bool L2, int RSK>
+cudaError_t launch(const CUtensorMap (&maps)[4], const Args& a,
                    cudaStream_t stream) {
-  using S = Shape<DBP, BN>;
+  using S = Rows<F>;
   static DeviceInfo info[64];   // one table per instantiation
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -591,89 +821,102 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const void* q_hi,
     }
   }
   if (!di.attr_set) {
-    e = cudaFuncSetAttribute(sweep_split_mma_kernel<L2, DBP, BN, RS>,
+    e = cudaFuncSetAttribute(sweep_split_mma_kernel<F, L2, RSK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              di.smem_optin);
     if (e != cudaSuccess) return e;
     di.attr_set = true;
   }
-  const int nkc = (d + KC - 1) / KC;
+  const int nkc = (a.d + S::KC - 1) / S::KC;
   const int resident = nkc <= MAX_RESIDENT_KC;
-  const int a_bytes = resident && !RS ? nkc * A_BYTES : 0;
+  const int a_bytes = resident && RSK == 0 ? nkc * A_BYTES : 0;
   const int stage_bytes = resident ? S::B_BYTES : A_BYTES + S::B_BYTES;
-  // align, A, barriers
-  const int fixed = 1024 + a_bytes + 8 * (2 * MAX_STAGES + 1);
+  // align, A, barriers, the norms' ring
+  const int fixed = 1024 + a_bytes + 8 * (3 * MAX_STAGES + 1)
+                    + MAX_STAGES * S::BN * 4;
   const int nstages = min(S::STAGES, (di.smem_optin - fixed) / stage_bytes);
   if (nstages < 2) return cudaErrorInvalidConfiguration;
   const size_t smem = fixed + static_cast<size_t>(nstages) * stage_bytes;
-  const int nqt = (nq + QTILE - 1) / QTILE;
-  const int nsg = (ngroups + 7) / 8;
+  const int nqt = (a.nq + QTILE - 1) / QTILE;
+  const int nsg = (a.ngroups + 7) / 8;
   const int nbx = max(1, min(nsg, di.sms / nqt));
-  sweep_split_mma_kernel<L2, DBP, BN, RS>
-      <<<dim3(nbx, nqt), NTHREADS, smem, stream>>>(
+  sweep_split_mma_kernel<F, L2, RSK>
+      <<<dim3(nbx, nqt), S::NTHREADS, smem, stream>>>(
           maps[0], maps[1], maps[2], maps[3],
-          static_cast<const uint16_t*>(q_hi),
-          static_cast<const uint16_t*>(q_lo), vn, gm, bmax, nq, d, ngroups,
-          nkc, resident, nstages);
+          static_cast<const uint8_t*>(a.q_hi),
+          static_cast<const uint8_t*>(a.q_lo), a.vn, a.beta, a.gm, a.bmax,
+          a.nq, a.d, a.ngroups, nkc, resident, nstages);
   return cudaGetLastError();
 }
 
-// K3 (DBP 2, A from shared memory), or K1 (DBP 1): at N = 64 its A
-// fragments from registers where d takes two k chunks (64 < d ≤ 128), else
-// from shared memory.
-template <int DBP, int BN>
-cudaError_t launch_metric(const CUtensorMap (&maps)[4], const void* q_hi,
-                          const void* q_lo, const float* vn, float* gm,
-                          float* bmax, int nq, int d, int ngroups, int l2,
+// The instance for the metric and the query planes' place: A fragments in
+// registers where the planes take RS_KC chunks (K1 at N = 64: two, 64 < d ≤
+// 128; K5: one, d ≤ 128), else from shared memory.
+template <int F>
+cudaError_t launch_metric(const CUtensorMap (&maps)[4], const Args& a, int l2,
                           cudaStream_t stream) {
-  auto go = [&](auto l2c, auto rsc) {
-    return launch<decltype(l2c)::value, DBP, BN, decltype(rsc)::value>(
-        maps, q_hi, q_lo, vn, gm, bmax, nq, d, ngroups, stream);
-  };
-  using T = std::true_type;
-  using F = std::false_type;
-  if constexpr (DBP == 1 && BN == 64)
-    if ((d + KC - 1) / KC == 2) return l2 ? go(T{}, T{}) : go(F{}, T{});
-  return l2 ? go(T{}, F{}) : go(F{}, F{});
+  constexpr int RS_KC = F == BF16_ROWS && K1_BN == 64 ? 2
+                        : F == INT8_CODES             ? 1
+                                                      : 0;
+  const int nkc = (a.d + Rows<F>::KC - 1) / Rows<F>::KC;
+  if constexpr (RS_KC > 0)
+    if (nkc == RS_KC)
+      return l2 ? launch<F, true, RS_KC>(maps, a, stream)
+                : launch<F, false, RS_KC>(maps, a, stream);
+  return l2 ? launch<F, true, 0>(maps, a, stream)
+            : launch<F, false, 0>(maps, a, stream);
 }
 
 }  // namespace
 
-// q_hi, q_lo: (nq, d) bf16 query planes; db_hi: (≥ ngroups·128, d) bf16,
-// the f32 rows' hi plane (K3) or, with a null db_lo, the bf16 rows (K1);
-// db_lo: the lo plane, or null; vn: (ngroups·128,) pre-masked norms; gm:
-// (nq, ngroups) f32 out; bmax: null, or the (nq, ngroups/8) supergroup
-// maxes out (ngroups % 8 == 0). d % 8 == 0, 16-byte aligned, ngroups·128 <
-// 2^31.
-extern "C" int ft_sweep_split_mma(const void* q_hi, const void* q_lo,
-                                  const void* db_hi, const void* db_lo,
-                                  const void* vn, void* gm, void* bmax,
-                                  int nq, int d, int ngroups, int l2,
-                                  void* stream) {
-  if (nq <= 0 || ngroups <= 0 || d <= 0 || d % 8 != 0
+// fmt (enum Fmt): BF16_ROWS (K1), F32_PLANES (K3), F16_BITS (K6) or
+// INT8_CODES (K5). q_hi, q_lo: (nq, d) query planes, bf16 (qh, ql) or int8
+// (q₁, q₂); db: (≥ ngroups·128, d) rows: bf16 rows, the f32 rows' bf16 hi
+// plane, f16 bit patterns or int8 codes; db_lo: the f32 rows' lo plane
+// (F32_PLANES; else unread); beta: (nq, 2) f32 β₁, β₂ (INT8_CODES; else
+// unread); vn: (ngroups·128,) pre-masked norms; gm: (nq, ngroups) f32 out;
+// bmax: null, or the (nq, ngroups/8) supergroup maxes out (ngroups % 8 ==
+// 0). A row is a multiple of 16 bytes (d % 8 == 0; int8: d % 16 == 0), 16-
+// byte aligned, ngroups·128 < 2^31.
+extern "C" int ft_sweep_mma(int fmt, const void* q_hi, const void* q_lo,
+                            const void* db, const void* db_lo, const void* vn,
+                            const void* beta, void* gm, void* bmax, int nq,
+                            int d, int ngroups, int l2, void* stream) {
+  const bool int8 = fmt == INT8_CODES;
+  if (fmt < BF16_ROWS || fmt > INT8_CODES || nq <= 0 || ngroups <= 0
+      || d <= 0 || d % (int8 ? 16 : 8) != 0
       || static_cast<long long>(ngroups) * ft::GROUP >= (1LL << 31)
-      || (bmax != nullptr && ngroups % 8 != 0))
+      || (bmax != nullptr && ngroups % 8 != 0)
+      || (fmt == F32_PLANES && db_lo == nullptr)
+      || (int8 && beta == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const int bn = db_lo != nullptr ? 64 : K1_BN;
+  const CUtensorMapDataType qt = int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType vt =
+      int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+      : fmt == F16_BITS ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const int bn = fmt == BF16_ROWS ? K1_BN : 64;
   CUtensorMap maps[4];
   const int rows = ngroups * ft::GROUP;
-  if (!plane_map(enc, &maps[0], q_hi, d, nq, QTILE)
-      || !plane_map(enc, &maps[1], q_lo, d, nq, QTILE)
-      || !plane_map(enc, &maps[2], db_hi, d, rows, bn)
-      || !plane_map(enc, &maps[3], db_lo != nullptr ? db_lo : db_hi, d, rows,
-                    bn))
+  if (!plane_map(enc, &maps[0], qt, q_hi, d, nq, QTILE)
+      || !plane_map(enc, &maps[1], qt, q_lo, d, nq, QTILE)
+      || !plane_map(enc, &maps[2], vt, db, d, rows, bn)
+      || !plane_map(enc, &maps[3], vt, fmt == F32_PLANES ? db_lo : db, d,
+                    rows, bn))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q_hi, q_lo, static_cast<const float*>(vn),
+               static_cast<const float*>(beta), static_cast<float*>(gm),
+               static_cast<float*>(bmax), nq, d, ngroups};
   auto s = static_cast<cudaStream_t>(stream);
-  auto* n = static_cast<const float*>(vn);
-  auto* out = static_cast<float*>(gm);
-  auto* bm = static_cast<float*>(bmax);
-  const cudaError_t e =
-      db_lo != nullptr
-          ? launch_metric<2, 64>(maps, q_hi, q_lo, n, out, bm, nq, d,
-                                 ngroups, l2, s)
-          : launch_metric<1, K1_BN>(maps, q_hi, q_lo, n, out, bm, nq, d,
-                                    ngroups, l2, s);
+  cudaError_t e;
+  switch (fmt) {
+    case BF16_ROWS: e = launch_metric<BF16_ROWS>(maps, a, l2, s); break;
+    case F32_PLANES: e = launch_metric<F32_PLANES>(maps, a, l2, s); break;
+    case F16_BITS: e = launch_metric<F16_BITS>(maps, a, l2, s); break;
+    default: e = launch_metric<INT8_CODES>(maps, a, l2, s); break;
+  }
   return static_cast<int>(e);
 }

@@ -27,8 +27,8 @@ Every true top-k row lies in a nominated group unless a non-nominated group
 could beat the k-th rescored score; the certificate
 ``vals[k-1] ≥ t + ε`` (ε from ``_sweep_eps``, a strict bound on
 |sweep score − rescore score|, with the tensor-core accumulation term where
-a two-plane sweep ran on the card, over bf16 rows or the f32 planes:
-``sweep_accum``) proves per query that none can. An uncertified query is
+a two-plane sweep ran on the card, over bf16 rows, the f32 planes or the
+f16 pair: ``sweep_accum``) proves per query that none can. An uncertified query is
 re-run by the index on an exact path.
 
 f32 storage (``db_split`` = the (hi, lo) planes) rescores in two stages:
@@ -44,10 +44,11 @@ with the bf16 kernels, bit for bit the same scores.
 
 f16 storage sweeps the decoded pair with the pair sweep's arithmetic and
 certificate (``_sweep_eps(pair_sweep=True)`` with the f16 split
-statistics) and rescores the decoded rows in one stage. int8 storage sweeps
-two exact integer passes over the query's residual expansion
-(``int8_query_pair``), rescores the codes against q∘s, and is certified by
-``_sweep_eps_int8``: both sides score the decoded database s∘v_q.
+statistics; with two query planes on the card the tensor-core term) and
+rescores the decoded rows in one stage. int8 storage sweeps two exact
+integer passes over the query's residual expansion (``int8_query_pair``),
+rescores the codes against q∘s, and is certified by ``_sweep_eps_int8``:
+both sides score the decoded database s∘v_q.
 
 A selector (``sel``, a (capacity,) bool stream) folds into the same
 pre-masked norm stream as padding, so every kernel scores a filtered row
@@ -462,8 +463,9 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
     any stored row: ``faiss_tpu``'s _sweep_eps, derived for this port's
     own arithmetic. ``accum`` names the sweep's accumulation: "fmaf" (the
     default, and the JAX bound) or "mma", the tensor-core sweeps with two
-    query planes (csrc/sweep_split_mma.cu: the f32 planes' and the bf16
-    rows'; ``sweep_accum`` picks it by route); only term (2) differs.
+    query planes (csrc/sweep_split_mma.cu: the f32 planes', the bf16 rows'
+    and the f16 pair's; ``sweep_accum`` picks it by route); only term (2)
+    differs.
 
     Notation: u = 2^-24; Q = ‖q‖; R = ‖q − Σ q_planes‖ (computed exactly:
     the bit-mask split makes the subtractions exact); L = ‖q_lo‖;
@@ -489,7 +491,9 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
           partial sum ≤ ‖a‖·‖b‖ (to first order) a step errs
           ≤ 36·u·‖a‖·‖b‖, a term ≤ 36·⌈d/16⌉·u·‖a‖·‖b‖; the norms above and
           the ≤ 2 round-to-nearest adds of the terms give the budget
-          (≈ 2.2× the fmaf one at d = 128); bf16 rows: two terms, s0 = 0
+          (≈ 2.2× the fmaf one at d = 128); the f16 pair: the f32 planes'
+          arithmetic, with the f16 statistics; bf16 rows: two terms,
+          s0 = 0
       (3) rescore accumulation                2·d·u·Q·V
           csrc/rescore_groups.cu: a sequential fmaf chain of fp32 q times
           exactly widened rows, ≤ d·u·Q·V; f32 stage 3b: an fp32 product
@@ -530,14 +534,15 @@ SWEEP_ROUTES = ("bf16", "pair", "hi_exact", "f16", "int8")
 def sweep_accum(route: str, sweep_passes: int, device) -> str:
     """The accumulation ``_sweep_eps`` must charge for the sweep that
     ``route`` ran: "mma" where two query planes ran on the tensor cores on
-    the card, over the f32 planes (K3, "pair") or over bf16 rows (K1,
+    the card, over the f32 planes (K3, "pair"), over bf16 rows (K1,
     "bf16", and "hi_exact", whose sweep is the bf16 kernel over the hi
-    plane); "fmaf" for one query plane, the f16 and int8 routes, and every
-    CPU tensor (the plain versions; the JAX bound)."""
+    plane) or over the f16 pair (K6, "f16"); "fmaf" for one query plane,
+    the int8 route (exact integer sums, certified by ``_sweep_eps_int8``),
+    and every CPU tensor (the plain versions; the JAX bound)."""
     if route not in SWEEP_ROUTES:
         raise ValueError(f"route must be one of {SWEEP_ROUTES}, got {route!r}")
     mma = (torch.device(device).type == "cuda" and sweep_passes == 2
-           and route in ("bf16", "pair", "hi_exact"))
+           and route in ("bf16", "pair", "hi_exact", "f16"))
     return "mma" if mma else "fmaf"
 
 
@@ -588,7 +593,7 @@ def _sweep_eps_int8(queries_f32: torch.Tensor, scales: torch.Tensor,
     qs = fl(q∘s) and subtract the same stored decoded norm, so the common
     target is qs·v_q:
       sweep   = fl(fl(β₁·f32(a₁)) + fl(β₂·f32(a₂))), a_i = q_i·v_q exact
-                int32 dots (csrc/sweep_int8.cu)
+                int32 dots (csrc/sweep_split_mma.cu, INT8_CODES)
       rescore = one fmaf chain of qs against the exactly widened codes
                 (csrc/rescore_groups.cu INT8)
     Notation: u = 2^-24, Qs = ‖qs‖, Vq = max‖v_q‖ (``int_norm_max``),
@@ -719,8 +724,9 @@ def fused_search(
                               nv_eff, metric=metric, d_pad=d_pad)
     else:
         # f16 sweeps the decoded pair: the pair ε with the f16 statistics;
-        # two query planes over bf16 rows (K1) or the f32 planes (K3) ran
-        # on the tensor cores when the queries lie on the card
+        # two query planes over bf16 rows (K1), the f32 planes (K3) or the
+        # f16 pair (K6) ran on the tensor cores when the queries lie on the
+        # card
         is_f16 = db.dtype == torch.float16
         route = ("f16" if is_f16 else "hi_exact" if hi_exact
                  else "pair" if pair_sweep else "bf16")

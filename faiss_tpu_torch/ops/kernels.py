@@ -46,11 +46,12 @@ GROUP = 128   # rows per candidate group (csrc/common.cuh ft::GROUP)
 _lib_handle: Optional[ctypes.CDLL] = None
 
 launches = {
+    # the sweeps with two query planes (and int8's two integer passes) run
+    # on the tensor cores (csrc/sweep_split_mma.cu), those with one on the
+    # CUDA cores (csrc/sweep_groupmax.cu)
     "sweep_groupmax_1": 0,   # bf16 rows, one query plane  (_kernel_q1)
-    "sweep_groupmax_2": 0,   # bf16 rows, two query planes (_kernel_qpair),
-                             # on the tensor cores (csrc/sweep_split_mma.cu)
-    "sweep_split_3": 0,      # f32 (hi, lo) planes, 3 terms (_kernel_split),
-                             # on the tensor cores (csrc/sweep_split_mma.cu)
+    "sweep_groupmax_2": 0,   # bf16 rows, two query planes (_kernel_qpair)
+    "sweep_split_3": 0,      # f32 (hi, lo) planes, 3 terms (_kernel_split)
     "sweep_split_2": 0,      # f32 (hi, lo) planes, 2 terms (_kernel_split2)
     "sweep_int8": 0,         # int8 codes, two exact passes (_kernel_int8)
     "sweep_f16_2": 0,        # f16 bits, 3 terms (_kernel_f16_pair)
@@ -83,6 +84,8 @@ _RESCORE_PAIR = (1, "rescore_groups_pair", 8)
 _SELECT_FMT = {torch.bfloat16: (0, "rescore_select"),
                torch.int8: (2, "rescore_select_int8"),
                torch.float16: (3, "rescore_select_f16")}
+# ft_sweep_mma's row formats (csrc/sweep_split_mma.cu enum Fmt)
+MMA_BF16_ROWS, MMA_F32_PLANES, MMA_F16_BITS, MMA_INT8_CODES = 0, 1, 2, 3
 SUPERGROUP = 8   # groups per block-max entry (faiss_tpu SUPERGROUP)
 RESCORE_SELECT_MAX_CAND = 36 * GROUP   # csrc/rescore_select.cu MAX_CAND
 FINAL_SELECT_MAX_K = 40   # csrc/final_select.cu MAX_K (fused.SELECT_MAX_KG)
@@ -161,10 +164,9 @@ def _lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
         sigs = {
-            "ft_sweep_groupmax": [P, P, I, P, P, P, P, P, I, I, I, I, P],
-            "ft_sweep_split_mma": [P, P, P, P, P, P, P, I, I, I, I, P],
-            "ft_sweep_f16": [P, P, I, P, P, P, P, I, I, I, I, P],
-            "ft_sweep_int8": [P, P, P, P, P, P, P, I, I, I, I, P],
+            "ft_sweep_groupmax": [P, P, P, P, P, P, I, I, I, I, P],
+            "ft_sweep_f16": [P, P, P, P, P, I, I, I, I, P],
+            "ft_sweep_mma": [I, P, P, P, P, P, P, P, P, I, I, I, I, P],
             "ft_select_groups": [P, P, P, I, I, I, P],
             "ft_rescore_groups": [P, P, P, P, P, P, I, I, I, I, I, I, P],
             "ft_final_select": [P, P, P, I, I, I, P],
@@ -222,7 +224,8 @@ def _launch(name: str, fn_name: str, *args) -> None:
 
 def _sweep_outputs(nq: int, ngroups: int, device, with_block_max: bool):
     """The group-max output and, with ``with_block_max``, the supergroup
-    maxes filled with −inf for the kernels' atomic max (None otherwise)."""
+    maxes filled with −inf, into which the CUDA-core sweeps fold by an
+    atomic max (the tensor-core ones write every entry); None otherwise."""
     gm = torch.empty((nq, ngroups), dtype=torch.float32, device=device)
     if not with_block_max:
         return gm, None
@@ -259,17 +262,17 @@ def _check_sweep(planes, dbs, vn, *, q_dtype, db_dtype, align: int):
     return _int32(nq, "nq"), _int32(d, "d"), _int32(nv_eff // GROUP, "ngroups")
 
 
-def _sweep(counter, q_hi, q_lo, db, db_lo, vn, metric, with_block_max,
+def _sweep(counter, q1, db, db_lo, vn, metric, with_block_max,
            f16: bool = False):
     """Launch ft_sweep_groupmax (bf16 rows or planes) or, with ``f16``,
-    ft_sweep_f16 (f16 rows) after the shared checks."""
-    planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
+    ft_sweep_f16 (f16 rows), the CUDA-core sweeps with one query plane,
+    after the shared checks."""
     dbs = (db,) if db_lo is None else (db, db_lo)
     nq, d, ngroups = _check_sweep(
-        planes, dbs, vn, q_dtype=torch.bfloat16,
+        (q1,), dbs, vn, q_dtype=torch.bfloat16,
         db_dtype=torch.float16 if f16 else torch.bfloat16, align=8)
     gm, bmax = _sweep_outputs(nq, ngroups, db.device, with_block_max)
-    head = (q_hi.data_ptr(), planes[-1].data_ptr(), len(planes), db.data_ptr())
+    head = (q1.data_ptr(), db.data_ptr())
     if not f16:
         head += (None if db_lo is None else db_lo.data_ptr(),)
     with torch.cuda.device(db.device):
@@ -298,10 +301,10 @@ def sweep_groupmax(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
         return sweep_groupmax_plain(q_hi, q_lo, db, vn, metric=metric,
                                     with_block_max=with_block_max)
     if q_lo is None:
-        return _sweep("sweep_groupmax_1", q_hi, None, db, None, vn, metric,
+        return _sweep("sweep_groupmax_1", q_hi, db, None, vn, metric,
                       with_block_max)
-    return _sweep_mma("sweep_groupmax_2", q_hi, q_lo, db, None, vn, metric,
-                      with_block_max)
+    return _sweep_mma("sweep_groupmax_2", MMA_BF16_ROWS, (q_hi, q_lo), (db,),
+                      vn, metric, with_block_max)
 
 
 def sweep_split(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
@@ -317,28 +320,41 @@ def sweep_split(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
         return sweep_split_plain(q_hi, q_lo, db_hi, db_lo, vn, metric=metric,
                                  with_block_max=with_block_max)
     if q_lo is None:
-        return _sweep("sweep_split_2", q_hi, None, db_hi, db_lo, vn, metric,
+        return _sweep("sweep_split_2", q_hi, db_hi, db_lo, vn, metric,
                       with_block_max)
-    return _sweep_mma("sweep_split_3", q_hi, q_lo, db_hi, db_lo, vn, metric,
-                      with_block_max)
+    return _sweep_mma("sweep_split_3", MMA_F32_PLANES, (q_hi, q_lo),
+                      (db_hi, db_lo), vn, metric, with_block_max)
 
 
-def _sweep_mma(counter, q_hi, q_lo, db, db_lo, vn, metric, with_block_max):
-    """Launch ft_sweep_split_mma, the tensor-core sweep with two query
-    planes (whose accumulation the certificate charges with
-    ``_sweep_eps(accum="mma")``): over the f32 planes db, db_lo (K3), or
-    over bf16 rows db when ``db_lo`` is None (K1)."""
-    dbs = (db,) if db_lo is None else (db, db_lo)
-    nq, d, ngroups = _check_sweep((q_hi, q_lo), dbs, vn,
-                                  q_dtype=torch.bfloat16,
-                                  db_dtype=torch.bfloat16, align=8)
+# ft_sweep_mma's formats: (query dtype, row dtype, d multiple)
+_MMA_DTYPES = {MMA_BF16_ROWS: (torch.bfloat16, torch.bfloat16, 8),
+               MMA_F32_PLANES: (torch.bfloat16, torch.bfloat16, 8),
+               MMA_F16_BITS: (torch.bfloat16, torch.float16, 8),
+               MMA_INT8_CODES: (torch.int8, torch.int8, 16)}
+
+
+def _sweep_mma(counter, fmt, planes, dbs, vn, metric, with_block_max,
+               beta=None):
+    """Launch ft_sweep_mma, the tensor-core sweep with two query planes
+    (the int8 route's two integer passes) in row format ``fmt``: bf16 rows
+    (K1), the f32 planes ``dbs`` = (hi, lo) (K3), f16 bits (K6), or int8
+    codes against (q₁, q₂) with ``beta`` (K5). Its float accumulation is
+    what ``_sweep_eps(accum="mma")`` charges; K5's sums are exact."""
+    q_dtype, db_dtype, align = _MMA_DTYPES[fmt]
+    nq, d, ngroups = _check_sweep(planes, dbs, vn, q_dtype=q_dtype,
+                                  db_dtype=db_dtype, align=align)
     _int32(ngroups * GROUP, "nv_eff")
-    gm, bmax = _sweep_outputs(nq, ngroups, db.device, with_block_max)
-    with torch.cuda.device(db.device):
-        _launch(counter, "ft_sweep_split_mma", q_hi.data_ptr(),
-                q_lo.data_ptr(), db.data_ptr(),
-                None if db_lo is None else db_lo.data_ptr(),
-                vn.data_ptr(), gm.data_ptr(),
+    if beta is not None:
+        _check(beta, "beta", torch.float32, 2)
+        if beta.shape != (nq, 2):
+            raise ValueError(f"beta: expected ({nq}, 2), got "
+                             f"{tuple(beta.shape)}")
+    gm, bmax = _sweep_outputs(nq, ngroups, dbs[0].device, with_block_max)
+    with torch.cuda.device(dbs[0].device):
+        _launch(counter, "ft_sweep_mma", fmt, planes[0].data_ptr(),
+                planes[1].data_ptr(), dbs[0].data_ptr(),
+                dbs[1].data_ptr() if len(dbs) == 2 else None, vn.data_ptr(),
+                None if beta is None else beta.data_ptr(), gm.data_ptr(),
                 None if bmax is None else bmax.data_ptr(), nq, d, ngroups,
                 int(metric is MetricType.L2))
     return _sweep_result(gm, bmax)
@@ -348,39 +364,34 @@ def sweep_f16(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
               db: torch.Tensor, vn: torch.Tensor, *,
               metric: MetricType, with_block_max: bool = False):
     """Group maxes over f16 rows (float16, the stored bits), each decoded
-    in-register to its exact (hi, lo) bf16 pair: qh·dh + qh·dl + ql·dh with
-    two query planes (_kernel_f16_pair), q1·dh + q1·dl when ``q_lo`` is
-    None (_kernel_f16_1)."""
+    to its exact (hi, lo) bf16 pair: qh·dh + qh·dl + ql·dh with two query
+    planes (_kernel_f16_pair, on the tensor cores: certify with
+    ``_sweep_eps(accum="mma")``), q1·dh + q1·dl when ``q_lo`` is None
+    (_kernel_f16_1, fmaf chains)."""
     planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
     if not _on_cuda(*planes, db, vn):
         from .fused import sweep_f16_plain
         return sweep_f16_plain(q_hi, q_lo, db, vn, metric=metric,
                                with_block_max=with_block_max)
-    return _sweep(f"sweep_f16_{len(planes)}", q_hi, q_lo, db, None, vn, metric,
-                  with_block_max, f16=True)
+    if q_lo is None:
+        return _sweep("sweep_f16_1", q_hi, db, None, vn, metric,
+                      with_block_max, f16=True)
+    return _sweep_mma("sweep_f16_2", MMA_F16_BITS, planes, (db,), vn, metric,
+                      with_block_max)
 
 
 def sweep_int8(q1: torch.Tensor, q2: torch.Tensor, db: torch.Tensor,
                vn: torch.Tensor, beta: torch.Tensor, *,
                metric: MetricType, with_block_max: bool = False):
     """Group maxes over int8 codes of β₁·(q₁·v) + β₂·(q₂·v), the two
-    integer dots exact (_kernel_int8); ``beta`` is (nq, 2) f32."""
+    integer dots exact (_kernel_int8, on the integer tensor cores); ``beta``
+    is (nq, 2) f32."""
     if not _on_cuda(q1, q2, db, vn, beta):
         from .fused import sweep_int8_plain
         return sweep_int8_plain(q1, q2, db, vn, beta, metric=metric,
                                 with_block_max=with_block_max)
-    nq, d, ngroups = _check_sweep((q1, q2), (db,), vn, q_dtype=torch.int8,
-                                  db_dtype=torch.int8, align=16)
-    _check(beta, "beta", torch.float32, 2)
-    if beta.shape != (nq, 2):
-        raise ValueError(f"beta: expected ({nq}, 2), got {tuple(beta.shape)}")
-    gm, bmax = _sweep_outputs(nq, ngroups, db.device, with_block_max)
-    with torch.cuda.device(db.device):
-        _launch("sweep_int8", "ft_sweep_int8", q1.data_ptr(), q2.data_ptr(),
-                db.data_ptr(), vn.data_ptr(), beta.data_ptr(), gm.data_ptr(),
-                None if bmax is None else bmax.data_ptr(),
-                nq, d, ngroups, int(metric is MetricType.L2))
-    return _sweep_result(gm, bmax)
+    return _sweep_mma("sweep_int8", MMA_INT8_CODES, (q1, q2), (db,), vn,
+                      metric, with_block_max, beta=beta)
 
 
 def select_groups(gm: torch.Tensor, kg: int):

@@ -1,21 +1,27 @@
 """The tensor-core sweeps (csrc/sweep_split_mma.cu: K3 over the f32 planes,
-K1 over bf16 rows) against variants of themselves, on one CUDA card.
+K1 over bf16 rows, K6 over f16 bits, K5 over int8 codes) against variants
+of themselves, on one CUDA card.
 
-    python scripts/k3_variants.py [--kernels k3,k1] [--nv 1000448,10000384]
-                                  [--reps 10]
+    python scripts/k3_variants.py [--kernels k3,k1,k6,k5] [--only a,b]
+                                  [--nv 1000448,10000384] [--reps 10]
 
 Each variant is a patched copy of the kernel's source, built with nvcc into
-its own library and called through ``ft_sweep_split_mma`` on the same
-inputs (nq 104, d 128, L2, with the supergroup maxes; Gaussian rows: K3
-their f32 planes, K1 their bf16 values):
+its own library and called through ``ft_sweep_mma`` on the same inputs (nq
+104, d 128, L2, with the supergroup maxes; Gaussian rows: K3 their f32
+planes, K1 their bf16 values, K6 their f16 bits; K5 random codes and query
+planes in [-127, 127]):
 
   kernel        the source as it is
   no_mma        the products left out: the TMA ring and its barriers alone
   no_load       the row tiles' loads left out: the products alone (on stale
                 shared memory)
+  norms_ldg     each tile's norms loaded from device memory by every
+                consumer thread before its products (the earlier design), not
+                brought into shared memory by a bulk copy on the tile's
+                first full barrier
   K3 only:
-  norms_late    each tile's norms loaded in its epilogue, after its
-                products have drained, not before its products
+  norms_late    norms_ldg with each tile's norms loaded in its epilogue,
+                after its products have drained
   ordered       the two warpgroups take turns issuing a tile's products
                 (K1's schedule)
   wait0         each stage released only once its own products have ended
@@ -32,14 +38,27 @@ their f32 planes, K1 their bf16 values):
   n128          wgmma's N side 128 rows (K1_BN): one m64n128k16 a term over
                 a whole group, 2 × 64 accumulators, 8 stages of 16 KB
   n128_no_mma, n128_no_load   the same two cuts of n128
+  K6 only:
+  no_decode     the decode warps pass each raw tile on undecoded: the
+                loads, the products and the barriers without the decode
+  rs_hi         qh as wgmma A fragments in registers (d ≤ 128) for its two
+                terms, ql from shared memory for the third
+  ndec224       seven decode warps (512 threads; 128 registers a thread)
+  decode_cons   no decode warps: the consumers decode each tile, half
+                each, then a named barrier, before its products
+  K5 only:
+  no_rs         the query planes from shared memory, as K1's no_rs
+  ordered       the two warpgroups take turns, as K1's
 
 Times are graph replays (chip_smoke.graph_ms) in two rounds; every variant
 that computes must give the kernel's group maxes bit for bit, and supergroup
-maxes equal to block_max_plain of them. Last, each kernel (through
-kernels.sweep_split, kernels.sweep_groupmax) on the truncation adversary of
-tests/test_torch_mma_eps.py: its error, in units of ‖q‖·‖v‖·u (u = 2^-24),
-where a sum that truncates every addend at the largest one's exponent
-loses ≈ 254 and round to nearest ≈ 0. Prints the card's name and power
+maxes equal to block_max_plain of them (one that does not is reported, left
+untimed, and makes the script exit 1). Last, each float kernel (through
+kernels.sweep_split, kernels.sweep_groupmax, kernels.sweep_f16) on the
+truncation adversary of tests/test_torch_mma_eps.py: its error, in units
+of ‖q‖·‖v‖·u (u = 2^-24), where a sum that truncates every addend at the
+largest one's exponent loses ≈ 254 and round to nearest ≈ 0 (K5's integer
+sums are exact). Prints the card's name and power
 limit first. Imports nothing of jax or faiss_tpu; exits 1 without a card.
 """
 
@@ -64,20 +83,39 @@ def _patch(text, pairs):
 
 
 MMA = """      if constexpr (RS) {
-        wgmma_rs_64x64(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
-        wgmma_rs_64x64(acc[1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
+        wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
+        wgmma_rs(acc[1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
         continue;
       }
-      wgmma<BN>(acc[0], dqh + 2 * ks, dvh + 2 * ks, on);
-      if constexpr (DBP == 2) {
+      wgmma<S::BN>(acc[0], dqh + 2 * ks, dvh + 2 * ks, on);
+      if constexpr (S::PLANES == 2) {
         const uint64_t dvl = sw128_desc(b + S::B_PLANE);
-        wgmma<BN>(acc[1], dqh + 2 * ks, dvl + 2 * ks, on);
+        wgmma<S::BN>(acc[1], dqh + 2 * ks, dvl + 2 * ks, on);
       }
-      wgmma<BN>(acc[S::TERMS - 1], dql + 2 * ks, dvh + 2 * ks, on);"""
-ROW_LOADS = """          mbar_expect_tx(full + stage, stage_bytes);"""
-ROW_TMA = """          tma_load(&tv_hi, st, full + stage, kc * KC, row);
-          if constexpr (DBP == 2)
-            tma_load(&tv_lo, st + S::B_PLANE, full + stage, kc * KC, row);"""
+      wgmma<S::BN>(acc[S::TERMS - 1], dql + 2 * ks, dvh + 2 * ks, on);"""
+ROW_LOADS = """          mbar_expect_tx(full + stage,
+                         (resident ? S::B_TX : A_BYTES + S::B_TX)
+                             + (kc == 0 ? S::BN * 4 : 0));"""
+NORM_LOAD = """          if (kc == 0)   // the tile's norms, with its first chunk
+            bulk_load(nring + stage * S::BN, vn + row, S::BN * 4,
+                      full + stage);
+"""
+NORM_READ = """    if (kc == 0) {
+      const float* v = nring + stage * S::BN + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < S::BN / 8; ++j)
+        w[j] = *reinterpret_cast<const float2*>(v + 8 * j);
+    }
+"""
+FOLD_AT = "  // a tile's epilogue into the group's running maxes"
+TURN = "      if (ordered && (wg == 1 || i > 0)) named_sync(1 + wg);\n"
+ROW_TMA = """          tma_load(&tv_hi, st, full + stage, kc * S::KC, row);
+          if constexpr (S::LOADS == 2)
+            tma_load(&tv_lo, st + S::B_PLANE, full + stage, kc * S::KC, row);"""
+DECODE = """              uint4 hi, lo;
+              split_f16x8(b[i], hi, lo);
+              b[i] = hi;
+              b[i + S::B_PLANE / 16] = lo;"""
 DEFER = """    wgmma_commit();
     wgmma_wait_prev();   // the chunk before this one has been read
     if (prev >= 0 && t == 0) mbar_arrive(empty + prev);
@@ -90,8 +128,8 @@ WAIT0 = """    wgmma_commit();
     if (t == 0) mbar_arrive(empty + stage);
     prev = -1;"""
 K1_N = "constexpr int K1_BN = 64;"
-ORDERED = "static constexpr bool ORDERED = DBP == 1;"
-RS_AT = "  if constexpr (DBP == 1 && BN == 64)\n"
+ORDERED = "static constexpr bool ORDERED = F == BF16_ROWS;"
+RS_AT = "  if constexpr (RS_KC > 0)\n"
 NORMS = "      norms(w, g, h);\n"
 WAIT_ALL = ("      wgmma_wait_all();   // the tile's last chunk, and its "
             "accumulators\n")
@@ -132,6 +170,78 @@ W128 = r'''__device__ __forceinline__ void wgmma_64x128(float (&d)[64], uint64_t
 '''
 
 
+def _norms_ldg(text):
+    """Each tile's norms loaded from device memory by every consumer
+    thread at the tile's start (the design before the norms' ring)."""
+    return _patch(text, [
+        (NORM_LOAD, ""),
+        (ROW_LOADS, "          mbar_expect_tx(full + stage, resident ? "
+                    "S::B_TX : A_BYTES + S::B_TX);"),
+        (NORM_READ, ""),
+        (FOLD_AT, """  auto norms = [&](Norms& w, int g, int h) {
+    const float* v = vn + static_cast<size_t>(g) * ft::GROUP + h * S::BN
+                     + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < S::BN / 8; ++j)
+      w[j] = __ldg(reinterpret_cast<const float2*>(v + 8 * j));
+  };
+""" + FOLD_AT),
+        (TURN, NORMS + TURN),
+    ])
+
+
+def _decode_cons(text):
+    """K6 without decode warps: the consumers decode each tile (half each),
+    fence it for the async proxy, meet at named barrier 3, then issue."""
+    return _patch(text, [
+        ("static constexpr int NDEC = DECODE ? 96 : 0;",
+         "static constexpr int NDEC = 0;"),
+        ("uint64_t* ready = S::DECODE ? decoded : full;",
+         "uint64_t* ready = full;"),
+        ("    mbar_wait(ready + stage, phase);\n",
+         "    mbar_wait(ready + stage, phase);\n"
+         "    if constexpr (S::DECODE) {\n"
+         "      uint4* raw = reinterpret_cast<uint4*>(\n"
+         "          ring + stage * stage_bytes + (resident ? 0 : A_BYTES));\n"
+         "#pragma unroll\n"
+         "      for (int i = threadIdx.x; i < S::B_PLANE / 16; i += NCONS) {\n"
+         "        uint4 hi, lo;\n"
+         "        split_f16x8(raw[i], hi, lo);\n"
+         "        raw[i] = hi;\n"
+         "        raw[i + S::B_PLANE / 16] = lo;\n"
+         "      }\n"
+         "      fence_proxy_async();\n"
+         "      asm volatile(\"bar.sync 3, 256;\\n\" ::: \"memory\");\n"
+         "    }\n"),
+    ])
+
+
+def _rs_hi(text):
+    """K6 with qh's A fragments in registers for qh·dh and qh·dl."""
+    return _patch(text, [
+        ("""  static_assert(!RS || (S::PLANES == 1 && S::BN == 64),
+                "RS: one db plane at N = 64");""",
+         """  static_assert(!RS || S::BN == 64, "RS: N = 64");"""),
+        ("resident && !RS", "resident && (!RS || S::PLANES == 2)"),
+        ("resident && RSK == 0", "resident && (RSK == 0 || S::PLANES == 2)"),
+        ("    for (int p = 0; p < 2; ++p)\n",
+         "    for (int p = 0; p < (S::PLANES == 2 ? 1 : 2); ++p)\n"),
+        ("""      if constexpr (RS) {
+        wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);""",
+         """      if constexpr (RS && S::PLANES == 2) {
+        wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
+        wgmma_rs(acc[1], aq[0][4 * kc + ks],
+                 sw128_desc(b + S::B_PLANE) + 2 * ks, on);
+        wgmma<S::BN>(acc[2], dql + 2 * ks, dvh + 2 * ks, on);
+        continue;
+      }
+      if constexpr (RS) {
+        wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);"""),
+        ("                                                      : 0;",
+         "                        : F == F16_BITS ? 2 : 0;"),
+    ])
+
+
 def _even_split(text):
     return _patch(text, [
         ("""  const int nsg = (ngroups + 7) / 8;
@@ -155,38 +265,52 @@ def _even_split(text):
         };
         if (writer && q0 < nq) fold(q0, bm0);
         if (writer && q1 < nq) fold(q1, bm1);"""),
-        ("  const int nsg = (ngroups + 7) / 8;\n"
+        ("  const int nsg = (a.ngroups + 7) / 8;\n"
          "  const int nbx = max(1, min(nsg, di.sms / nqt));",
-         "  const int nbx = max(1, min(ngroups, di.sms / nqt));"),
+         "  const int nbx = max(1, min(a.ngroups, di.sms / nqt));"),
     ])
 
 
 def _cuts(text):
-    """The kernel without its products, and without its row loads."""
+    """The kernel without its products, and without its loads (the rows'
+    tiles and the norms; the full barrier a plain arrival)."""
     return {"no_mma": _patch(text, [(MMA, NO_MMA)]),
             "no_load": _patch(text, [(ROW_LOADS,
                                       "          mbar_arrive(full + stage);"),
-                                     (ROW_TMA, "")])}
+                                     (ROW_TMA, ""), (NORM_LOAD, "")])}
 
 
 def variants(text, kernel):
-    """{name: source}: K3's variants, or K1's (``kernel`` "k1")."""
-    base = {"kernel": text, **_cuts(text)}
+    """{name: source}: the variants of ``kernel`` (k3, k1, k6, k5)."""
+    base = {"kernel": text, **_cuts(text), "norms_ldg": _norms_ldg(text)}
     late = [(NORMS, ""), (WAIT_ALL, WAIT_ALL + NORMS)]
-    if kernel == "k1":
-        free = _patch(text, [(ORDERED,
-                              "static constexpr bool ORDERED = false;")])
+    free = _patch(text, [(ORDERED, "static constexpr bool ORDERED = false;")])
+    if kernel == "k6":
+        base.update({"no_decode": _patch(text, [(DECODE,
+                                                 "              (void)i;")]),
+                     "rs_hi": _rs_hi(text),
+                     "ndec224": _patch(text, [(
+                         "static constexpr int NDEC = DECODE ? 96 : 0;",
+                         "static constexpr int NDEC = DECODE ? 224 : 0;")]),
+                     "decode_cons": _decode_cons(text)})
+    elif kernel == "k5":
+        base.update({"no_rs": _patch(text, [(RS_AT,
+                                             "  if constexpr (false)\n")]),
+                     "ordered": _patch(text, [(
+                         ORDERED, "static constexpr bool ORDERED = PLANES "
+                                  "== 1;")])})
+    elif kernel == "k1":
         n128 = _patch(text, [(K1_N, "constexpr int K1_BN = 128;"),
                              (WGMMA_N, WGMMA_N128),
                              (WGMMA_AT, W128 + "\n" + WGMMA_AT)])
         no_rs = [(RS_AT, "  if constexpr (false)\n")]
         base.update({"no_rs": _patch(text, no_rs),
                      "no_order": free,
-                     "first": _patch(free, no_rs + late),
+                     "first": _patch(_norms_ldg(free), no_rs + late),
                      "n128": n128,
                      **{f"n128_{k}": v for k, v in _cuts(n128).items()}})
-    else:
-        base.update({"norms_late": _patch(text, late),
+    elif kernel == "k3":
+        base.update({"norms_late": _patch(_norms_ldg(text), late),
                      "ordered": _patch(text, [(
                          ORDERED, "static constexpr bool ORDERED = true;")]),
                      "wait0": _patch(text, [(DEFER, WAIT0), (TILE_END, "")]),
@@ -217,8 +341,9 @@ def build(kernels, tmp, srcs):
             raise RuntimeError(f"k3_variants: {name} did not build:\n{err}")
         print(f"{name}: {', '.join(regs)}", flush=True)
         lib = ctypes.CDLL(str(Path(tmp) / name / "lib.so"))
-        lib.ft_sweep_split_mma.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
-        lib.ft_sweep_split_mma.restype = I
+        lib.ft_sweep_mma.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I,
+                                     P]
+        lib.ft_sweep_mma.restype = I
         libs[name] = lib
     return libs
 
@@ -228,7 +353,8 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
     """The kernel's largest |dot − exact| on query [1, s, …, s] against
     rows [1, −s, …, −s] scaled by 2^j in group j (s = 2^-12·1.4140625: s² is
     just under ulp(1) = 2^-23), IP, over ‖q‖·‖v‖·u of the row's group: K3
-    over the rows' f32 planes, K1 over the rows in bf16 (exact there)."""
+    over the rows' f32 planes, K1 over the rows in bf16, K6 over their f16
+    bits (exact in both)."""
     d, nq, ng = 128, 8, 8
     s = 2.0 ** -12 * 1.4140625
     a = torch.full((d,), s, dtype=torch.float64)
@@ -245,6 +371,9 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
     if kernel == "k1":
         gm = kernels.sweep_groupmax(qh, ql, x.to(dev).to(torch.bfloat16), vn,
                                     metric=ip)
+    elif kernel == "k6":
+        gm = kernels.sweep_f16(qh, ql, x.to(dev).to(torch.float16), vn,
+                               metric=ip)
     else:
         hi, lo = split_f32_bf16(x.float().to(dev))
         gm = kernels.sweep_split(qh, ql, hi, lo, vn, metric=ip)
@@ -253,35 +382,57 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
     return float(((gm.double() - exact) / unit.to(dev)).abs().max())
 
 
+FMT = {"k1": 0, "k3": 1, "k6": 2, "k5": 3}   # ft_sweep_mma's enum Fmt
+
+
 def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
                   reps, gen):
     """Each variant once (the computing ones bit for bit against the
     kernel's gm, their supergroup maxes against block_max_plain), then
-    timed by graph replay in two rounds, at nq 104, d 128, L2."""
-    from faiss_tpu_torch.storage import split_f32_bf16
+    timed by graph replay in two rounds, at nq 104, d 128, L2. Returns the
+    names of the variants that differed (left untimed)."""
+    from faiss_tpu_torch.storage import (encode_f16_bits,
+                                         flush_f16_subnormals,
+                                         split_f32_bf16)
 
     dev = torch.device("cuda")
     nq, d = 104, 128
     x = torch.randn((nv, d), device=dev, generator=gen)
+    beta = None
     if kernel == "k1":
         hi, lo = x.to(torch.bfloat16), None
+    elif kernel == "k6":
+        hi, lo = flush_f16_subnormals(encode_f16_bits(x)), None
+    elif kernel == "k5":
+        hi = torch.randint(-127, 128, (nv, d), device=dev, generator=gen,
+                           dtype=torch.int8)
+        lo = None
+        beta = torch.rand((nq, 2), device=dev, generator=gen) * 1e-2
     else:
         hi, lo = split_f32_bf16(x)
     vn = fused._premask_norms((x * x).sum(-1), nv, nv, MetricType.L2)
     del x
-    qh, ql = fused.query_planes(
-        torch.randn((nq, d), device=dev, generator=gen), 2)
+    if kernel == "k5":
+        qh, ql = (torch.randint(-127, 128, (nq, d), device=dev, generator=gen,
+                                dtype=torch.int8) for _ in range(2))
+    else:
+        qh, ql = fused.query_planes(
+            torch.randn((nq, d), device=dev, generator=gen), 2)
     ng = nv // 128
     gm = torch.empty((nq, ng), device=dev)
     bm = torch.empty((nq, ng // 8), device=dev)
     ref = None
+    bad = set()
     for rnd in range(2):
         for name, lib in libs.items():
+            if name in bad:
+                continue
             def run(lib=lib, name=name):
                 bm.fill_(float("-inf"))
-                rc = lib.ft_sweep_split_mma(
-                    qh.data_ptr(), ql.data_ptr(), hi.data_ptr(),
+                rc = lib.ft_sweep_mma(
+                    FMT[kernel], qh.data_ptr(), ql.data_ptr(), hi.data_ptr(),
                     None if lo is None else lo.data_ptr(), vn.data_ptr(),
+                    None if beta is None else beta.data_ptr(),
                     gm.data_ptr(), bm.data_ptr(), nq, d, ng, 1,
                     torch.cuda.current_stream().cuda_stream)
                 if rc != 0:
@@ -289,26 +440,31 @@ def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
             run()
             torch.cuda.synchronize()
             note = ""
-            if not name.endswith(("no_mma", "no_load")):
+            if not name.endswith(("no_mma", "no_load", "no_decode")):
                 if ref is None:
                     ref = gm.clone()
                 same = torch.equal(gm.view(torch.int32), ref.view(torch.int32))
                 bits = torch.equal(bm.view(torch.int32),
                                    fused.block_max_plain(gm).view(torch.int32))
                 if not (same and bits):
-                    raise RuntimeError(f"{kernel} {name} differs from the "
-                                       f"kernel at nv {nv}")
+                    print(f"{kernel} nv {nv} {name}: DIFFERS from the kernel "
+                          f"(gm {same}, bmax {bits}); not timed", flush=True)
+                    bad.add(name)
+                    continue
                 note = " (gm and bmax bit for bit)"
             ms = chip_smoke.graph_ms(torch, run, reps)
             print(f"{kernel} nv {nv} round {rnd} {name}: {ms:.4f} ms{note}",
                   flush=True)
-    del hi, lo, gm, bm
+    del hi, lo, gm, bm, beta
     torch.cuda.empty_cache()
+    return bad
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="k3,k1")
+    ap.add_argument("--kernels", default="k3,k1,k6,k5")
+    ap.add_argument("--only", default="",
+                    help="build and time only these variants (comma list)")
     ap.add_argument("--nv", default="1000448,10000384")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args()
@@ -326,10 +482,13 @@ def main() -> int:
 
     print(ft.gpu_name_and_power_limit(), flush=True)
     which = args.kernels.split(",")
+    bad = set()
     gen = torch.Generator(device="cuda").manual_seed(0)
     with tempfile.TemporaryDirectory() as tmp:
+        only = set(args.only.split(",")) - {""}
         srcs = {f"{k}/{name}": text for k in which
-                for name, text in variants(SRC.read_text(), k).items()}
+                for name, text in variants(SRC.read_text(), k).items()
+                if not only or name in only or name == "kernel"}
         for k in which:
             (Path(tmp) / k).mkdir()
         libs = build(kernels, tmp, srcs)
@@ -337,15 +496,17 @@ def main() -> int:
             mine = {n.split("/")[1]: lib for n, lib in libs.items()
                     if n.startswith(k + "/")}
             for nv in (int(x) for x in args.nv.split(",")):
-                time_variants(torch, chip_smoke, fused, MetricType, mine, k,
-                              nv, args.reps, gen)
+                bad |= time_variants(torch, chip_smoke, fused, MetricType,
+                                     mine, k, nv, args.reps, gen)
     for k in which:
+        if k == "k5":
+            continue
         err = adversary_error(torch, fused, kernels, split_f32_bf16,
                               MetricType, k)
         print(f"{k} on the truncation adversary: error {err:.2f} "
               f"‖q‖·‖v‖·u (a truncating sum ≈ 254, round to nearest ≈ 0)",
               flush=True)
-    return 0
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

@@ -36,8 +36,9 @@ from pathlib import Path
 import numpy as np
 
 D, NQ, K = 128, 100, 10
-PARTS = (("sweep", ("sweep_groupmax_kernel", "sweep_int8_kernel",
-                    "sweep_split_mma_kernel")),
+# the sweeps: CUDA-core (one query plane) and tensor-core (two: K1, K3, K5,
+# K6, one template)
+PARTS = (("sweep", ("sweep_groupmax_kernel", "sweep_split_mma_kernel")),
          ("select_groups", ("select_groups_kernel",)),
          ("rescore", ("rescore_groups_kernel",)),
          ("final_select", ("final_select_kernel",)),

@@ -13,9 +13,10 @@ the accumulation error of both sides (f32 planes: the pair sweep's ε, and
 int8 (K5 ``sweep_int8``, K10's int8 mode) and f16 (K6 ``sweep_f16_2``, K7
 ``sweep_f16_1``, K10's f16 mode): K5 equals its plain version bit for bit
 (exact integer dots, then the same three roundings in the same order); the
-f16 sweeps within the pair ε; the rescores within the rescore term of
-their bound (``rescore_term``); the in-kernel f16 decode equals the plain
-decode on all 65,536 patterns.
+f16 sweeps within the pair ε (K6, on the tensor cores, with accum="mma");
+the rescores within the rescore term of their bound (``rescore_term``);
+the in-kernel f16 decode equals the plain decode on all 65,536 patterns,
+in K10 and in K6.
 
 K10's f32-rows mode (``rescore_groups_f32``, the IVF fine scan) within
 the rescore term, on random and adversarial rows, with chunk ids past the
@@ -28,11 +29,11 @@ The certificate soundness cases (``check_sweep_eps_sound``,
 test_torch_f16.py and test_torch_int8.py run them on the plain versions on
 the CPU, this module on the kernels.
 
-K3 and K1 run on the tensor cores (``csrc/sweep_split_mma.cu``): they are
-held to ``_sweep_eps(accum="mma")`` (the budget of
+K3, K1 and K6 run on the tensor cores (``csrc/sweep_split_mma.cu``): they
+are held to ``_sweep_eps(accum="mma")`` (the budget of
 tests/test_torch_mma_eps.py, which ``fused.sweep_accum`` picks for them),
 their supergroup maxes bit for bit, also on the truncation adversary's
-rows. K9 (``csrc/final_select.cu``) and K8 (``csrc/select_groups.cu``),
+rows; K5 runs there on the integer tensor cores, bit for bit. K9 (``csrc/final_select.cu``) and K8 (``csrc/select_groups.cu``),
 both one pass, equal their plain versions bit for bit (K8's t by value on
 a NaN row) on tie-heavy, −inf, NaN, ±0 and +inf rows and K8's −inf
 re-pick; K11 and K10 → K9 agree bit for bit on a −0.0 / +0.0 tie.
@@ -864,7 +865,8 @@ def test_f16_sweep_and_rescore_match_plain(dev, metric, nq, d, passes):
     assert kernels.launches[name] == n0 + 1
     eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
                            single_pass=passes == 1, pair_sweep=True,
-                           split_stats=stats)
+                           split_stats=stats,
+                           accum=fused.sweep_accum("f16", passes, dev))
     _within_eps(gm, fused.sweep_f16_plain(qh, ql, bits, vn, metric=metric),
                 eps)
     gidx, _ = kernels.select_groups(gm, 14)
@@ -910,7 +912,8 @@ def test_f16_sweeps_on_inf_and_nan_patterns(dev, passes):
         assert bool((gm[~fin].nan_to_num() == gm_p[~fin].nan_to_num()).all())
         eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
                                single_pass=passes == 1, pair_sweep=True,
-                               split_stats=clean_stats)
+                               split_stats=clean_stats,
+                               accum=fused.sweep_accum("f16", passes, dev))
         err = torch.where(fin, (gm - gm_p).abs(), torch.zeros_like(gm))
         assert bool((err <= eps[:, None]).all())
 
@@ -974,7 +977,8 @@ def check_sweep_eps_sound_f16(dev, case: int, nq: int = 64) -> None:
     resc_gmax = s.view(nq, nv // 128, 128).amax(-1)
     eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
                            single_pass=passes == 1, pair_sweep=True,
-                           split_stats=stats)[:, None]
+                           split_stats=stats,
+                           accum=fused.sweep_accum("f16", passes, dev))[:, None]
     gap = (resc_gmax - gm).abs()
     assert bool((gap <= eps).all()), float((gap - eps).max())
 
@@ -982,6 +986,172 @@ def check_sweep_eps_sound_f16(dev, case: int, nq: int = 64) -> None:
 @pytest.mark.parametrize("case", range(len(CERT_CASES_F16)))
 def test_sweep_eps_sound_f16_on_kernels(dev, case):
     check_sweep_eps_sound_f16(dev, case, nq=256)
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("d", [8, 72, 128, 136, 1024])
+@pytest.mark.parametrize("nq", [8, 37, 104, 300])
+def test_k6_tensor_core_sweep_matches_plain(dev, metric, nq, d):
+    """K6 (f16 bits, two query planes) on the tensor cores against
+    sweep_f16_plain within _sweep_eps(accum="mma") with the f16 split
+    statistics, with a last group partly stored (ntotal 8000 of 8192) and
+    one wholly past ntotal; its supergroup maxes equal block_max_plain of
+    the same launch's gm bit for bit, and that gm the one-output launch's.
+    nq 300: three query tiles; d 8, 72 and 136: the zero-filled k-tail
+    (an f16 zero decodes to the pair (0, 0)); d 1024: the query planes ride
+    the ring."""
+    nv, ntotal = 8192, 8000
+    g = torch.Generator().manual_seed(nq * 10_000 + d)
+    x = torch.randn((nv, d), generator=g) * 3.0
+    x[ntotal:] = 0
+    bits, norms, stats = f16_db(dev, x.numpy())
+    q = torch.randn((nq, d), generator=torch.Generator().manual_seed(nq))
+    q = q.to(dev)
+    vn = fused._premask_norms(norms, ntotal, nv, metric)
+    qh, ql = fused.query_planes(q, 2)
+    n0 = dict(kernels.launches)
+    gm, bmax = kernels.sweep_f16(qh, ql, bits, vn, metric=metric,
+                                 with_block_max=True)
+    assert kernels.launches["sweep_f16_2"] == n0["sweep_f16_2"] + 1
+    assert kernels.launches["sweep_f16_1"] == n0["sweep_f16_1"]
+    assert fused.sweep_accum("f16", 2, dev) == "mma"
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                           pair_sweep=True, split_stats=stats, accum="mma")
+    _within_eps(gm, fused.sweep_f16_plain(qh, ql, bits, vn, metric=metric),
+                eps)
+    assert bool(torch.isneginf(gm[:, -1]).all())
+    assert not bool(torch.isneginf(gm[:, :-1]).any())
+    assert torch.equal(bmax.view(torch.int32),
+                       fused.block_max_plain(gm).view(torch.int32))
+    one = kernels.sweep_f16(qh, ql, bits, vn, metric=metric)
+    assert torch.equal(gm.view(torch.int32), one.view(torch.int32))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+def test_k6_truncation_adversary_within_mma_eps(dev, metric):
+    """The truncation adversary of tests/test_torch_mma_eps.py on K6: f16
+    rows [1, −s, …, −s] scaled per group by 2^j (exact in f16; their lo
+    plane is zero) against the query [1, s, …, s]: |group max − exact
+    score| ≤ _sweep_eps(accum="mma") with the f16 statistics, pointwise
+    (every row of a group is the same)."""
+    d, nv, nq = 128, 1024, 8
+    s = np.float32(2.0 ** -12 * 1.4140625)
+    a = np.full(d, s, np.float32)
+    a[0] = 1.0
+    row = -a
+    row[0] = 1.0
+    scale = np.repeat(2.0 ** np.arange(nv // 128), 128).astype(np.float32)
+    xb = row[None, :] * scale[:, None]
+    bits, norms, stats = f16_db(dev, xb)
+    assert torch.equal(decode_f16_bits(bits), torch.from_numpy(xb).to(dev))
+    q = torch.from_numpy(np.tile(a, (nq, 1))).to(dev)
+    vn = fused._premask_norms(norms, nv, nv, metric)
+    gm = fused.groupmax_scores(q, bits, vn, metric=metric, sweep_passes=2)
+    dot = (xb[::128].astype(np.float64) @ a.astype(np.float64))
+    exact = torch.from_numpy(dot).to(dev)[None, :].expand(nq, -1)
+    if metric is MetricType.L2:
+        exact = 2.0 * exact - norms[::128].double()[None, :]
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                           pair_sweep=True, split_stats=stats, accum="mma")
+    gap = (gm.double() - exact).abs()
+    assert bool((gap <= eps[:, None].double()).all()), float(gap.max())
+
+
+def test_k6_on_every_f16_pattern(dev):
+    """K6 on all 65,536 f16 patterns, each alone in a group of its own (row
+    0 of group p holds pattern p in column 0; the other rows are zeros,
+    masked by a +inf norm), IP, against sweep_f16_plain: the query e₀ (no
+    lo plane) scores each finite pattern as its exact value and each e=31
+    pattern NaN (0·inf in ql·dh); the query (1 + 2^-10)·e₀ scores each e=31
+    pattern ±inf by its sign bit. Every finite entry equal, every
+    non-finite one of the same kind (NaN, +inf, −inf): the tensor cores
+    follow IEEE on inf·0 and inf + finite."""
+    pats = all_f16_patterns(dev)
+    ng, d = pats.shape[0], 8
+    h = torch.zeros((ng * 128, d), dtype=torch.int16, device=dev)
+    h[::128, 0] = pats.view(torch.int16)
+    bits = h.view(torch.float16)
+    vn = torch.full((ng * 128,), float("inf"), device=dev)
+    vn[::128] = 0.0
+    q = torch.zeros((2, d), device=dev)
+    q[0, 0] = 1.0
+    q[1, 0] = 1.0 + 2.0 ** -10
+    qh, ql = fused.query_planes(q, 2)
+    assert float(ql[1, 0]) == 2.0 ** -10
+    ip = MetricType.INNER_PRODUCT
+    gm = kernels.sweep_f16(qh, ql, bits, vn, metric=ip)
+    want = fused.sweep_f16_plain(qh, ql, bits, vn, metric=ip)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(gm))
+    assert bool((gm[fin] == want[fin]).all())
+    assert torch.equal(gm.isnan(), want.isnan())
+    assert torch.equal(gm.isposinf(), want.isposinf())
+    assert torch.equal(gm.isneginf(), want.isneginf())
+    e31 = (pats.view(torch.int16) & 0x7C00) == 0x7C00
+    assert bool(gm[0, e31].isnan().all()) and not bool(gm[0, ~e31].isnan().any())
+    assert bool(gm[1, e31].isinf().all())
+    assert bool((gm[0, ~e31] == decode_f16_bits(pats[~e31])).all())
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("d", [16, 144, 128, 1152])
+@pytest.mark.parametrize("nq", [8, 37, 104, 300])
+def test_k5_tensor_core_sweep_bitwise(dev, metric, nq, d):
+    """K5 (int8 codes, s8 × s8 wgmma with s32 sums) equal to
+    sweep_int8_plain bit for bit on edge codes (±127 rows, a zero row, rows
+    past ntotal) with its supergroup maxes equal to block_max_plain of the
+    same launch's gm bit for bit, and that gm the one-output launch's. nq
+    300: three query tiles; d 16 and 128: the query planes as A fragments
+    in registers (one 128-code chunk; 16 with a zero-filled k-tail); d 144:
+    two chunks from shared memory; d 1152: the query planes ride the ring,
+    and the dots pass 2^24."""
+    nv, ntotal = 8192, 8000
+    codes, scales, norms, _ = int8_db(dev, nv, d, ntotal, seed=nq + d)
+    q = torch.randn((nq, d), generator=torch.Generator().manual_seed(nq))
+    q = (q * 3.0).to(dev)
+    q[0] = 1.0 / scales                    # q∘s all ones: q₁ all 127
+    vn = fused._premask_norms(norms, ntotal, nv, metric)
+    q1, q2, b1, b2 = fused.int8_query_pair(q, scales)
+    beta = torch.stack([b1, b2], dim=1)
+    n0 = dict(kernels.launches)
+    gm, bmax = kernels.sweep_int8(q1, q2, codes, vn, beta, metric=metric,
+                                  with_block_max=True)
+    assert kernels.launches["sweep_int8"] == n0["sweep_int8"] + 1
+    want = fused.sweep_int8_plain(q1, q2, codes, vn, beta, metric=metric)
+    assert torch.equal(gm.view(torch.int32), want.view(torch.int32))
+    assert bool(torch.isneginf(gm[:, -1]).all())
+    assert torch.equal(bmax.view(torch.int32),
+                       fused.block_max_plain(gm).view(torch.int32))
+    one = kernels.sweep_int8(q1, q2, codes, vn, beta, metric=metric)
+    assert torch.equal(gm.view(torch.int32), one.view(torch.int32))
+    if d == 1152:
+        a1 = q1[:1].double() @ codes[1:2].double().T     # 127 · 127 · d
+        assert float(a1.abs().max()) > 2 ** 24
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("storage", ["f16", "int8"])
+def test_f16_int8_search_launch_counts(dev, storage, monkeypatch):
+    """An f16 or int8 index's search at nq 8 on the card: one launch each of
+    the two-plane sweep on the tensor cores (K6 from the start at nq 8; K5),
+    K8, the rescore's mode of K10 and K9, none of the one-plane sweep, and
+    no fallback (f16: under the mma ε)."""
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    rng = np.random.default_rng(13)
+    idx = TorchIndexFlat(64, storage=storage, device=dev)
+    idx.add(rng.standard_normal((20_000, 64), dtype=np.float32))
+    kernels.reset_launches()
+    idx.search(rng.standard_normal((8, 64), dtype=np.float32), 10)
+    n = dict(kernels.launches)
+    assert idx.fused_fallbacks == 0
+    sweep, resc = (("sweep_f16_2", "rescore_groups_f16") if storage == "f16"
+                   else ("sweep_int8", "rescore_groups_int8"))
+    assert n["sweep_f16_1"] == 0, n
+    for key in (sweep, "select_groups", resc, "final_select"):
+        assert n[key] == 1, n
+    assert sum(v for k, v in n.items() if k.startswith("sweep_")) == 1, n
 
 
 @pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])

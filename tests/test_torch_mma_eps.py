@@ -2,8 +2,9 @@
 CPU.
 
 The two-plane sweeps on the card (``csrc/sweep_split_mma.cu``: K3 over the
-f32 planes, K1 over bf16 rows) sum their bf16×bf16 products on the tensor
-cores, whose fp32 accumulation is not proven round-to-nearest.
+f32 planes, K1 over bf16 rows, K6 over the f16 rows' exact bf16 pair) sum
+their bf16×bf16 products on the tensor cores, whose fp32 accumulation is
+not proven round-to-nearest.
 ``_sweep_eps`` charges their term (2) as (36·⌈d/16⌉ + 2)·u·[(Q+R)·(V+s0) +
 L·V] (bf16 rows: s0 = 0); the default ("fmaf") keeps the CUDA-core budget
 (d+2)·u·[…], which is the JAX package's bound. ``sweep_accum`` picks the
@@ -18,8 +19,9 @@ the model's worst case, every addend of a 16-product k-step truncated at
 the largest addend's exponent and the sum truncated to 24 bits, on
 adversarial rows: its error stays within the new term (2), and on the
 truncation adversary exceeds the fmaf term, so the new budget is needed
-for that arithmetic; the emulated pair sweep (three accumulators) and bf16
-sweep (two) stay within the whole ε. tests/test_torch_cuda.py holds the
+for that arithmetic; the emulated pair sweep (three accumulators), bf16
+sweep (two) and f16 pair sweep (three, over f16 rows) stay within the whole
+ε. tests/test_torch_cuda.py holds the
 kernels themselves to the budget on the card.
 """
 
@@ -33,7 +35,9 @@ import jax.numpy as jnp
 
 from faiss_tpu.ops import pallas_fused as pf
 from faiss_tpu_torch.ops import fused
-from faiss_tpu_torch.storage import split_f32_bf16, split_stats
+from faiss_tpu_torch.storage import (decode_f16_bits, encode_f16_bits,
+                                     flush_f16_subnormals, split_f16_bits,
+                                     split_f32_bf16, split_stats)
 
 from torch_parity import METRIC_IDS, METRICS
 
@@ -160,14 +164,14 @@ def test_unknown_accumulation_is_refused():
 
 # (route, query planes, device) → the accumulation its sweep charges: the
 # two-plane sweeps on the card run on the tensor cores (K3 over the f32
-# planes, K1 over bf16 rows and hi_exact's hi plane); one plane (K2, K4),
-# f16 (K6, K7), int8 (K5) and every CPU tensor keep the fmaf bound
+# planes, K1 over bf16 rows and hi_exact's hi plane, K6 over the f16 pair);
+# one plane (K2, K4, K7), int8 (K5: exact integer sums, its own ε) and
+# every CPU tensor keep the fmaf bound
 ACCUM_CASES = [
     ("pair", 2, "cuda", "mma"), ("bf16", 2, "cuda", "mma"),
-    ("hi_exact", 2, "cuda", "mma"),
+    ("hi_exact", 2, "cuda", "mma"), ("f16", 2, "cuda", "mma"),
     ("pair", 1, "cuda", "fmaf"), ("bf16", 1, "cuda", "fmaf"),
-    ("hi_exact", 1, "cuda", "fmaf"),
-    ("f16", 2, "cuda", "fmaf"), ("f16", 1, "cuda", "fmaf"),
+    ("hi_exact", 1, "cuda", "fmaf"), ("f16", 1, "cuda", "fmaf"),
     ("int8", 2, "cuda", "fmaf"),
 ] + [(r, p, "cpu", "fmaf") for r in fused.SWEEP_ROUTES for p in (1, 2)]
 
@@ -373,4 +377,61 @@ def test_emulated_bf16_sweep_within_mma_eps(metric, jmetric, adversary, d):
         if name == "truncation":
             qn = np.linalg.norm(qh[i]) + np.linalg.norm(ql[i])
             fmaf_term = (d + 2) * U * qn * np.linalg.norm(rows, axis=1)
+            assert bool((err > (2.0 if l2 else 1.0) * fmaf_term)[:2].all())
+
+
+def _f16_rows(rows):
+    """The f16 rows the store keeps for ``rows`` (RNE, subnormals flushed):
+    their bits, their exact values (float64) and fp32 norms."""
+    bits = flush_f16_subnormals(encode_f16_bits(
+        torch.from_numpy(np.asarray(rows, np.float32))))
+    v = decode_f16_bits(bits)
+    assert bool(torch.isfinite(v).all())
+    return bits, v.double().numpy(), (v * v).sum(-1)
+
+
+@pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
+@pytest.mark.parametrize("adversary", ["truncation", "cancellation", "skewed"])
+@pytest.mark.parametrize("d", [128, 136])
+def test_emulated_f16_pair_sweep_within_mma_eps(metric, jmetric, adversary,
+                                                d):
+    """K6's arithmetic emulated: the rows as f16 stores them, split to their
+    exact bf16 pair (``split_f16_bits``), the three accumulators qh·dh,
+    qh·dl, ql·dh of the model's worst case (``mma_chain``) added left to
+    right in fp32, and the epilogue, against the exact score of the stored
+    f16 row: within _sweep_eps(pair_sweep=True, accum="mma") with the f16
+    split statistics on the truncation, cancellation and skewed
+    adversaries. The pair is exact (dh + dl == v, s1 = 0), and on the
+    truncation adversary the emulated error exceeds the fmaf budget's
+    accumulation term, so the tensor-core term is needed there."""
+    name, a, rows = [c for c in _adversaries(d) if c[0] == adversary][0]
+    bits, v, norms = _f16_rows(rows)
+    dh, dl = (p.double().numpy() for p in split_f16_bits(bits))
+    assert np.array_equal(dh + dl, v)
+    stats = split_stats(torch.from_numpy(v).float(),
+                        *split_f32_bf16(torch.from_numpy(v).float()))
+    assert float(stats[1]) == 0.0
+    xq = np.stack([_near_bf16_query(a, seed) for seed in range(3)])
+    q = torch.from_numpy(xq)
+    qh, ql = (p.double().numpy() for p in split_f32_bf16(q))
+    n = v.shape[0]
+    eps = fused._sweep_eps(q, norms, n, metric=metric, d_pad=d,
+                           pair_sweep=True, split_stats=stats,
+                           accum="mma").double().numpy()
+    l2 = metric.value == "l2"
+    vn = norms.numpy() if l2 else np.zeros(n, np.float32)
+    for i in range(len(xq)):
+        t1 = mma_chain(qh[i], dh).astype(np.float32)
+        t2 = mma_chain(qh[i], dl).astype(np.float32)
+        t3 = mma_chain(ql[i], dh).astype(np.float32)
+        acc = (t1 + t2) + t3                                 # fp32, RN
+        got = (np.float32(2) * acc if l2 else acc) - vn
+        exact = v @ xq[i].astype(np.float64)
+        if l2:
+            exact = 2.0 * exact - vn.astype(np.float64)
+        err = np.abs(got - exact)
+        assert bool((err <= eps[i]).all()), (name, i)
+        if name == "truncation":
+            qn = np.linalg.norm(qh[i]) + np.linalg.norm(ql[i])
+            fmaf_term = (d + 2) * U * qn * np.linalg.norm(v, axis=1)
             assert bool((err > (2.0 if l2 else 1.0) * fmaf_term)[:2].all())
