@@ -46,10 +46,13 @@ kernel is held against its plain PyTorch version at the main paths' shapes
 path's 32 candidates, K8 at its stage-3a 1792 candidates with m = 32, K3
 with its supergroup maxes also at 10M): the sweeps' supergroup-max output
 (every format, both metrics), K8, K9, K5 (int8, on the integer tensor
-cores) and the rescore-select kernel (bf16, int8, f16) bit for bit, K3, K1
-and K6 (the tensor-core sweeps with float sums) within their ε with the
-tensor-core term (``_sweep_eps(accum="mma")``), and the three also on the
-truncation adversary of tests/test_torch_mma_eps.py, their errors printed.
+cores) and the rescore-select kernel (bf16, int8, f16) bit for bit, K3,
+K1, K2 and K6 (the tensor-core sweeps with float sums) within their ε with
+the tensor-core term (``_sweep_eps(accum="mma")``), and K3, K1, K6 also on
+the truncation adversary of tests/test_torch_mma_eps.py, their errors
+printed. f32_sift prints K2's certificate ε on the card over the fmaf ε it
+had on the CUDA cores, and its fallbacks; the K10 f32 row prints the runs
+of equal chunk ids, the longest, and the pieces the kernel reads.
 Kernels and their library calls are timed on the device (``graph_ms``: a
 CUDA graph of the reps, replayed between CUDA events), the plain versions
 eagerly (``cuda_ms``). Recall@K must be
@@ -171,6 +174,26 @@ def _certificate_eps(idx, q, metric, accum="fmaf"):
     st = idx.store
     return _eps(q, st.norms, idx.ntotal, st.d_pad, metric, st.scales,
                 st.int_norm_max, st.split_stats, accum)
+
+
+def k2_certificate(torch, idx, xq):
+    """hi_exact's one-plane certificate on the card: its ε with the
+    tensor-core term (K2) over its ε with the fmaf term (the JAX bound's),
+    per query, and the index's fallbacks so far (an uncertified query is
+    re-run exactly: a cost, not an error)."""
+    from faiss_tpu_torch.ops import fused
+
+    q, nq, _ = idx._prep_queries(xq)
+    st = idx.store
+    accum = fused.sweep_accum("hi_exact", 1, q.device)
+    check(accum == "mma", f"f32_sift: K2 is certified with {accum}")
+    kw = dict(metric=idx.metric, d_pad=st.d_pad, single_pass=True,
+              pair_sweep=True, split_stats=st.split_stats)
+    r = (fused._sweep_eps(q, st.norms, idx.ntotal, accum=accum, **kw)
+         / fused._sweep_eps(q, st.norms, idx.ntotal, **kw))[:nq]
+    print(f"f32_sift: K2's certificate ε (accum {accum}) over the fmaf ε: "
+          f"{float(r.min()):.4f} to {float(r.max()):.4f} across the "
+          f"queries; fused_fallbacks={idx.fused_fallbacks}", flush=True)
 
 
 def _shapes(idx, xq, metric):
@@ -328,8 +351,8 @@ def _k9_row(torch, s):
 def phase_kernels(torch, idx, xq, metric):
     """The bf16 kernels against their plain versions at the main path's
     shapes. Sweep and rescore: |kernel − plain| ≤ the query's two-plane ε
-    (it bounds the accumulation error of both sides; K1, on the tensor
-    cores, with accum="mma"). Selects: equal bits."""
+    (it bounds the accumulation error of both sides; K2 and K1, on the
+    tensor cores, with accum="mma"). Selects: equal bits."""
     from faiss_tpu_torch.ops import fused, kernels
 
     q, nq_pad, nv_eff, vn = _shapes(idx, xq, metric)
@@ -1104,11 +1127,18 @@ def _k10_f32_row(torch, idx, xq):
     chunk_mb = 128 * idx.d_pad * 4 / 1e6
     live = int(okc.sum())
     distinct = int(cidx[okc].unique().numel())
+    # the kernel's grouping: runs of equal (clamped) chunk ids, cut into
+    # pieces of ≤ RESCORE_F32_CAP positions, one chunk read each
+    _, run = cidx.clamp(0, nv // 128 - 1).unique(return_counts=True)
+    cap = kernels.RESCORE_F32_CAP
+    pieces = int(((run + cap - 1) // cap).sum())
     print(f"K10 f32 rows at nprobe 16: nq_pad {nq_pad}, nbudget {nbudget} "
           f"chunks; positions {cidx.numel()}, live {live} (dead share "
-          f"{1 - live / cidx.numel():.4f}, the dead at chunk 0); rows read "
-          f"by the launch {cidx.numel() * chunk_mb:.1f} MB, by its live "
-          f"positions {live * chunk_mb:.1f} MB, distinct live chunks "
+          f"{1 - live / cidx.numel():.4f}, the dead at chunk 0); runs of "
+          f"equal chunk ids {run.numel()}, the longest {int(run.max())} "
+          f"positions, pieces of ≤ {cap}: {pieces}; rows read by the launch "
+          f"{pieces * chunk_mb:.1f} MB (one block per position would read "
+          f"{cidx.numel() * chunk_mb:.1f} MB), distinct live chunks "
           f"{distinct} ({distinct * chunk_mb:.1f} MB, the bound's)",
           flush=True)
     _print_rows(idx.metric, {"rescore_groups_f32": row})
@@ -1368,6 +1398,7 @@ def main() -> int:
                                     "rescore_groups", "final_select"))
     check(counts["f32_sift"]["sweep_split_3"] == 0,
           "f32_sift swept the pair: hi_exact was not taken")
+    k2_certificate(torch, sift, xq_i)
     counts["pair"] = main_path(torch, "pair", [(pair, xq, L2)],
                                ("sweep_split_3", "rescore_groups_pair",
                                 "select_groups", "final_select"))
@@ -1451,7 +1482,7 @@ def main() -> int:
     k11_note = ("reached through fused_search(rescore_select=True): "
                 "launches counted in the surface phase")
     meta = {
-        "sweep_groupmax_1": ("sweep_groupmax.cu", f"{PF}:190", None),
+        "sweep_groupmax_1": ("sweep_split_mma.cu", f"{PF}:190", None),
         "sweep_groupmax_2": ("sweep_split_mma.cu", f"{PF}:174", None),
         "sweep_split_3": ("sweep_split_mma.cu", f"{PF}:239", None),
         "sweep_split_2": ("sweep_groupmax.cu", f"{PF}:204",

@@ -1,7 +1,7 @@
 // Helpers shared by the kernels of faiss_tpu_torch: bf16, f16 and int8
-// unpacking, NaN-propagating max, and warp/block reductions. Plain C
-// interface only (no PyTorch headers), so nvcc builds the library in
-// seconds.
+// unpacking, NaN-propagating max, warp/block reductions, and the sm_90
+// mbarrier and bulk-copy wrappers. Plain C interface only (no PyTorch
+// headers), so nvcc builds the library in seconds.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -167,6 +167,51 @@ __device__ __forceinline__ void extract_step(
   }
   col_out = block_min<NT>(col, iscratch);
   m_out = m;
+}
+
+// -- mbarriers and bulk copies (sm_90) -----------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  }
+}
+
+// `bytes` (a multiple of 16) from global to shared memory, both 16-byte
+// aligned; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 }  // namespace ft

@@ -1,18 +1,18 @@
-// Group-max sweep with one query plane: phase 1 of the fused search, bf16,
-// f32 and f16 storage.
+// Group-max sweep with one query plane on the CUDA cores: phase 1 of the
+// fused search over the f32 rows' bf16 planes and over f16 rows.
 //
-// Replaces three Pallas kernel bodies of faiss_tpu/ops/pallas_fused.py, all
+// Replaces two Pallas kernel bodies of faiss_tpu/ops/pallas_fused.py, both
 // launched by _sweep_call from groupmax_scores, with their shared _epilogue:
-//   bf16 rows v:                _kernel_q1     acc = q1·v
 //   f32 rows as bf16 planes     _kernel_split2 acc = q1·dh + q1·dl
 //   (v ≈ dh + dl):
 //   f16 bits, decoded in-       _kernel_f16_1  acc = q1·dh + q1·dl
 //   register to the exact
 //   pair (v == dh + dl):
-// (q1: the query rounded to bf16, RNE). The sweeps with two query planes
-// (_kernel_qpair, _kernel_split, _kernel_f16_pair, and _kernel_int8's two
-// integer passes) run on the tensor cores in sweep_split_mma.cu. For every
-// query q and every 128-row group g it writes
+// (q1: the query rounded to bf16, RNE). The other sweeps (_kernel_q1 over
+// bf16 rows with one query plane, _kernel_qpair, _kernel_split,
+// _kernel_f16_pair, and _kernel_int8's two integer passes) run on the
+// tensor cores in sweep_split_mma.cu. For every query q and every 128-row
+// group g it writes
 //     gm[q, g] = max over rows r of g of  s(q, r),
 //     s = 2·acc − vn[r]  (L2)   or   acc − vn[r]  (IP),
 // where vn is the pre-masked norm stream (+inf on rows past ntotal, so
@@ -47,24 +47,23 @@
 // fp32, so a term a·b errs ≤ d·u·‖a‖·‖b‖ (u = 2^-24). With ‖q1‖ ≤ Q + R,
 // ‖dh‖ ≤ V, ‖dl‖ ≤ s0 the terms err ≤ d·u·(Q+R)·(V+s0) and the final add
 // ≤ u·(the same sum), within the (d+2)·u·[(Q+R)·(V+s0) + L·V] that
-// _sweep_eps charges (one plane: L = 0; bf16: s0 = 0). One accumulator over
-// the 2·d interleaved terms would exceed that budget.
+// _sweep_eps charges (one plane: L = 0). One accumulator over the 2·d
+// interleaved terms would exceed that budget.
 //
 // What bounds it on an H100: fp32 FMA throughput. At nq=104, 1M×128 one
-// product term is 13.3 G FMA (bf16: 1 term against 256 MB of rows; f32:
-// 2 terms against 512 MB of planes); the rows are read once from device
-// memory and then from L2 by the other query tiles of the same group.
+// product term is 13.3 G FMA (2 terms against 512 MB of f32 planes, or
+// 256 MB of f16 rows); the rows are read once from device memory and then
+// from L2 by the other query tiles of the same group.
 // Design: one block per (group, QT-query tile), blocks of one group
 // adjacent in launch order so the group's 32 KB per plane stays in L2; one
 // thread per row keeps QT accumulators per term in registers and reads each
 // 16-byte row chunk once for all QT queries; the query tile is staged in
 // shared memory (fp32, d in chunks of 64) and read as broadcast float4s.
 // The 128-row max is a warp shuffle max plus one shared-memory step.
-// QT 32 per route: 32 accumulators for bf16 (77 registers), 64 for
-// _kernel_split2 / _kernel_f16_1 (138 / 128 registers).
-// nvcc -Xptxas -v for sm_90a reports no spills but 8 bytes for
-// _kernel_f16_1. At this shape the f16 rows, with half the bytes and the
-// decode, ran 2.05 ms against 2.12 for the f32 planes on this template
+// QT 32: 64 accumulators (138 / 128 registers for _kernel_split2 /
+// _kernel_f16_1). nvcc -Xptxas -v for sm_90a reports no spills but 8 bytes
+// for _kernel_f16_1. At this shape the f16 rows, with half the bytes and
+// the decode, ran 2.05 ms against 2.12 for the f32 planes on this template
 // (CUDA events, NVIDIA H100 80GB HBM3, 700.00 W).
 #include "common.cuh"
 
@@ -83,12 +82,10 @@ __device__ __forceinline__ float dot8(const float* a, const float (&x)[8],
   return s;
 }
 
-// Row formats: bf16 rows (one db plane), the f32 rows' bf16 (hi, lo)
-// planes, or f16 bits decoded to the (hi, lo) pair in-register.
-enum Rows { ROWS = 0, PAIR = 1, F16 = 2 };
+// Row formats: the f32 rows' bf16 (hi, lo) planes, or f16 bits decoded
+// to the (hi, lo) pair in-register; two product terms either way.
+enum Rows { PAIR = 1, F16 = 2 };
 
-// DB the row format; NT product terms: 1 for one db plane, 2 for two
-// (the pair formats).
 template <int DB, int QT, bool L2>
 __global__ void __launch_bounds__(ft::GROUP)
 sweep_groupmax_kernel(const uint16_t* __restrict__ q1,
@@ -97,7 +94,6 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q1,
                       const float* __restrict__ vn,
                       float* __restrict__ gm, float* __restrict__ bmax,
                       int nq, int d, int ngroups, int nqt) {
-  constexpr int NT = DB == ROWS ? 1 : 2;
   __shared__ __align__(16) float qs[QT][DT];
   __shared__ float red[ft::GROUP / 32][QT];
 
@@ -108,9 +104,9 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q1,
   const uint4* v1 =
       DB == PAIR ? reinterpret_cast<const uint4*>(db_lo + row * d) : nullptr;
 
-  float acc[NT][QT];
+  float acc[2][QT];
 #pragma unroll
-  for (int p = 0; p < NT; ++p)
+  for (int p = 0; p < 2; ++p)
 #pragma unroll
     for (int j = 0; j < QT; ++j) acc[p][j] = 0.f;
 
@@ -133,13 +129,13 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q1,
         for (int i = 0; i < 8; ++i) ft::split_pair(x0[i], x0[i], x1[i]);
       } else {
         ft::unpack8(__ldg(v0 + (d0 + e) / 8), x0);
-        if constexpr (DB == PAIR) ft::unpack8(__ldg(v1 + (d0 + e) / 8), x1);
+        ft::unpack8(__ldg(v1 + (d0 + e) / 8), x1);
       }
 #pragma unroll
       for (int j = 0; j < QT; ++j) {
         // terms in the order of the Pallas kernels: q1·v0, then q1·v1
         acc[0][j] = dot8(&qs[j][e], x0, acc[0][j]);
-        if constexpr (NT == 2) acc[1][j] = dot8(&qs[j][e], x1, acc[1][j]);
+        acc[1][j] = dot8(&qs[j][e], x1, acc[1][j]);
       }
     }
   }
@@ -148,9 +144,7 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q1,
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
 #pragma unroll
   for (int j = 0; j < QT; ++j) {
-    float a = acc[0][j];
-#pragma unroll
-    for (int p = 1; p < NT; ++p) a = a + acc[p][j];
+    const float a = acc[0][j] + acc[1][j];
     const float s = ft::warp_max((L2 ? 2.f * a : a) - vr);
     if (lane == 0) red[w][j] = s;
   }
@@ -190,23 +184,20 @@ void launch(const void* q1, const void* db, const void* db_lo,
 }  // namespace
 
 // q1: (nq, d) bf16, the one query plane (two planes go to ft_sweep_mma);
-// db: (≥ ngroups·128, d) bf16 rows, or the hi plane when db_lo is given;
-// db_lo: the lo plane, or null for bf16 rows; vn: (ngroups·128,) pre-masked
-// norms; gm: (nq, ngroups) f32 out; bmax: null, or the (nq, ngroups/8)
-// supergroup maxes, filled with -inf by the caller (ngroups % 8 == 0).
-// d % 8 == 0, 16-byte aligned.
+// db, db_lo: (≥ ngroups·128, d) the f32 rows' bf16 hi and lo planes; vn:
+// (ngroups·128,) pre-masked norms; gm: (nq, ngroups) f32 out; bmax: null,
+// or the (nq, ngroups/8) supergroup maxes, filled with -inf by the caller
+// (ngroups % 8 == 0). d % 8 == 0, 16-byte aligned. (bf16 rows with one
+// query plane: ft_sweep_mma.)
 extern "C" int ft_sweep_groupmax(const void* q1, const void* db,
                                  const void* db_lo, const void* vn, void* gm,
                                  void* bmax, int nq, int d, int ngroups,
                                  int l2, void* stream) {
-  if (nq <= 0 || ngroups <= 0 || d <= 0 || d % 8 != 0
+  if (nq <= 0 || ngroups <= 0 || d <= 0 || d % 8 != 0 || db_lo == nullptr
       || (bmax != nullptr && ngroups % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (db_lo == nullptr)
-    launch<ROWS, 32>(q1, db, db_lo, vn, gm, bmax, nq, d, ngroups, l2, s);
-  else
-    launch<PAIR, 32>(q1, db, db_lo, vn, gm, bmax, nq, d, ngroups, l2, s);
+  launch<PAIR, 32>(q1, db, db_lo, vn, gm, bmax, nq, d, ngroups, l2,
+                   static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,8 @@
-// The sweeps with two query planes on the tensor cores, one kernel template
-// over four row formats (ft_sweep_mma's fmt, enum Fmt):
+// The group-max sweeps on the tensor cores, one kernel template over four
+// row formats (ft_sweep_mma's fmt, enum Fmt) and the query planes (Rows<F,
+// QP>):
 //   BF16_ROWS   K1, the bf16 rows               acc = qh·v + ql·v
+//               K2, the same, one query plane   acc = q1·v
 //   F32_PLANES  K3, the f32 rows' bf16 planes   acc = (qh·dh + qh·dl) + ql·dh
 //   F16_BITS    K6, the f16 bits, decoded to    acc = (qh·dh + qh·dl) + ql·dh
 //               their exact bf16 pair (dh, dl)
@@ -9,10 +11,11 @@
 // (each product term its own accumulator, the terms added once at the end,
 // left to right).
 //
-// Replaces faiss_tpu/ops/pallas_fused.py _kernel_qpair (:174), _kernel_split
-// (:239), _kernel_f16_pair (:259) and _kernel_int8 (:219), launched by
-// _sweep_call (:376) from groupmax_scores, with their shared _epilogue. The
-// fp32 query is its bit-mask split qh, ql (bf16); the int8 route's q∘s its
+// Replaces faiss_tpu/ops/pallas_fused.py _kernel_qpair (:174), _kernel_q1
+// (:190), _kernel_split (:239), _kernel_f16_pair (:259) and _kernel_int8
+// (:219), launched by _sweep_call (:376) from groupmax_scores, with their
+// shared _epilogue. The fp32 query is its bit-mask split qh, ql (bf16), or
+// with one plane (K2) its RNE rounding q1 to bf16; the int8 route's q∘s its
 // residual expansion β₁·q₁ + β₂·q₂ (ops/fused.int8_query_pair: q₁, q₂ int8,
 // β₁, β₂ f32 per query). For every query q and 128-row group g:
 //     gm[q, g] = max over the rows r of g of  2·acc − vn[r]  (L2)
@@ -32,9 +35,10 @@
 // on the tensor cores (wgmma, bf16 in, fp32 accumulate) and the bytes bound
 // it. K1 reads half the bytes (256 MB, 0.079 ms) for two thirds of the
 // products. K6 reads K1's bytes for K3's products (operations bound it:
-// 0.081 ms). K5 reads 128 MB of codes (0.040 ms) for 2 × 104 × 1M × 128
-// int8 MACs on the integer tensor cores (wgmma s8 × s8, s32 accumulate:
-// 0.027 ms at 1979 TOP/s). Design:
+// 0.081 ms). K2 reads K1's bytes for half its products (0.027 ms): bytes
+// bind it more than any other. K5 reads 128 MB of codes (0.040 ms) for 2 ×
+// 104 × 1M × 128 int8 MACs on the integer tensor cores (wgmma s8 × s8, s32
+// accumulate: 0.027 ms at 1979 TOP/s). Design:
 //   - one block per SM (persistent): two consumer warpgroups, one per 64
 //     queries of the block's 128-query tile (wgmma's M side), one producer
 //     warp and, for F16_BITS, three decode warps beside it in the third
@@ -72,13 +76,16 @@
 //     tile the epilogue runs in registers, a max over the thread's columns
 //     and a 4-lane shuffle; the group max goes to gm, and at a supergroup's
 //     end to bmax;
-//   - K1: the two warpgroups take turns issuing a tile's products (named
-//     barriers), so that one's epilogue runs under the other's products;
-//   - one db plane in the products (K1, K5): where the query planes fit 8
-//     k-steps (K1 at 64 < d ≤ 128, the main path's 128; K5 at d ≤ 128, one
-//     chunk) they are wgmma A fragments in registers (read once from
-//     device memory), which halves the shared-memory reads of the
+//   - K1, K2: the two warpgroups take turns issuing a tile's products
+//     (named barriers), so that one's epilogue runs under the other's
 //     products;
+//   - one db plane in the products (K1, K2, K5): where the query planes fit
+//     8 k-steps (K1, K2 at 64 < d ≤ 128, the main path's 128; K5 at d ≤
+//     128, one chunk) they are wgmma A fragments in registers (read once
+//     from device memory), which halves the shared-memory reads of the
+//     products;
+//   - one query plane (K2): one A operand, one accumulator set, and a
+//     query tile of 16 KB a chunk in place of 32; the rest is K1's;
 //   - a d that is not a multiple of KC gets its k-tail zero-filled by TMA
 //     (out-of-bounds fill): its k-steps add exact zeros (an f16 zero
 //     decodes to the pair (0, 0)).
@@ -119,7 +126,11 @@
 // decoded pair is K3's planes exactly (dh + dl == v, s1 = 0 on finite
 // data), so the same budget holds with the f16 split statistics. K1's two
 // (‖qh‖·‖v‖ ≤ (Q+R)·V, ‖ql‖·‖v‖ ≤ L·V) add in one (≤ u·the sum): the same
-// budget with s0 = 0, as _sweep_eps(accum="mma") charges bf16 rows.
+// budget with s0 = 0, as _sweep_eps(accum="mma") charges bf16 rows. K2's
+// one term q1·v (‖q1‖ ≤ Q+R, R = ‖q − q1‖; ‖v‖ ≤ V) errs ≤ 36·⌈d/16⌉·u·
+// (Q+R)·V and is added to nothing: the same budget with L = 0 and s0 = 0
+// (single_pass=True), whose +2u is slack. At d = 128 its term (2) is 290u
+// where the fmaf chain's was 130u, in units of (Q+R)·V.
 // tests/test_torch_mma_eps.py emulates the model's truncating block sums on
 // adversarial rows. A k-step past d adds exact zeros to D, the largest
 // addend, and loses nothing: ⌈d/16⌉ steps are charged.
@@ -141,8 +152,7 @@ namespace {
 constexpr int NCONS = 256;             // two consumer warpgroups
 constexpr int QTILE = 128;             // queries a block
 constexpr int ROW_BYTES = 128;         // one swizzled row: a k chunk
-constexpr int A_PLANE = QTILE * ROW_BYTES;         // 16 KB
-constexpr int A_BYTES = 2 * A_PLANE;               // both query planes
+constexpr int A_PLANE = QTILE * ROW_BYTES;         // 16 KB a query plane
 constexpr int MAX_RESIDENT_KC = 4;     // resident query planes up to 4 chunks
 constexpr int MAX_STAGES = 16;
 constexpr int K1_BN = 64;              // K1's N side (bf16 rows)
@@ -150,8 +160,9 @@ constexpr int K1_BN = 64;              // K1's N side (bf16 rows)
 // ft_sweep_mma's row formats
 enum Fmt { BF16_ROWS = 0, F32_PLANES = 1, F16_BITS = 2, INT8_CODES = 3 };
 
-// The shapes of one row format.
-template <int F>
+// The shapes of one row format, with QP query planes (2; BF16_ROWS also
+// 1: K2).
+template <int F, int QP = 2>
 struct Rows {
   static constexpr bool INT8 = F == INT8_CODES;
   static constexpr int EW = INT8 ? 1 : 2;          // bytes an element
@@ -161,7 +172,9 @@ struct Rows {
   static constexpr int PLANES = F == F32_PLANES || F == F16_BITS ? 2 : 1;
   static constexpr int LOADS = F == F32_PLANES ? 2 : 1;
   static constexpr bool DECODE = F == F16_BITS;
-  static constexpr int TERMS = PLANES == 2 ? 3 : 2;  // product terms
+  // product terms: each query plane times each db plane, but ql·dl
+  static constexpr int TERMS = PLANES == 2 ? QP + 1 : QP;
+  static constexpr int A_BYTES = QP * A_PLANE;     // the query planes' chunk
   static constexpr int BN = F == BF16_ROWS ? K1_BN : 64;
   static constexpr int ACC = BN / 2;               // accumulators a term
   static constexpr int TILES = ft::GROUP / BN;     // N tiles a group
@@ -170,7 +183,7 @@ struct Rows {
   static constexpr int B_TX = LOADS * B_PLANE;     // of them, by TMA
   // stages of ≥ 16 KB: 8 (K3's measured ring); 8 KB tiles: 16
   static constexpr int STAGES = B_BYTES >= 16384 ? 8 : MAX_STAGES;
-  // the warpgroups take turns issuing a tile's products (K1; K5 ran
+  // the warpgroups take turns issuing a tile's products (K1, K2; K5 ran
   // faster without, its tiles one chunk long)
   static constexpr bool ORDERED = F == BF16_ROWS;
   static constexpr int NDEC = DECODE ? 96 : 0;     // the decode warps
@@ -180,37 +193,12 @@ struct Rows {
 
 // -- PTX wrappers --------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-  }
-}
+using ft::bulk_load;
+using ft::mbar_arrive;
+using ft::mbar_expect_tx;
+using ft::mbar_init;
+using ft::mbar_wait;
+using ft::smem_addr;
 
 // One 2-D tile of a tensor map into shared memory; completion is counted
 // in bytes on `bar`. c0: the element along d, c1: the row.
@@ -221,17 +209,6 @@ __device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst,
       ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"(map), "r"(smem_addr(bar)), "r"(c0),
          "r"(c1)
-      : "memory");
-}
-
-// `bytes` (a multiple of 16) from global to shared memory, both 16-byte
-// aligned; completion is counted in bytes on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -434,7 +411,8 @@ __device__ __forceinline__ void split_f16x8(const uint4 w, uint4& hi,
 template <bool L2, int TERMS, int ACC>
 __device__ __forceinline__ float score(const float (&acc)[TERMS][ACC], int i,
                                        float v, float2) {
-  float a = __fadd_rn(acc[0][i], acc[1][i]);
+  float a = acc[0][i];
+  if constexpr (TERMS >= 2) a = __fadd_rn(a, acc[1][i]);
   if constexpr (TERMS == 3) a = __fadd_rn(a, acc[2][i]);
   return __fsub_rn(L2 ? __fmul_rn(2.f, a) : a, v);
 }
@@ -448,14 +426,15 @@ __device__ __forceinline__ float score(const int (&acc)[TERMS][ACC], int i,
 
 // -- the kernel ----------------------------------------------------------
 
-// Maps: tq_hi, tq_lo the query planes (qh, ql; q₁, q₂), tv_hi the db plane
-// TMA loads (the bf16 rows, the hi plane, the f16 bits, the int8 codes),
-// tv_lo the f32 rows' lo plane (unread otherwise). beta: (nq, 2) β₁, β₂
-// (INT8_CODES only). RSK chunks of the query planes (1, 2; 0: none) are
-// read once from q_hi, q_lo (nq, d) into registers as wgmma's A fragments,
-// not by TMA, and only the rows ride the ring (nkc is RSK).
-template <int F, bool L2, int RSK>
-__global__ void __launch_bounds__(Rows<F>::NTHREADS, 1)
+// Maps: tq_hi, tq_lo the query planes (qh, ql; q₁, q₂; with QP = 1 qh
+// alone, the q1 of K2, and tq_lo unread), tv_hi the db plane TMA loads
+// (the bf16 rows, the hi plane, the f16 bits, the int8 codes), tv_lo the
+// f32 rows' lo plane (unread otherwise). beta: (nq, 2) β₁, β₂ (INT8_CODES
+// only). RSK chunks of the query planes (1, 2; 0: none) are read once from
+// q_hi, q_lo (nq, d) into registers as wgmma's A fragments, not by TMA,
+// and only the rows ride the ring (nkc is RSK).
+template <int F, int QP, bool L2, int RSK>
+__global__ void __launch_bounds__(Rows<F, QP>::NTHREADS, 1)
 sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
                        const __grid_constant__ CUtensorMap tq_lo,
                        const __grid_constant__ CUtensorMap tv_hi,
@@ -466,16 +445,16 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
                        const float* __restrict__ beta, float* __restrict__ gm,
                        float* __restrict__ bmax, int nq, int d, int ngroups,
                        int nkc, int resident, int nstages) {
-  using S = Rows<F>;
+  using S = Rows<F, QP>;
   constexpr bool RS = RSK > 0;
   static_assert(!RS || (S::PLANES == 1 && S::BN == 64),
                 "RS: one db plane at N = 64");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int stage_bytes = resident ? S::B_BYTES : A_BYTES + S::B_BYTES;
+  const int stage_bytes = resident ? S::B_BYTES : S::A_BYTES + S::B_BYTES;
   uint8_t* a_res = smem;
-  uint8_t* ring = smem + (resident && !RS ? nkc * A_BYTES : 0);
+  uint8_t* ring = smem + (resident && !RS ? nkc * S::A_BYTES : 0);
   float* nring = reinterpret_cast<float*>(ring + nstages * stage_bytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(nring + nstages * S::BN);
   uint64_t* empty = full + nstages;
@@ -509,11 +488,12 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
     // producer: one thread issues every load
     if (lane != 0) return;
     if (resident && !RS) {
-      mbar_expect_tx(a_bar, nkc * A_BYTES);
+      mbar_expect_tx(a_bar, nkc * S::A_BYTES);
       for (int kc = 0; kc < nkc; ++kc) {
-        tma_load(&tq_hi, a_res + kc * A_BYTES, a_bar, kc * S::KC, q_tile);
-        tma_load(&tq_lo, a_res + kc * A_BYTES + A_PLANE, a_bar, kc * S::KC,
-                 q_tile);
+        tma_load(&tq_hi, a_res + kc * S::A_BYTES, a_bar, kc * S::KC, q_tile);
+        if constexpr (QP == 2)
+          tma_load(&tq_lo, a_res + kc * S::A_BYTES + A_PLANE, a_bar,
+                   kc * S::KC, q_tile);
       }
     }
     int stage = 0;
@@ -524,12 +504,14 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
           mbar_wait(empty + stage, phase ^ 1u);
           uint8_t* st = ring + stage * stage_bytes;
           mbar_expect_tx(full + stage,
-                         (resident ? S::B_TX : A_BYTES + S::B_TX)
+                         (resident ? S::B_TX : S::A_BYTES + S::B_TX)
                              + (kc == 0 ? S::BN * 4 : 0));
           if (!resident) {
             tma_load(&tq_hi, st, full + stage, kc * S::KC, q_tile);
-            tma_load(&tq_lo, st + A_PLANE, full + stage, kc * S::KC, q_tile);
-            st += A_BYTES;
+            if constexpr (QP == 2)
+              tma_load(&tq_lo, st + A_PLANE, full + stage, kc * S::KC,
+                       q_tile);
+            st += S::A_BYTES;
           }
           const int row = g * ft::GROUP + h * S::BN;
           if (kc == 0)   // the tile's norms, with its first chunk
@@ -557,7 +539,7 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
           for (int kc = 0; kc < nkc; ++kc) {
             mbar_wait(full + stage, phase);
             uint4* b = reinterpret_cast<uint4*>(
-                ring + stage * stage_bytes + (resident ? 0 : A_BYTES));
+                ring + stage * stage_bytes + (resident ? 0 : S::A_BYTES));
 #pragma unroll 2
             for (int i = t; i < S::B_PLANE / 16; i += S::NDEC) {
               uint4 hi, lo;
@@ -593,7 +575,8 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
   float m0 = -INFINITY, m1 = -INFINITY, bm0 = -INFINITY, bm1 = -INFINITY;
   using T = typename S::acc_t;
   using Acc = T[S::TERMS][S::ACC];   // K3, K6: qh·dh, qh·dl, ql·dh; K1:
-                                     // qh·v, ql·v; K5: q₁·v, q₂·v
+                                     // qh·v, ql·v; K2: q1·v; K5: q₁·v,
+                                     // q₂·v
   using Norms = float2[S::BN / 8];
   // the (β₁, β₂) of the thread's two queries (K5)
   float2 be0 = make_float2(0.f, 0.f), be1 = be0;
@@ -602,10 +585,10 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
     if (q1 < nq) be1 = __ldg(reinterpret_cast<const float2*>(beta) + q1);
   }
 
-  // RS: the warpgroup's 64 rows of both query planes for RSK chunks (4
+  // RS: the warpgroup's 64 rows of each query plane for RSK chunks (4
   // k-steps of 32 bytes each), as A fragments; zero past nq and d (the
   // rows' k-tail is zero too: TMA's out-of-bounds fill)
-  uint32_t aq[2][RS ? 4 * RSK : 1][4];
+  uint32_t aq[QP][RS ? 4 * RSK : 1][4];
   if constexpr (RS) {
     const int row_bytes = d * S::EW;
     const int kb = 4 * (lane & 3);
@@ -616,7 +599,7 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
                  : 0u;
     };
 #pragma unroll
-    for (int p = 0; p < 2; ++p)
+    for (int p = 0; p < QP; ++p)
 #pragma unroll
       for (int ks = 0; ks < 4 * RSK; ++ks) {
         const uint8_t* q = p == 0 ? q_hi : q_lo;
@@ -640,8 +623,8 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
         w[j] = *reinterpret_cast<const float2*>(v + 8 * j);
     }
     const uint8_t* st = ring + stage * stage_bytes;
-    const uint8_t* a = resident ? a_res + kc * A_BYTES : st;
-    const uint8_t* b = resident ? st : st + A_BYTES;
+    const uint8_t* a = resident ? a_res + kc * S::A_BYTES : st;
+    const uint8_t* b = resident ? st : st + S::A_BYTES;
     const uint64_t dqh = sw128_desc(a + wg * (A_PLANE / 2));
     const uint64_t dql = sw128_desc(a + A_PLANE + wg * (A_PLANE / 2));
     const uint64_t dvh = sw128_desc(b);
@@ -651,7 +634,8 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
       const int on = (kc | ks) != 0;   // step 0 starts from zero
       if constexpr (RS) {
         wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
-        wgmma_rs(acc[1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
+        if constexpr (QP == 2)
+          wgmma_rs(acc[1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
         continue;
       }
       wgmma<S::BN>(acc[0], dqh + 2 * ks, dvh + 2 * ks, on);
@@ -659,7 +643,8 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
         const uint64_t dvl = sw128_desc(b + S::B_PLANE);
         wgmma<S::BN>(acc[1], dqh + 2 * ks, dvl + 2 * ks, on);
       }
-      wgmma<S::BN>(acc[S::TERMS - 1], dql + 2 * ks, dvh + 2 * ks, on);
+      if constexpr (QP == 2)
+        wgmma<S::BN>(acc[S::TERMS - 1], dql + 2 * ks, dvh + 2 * ks, on);
     }
     wgmma_commit();
     wgmma_wait_prev();   // the chunk before this one has been read
@@ -722,7 +707,9 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
       if (ordered && (wg == 1 || i > 0)) named_sync(1 + wg);
       if constexpr (RS) {   // kc a constant: aq's index
         issue(acc, 0);
-        if constexpr (RSK == 2) issue(acc, 1);
+        if constexpr (RSK >= 2) issue(acc, 1);
+        if constexpr (RSK >= 3) issue(acc, 2);
+        if constexpr (RSK >= 4) issue(acc, 3);
       } else {
         for (int kc = 0; kc < nkc; ++kc) issue(acc, kc);
       }
@@ -800,10 +787,10 @@ struct Args {
   int nq, d, ngroups;
 };
 
-template <int F, bool L2, int RSK>
+template <int F, int QP, bool L2, int RSK>
 cudaError_t launch(const CUtensorMap (&maps)[4], const Args& a,
                    cudaStream_t stream) {
-  using S = Rows<F>;
+  using S = Rows<F, QP>;
   static DeviceInfo info[64];   // one table per instantiation
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -821,7 +808,7 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const Args& a,
     }
   }
   if (!di.attr_set) {
-    e = cudaFuncSetAttribute(sweep_split_mma_kernel<F, L2, RSK>,
+    e = cudaFuncSetAttribute(sweep_split_mma_kernel<F, QP, L2, RSK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              di.smem_optin);
     if (e != cudaSuccess) return e;
@@ -829,8 +816,8 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const Args& a,
   }
   const int nkc = (a.d + S::KC - 1) / S::KC;
   const int resident = nkc <= MAX_RESIDENT_KC;
-  const int a_bytes = resident && RSK == 0 ? nkc * A_BYTES : 0;
-  const int stage_bytes = resident ? S::B_BYTES : A_BYTES + S::B_BYTES;
+  const int a_bytes = resident && RSK == 0 ? nkc * S::A_BYTES : 0;
+  const int stage_bytes = resident ? S::B_BYTES : S::A_BYTES + S::B_BYTES;
   // align, A, barriers, the norms' ring
   const int fixed = 1024 + a_bytes + 8 * (3 * MAX_STAGES + 1)
                     + MAX_STAGES * S::BN * 4;
@@ -840,7 +827,7 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const Args& a,
   const int nqt = (a.nq + QTILE - 1) / QTILE;
   const int nsg = (a.ngroups + 7) / 8;
   const int nbx = max(1, min(nsg, di.sms / nqt));
-  sweep_split_mma_kernel<F, L2, RSK>
+  sweep_split_mma_kernel<F, QP, L2, RSK>
       <<<dim3(nbx, nqt), S::NTHREADS, smem, stream>>>(
           maps[0], maps[1], maps[2], maps[3],
           static_cast<const uint8_t*>(a.q_hi),
@@ -850,28 +837,29 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const Args& a,
 }
 
 // The instance for the metric and the query planes' place: A fragments in
-// registers where the planes take RS_KC chunks (K1 at N = 64: two, 64 < d ≤
-// 128; K5: one, d ≤ 128), else from shared memory.
-template <int F>
+// registers where the planes take RS_KC chunks (K1 and K2 at N = 64: two,
+// 64 < d ≤ 128; K5: one, d ≤ 128), else from shared memory.
+template <int F, int QP = 2>
 cudaError_t launch_metric(const CUtensorMap (&maps)[4], const Args& a, int l2,
                           cudaStream_t stream) {
   constexpr int RS_KC = F == BF16_ROWS && K1_BN == 64 ? 2
                         : F == INT8_CODES             ? 1
                                                       : 0;
-  const int nkc = (a.d + Rows<F>::KC - 1) / Rows<F>::KC;
+  const int nkc = (a.d + Rows<F, QP>::KC - 1) / Rows<F, QP>::KC;
   if constexpr (RS_KC > 0)
     if (nkc == RS_KC)
-      return l2 ? launch<F, true, RS_KC>(maps, a, stream)
-                : launch<F, false, RS_KC>(maps, a, stream);
-  return l2 ? launch<F, true, 0>(maps, a, stream)
-            : launch<F, false, 0>(maps, a, stream);
+      return l2 ? launch<F, QP, true, RS_KC>(maps, a, stream)
+                : launch<F, QP, false, RS_KC>(maps, a, stream);
+  return l2 ? launch<F, QP, true, 0>(maps, a, stream)
+            : launch<F, QP, false, 0>(maps, a, stream);
 }
 
 }  // namespace
 
-// fmt (enum Fmt): BF16_ROWS (K1), F32_PLANES (K3), F16_BITS (K6) or
-// INT8_CODES (K5). q_hi, q_lo: (nq, d) query planes, bf16 (qh, ql) or int8
-// (q₁, q₂); db: (≥ ngroups·128, d) rows: bf16 rows, the f32 rows' bf16 hi
+// fmt (enum Fmt): BF16_ROWS (K1; K2 with q_lo null), F32_PLANES (K3),
+// F16_BITS (K6) or INT8_CODES (K5). q_hi, q_lo: (nq, d) query planes, bf16
+// (qh, ql; q1 and null: one plane) or int8 (q₁, q₂); db: (≥ ngroups·128,
+// d) rows: bf16 rows, the f32 rows' bf16 hi
 // plane, f16 bit patterns or int8 codes; db_lo: the f32 rows' lo plane
 // (F32_PLANES; else unread); beta: (nq, 2) f32 β₁, β₂ (INT8_CODES; else
 // unread); vn: (ngroups·128,) pre-masked norms; gm: (nq, ngroups) f32 out;
@@ -888,6 +876,7 @@ extern "C" int ft_sweep_mma(int fmt, const void* q_hi, const void* q_lo,
       || static_cast<long long>(ngroups) * ft::GROUP >= (1LL << 31)
       || (bmax != nullptr && ngroups % 8 != 0)
       || (fmt == F32_PLANES && db_lo == nullptr)
+      || (fmt != BF16_ROWS && q_lo == nullptr)
       || (int8 && beta == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled enc = encoder();
@@ -902,7 +891,8 @@ extern "C" int ft_sweep_mma(int fmt, const void* q_hi, const void* q_lo,
   CUtensorMap maps[4];
   const int rows = ngroups * ft::GROUP;
   if (!plane_map(enc, &maps[0], qt, q_hi, d, nq, QTILE)
-      || !plane_map(enc, &maps[1], qt, q_lo, d, nq, QTILE)
+      || !plane_map(enc, &maps[1], qt, q_lo != nullptr ? q_lo : q_hi, d, nq,
+                    QTILE)
       || !plane_map(enc, &maps[2], vt, db, d, rows, bn)
       || !plane_map(enc, &maps[3], vt, fmt == F32_PLANES ? db_lo : db, d,
                     rows, bn))
@@ -913,7 +903,10 @@ extern "C" int ft_sweep_mma(int fmt, const void* q_hi, const void* q_lo,
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (fmt) {
-    case BF16_ROWS: e = launch_metric<BF16_ROWS>(maps, a, l2, s); break;
+    case BF16_ROWS:
+      e = q_lo != nullptr ? launch_metric<BF16_ROWS>(maps, a, l2, s)
+                          : launch_metric<BF16_ROWS, 1>(maps, a, l2, s);
+      break;
     case F32_PLANES: e = launch_metric<F32_PLANES>(maps, a, l2, s); break;
     case F16_BITS: e = launch_metric<F16_BITS>(maps, a, l2, s); break;
     default: e = launch_metric<INT8_CODES>(maps, a, l2, s); break;

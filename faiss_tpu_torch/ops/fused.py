@@ -27,9 +27,9 @@ Every true top-k row lies in a nominated group unless a non-nominated group
 could beat the k-th rescored score; the certificate
 ``vals[k-1] ≥ t + ε`` (ε from ``_sweep_eps``, a strict bound on
 |sweep score − rescore score|, with the tensor-core accumulation term where
-a two-plane sweep ran on the card, over bf16 rows, the f32 planes or the
-f16 pair: ``sweep_accum``) proves per query that none can. An uncertified query is
-re-run by the index on an exact path.
+the sweep ran on the card over bf16 rows, or with two query planes over the
+f32 planes or the f16 pair: ``sweep_accum``) proves per query that none
+can. An uncertified query is re-run by the index on an exact path.
 
 f32 storage (``db_split`` = the (hi, lo) planes) rescores in two stages:
 stage 3a scores every candidate against hi + lo (the pair mode of
@@ -462,10 +462,10 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
     """Per-query strict upper bound ε on |sweep score − rescore score| for
     any stored row: ``faiss_tpu``'s _sweep_eps, derived for this port's
     own arithmetic. ``accum`` names the sweep's accumulation: "fmaf" (the
-    default, and the JAX bound) or "mma", the tensor-core sweeps with two
-    query planes (csrc/sweep_split_mma.cu: the f32 planes', the bf16 rows'
-    and the f16 pair's; ``sweep_accum`` picks it by route); only term (2)
-    differs.
+    default, and the JAX bound) or "mma", the tensor-core sweeps with float
+    sums (csrc/sweep_split_mma.cu: the f32 planes', the bf16 rows' with one
+    or two query planes, and the f16 pair's; ``sweep_accum`` picks it by
+    route); only term (2) differs.
 
     Notation: u = 2^-24; Q = ‖q‖; R = ‖q − Σ q_planes‖ (computed exactly:
     the bit-mask split makes the subtractions exact); L = ‖q_lo‖;
@@ -493,7 +493,12 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
           the ≤ 2 round-to-nearest adds of the terms give the budget
           (≈ 2.2× the fmaf one at d = 128); the f16 pair: the f32 planes'
           arithmetic, with the f16 statistics; bf16 rows: two terms,
-          s0 = 0
+          s0 = 0; bf16 rows with one query plane (K2, single_pass): the
+          one term q1·v, ‖q1‖ ≤ Q+R, ‖v‖ ≤ V, errs ≤ 36·⌈d/16⌉·u·(Q+R)·V
+          and is added to nothing, inside the budget with L = 0 and
+          s0 = 0 (its +2u is slack): at d = 128 term (2) is 290u·(Q+R)·V
+          where the fmaf chain's was 130u·(Q+R)·V, and the whole ε grows
+          ≈ 1.41× (term (3) stays 256u·Q·V)
       (3) rescore accumulation                2·d·u·Q·V
           csrc/rescore_groups.cu: a sequential fmaf chain of fp32 q times
           exactly widened rows, ≤ d·u·Q·V; f32 stage 3b: an fp32 product
@@ -533,16 +538,19 @@ SWEEP_ROUTES = ("bf16", "pair", "hi_exact", "f16", "int8")
 
 def sweep_accum(route: str, sweep_passes: int, device) -> str:
     """The accumulation ``_sweep_eps`` must charge for the sweep that
-    ``route`` ran: "mma" where two query planes ran on the tensor cores on
-    the card, over the f32 planes (K3, "pair"), over bf16 rows (K1,
+    ``route`` ran: "mma" where it ran on the tensor cores with float sums
+    on the card: over bf16 rows with one or two query planes (K2, K1:
     "bf16", and "hi_exact", whose sweep is the bf16 kernel over the hi
-    plane) or over the f16 pair (K6, "f16"); "fmaf" for one query plane,
-    the int8 route (exact integer sums, certified by ``_sweep_eps_int8``),
-    and every CPU tensor (the plain versions; the JAX bound)."""
+    plane), and with two query planes over the f32 planes (K3, "pair") or
+    the f16 pair (K6, "f16"); "fmaf" for one query plane over the f32
+    planes or the f16 pair (K4, K7: fmaf chains), the int8 route (exact
+    integer sums, certified by ``_sweep_eps_int8``), and every CPU tensor
+    (the plain versions; the JAX bound)."""
     if route not in SWEEP_ROUTES:
         raise ValueError(f"route must be one of {SWEEP_ROUTES}, got {route!r}")
-    mma = (torch.device(device).type == "cuda" and sweep_passes == 2
-           and route in ("bf16", "pair", "hi_exact", "f16"))
+    on_card = torch.device(device).type == "cuda"
+    mma = on_card and (route in ("bf16", "hi_exact")
+                       or (sweep_passes == 2 and route in ("pair", "f16")))
     return "mma" if mma else "fmaf"
 
 
@@ -724,9 +732,9 @@ def fused_search(
                               nv_eff, metric=metric, d_pad=d_pad)
     else:
         # f16 sweeps the decoded pair: the pair ε with the f16 statistics;
-        # two query planes over bf16 rows (K1), the f32 planes (K3) or the
-        # f16 pair (K6) ran on the tensor cores when the queries lie on the
-        # card
+        # bf16 rows (K2, K1), and two query planes over the f32 planes (K3)
+        # or the f16 pair (K6), ran on the tensor cores when the queries
+        # lie on the card
         is_f16 = db.dtype == torch.float16
         route = ("f16" if is_f16 else "hi_exact" if hi_exact
                  else "pair" if pair_sweep else "bf16")

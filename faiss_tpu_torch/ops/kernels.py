@@ -46,9 +46,10 @@ GROUP = 128   # rows per candidate group (csrc/common.cuh ft::GROUP)
 _lib_handle: Optional[ctypes.CDLL] = None
 
 launches = {
-    # the sweeps with two query planes (and int8's two integer passes) run
-    # on the tensor cores (csrc/sweep_split_mma.cu), those with one on the
-    # CUDA cores (csrc/sweep_groupmax.cu)
+    # the bf16 sweeps, the sweeps with two query planes and int8's two
+    # integer passes run on the tensor cores (csrc/sweep_split_mma.cu); the
+    # f32 planes' and the f16 rows' sweeps with one query plane on the CUDA
+    # cores (csrc/sweep_groupmax.cu)
     "sweep_groupmax_1": 0,   # bf16 rows, one query plane  (_kernel_q1)
     "sweep_groupmax_2": 0,   # bf16 rows, two query planes (_kernel_qpair)
     "sweep_split_3": 0,      # f32 (hi, lo) planes, 3 terms (_kernel_split)
@@ -88,6 +89,9 @@ _SELECT_FMT = {torch.bfloat16: (0, "rescore_select"),
 MMA_BF16_ROWS, MMA_F32_PLANES, MMA_F16_BITS, MMA_INT8_CODES = 0, 1, 2, 3
 SUPERGROUP = 8   # groups per block-max entry (faiss_tpu SUPERGROUP)
 RESCORE_SELECT_MAX_CAND = 36 * GROUP   # csrc/rescore_select.cu MAX_CAND
+# positions of one chunk a block of the f32 rescore scores against one read
+# of it (csrc/rescore_groups.cu F32_CAP)
+RESCORE_F32_CAP = 16
 FINAL_SELECT_MAX_K = 40   # csrc/final_select.cu MAX_K (fused.SELECT_MAX_KG)
 # what the group select takes (csrc/select_groups.cu MAX_KG, MAX_COLS):
 # faiss_tpu's SELECT_MAX_KG and SELECT_MAX_GROUPS
@@ -168,7 +172,8 @@ def _lib() -> ctypes.CDLL:
             "ft_sweep_f16": [P, P, P, P, P, I, I, I, I, P],
             "ft_sweep_mma": [I, P, P, P, P, P, P, P, P, I, I, I, I, P],
             "ft_select_groups": [P, P, P, I, I, I, P],
-            "ft_rescore_groups": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+            "ft_rescore_groups": [P, P, P, P, P, P, I, I, I, I, I, I, P,
+                                  P],
             "ft_final_select": [P, P, P, I, I, I, P],
             "ft_rescore_select": [P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                                   P],
@@ -179,6 +184,8 @@ def _lib() -> ctypes.CDLL:
             fn.restype = I
         lib.ft_error_string.argtypes = [I]
         lib.ft_error_string.restype = ctypes.c_char_p
+        lib.ft_rescore_f32_work.argtypes = [I, I, I]
+        lib.ft_rescore_f32_work.restype = ctypes.c_longlong
         _lib_handle = lib
     return _lib_handle
 
@@ -264,9 +271,9 @@ def _check_sweep(planes, dbs, vn, *, q_dtype, db_dtype, align: int):
 
 def _sweep(counter, q1, db, db_lo, vn, metric, with_block_max,
            f16: bool = False):
-    """Launch ft_sweep_groupmax (bf16 rows or planes) or, with ``f16``,
-    ft_sweep_f16 (f16 rows), the CUDA-core sweeps with one query plane,
-    after the shared checks."""
+    """Launch ft_sweep_groupmax (the f32 rows' bf16 planes ``db``,
+    ``db_lo``) or, with ``f16``, ft_sweep_f16 (f16 rows), the CUDA-core
+    sweeps with one query plane, after the shared checks."""
     dbs = (db,) if db_lo is None else (db, db_lo)
     nq, d, ngroups = _check_sweep(
         (q1,), dbs, vn, q_dtype=torch.bfloat16,
@@ -292,19 +299,16 @@ def sweep_groupmax(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
                    db: torch.Tensor, vn: torch.Tensor, *,
                    metric: MetricType, with_block_max: bool = False):
     """Group maxes of the masked sweep scores over bf16 rows, with
-    nv_eff = len(vn); one query plane when ``q_lo`` is None (fmaf chains),
-    else two: qh·v + ql·v on the tensor cores (K1, certify with
-    ``_sweep_eps(accum="mma")``)."""
+    nv_eff = len(vn), on the tensor cores (certify with
+    ``_sweep_eps(accum="mma")``): q1·v with one query plane when ``q_lo`` is
+    None (K2), qh·v + ql·v with two (K1)."""
     planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
     if not _on_cuda(*planes, db, vn):
         from .fused import sweep_groupmax_plain
         return sweep_groupmax_plain(q_hi, q_lo, db, vn, metric=metric,
                                     with_block_max=with_block_max)
-    if q_lo is None:
-        return _sweep("sweep_groupmax_1", q_hi, db, None, vn, metric,
-                      with_block_max)
-    return _sweep_mma("sweep_groupmax_2", MMA_BF16_ROWS, (q_hi, q_lo), (db,),
-                      vn, metric, with_block_max)
+    return _sweep_mma(f"sweep_groupmax_{len(planes)}", MMA_BF16_ROWS, planes,
+                      (db,), vn, metric, with_block_max)
 
 
 def sweep_split(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
@@ -335,11 +339,11 @@ _MMA_DTYPES = {MMA_BF16_ROWS: (torch.bfloat16, torch.bfloat16, 8),
 
 def _sweep_mma(counter, fmt, planes, dbs, vn, metric, with_block_max,
                beta=None):
-    """Launch ft_sweep_mma, the tensor-core sweep with two query planes
-    (the int8 route's two integer passes) in row format ``fmt``: bf16 rows
-    (K1), the f32 planes ``dbs`` = (hi, lo) (K3), f16 bits (K6), or int8
-    codes against (q₁, q₂) with ``beta`` (K5). Its float accumulation is
-    what ``_sweep_eps(accum="mma")`` charges; K5's sums are exact."""
+    """Launch ft_sweep_mma, the tensor-core sweep over the query
+    ``planes`` in row format ``fmt``: bf16 rows (K1; K2 with one plane), the
+    f32 planes ``dbs`` = (hi, lo) (K3), f16 bits (K6), or int8 codes against
+    (q₁, q₂) with ``beta`` (K5). Its float accumulation is what
+    ``_sweep_eps(accum="mma")`` charges; K5's sums are exact."""
     q_dtype, db_dtype, align = _MMA_DTYPES[fmt]
     nq, d, ngroups = _check_sweep(planes, dbs, vn, q_dtype=q_dtype,
                                   db_dtype=db_dtype, align=align)
@@ -352,7 +356,8 @@ def _sweep_mma(counter, fmt, planes, dbs, vn, metric, with_block_max,
     gm, bmax = _sweep_outputs(nq, ngroups, dbs[0].device, with_block_max)
     with torch.cuda.device(dbs[0].device):
         _launch(counter, "ft_sweep_mma", fmt, planes[0].data_ptr(),
-                planes[1].data_ptr(), dbs[0].data_ptr(),
+                planes[1].data_ptr() if len(planes) == 2 else None,
+                dbs[0].data_ptr(),
                 dbs[1].data_ptr() if len(dbs) == 2 else None, vn.data_ptr(),
                 None if beta is None else beta.data_ptr(), gm.data_ptr(),
                 None if bmax is None else bmax.data_ptr(), nq, d, ngroups,
@@ -419,9 +424,11 @@ def rescore_groups(queries: torch.Tensor, db: torch.Tensor, vn: torch.Tensor,
     """(nq, kg·128) fp32 scores of each query's nominated groups, against
     the rows ``db``: bf16 rows, int8 codes (pass the queries times the
     scales), f16 bits decoded exactly, f32 rows (the IVF fine scan: gidx
-    holds pool chunk ids, in any order), or hi + lo when ``db2`` (the lo
-    plane of f32 storage) is given with the bf16 hi plane. A group id
-    outside [0, nv_eff/128) is clamped into range."""
+    holds pool chunk ids, in any order, repeated; the kernel reads each
+    distinct chunk once a launch, after a grouping pass on the card into
+    scratch this wrapper allocates), or hi + lo when ``db2`` (the lo plane
+    of f32 storage) is given with the bf16 hi plane. A group id outside
+    [0, nv_eff/128) is clamped into range."""
     dbs = (db,) if db2 is None else (db, db2)
     if not _on_cuda(queries, *dbs, vn, gidx):
         from .fused import rescore_groups_plain
@@ -448,15 +455,21 @@ def rescore_groups(queries: torch.Tensor, db: torch.Tensor, vn: torch.Tensor,
     if d % align or nv_eff % GROUP or nv_eff > db.shape[0] or kg == 0:
         raise ValueError(f"need d % {align} == 0, 128 | nv_eff ≤ capacity, "
                          f"kg > 0 (d={d}, nv_eff={nv_eff}, kg={kg})")
+    _int32(nq * kg, "nq·kg")
+    ngroups = _int32(nv_eff // GROUP, "ngroups")
     out = torch.empty((nq, kg * GROUP), dtype=torch.float32,
                       device=db.device)
     with torch.cuda.device(db.device):
+        work = None
+        if fmt == _RESCORE_FMT[torch.float32][0]:
+            work = torch.empty((_lib().ft_rescore_f32_work(nq, kg, ngroups),),
+                               dtype=torch.int32, device=db.device)
         _launch(counter, "ft_rescore_groups", queries.data_ptr(), db.data_ptr(),
                 None if db2 is None else db2.data_ptr(), vn.data_ptr(),
                 gidx.data_ptr(), out.data_ptr(),
-                _int32(nq, "nq"), _int32(d, "d"), _int32(kg, "kg"),
-                _int32(nv_eff // GROUP, "ngroups"),
-                int(metric is MetricType.L2), fmt)
+                _int32(nq, "nq"), _int32(d, "d"), _int32(kg, "kg"), ngroups,
+                int(metric is MetricType.L2), fmt,
+                None if work is None else work.data_ptr())
     return out
 
 

@@ -1,15 +1,16 @@
 """The tensor-core sweeps (csrc/sweep_split_mma.cu: K3 over the f32 planes,
-K1 over bf16 rows, K6 over f16 bits, K5 over int8 codes) against variants
-of themselves, on one CUDA card.
+K1 and, with one query plane, K2 over bf16 rows, K6 over f16 bits, K5 over
+int8 codes) against variants of themselves, on one CUDA card.
 
-    python scripts/k3_variants.py [--kernels k3,k1,k6,k5] [--only a,b]
-                                  [--nv 1000448,10000384] [--reps 10]
+    python scripts/k3_variants.py [--kernels k3,k1,k6,k5,k2] [--only a,b]
+                                  [--nv 1000448,10000384] [--d 128,256]
+                                  [--reps 10]
 
 Each variant is a patched copy of the kernel's source, built with nvcc into
 its own library and called through ``ft_sweep_mma`` on the same inputs (nq
-104, d 128, L2, with the supergroup maxes; Gaussian rows: K3 their f32
-planes, K1 their bf16 values, K6 their f16 bits; K5 random codes and query
-planes in [-127, 127]):
+104, d 128 or the --d list, L2, with the supergroup maxes; Gaussian rows:
+K3 their f32 planes, K1 and K2 their bf16 values, K6 their f16 bits; K5
+random codes and query planes in [-127, 127]):
 
   kernel        the source as it is
   no_mma        the products left out: the TMA ring and its barriers alone
@@ -49,13 +50,23 @@ planes in [-127, 127]):
   K5 only:
   no_rs         the query planes from shared memory, as K1's no_rs
   ordered       the two warpgroups take turns, as K1's
+  K2 only:
+  no_rs         the query plane from shared memory, as K1's no_rs
+  no_order      without the turns, as K1's no_order
+  n128          K1's n128: one m64n128k16 over a whole group, 64
+                accumulators (one term), A from shared memory
+  rs4           the query plane as A fragments in registers at 4 chunks
+                (d 256; 64 registers) and not at 2 (d 128): time it at
+                --d 256 against the kernel, which reads A from shared
+                memory there
 
 Times are graph replays (chip_smoke.graph_ms) in two rounds; every variant
 that computes must give the kernel's group maxes bit for bit, and supergroup
 maxes equal to block_max_plain of them (one that does not is reported, left
 untimed, and makes the script exit 1). Last, each float kernel (through
 kernels.sweep_split, kernels.sweep_groupmax, kernels.sweep_f16) on the
-truncation adversary of tests/test_torch_mma_eps.py: its error, in units
+truncation adversary of tests/test_torch_mma_eps.py (K2 with one query
+plane): its error, in units
 of ‖q‖·‖v‖·u (u = 2^-24), where a sum that truncates every addend at the
 largest one's exponent loses ≈ 254 and round to nearest ≈ 0 (K5's integer
 sums are exact). Prints the card's name and power
@@ -84,7 +95,8 @@ def _patch(text, pairs):
 
 MMA = """      if constexpr (RS) {
         wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
-        wgmma_rs(acc[1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
+        if constexpr (QP == 2)
+          wgmma_rs(acc[1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
         continue;
       }
       wgmma<S::BN>(acc[0], dqh + 2 * ks, dvh + 2 * ks, on);
@@ -92,9 +104,10 @@ MMA = """      if constexpr (RS) {
         const uint64_t dvl = sw128_desc(b + S::B_PLANE);
         wgmma<S::BN>(acc[1], dqh + 2 * ks, dvl + 2 * ks, on);
       }
-      wgmma<S::BN>(acc[S::TERMS - 1], dql + 2 * ks, dvh + 2 * ks, on);"""
+      if constexpr (QP == 2)
+        wgmma<S::BN>(acc[S::TERMS - 1], dql + 2 * ks, dvh + 2 * ks, on);"""
 ROW_LOADS = """          mbar_expect_tx(full + stage,
-                         (resident ? S::B_TX : A_BYTES + S::B_TX)
+                         (resident ? S::B_TX : S::A_BYTES + S::B_TX)
                              + (kc == 0 ? S::BN * 4 : 0));"""
 NORM_LOAD = """          if (kc == 0)   // the tile's norms, with its first chunk
             bulk_load(nring + stage * S::BN, vn + row, S::BN * 4,
@@ -130,6 +143,9 @@ WAIT0 = """    wgmma_commit();
 K1_N = "constexpr int K1_BN = 64;"
 ORDERED = "static constexpr bool ORDERED = F == BF16_ROWS;"
 RS_AT = "  if constexpr (RS_KC > 0)\n"
+RS_K1 = "  constexpr int RS_KC = F == BF16_ROWS && K1_BN == 64 ? 2\n"
+RS_K2_AT4 = ("  constexpr int RS_KC = F == BF16_ROWS && K1_BN == 64\n"
+             "                            ? (QP == 1 ? 4 : 2)\n")
 NORMS = "      norms(w, g, h);\n"
 WAIT_ALL = ("      wgmma_wait_all();   // the tile's last chunk, and its "
             "accumulators\n")
@@ -176,7 +192,7 @@ def _norms_ldg(text):
     return _patch(text, [
         (NORM_LOAD, ""),
         (ROW_LOADS, "          mbar_expect_tx(full + stage, resident ? "
-                    "S::B_TX : A_BYTES + S::B_TX);"),
+                    "S::B_TX : S::A_BYTES + S::B_TX);"),
         (NORM_READ, ""),
         (FOLD_AT, """  auto norms = [&](Norms& w, int g, int h) {
     const float* v = vn + static_cast<size_t>(g) * ft::GROUP + h * S::BN
@@ -202,7 +218,8 @@ def _decode_cons(text):
          "    mbar_wait(ready + stage, phase);\n"
          "    if constexpr (S::DECODE) {\n"
          "      uint4* raw = reinterpret_cast<uint4*>(\n"
-         "          ring + stage * stage_bytes + (resident ? 0 : A_BYTES));\n"
+         "          ring + stage * stage_bytes + (resident ? 0 : "
+         "S::A_BYTES));\n"
          "#pragma unroll\n"
          "      for (int i = threadIdx.x; i < S::B_PLANE / 16; i += NCONS) {\n"
          "        uint4 hi, lo;\n"
@@ -224,8 +241,8 @@ def _rs_hi(text):
          """  static_assert(!RS || S::BN == 64, "RS: N = 64");"""),
         ("resident && !RS", "resident && (!RS || S::PLANES == 2)"),
         ("resident && RSK == 0", "resident && (RSK == 0 || S::PLANES == 2)"),
-        ("    for (int p = 0; p < 2; ++p)\n",
-         "    for (int p = 0; p < (S::PLANES == 2 ? 1 : 2); ++p)\n"),
+        ("    for (int p = 0; p < QP; ++p)\n",
+         "    for (int p = 0; p < (S::PLANES == 2 ? 1 : QP); ++p)\n"),
         ("""      if constexpr (RS) {
         wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);""",
          """      if constexpr (RS && S::PLANES == 2) {
@@ -271,6 +288,14 @@ def _even_split(text):
     ])
 
 
+def _n128(text):
+    """wgmma's N side 128 rows for the bf16 rows (K1_BN): one m64n128k16 a
+    term over a whole group; the query planes from shared memory."""
+    return _patch(text, [(K1_N, "constexpr int K1_BN = 128;"),
+                         (WGMMA_N, WGMMA_N128),
+                         (WGMMA_AT, W128 + "\n" + WGMMA_AT)])
+
+
 def _cuts(text):
     """The kernel without its products, and without its loads (the rows'
     tiles and the norms; the full barrier a plain arrival)."""
@@ -293,6 +318,12 @@ def variants(text, kernel):
                          "static constexpr int NDEC = DECODE ? 96 : 0;",
                          "static constexpr int NDEC = DECODE ? 224 : 0;")]),
                      "decode_cons": _decode_cons(text)})
+    elif kernel == "k2":
+        base.update({"no_rs": _patch(text, [(RS_AT,
+                                             "  if constexpr (false)\n")]),
+                     "no_order": free,
+                     "rs4": _patch(text, [(RS_K1, RS_K2_AT4)]),
+                     "n128": _n128(text)})
     elif kernel == "k5":
         base.update({"no_rs": _patch(text, [(RS_AT,
                                              "  if constexpr (false)\n")]),
@@ -300,9 +331,7 @@ def variants(text, kernel):
                          ORDERED, "static constexpr bool ORDERED = PLANES "
                                   "== 1;")])})
     elif kernel == "k1":
-        n128 = _patch(text, [(K1_N, "constexpr int K1_BN = 128;"),
-                             (WGMMA_N, WGMMA_N128),
-                             (WGMMA_AT, W128 + "\n" + WGMMA_AT)])
+        n128 = _n128(text)
         no_rs = [(RS_AT, "  if constexpr (false)\n")]
         base.update({"no_rs": _patch(text, no_rs),
                      "no_order": free,
@@ -353,8 +382,8 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
     """The kernel's largest |dot − exact| on query [1, s, …, s] against
     rows [1, −s, …, −s] scaled by 2^j in group j (s = 2^-12·1.4140625: s² is
     just under ulp(1) = 2^-23), IP, over ‖q‖·‖v‖·u of the row's group: K3
-    over the rows' f32 planes, K1 over the rows in bf16, K6 over their f16
-    bits (exact in both)."""
+    over the rows' f32 planes, K1 and K2 over the rows in bf16, K6 over
+    their f16 bits (exact in both)."""
     d, nq, ng = 128, 8, 8
     s = 2.0 ** -12 * 1.4140625
     a = torch.full((d,), s, dtype=torch.float64)
@@ -368,7 +397,9 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
                                 2)
     vn = torch.zeros((ng * 128,), device=dev)
     ip = MetricType.INNER_PRODUCT
-    if kernel == "k1":
+    if kernel in ("k1", "k2"):
+        if kernel == "k2":   # a bf16-valued query: q1 is qh, ql is zero
+            ql = None
         gm = kernels.sweep_groupmax(qh, ql, x.to(dev).to(torch.bfloat16), vn,
                                     metric=ip)
     elif kernel == "k6":
@@ -382,27 +413,33 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
     return float(((gm.double() - exact) / unit.to(dev)).abs().max())
 
 
-FMT = {"k1": 0, "k3": 1, "k6": 2, "k5": 3}   # ft_sweep_mma's enum Fmt
+FMT = {"k1": 0, "k3": 1, "k6": 2, "k5": 3, "k2": 0}   # enum Fmt
 
 
 def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
-                  reps, gen):
+                  reps, gen, d=128):
     """Each variant once (the computing ones bit for bit against the
     kernel's gm, their supergroup maxes against block_max_plain), then
-    timed by graph replay in two rounds, at nq 104, d 128, L2. Returns the
+    timed by graph replay in two rounds, at nq 104, d, L2. Returns the
     names of the variants that differed (left untimed)."""
     from faiss_tpu_torch.storage import (encode_f16_bits,
                                          flush_f16_subnormals,
                                          split_f32_bf16)
 
     dev = torch.device("cuda")
-    nq, d = 104, 128
+    nq = 104
     x = torch.randn((nv, d), device=dev, generator=gen)
     beta = None
-    if kernel == "k1":
+    if kernel in ("k1", "k2"):
         hi, lo = x.to(torch.bfloat16), None
     elif kernel == "k6":
         hi, lo = flush_f16_subnormals(encode_f16_bits(x)), None
+    elif kernel == "k2":
+        base.update({"no_rs": _patch(text, [(RS_AT,
+                                             "  if constexpr (false)\n")]),
+                     "no_order": free,
+                     "rs4": _patch(text, [(RS_K1, RS_K2_AT4)]),
+                     "n128": _n128(text)})
     elif kernel == "k5":
         hi = torch.randint(-127, 128, (nv, d), device=dev, generator=gen,
                            dtype=torch.int8)
@@ -417,7 +454,8 @@ def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
                                 dtype=torch.int8) for _ in range(2))
     else:
         qh, ql = fused.query_planes(
-            torch.randn((nq, d), device=dev, generator=gen), 2)
+            torch.randn((nq, d), device=dev, generator=gen),
+            1 if kernel == "k2" else 2)
     ng = nv // 128
     gm = torch.empty((nq, ng), device=dev)
     bm = torch.empty((nq, ng // 8), device=dev)
@@ -430,7 +468,8 @@ def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
             def run(lib=lib, name=name):
                 bm.fill_(float("-inf"))
                 rc = lib.ft_sweep_mma(
-                    FMT[kernel], qh.data_ptr(), ql.data_ptr(), hi.data_ptr(),
+                    FMT[kernel], qh.data_ptr(),
+                    None if ql is None else ql.data_ptr(), hi.data_ptr(),
                     None if lo is None else lo.data_ptr(), vn.data_ptr(),
                     None if beta is None else beta.data_ptr(),
                     gm.data_ptr(), bm.data_ptr(), nq, d, ng, 1,
@@ -447,14 +486,15 @@ def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
                 bits = torch.equal(bm.view(torch.int32),
                                    fused.block_max_plain(gm).view(torch.int32))
                 if not (same and bits):
-                    print(f"{kernel} nv {nv} {name}: DIFFERS from the kernel "
+                    print(f"{kernel} nv {nv} d {d} {name}: DIFFERS from the "
+                          f"kernel "
                           f"(gm {same}, bmax {bits}); not timed", flush=True)
                     bad.add(name)
                     continue
                 note = " (gm and bmax bit for bit)"
             ms = chip_smoke.graph_ms(torch, run, reps)
-            print(f"{kernel} nv {nv} round {rnd} {name}: {ms:.4f} ms{note}",
-                  flush=True)
+            print(f"{kernel} nv {nv} d {d} round {rnd} {name}: {ms:.4f} ms"
+                  f"{note}", flush=True)
     del hi, lo, gm, bm, beta
     torch.cuda.empty_cache()
     return bad
@@ -466,6 +506,7 @@ def main() -> int:
     ap.add_argument("--only", default="",
                     help="build and time only these variants (comma list)")
     ap.add_argument("--nv", default="1000448,10000384")
+    ap.add_argument("--d", default="128")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args()
     import torch
@@ -496,8 +537,10 @@ def main() -> int:
             mine = {n.split("/")[1]: lib for n, lib in libs.items()
                     if n.startswith(k + "/")}
             for nv in (int(x) for x in args.nv.split(",")):
-                bad |= time_variants(torch, chip_smoke, fused, MetricType,
-                                     mine, k, nv, args.reps, gen)
+                for d in (int(x) for x in args.d.split(",")):
+                    bad |= time_variants(torch, chip_smoke, fused,
+                                         MetricType, mine, k, nv, args.reps,
+                                         gen, d)
     for k in which:
         if k == "k5":
             continue

@@ -18,10 +18,12 @@ the rescores within the rescore term of their bound (``rescore_term``);
 the in-kernel f16 decode equals the plain decode on all 65,536 patterns,
 in K10 and in K6.
 
-K10's f32-rows mode (``rescore_groups_f32``, the IVF fine scan) within
-the rescore term, on random and adversarial rows, with chunk ids past the
-pool clamped; TorchIndexIVFFlat on the card against the same index on the
-CPU (integer data: exact scores, so ids and distances equal).
+K10's f32-rows mode (``rescore_groups_f32``, the IVF fine scan, chunk-major
+after a grouping pass on the card) within the rescore term, on random and
+adversarial rows, with chunk ids past the pool clamped, runs longer than a
+block's positions, and every position dead at chunk 0; it does not wait
+for the device; TorchIndexIVFFlat on the card against the same index on
+the CPU (integer data: exact scores, so ids and distances equal).
 
 The certificate soundness cases (``check_sweep_eps_sound``,
 ``check_pair_eps_sound``, ``check_sweep_eps_sound_f16``,
@@ -29,8 +31,8 @@ The certificate soundness cases (``check_sweep_eps_sound``,
 test_torch_f16.py and test_torch_int8.py run them on the plain versions on
 the CPU, this module on the kernels.
 
-K3, K1 and K6 run on the tensor cores (``csrc/sweep_split_mma.cu``): they
-are held to ``_sweep_eps(accum="mma")`` (the budget of
+K3, K1, K2 and K6 run on the tensor cores (``csrc/sweep_split_mma.cu``):
+they are held to ``_sweep_eps(accum="mma")`` (the budget of
 tests/test_torch_mma_eps.py, which ``fused.sweep_accum`` picks for them),
 their supergroup maxes bit for bit, also on the truncation adversary's
 rows; K5 runs there on the integer tensor cores, bit for bit. K9 (``csrc/final_select.cu``) and K8 (``csrc/select_groups.cu``),
@@ -613,6 +615,82 @@ def test_k1_truncation_adversary_within_mma_eps(dev, metric):
     assert bool((gap <= eps[:, None].double()).all()), float(gap.max())
 
 
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("block_max", [False, True], ids=["gm", "bmax"])
+@pytest.mark.parametrize("d", [64, 128, 136, 256])
+@pytest.mark.parametrize("nq", [8, 104, 200])
+def test_k2_tensor_core_sweep_matches_plain(dev, metric, nq, d, block_max):
+    """K2 (bf16 rows, one query plane) on the tensor cores against
+    sweep_groupmax_plain within _sweep_eps(single_pass=True, accum="mma"),
+    with a last group partly stored (ntotal 8000 of 8192) and one wholly
+    past ntotal; with the block max, its supergroup maxes equal
+    block_max_plain of the same launch's gm bit for bit, and that gm the
+    one-output launch's. nq 200: two query tiles; d 128: the query plane as
+    A fragments in registers; d 64: one chunk, from shared memory; d 136
+    (a bf16 row is a multiple of 8 elements): with a zero-filled k-tail; d
+    256: four resident chunks."""
+    nv, ntotal = 8192, 8000
+    db, norms = _db(dev, nv, d, ntotal, seed=nq * 1_000 + d)
+    q = torch.randn((nq, d), generator=torch.Generator().manual_seed(d))
+    q = q.to(dev)
+    vn = fused._premask_norms(norms, ntotal, nv, metric)
+    qh, ql = fused.query_planes(q, 1)
+    assert ql is None
+    n0 = dict(kernels.launches)
+    out = kernels.sweep_groupmax(qh, None, db, vn, metric=metric,
+                                 with_block_max=block_max)
+    gm = out[0] if block_max else out
+    assert kernels.launches["sweep_groupmax_1"] == n0["sweep_groupmax_1"] + 1
+    assert kernels.launches["sweep_groupmax_2"] == n0["sweep_groupmax_2"]
+    assert fused.sweep_accum("bf16", 1, dev) == "mma"
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                           single_pass=True, accum="mma")
+    _within_eps(gm, fused.sweep_groupmax_plain(qh, None, db, vn,
+                                               metric=metric), eps)
+    assert bool(torch.isneginf(gm[:, -1]).all())
+    assert not bool(torch.isneginf(gm[:, :-1]).any())
+    if block_max:
+        assert torch.equal(out[1].view(torch.int32),
+                           fused.block_max_plain(gm).view(torch.int32))
+        one = kernels.sweep_groupmax(qh, None, db, vn, metric=metric)
+        assert torch.equal(gm.view(torch.int32), one.view(torch.int32))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+def test_k2_truncation_adversary_within_mma_eps(dev, metric):
+    """The truncation adversary of tests/test_torch_mma_eps.py on K2: bf16
+    rows [1, −s, …, −s] scaled per group by 2^j against the query [1, s,
+    …, s] (bf16-valued, so q1 is the query), one query plane:
+    |group max − exact score| ≤ _sweep_eps(single_pass=True, accum="mma")
+    pointwise (every row of a group is the same)."""
+    d, nv, nq = 128, 1024, 8
+    s = np.float32(2.0 ** -12 * 1.4140625)
+    a = np.full(d, s, np.float32)
+    a[0] = 1.0
+    row = -a
+    row[0] = 1.0
+    scale = np.repeat(2.0 ** np.arange(nv // 128), 128).astype(np.float32)
+    xb = row[None, :] * scale[:, None]
+    db = torch.from_numpy(xb).to(dev)
+    assert torch.equal(db.to(torch.bfloat16).float(), db)
+    norms = (db.double() ** 2).sum(-1).float()
+    q = torch.from_numpy(np.tile(a, (nq, 1))).to(dev)
+    vn = fused._premask_norms(norms, nv, nv, metric)
+    n0 = kernels.launches["sweep_groupmax_1"]
+    gm = fused.groupmax_scores(q, db.to(torch.bfloat16), vn, metric=metric,
+                               sweep_passes=1)
+    assert kernels.launches["sweep_groupmax_1"] == n0 + 1
+    dot = (xb[::128].astype(np.float64) @ a.astype(np.float64))
+    exact = torch.from_numpy(dot).to(dev)[None, :].expand(nq, -1)
+    if metric is MetricType.L2:
+        exact = 2.0 * exact - norms[::128].double()[None, :]
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                           single_pass=True, accum="mma")
+    gap = (gm.double() - exact).abs()
+    assert bool((gap <= eps[:, None].double()).all()), float(gap.max())
+
+
 def test_bf16_search_launch_counts(dev, monkeypatch):
     """A bf16 index's search at nq 8 on the card sweeps two query planes
     from the start: one launch each of K1 (on the tensor cores), K8, K10
@@ -686,9 +764,14 @@ def test_index_f32_integer_data_takes_hi_exact(dev, monkeypatch):
     assert "hi_exact=True" in idx.describe()
     before = dict(kernels.launches)
     D1, I1 = idx.search(xq, 10)
+    # one query plane over the hi plane: K2, on the tensor cores, and its
+    # certificate under the mma term passes every query of integer data
+    assert fused.sweep_accum("hi_exact", 1, dev) == "mma"
     assert kernels.launches["sweep_groupmax_1"] > before["sweep_groupmax_1"]
+    assert kernels.launches["sweep_groupmax_2"] == before["sweep_groupmax_2"]
     assert kernels.launches["sweep_split_3"] == before["sweep_split_3"]
     assert kernels.launches["rescore_groups"] > before["rescore_groups"]
+    assert idx.fused_fallbacks == 0
     idx.set_force_plain(True)
     D2, I2 = idx.search(xq, 10)
     np.testing.assert_array_equal(I1, I2)
@@ -1369,21 +1452,30 @@ def f32_pool(dev, npool, d, seed=0):
 @pytest.mark.parametrize("nq,d,npool,nbudget", [(8, 16, 24, 7),
                                                 (104, 128, 64, 64),
                                                 (16, 132, 9, 30)])
-def test_rescore_f32_matches_plain(dev, metric, nq, d, npool, nbudget):
+@pytest.mark.parametrize("ids", ["random", "shared", "dead"])
+def test_rescore_f32_matches_plain(dev, metric, nq, d, npool, nbudget, ids):
     """K10 f32 rows against its plain version within the rescore term of
     each entry's own row (each side fp32-true, ≤ d·u·Q·‖v‖), on chunk ids
     in any order, repeated (dead budget positions point at chunk 0), and
     past the pool (clamped by the kernel: the plain version is given the
-    clamped ids). The bound has teeth: the plain version with the last 4
-    elements of d dropped breaks it on most entries."""
+    clamped ids). "shared": every query probes the same chunks, so at nq
+    104 each chunk's run is longer than a block's 16 positions and is cut
+    into pieces; "dead": every position is dead, at chunk 0. The bound has
+    teeth: the plain version with the last 4 elements of d dropped breaks
+    it on most entries."""
     rows, norms, occ = f32_pool(dev, npool, d)
     nv = npool * 128
     vn = fused._premask_norms(norms, nv, nv, metric, occ)
     rng = np.random.default_rng(nq)
     g = rng.integers(0, npool, (nq, nbudget)).astype(np.int32)
-    g[:, -2:] = 0                          # dead positions
-    g[0, 0], g[1, 0] = npool + 3, 1 << 30  # past the pool
-    g[2, 1] = -5
+    if ids == "shared":
+        g[:] = g[0]
+    if ids == "dead":
+        g[:] = 0
+    else:
+        g[:, -2:] = 0                          # dead positions
+        g[0, 0], g[1, 0] = npool + 3, 1 << 30  # past the pool
+        g[2, 1] = -5
     gidx = torch.from_numpy(g).to(dev)
     q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
     q = q.to(dev)
@@ -1400,6 +1492,28 @@ def test_rescore_f32_matches_plain(dev, metric, nq, d, npool, nbudget):
     fin = torch.isfinite(s_p)
     assert float(((s_cut - s_p).abs() > term)[fin].double().mean()) > 0.5
     torch.cuda.synchronize()
+
+
+def test_rescore_f32_does_not_wait_for_the_device(dev):
+    """The f32 rows' grouping pass runs on the card with a fixed grid: with
+    ~0.5 s of device work queued ahead, rescore_groups returns at once and
+    its scores come out once that work has drained."""
+    rows, norms, occ = f32_pool(dev, 64, 128)
+    vn = fused._premask_norms(norms, 64 * 128, 64 * 128, MetricType.L2, occ)
+    rng = np.random.default_rng(3)
+    gidx = torch.from_numpy(rng.integers(0, 64, (104, 64)).astype(np.int32))
+    gidx = gidx.to(dev)
+    q = torch.from_numpy(rng.standard_normal((104, 128)).astype(np.float32))
+    q = q.to(dev)
+    want = kernels.rescore_groups(q, rows, vn, gidx, metric=MetricType.L2)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)
+    t0 = time.perf_counter()
+    got = kernels.rescore_groups(q, rows, vn, gidx, metric=MetricType.L2)
+    enqueue_s = time.perf_counter() - t0
+    assert not torch.cuda.current_stream().query()
+    assert enqueue_s < 0.1, enqueue_s
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_rescore_f32_refuses_bad_rows(dev):

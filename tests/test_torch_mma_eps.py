@@ -1,8 +1,9 @@
 """The certificate's tensor-core budget (``_sweep_eps(accum="mma")``), on the
 CPU.
 
-The two-plane sweeps on the card (``csrc/sweep_split_mma.cu``: K3 over the
-f32 planes, K1 over bf16 rows, K6 over the f16 rows' exact bf16 pair) sum
+The tensor-core sweeps on the card with float sums
+(``csrc/sweep_split_mma.cu``: K3 over the f32 planes, K1 and, with one
+query plane, K2 over bf16 rows, K6 over the f16 rows' exact bf16 pair) sum
 their bf16×bf16 products on the tensor cores, whose fp32 accumulation is
 not proven round-to-nearest.
 ``_sweep_eps`` charges their term (2) as (36·⌈d/16⌉ + 2)·u·[(Q+R)·(V+s0) +
@@ -20,8 +21,8 @@ the largest addend's exponent and the sum truncated to 24 bits, on
 adversarial rows: its error stays within the new term (2), and on the
 truncation adversary exceeds the fmaf term, so the new budget is needed
 for that arithmetic; the emulated pair sweep (three accumulators), bf16
-sweep (two) and f16 pair sweep (three, over f16 rows) stay within the whole
-ε. tests/test_torch_cuda.py holds the
+sweep (two), one-plane bf16 sweep (one) and f16 pair sweep (three, over
+f16 rows) stay within the whole ε. tests/test_torch_cuda.py holds the
 kernels themselves to the budget on the card.
 """
 
@@ -162,16 +163,17 @@ def test_unknown_accumulation_is_refused():
                          accum="tf32")
 
 
-# (route, query planes, device) → the accumulation its sweep charges: the
-# two-plane sweeps on the card run on the tensor cores (K3 over the f32
-# planes, K1 over bf16 rows and hi_exact's hi plane, K6 over the f16 pair);
-# one plane (K2, K4, K7), int8 (K5: exact integer sums, its own ε) and
-# every CPU tensor keep the fmaf bound
+# (route, query planes, device) → the accumulation its sweep charges: on
+# the card the bf16 rows and hi_exact's hi plane run on the tensor cores
+# with one or two query planes (K2, K1), the f32 planes and the f16 pair
+# with two (K3, K6); one plane over the f32 planes or the f16 pair (K4,
+# K7: fmaf chains), int8 (K5: exact integer sums, its own ε) and every CPU
+# tensor keep the fmaf bound
 ACCUM_CASES = [
     ("pair", 2, "cuda", "mma"), ("bf16", 2, "cuda", "mma"),
     ("hi_exact", 2, "cuda", "mma"), ("f16", 2, "cuda", "mma"),
-    ("pair", 1, "cuda", "fmaf"), ("bf16", 1, "cuda", "fmaf"),
-    ("hi_exact", 1, "cuda", "fmaf"), ("f16", 1, "cuda", "fmaf"),
+    ("pair", 1, "cuda", "fmaf"), ("bf16", 1, "cuda", "mma"),
+    ("hi_exact", 1, "cuda", "mma"), ("f16", 1, "cuda", "fmaf"),
     ("int8", 2, "cuda", "fmaf"),
 ] + [(r, p, "cpu", "fmaf") for r in fused.SWEEP_ROUTES for p in (1, 2)]
 
@@ -377,6 +379,46 @@ def test_emulated_bf16_sweep_within_mma_eps(metric, jmetric, adversary, d):
         if name == "truncation":
             qn = np.linalg.norm(qh[i]) + np.linalg.norm(ql[i])
             fmaf_term = (d + 2) * U * qn * np.linalg.norm(rows, axis=1)
+            assert bool((err > (2.0 if l2 else 1.0) * fmaf_term)[:2].all())
+
+
+@pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
+@pytest.mark.parametrize("adversary", ["truncation", "cancellation", "skewed"])
+@pytest.mark.parametrize("d", [128, 136])
+def test_emulated_one_plane_sweep_within_mma_eps(metric, jmetric, adversary,
+                                                 d):
+    """K2's arithmetic emulated: the one accumulator q1·v of the model's
+    worst case (``mma_chain``; q1 the query rounded to bf16, RNE) and the
+    epilogue, against the exact score of the stored bf16 row: within
+    _sweep_eps(single_pass=True, accum="mma") on the truncation,
+    cancellation and skewed adversaries. On the truncation adversary the
+    emulated error exceeds the fmaf budget's accumulation term (2), so the
+    tensor-core term is needed for the one-plane sweep too."""
+    name, a, rows = [c for c in _adversaries(d) if c[0] == adversary][0]
+    # fp32 queries that round to the bf16-valued a (the first is a itself)
+    rng = np.random.default_rng(d)
+    xq = np.stack([a] + [a * (1.0 + rng.uniform(-1, 1, a.shape) * 2.0 ** -10)
+                         for _ in range(2)]).astype(np.float32)
+    q = torch.from_numpy(xq)
+    q1 = q.to(torch.bfloat16).double().numpy()
+    assert np.array_equal(q1[0], a)
+    norms = torch.from_numpy((rows * rows).sum(1).astype(np.float32))
+    n = rows.shape[0]
+    eps = fused._sweep_eps(q, norms, n, metric=metric, d_pad=d,
+                           single_pass=True, accum="mma").double().numpy()
+    l2 = metric.value == "l2"
+    vn = norms.numpy() if l2 else np.zeros(n, np.float32)
+    for i in range(len(xq)):
+        acc = mma_chain(q1[i], rows).astype(np.float32)
+        got = (np.float32(2) * acc if l2 else acc) - vn
+        exact = rows @ xq[i].astype(np.float64)
+        if l2:
+            exact = 2.0 * exact - vn.astype(np.float64)
+        err = np.abs(got - exact)
+        assert bool((err <= eps[i]).all()), (name, i)
+        if name == "truncation":
+            fmaf_term = ((d + 2) * U * np.linalg.norm(q1[i])
+                         * np.linalg.norm(rows, axis=1))
             assert bool((err > (2.0 if l2 else 1.0) * fmaf_term)[:2].all())
 
 
