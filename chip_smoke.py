@@ -47,12 +47,14 @@ path's 32 candidates, K8 at its stage-3a 1792 candidates with m = 32, K3
 with its supergroup maxes also at 10M): the sweeps' supergroup-max output
 (every format, both metrics), K8, K9, K5 (int8, on the integer tensor
 cores) and the rescore-select kernel (bf16, int8, f16) bit for bit, K3,
-K1, K2 and K6 (the tensor-core sweeps with float sums) within their ε with
-the tensor-core term (``_sweep_eps(accum="mma")``), and K3, K1, K6 also on
-the truncation adversary of tests/test_torch_mma_eps.py, their errors
-printed. f32_sift prints K2's certificate ε on the card over the fmaf ε it
-had on the CUDA cores, and its fallbacks; the K10 f32 row prints the runs
-of equal chunk ids, the longest, and the pieces the kernel reads.
+K1, K2, K6 and K7 (the tensor-core sweeps with float sums) within their ε
+with the tensor-core term (``_sweep_eps(accum="mma")``), and K3, K1, K6, K7
+also on the truncation adversary of tests/test_torch_mma_eps.py, their
+errors printed; K10's pair mode (stage 3a) within ε₂, with the count of
+distinct groups its positions name. f32_sift prints K2's certificate ε on
+the card over the fmaf ε it had on the CUDA cores, and its fallbacks; the
+K10 f32 row prints the runs of equal chunk ids, the longest, and the
+pieces the kernel reads.
 Kernels and their library calls are timed on the device (``graph_ms``: a
 CUDA graph of the reps, replayed between CUDA events), the plain versions
 eagerly (``cuda_ms``). Recall@K must be
@@ -401,9 +403,10 @@ def phase_f32_kernels(torch, idx, xq, metric):
     """The f32 kernels against their plain versions at the main path's
     shapes: the pair sweep with 3 terms (K3, on the tensor cores: the pair
     ε with accum="mma") and 2 (K4, fmaf chains: the pair ε), its
-    supergroup maxes bit for bit, the pair rescore within ε₂ of
-    _pair_rescore_eps, and K9 at the f32 path's own width (stage 3b's
-    k + 22 candidates, ``final_select_32``)."""
+    supergroup maxes bit for bit, the pair rescore (K10's pair mode, stage
+    3a) within ε₂ of _pair_rescore_eps, with the count of distinct groups
+    its positions name (the bound reads each once), and K9 at the f32
+    path's own width (stage 3b's k + 22 candidates, ``final_select_32``)."""
     from faiss_tpu_torch.ops import fused, kernels
 
     q, nq_pad, nv_eff, vn = _shapes(idx, xq, metric)
@@ -437,6 +440,8 @@ def phase_f32_kernels(torch, idx, xq, metric):
                                    split_stats=st.split_stats)[:, None]
     s = kernels.rescore_groups(q, hi, vn, gidx, metric=metric, db2=lo)
     s_p = fused.rescore_groups_plain(q, hi, vn, gidx, metric=metric, db2=lo)
+    print(f"  {metric.value:>2} rescore_groups_pair: {gidx.numel()} positions "
+          f"name {int(gidx.unique().numel())} distinct groups", flush=True)
     rows["rescore_groups_pair"] = _row(
         torch, _within(torch, s, s_p, eps2, "rescore_groups_pair"),
         lambda: kernels.rescore_groups(q, hi, vn, gidx, metric=metric,
@@ -517,10 +522,10 @@ def phase_int8_kernels(torch, idx, xq, metric):
 
 
 def phase_f16_kernels(torch, idx, xq, metric):
-    """K6 (two query planes, on the tensor cores: accum="mma") and K7 (one)
-    against their plain version within the pair ε with the f16 split
-    statistics (single_pass for K7), K10's f16 mode within its rescore
-    term."""
+    """K6 (two query planes) and K7 (one), both on the tensor cores
+    (accum="mma"), against their plain version within the pair ε with the
+    f16 split statistics (single_pass for K7), K10's f16 mode within its
+    rescore term."""
     from faiss_tpu_torch.ops import fused, kernels
 
     q, nq_pad, nv_eff, vn = _shapes(idx, xq, metric)
@@ -565,13 +570,15 @@ def phase_f16_kernels(torch, idx, xq, metric):
 
 def phase_truncation_adversary(torch, dev="cuda"):
     """The tensor-core sweeps with float sums (K3 over the f32 planes, K1
-    over bf16 rows, K6 over f16 bits) on the truncation adversary of
-    tests/test_torch_mma_eps.py: the query [1, s, …, s] against rows
-    [1, −s, …, −s] scaled by 2^j in group j (s = 2^-12·1.4140625, s² just
-    under ulp(1) = 2^-23; exact in bf16 and in f16), IP. Each kernel's
-    error must stay within _sweep_eps(accum="mma"); it is printed in units
-    of ‖q‖·‖v‖·u (u = 2^-24; a sum that truncates every addend at the
-    largest one's exponent loses ≈ 254, round to nearest ≈ 0)."""
+    over bf16 rows, K6 and K7, with one query plane, over f16 bits) on the
+    truncation adversary of tests/test_torch_mma_eps.py: the query
+    [1, s, …, s] against rows [1, −s, …, −s] scaled by 2^j in group j
+    (s = 2^-12·1.4140625, s² just under ulp(1) = 2^-23; exact in bf16 and
+    in f16), IP. Each kernel's error must stay within
+    _sweep_eps(accum="mma"); it is printed in units of ‖q‖·‖v‖·u
+    (u = 2^-24; a sum that truncates every addend at the largest one's
+    exponent loses ≈ 254, round to nearest ≈ 0). The query is bf16-valued,
+    so K7's one plane q1 is the query itself."""
     from faiss_tpu_torch import MetricType
     from faiss_tpu_torch.ops import fused, kernels
     from faiss_tpu_torch.storage import split_f32_bf16, split_stats
@@ -593,17 +600,21 @@ def phase_truncation_adversary(torch, dev="cuda"):
     exact = (x64[::128] @ a).to(dev)[None, :]
     unit = (torch.linalg.norm(a) * torch.linalg.norm(x64[::128], dim=1)
             * 2.0 ** -24).to(dev)[None, :]
-    runs = {"sweep_split_3": (kernels.sweep_split, (hi, lo), stats),
+    runs = {"sweep_split_3": (kernels.sweep_split, (hi, lo), stats, 2),
             "sweep_groupmax_2": (kernels.sweep_groupmax,
-                                 (x.to(torch.bfloat16),), None),
+                                 (x.to(torch.bfloat16),), None, 2),
             "sweep_f16_2": (kernels.sweep_f16, (x.to(torch.float16),),
-                            stats)}
+                            stats, 2),
+            "sweep_f16_1": (kernels.sweep_f16, (x.to(torch.float16),),
+                            stats, 1)}
     errs = {}
-    for name, (fn, dbs, st) in runs.items():
-        gap = (fn(qh, ql, *dbs, vn, metric=ip).double() - exact).abs()
+    for name, (fn, dbs, st, passes) in runs.items():
+        planes = (qh, ql) if passes == 2 else fused.query_planes(q, 1)
+        gap = (fn(*planes, *dbs, vn, metric=ip).double() - exact).abs()
         eps = fused._sweep_eps(q, (x * x).sum(-1), ng * 128, metric=ip,
-                               d_pad=d, pair_sweep=st is not None,
-                               split_stats=st, accum="mma")[:, None]
+                               d_pad=d, single_pass=passes == 1,
+                               pair_sweep=st is not None, split_stats=st,
+                               accum="mma")[:, None]
         check(bool((gap <= eps.double()).all()),
               f"{name}: beyond the mma ε on the truncation adversary")
         errs[name] = float((gap / unit).max())
@@ -1490,7 +1501,7 @@ def main() -> int:
                           "counted in the kernel phase"),
         "sweep_int8": ("sweep_split_mma.cu", f"{PF}:219", None),
         "sweep_f16_2": ("sweep_split_mma.cu", f"{PF}:259", None),
-        "sweep_f16_1": ("sweep_groupmax.cu", f"{PF}:281", None),
+        "sweep_f16_1": ("sweep_split_mma.cu", f"{PF}:281", None),
         "select_groups": ("select_groups.cu", f"{PF}:739", None),
         "rescore_groups": ("rescore_groups.cu", f"{PF}:1050", None),
         "rescore_groups_pair": ("rescore_groups.cu", f"{PF}:1074", None),

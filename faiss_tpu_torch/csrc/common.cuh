@@ -57,15 +57,6 @@ __device__ __forceinline__ void unpack8_f16(const uint4 w, float (&x)[8]) {
   x[6] = f16_to_f32(w.w); x[7] = f16_to_f32(w.w >> 16);
 }
 
-// The exact (hi, lo) bf16 pair of a decoded f16 value, as
-// faiss_tpu.storage.split_f16_bits forms it: hi its truncation to bf16,
-// lo = f − hi (≤ 3 significant bits, so the subtraction is exact), and
-// lo = 0 where f is ±inf.
-__device__ __forceinline__ void split_pair(float f, float& hi, float& lo) {
-  hi = __uint_as_float(__float_as_uint(f) & 0xFFFF0000u);
-  lo = isfinite(f) ? __fsub_rn(f, hi) : 0.f;
-}
-
 // The sixteen int8 codes of a 16-byte row chunk, widened to fp32 (exact).
 __device__ __forceinline__ void unpack16_i8(const uint4 w, float (&x)[16]) {
   const uint32_t ws[4] = {w.x, w.y, w.z, w.w};

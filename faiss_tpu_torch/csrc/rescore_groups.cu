@@ -45,12 +45,32 @@
 //
 // What bounds it on an H100: the gather, nq·kg·128·d elements of rows read
 // by id in 256-byte runs (d=128: 46 MB at nq=104, kg=14 for bf16 and f16,
-// 93 MB for the pair, 23 MB for int8). Design (BF16, PAIR, INT8, F16): one
+// 93 MB for the pair, 23 MB for int8). Design (BF16, INT8, F16): one
 // block of 128 threads per (query, rank); thread r owns row r of the group
-// and reads it as 16-byte vectors (8 elements or 16 int8 codes per plane
-// and step); q is staged in shared memory (fp32, d in chunks of 1024, 4 KB)
-// and read as a broadcast. A group id past the end is clamped into range,
-// so a bad id cannot read out of bounds.
+// and reads it as 16-byte vectors (8 elements or 16 int8 codes a step);
+// q is staged in shared memory (fp32, d in chunks of 1024, 4 KB) and read
+// as a broadcast. A group id past the end is clamped into range, so a bad
+// id cannot read out of bounds.
+//
+// PAIR, stage 3a of every f32 search, streams (rescore_pair_kernel): that
+// design read a row per thread, 16 bytes a step from rows 2·d bytes apart,
+// so each warp load touched 32 lines, with little in flight (0.0978 ms at
+// the f32 main path's shape on an H100, 3.8× its bytes bound; PERF.md).
+// Here persistent blocks (the SMs times the blocks an SM holds) walk the
+// nq·kg positions in order, a contiguous run each, so q is staged once a
+// query for its kg groups. In each plane a group's rows are one contiguous
+// run (128·d·2 bytes); one producer warp brings each (position, 64-element
+// d slice) of both planes in by TMA, two 16 KB tiles of 128 rows × 128
+// bytes, 128-byte swizzled, into a ring of PAIR_STAGES stages on full /
+// empty mbarriers, ahead of the products. Four consumer warps score:
+// thread r reads row r's 16-byte unit u at r·128 + 16·(u ^ r % 8), so the
+// 8 rows of a quarter-warp's reads lie in 8 different bank groups, and
+// keeps one fmaf chain over d in index order, slice after slice: the
+// thread-per-row kernel's arithmetic, so its scores bit for bit. Each
+// position writes its 128 contiguous scores.
+// scripts/k10_variants.py --mode pair times it against that kernel
+// (legacy), one stage, no swizzle, and a grouping pass that reads each
+// distinct group once (PERF.md has the numbers).
 //
 // F32, the IVF fine scan, is chunk-major: nq·nbudget positions (6,656 at
 // nq 104, nbudget 64) name about a quarter as many distinct chunks (each
@@ -71,6 +91,7 @@
 // kernel did: the same bits. Each (query, rank) writes its 128 contiguous
 // scores once.
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -78,11 +99,15 @@ constexpr int DT = 1024;   // d chunk of the query staged in shared memory
 
 enum Rows { BF16 = 0, PAIR = 1, INT8 = 2, F16 = 3, F32 = 4 };
 
+// A group id past either end, clamped into range as every mode clamps it.
+__device__ __forceinline__ int clamp_group(int g, int ngroups) {
+  return min(max(g, 0), ngroups - 1);
+}
+
 template <bool L2, int FMT>
 __global__ void __launch_bounds__(ft::GROUP)
 rescore_groups_kernel(const float* __restrict__ q,
                       const void* __restrict__ db,
-                      const uint16_t* __restrict__ db2,
                       const float* __restrict__ vn,
                       const int32_t* __restrict__ gidx,
                       float* __restrict__ out, int d, int kg, int ngroups) {
@@ -92,12 +117,10 @@ rescore_groups_kernel(const float* __restrict__ q,
   __shared__ __align__(16) float qs[DT];
 
   const int qi = blockIdx.x / kg, j = blockIdx.x % kg;
-  const int g = min(max(gidx[static_cast<size_t>(qi) * kg + j], 0), ngroups - 1);
+  const int g = clamp_group(gidx[static_cast<size_t>(qi) * kg + j], ngroups);
   const size_t row = static_cast<size_t>(g) * ft::GROUP + threadIdx.x;
   const uint4* v = reinterpret_cast<const uint4*>(
       static_cast<const char*>(db) + row * d * ESZ);
-  const uint4* v2 =
-      FMT == PAIR ? reinterpret_cast<const uint4*>(db2 + row * d) : nullptr;
   const float* qrow = q + static_cast<size_t>(qi) * d;
 
   float acc = 0.f;
@@ -115,12 +138,6 @@ rescore_groups_kernel(const float* __restrict__ q,
         ft::unpack8_f16(w, x);
       } else {
         ft::unpack8(w, x);
-        if constexpr (FMT == PAIR) {
-          float y[8];
-          ft::unpack8(__ldg(v2 + (d0 + e) / 8), y);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) x[i] += y[i];   // exact: hi + lo
-        }
       }
 #pragma unroll
       for (int i = 0; i < EPC; i += 4) {
@@ -137,16 +154,16 @@ rescore_groups_kernel(const float* __restrict__ q,
 }
 
 template <int FMT>
-void launch(const float* q, const void* db, const uint16_t* db2,
-            const float* vn, const int32_t* gidx, float* out, int nq, int d,
-            int kg, int ngroups, int l2, cudaStream_t s) {
+void launch(const float* q, const void* db, const float* vn,
+            const int32_t* gidx, float* out, int nq, int d, int kg,
+            int ngroups, int l2, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(static_cast<long long>(nq) * kg));
   if (l2)
     rescore_groups_kernel<true, FMT><<<grid, ft::GROUP, 0, s>>>(
-        q, db, db2, vn, gidx, out, d, kg, ngroups);
+        q, db, vn, gidx, out, d, kg, ngroups);
   else
     rescore_groups_kernel<false, FMT><<<grid, ft::GROUP, 0, s>>>(
-        q, db, db2, vn, gidx, out, d, kg, ngroups);
+        q, db, vn, gidx, out, d, kg, ngroups);
 }
 
 
@@ -188,18 +205,13 @@ struct F32Work {
         chunks(rank + P), order(chunks + P) {}
 };
 
-// A group id past either end, clamped into range as every mode clamps it.
-__device__ __forceinline__ int clamp_chunk(int g, int ngroups) {
-  return min(max(g, 0), ngroups - 1);
-}
-
 // Each position's rank among its chunk's positions; the first to arrive
 // at a chunk lists it.
 __global__ void __launch_bounds__(F32_GT)
 f32_count(const int32_t* __restrict__ gidx, int P, int ngroups, F32Work w) {
   const int p = blockIdx.x * F32_GT + threadIdx.x;
   if (p >= P) return;
-  const int c = clamp_chunk(gidx[p], ngroups);
+  const int c = clamp_group(gidx[p], ngroups);
   const int r = atomicAdd(w.cnt + c, 1);
   w.rank[p] = r;
   if (r == 0) w.chunks[atomicAdd(w.meta, 1)] = c;
@@ -225,7 +237,7 @@ __global__ void __launch_bounds__(F32_GT)
 f32_order(const int32_t* __restrict__ gidx, int P, int ngroups, F32Work w) {
   const int p = blockIdx.x * F32_GT + threadIdx.x;
   if (p >= P) return;
-  const int c = clamp_chunk(gidx[p], ngroups);
+  const int c = clamp_group(gidx[p], ngroups);
   w.order[w.base[c] + w.rank[p]] = p;
 }
 
@@ -381,6 +393,196 @@ cudaError_t launch_f32(const float* q, const float* db, const float* vn,
   return cudaGetLastError();
 }
 
+// -- PAIR: streaming ---------------------------------------------------------
+
+constexpr int PAIR_KC = ft::TMA_ROW_BYTES / 2;   // d slice: a 128-byte row
+constexpr int PAIR_TILE = ft::GROUP * ft::TMA_ROW_BYTES;   // 16 KB a plane
+constexpr int PAIR_STAGE = 2 * PAIR_TILE;   // a slice of both planes
+constexpr int PAIR_STAGES = 3;              // 3 × 32 KB: two blocks an SM
+constexpr int PAIR_CONS = ft::GROUP;        // consumer threads: r scores row r
+constexpr int PAIR_THREADS = PAIR_CONS + 32;   // and one producer warp
+
+constexpr int PAIR_BARS = (2 * PAIR_STAGES * 8 + 15) / 16 * 16;   // bytes
+
+// the dynamic shared memory at width d (the kernel has no static shared
+// memory, so it may take all the opt-in): alignment, the ring, the full and
+// empty mbarriers, q
+size_t pair_smem_bytes(int d) {
+  return 1024 + static_cast<size_t>(PAIR_STAGES) * PAIR_STAGE + PAIR_BARS
+         + static_cast<size_t>(d) * 4;
+}
+
+// the 128 consumer threads (named barrier 1; the producer warp is not in it)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(PAIR_CONS) : "memory");
+}
+
+// Unit u (8 elements) of row r's slice in a stage, widened to fp32: hi + lo,
+// exact, from the two swizzled tiles (`row` = the stage + r·128).
+__device__ __forceinline__ void pair_unit(const uint8_t* row, int u, int r,
+                                          float (&x)[8]) {
+  const int off = 16 * (u ^ (r & 7));
+  float y[8];
+  ft::unpack8(*reinterpret_cast<const uint4*>(row + off), x);
+  ft::unpack8(*reinterpret_cast<const uint4*>(row + PAIR_TILE + off), y);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] += y[i];   // exact: hi + lo
+}
+
+// Positions [P·b/G, P·(b+1)/G) of block b of G, in order: position p is
+// (query p / kg, rank p % kg), its group gidx[p] clamped into range.
+template <bool L2>
+__global__ void __launch_bounds__(PAIR_THREADS)
+rescore_pair_kernel(const __grid_constant__ CUtensorMap t_hi,
+                    const __grid_constant__ CUtensorMap t_lo,
+                    const float* __restrict__ q, const float* __restrict__ vn,
+                    const int32_t* __restrict__ gidx, float* __restrict__ out,
+                    int d, int kg, int ngroups, long long P) {
+  extern __shared__ uint8_t pair_smem[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(pair_smem) + 1023) & ~uintptr_t(1023));
+  uint8_t* bars = ring + PAIR_STAGES * PAIR_STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bars);
+  uint64_t* empty = full + PAIR_STAGES;
+  float* qs = reinterpret_cast<float*>(bars + PAIR_BARS);
+  const int p0 = static_cast<int>(P * blockIdx.x / gridDim.x);
+  const int p1 = static_cast<int>(P * (blockIdx.x + 1) / gridDim.x);
+  const int nkc = (d + PAIR_KC - 1) / PAIR_KC;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PAIR_STAGES; ++s) {
+      ft::mbar_init(full + s, 1);
+      ft::mbar_init(empty + s, PAIR_CONS / 32);   // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int t = threadIdx.x, lane = t & 31;
+  int stage = 0;
+  uint32_t phase = 0;
+  if (t >= PAIR_CONS) {
+    // producer: one thread issues every load
+    if (lane != 0) return;
+    for (int p = p0; p < p1; ++p) {
+      const int row = clamp_group(gidx[p], ngroups) * ft::GROUP;
+      for (int kc = 0; kc < nkc; ++kc) {
+        ft::mbar_wait(empty + stage, phase ^ 1u);
+        uint8_t* st = ring + stage * PAIR_STAGE;
+        ft::mbar_expect_tx(full + stage, PAIR_STAGE);
+        ft::tma_load(&t_hi, st, full + stage, kc * PAIR_KC, row);
+        ft::tma_load(&t_lo, st + PAIR_TILE, full + stage, kc * PAIR_KC, row);
+        if (++stage == PAIR_STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+  // consumers: thread t scores row t of each position's group
+  int qi_staged = -1;
+  for (int p = p0; p < p1; ++p) {
+    const int qi = p / kg;
+    if (qi != qi_staged) {   // block-uniform
+      consumers_sync();      // the last query's reads of qs have ended
+      const float4* qrow = reinterpret_cast<const float4*>(
+          q + static_cast<size_t>(qi) * d);
+      for (int e = t; e < d / 4; e += PAIR_CONS)
+        reinterpret_cast<float4*>(qs)[e] = __ldg(qrow + e);
+      consumers_sync();
+      qi_staged = qi;
+    }
+    float acc = 0.f;
+    for (int kc = 0; kc < nkc; ++kc) {
+      ft::mbar_wait(full + stage, phase);
+      const uint8_t* row = ring + stage * PAIR_STAGE + t * ft::TMA_ROW_BYTES;
+      const float* qk = qs + kc * PAIR_KC;
+      const int nu = min(PAIR_KC, d - kc * PAIR_KC) / 8;
+#pragma unroll 4
+      for (int u = 0; u < nu; ++u) {
+        float x[8];
+        pair_unit(row, u, t, x);
+        const float4 a0 = *reinterpret_cast<const float4*>(qk + 8 * u);
+        const float4 a1 = *reinterpret_cast<const float4*>(qk + 8 * u + 4);
+        acc = fmaf(a0.x, x[0], acc);
+        acc = fmaf(a0.y, x[1], acc);
+        acc = fmaf(a0.z, x[2], acc);
+        acc = fmaf(a0.w, x[3], acc);
+        acc = fmaf(a1.x, x[4], acc);
+        acc = fmaf(a1.y, x[5], acc);
+        acc = fmaf(a1.z, x[6], acc);
+        acc = fmaf(a1.w, x[7], acc);
+      }
+      __syncwarp();   // the warp's reads of the stage have ended
+      if (lane == 0) ft::mbar_arrive(empty + stage);
+      if (++stage == PAIR_STAGES) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+    const size_t g = clamp_group(gidx[p], ngroups);
+    out[static_cast<size_t>(p) * ft::GROUP + t] =
+        (L2 ? 2.f * acc : acc) - vn[g * ft::GROUP + t];
+  }
+}
+
+// Per device: SM count and opt-in shared memory, and whether the kernels
+// may take it (set once, before any graph capture can reach them).
+struct PairDevice {
+  int sms = 0;
+  int smem_optin = 0;
+  bool attr_set = false;
+};
+
+template <bool L2>
+cudaError_t launch_pair(const float* q, const void* hi, const void* lo,
+                        const float* vn, const int32_t* gidx, float* out,
+                        int nq, int d, int kg, int ngroups, cudaStream_t s) {
+  static PairDevice info[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  PairDevice& di = info[dev];
+  if (di.sms == 0) {
+    e = cudaDeviceGetAttribute(&di.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&di.smem_optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) {
+      di.sms = 0;
+      return e;
+    }
+  }
+  if (!di.attr_set) {
+    e = cudaFuncSetAttribute(rescore_pair_kernel<L2>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             di.smem_optin);
+    if (e != cudaSuccess) return e;
+    di.attr_set = true;
+  }
+  const ft::EncodeTiled enc = ft::encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap maps[2];
+  const int rows = ngroups * ft::GROUP;
+  if (!ft::plane_map(enc, &maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, hi, d,
+                     rows, ft::GROUP)
+      || !ft::plane_map(enc, &maps[1], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, lo,
+                        d, rows, ft::GROUP))
+    return cudaErrorInvalidValue;
+  const size_t smem = pair_smem_bytes(d);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, rescore_pair_kernel<L2>, PAIR_THREADS, smem);
+  if (e != cudaSuccess) return e;
+  const long long P = static_cast<long long>(nq) * kg;
+  const long long slots = static_cast<long long>(di.sms) * max(per_sm, 1);
+  const int grid = static_cast<int>(P < slots ? P : slots);
+  rescore_pair_kernel<L2><<<grid, PAIR_THREADS, smem, s>>>(
+      maps[0], maps[1], q, vn, gidx, out, d, kg, ngroups, P);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The int32 scratch ft_rescore_groups takes for f32 rows (fmt 4): the
@@ -407,15 +609,18 @@ extern "C" int ft_rescore_groups(const void* q, const void* db, const void* db2,
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto* qq = static_cast<const float*>(q);
-  auto* v2 = static_cast<const uint16_t*>(db2);
   auto* n = static_cast<const float*>(vn);
   auto* gi = static_cast<const int32_t*>(gidx);
   auto* o = static_cast<float*>(out);
   switch (fmt) {
-    case BF16: launch<BF16>(qq, db, v2, n, gi, o, nq, d, kg, ngroups, l2, s); break;
-    case PAIR: launch<PAIR>(qq, db, v2, n, gi, o, nq, d, kg, ngroups, l2, s); break;
-    case INT8: launch<INT8>(qq, db, v2, n, gi, o, nq, d, kg, ngroups, l2, s); break;
-    case F16: launch<F16>(qq, db, v2, n, gi, o, nq, d, kg, ngroups, l2, s); break;
+    case BF16: launch<BF16>(qq, db, n, gi, o, nq, d, kg, ngroups, l2, s); break;
+    case PAIR:
+      return static_cast<int>(
+          l2 ? launch_pair<true>(qq, db, db2, n, gi, o, nq, d, kg, ngroups, s)
+             : launch_pair<false>(qq, db, db2, n, gi, o, nq, d, kg, ngroups,
+                                  s));
+    case INT8: launch<INT8>(qq, db, n, gi, o, nq, d, kg, ngroups, l2, s); break;
+    case F16: launch<F16>(qq, db, n, gi, o, nq, d, kg, ngroups, l2, s); break;
     case F32: {
       auto* x = static_cast<const float*>(db);
       auto* wk = static_cast<int*>(work);

@@ -1,16 +1,10 @@
-// Group-max sweep with one query plane on the CUDA cores: phase 1 of the
-// fused search over the f32 rows' bf16 planes and over f16 rows.
+// Group-max sweep with one query plane over the f32 rows' bf16 planes, on
+// the CUDA cores: phase 1 of the fused search, K4.
 //
-// Replaces two Pallas kernel bodies of faiss_tpu/ops/pallas_fused.py, both
-// launched by _sweep_call from groupmax_scores, with their shared _epilogue:
-//   f32 rows as bf16 planes     _kernel_split2 acc = q1·dh + q1·dl
-//   (v ≈ dh + dl):
-//   f16 bits, decoded in-       _kernel_f16_1  acc = q1·dh + q1·dl
-//   register to the exact
-//   pair (v == dh + dl):
-// (q1: the query rounded to bf16, RNE). The other sweeps (_kernel_q1 over
-// bf16 rows with one query plane, _kernel_qpair, _kernel_split,
-// _kernel_f16_pair, and _kernel_int8's two integer passes) run on the
+// Replaces faiss_tpu/ops/pallas_fused.py _kernel_split2 (:204), launched by
+// _sweep_call from groupmax_scores, with its share of the _epilogue:
+//     acc = q1·dh + q1·dl      (v ≈ dh + dl, the f32 rows' bf16 planes)
+// (q1: the query rounded to bf16, RNE). Every other sweep runs on the
 // tensor cores in sweep_split_mma.cu. For every query q and every 128-row
 // group g it writes
 //     gm[q, g] = max over rows r of g of  s(q, r),
@@ -30,15 +24,6 @@
 // Phase 2 reads it from HIER_MIN_GROUPS groups on (ops/fused.py
 // _top_groups_from_bmax); ngroups % 8 == 0 there.
 //
-// f16 rows (ft_sweep_f16): each 16-byte chunk holds 8 f16 patterns; each
-// decodes to its exact fp32 value f (e=31 → ±inf, common.cuh f16_to_f32)
-// and splits into dh = f truncated to bf16 and dl = f − dh (exact, ≤ 3
-// bits; 0 where f is ±inf), the pair that faiss_tpu.storage.split_f16_bits
-// forms. From there the arithmetic is the f32 pair sweep's, term for term,
-// so _sweep_eps(pair_sweep=True, single_pass=True) with the f16 split
-// statistics (s1 = 0 on finite data: dh + dl == f) holds as derived below.
-// The kernel reads 2 bytes per element where the f32 planes take 4.
-//
 // Arithmetic (what the certificate ops/fused._sweep_eps assumes with its
 // default accum="fmaf"): each product term has its own fp32 accumulator,
 // summed over d by sequential fmaf (CUDA-core FMA, round to nearest), and
@@ -51,20 +36,17 @@
 // interleaved terms would exceed that budget.
 //
 // What bounds it on an H100: fp32 FMA throughput. At nq=104, 1M×128 one
-// product term is 13.3 G FMA (2 terms against 512 MB of f32 planes, or
-// 256 MB of f16 rows); the rows are read once from device memory and then
-// from L2 by the other query tiles of the same group.
+// product term is 13.3 G FMA (2 terms against 512 MB of f32 planes); the
+// rows are read once from device memory and then from L2 by the other
+// query tiles of the same group.
 // Design: one block per (group, QT-query tile), blocks of one group
 // adjacent in launch order so the group's 32 KB per plane stays in L2; one
 // thread per row keeps QT accumulators per term in registers and reads each
 // 16-byte row chunk once for all QT queries; the query tile is staged in
 // shared memory (fp32, d in chunks of 64) and read as broadcast float4s.
 // The 128-row max is a warp shuffle max plus one shared-memory step.
-// QT 32: 64 accumulators (138 / 128 registers for _kernel_split2 /
-// _kernel_f16_1). nvcc -Xptxas -v for sm_90a reports no spills but 8 bytes
-// for _kernel_f16_1. At this shape the f16 rows, with half the bytes and
-// the decode, ran 2.05 ms against 2.12 for the f32 planes on this template
-// (CUDA events, NVIDIA H100 80GB HBM3, 700.00 W).
+// QT 32: 64 accumulators, 138 registers (nvcc -Xptxas -v for sm_90a, no
+// spills).
 #include "common.cuh"
 
 namespace {
@@ -82,11 +64,7 @@ __device__ __forceinline__ float dot8(const float* a, const float (&x)[8],
   return s;
 }
 
-// Row formats: the f32 rows' bf16 (hi, lo) planes, or f16 bits decoded
-// to the (hi, lo) pair in-register; two product terms either way.
-enum Rows { PAIR = 1, F16 = 2 };
-
-template <int DB, int QT, bool L2>
+template <int QT, bool L2>
 __global__ void __launch_bounds__(ft::GROUP)
 sweep_groupmax_kernel(const uint16_t* __restrict__ q1,
                       const uint16_t* __restrict__ db,
@@ -101,8 +79,7 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q1,
   const int q0 = (blockIdx.x % nqt) * QT;
   const size_t row = static_cast<size_t>(g) * ft::GROUP + threadIdx.x;
   const uint4* v0 = reinterpret_cast<const uint4*>(db + row * d);
-  const uint4* v1 =
-      DB == PAIR ? reinterpret_cast<const uint4*>(db_lo + row * d) : nullptr;
+  const uint4* v1 = reinterpret_cast<const uint4*>(db_lo + row * d);
 
   float acc[2][QT];
 #pragma unroll
@@ -123,14 +100,8 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q1,
     __syncthreads();
     for (int e = 0; e < dn; e += 8) {
       float x0[8], x1[8];
-      if constexpr (DB == F16) {
-        ft::unpack8_f16(__ldg(v0 + (d0 + e) / 8), x0);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) ft::split_pair(x0[i], x0[i], x1[i]);
-      } else {
-        ft::unpack8(__ldg(v0 + (d0 + e) / 8), x0);
-        ft::unpack8(__ldg(v1 + (d0 + e) / 8), x1);
-      }
+      ft::unpack8(__ldg(v0 + (d0 + e) / 8), x0);
+      ft::unpack8(__ldg(v1 + (d0 + e) / 8), x1);
 #pragma unroll
       for (int j = 0; j < QT; ++j) {
         // terms in the order of the Pallas kernels: q1·v0, then q1·v1
@@ -161,7 +132,7 @@ sweep_groupmax_kernel(const uint16_t* __restrict__ q1,
   }
 }
 
-template <int DB, int QT>
+template <int QT>
 void launch(const void* q1, const void* db, const void* db_lo,
             const void* vn, void* gm, void* bmax, int nq, int d, int ngroups,
             int l2, cudaStream_t stream) {
@@ -174,10 +145,10 @@ void launch(const void* q1, const void* db, const void* db_lo,
   auto* out = static_cast<float*>(gm);
   auto* bm = static_cast<float*>(bmax);
   if (l2)
-    sweep_groupmax_kernel<DB, QT, true><<<grid, ft::GROUP, 0, stream>>>(
+    sweep_groupmax_kernel<QT, true><<<grid, ft::GROUP, 0, stream>>>(
         q, v, vl, n, out, bm, nq, d, ngroups, nqt);
   else
-    sweep_groupmax_kernel<DB, QT, false><<<grid, ft::GROUP, 0, stream>>>(
+    sweep_groupmax_kernel<QT, false><<<grid, ft::GROUP, 0, stream>>>(
         q, v, vl, n, out, bm, nq, d, ngroups, nqt);
 }
 
@@ -196,21 +167,8 @@ extern "C" int ft_sweep_groupmax(const void* q1, const void* db,
   if (nq <= 0 || ngroups <= 0 || d <= 0 || d % 8 != 0 || db_lo == nullptr
       || (bmax != nullptr && ngroups % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  launch<PAIR, 32>(q1, db, db_lo, vn, gm, bmax, nq, d, ngroups, l2,
-                   static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// As ft_sweep_groupmax, over f16 rows: db (≥ ngroups·128, d) f16 bit
-// patterns, decoded in-register (_kernel_f16_1).
-extern "C" int ft_sweep_f16(const void* q1, const void* db, const void* vn,
-                            void* gm, void* bmax, int nq, int d, int ngroups,
-                            int l2, void* stream) {
-  if (nq <= 0 || ngroups <= 0 || d <= 0 || d % 8 != 0
-      || (bmax != nullptr && ngroups % 8 != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  launch<F16, 32>(q1, db, nullptr, vn, gm, bmax, nq, d, ngroups, l2,
-                  static_cast<cudaStream_t>(stream));
+  launch<32>(q1, db, db_lo, vn, gm, bmax, nq, d, ngroups, l2,
+             static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

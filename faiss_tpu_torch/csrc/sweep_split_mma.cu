@@ -6,18 +6,19 @@
 //   F32_PLANES  K3, the f32 rows' bf16 planes   acc = (qh·dh + qh·dl) + ql·dh
 //   F16_BITS    K6, the f16 bits, decoded to    acc = (qh·dh + qh·dl) + ql·dh
 //               their exact bf16 pair (dh, dl)
+//               K7, the same, one query plane   acc = q1·dh + q1·dl
 //   INT8_CODES  K5, the int8 codes v            dot = fl(fl(β₁·f32(q₁·v))
 //                                                       + fl(β₂·f32(q₂·v)))
 // (each product term its own accumulator, the terms added once at the end,
 // left to right).
 //
 // Replaces faiss_tpu/ops/pallas_fused.py _kernel_qpair (:174), _kernel_q1
-// (:190), _kernel_split (:239), _kernel_f16_pair (:259) and _kernel_int8
-// (:219), launched by _sweep_call (:376) from groupmax_scores, with their
-// shared _epilogue. The fp32 query is its bit-mask split qh, ql (bf16), or
-// with one plane (K2) its RNE rounding q1 to bf16; the int8 route's q∘s its
-// residual expansion β₁·q₁ + β₂·q₂ (ops/fused.int8_query_pair: q₁, q₂ int8,
-// β₁, β₂ f32 per query). For every query q and 128-row group g:
+// (:190), _kernel_split (:239), _kernel_f16_pair (:259), _kernel_f16_1
+// (:281) and _kernel_int8 (:219), launched by _sweep_call (:376) from
+// groupmax_scores, with their shared _epilogue. The fp32 query is its
+// bit-mask split qh, ql (bf16), or with one plane (K2, K7) its RNE rounding
+// q1 to bf16; the int8 route's q∘s its residual expansion β₁·q₁ + β₂·q₂
+// (ops/fused.int8_query_pair: q₁, q₂ int8, β₁, β₂ f32 per query). For every query q and 128-row group g:
 //     gm[q, g] = max over the rows r of g of  2·acc − vn[r]  (L2)
 //                                         or    acc − vn[r]  (IP)
 // (acc = dot for int8), with vn the pre-masked norm stream (+inf on padding
@@ -36,15 +37,21 @@
 // it. K1 reads half the bytes (256 MB, 0.079 ms) for two thirds of the
 // products. K6 reads K1's bytes for K3's products (operations bound it:
 // 0.081 ms). K2 reads K1's bytes for half its products (0.027 ms): bytes
-// bind it more than any other. K5 reads 128 MB of codes (0.040 ms) for 2 ×
-// 104 × 1M × 128 int8 MACs on the integer tensor cores (wgmma s8 × s8, s32
-// accumulate: 0.027 ms at 1979 TOP/s). Design:
+// bind it more than any other. K7 reads K1's bytes for K1's products (two
+// terms, 0.054 ms): the bytes bound it, but its decode in shared memory and
+// its products bind it (scripts/k3_variants.py no_load). K5 reads 128 MB of
+// codes (0.040 ms) for 2 × 104 × 1M × 128 int8 MACs on the integer tensor
+// cores (wgmma s8 × s8, s32 accumulate: 0.027 ms at 1979 TOP/s). Design:
 //   - one block per SM (persistent): two consumer warpgroups, one per 64
 //     queries of the block's 128-query tile (wgmma's M side), one producer
 //     warp and, for F16_BITS, three decode warps beside it in the third
 //     warpgroup (288 or 384 threads: four warps on one of the SM's four
-//     register files would cap a thread at 128 registers, and the consumers
-//     need 144);
+//     register files would cap a thread at 128 registers, and K6's
+//     consumers need 148); K7 takes four decode warps (416 threads): with
+//     one query plane the decode binds more, and its consumers fit 128
+//     registers (52 bytes of spills with q1 in registers); it runs 13 %
+//     faster than with three, and no faster with seven
+//     (scripts/k3_variants.py ndec96, ndec224; PERF.md);
 //   - the block walks a contiguous run of whole supergroups (8 groups);
 //     each group is 128 / BN tiles of BN rows (wgmma's N side, 64); each
 //     tile runs over d in chunks of one 128-byte row (KC: 64 two-byte
@@ -79,13 +86,14 @@
 //   - K1, K2: the two warpgroups take turns issuing a tile's products
 //     (named barriers), so that one's epilogue runs under the other's
 //     products;
-//   - one db plane in the products (K1, K2, K5): where the query planes fit
-//     8 k-steps (K1, K2 at 64 < d ≤ 128, the main path's 128; K5 at d ≤
-//     128, one chunk) they are wgmma A fragments in registers (read once
-//     from device memory), which halves the shared-memory reads of the
-//     products;
-//   - one query plane (K2): one A operand, one accumulator set, and a
-//     query tile of 16 KB a chunk in place of 32; the rest is K1's;
+//   - one db plane in the products (K1, K2, K5), or one query plane (K7):
+//     where the query planes fit 8 k-steps (K1, K2, K7 at 64 < d ≤ 128,
+//     the main path's 128; K5 at d ≤ 128, one chunk) they are wgmma A
+//     fragments in registers (read once from device memory, used by every
+//     term), which halves the shared-memory reads of the products;
+//   - one query plane (K2, K7): one A operand, a query tile of 16 KB a
+//     chunk in place of 32, and one accumulator set a db plane (K2 one,
+//     K7 two: q1·dh and q1·dl); the rest is K1's, or K6's;
 //   - a d that is not a multiple of KC gets its k-tail zero-filled by TMA
 //     (out-of-bounds fill): its k-steps add exact zeros (an f16 zero
 //     decodes to the pair (0, 0)).
@@ -100,8 +108,7 @@
 // next tile's first chunk (ptxas serializes the wgmma when accumulator
 // registers are read while another wgmma is pending, C7514); for K3, the
 // turns. nvcc -Xptxas -v: PERF.md §6.
-// The TMA descriptors come from cuTensorMapEncodeTiled, reached through the
-// runtime's driver entry point, so the library needs no -lcuda.
+// The TMA descriptors and loads are tma.cuh's.
 //
 // Arithmetic (what the certificate ops/fused._sweep_eps(accum="mma")
 // assumes for BF16_ROWS, F32_PLANES and F16_BITS). Each product term a·b (a
@@ -130,7 +137,12 @@
 // one term q1·v (‖q1‖ ≤ Q+R, R = ‖q − q1‖; ‖v‖ ≤ V) errs ≤ 36·⌈d/16⌉·u·
 // (Q+R)·V and is added to nothing: the same budget with L = 0 and s0 = 0
 // (single_pass=True), whose +2u is slack. At d = 128 its term (2) is 290u
-// where the fmaf chain's was 130u, in units of (Q+R)·V.
+// where the fmaf chain's was 130u, in units of (Q+R)·V. K7's two terms
+// q1·dh (‖q1‖ ≤ Q+R, ‖dh‖ ≤ V) and q1·dl (‖dl‖ ≤ s0, the f16 split
+// statistics) err ≤ 36·⌈d/16⌉·u·(Q+R)·V and ≤ 36·⌈d/16⌉·u·(Q+R)·s0, and
+// their one round-to-nearest add ≤ u·(Q+R)·(V+s0): inside
+// (36·⌈d/16⌉ + 2)·u·(Q+R)·(V+s0), the budget with L = 0 (single_pass=True,
+// pair_sweep=True), s1 = 0 on finite data as for K6.
 // tests/test_torch_mma_eps.py emulates the model's truncating block sums on
 // adversarial rows. A k-step past d adds exact zeros to D, the largest
 // addend, and loses nothing: ⌈d/16⌉ steps are charged.
@@ -140,18 +152,18 @@
 // with __fmul_rn / __fadd_rn so that nvcc cannot contract them: K5 equals
 // its plain version bit for bit, and _sweep_eps_int8 charges it as it
 // charges any exact sweep.
-#include <cuda.h>   // CUtensorMap and its enums (types only)
 #include <cuda_fp16.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
 constexpr int NCONS = 256;             // two consumer warpgroups
 constexpr int QTILE = 128;             // queries a block
-constexpr int ROW_BYTES = 128;         // one swizzled row: a k chunk
+constexpr int ROW_BYTES = ft::TMA_ROW_BYTES;   // one swizzled row: a k chunk
 constexpr int A_PLANE = QTILE * ROW_BYTES;         // 16 KB a query plane
 constexpr int MAX_RESIDENT_KC = 4;     // resident query planes up to 4 chunks
 constexpr int MAX_STAGES = 16;
@@ -160,8 +172,8 @@ constexpr int K1_BN = 64;              // K1's N side (bf16 rows)
 // ft_sweep_mma's row formats
 enum Fmt { BF16_ROWS = 0, F32_PLANES = 1, F16_BITS = 2, INT8_CODES = 3 };
 
-// The shapes of one row format, with QP query planes (2; BF16_ROWS also
-// 1: K2).
+// The shapes of one row format, with QP query planes (2; BF16_ROWS and
+// F16_BITS also 1: K2, K7).
 template <int F, int QP = 2>
 struct Rows {
   static constexpr bool INT8 = F == INT8_CODES;
@@ -186,7 +198,9 @@ struct Rows {
   // the warpgroups take turns issuing a tile's products (K1, K2; K5 ran
   // faster without, its tiles one chunk long)
   static constexpr bool ORDERED = F == BF16_ROWS;
-  static constexpr int NDEC = DECODE ? 96 : 0;     // the decode warps
+  // the decode warps: K6 three, K7 four (its one query plane leaves the
+  // decode more to bind: scripts/k3_variants.py ndec96, ndec224)
+  static constexpr int NDEC = DECODE ? (QP == 1 ? 128 : 96) : 0;
   static constexpr int NTHREADS = NCONS + NDEC + 32;
   using acc_t = std::conditional_t<INT8, int, float>;
 };
@@ -199,18 +213,7 @@ using ft::mbar_expect_tx;
 using ft::mbar_init;
 using ft::mbar_wait;
 using ft::smem_addr;
-
-// One 2-D tile of a tensor map into shared memory; completion is counted
-// in bytes on `bar`. c0: the element along d, c1: the row.
-__device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(smem_addr(dst)), "l"(map), "r"(smem_addr(bar)), "r"(c0),
-         "r"(c1)
-      : "memory");
-}
+using ft::tma_load;
 
 // Orders this thread's generic-proxy writes to shared memory before the
 // async proxy's reads (wgmma) and writes (TMA) that follow them.
@@ -373,9 +376,9 @@ __device__ __forceinline__ void fence_regs(int (&d)[N]) {
 }
 
 // Two f16 patterns (element 0 in the low half) → their exact bf16 pairs
-// (hi, lo), packed the same way: common.cuh f16_to_f32 and split_pair,
-// element for element, in fewer instructions. An e=31 pattern loses its
-// mantissa, so NaN decodes to ±inf as inf does (the contract of
+// (hi, lo), packed the same way: common.cuh f16_to_f32, then the split of
+// faiss_tpu.storage.split_f16_bits, element for element. An e=31 pattern
+// loses its mantissa, so NaN decodes to ±inf as inf does (the contract of
 // faiss_tpu.storage.decode_f16_bits); cvt.f32.f16 is exact on every other
 // pattern, subnormals included; hi is the fp32 value's high half (its
 // truncation to bf16), lo = f − hi (≤ 3 significant bits: exact, and its
@@ -447,8 +450,8 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
                        int nkc, int resident, int nstages) {
   using S = Rows<F, QP>;
   constexpr bool RS = RSK > 0;
-  static_assert(!RS || (S::PLANES == 1 && S::BN == 64),
-                "RS: one db plane at N = 64");
+  static_assert(!RS || (S::BN == 64 && (S::PLANES == 1 || QP == 1)),
+                "RS: every A operand from registers, at N = 64");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -575,8 +578,8 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
   float m0 = -INFINITY, m1 = -INFINITY, bm0 = -INFINITY, bm1 = -INFINITY;
   using T = typename S::acc_t;
   using Acc = T[S::TERMS][S::ACC];   // K3, K6: qh·dh, qh·dl, ql·dh; K1:
-                                     // qh·v, ql·v; K2: q1·v; K5: q₁·v,
-                                     // q₂·v
+                                     // qh·v, ql·v; K2: q1·v; K7: q1·dh,
+                                     // q1·dl; K5: q₁·v, q₂·v
   using Norms = float2[S::BN / 8];
   // the (β₁, β₂) of the thread's two queries (K5)
   float2 be0 = make_float2(0.f, 0.f), be1 = be0;
@@ -634,8 +637,11 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
       const int on = (kc | ks) != 0;   // step 0 starts from zero
       if constexpr (RS) {
         wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
+        if constexpr (S::PLANES == 2)
+          wgmma_rs(acc[1], aq[0][4 * kc + ks],
+                   sw128_desc(b + S::B_PLANE) + 2 * ks, on);
         if constexpr (QP == 2)
-          wgmma_rs(acc[1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
+          wgmma_rs(acc[S::TERMS - 1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
         continue;
       }
       wgmma<S::BN>(acc[0], dqh + 2 * ks, dvh + 2 * ks, on);
@@ -725,50 +731,6 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
 
 // -- host side -----------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) == cudaSuccess
-        && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess
-        && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-#endif
-  }
-  return fn;
-}
-
-// A (rows, d) row-major plane of `type` (2 or 1 bytes an element) as a
-// tensor map of one 128-byte row × box_rows tiles, 128-byte swizzled;
-// out-of-bounds elements read as zero.
-bool plane_map(EncodeTiled enc, CUtensorMap* map, CUtensorMapDataType type,
-               const void* base, int d, int rows, int box_rows) {
-  const int ew = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * ew};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(ROW_BYTES / ew),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // Per device: SM count, and whether the instantiation may take the opt-in
 // shared memory (set once, before any graph capture can reach it).
 struct DeviceInfo {
@@ -837,12 +799,13 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const Args& a,
 }
 
 // The instance for the metric and the query planes' place: A fragments in
-// registers where the planes take RS_KC chunks (K1 and K2 at N = 64: two,
-// 64 < d ≤ 128; K5: one, d ≤ 128), else from shared memory.
+// registers where the planes take RS_KC chunks (K1 and K2 at N = 64, and
+// K7: two, 64 < d ≤ 128; K5: one, d ≤ 128), else from shared memory.
 template <int F, int QP = 2>
 cudaError_t launch_metric(const CUtensorMap (&maps)[4], const Args& a, int l2,
                           cudaStream_t stream) {
   constexpr int RS_KC = F == BF16_ROWS && K1_BN == 64 ? 2
+                        : F == F16_BITS && QP == 1    ? 2
                         : F == INT8_CODES             ? 1
                                                       : 0;
   const int nkc = (a.d + Rows<F, QP>::KC - 1) / Rows<F, QP>::KC;
@@ -857,7 +820,8 @@ cudaError_t launch_metric(const CUtensorMap (&maps)[4], const Args& a, int l2,
 }  // namespace
 
 // fmt (enum Fmt): BF16_ROWS (K1; K2 with q_lo null), F32_PLANES (K3),
-// F16_BITS (K6) or INT8_CODES (K5). q_hi, q_lo: (nq, d) query planes, bf16
+// F16_BITS (K6; K7 with q_lo null) or INT8_CODES (K5). q_hi, q_lo: (nq, d)
+// query planes, bf16
 // (qh, ql; q1 and null: one plane) or int8 (q₁, q₂); db: (≥ ngroups·128,
 // d) rows: bf16 rows, the f32 rows' bf16 hi
 // plane, f16 bit patterns or int8 codes; db_lo: the f32 rows' lo plane
@@ -876,10 +840,10 @@ extern "C" int ft_sweep_mma(int fmt, const void* q_hi, const void* q_lo,
       || static_cast<long long>(ngroups) * ft::GROUP >= (1LL << 31)
       || (bmax != nullptr && ngroups % 8 != 0)
       || (fmt == F32_PLANES && db_lo == nullptr)
-      || (fmt != BF16_ROWS && q_lo == nullptr)
+      || ((fmt == F32_PLANES || int8) && q_lo == nullptr)
       || (int8 && beta == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const EncodeTiled enc = encoder();
+  const ft::EncodeTiled enc = ft::encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const CUtensorMapDataType qt = int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -890,11 +854,11 @@ extern "C" int ft_sweep_mma(int fmt, const void* q_hi, const void* q_lo,
   const int bn = fmt == BF16_ROWS ? K1_BN : 64;
   CUtensorMap maps[4];
   const int rows = ngroups * ft::GROUP;
-  if (!plane_map(enc, &maps[0], qt, q_hi, d, nq, QTILE)
-      || !plane_map(enc, &maps[1], qt, q_lo != nullptr ? q_lo : q_hi, d, nq,
+  if (!ft::plane_map(enc, &maps[0], qt, q_hi, d, nq, QTILE)
+      || !ft::plane_map(enc, &maps[1], qt, q_lo != nullptr ? q_lo : q_hi, d, nq,
                     QTILE)
-      || !plane_map(enc, &maps[2], vt, db, d, rows, bn)
-      || !plane_map(enc, &maps[3], vt, fmt == F32_PLANES ? db_lo : db, d,
+      || !ft::plane_map(enc, &maps[2], vt, db, d, rows, bn)
+      || !ft::plane_map(enc, &maps[3], vt, fmt == F32_PLANES ? db_lo : db, d,
                     rows, bn))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q_hi, q_lo, static_cast<const float*>(vn),
@@ -908,7 +872,10 @@ extern "C" int ft_sweep_mma(int fmt, const void* q_hi, const void* q_lo,
                           : launch_metric<BF16_ROWS, 1>(maps, a, l2, s);
       break;
     case F32_PLANES: e = launch_metric<F32_PLANES>(maps, a, l2, s); break;
-    case F16_BITS: e = launch_metric<F16_BITS>(maps, a, l2, s); break;
+    case F16_BITS:
+      e = q_lo != nullptr ? launch_metric<F16_BITS>(maps, a, l2, s)
+                          : launch_metric<F16_BITS, 1>(maps, a, l2, s);
+      break;
     default: e = launch_metric<INT8_CODES>(maps, a, l2, s); break;
   }
   return static_cast<int>(e);

@@ -27,8 +27,8 @@ Every true top-k row lies in a nominated group unless a non-nominated group
 could beat the k-th rescored score; the certificate
 ``vals[k-1] ≥ t + ε`` (ε from ``_sweep_eps``, a strict bound on
 |sweep score − rescore score|, with the tensor-core accumulation term where
-the sweep ran on the card over bf16 rows, or with two query planes over the
-f32 planes or the f16 pair: ``sweep_accum``) proves per query that none
+the sweep ran on the card over bf16 rows or the f16 pair, or with two query
+planes over the f32 planes: ``sweep_accum``) proves per query that none
 can. An uncertified query is re-run by the index on an exact path.
 
 f32 storage (``db_split`` = the (hi, lo) planes) rescores in two stages:
@@ -463,9 +463,9 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
     any stored row: ``faiss_tpu``'s _sweep_eps, derived for this port's
     own arithmetic. ``accum`` names the sweep's accumulation: "fmaf" (the
     default, and the JAX bound) or "mma", the tensor-core sweeps with float
-    sums (csrc/sweep_split_mma.cu: the f32 planes', the bf16 rows' with one
-    or two query planes, and the f16 pair's; ``sweep_accum`` picks it by
-    route); only term (2) differs.
+    sums (csrc/sweep_split_mma.cu: the f32 planes' with two query planes,
+    and the bf16 rows' and the f16 pair's with one or two; ``sweep_accum``
+    picks it by route); only term (2) differs.
 
     Notation: u = 2^-24; Q = ‖q‖; R = ‖q − Σ q_planes‖ (computed exactly:
     the bit-mask split makes the subtractions exact); L = ‖q_lo‖;
@@ -498,7 +498,11 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
           and is added to nothing, inside the budget with L = 0 and
           s0 = 0 (its +2u is slack): at d = 128 term (2) is 290u·(Q+R)·V
           where the fmaf chain's was 130u·(Q+R)·V, and the whole ε grows
-          ≈ 1.41× (term (3) stays 256u·Q·V)
+          ≈ 1.41× (term (3) stays 256u·Q·V); the f16 pair with one query
+          plane (K7, single_pass, pair_sweep): the terms q1·dh and q1·dl
+          err ≤ 36·⌈d/16⌉·u·(Q+R)·V and ≤ 36·⌈d/16⌉·u·(Q+R)·s0, and their
+          one round-to-nearest add ≤ u·(Q+R)·(V+s0), inside the budget
+          with L = 0
       (3) rescore accumulation                2·d·u·Q·V
           csrc/rescore_groups.cu: a sequential fmaf chain of fp32 q times
           exactly widened rows, ≤ d·u·Q·V; f32 stage 3b: an fp32 product
@@ -539,18 +543,18 @@ SWEEP_ROUTES = ("bf16", "pair", "hi_exact", "f16", "int8")
 def sweep_accum(route: str, sweep_passes: int, device) -> str:
     """The accumulation ``_sweep_eps`` must charge for the sweep that
     ``route`` ran: "mma" where it ran on the tensor cores with float sums
-    on the card: over bf16 rows with one or two query planes (K2, K1:
-    "bf16", and "hi_exact", whose sweep is the bf16 kernel over the hi
-    plane), and with two query planes over the f32 planes (K3, "pair") or
-    the f16 pair (K6, "f16"); "fmaf" for one query plane over the f32
-    planes or the f16 pair (K4, K7: fmaf chains), the int8 route (exact
-    integer sums, certified by ``_sweep_eps_int8``), and every CPU tensor
-    (the plain versions; the JAX bound)."""
+    on the card: over bf16 rows or the f16 pair with one or two query
+    planes (K2, K1: "bf16", and "hi_exact", whose sweep is the bf16 kernel
+    over the hi plane; K7, K6: "f16"), and with two query planes over the
+    f32 planes (K3, "pair"); "fmaf" for one query plane over the f32 planes
+    (K4: fmaf chains), the int8 route (exact integer sums, certified by
+    ``_sweep_eps_int8``), and every CPU tensor (the plain versions; the JAX
+    bound)."""
     if route not in SWEEP_ROUTES:
         raise ValueError(f"route must be one of {SWEEP_ROUTES}, got {route!r}")
     on_card = torch.device(device).type == "cuda"
-    mma = on_card and (route in ("bf16", "hi_exact")
-                       or (sweep_passes == 2 and route in ("pair", "f16")))
+    mma = on_card and (route in ("bf16", "hi_exact", "f16")
+                       or (sweep_passes == 2 and route == "pair"))
     return "mma" if mma else "fmaf"
 
 
@@ -732,9 +736,9 @@ def fused_search(
                               nv_eff, metric=metric, d_pad=d_pad)
     else:
         # f16 sweeps the decoded pair: the pair ε with the f16 statistics;
-        # bf16 rows (K2, K1), and two query planes over the f32 planes (K3)
-        # or the f16 pair (K6), ran on the tensor cores when the queries
-        # lie on the card
+        # bf16 rows (K2, K1) and the f16 pair (K7, K6) with one or two
+        # query planes, and two query planes over the f32 planes (K3), ran
+        # on the tensor cores when the queries lie on the card
         is_f16 = db.dtype == torch.float16
         route = ("f16" if is_f16 else "hi_exact" if hi_exact
                  else "pair" if pair_sweep else "bf16")

@@ -46,10 +46,9 @@ GROUP = 128   # rows per candidate group (csrc/common.cuh ft::GROUP)
 _lib_handle: Optional[ctypes.CDLL] = None
 
 launches = {
-    # the bf16 sweeps, the sweeps with two query planes and int8's two
-    # integer passes run on the tensor cores (csrc/sweep_split_mma.cu); the
-    # f32 planes' and the f16 rows' sweeps with one query plane on the CUDA
-    # cores (csrc/sweep_groupmax.cu)
+    # every sweep runs on the tensor cores (csrc/sweep_split_mma.cu) but the
+    # f32 planes' with one query plane, on the CUDA cores
+    # (csrc/sweep_groupmax.cu)
     "sweep_groupmax_1": 0,   # bf16 rows, one query plane  (_kernel_q1)
     "sweep_groupmax_2": 0,   # bf16 rows, two query planes (_kernel_qpair)
     "sweep_split_3": 0,      # f32 (hi, lo) planes, 3 terms (_kernel_split)
@@ -59,7 +58,8 @@ launches = {
     "sweep_f16_1": 0,        # f16 bits, 2 terms (_kernel_f16_1)
     "select_groups": 0,
     "rescore_groups": 0,     # bf16 rows (_rescore_kernel)
-    "rescore_groups_pair": 0,  # f32 hi + lo planes (_rescore_kernel, db2)
+    "rescore_groups_pair": 0,  # f32 hi + lo planes (_rescore_kernel, db2),
+                               # streamed (rescore_pair_kernel)
     "rescore_groups_int8": 0,  # int8 codes against q∘s (_rescore_kernel)
     "rescore_groups_f16": 0,   # f16 bits (_rescore_kernel, int16 mode)
     "rescore_groups_f32": 0,   # f32 rows: the IVF fine scan (f32 mode)
@@ -169,7 +169,6 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         sigs = {
             "ft_sweep_groupmax": [P, P, P, P, P, P, I, I, I, I, P],
-            "ft_sweep_f16": [P, P, P, P, P, I, I, I, I, P],
             "ft_sweep_mma": [I, P, P, P, P, P, P, P, P, I, I, I, I, P],
             "ft_select_groups": [P, P, P, I, I, I, P],
             "ft_rescore_groups": [P, P, P, P, P, P, I, I, I, I, I, I, P,
@@ -269,27 +268,6 @@ def _check_sweep(planes, dbs, vn, *, q_dtype, db_dtype, align: int):
     return _int32(nq, "nq"), _int32(d, "d"), _int32(nv_eff // GROUP, "ngroups")
 
 
-def _sweep(counter, q1, db, db_lo, vn, metric, with_block_max,
-           f16: bool = False):
-    """Launch ft_sweep_groupmax (the f32 rows' bf16 planes ``db``,
-    ``db_lo``) or, with ``f16``, ft_sweep_f16 (f16 rows), the CUDA-core
-    sweeps with one query plane, after the shared checks."""
-    dbs = (db,) if db_lo is None else (db, db_lo)
-    nq, d, ngroups = _check_sweep(
-        (q1,), dbs, vn, q_dtype=torch.bfloat16,
-        db_dtype=torch.float16 if f16 else torch.bfloat16, align=8)
-    gm, bmax = _sweep_outputs(nq, ngroups, db.device, with_block_max)
-    head = (q1.data_ptr(), db.data_ptr())
-    if not f16:
-        head += (None if db_lo is None else db_lo.data_ptr(),)
-    with torch.cuda.device(db.device):
-        _launch(counter, "ft_sweep_f16" if f16 else "ft_sweep_groupmax",
-                *head, vn.data_ptr(), gm.data_ptr(),
-                None if bmax is None else bmax.data_ptr(), nq, d, ngroups,
-                int(metric is MetricType.L2))
-    return _sweep_result(gm, bmax)
-
-
 # Every sweep wrapper returns the (nq, nv_eff/128) group maxes gm, or with
 # ``with_block_max`` the pair (gm, bmax), bmax (nq, nv_eff/1024) the max of
 # each 8 consecutive groups, written by the same launch (ngroups % 8 == 0).
@@ -317,17 +295,25 @@ def sweep_split(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
     """Group maxes of the f32 pair sweep over the bf16 (hi, lo) planes:
     qh·dh + qh·dl + ql·dh with two query planes (3 terms, on the tensor
     cores: certify with ``_sweep_eps(accum="mma")``), q1·dh + q1·dl when
-    ``q_lo`` is None (2 terms, fmaf chains)."""
+    ``q_lo`` is None (2 terms, fmaf chains: K4)."""
     planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
     if not _on_cuda(*planes, db_hi, db_lo, vn):
         from .fused import sweep_split_plain
         return sweep_split_plain(q_hi, q_lo, db_hi, db_lo, vn, metric=metric,
                                  with_block_max=with_block_max)
-    if q_lo is None:
-        return _sweep("sweep_split_2", q_hi, db_hi, db_lo, vn, metric,
-                      with_block_max)
-    return _sweep_mma("sweep_split_3", MMA_F32_PLANES, (q_hi, q_lo),
-                      (db_hi, db_lo), vn, metric, with_block_max)
+    if q_lo is not None:
+        return _sweep_mma("sweep_split_3", MMA_F32_PLANES, (q_hi, q_lo),
+                          (db_hi, db_lo), vn, metric, with_block_max)
+    nq, d, ngroups = _check_sweep((q_hi,), (db_hi, db_lo), vn,
+                                  q_dtype=torch.bfloat16,
+                                  db_dtype=torch.bfloat16, align=8)
+    gm, bmax = _sweep_outputs(nq, ngroups, db_hi.device, with_block_max)
+    with torch.cuda.device(db_hi.device):
+        _launch("sweep_split_2", "ft_sweep_groupmax", q_hi.data_ptr(),
+                db_hi.data_ptr(), db_lo.data_ptr(), vn.data_ptr(),
+                gm.data_ptr(), None if bmax is None else bmax.data_ptr(), nq,
+                d, ngroups, int(metric is MetricType.L2))
+    return _sweep_result(gm, bmax)
 
 
 # ft_sweep_mma's formats: (query dtype, row dtype, d multiple)
@@ -341,8 +327,8 @@ def _sweep_mma(counter, fmt, planes, dbs, vn, metric, with_block_max,
                beta=None):
     """Launch ft_sweep_mma, the tensor-core sweep over the query
     ``planes`` in row format ``fmt``: bf16 rows (K1; K2 with one plane), the
-    f32 planes ``dbs`` = (hi, lo) (K3), f16 bits (K6), or int8 codes against
-    (q₁, q₂) with ``beta`` (K5). Its float accumulation is what
+    f32 planes ``dbs`` = (hi, lo) (K3), f16 bits (K6; K7 with one plane), or
+    int8 codes against (q₁, q₂) with ``beta`` (K5). Its float accumulation is what
     ``_sweep_eps(accum="mma")`` charges; K5's sums are exact."""
     q_dtype, db_dtype, align = _MMA_DTYPES[fmt]
     nq, d, ngroups = _check_sweep(planes, dbs, vn, q_dtype=q_dtype,
@@ -369,20 +355,17 @@ def sweep_f16(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
               db: torch.Tensor, vn: torch.Tensor, *,
               metric: MetricType, with_block_max: bool = False):
     """Group maxes over f16 rows (float16, the stored bits), each decoded
-    to its exact (hi, lo) bf16 pair: qh·dh + qh·dl + ql·dh with two query
-    planes (_kernel_f16_pair, on the tensor cores: certify with
-    ``_sweep_eps(accum="mma")``), q1·dh + q1·dl when ``q_lo`` is None
-    (_kernel_f16_1, fmaf chains)."""
+    to its exact (hi, lo) bf16 pair, on the tensor cores (certify with
+    ``_sweep_eps(accum="mma")``): qh·dh + qh·dl + ql·dh with two query
+    planes (_kernel_f16_pair, K6), q1·dh + q1·dl when ``q_lo`` is None
+    (_kernel_f16_1, K7)."""
     planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
     if not _on_cuda(*planes, db, vn):
         from .fused import sweep_f16_plain
         return sweep_f16_plain(q_hi, q_lo, db, vn, metric=metric,
                                with_block_max=with_block_max)
-    if q_lo is None:
-        return _sweep("sweep_f16_1", q_hi, db, None, vn, metric,
-                      with_block_max, f16=True)
-    return _sweep_mma("sweep_f16_2", MMA_F16_BITS, planes, (db,), vn, metric,
-                      with_block_max)
+    return _sweep_mma(f"sweep_f16_{len(planes)}", MMA_F16_BITS, planes, (db,),
+                      vn, metric, with_block_max)
 
 
 def sweep_int8(q1: torch.Tensor, q2: torch.Tensor, db: torch.Tensor,
@@ -427,7 +410,8 @@ def rescore_groups(queries: torch.Tensor, db: torch.Tensor, vn: torch.Tensor,
     holds pool chunk ids, in any order, repeated; the kernel reads each
     distinct chunk once a launch, after a grouping pass on the card into
     scratch this wrapper allocates), or hi + lo when ``db2`` (the lo plane
-    of f32 storage) is given with the bf16 hi plane. A group id outside
+    of f32 storage) is given with the bf16 hi plane (stage 3a: streamed by
+    TMA, the thread-per-row kernel's scores bit for bit). A group id outside
     [0, nv_eff/128) is clamped into range."""
     dbs = (db,) if db2 is None else (db, db2)
     if not _on_cuda(queries, *dbs, vn, gidx):

@@ -1,15 +1,17 @@
 """The tensor-core sweeps (csrc/sweep_split_mma.cu: K3 over the f32 planes,
-K1 and, with one query plane, K2 over bf16 rows, K6 over f16 bits, K5 over
-int8 codes) against variants of themselves, on one CUDA card.
+K1 and, with one query plane, K2 over bf16 rows, K6 and, with one query
+plane, K7 over f16 bits, K5 over int8 codes) against variants of
+themselves, on one CUDA card.
 
-    python scripts/k3_variants.py [--kernels k3,k1,k6,k5,k2] [--only a,b]
+    python scripts/k3_variants.py [--kernels k3,k1,k6,k5,k2,k7] [--only a,b]
                                   [--nv 1000448,10000384] [--d 128,256]
                                   [--reps 10]
 
 Each variant is a patched copy of the kernel's source, built with nvcc into
 its own library and called through ``ft_sweep_mma`` on the same inputs (nq
 104, d 128 or the --d list, L2, with the supergroup maxes; Gaussian rows:
-K3 their f32 planes, K1 and K2 their bf16 values, K6 their f16 bits; K5
+K3 their f32 planes, K1 and K2 their bf16 values, K6 and K7 their f16
+bits; K5
 random codes and query planes in [-127, 127]):
 
   kernel        the source as it is
@@ -59,14 +61,19 @@ random codes and query planes in [-127, 127]):
                 (d 256; 64 registers) and not at 2 (d 128): time it at
                 --d 256 against the kernel, which reads A from shared
                 memory there
+  K7 only:
+  no_rs         q1 from shared memory (TMA), as at d > 128, not as A
+                fragments in registers for both terms
+  ndec96        three decode warps (K6's), not four: 384 threads
+  ndec224       seven decode warps (512 threads; 128 registers a thread)
 
 Times are graph replays (chip_smoke.graph_ms) in two rounds; every variant
 that computes must give the kernel's group maxes bit for bit, and supergroup
 maxes equal to block_max_plain of them (one that does not is reported, left
 untimed, and makes the script exit 1). Last, each float kernel (through
 kernels.sweep_split, kernels.sweep_groupmax, kernels.sweep_f16) on the
-truncation adversary of tests/test_torch_mma_eps.py (K2 with one query
-plane): its error, in units
+truncation adversary of tests/test_torch_mma_eps.py (K2 and K7 with one
+query plane): its error, in units
 of ‖q‖·‖v‖·u (u = 2^-24), where a sum that truncates every addend at the
 largest one's exponent loses ≈ 254 and round to nearest ≈ 0 (K5's integer
 sums are exact). Prints the card's name and power
@@ -95,8 +102,11 @@ def _patch(text, pairs):
 
 MMA = """      if constexpr (RS) {
         wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
+        if constexpr (S::PLANES == 2)
+          wgmma_rs(acc[1], aq[0][4 * kc + ks],
+                   sw128_desc(b + S::B_PLANE) + 2 * ks, on);
         if constexpr (QP == 2)
-          wgmma_rs(acc[1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
+          wgmma_rs(acc[S::TERMS - 1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
         continue;
       }
       wgmma<S::BN>(acc[0], dqh + 2 * ks, dvh + 2 * ks, on);
@@ -141,6 +151,7 @@ WAIT0 = """    wgmma_commit();
     if (t == 0) mbar_arrive(empty + stage);
     prev = -1;"""
 K1_N = "constexpr int K1_BN = 64;"
+NDEC = "static constexpr int NDEC = DECODE ? (QP == 1 ? 128 : 96) : 0;"
 ORDERED = "static constexpr bool ORDERED = F == BF16_ROWS;"
 RS_AT = "  if constexpr (RS_KC > 0)\n"
 RS_K1 = "  constexpr int RS_KC = F == BF16_ROWS && K1_BN == 64 ? 2\n"
@@ -210,8 +221,7 @@ def _decode_cons(text):
     """K6 without decode warps: the consumers decode each tile (half each),
     fence it for the async proxy, meet at named barrier 3, then issue."""
     return _patch(text, [
-        ("static constexpr int NDEC = DECODE ? 96 : 0;",
-         "static constexpr int NDEC = 0;"),
+        (NDEC, "static constexpr int NDEC = 0;"),
         ("uint64_t* ready = S::DECODE ? decoded : full;",
          "uint64_t* ready = full;"),
         ("    mbar_wait(ready + stage, phase);\n",
@@ -236,8 +246,8 @@ def _decode_cons(text):
 def _rs_hi(text):
     """K6 with qh's A fragments in registers for qh·dh and qh·dl."""
     return _patch(text, [
-        ("""  static_assert(!RS || (S::PLANES == 1 && S::BN == 64),
-                "RS: one db plane at N = 64");""",
+        ("""  static_assert(!RS || (S::BN == 64 && (S::PLANES == 1 || QP == 1)),
+                "RS: every A operand from registers, at N = 64");""",
          """  static_assert(!RS || S::BN == 64, "RS: N = 64");"""),
         ("resident && !RS", "resident && (!RS || S::PLANES == 2)"),
         ("resident && RSK == 0", "resident && (RSK == 0 || S::PLANES == 2)"),
@@ -245,7 +255,7 @@ def _rs_hi(text):
          "    for (int p = 0; p < (S::PLANES == 2 ? 1 : QP); ++p)\n"),
         ("""      if constexpr (RS) {
         wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);""",
-         """      if constexpr (RS && S::PLANES == 2) {
+         """      if constexpr (RS && S::PLANES == 2 && QP == 2) {
         wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
         wgmma_rs(acc[1], aq[0][4 * kc + ks],
                  sw128_desc(b + S::B_PLANE) + 2 * ks, on);
@@ -310,13 +320,19 @@ def variants(text, kernel):
     base = {"kernel": text, **_cuts(text), "norms_ldg": _norms_ldg(text)}
     late = [(NORMS, ""), (WAIT_ALL, WAIT_ALL + NORMS)]
     free = _patch(text, [(ORDERED, "static constexpr bool ORDERED = false;")])
-    if kernel == "k6":
+    if kernel == "k7":
+        base.update({"no_rs": _patch(text, [(RS_AT,
+                                             "  if constexpr (false)\n")]),
+                     "ndec96": _patch(text, [(NDEC, NDEC.replace("128",
+                                                                 "96"))]),
+                     "ndec224": _patch(text, [(NDEC, NDEC.replace("128",
+                                                                  "224"))])})
+    elif kernel == "k6":
         base.update({"no_decode": _patch(text, [(DECODE,
                                                  "              (void)i;")]),
                      "rs_hi": _rs_hi(text),
-                     "ndec224": _patch(text, [(
-                         "static constexpr int NDEC = DECODE ? 96 : 0;",
-                         "static constexpr int NDEC = DECODE ? 224 : 0;")]),
+                     "ndec224": _patch(text, [(NDEC, NDEC.replace(
+                         ": 96)", ": 224)"))]),
                      "decode_cons": _decode_cons(text)})
     elif kernel == "k2":
         base.update({"no_rs": _patch(text, [(RS_AT,
@@ -383,7 +399,7 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
     rows [1, −s, …, −s] scaled by 2^j in group j (s = 2^-12·1.4140625: s² is
     just under ulp(1) = 2^-23), IP, over ‖q‖·‖v‖·u of the row's group: K3
     over the rows' f32 planes, K1 and K2 over the rows in bf16, K6 over
-    their f16 bits (exact in both)."""
+    their f16 bits (exact in both); K2 and K7 with one query plane."""
     d, nq, ng = 128, 8, 8
     s = 2.0 ** -12 * 1.4140625
     a = torch.full((d,), s, dtype=torch.float64)
@@ -402,7 +418,9 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
             ql = None
         gm = kernels.sweep_groupmax(qh, ql, x.to(dev).to(torch.bfloat16), vn,
                                     metric=ip)
-    elif kernel == "k6":
+    elif kernel in ("k6", "k7"):
+        if kernel == "k7":   # a bf16-valued query: q1 is qh
+            ql = None
         gm = kernels.sweep_f16(qh, ql, x.to(dev).to(torch.float16), vn,
                                metric=ip)
     else:
@@ -413,7 +431,7 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
     return float(((gm.double() - exact) / unit.to(dev)).abs().max())
 
 
-FMT = {"k1": 0, "k3": 1, "k6": 2, "k5": 3, "k2": 0}   # enum Fmt
+FMT = {"k1": 0, "k3": 1, "k6": 2, "k5": 3, "k2": 0, "k7": 2}   # enum Fmt
 
 
 def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
@@ -432,14 +450,8 @@ def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
     beta = None
     if kernel in ("k1", "k2"):
         hi, lo = x.to(torch.bfloat16), None
-    elif kernel == "k6":
+    elif kernel in ("k6", "k7"):
         hi, lo = flush_f16_subnormals(encode_f16_bits(x)), None
-    elif kernel == "k2":
-        base.update({"no_rs": _patch(text, [(RS_AT,
-                                             "  if constexpr (false)\n")]),
-                     "no_order": free,
-                     "rs4": _patch(text, [(RS_K1, RS_K2_AT4)]),
-                     "n128": _n128(text)})
     elif kernel == "k5":
         hi = torch.randint(-127, 128, (nv, d), device=dev, generator=gen,
                            dtype=torch.int8)
@@ -455,7 +467,7 @@ def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
     else:
         qh, ql = fused.query_planes(
             torch.randn((nq, d), device=dev, generator=gen),
-            1 if kernel == "k2" else 2)
+            1 if kernel in ("k2", "k7") else 2)
     ng = nv // 128
     gm = torch.empty((nq, ng), device=dev)
     bm = torch.empty((nq, ng // 8), device=dev)

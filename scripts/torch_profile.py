@@ -36,13 +36,14 @@ from pathlib import Path
 import numpy as np
 
 D, NQ, K = 128, 100, 10
-# the sweeps: CUDA-core (K4, K7) and tensor-core (K1, K2, K3, K5, K6, one
-# template); the rescores: K10 by (query, rank), and its f32 rows'
-# grouping pass and chunk-major kernel
+# the sweeps: CUDA-core (K4) and tensor-core (K1, K2, K3, K5, K6, K7, one
+# template); the rescores: K10 by (query, rank), its pair mode streamed,
+# and its f32 rows' grouping pass and chunk-major kernel
 PARTS = (("sweep", ("sweep_groupmax_kernel", "sweep_split_mma_kernel")),
          ("select_groups", ("select_groups_kernel",)),
-         ("rescore", ("rescore_groups_kernel", "rescore_f32_kernel",
-                      "f32_count", "f32_runs", "f32_order")),
+         ("rescore", ("rescore_groups_kernel", "rescore_pair_kernel",
+                      "rescore_f32_kernel", "f32_count", "f32_runs",
+                      "f32_order")),
          ("final_select", ("final_select_kernel",)),
          # torch's stable sorts: phase 2 past the select kernel's limits
          # (_top_groups, _top_groups_from_bmax) and topk_scores

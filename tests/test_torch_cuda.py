@@ -13,7 +13,8 @@ the accumulation error of both sides (f32 planes: the pair sweep's ε, and
 int8 (K5 ``sweep_int8``, K10's int8 mode) and f16 (K6 ``sweep_f16_2``, K7
 ``sweep_f16_1``, K10's f16 mode): K5 equals its plain version bit for bit
 (exact integer dots, then the same three roundings in the same order); the
-f16 sweeps within the pair ε (K6, on the tensor cores, with accum="mma");
+f16 sweeps within the pair ε (K6 and K7, on the tensor cores, with
+accum="mma");
 the rescores within the rescore term of their bound (``rescore_term``);
 the in-kernel f16 decode equals the plain decode on all 65,536 patterns,
 in K10 and in K6.
@@ -31,7 +32,11 @@ The certificate soundness cases (``check_sweep_eps_sound``,
 test_torch_f16.py and test_torch_int8.py run them on the plain versions on
 the CPU, this module on the kernels.
 
-K3, K1, K2 and K6 run on the tensor cores (``csrc/sweep_split_mma.cu``):
+K10's pair mode (``rescore_groups_pair``, stage 3a, streamed by TMA
+through persistent blocks) within ε₂ at d 8 to 256 and kg 1 to 40, on ids
+repeated across and within queries and clamped ids.
+
+K3, K1, K2, K6 and K7 run on the tensor cores (``csrc/sweep_split_mma.cu``):
 they are held to ``_sweep_eps(accum="mma")`` (the budget of
 tests/test_torch_mma_eps.py, which ``fused.sweep_accum`` picks for them),
 their supergroup maxes bit for bit, also on the truncation adversary's
@@ -377,6 +382,46 @@ def _f32_db(x: np.ndarray, dev):
 def _planted(xb):
     xb[7] = xb[3] * (1 + np.float32(2.0 ** -22))   # a planted near-tie
     return xb
+
+
+@pytest.mark.parametrize("d", [8, 128, 136, 256])
+@pytest.mark.parametrize("kg", [1, 14, 40])
+def test_k10_pair_streaming_matches_plain(dev, d, kg):
+    """K10's pair mode (stage 3a, streamed by TMA through the persistent
+    blocks) against its plain version within ε₂, both metrics, at nq 300:
+    more positions than the persistent grid holds at every kg but 1 (and
+    there, more than a block a position on a small card); group ids that
+    repeat across queries (every third query names query 0's), that repeat
+    within a query, and that lie past either end (clamped by the kernel:
+    the same scores bit for bit as the clamped ids, which the plain version
+    is given); d 8 and 136: a last d slice shorter than 64 (TMA's zero
+    fill is never read); a last group only partly stored."""
+    nv, ntotal, nq = 8192, 8000, 300
+    ngroups = nv // 128
+    g = torch.Generator().manual_seed(100 * d + kg)
+    x = torch.randn((nv, d), generator=g) * 3.0
+    x[ntotal:] = 0
+    db, hi, lo, stats, norms = _f32_db(x.numpy(), dev)
+    q = torch.randn((nq, d), generator=g).to(dev)
+    raw = torch.randint(0, ngroups, (nq, kg), generator=g, dtype=torch.int32)
+    raw[::3] = raw[0]
+    raw[1, -1] = raw[1, 0]
+    raw[4, 0], raw[5, -1], raw[7, 0] = -3, ngroups + 11, 1 << 30
+    gc = raw.clamp(0, ngroups - 1).to(dev)
+    raw = raw.to(dev)
+    for metric in METRICS:
+        vn = fused._premask_norms(norms, ntotal, nv, metric)
+        n0 = kernels.launches["rescore_groups_pair"]
+        s = kernels.rescore_groups(q, hi, vn, raw, metric=metric, db2=lo)
+        assert kernels.launches["rescore_groups_pair"] == n0 + 1
+        sc = kernels.rescore_groups(q, hi, vn, gc, metric=metric, db2=lo)
+        assert torch.equal(s.view(torch.int32), sc.view(torch.int32))
+        eps2 = fused._pair_rescore_eps(q, norms, nv, metric=metric, d_pad=d,
+                                       split_stats=stats)
+        _within_eps(s, fused.rescore_groups_plain(q, hi, vn, gc,
+                                                  metric=metric, db2=lo),
+                    eps2)
+    torch.cuda.synchronize()
 
 
 def check_sweep_eps_sound(dev, case: int, nq: int = 64) -> None:
@@ -932,7 +977,8 @@ def all_f16_patterns(dev):
                                          (37, 136, 2), (104, 128, 1),
                                          (104, 128, 2)])
 def test_f16_sweep_and_rescore_match_plain(dev, metric, nq, d, passes):
-    """K6 (two planes) and K7 (one) within the pair ε, K10's f16 mode
+    """K6 (two planes) and K7 (one), both on the tensor cores, within the
+    pair ε with the tensor-core term (``sweep_accum``), K10's f16 mode
     within its rescore term, on finite rows; a last group partly stored."""
     nv, ntotal = 8192, 8000
     g = torch.Generator().manual_seed(d)
@@ -1174,6 +1220,113 @@ def test_k6_on_every_f16_pattern(dev):
     e31 = (pats.view(torch.int16) & 0x7C00) == 0x7C00
     assert bool(gm[0, e31].isnan().all()) and not bool(gm[0, ~e31].isnan().any())
     assert bool(gm[1, e31].isinf().all())
+    assert bool((gm[0, ~e31] == decode_f16_bits(pats[~e31])).all())
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("d", [8, 72, 128, 136, 1024])
+@pytest.mark.parametrize("nq", [8, 37, 104, 300])
+def test_k7_tensor_core_sweep_matches_plain(dev, metric, nq, d):
+    """K7 (f16 bits, one query plane: q1·dh + q1·dl) on the tensor cores
+    against sweep_f16_plain within _sweep_eps(single_pass=True,
+    accum="mma") with the f16 split statistics, as K6's test: a last group
+    partly stored and one wholly past ntotal, supergroup maxes equal to
+    block_max_plain of the same launch's gm bit for bit, and that gm the
+    one-output launch's. d 128: q1 as A fragments in registers; the other
+    widths from shared memory (d 1024: riding the ring)."""
+    nv, ntotal = 8192, 8000
+    g = torch.Generator().manual_seed(nq * 10_000 + d + 7)
+    x = torch.randn((nv, d), generator=g) * 3.0
+    x[ntotal:] = 0
+    bits, norms, stats = f16_db(dev, x.numpy())
+    q = torch.randn((nq, d), generator=torch.Generator().manual_seed(nq))
+    q = q.to(dev)
+    vn = fused._premask_norms(norms, ntotal, nv, metric)
+    q1, _ = fused.query_planes(q, 1)
+    n0 = dict(kernels.launches)
+    gm, bmax = kernels.sweep_f16(q1, None, bits, vn, metric=metric,
+                                 with_block_max=True)
+    assert kernels.launches["sweep_f16_1"] == n0["sweep_f16_1"] + 1
+    assert kernels.launches["sweep_f16_2"] == n0["sweep_f16_2"]
+    assert fused.sweep_accum("f16", 1, dev) == "mma"
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                           single_pass=True, pair_sweep=True,
+                           split_stats=stats, accum="mma")
+    _within_eps(gm, fused.sweep_f16_plain(q1, None, bits, vn, metric=metric),
+                eps)
+    assert bool(torch.isneginf(gm[:, -1]).all())
+    assert not bool(torch.isneginf(gm[:, :-1]).any())
+    assert torch.equal(bmax.view(torch.int32),
+                       fused.block_max_plain(gm).view(torch.int32))
+    one = kernels.sweep_f16(q1, None, bits, vn, metric=metric)
+    assert torch.equal(gm.view(torch.int32), one.view(torch.int32))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+def test_k7_truncation_adversary_within_mma_eps(dev, metric):
+    """The truncation adversary of tests/test_torch_mma_eps.py on K7: f16
+    rows [1, −s, …, −s] scaled per group by 2^j against the query
+    [1, s, …, s] (bf16-valued, so q1 is the query), one query plane:
+    |group max − exact score| ≤ _sweep_eps(single_pass=True, accum="mma")
+    with the f16 statistics, pointwise."""
+    d, nv, nq = 128, 1024, 8
+    s = np.float32(2.0 ** -12 * 1.4140625)
+    a = np.full(d, s, np.float32)
+    a[0] = 1.0
+    row = -a
+    row[0] = 1.0
+    scale = np.repeat(2.0 ** np.arange(nv // 128), 128).astype(np.float32)
+    xb = row[None, :] * scale[:, None]
+    bits, norms, stats = f16_db(dev, xb)
+    q = torch.from_numpy(np.tile(a, (nq, 1))).to(dev)
+    vn = fused._premask_norms(norms, nv, nv, metric)
+    n0 = kernels.launches["sweep_f16_1"]
+    gm = fused.groupmax_scores(q, bits, vn, metric=metric, sweep_passes=1)
+    assert kernels.launches["sweep_f16_1"] == n0 + 1
+    dot = (xb[::128].astype(np.float64) @ a.astype(np.float64))
+    exact = torch.from_numpy(dot).to(dev)[None, :].expand(nq, -1)
+    if metric is MetricType.L2:
+        exact = 2.0 * exact - norms[::128].double()[None, :]
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                           single_pass=True, pair_sweep=True,
+                           split_stats=stats, accum="mma")
+    gap = (gm.double() - exact).abs()
+    assert bool((gap <= eps[:, None].double()).all()), float(gap.max())
+
+
+def test_k7_on_every_f16_pattern(dev):
+    """K7 (one query plane) on all 65,536 f16 patterns, each alone in a
+    group of its own (row 0 of group p holds pattern p in column 0; the
+    other rows are zeros, masked by a +inf norm), IP, against
+    sweep_f16_plain: the query e₀ (q1 = e₀) scores each finite pattern as
+    its exact value dh + dl and each e=31 pattern ±inf by its sign bit
+    (1·dh with dh = ±inf, plus 1·dl = 0). Every finite entry equal, every
+    non-finite one of the same kind."""
+    pats = all_f16_patterns(dev)
+    ng, d = pats.shape[0], 8
+    h = torch.zeros((ng * 128, d), dtype=torch.int16, device=dev)
+    h[::128, 0] = pats.view(torch.int16)
+    bits = h.view(torch.float16)
+    vn = torch.full((ng * 128,), float("inf"), device=dev)
+    vn[::128] = 0.0
+    q = torch.zeros((1, d), device=dev)
+    q[0, 0] = 1.0
+    q1, none = fused.query_planes(q, 1)
+    assert none is None
+    ip = MetricType.INNER_PRODUCT
+    n0 = kernels.launches["sweep_f16_1"]
+    gm = kernels.sweep_f16(q1, None, bits, vn, metric=ip)
+    assert kernels.launches["sweep_f16_1"] == n0 + 1
+    want = fused.sweep_f16_plain(q1, None, bits, vn, metric=ip)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(gm))
+    assert bool((gm[fin] == want[fin]).all())
+    assert torch.equal(gm.isposinf(), want.isposinf())
+    assert torch.equal(gm.isneginf(), want.isneginf())
+    assert not bool(gm.isnan().any())
+    e31 = (pats.view(torch.int16) & 0x7C00) == 0x7C00
+    assert bool(gm[0, e31].isinf().all())
     assert bool((gm[0, ~e31] == decode_f16_bits(pats[~e31])).all())
 
 

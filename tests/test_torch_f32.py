@@ -178,23 +178,29 @@ def test_sweep_split_plain_matches_pallas(data, metric, jmetric, passes):
 
 @pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
 def test_pair_rescore_plain_matches_pallas(data, metric, jmetric):
+    """The pair rescore against the JAX kernel in interpret mode within ε₂,
+    on two id sets: each query its own random groups, and one set that
+    every query names (the same group read for every query)."""
     rng = np.random.default_rng(24)
-    gidx = np.sort(np.stack([rng.choice(NV // 128, 14, replace=False)
-                             for _ in range(NQ)]), axis=1).astype(np.int32)
-    gidx[0, -1] = NV // 128 - 1             # the partly padded last group
-    s_j = pf.rescore_groups_pallas(
-        data["q_j"], data["hi_j"], data["n_j"], jnp.asarray(gidx),
-        jnp.int32(NTOTAL), metric=jmetric, nv_eff=NV, interpret=True,
-        ranks_per_step=pf.RESCORE_RANKS_PAIR, db2=data["lo_j"])
+    own = np.sort(np.stack([rng.choice(NV // 128, 14, replace=False)
+                            for _ in range(NQ)]), axis=1).astype(np.int32)
+    shared = np.tile(np.sort(rng.choice(NV // 128 - 1, 14, replace=False)),
+                     (NQ, 1)).astype(np.int32)
     vn = fused._premask_norms(data["n_t"], NTOTAL, NV, metric)
-    s = kernels.rescore_groups(data["q_t"], data["hi_t"], vn,
-                               torch.from_numpy(gidx), metric=metric,
-                               db2=data["lo_t"])
-    assert np.isneginf(s[0, -37:].numpy()).all()
     eps2 = fused._pair_rescore_eps(data["q_t"], data["n_t"], NV,
                                    metric=metric, d_pad=D,
                                    split_stats=data["stats_t"]).numpy()
-    assert_within_eps(s.numpy(), np.asarray(s_j), eps2, "pair rescore")
+    for gidx in (own, shared):
+        gidx[0, -1] = NV // 128 - 1         # the partly padded last group
+        s_j = pf.rescore_groups_pallas(
+            data["q_j"], data["hi_j"], data["n_j"], jnp.asarray(gidx),
+            jnp.int32(NTOTAL), metric=jmetric, nv_eff=NV, interpret=True,
+            ranks_per_step=pf.RESCORE_RANKS_PAIR, db2=data["lo_j"])
+        s = kernels.rescore_groups(data["q_t"], data["hi_t"], vn,
+                                   torch.from_numpy(gidx), metric=metric,
+                                   db2=data["lo_t"])
+        assert np.isneginf(s[0, -37:].numpy()).all()
+        assert_within_eps(s.numpy(), np.asarray(s_j), eps2, "pair rescore")
 
 
 @pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
