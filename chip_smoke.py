@@ -40,7 +40,11 @@ it. Each path's launch counts are zeroed just before it and read just after:
             search, save / load and TorchIndexIDMap2 with nprobe
 
 plus nq=8 (two-plane bf16 sweep) and a duplicated-vector index whose
-certificate fails, so both fallback tiers run. Before the searches each
+certificate fails, so both fallback tiers run. First, nan_repair holds the
+bf16 NaN repair on the card (``storage.f32_to_bf16``: its bits on the card
+equal its bits on the CPU; rows holding NaNs stored as bf16 rows, f32
+pair-only planes and an IVF bf16 pool with the CPU port's bits, and their
+searches return the CPU port's ids). Before the searches each
 kernel is held against its plain PyTorch version at the main paths' shapes
 (nq_pad 104, d 128, nv_eff 1,000,448, kg 14, k 10; K9 also at the f32
 path's 32 candidates, K8 at its stage-3a 1792 candidates with m = 32, K3
@@ -51,10 +55,13 @@ K1, K2, K6 and K7 (the tensor-core sweeps with float sums) within their ε
 with the tensor-core term (``_sweep_eps(accum="mma")``), and K3, K1, K6, K7
 also on the truncation adversary of tests/test_torch_mma_eps.py, their
 errors printed; K10's pair mode (stage 3a) within ε₂, with the count of
-distinct groups its positions name. f32_sift prints K2's certificate ε on
-the card over the fmaf ε it had on the CUDA cores, and its fallbacks; the
-K10 f32 row prints the runs of equal chunk ids, the longest, and the
-pieces the kernel reads.
+distinct groups its positions name; K10's f16 mode and K11 also bit for bit
+PR 10's kernels (scripts/k10_variants.py legacy_sources, built beside the
+library and timed beside them: ``legacy_ms``). f32_sift prints K2's
+certificate ε on the card over the fmaf ε it had on the CUDA cores, and
+its fallbacks; the K10 f32 row prints the runs of equal chunk ids, the
+longest, and the pieces the kernel reads. Each main path's ms/batch on the
+host clock closes its launch counts.
 Kernels and their library calls are timed on the device (``graph_ms``: a
 CUDA graph of the reps, replayed between CUDA events), the plain versions
 eagerly (``cuda_ms``). Recall@K must be
@@ -82,7 +89,9 @@ null. Imports nothing of jax or faiss_tpu.
 
 import json
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -261,10 +270,12 @@ def _block_max(torch, name, launch):
 
 
 def _rescore_select(torch, rows, name, idx, q, db, vn, gidx, metric,
-                    row_bytes, eps):
-    """K11 against K10 → candidate_drop → K9 on the same gidx, bit for bit
-    in values and ids, and against its plain version within the rescore
-    term ``eps`` (the two are fp32-true in different orders)."""
+                    row_bytes, eps, legacy):
+    """K11 against K10 → candidate_drop → K9 on the same gidx and against
+    PR 10's kernel, bit for bit in values and ids, and against its plain
+    version within the rescore term ``eps`` (the two are fp32-true in
+    different orders); PR 10's kernel timed beside it (L2)."""
+    from faiss_tpu_torch import MetricType
     from faiss_tpu_torch.ops import fused, kernels
 
     nt = idx.ntotal
@@ -281,6 +292,20 @@ def _rescore_select(torch, rows, name, idx, q, db, vn, gidx, metric,
                                               metric=metric)
     err = _within(torch, vals, vp, eps, name)
     bound = _rescore_bound(q, row_bytes, gidx, vals, ids)
+    fmt = kernels._SELECT_FMT[db.dtype][0]
+    lv = torch.empty_like(vals)
+    li = torch.empty_like(ids)
+    l2 = metric is MetricType.L2
+
+    def run_legacy():
+        k10_variants().call_select(torch, legacy["libs"]["k11_legacy"], fmt,
+                                   q, db, vn, gidx, nt, K, lv, li, l2)
+    run_legacy()
+    torch.cuda.synchronize()
+    check(torch.equal(vals.view(torch.int32), lv.view(torch.int32))
+          and torch.equal(ids, li), f"{name}: differs from PR 10's kernel")
+    if l2:
+        legacy["ms"][name] = graph_ms(torch, run_legacy, 50)
     rows[name] = _row(
         torch, err,
         lambda: kernels.rescore_select_groups(q, db, vn, gidx, nt, k=K,
@@ -350,7 +375,7 @@ def _k9_row(torch, s):
                 lambda: torch.topk(s, K))
 
 
-def phase_kernels(torch, idx, xq, metric):
+def phase_kernels(torch, idx, xq, metric, legacy):
     """The bf16 kernels against their plain versions at the main path's
     shapes. Sweep and rescore: |kernel − plain| ≤ the query's two-plane ε
     (it bounds the accumulation error of both sides; K2 and K1, on the
@@ -391,7 +416,7 @@ def phase_kernels(torch, idx, xq, metric):
                                                metric=metric),
             50, _rescore_bound(q, 2, gidx, s))
         _rescore_select(torch, rows, "rescore_select", idx, q, db, vn, gidx,
-                        metric, 2, eps)
+                        metric, 2, eps, legacy)
         return s
 
     _selects(torch, rows, gm, rescore, kg)
@@ -475,7 +500,7 @@ def _rescore_term(torch, q, v_max, norms, nv, d, metric):
                                metric)[:, None]
 
 
-def phase_int8_kernels(torch, idx, xq, metric):
+def phase_int8_kernels(torch, idx, xq, metric, legacy):
     """K5 and K10's int8 mode against their plain versions at the main
     path's shapes: K5 equal bit for bit (exact integer dots, the same
     three roundings in the same order; else it fails, though ε_int8 would
@@ -516,16 +541,44 @@ def phase_int8_kernels(torch, idx, xq, metric):
         lambda: fused.rescore_groups_plain(qs, db, vn, gidx, metric=metric),
         50, _rescore_bound(qs, 1, gidx, s))
     _rescore_select(torch, rows, "rescore_select_int8", idx, qs, db, vn, gidx,
-                    metric, 1, term)
+                    metric, 1, term, legacy)
     _print_rows(metric, rows)
     return rows
 
 
-def phase_f16_kernels(torch, idx, xq, metric):
+def k10_variants():
+    """scripts/k10_variants.py, which builds and calls PR 10's kernels."""
+    scripts = str(Path(__file__).resolve().parent / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import k10_variants as kv
+    return kv
+
+
+def _k10_f16_legacy(torch, q, db, vn, gidx, metric, s, legacy):
+    """K10's streamed f16 mode (scores ``s``) against PR 10's thread-per-row
+    kernel on the same inputs, bit for bit; the latter timed (L2)."""
+    from faiss_tpu_torch import MetricType
+
+    out = torch.empty_like(s)
+    l2 = metric is MetricType.L2
+
+    def run_legacy():
+        k10_variants().call_rescore(torch, legacy["libs"]["k10_legacy"], 3, q,
+                                    db, None, vn, gidx, out, l2)
+    run_legacy()
+    torch.cuda.synchronize()
+    check(torch.equal(s.view(torch.int32), out.view(torch.int32)),
+          "rescore_groups_f16: differs from PR 10's thread-per-row kernel")
+    if l2:
+        legacy["ms"]["rescore_groups_f16"] = graph_ms(torch, run_legacy, 50)
+
+
+def phase_f16_kernels(torch, idx, xq, metric, legacy):
     """K6 (two query planes) and K7 (one), both on the tensor cores
     (accum="mma"), against their plain version within the pair ε with the
     f16 split statistics (single_pass for K7), K10's f16 mode within its
-    rescore term."""
+    rescore term and bit for bit PR 10's kernel."""
     from faiss_tpu_torch.ops import fused, kernels
 
     q, nq_pad, nv_eff, vn = _shapes(idx, xq, metric)
@@ -557,13 +610,14 @@ def phase_f16_kernels(torch, idx, xq, metric):
     term = _rescore_term(torch, q, v_max, st.norms, nv_eff, st.d_pad, metric)
     s = kernels.rescore_groups(q, db, vn, gidx, metric=metric)
     s_p = fused.rescore_groups_plain(q, db, vn, gidx, metric=metric)
+    _k10_f16_legacy(torch, q, db, vn, gidx, metric, s, legacy)
     rows["rescore_groups_f16"] = _row(
         torch, _within(torch, s, s_p, term, "rescore_groups_f16"),
         lambda: kernels.rescore_groups(q, db, vn, gidx, metric=metric),
         lambda: fused.rescore_groups_plain(q, db, vn, gidx, metric=metric),
         50, _rescore_bound(q, 2, gidx, s))
     _rescore_select(torch, rows, "rescore_select_f16", idx, q, db, vn, gidx,
-                    metric, 2, term)
+                    metric, 2, term, legacy)
     _print_rows(metric, rows)
     return rows
 
@@ -735,10 +789,12 @@ def main_path(torch, label, runs, need):
     from faiss_tpu_torch.ops import kernels
 
     kernels.reset_launches()
-    for idx, xq, metric in runs:
-        drive(torch, label, idx, xq, metric)
+    ms = [(metric, drive(torch, label, idx, xq, metric)[2])
+          for idx, xq, metric in runs]
     counts = dict(kernels.launches)
     print(f"launches in the {label} main-path run: {counts}", flush=True)
+    print(f"ms/batch {label}: " + ", ".join(
+        f"{m.value} {t:.4f}" for m, t in ms) + " (host clock)", flush=True)
     for key in need:
         check(counts[key] > 0,
               f"{label}: kernel {key} was never launched by the main path")
@@ -1323,6 +1379,102 @@ def phase_ivf_1m(torch, ft):
     return counts, k10
 
 
+# f32 patterns whose bf16 bits the NaN repair holds on the card: NaN
+# payloads of both signs (quiet, signalling, low bits only), ±inf, ±0,
+# subnormals and round-to-nearest-even halfway cases
+NAN_PATTERNS = [0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF800001, 0x7FC00001,
+                0x7FFFFFFF, 0xFFFFFFFF, 0x7FA00000, 0x7F810000, 0xFF810000,
+                0x7F800000, 0xFF800000, 0, 0x80000000, 1, 0x80000001,
+                0x7FFFFF, 0x807FFFFF, 0x8000, 0x3F808000, 0x3F818000,
+                0xBF808000, 0x7F7F8000]
+
+
+def phase_nan_repair(torch, ft):
+    """The bf16 NaN repair on the card (storage.f32_to_bf16: every NaN to
+    sign | 0x7fc0, as jnp.astype): the helper's bits on a CUDA tensor equal
+    its bits on a CPU tensor over NAN_PATTERNS and 65,536 random values of
+    every magnitude; rows holding NaNs (quiet and signalling, positive) are
+    stored as bf16 rows, f32 pair-only planes and an IVF16 bf16 pool with
+    the CPU port's bits, and their searches return the CPU port's ids and
+    distances (IP and L2; flat fused and plain, the IVF at nprobe 4 and 16).
+    Integer rows and queries: every score is exact on both devices."""
+    import os
+
+    from faiss_tpu_torch import MetricType
+    from faiss_tpu_torch.ops import fused
+    from faiss_tpu_torch.storage import f32_to_bf16
+
+    rng = np.random.default_rng(SEED + 5)
+    x = np.concatenate([
+        np.array(NAN_PATTERNS, np.uint32).view(np.float32),
+        (rng.standard_normal(1 << 16)
+         * 2.0 ** rng.integers(-140, 120, 1 << 16)).astype(np.float32)])
+    t = torch.from_numpy(x)
+    check(torch.equal(f32_to_bf16(t.cuda()).view(torch.int16).cpu(),
+                      f32_to_bf16(t).view(torch.int16)),
+          "f32_to_bf16: the card's bits differ from the CPU's")
+    n, d, snan = 20_000, 64, np.uint32(0x7F800001).view(np.float32)
+    xb = rng.integers(-8, 9, (n, d)).astype(np.float32)
+    xb[[5, 300, 9000, n - 1], [1, 7, 63, 0]] = [np.nan, snan, np.nan, snan]
+    xq = rng.integers(-8, 9, (NQ, d)).astype(np.float32)
+    bits = lambda t: t.contiguous().view(torch.int16).cpu()  # noqa: E731
+
+    def same(a, b, what):
+        (Da, Ia), (Db, Ib) = a, b
+        check(np.array_equal(Ia, Ib) and np.array_equal(Da, Db),
+              f"NaN rows {what}: the card's ids or distances differ from the "
+              f"CPU's")
+        check((Ia == -1).any(), f"NaN rows {what}: no NaN row came back")
+
+    gate = fused.fused_path_eligible
+    fused.fused_path_eligible = lambda **kw: kw["nv_eff"] >= 8192
+    runs = 0
+    try:
+        for metric in (MetricType.L2, MetricType.INNER_PRODUCT):
+            for label, kw, planes in (("bf16", {"storage": "bf16"}, ("db",)),
+                                      ("pair", {"keep_master": False},
+                                       ("db_hi", "db_lo"))):
+                idx = [ft.TorchIndexFlat(d, metric=metric, device=dev, **kw)
+                       for dev in ("cpu", "cuda")]
+                for i in idx:
+                    i.add(xb)
+                for p in planes:
+                    check(torch.equal(bits(getattr(idx[0].store, p)[:n]),
+                                      bits(getattr(idx[1].store, p)[:n])),
+                          f"NaN rows {label}: stored {p} bits differ")
+                for plain in (False, True):
+                    for i in idx:
+                        i.set_force_plain(plain)
+                    same(idx[0].search(xq, K), idx[1].search(xq, K),
+                         f"{label} {metric.value} plain={plain}")
+                    runs += 1
+            cpu = ft.TorchIndexIVFFlat(d, 16, metric=metric, storage="bf16",
+                                       device="cpu")
+            cpu.train(rng.integers(-8, 9, (4096, d)).astype(np.float32))
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "ivf.npz")
+                ft.save_index(cpu, path)
+                gpu = ft.load_index(path, device="cuda")
+            for i in (cpu, gpu):
+                i.add(xb)
+            check(np.array_equal(cpu._assignments(), gpu._assignments()),
+                  "NaN rows ivf: the lists differ")
+            check(torch.equal(bits(cpu._rows_by_id()[0]),
+                              bits(gpu._rows_by_id()[0])),
+                  "NaN rows ivf: stored pool bits differ")
+            for nprobe in (4, 16):
+                cpu.nprobe = gpu.nprobe = nprobe
+                same(cpu.search(xq, K), gpu.search(xq, K),
+                     f"ivf bf16 {metric.value} nprobe={nprobe}")
+                runs += 1
+    finally:
+        fused.fused_path_eligible = gate
+    print(f"nan_repair: f32_to_bf16 equal on the card and the CPU over "
+          f"{x.size} values; rows with NaNs stored with the CPU's bits (bf16 "
+          f"rows, pair planes, IVF bf16 pool); {runs} searches with the CPU "
+          f"port's ids and distances", flush=True)
+
+
 def build_index(torch, ft, xb, metric, **kw):
     t0 = time.perf_counter()
     idx = ft.TorchIndexFlat(D, metric=metric, device="cuda", **kw)
@@ -1352,8 +1504,18 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    lib = kernels.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.name}", flush=True)
+    kv = k10_variants()
+    # PR 10's kernels (K10's thread-per-row f16 mode, K11's block a query),
+    # built beside the library (loaded, they outlive their directory): the
+    # redesigned kernels are held against them, and their times in this run
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = kv.start_build(kernels._nvcc(), kernels.NVCC_FLAGS, tmp,
+                               kv.legacy_sources())
+        lib = kernels.build()
+        legacy = {"libs": kv.finish_build(procs, verbose=False), "ms": {}}
+    print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.name} (and PR "
+          f"10's K10 f16 and K11 beside it)", flush=True)
+    phase_nan_repair(torch, ft)
 
     rng = np.random.default_rng(SEED)
     xb = rng.standard_normal((NV, D), dtype=np.float32)
@@ -1373,12 +1535,13 @@ def main() -> int:
           "Gaussian f16 is not clean")
 
     print("kernels vs plain (main-path shapes):", flush=True)
-    by_metric = [phase_kernels(torch, idx, xq, m) for m, idx in bf16.items()]
+    by_metric = [phase_kernels(torch, idx, xq, m, legacy)
+                 for m, idx in bf16.items()]
     by_metric += [phase_f32_kernels(torch, idx, xq, m)
                   for m, idx in f32.items()]
-    by_metric += [phase_int8_kernels(torch, idx, xq, m)
+    by_metric += [phase_int8_kernels(torch, idx, xq, m, legacy)
                   for m, idx in int8.items()]
-    by_metric += [phase_f16_kernels(torch, idx, xq, m)
+    by_metric += [phase_f16_kernels(torch, idx, xq, m, legacy)
                   for m, idx in f16.items()]
     phase_truncation_adversary(torch)
     # the table keeps the L2 times and bound and the larger error of the
@@ -1530,6 +1693,8 @@ def main() -> int:
                  "library_ms": lms}
         if note:
             entry["note"] = note
+        if key in legacy["ms"]:   # PR 10's kernel, timed in this run
+            entry["legacy_ms"] = legacy["ms"][key]
         # K9 at the f32 path's stage-3b width, (nq_pad, k + 22); K8 at its
         # stage-3a shape, (nq_pad, kg·128) with m = k + 22
         at = {"final_select": ("at_ncand_32", "final_select_32"),

@@ -1,5 +1,5 @@
 // Helpers shared by the kernels of faiss_tpu_torch: bf16, f16 and int8
-// unpacking, NaN-propagating max, warp/block reductions, and the sm_90
+// unpacking, NaN-propagating max, a warp max, and the sm_90
 // mbarrier and bulk-copy wrappers. Plain C interface only (no PyTorch
 // headers), so nvcc builds the library in seconds.
 #pragma once
@@ -35,26 +35,22 @@ __device__ __forceinline__ void unpack8(const uint4 w, float (&x)[8]) {
   x[6] = bf16_lo(w.w); x[7] = bf16_hi(w.w);
 }
 
-// An f16 bit pattern (low 16 bits of h) widened to its EXACT fp32 value,
-// with every e=31 pattern, NaN included, mapped to ±inf by its sign bit:
-// the contract of faiss_tpu.storage.decode_f16_bits (__half2float would
-// keep NaN as NaN). Normal values rebias the exponent (15 → 127) in the
-// integer domain; zero and subnormals are the mantissa (an integer
-// < 1024, exact in fp32) times 2^-24, exact and normal in fp32.
-__device__ __forceinline__ float f16_to_f32(uint32_t h) {
-  const uint32_t m = h & 0x7FFFu;
-  float f = m < 0x400u ? static_cast<float>(m) * 5.9604644775390625e-8f
-                       : __uint_as_float((m << 13) + (112u << 23));
-  if (m >= 0x7C00u) f = __uint_as_float(0x7F800000u);   // +inf
-  return __uint_as_float(__float_as_uint(f) | ((h & 0x8000u) << 16));
-}
-
-// The eight f16 of a 16-byte row chunk, decoded to fp32.
+// The eight f16 bit patterns of a 16-byte row chunk decoded to their EXACT
+// fp32 values, with every e=31 pattern, NaN included, mapped to ±inf by its
+// sign bit: the contract of faiss_tpu.storage.decode_f16_bits (cvt alone
+// would keep NaN as NaN). An e=31 pattern loses its mantissa first (±inf);
+// then cvt.f32.f16, exact on every pattern, subnormals included (the
+// decode of sweep_split_mma.cu's split_f16x2).
 __device__ __forceinline__ void unpack8_f16(const uint4 w, float (&x)[8]) {
-  x[0] = f16_to_f32(w.x); x[1] = f16_to_f32(w.x >> 16);
-  x[2] = f16_to_f32(w.y); x[3] = f16_to_f32(w.y >> 16);
-  x[4] = f16_to_f32(w.z); x[5] = f16_to_f32(w.z >> 16);
-  x[6] = f16_to_f32(w.w); x[7] = f16_to_f32(w.w >> 16);
+  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t e31 = __vcmpeq2(ws[k] & 0x7C007C00u, 0x7C007C00u);
+    const uint32_t v = ws[k] & ~(e31 & 0x03FF03FFu);
+    asm("{\n .reg .b16 l, h;\n mov.b32 {l, h}, %2;\n"
+        " cvt.f32.f16 %0, l;\n cvt.f32.f16 %1, h;\n}\n"
+        : "=f"(x[2 * k]), "=f"(x[2 * k + 1]) : "r"(v));
+  }
 }
 
 // The sixteen int8 codes of a 16-byte row chunk, widened to fp32 (exact).
@@ -80,44 +76,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide reductions over NT threads (NT a multiple of 32, ≤ 1024);
-// every thread gets the result. `scratch` holds ≥ NT/32 entries of shared
-// memory and is free again when the call returns.
-template <int NT>
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  v = warp_max(v);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = scratch[0];
-#pragma unroll
-  for (int i = 1; i < NT / 32; ++i) r = nan_max(r, scratch[i]);
-  __syncthreads();
-  return r;
-}
-
-template <int NT>
-__device__ __forceinline__ int block_min(int v, int* scratch) {
-  v = warp_min(v);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = scratch[0];
-#pragma unroll
-  for (int i = 1; i < NT / 32; ++i) r = min(r, scratch[i]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ bool bit_set(const uint32_t* bits, int c) {
-  return (bits[c >> 5] >> (c & 31)) & 1u;
-}
-
 // max(*addr, v) stored at addr, atomically, for fp32 values: the sweeps'
 // supergroup-max output, whose buffer the wrapper fills with -inf. A value
 // with the sign bit clear wins by a signed-integer max of the bits, one with
@@ -131,33 +89,6 @@ __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
     atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
   else
     atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-}
-
-// One max-extraction step of the rescore-select kernel (K11's extraction in
-// _final_select_kernel's order), over the row x[0, n) in shared memory with
-// the extracted set in the shared bitmask `excl`:
-//   m   = max over xm, where xm = -inf on extracted columns, else x
-//   col = the lowest column with xm == m that is not extracted yet (the
-//         final select's `& ~excl`); BIG when no column matches (m is NaN).
-// Two block reductions per step; each thread walks its columns in
-// ascending order, so its first match is its lowest.
-template <int NT>
-__device__ __forceinline__ void extract_step(
-    const float* x, int n, const uint32_t* excl, float* fscratch,
-    int* iscratch, float& m_out, int& col_out) {
-  float m = -INFINITY;
-  for (int c = threadIdx.x; c < n; c += NT)
-    m = nan_max(m, bit_set(excl, c) ? -INFINITY : x[c]);
-  m = block_max<NT>(m, fscratch);
-  int col = BIG;
-  for (int c = threadIdx.x; c < n; c += NT) {
-    if (!bit_set(excl, c) && x[c] == m) {
-      col = c;
-      break;
-    }
-  }
-  col_out = block_min<NT>(col, iscratch);
-  m_out = m;
 }
 
 // -- mbarriers and bulk copies (sm_90) -----------------------------------

@@ -99,57 +99,9 @@ __global__ void final_select_kernel(const float* __restrict__ s,
   const uint32_t t =
       rs::kth_key<PER, WPR>(key, c0, c1, lane, sub, xch, half, k, exact);
 
-  // 4. collect in column order: slots [0, k - need) the keys above T (or,
-  // when exact, ≥ T), slots [k - need, k) the lowest-column keys equal to
-  // T; a warp's first slots follow those of the warps before it (t + 1
-  // does not wrap: t ≤ +inf's key 0xff800000)
-  const uint32_t n_above =
-      __reduce_add_sync(FULL, rs::count_ge(key, t + 1u));
-  const uint32_t n_from_t = __reduce_add_sync(FULL, rs::count_ge(key, t));
-  const uint32_t w_up = exact ? n_from_t : n_above;
-  const uint32_t w_eq = exact ? 0u : n_from_t - n_above;
-  int n_up = 0, n_eq = 0, need = 0;
-  if constexpr (WPR == 1) {
-    need = k - static_cast<int>(w_up);
-  } else {
-    uint32_t* buf = xch + half * 2 * WPR;
-    if (lane == 0) {
-      buf[sub] = w_up;
-      buf[WPR + sub] = w_eq;
-    }
-    __syncthreads();
-    int up_all = 0;
-#pragma unroll
-    for (int i = 0; i < WPR; ++i) {
-      if (i < sub) {
-        n_up += static_cast<int>(buf[i]);
-        n_eq += static_cast<int>(buf[WPR + i]);
-      }
-      up_all += static_cast<int>(buf[i]);
-    }
-    need = k - up_all;
-  }
-  const unsigned lower = (1u << lane) - 1u;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const bool up = exact ? key[j] >= t : key[j] > t;
-    const bool eq = !exact && key[j] == t;
-    const unsigned bu = __ballot_sync(FULL, up);
-    const unsigned be = __ballot_sync(FULL, eq);
-    const int pu = n_up + __popc(bu & lower);
-    const int pe = n_eq + __popc(be & lower);
-    const uint32_t col = static_cast<uint32_t>(c0 + 32 * j + lane);
-    if (up) {
-      skey[pu] = key[j];
-      scol[pu] = col;
-    }
-    if (eq && pe < need) {
-      skey[k - need + pe] = key[j];
-      scol[k - need + pe] = col;
-    }
-    n_up += __popc(bu);
-    n_eq += __popc(be);
-  }
+  // 4. collect the k columns into the slots, in column order
+  rs::collect<PER, WPR>(key, t, exact, c0, lane, sub, xch, half, k, skey,
+                        scol);
   rs::row_sync<WPR>();
   if (sub != 0) return;
 

@@ -4,10 +4,12 @@
 // _rescore_dots), as launched by rescore_groups_pallas, in all five of its
 // modes, one row format each:
 //   BF16  bf16 rows (db2=None)
-//   PAIR  the f32 pair mode, db2 = the lo plane (body :1074-1076)
+//   PAIR  the f32 pair mode, db2 = the lo plane (body :1074-1076),
+//         streamed (rescore_stream_kernel, below)
 //   INT8  int8 codes (_rescore_dots :1045-1047, fused route :1720-1731),
 //         scored against qs = q∘s (the caller passes qs)
-//   F16   f16 bit patterns (the int16 mode, _rescore_dots :1035-1039)
+//   F16   f16 bit patterns (the int16 mode, _rescore_dots :1035-1039),
+//         streamed as the pair is (rescore_stream_kernel, below)
 //   F32   f32 rows (_rescore_dots :1040-1044), the IVF fine scan
 //         (faiss_tpu/ivf.py :397-426): gidx holds pool chunk ids, one
 //         128-row chunk per group, ngroups = the pool's chunk capacity,
@@ -20,7 +22,8 @@
 // the bf16 row, hi_r + lo_r, the int8 codes, or the decoded f16 row.
 //
 // Arithmetic: q stays fp32 and each row element widens EXACTLY to fp32
-// (bf16 and int8 by conversion, f16 by common.cuh f16_to_f32, e=31 → ±inf);
+// (bf16 and int8 by conversion, f16 by common.cuh unpack8_f16, e=31 →
+// ±inf);
 // the dot is a sequential fmaf chain over d (one rounding per step, round
 // to nearest), so it errs ≤ d·u·‖q‖·‖v‖. BF16 / F16: the certificate
 // (ops/fused._sweep_eps) charges the rescore 2·d·u·Q·V, which covers it;
@@ -45,32 +48,37 @@
 //
 // What bounds it on an H100: the gather, nq·kg·128·d elements of rows read
 // by id in 256-byte runs (d=128: 46 MB at nq=104, kg=14 for bf16 and f16,
-// 93 MB for the pair, 23 MB for int8). Design (BF16, INT8, F16): one
-// block of 128 threads per (query, rank); thread r owns row r of the group
-// and reads it as 16-byte vectors (8 elements or 16 int8 codes a step);
-// q is staged in shared memory (fp32, d in chunks of 1024, 4 KB) and read
-// as a broadcast. A group id past the end is clamped into range, so a bad
-// id cannot read out of bounds.
+// 93 MB for the pair, 23 MB for int8). Design (BF16, INT8, the
+// thread-per-row kernel, rescore_groups_kernel): one block of 128 threads
+// per (query, rank); thread r owns row r of the group and reads it as
+// 16-byte vectors (8 elements or 16 int8 codes a step); q is staged in
+// shared memory (fp32, d in chunks of 1024, 4 KB) and read as a broadcast.
+// A group id past the end is clamped into range, so a bad id cannot read
+// out of bounds.
 //
-// PAIR, stage 3a of every f32 search, streams (rescore_pair_kernel): that
-// design read a row per thread, 16 bytes a step from rows 2·d bytes apart,
-// so each warp load touched 32 lines, with little in flight (0.0978 ms at
-// the f32 main path's shape on an H100, 3.8× its bytes bound; PERF.md).
-// Here persistent blocks (the SMs times the blocks an SM holds) walk the
-// nq·kg positions in order, a contiguous run each, so q is staged once a
-// query for its kg groups. In each plane a group's rows are one contiguous
-// run (128·d·2 bytes); one producer warp brings each (position, 64-element
-// d slice) of both planes in by TMA, two 16 KB tiles of 128 rows × 128
-// bytes, 128-byte swizzled, into a ring of PAIR_STAGES stages on full /
-// empty mbarriers, ahead of the products. Four consumer warps score:
-// thread r reads row r's 16-byte unit u at r·128 + 16·(u ^ r % 8), so the
-// 8 rows of a quarter-warp's reads lie in 8 different bank groups, and
-// keeps one fmaf chain over d in index order, slice after slice: the
-// thread-per-row kernel's arithmetic, so its scores bit for bit. Each
-// position writes its 128 contiguous scores.
-// scripts/k10_variants.py --mode pair times it against that kernel
-// (legacy), one stage, no swizzle, and a grouping pass that reads each
-// distinct group once (PERF.md has the numbers).
+// PAIR (stage 3a of every f32 search) and F16 (phase 3 of every f16
+// search) stream (rescore_stream_kernel, on rescore_stream.cuh): the
+// thread-per-row design read a row per thread, 16 bytes a step from rows
+// 2·d bytes apart, so each warp load touched 32 lines, with little in
+// flight (on an H100 at the main paths' shape 0.0978 ms for the pair, 3.8×
+// its bytes bound, and 0.0289 ms for f16, 2.2×; PERF.md). Here persistent
+// blocks (the SMs times the blocks an SM holds) walk the nq·kg positions
+// in order, a contiguous run each, so q is staged once a query for its kg
+// groups. In each plane a group's rows are one contiguous run (128·d·2
+// bytes); one producer warp brings each (position, 64-element d slice) in
+// by TMA, a 16 KB tile of 128 rows × 128 bytes a plane (two for the pair,
+// the f16 bits as one plane of 16-bit elements), 128-byte swizzled, into a
+// ring of stream_stages<FMT>() stages on full / empty mbarriers, ahead of
+// the products. Four consumer warps score: thread r reads row r's 16-byte
+// unit u at r·128 + 16·(u ^ r % 8), so the 8 rows of a quarter-warp's
+// reads lie in 8 different bank groups, widens it (hi + lo, or the f16
+// decode, on the consumer's ALUs) and keeps one fmaf chain over d in index
+// order, slice after slice: the thread-per-row kernel's arithmetic, so its
+// scores bit for bit. Each position writes its 128 contiguous scores.
+// scripts/k10_variants.py --mode pair and --mode f16 time it against the
+// thread-per-row kernel (legacy), ring depths, no swizzle, and for the
+// pair a grouping pass that reads each distinct group once (PERF.md has
+// the numbers).
 //
 // F32, the IVF fine scan, is chunk-major: nq·nbudget positions (6,656 at
 // nq 104, nbudget 64) name about a quarter as many distinct chunks (each
@@ -90,20 +98,20 @@
 // sequential fmaf chain over d in index order, as the thread-per-row
 // kernel did: the same bits. Each (query, rank) writes its 128 contiguous
 // scores once.
-#include "common.cuh"
-#include "tma.cuh"
+#include "rescore_stream.cuh"
 
 namespace {
 
+using ft::clamp_group;
+using ft::BF16;
+using ft::PAIR;
+using ft::INT8;
+using ft::F16;
+using ft::F32;
+
 constexpr int DT = 1024;   // d chunk of the query staged in shared memory
 
-enum Rows { BF16 = 0, PAIR = 1, INT8 = 2, F16 = 3, F32 = 4 };
-
-// A group id past either end, clamped into range as every mode clamps it.
-__device__ __forceinline__ int clamp_group(int g, int ngroups) {
-  return min(max(g, 0), ngroups - 1);
-}
-
+// BF16 and INT8: a block per (query, rank), thread r row r.
 template <bool L2, int FMT>
 __global__ void __launch_bounds__(ft::GROUP)
 rescore_groups_kernel(const float* __restrict__ q,
@@ -134,8 +142,6 @@ rescore_groups_kernel(const float* __restrict__ q,
       const uint4 w = __ldg(v + (d0 + e) / EPC);
       if constexpr (FMT == INT8) {
         ft::unpack16_i8(w, x);
-      } else if constexpr (FMT == F16) {
-        ft::unpack8_f16(w, x);
       } else {
         ft::unpack8(w, x);
       }
@@ -393,89 +399,54 @@ cudaError_t launch_f32(const float* q, const float* db, const float* vn,
   return cudaGetLastError();
 }
 
-// -- PAIR: streaming ---------------------------------------------------------
+// -- PAIR and F16: streaming ------------------------------------------------
 
-constexpr int PAIR_KC = ft::TMA_ROW_BYTES / 2;   // d slice: a 128-byte row
-constexpr int PAIR_TILE = ft::GROUP * ft::TMA_ROW_BYTES;   // 16 KB a plane
-constexpr int PAIR_STAGE = 2 * PAIR_TILE;   // a slice of both planes
-constexpr int PAIR_STAGES = 3;              // 3 × 32 KB: two blocks an SM
-constexpr int PAIR_CONS = ft::GROUP;        // consumer threads: r scores row r
-constexpr int PAIR_THREADS = PAIR_CONS + 32;   // and one producer warp
-
-constexpr int PAIR_BARS = (2 * PAIR_STAGES * 8 + 15) / 16 * 16;   // bytes
+// Ring depth by format (rescore_stream.cuh). PAIR: 3 × 32 KB, two blocks
+// an SM (one to six stages move it ≤ 10 %). F16: 2 × 16 KB, six blocks an
+// SM: its decode binds it, so more consumer warps an SM beat a deeper ring
+// (scripts/k10_variants.py --mode f16; PERF.md has both).
+template <int FMT>
+__host__ __device__ constexpr int stream_stages() {
+  return FMT == ft::PAIR ? 3 : 2;
+}
 
 // the dynamic shared memory at width d (the kernel has no static shared
-// memory, so it may take all the opt-in): alignment, the ring, the full and
-// empty mbarriers, q
-size_t pair_smem_bytes(int d) {
-  return 1024 + static_cast<size_t>(PAIR_STAGES) * PAIR_STAGE + PAIR_BARS
+// memory, so it may take all the opt-in): the ring, q
+template <int FMT>
+size_t stream_smem_bytes(int d) {
+  return ft::Ring<FMT, stream_stages<FMT>()>::BYTES
          + static_cast<size_t>(d) * 4;
 }
 
-// the 128 consumer threads (named barrier 1; the producer warp is not in it)
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" :: "n"(PAIR_CONS) : "memory");
-}
-
-// Unit u (8 elements) of row r's slice in a stage, widened to fp32: hi + lo,
-// exact, from the two swizzled tiles (`row` = the stage + r·128).
-__device__ __forceinline__ void pair_unit(const uint8_t* row, int u, int r,
-                                          float (&x)[8]) {
-  const int off = 16 * (u ^ (r & 7));
-  float y[8];
-  ft::unpack8(*reinterpret_cast<const uint4*>(row + off), x);
-  ft::unpack8(*reinterpret_cast<const uint4*>(row + PAIR_TILE + off), y);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] += y[i];   // exact: hi + lo
-}
-
 // Positions [P·b/G, P·(b+1)/G) of block b of G, in order: position p is
-// (query p / kg, rank p % kg), its group gidx[p] clamped into range.
-template <bool L2>
-__global__ void __launch_bounds__(PAIR_THREADS)
-rescore_pair_kernel(const __grid_constant__ CUtensorMap t_hi,
-                    const __grid_constant__ CUtensorMap t_lo,
-                    const float* __restrict__ q, const float* __restrict__ vn,
-                    const int32_t* __restrict__ gidx, float* __restrict__ out,
-                    int d, int kg, int ngroups, long long P) {
-  extern __shared__ uint8_t pair_smem[];
-  uint8_t* ring = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(pair_smem) + 1023) & ~uintptr_t(1023));
-  uint8_t* bars = ring + PAIR_STAGES * PAIR_STAGE;
-  uint64_t* full = reinterpret_cast<uint64_t*>(bars);
-  uint64_t* empty = full + PAIR_STAGES;
-  float* qs = reinterpret_cast<float*>(bars + PAIR_BARS);
+// (query p / kg, rank p % kg), its group gidx[p] clamped into range. q is
+// staged once a query; the producer warp's one thread brings each
+// position's d slices in, the 128 consumers score them.
+template <bool L2, int FMT>
+__global__ void __launch_bounds__(ft::STREAM_THREADS)
+rescore_stream_kernel(const __grid_constant__ CUtensorMap t0,
+                      const __grid_constant__ CUtensorMap t1,
+                      const float* __restrict__ q,
+                      const float* __restrict__ vn,
+                      const int32_t* __restrict__ gidx,
+                      float* __restrict__ out, int d, int kg, int ngroups,
+                      long long P) {
+  extern __shared__ uint8_t stream_smem[];
+  ft::Ring<FMT, stream_stages<FMT>()> ring(stream_smem);
+  float* qs = reinterpret_cast<float*>(ring.after());
   const int p0 = static_cast<int>(P * blockIdx.x / gridDim.x);
   const int p1 = static_cast<int>(P * (blockIdx.x + 1) / gridDim.x);
-  const int nkc = (d + PAIR_KC - 1) / PAIR_KC;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < PAIR_STAGES; ++s) {
-      ft::mbar_init(full + s, 1);
-      ft::mbar_init(empty + s, PAIR_CONS / 32);   // one arrival a warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  const int nkc = (d + ft::Stream<FMT>::KC - 1) / ft::Stream<FMT>::KC;
+  if (threadIdx.x == 0) ring.init();
   __syncthreads();
 
-  const int t = threadIdx.x, lane = t & 31;
-  int stage = 0;
-  uint32_t phase = 0;
-  if (t >= PAIR_CONS) {
+  const int t = threadIdx.x;
+  if (t >= ft::STREAM_CONS) {
     // producer: one thread issues every load
-    if (lane != 0) return;
+    if (t != ft::STREAM_CONS) return;
     for (int p = p0; p < p1; ++p) {
-      const int row = clamp_group(gidx[p], ngroups) * ft::GROUP;
-      for (int kc = 0; kc < nkc; ++kc) {
-        ft::mbar_wait(empty + stage, phase ^ 1u);
-        uint8_t* st = ring + stage * PAIR_STAGE;
-        ft::mbar_expect_tx(full + stage, PAIR_STAGE);
-        ft::tma_load(&t_hi, st, full + stage, kc * PAIR_KC, row);
-        ft::tma_load(&t_lo, st + PAIR_TILE, full + stage, kc * PAIR_KC, row);
-        if (++stage == PAIR_STAGES) {
-          stage = 0;
-          phase ^= 1u;
-        }
-      }
+      const int row = ft::clamp_group(gidx[p], ngroups) * ft::GROUP;
+      for (int kc = 0; kc < nkc; ++kc) ring.load(&t0, &t1, kc, row);
     }
     return;
   }
@@ -483,104 +454,57 @@ rescore_pair_kernel(const __grid_constant__ CUtensorMap t_hi,
   int qi_staged = -1;
   for (int p = p0; p < p1; ++p) {
     const int qi = p / kg;
-    if (qi != qi_staged) {   // block-uniform
-      consumers_sync();      // the last query's reads of qs have ended
+    if (qi != qi_staged) {    // block-uniform
+      ft::consumers_sync();   // the last query's reads of qs have ended
       const float4* qrow = reinterpret_cast<const float4*>(
           q + static_cast<size_t>(qi) * d);
-      for (int e = t; e < d / 4; e += PAIR_CONS)
+      for (int e = t; e < d / 4; e += ft::STREAM_CONS)
         reinterpret_cast<float4*>(qs)[e] = __ldg(qrow + e);
-      consumers_sync();
+      ft::consumers_sync();
       qi_staged = qi;
     }
     float acc = 0.f;
-    for (int kc = 0; kc < nkc; ++kc) {
-      ft::mbar_wait(full + stage, phase);
-      const uint8_t* row = ring + stage * PAIR_STAGE + t * ft::TMA_ROW_BYTES;
-      const float* qk = qs + kc * PAIR_KC;
-      const int nu = min(PAIR_KC, d - kc * PAIR_KC) / 8;
-#pragma unroll 4
-      for (int u = 0; u < nu; ++u) {
-        float x[8];
-        pair_unit(row, u, t, x);
-        const float4 a0 = *reinterpret_cast<const float4*>(qk + 8 * u);
-        const float4 a1 = *reinterpret_cast<const float4*>(qk + 8 * u + 4);
-        acc = fmaf(a0.x, x[0], acc);
-        acc = fmaf(a0.y, x[1], acc);
-        acc = fmaf(a0.z, x[2], acc);
-        acc = fmaf(a0.w, x[3], acc);
-        acc = fmaf(a1.x, x[4], acc);
-        acc = fmaf(a1.y, x[5], acc);
-        acc = fmaf(a1.z, x[6], acc);
-        acc = fmaf(a1.w, x[7], acc);
-      }
-      __syncwarp();   // the warp's reads of the stage have ended
-      if (lane == 0) ft::mbar_arrive(empty + stage);
-      if (++stage == PAIR_STAGES) {
-        stage = 0;
-        phase ^= 1u;
-      }
-    }
-    const size_t g = clamp_group(gidx[p], ngroups);
+    for (int kc = 0; kc < nkc; ++kc) acc = ring.score(t, qs, kc, d, acc);
+    const size_t g = ft::clamp_group(gidx[p], ngroups);
     out[static_cast<size_t>(p) * ft::GROUP + t] =
         (L2 ? 2.f * acc : acc) - vn[g * ft::GROUP + t];
   }
 }
 
-// Per device: SM count and opt-in shared memory, and whether the kernels
-// may take it (set once, before any graph capture can reach them).
-struct PairDevice {
-  int sms = 0;
-  int smem_optin = 0;
-  bool attr_set = false;
-};
-
-template <bool L2>
-cudaError_t launch_pair(const float* q, const void* hi, const void* lo,
-                        const float* vn, const int32_t* gidx, float* out,
-                        int nq, int d, int kg, int ngroups, cudaStream_t s) {
-  static PairDevice info[64];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+template <bool L2, int FMT>
+cudaError_t launch_stream(const float* q, const void* db, const void* db2,
+                          const float* vn, const int32_t* gidx, float* out,
+                          int nq, int d, int kg, int ngroups, cudaStream_t s) {
+  static ft::StreamDevice info[64];
+  ft::StreamDevice* di = nullptr;
+  cudaError_t e =
+      ft::stream_device(info, rescore_stream_kernel<L2, FMT>, di);
   if (e != cudaSuccess) return e;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  PairDevice& di = info[dev];
-  if (di.sms == 0) {
-    e = cudaDeviceGetAttribute(&di.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&di.smem_optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) {
-      di.sms = 0;
-      return e;
-    }
-  }
-  if (!di.attr_set) {
-    e = cudaFuncSetAttribute(rescore_pair_kernel<L2>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             di.smem_optin);
-    if (e != cudaSuccess) return e;
-    di.attr_set = true;
-  }
-  const ft::EncodeTiled enc = ft::encoder();
-  if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap maps[2];
-  const int rows = ngroups * ft::GROUP;
-  if (!ft::plane_map(enc, &maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, hi, d,
-                     rows, ft::GROUP)
-      || !ft::plane_map(enc, &maps[1], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, lo,
-                        d, rows, ft::GROUP))
+  if (!ft::stream_maps<FMT>(maps, db, db2, d, ngroups * ft::GROUP))
     return cudaErrorInvalidValue;
-  const size_t smem = pair_smem_bytes(d);
+  const size_t smem = stream_smem_bytes<FMT>(d);
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, rescore_pair_kernel<L2>, PAIR_THREADS, smem);
+      &per_sm, rescore_stream_kernel<L2, FMT>, ft::STREAM_THREADS, smem);
   if (e != cudaSuccess) return e;
   const long long P = static_cast<long long>(nq) * kg;
-  const long long slots = static_cast<long long>(di.sms) * max(per_sm, 1);
+  const long long slots = static_cast<long long>(di->sms) * max(per_sm, 1);
   const int grid = static_cast<int>(P < slots ? P : slots);
-  rescore_pair_kernel<L2><<<grid, PAIR_THREADS, smem, s>>>(
+  rescore_stream_kernel<L2, FMT><<<grid, ft::STREAM_THREADS, smem, s>>>(
       maps[0], maps[1], q, vn, gidx, out, d, kg, ngroups, P);
   return cudaGetLastError();
+}
+
+template <int FMT>
+cudaError_t launch_stream(const float* q, const void* db, const void* db2,
+                          const float* vn, const int32_t* gidx, float* out,
+                          int nq, int d, int kg, int ngroups, int l2,
+                          cudaStream_t s) {
+  return l2 ? launch_stream<true, FMT>(q, db, db2, vn, gidx, out, nq, d, kg,
+                                       ngroups, s)
+            : launch_stream<false, FMT>(q, db, db2, vn, gidx, out, nq, d, kg,
+                                        ngroups, s);
 }
 
 }  // namespace
@@ -615,12 +539,12 @@ extern "C" int ft_rescore_groups(const void* q, const void* db, const void* db2,
   switch (fmt) {
     case BF16: launch<BF16>(qq, db, n, gi, o, nq, d, kg, ngroups, l2, s); break;
     case PAIR:
-      return static_cast<int>(
-          l2 ? launch_pair<true>(qq, db, db2, n, gi, o, nq, d, kg, ngroups, s)
-             : launch_pair<false>(qq, db, db2, n, gi, o, nq, d, kg, ngroups,
-                                  s));
+      return static_cast<int>(launch_stream<PAIR>(qq, db, db2, n, gi, o, nq,
+                                                  d, kg, ngroups, l2, s));
     case INT8: launch<INT8>(qq, db, n, gi, o, nq, d, kg, ngroups, l2, s); break;
-    case F16: launch<F16>(qq, db, n, gi, o, nq, d, kg, ngroups, l2, s); break;
+    case F16:
+      return static_cast<int>(launch_stream<F16>(qq, db, nullptr, n, gi, o,
+                                                 nq, d, kg, ngroups, l2, s));
     case F32: {
       auto* x = static_cast<const float*>(db);
       auto* wk = static_cast<int*>(work);

@@ -1,5 +1,6 @@
-// The one-pass row select shared by the group select (K8, select_groups.cu)
-// and the final top-k (K9, final_select.cu).
+// The one-pass row select shared by the group select (K8, select_groups.cu),
+// the final top-k (K9, final_select.cu) and the rescore-select (K11,
+// rescore_select.cu; steps 2-4 over its scores in shared memory).
 //
 // A row of fp32 scores is held by WPR warps (one warp, or a block of WPR
 // warps for one row); warp `sub` of a row owns the columns [c0, c1) =
@@ -15,8 +16,10 @@
 //      __reduce_add_sync and across the row's warps through shared memory
 //      with one barrier, and keeps the bit while the count stays ≥ k); it
 //      stops early once exactly k keys are ≥ the prefix.
-// Each kernel then takes its own collection pass in column order, by
-// ballots and prefix counts: no barrier runs inside a loop over k.
+//   4. collect: the k selected columns into k slots, in column order, by
+//      ballots and prefix counts.
+// Each kernel then orders the slots its own way: no barrier runs inside a
+// loop over k.
 #pragma once
 
 #include "common.cuh"
@@ -167,6 +170,67 @@ __device__ __forceinline__ uint32_t kth_key(const uint32_t (&key)[PER],
     }
   }
   return t;
+}
+
+// Step 4: the k selected columns into k slots (skey, scol: the row's shared
+// memory), in column order by ballots and prefix counts: slots [0, k - need)
+// take the keys above t (or, when exact, ≥ t), slots [k - need, k) the
+// lowest-column keys equal to t; a warp's first slots follow those of the
+// warps before it (t + 1 does not wrap: t ≤ +inf's key 0xff800000). The
+// slots are in no order of key: the caller orders them.
+template <int PER, int WPR>
+__device__ __forceinline__ void collect(const uint32_t (&key)[PER],
+                                        uint32_t t, bool exact, int c0,
+                                        int lane, int sub, uint32_t* xch,
+                                        int half, int k, uint32_t* skey,
+                                        uint32_t* scol) {
+  const uint32_t n_above =
+      __reduce_add_sync(FULL, count_ge(key, t + 1u));
+  const uint32_t n_from_t = __reduce_add_sync(FULL, count_ge(key, t));
+  const uint32_t w_up = exact ? n_from_t : n_above;
+  const uint32_t w_eq = exact ? 0u : n_from_t - n_above;
+  int n_up = 0, n_eq = 0, need = 0;
+  if constexpr (WPR == 1) {
+    need = k - static_cast<int>(w_up);
+  } else {
+    uint32_t* buf = xch + half * 2 * WPR;
+    if (lane == 0) {
+      buf[sub] = w_up;
+      buf[WPR + sub] = w_eq;
+    }
+    __syncthreads();
+    int up_all = 0;
+#pragma unroll
+    for (int i = 0; i < WPR; ++i) {
+      if (i < sub) {
+        n_up += static_cast<int>(buf[i]);
+        n_eq += static_cast<int>(buf[WPR + i]);
+      }
+      up_all += static_cast<int>(buf[i]);
+    }
+    need = k - up_all;
+  }
+  const unsigned lower = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const bool up = exact ? key[j] >= t : key[j] > t;
+    const bool eq = !exact && key[j] == t;
+    const unsigned bu = __ballot_sync(FULL, up);
+    const unsigned be = __ballot_sync(FULL, eq);
+    const int pu = n_up + __popc(bu & lower);
+    const int pe = n_eq + __popc(be & lower);
+    const uint32_t col = static_cast<uint32_t>(c0 + 32 * j + lane);
+    if (up) {
+      skey[pu] = key[j];
+      scol[pu] = col;
+    }
+    if (eq && pe < need) {
+      skey[k - need + pe] = key[j];
+      scol[k - need + pe] = col;
+    }
+    n_up += __popc(bu);
+    n_eq += __popc(be);
+  }
 }
 
 // Opts `kernel` in to `smem` bytes of dynamic shared memory where that is

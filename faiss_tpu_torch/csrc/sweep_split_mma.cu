@@ -376,8 +376,9 @@ __device__ __forceinline__ void fence_regs(int (&d)[N]) {
 }
 
 // Two f16 patterns (element 0 in the low half) → their exact bf16 pairs
-// (hi, lo), packed the same way: common.cuh f16_to_f32, then the split of
-// faiss_tpu.storage.split_f16_bits, element for element. An e=31 pattern
+// (hi, lo), packed the same way: the decode of common.cuh unpack8_f16,
+// then the split of faiss_tpu.storage.split_f16_bits, element for
+// element. An e=31 pattern
 // loses its mantissa, so NaN decodes to ±inf as inf does (the contract of
 // faiss_tpu.storage.decode_f16_bits); cvt.f32.f16 is exact on every other
 // pattern, subnormals included; hi is the fp32 value's high half (its

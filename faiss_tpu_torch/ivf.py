@@ -64,7 +64,8 @@ from .ops import distance as dist_ops
 from .ops import fused, kernels
 from .ops.distance import exact_fp32_matmul
 from .ops.topk import chunked_topk_scores, topk_scores
-from .storage import D_ALIGN, D_ALIGN_INT8, _round_up, quantize_int8
+from .storage import (D_ALIGN, D_ALIGN_INT8, _round_up, f32_to_bf16,
+                      quantize_int8)
 
 __all__ = ["TorchIndexIVFFlat"]
 
@@ -314,8 +315,8 @@ class TorchIndexIVFFlat:
         for i0 in range(0, n, 1 << 16):
             norms[i0:i0 + (1 << 16)] = (
                 x[i0:i0 + (1 << 16)].astype(np.float64) ** 2).sum(1)
-        self._add_preassigned(xd.to(self._dtype), torch.from_numpy(norms),
-                              assign)
+        rows = f32_to_bf16(xd) if self._dtype == torch.bfloat16 else xd
+        self._add_preassigned(rows, torch.from_numpy(norms), assign)
 
     def _add_preassigned(self, rows: torch.Tensor, norms: torch.Tensor,
                          assign: np.ndarray) -> None:

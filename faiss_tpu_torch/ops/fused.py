@@ -73,7 +73,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..dtypes import MetricType
-from ..storage import decode_f16_bits, split_f16_bits, split_f32_bf16
+from ..storage import (decode_f16_bits, f32_to_bf16, split_f16_bits,
+                       split_f32_bf16)
 from .distance import exact_fp32_matmul
 from .topk import topk_scores
 # the kernel wrappers, under the names of their JAX counterparts' roles
@@ -148,7 +149,7 @@ def query_planes(queries_f32: torch.Tensor, sweep_passes: int):
     """The sweep's bf16 query planes: the RNE-rounded query (one pass) or
     the bit-mask (hi, lo) split (two passes; drops only a ~2^-16 residual)."""
     if sweep_passes == 1:
-        return queries_f32.to(torch.bfloat16), None
+        return f32_to_bf16(queries_f32), None
     return split_f32_bf16(queries_f32)
 
 
@@ -514,7 +515,7 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
     """
     q = queries_f32
     if single_pass:
-        resid = q - q.to(torch.bfloat16).to(torch.float32)
+        resid = q - f32_to_bf16(q).to(torch.float32)
         lo32 = torch.zeros_like(q)
     else:
         qh, ql = split_f32_bf16(q)

@@ -59,9 +59,10 @@ launches = {
     "select_groups": 0,
     "rescore_groups": 0,     # bf16 rows (_rescore_kernel)
     "rescore_groups_pair": 0,  # f32 hi + lo planes (_rescore_kernel, db2),
-                               # streamed (rescore_pair_kernel)
+                               # streamed (rescore_stream_kernel)
     "rescore_groups_int8": 0,  # int8 codes against q∘s (_rescore_kernel)
-    "rescore_groups_f16": 0,   # f16 bits (_rescore_kernel, int16 mode)
+    "rescore_groups_f16": 0,   # f16 bits (_rescore_kernel, int16 mode),
+                               # streamed (rescore_stream_kernel)
     "rescore_groups_f32": 0,   # f32 rows: the IVF fine scan (f32 mode)
     "final_select": 0,
     # rescore + final top-k in one kernel (_rescore_select_kernel), by rows
@@ -410,9 +411,9 @@ def rescore_groups(queries: torch.Tensor, db: torch.Tensor, vn: torch.Tensor,
     holds pool chunk ids, in any order, repeated; the kernel reads each
     distinct chunk once a launch, after a grouping pass on the card into
     scratch this wrapper allocates), or hi + lo when ``db2`` (the lo plane
-    of f32 storage) is given with the bf16 hi plane (stage 3a: streamed by
-    TMA, the thread-per-row kernel's scores bit for bit). A group id outside
-    [0, nv_eff/128) is clamped into range."""
+    of f32 storage) is given with the bf16 hi plane (stage 3a). The pair
+    and the f16 bits stream by TMA, the thread-per-row kernel's scores bit
+    for bit. A group id outside [0, nv_eff/128) is clamped into range."""
     dbs = (db,) if db2 is None else (db, db2)
     if not _on_cuda(queries, *dbs, vn, gidx):
         from .fused import rescore_groups_plain
@@ -484,7 +485,7 @@ def rescore_select_groups(queries: torch.Tensor, db: torch.Tensor,
     bf16 rows, int8 codes (pass the queries times the scales) or f16 bits:
     ``rescore_groups`` → the mask of ``fused.candidate_drop`` →
     ``final_select`` → the row ids, in one kernel
-    (_rescore_select_kernel)."""
+    (_rescore_select_kernel; a thread-block cluster a query)."""
     if not _on_cuda(queries, db, vn, gidx):
         from .fused import rescore_select_groups_plain
         return rescore_select_groups_plain(queries, db, vn, gidx, ntotal,

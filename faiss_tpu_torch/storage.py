@@ -7,7 +7,10 @@ Counterpart of ``faiss_tpu/storage.py``:
     quantization, for both metrics (the fused path's certificate bounds its
     sweep error with max‖v‖, ops/fused._sweep_eps); int8 storage keeps the
     norms of the DECODED rows instead (see below);
-  * bf16 and f16 conversion is ``Tensor.to``, round-to-nearest-even.
+  * bf16 conversion is ``f32_to_bf16`` (round to nearest even, every NaN
+    to sign | 0x7fc0, bit for bit ``jnp.astype(jnp.bfloat16)`` on the CPU
+    and on the card); f16 conversion is ``Tensor.to``, round to nearest
+    even.
 
 Device layout by storage mode (bytes per vector element):
   bf16                 db bf16                                      2 B
@@ -59,6 +62,7 @@ D_ALIGN = 8             # bf16 / f16 elements per 16-byte row chunk
 D_ALIGN_INT8 = 16       # int8 codes per 16-byte row chunk
 
 _HI_MASK = -65536       # 0xFFFF0000 as int32: keep sign, exponent, 7 mantissa bits
+_BF16_QNAN = 0x7FC0     # the bf16 NaN of jnp.astype, under the input's sign
 
 _ROW_DTYPE = {
     StorageType.FLOAT32: torch.float32,
@@ -70,6 +74,25 @@ _ROW_DTYPE = {
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def f32_to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """fp32 → bf16, bit for bit ``jnp.asarray(x).astype(jnp.bfloat16)``:
+    round to nearest even, and every NaN, whatever its payload, to
+    sign | 0x7fc0. ``Tensor.to`` rounds the rest alike on the CPU and on
+    the card but gives NaN another pattern (0xffff on the CPU), so the NaN
+    lanes are written here from the input's sign bit: the result depends on
+    neither library's conversion of a NaN."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"expected float32, got {x.dtype}")
+    x = x.contiguous()
+    # each value's high 16 bits (sign first), a view: both devices are
+    # little-endian. Five elementwise kernels in all: this runs on the
+    # queries in every search.
+    high = x.reshape(-1).view(torch.int16)[1::2].view(x.shape)
+    return torch.where(torch.isnan(x), (high & -0x8000) | _BF16_QNAN,
+                       x.to(torch.bfloat16).view(torch.int16)
+                       ).view(torch.bfloat16)
 
 
 def _trunc_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -87,7 +110,7 @@ def split_f32_bf16(x: torch.Tensor):
     if x.dtype != torch.float32:
         raise TypeError(f"expected float32, got {x.dtype}")
     hi32 = _trunc_bf16(x)
-    return hi32.to(torch.bfloat16), (x - hi32).to(torch.bfloat16)
+    return f32_to_bf16(hi32), f32_to_bf16(x - hi32)
 
 
 def split3_f32_bf16(x: torch.Tensor):
@@ -100,8 +123,7 @@ def split3_f32_bf16(x: torch.Tensor):
     hi32 = _trunc_bf16(x)
     r1 = x - hi32
     mid32 = _trunc_bf16(r1)
-    return (hi32.to(torch.bfloat16), mid32.to(torch.bfloat16),
-            (r1 - mid32).to(torch.bfloat16))
+    return (f32_to_bf16(hi32), f32_to_bf16(mid32), f32_to_bf16(r1 - mid32))
 
 
 def encode_f16_bits(x: torch.Tensor) -> torch.Tensor:
@@ -139,7 +161,7 @@ def split_f16_bits(x: torch.Tensor):
     f = decode_f16_bits(x)
     hi32 = _trunc_bf16(f)
     lo = torch.where(torch.isfinite(f), f - hi32, torch.zeros_like(f))
-    return hi32.to(torch.bfloat16), lo.to(torch.bfloat16)
+    return f32_to_bf16(hi32), f32_to_bf16(lo)
 
 
 def split_stats(v32: torch.Tensor, hi: torch.Tensor,
@@ -300,7 +322,7 @@ class DeviceStore:
         elif self.storage is StorageType.FLOAT16:
             self._append_f16(encode_f16_bits(xd), norms)
         else:
-            self._append(norms, db=xd.to(torch.bfloat16))
+            self._append(norms, db=f32_to_bf16(xd))
 
     def add_raw(self, rows: torch.Tensor, norms: torch.Tensor) -> None:
         """Append rows already in the stored dtype (f32, bf16, f16 bits or

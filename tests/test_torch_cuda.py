@@ -1750,3 +1750,251 @@ def test_ivf_on_card_matches_cpu(dev, metric, storage):
     Dg, Ig = gpu.search(xq, 10)
     np.testing.assert_array_equal(Ig, Ic)
     torch.cuda.synchronize()
+
+
+# -- PR 10's kernels, and what replaced them --------------------------------
+
+
+@pytest.fixture(scope="module")
+def legacy(tmp_path_factory):
+    """PR 10's K10 f16 mode (the thread-per-row kernel) and K11 (a block of
+    512 threads a query), built by scripts/k10_variants.py beside the
+    library: {"k10_legacy": lib, "k11_legacy": lib}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import sys
+    from pathlib import Path
+
+    scripts = str(Path(__file__).resolve().parent.parent / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import k10_variants as kv
+
+    procs = kv.start_build(kernels._nvcc(), kernels.NVCC_FLAGS,
+                           str(tmp_path_factory.mktemp("legacy")),
+                           kv.legacy_sources())
+    return kv, kv.finish_build(procs, verbose=False)
+
+
+def _f16_e31_rows(nv, d, seed):
+    """f16 rows (the stored bits) of random values with every e=31 pattern
+    (±inf and every NaN payload) written into rows 1000 on, one a row and
+    column."""
+    g = torch.Generator().manual_seed(seed)
+    bits = flush_f16_subnormals(encode_f16_bits(torch.randn((nv, d),
+                                                            generator=g)))
+    e31 = torch.cat([torch.arange(0x7C00, 0x8000), torch.arange(-0x400, 0)])
+    flat = bits.view(torch.int16).reshape(-1)
+    at = 1000 * d + torch.arange(e31.numel()) * (d + 1)
+    keep = at < flat.numel()
+    flat[at[keep]] = e31[keep].to(torch.int16)
+    return bits
+
+
+@pytest.mark.parametrize("kg", [1, 14, 36])
+@pytest.mark.parametrize("d", [8, 64, 72, 128, 136, 1024, 2048])
+def test_k10_f16_streamed_equals_thread_per_row(dev, legacy, d, kg):
+    """K10's f16 mode, streamed by TMA, against PR 10's thread-per-row
+    kernel bit for bit (both metrics), and within the rescore term of its
+    plain version on the finite entries: every e=31 pattern in the rows,
+    group ids repeated across queries and past either end (clamped), a last
+    group only partly stored, d not a multiple of the 64-element slice."""
+    kv, libs = legacy
+    nv, ntotal, nq = 8192, 8000, 60
+    ngroups = nv // 128
+    db = _f16_e31_rows(nv, d, 10 * d + kg).to(dev)
+    g = torch.Generator().manual_seed(d + kg)
+    q = torch.randn((nq, d), generator=g).to(dev)
+    raw = torch.randint(0, ngroups, (nq, kg), generator=g, dtype=torch.int32)
+    raw[::3] = raw[0]
+    raw[4, 0], raw[5, -1] = -3, ngroups + 11
+    raw[6, 0] = 1000 // 128   # the e=31 rows
+    gc = raw.clamp(0, ngroups - 1).to(dev)
+    raw = raw.to(dev)
+    v32 = decode_f16_bits(db)
+    norms = torch.where(torch.isfinite(v32), v32, 0).square().sum(-1)
+    for metric in METRICS:
+        vn = fused._premask_norms(norms, ntotal, nv, metric)
+        n0 = kernels.launches["rescore_groups_f16"]
+        s = kernels.rescore_groups(q, db, vn, raw, metric=metric)
+        assert kernels.launches["rescore_groups_f16"] == n0 + 1
+        old = torch.empty_like(s)
+        kv.call_rescore(torch, libs["k10_legacy"], 3, q, db, None, vn, raw,
+                        old, metric is MetricType.L2)
+        torch.cuda.synchronize()
+        assert torch.equal(s.view(torch.int32), old.view(torch.int32))
+        plain = fused.rescore_groups_plain(q, db, vn, gc, metric=metric)
+        # a sum holding ±inf is NaN or ±inf in any order
+        inf = torch.isinf(plain)
+        assert torch.equal(torch.isnan(s), torch.isnan(plain))
+        assert torch.equal(torch.isinf(s), inf)
+        assert torch.equal(s[inf], plain[inf])
+        fin = torch.isfinite(plain)
+        term = rescore_term_rows(q, torch.where(torch.isfinite(v32), v32, 0),
+                                 gc, d, metric)
+        err = (s - plain).abs().to(torch.float64)
+        assert bool((err[fin] <= term[fin]).all())
+
+
+def _k11_case(dev, fmt, d, kg, nq, seed):
+    """(q, rows, norms, gidx, ntotal, nan_row) for K11: tie-heavy integer
+    rows (values in [-3, 3]), a last group cut by ntotal and nominated by
+    every query, ascending group ids with repeats (query 1 repeats its first
+    group, query 2 names one group kg times), and a row of query 3's first
+    group that scores NaN (its vn entry; for bf16 also a NaN element)."""
+    rng = np.random.default_rng(seed)
+    ngroups = 64
+    nv = ngroups * 128
+    ntotal = nv - 77
+    x = rng.integers(-3, 4, (nv, d)).astype(np.float32)
+    x[ntotal:] = 0
+    xd = torch.from_numpy(x).to(dev)
+    if fmt == "bf16":
+        rows = xd.to(torch.bfloat16)
+    elif fmt == "f16":
+        rows = encode_f16_bits(xd)
+    else:
+        rows = xd.to(torch.int8)
+    norms = (xd * xd).sum(-1)
+    q = torch.from_numpy(rng.integers(-3, 4, (nq, d)).astype(np.float32))
+    gidx = np.sort(np.stack([rng.choice(ngroups - 1, kg, replace=False)
+                             for _ in range(nq)]), axis=1)
+    gidx[:, -1] = ngroups - 1
+    gidx = np.sort(gidx, axis=1)
+    if kg > 1:
+        gidx[1, 1] = gidx[1, 0]
+    gidx[2] = gidx[2, 0]
+    g3 = int(gidx[3, 0])
+    if fmt == "bf16":
+        rows[g3 * 128 + 5, 0] = float("nan")
+    return (q.to(dev), rows, norms, torch.from_numpy(gidx).to(torch.int32)
+            .to(dev).contiguous(), ntotal, g3 * 128 + 9)
+
+
+@pytest.mark.parametrize("k", [1, 10, 32])
+@pytest.mark.parametrize("kg", [1, 2, 14, 36])
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "f16"])
+def test_k11_equals_k10_then_k9(dev, legacy, fmt, kg, k):
+    """K11 (a cluster a query, streamed, one-pass select) against K10 →
+    candidate_drop → K9 → the row ids, and against PR 10's kernel, bit for
+    bit in values and ids, both metrics, at d 64 and 2048 (kg ≤ 14)."""
+    kv, libs = legacy
+    counter = {"bf16": "rescore_select", "int8": "rescore_select_int8",
+               "f16": "rescore_select_f16"}[fmt]
+    for d in (64, 2048) if kg <= 14 else (64,):
+        q, rows, norms, gidx, ntotal, nan_row = _k11_case(
+            dev, fmt, d, kg, 12, 7 * d + kg + k)
+        for metric in METRICS:
+            vn = fused._premask_norms(norms, ntotal, norms.shape[0], metric)
+            vn[nan_row] = float("nan")
+            n0 = kernels.launches[counter]
+            vals, ids = kernels.rescore_select_groups(q, rows, vn, gidx,
+                                                      ntotal, k=k,
+                                                      metric=metric)
+            assert kernels.launches[counter] == n0 + 1
+            s = kernels.rescore_groups(q, rows, vn, gidx, metric=metric)
+            v2, p2 = kernels.final_select(
+                s.masked_fill(fused.candidate_drop(gidx, ntotal),
+                              float("-inf")), k)
+            ids2 = torch.gather(fused.candidate_columns(gidx), 1,
+                                p2.to(torch.int64))
+            assert torch.equal(vals.view(torch.int32), v2.view(torch.int32))
+            assert torch.equal(ids, ids2)
+            lv, li = torch.empty_like(vals), torch.empty_like(ids)
+            kv.call_select(torch, libs["k11_legacy"],
+                           kernels._SELECT_FMT[rows.dtype][0], q, rows, vn,
+                           gidx, ntotal, k, lv, li, metric is MetricType.L2)
+            torch.cuda.synchronize()
+            assert torch.equal(vals.view(torch.int32), lv.view(torch.int32))
+            assert torch.equal(ids, li)
+            assert bool(torch.isnan(vals[3]).all())
+
+
+def test_f32_to_bf16_on_the_card_equals_the_cpu(dev):
+    """storage.f32_to_bf16 gives the same bits for a CUDA tensor as for a
+    CPU tensor: NaN payloads of both signs, ±inf, ±0, subnormals, the
+    halfway cases and random values of every magnitude."""
+    from faiss_tpu_torch.storage import f32_to_bf16
+
+    pats = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF800001,
+                     0x7FFFFFFF, 0xFFFFFFFF, 0x7FA00000, 0x7F800000,
+                     0xFF800000, 0, 0x80000000, 1, 0x80000001, 0x7FFFFF,
+                     0x8000, 0x18000, 0x3F808000, 0x3F818000, 0xBF808000,
+                     0x7F7F8000], np.uint32).view(np.float32)
+    rng = np.random.default_rng(0)
+    x = np.concatenate([pats, (rng.standard_normal(1 << 16) * 2.0 ** rng
+                               .integers(-140, 120, 1 << 16))
+                        .astype(np.float32)])
+    t = torch.from_numpy(x)
+    want = f32_to_bf16(t).view(torch.int16)
+    got = f32_to_bf16(t.to(dev)).view(torch.int16).cpu()
+    assert torch.equal(got, want)
+    assert got[0] == 0x7FC0 and got[1] == -64   # sign | 0x7fc0
+
+
+NAN_NV, NAN_D, NAN_NQ, NAN_K = 12000, 64, 8, 5
+
+
+def _nan_rows(n, seed):
+    """tests/test_torch_nonfinite.py's rows holding NaNs (numpy's nan and a
+    signalling payload, both positive)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, NAN_D)).astype(np.float32)
+    snan = np.uint32(0x7F800001).view(np.float32)
+    x[[5, 300, 2000, 2999], [1, 7, 63, 0]] = [np.nan, snan, np.nan, snan]
+    return x
+
+
+@pytest.mark.parametrize("plain", [False, True], ids=["fused", "plain"])
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("store", ["bf16", "pair"])
+def test_nan_rows_search_on_the_card_equals_the_cpu(dev, store, metric,
+                                                    plain, monkeypatch):
+    """The NaN-row searches of tests/test_torch_nonfinite.py (bf16 flat and
+    f32 keep_master=False, fused and plain) give on the card the ids the
+    port gives on the CPU (those equal faiss_tpu's there)."""
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    x = _nan_rows(NAN_NV, 3)
+    xq = np.random.default_rng(4).standard_normal(
+        (NAN_NQ, NAN_D)).astype(np.float32)
+    kw = {"keep_master": False} if store == "pair" else {"storage": "bf16"}
+    out = []
+    for device in ("cpu", "cuda"):
+        idx = TorchIndexFlat(NAN_D, metric=metric, device=device, **kw)
+        idx.add(x)
+        idx.set_force_plain(plain)
+        out.append(idx.search(xq, NAN_K))
+    (Dc, Ic), (Dg, Ig) = out
+    np.testing.assert_array_equal(Ig, Ic)
+    assert (Ig == -1).any()
+    np.testing.assert_allclose(Dg, Dc, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("nprobe", [4, 16], ids=["gather", "dense"])
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+def test_nan_rows_ivf_bf16_on_the_card_equals_the_cpu(dev, metric, nprobe,
+                                                      tmp_path):
+    """IVF16 bf16 with the NaN rows: the card's pool bits and ids equal the
+    CPU port's, the index carried across by its saved file."""
+    from faiss_tpu_torch import TorchIndexIVFFlat, load_index, save_index
+
+    rng = np.random.default_rng(5)
+    cpu = TorchIndexIVFFlat(NAN_D, 16, metric=metric, storage="bf16",
+                            device="cpu")
+    cpu.train(rng.standard_normal((3000, NAN_D)).astype(np.float32))
+    path = str(tmp_path / "ivf.npz")
+    save_index(cpu, path)
+    gpu = load_index(path, device="cuda")
+    x = _nan_rows(3000, 6)
+    xq = np.random.default_rng(4).standard_normal(
+        (NAN_NQ, NAN_D)).astype(np.float32)
+    for i in (cpu, gpu):
+        i.add(x)
+        i.nprobe = nprobe
+    np.testing.assert_array_equal(gpu._assignments(), cpu._assignments())
+    assert torch.equal(gpu._rows_by_id()[0].cpu().view(torch.int16),
+                       cpu._rows_by_id()[0].view(torch.int16))
+    (Dc, Ic), (Dg, Ig) = cpu.search(xq, NAN_K), gpu.search(xq, NAN_K)
+    np.testing.assert_array_equal(Ig, Ic)
+    np.testing.assert_allclose(Dg, Dc, rtol=1e-4, atol=1e-3)
