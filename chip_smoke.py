@@ -38,6 +38,12 @@ it. Each path's launch counts are zeroed just before it and read just after:
             own coarse step; a flat f32 index over the same rows as the
             control; then range_search, remove_ids, merge_from, a filtered
             search, save / load and TorchIndexIDMap2 with nprobe
+  sharded_1m  ShardedIndexFlat over ["cuda:0"] * 4 (four shards of the
+            1M rows on the one card) for f32 and int8, L2: ids equal to
+            the unsharded index's, recall 1.0, the merge's device ms; and
+            the ivf_1m f32 index saved and reloaded with
+            load_index(sharded=True, num_shards=4): at nprobe 16 its ids
+            equal the single index's
 
 plus nq=8 (two-plane bf16 sweep) and a duplicated-vector index whose
 certificate fails, so both fallback tiers run. First, nan_repair holds the
@@ -51,10 +57,10 @@ path's 32 candidates, K8 at its stage-3a 1792 candidates with m = 32, K3
 with its supergroup maxes also at 10M): the sweeps' supergroup-max output
 (every format, both metrics), K8, K9, K5 (int8, on the integer tensor
 cores) and the rescore-select kernel (bf16, int8, f16) bit for bit, K3,
-K1, K2, K6 and K7 (the tensor-core sweeps with float sums) within their ε
-with the tensor-core term (``_sweep_eps(accum="mma")``), and K3, K1, K6, K7
-also on the truncation adversary of tests/test_torch_mma_eps.py, their
-errors printed; K10's pair mode (stage 3a) within ε₂, with the count of
+K4, K1, K2, K6 and K7 (the tensor-core sweeps with float sums) within their
+ε with the tensor-core term (``_sweep_eps(accum="mma")``), and K3, K4, K1,
+K6, K7 also on the truncation adversary of tests/test_torch_mma_eps.py,
+their errors printed; K10's pair mode (stage 3a) within ε₂, with the count of
 distinct groups its positions name; K10's f16 mode and K11 also bit for bit
 PR 10's kernels (scripts/k10_variants.py legacy_sources, built beside the
 library and timed beside them: ``legacy_ms``). f32_sift prints K2's
@@ -426,9 +432,10 @@ def phase_kernels(torch, idx, xq, metric, legacy):
 
 def phase_f32_kernels(torch, idx, xq, metric):
     """The f32 kernels against their plain versions at the main path's
-    shapes: the pair sweep with 3 terms (K3, on the tensor cores: the pair
-    ε with accum="mma") and 2 (K4, fmaf chains: the pair ε), its
-    supergroup maxes bit for bit, the pair rescore (K10's pair mode, stage
+    shapes: the pair sweep with 3 terms (K3) and 2 (K4, one query plane),
+    both on the tensor cores (the pair ε with the accumulation
+    ``fused.sweep_accum`` names: "mma"), their supergroup maxes bit for
+    bit, the pair rescore (K10's pair mode, stage
     3a) within ε₂ of _pair_rescore_eps, with the count of distinct groups
     its positions name (the bound reads each once), and K9 at the f32
     path's own width (stage 3b's k + 22 candidates, ``final_select_32``)."""
@@ -440,10 +447,13 @@ def phase_f32_kernels(torch, idx, xq, metric):
     rows = {}
     for passes in (2, 1):
         qh, ql = fused.query_planes(q, passes)
+        accum = fused.sweep_accum("pair", passes, q.device)
+        check(accum == "mma", f"the pair sweep with {passes} query planes "
+                              f"is certified with {accum}")
         eps = fused._sweep_eps(q, st.norms, idx.ntotal, metric=metric,
                                d_pad=st.d_pad, single_pass=passes == 1,
                                pair_sweep=True, split_stats=st.split_stats,
-                               accum="mma" if passes == 2 else "fmaf")[:, None]
+                               accum=accum)[:, None]
         gm = kernels.sweep_split(qh, ql, hi, lo, vn, metric=metric)
         gm_p = fused.sweep_split_plain(qh, ql, hi, lo, vn, metric=metric)
         name = f"sweep_split_{passes + 1}"
@@ -623,16 +633,19 @@ def phase_f16_kernels(torch, idx, xq, metric, legacy):
 
 
 def phase_truncation_adversary(torch, dev="cuda"):
-    """The tensor-core sweeps with float sums (K3 over the f32 planes, K1
-    over bf16 rows, K6 and K7, with one query plane, over f16 bits) on the
+    """The tensor-core sweeps with float sums (K3 and K4, with one query
+    plane, over the f32 planes, K1 over bf16 rows, K6 and K7, with one
+    query plane, over f16 bits) on the
     truncation adversary of tests/test_torch_mma_eps.py: the query
     [1, s, …, s] against rows [1, −s, …, −s] scaled by 2^j in group j
     (s = 2^-12·1.4140625, s² just under ulp(1) = 2^-23; exact in bf16 and
     in f16), IP. Each kernel's error must stay within
     _sweep_eps(accum="mma"); it is printed in units of ‖q‖·‖v‖·u
     (u = 2^-24; a sum that truncates every addend at the largest one's
-    exponent loses ≈ 254, round to nearest ≈ 0). The query is bf16-valued,
-    so K7's one plane q1 is the query itself."""
+    exponent loses ≈ 254, round to nearest ≈ 0), beside the model's
+    allowance for its term (2), (36·⌈d/16⌉ + 2) in the same units. The
+    query is bf16-valued, so K4's and K7's one plane q1 is the query
+    itself."""
     from faiss_tpu_torch import MetricType
     from faiss_tpu_torch.ops import fused, kernels
     from faiss_tpu_torch.storage import split_f32_bf16, split_stats
@@ -655,6 +668,7 @@ def phase_truncation_adversary(torch, dev="cuda"):
     unit = (torch.linalg.norm(a) * torch.linalg.norm(x64[::128], dim=1)
             * 2.0 ** -24).to(dev)[None, :]
     runs = {"sweep_split_3": (kernels.sweep_split, (hi, lo), stats, 2),
+            "sweep_split_2": (kernels.sweep_split, (hi, lo), stats, 1),
             "sweep_groupmax_2": (kernels.sweep_groupmax,
                                  (x.to(torch.bfloat16),), None, 2),
             "sweep_f16_2": (kernels.sweep_f16, (x.to(torch.float16),),
@@ -672,8 +686,10 @@ def phase_truncation_adversary(torch, dev="cuda"):
         check(bool((gap <= eps.double()).all()),
               f"{name}: beyond the mma ε on the truncation adversary")
         errs[name] = float((gap / unit).max())
-    print("truncation adversary (error in ‖q‖·‖v‖·u; a truncating sum ≈ 254,"
-          " round to nearest ≈ 0; within the mma ε): "
+    allow = fused._accum_coeff(d, "mma")
+    print(f"truncation adversary (error in ‖q‖·‖v‖·u; a truncating sum ≈ "
+          f"254, round to nearest ≈ 0; within the mma ε, whose term (2) "
+          f"allows {allow:.0f}): "
           + ", ".join(f"{k} {v:.2f}" for k, v in errs.items()), flush=True)
     return errs
 
@@ -1231,10 +1247,134 @@ def _build_ivf(torch, ft, xb, storage):
     return idx
 
 
+def phase_sharded_1m(torch, ft, xb, xq, singles):
+    """The sharded flat slice at 1M×128: ShardedIndexFlat over
+    ["cuda:0"] * 4 (one card named four times: four shards of 250,000
+    rows, each searched on the port's fused path, the lists merged on the
+    card), f32 and int8, L2, nq=100, k=10, against the unsharded index of
+    the same storage over the same rows (``singles``): ids equal, recall@10
+    = 1.0 against the fp64 oracle over the stored rows, fused_fallbacks as
+    the unsharded index's. Counts zeroed just before each storage's
+    searches and read just after. Prints the host ms/batch, the pipelined
+    ms and the merge's device ms; no scaling claim (one card)."""
+    from faiss_tpu_torch import MetricType
+    from faiss_tpu_torch.ops import kernels
+    from faiss_tpu_torch.parallel.sharded import merge_shard_lists
+
+    L2 = MetricType.L2
+    need = {"f32": ("sweep_split_3", "select_groups", "rescore_groups_pair",
+                    "final_select"),
+            "int8": ("sweep_int8", "select_groups", "rescore_groups_int8",
+                     "final_select")}
+    counts = {}
+    for storage, single in singles.items():
+        t0 = time.perf_counter()
+        sh = ft.ShardedIndexFlat(D, storage=storage, devices=["cuda:0"] * 4)
+        sh.add(xb)
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t0
+        D1, I1 = single.search(xq, K)
+        kernels.reset_launches()
+        Ds, Is = sh.search(xq, K)
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            sh.search(xq, K)
+        ms = (time.perf_counter() - t0) / REPS * 1e3
+        Da, Ia = sh.search_async(xq, K).wait()
+        n = dict(kernels.launches)
+        for key in need[storage]:
+            check(n[key] > 0, f"sharded_1m {storage}: kernel {key} was "
+                              f"never launched")
+        for key, v in n.items():
+            counts[key] = counts.get(key, 0) + v
+        check(np.array_equal(Is, I1), f"sharded_1m {storage}: ids differ "
+                                      f"from the unsharded index's")
+        check(np.array_equal(Ia, Is) and np.array_equal(Da, Ds),
+              f"sharded_1m {storage}: search_async differs")
+        rec, rel = oracle_check(torch, single, xq, L2, Ds, Is)
+        check(rec == 1.0 and rel <= 1.0,
+              f"sharded_1m {storage}: recall@{K} {rec}, distance error "
+              f"{rel:.2e} ε")
+        check(sh.fused_fallbacks == single.fused_fallbacks,
+              f"sharded_1m {storage}: fused_fallbacks {sh.fused_fallbacks} "
+              f"against {single.fused_fallbacks} unsharded")
+        q, _, nq_pad = sh._prep_queries(xq)
+        pipe = cuda_ms(torch, lambda: sh._run_search_fn(
+            q, K, nq_pad, force_plain=False), REPS)
+        parts = []
+        for s in sh.shards:
+            v, i, _ = s.index._search_local(
+                q, K, use_fused=True, passes=2, hi_exact=False,
+                use_direct=False, sel=None)
+            parts.append((v, s.to_global(v, i)))
+        merge = cuda_ms(torch, lambda: merge_shard_lists(
+            parts, K, L2, q.device), REPS)
+        print(f"search sharded_1m {storage} L2 P=4 on cuda:0 nq={len(xq)} "
+              f"k={K}: ids = the unsharded index's, recall@{K}={rec}, max "
+              f"|D - D_oracle| = {rel:.2e} ε; add {add_s:.3f} s, "
+              f"per_shard={[x.store.ntotal for x in sh.shards]}; "
+              f"ms/batch={ms:.4f} (host clock, incl. copy-back; unsharded "
+              f"in its main path above), pipelined {pipe:.4f}, the merge "
+              f"{merge:.4f} ms (CUDA events); fused_fallbacks="
+              f"{sh.fused_fallbacks}; launches "
+              f"{({k: v for k, v in n.items() if v})}", flush=True)
+        del sh, parts
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _sharded_ivf(torch, ft, ivf, xq):
+    """The IVF half of sharded_1m: ``ivf`` (f32 lists, nprobe 16) saved,
+    reloaded with load_index(sharded=True, num_shards=4) over cuda:0 named
+    four times (the saved routing, ids kept), searched at nprobe 16 with
+    the counts zeroed just before and read just after: ids equal to the
+    single index's, recall@10 = 1.0 against the fp64 oracle over the
+    probed lists. Returns the counts."""
+    import tempfile
+
+    from faiss_tpu_torch.ops import kernels
+
+    D1, I1 = ivf.search(xq, K)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/ivf_f32.npz"
+        t0 = time.perf_counter()
+        ft.save_index(ivf, path)
+        sh = ft.load_index(path, sharded=True, devices=["cuda:0"] * 4,
+                           num_shards=4)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    check(sh.nprobe == 16 and sh.num_shards == 4, "sharded ivf: reload")
+    kernels.reset_launches()
+    Ds, Is = sh.search(xq, K)
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        sh.search(xq, K)
+    ms = (time.perf_counter() - t0) / REPS * 1e3
+    n = dict(kernels.launches)
+    check(n["rescore_groups_f32"] > 0,
+          "sharded ivf: K10's f32 rows were never launched")
+    check(np.array_equal(Is, I1), "sharded ivf: ids differ from the single "
+                                  "index's at nprobe 16")
+    ref_i, _ = ivf_oracle(torch, ivf, xq, 16)
+    rec = _recall(Is, ref_i)
+    check(rec == 1.0, f"sharded ivf: recall@{K} {rec} != 1.0")
+    pipe = cuda_ms(torch, lambda: sh._search_packed(xq, K), REPS)
+    print(f"search sharded_1m ivf f32 P=4 on cuda:0 nprobe=16 nq={len(xq)} "
+          f"k={K}: ids = the single index's, recall@{K}={rec} over the "
+          f"probed lists; save + sharded load {load_s:.3f} s, per_shard="
+          f"{[x.ntotal for x in sh.shards]}; ms/batch={ms:.4f} (host "
+          f"clock), pipelined {pipe:.4f} (CUDA events); launches "
+          f"{({k: v for k, v in n.items() if v})}", flush=True)
+    del sh
+    torch.cuda.empty_cache()
+    return n
+
+
 def phase_ivf_1m(torch, ft):
     """The IVF slice's main path (see the module docstring). Returns (the
-    launch counts of its counted runs, the K10 f32 kernel row). Frees what
-    it builds."""
+    launch counts of its counted runs, the K10 f32 kernel row, the counts
+    of the sharded reload's run, ``_sharded_ivf``). Frees what it
+    builds."""
     import tempfile
 
     from faiss_tpu_torch import MetricType
@@ -1283,6 +1423,8 @@ def phase_ivf_1m(torch, ft):
     f32 = ivf["f32"]
     f32.nprobe = 16
     k10 = _k10_f32_row(torch, f32, xq)
+
+    sharded_counts = _sharded_ivf(torch, ft, f32, xq)
 
     # -- the surface at 1M, as checks ----------------------------------------
     D16, I16 = f32.search(xq, K)
@@ -1376,7 +1518,7 @@ def phase_ivf_1m(torch, ft):
               ("rescore_groups_f32",), {}, reps=3)
     del ivf, f32, int8, bf16
     torch.cuda.empty_cache()
-    return counts, k10
+    return counts, k10, sharded_counts
 
 
 # f32 patterns whose bf16 bits the NaN repair holds on the card: NaN
@@ -1649,9 +1791,14 @@ def main() -> int:
                                                                xq)
     counts["surface"] = phase_surface(torch, ft, xb, xq, f32[L2], bf16[L2],
                                       int8[L2], f16[L2])
-    del bf16, f32, sift, pair, int8, f16, dup, idx
+    del bf16, sift, pair, f16, dup, idx
     torch.cuda.empty_cache()
-    counts["ivf_1m"], rows["rescore_groups_f32"] = phase_ivf_1m(torch, ft)
+    counts["sharded_1m"] = phase_sharded_1m(
+        torch, ft, xb, xq, {"f32": f32[L2], "int8": int8[L2]})
+    del f32, int8
+    torch.cuda.empty_cache()
+    (counts["ivf_1m"], rows["rescore_groups_f32"],
+     counts["sharded_ivf"]) = phase_ivf_1m(torch, ft)
 
     k11_note = ("reached through fused_search(rescore_select=True): "
                 "launches counted in the surface phase")
@@ -1659,7 +1806,7 @@ def main() -> int:
         "sweep_groupmax_1": ("sweep_split_mma.cu", f"{PF}:190", None),
         "sweep_groupmax_2": ("sweep_split_mma.cu", f"{PF}:174", None),
         "sweep_split_3": ("sweep_split_mma.cu", f"{PF}:239", None),
-        "sweep_split_2": ("sweep_groupmax.cu", f"{PF}:204",
+        "sweep_split_2": ("sweep_split_mma.cu", f"{PF}:204",
                           "no index route reaches _kernel_split2: launches "
                           "counted in the kernel phase"),
         "sweep_int8": ("sweep_split_mma.cu", f"{PF}:219", None),

@@ -18,10 +18,13 @@ search_and_reconstruct, vectors_numpy, the IDMap wrappers, host-merged
 shards and ``.npz`` save and load; k-means with balanced training and the
 functional knn; IVF-Flat on the chunk-paged pool (f32, bf16 and int8
 lists), its fine scan on K10 (f32 rows included) and its dense route on
-the fused search.
+the fused search; sharded flat and IVF search over a list of torch devices
+(one process, each shard's search on its own device, the lists merged on
+the first).
 
     TorchIndexFlat, TorchSearchToken, index_numpy_to_torch
     TorchIndexIVFFlat, Kmeans, kmeans_clustering, knn, pairwise_distances
+    ShardedIndexFlat, ShardedIndexIVFFlat
     TorchIndexIDMap, TorchIndexIDMap2, IndexShardsHost,
     merge_search_results
     IDSelector*, SearchParams (and the faiss spellings SearchParameters,
@@ -38,6 +41,7 @@ from .index import TorchIndexFlat, TorchSearchToken, index_numpy_to_torch
 from .io import index_from_arrays, load_index, save_index
 from .ivf import TorchIndexIVFFlat
 from .multi import IndexShardsHost, merge_search_results
+from .parallel import ShardedIndexFlat, ShardedIndexIVFFlat
 from .resources import (DeviceCapabilities, KernelTuning,
                         gpu_name_and_power_limit, query_device_capabilities)
 from .selector import (IDSelector, IDSelectorAnd, IDSelectorBatch,
@@ -49,7 +53,7 @@ __all__ = [
     "MetricType", "StorageType",
     "TorchIndexFlat", "TorchSearchToken", "index_numpy_to_torch",
     "TorchIndexIVFFlat", "Kmeans", "kmeans_clustering", "knn",
-    "pairwise_distances",
+    "pairwise_distances", "ShardedIndexFlat", "ShardedIndexIVFFlat",
     "TorchIndexIDMap", "TorchIndexIDMap2", "IndexShardsHost",
     "merge_search_results",
     "IDSelector", "IDSelectorRange", "IDSelectorBatch", "IDSelectorMask",

@@ -76,21 +76,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// max(*addr, v) stored at addr, atomically, for fp32 values: the sweeps'
-// supergroup-max output, whose buffer the wrapper fills with -inf. A value
-// with the sign bit clear wins by a signed-integer max of the bits, one with
-// it set by an unsigned min; both orders agree with the fp32 order on
-// non-NaN values, -0.0 and +0.0 included, so the result is the exact max
-// in any order of arrival. NaN is not propagated as torch.amax does: a NaN
-// with the sign bit clear wins over every value, one with it set loses to
-// every value (garbage in; the phase-2 sort keeps its ids in range).
-__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
-  if (__float_as_uint(v) >> 31)
-    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
-  else
-    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-}
-
 // -- mbarriers and bulk copies (sm_90) -----------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -4,6 +4,7 @@
 //   BF16_ROWS   K1, the bf16 rows               acc = qh·v + ql·v
 //               K2, the same, one query plane   acc = q1·v
 //   F32_PLANES  K3, the f32 rows' bf16 planes   acc = (qh·dh + qh·dl) + ql·dh
+//               K4, the same, one query plane   acc = q1·dh + q1·dl
 //   F16_BITS    K6, the f16 bits, decoded to    acc = (qh·dh + qh·dl) + ql·dh
 //               their exact bf16 pair (dh, dl)
 //               K7, the same, one query plane   acc = q1·dh + q1·dl
@@ -13,10 +14,11 @@
 // left to right).
 //
 // Replaces faiss_tpu/ops/pallas_fused.py _kernel_qpair (:174), _kernel_q1
-// (:190), _kernel_split (:239), _kernel_f16_pair (:259), _kernel_f16_1
-// (:281) and _kernel_int8 (:219), launched by _sweep_call (:376) from
-// groupmax_scores, with their shared _epilogue. The fp32 query is its
-// bit-mask split qh, ql (bf16), or with one plane (K2, K7) its RNE rounding
+// (:190), _kernel_split (:239), _kernel_split2 (:204), _kernel_f16_pair
+// (:259), _kernel_f16_1 (:281) and _kernel_int8 (:219), launched by
+// _sweep_call (:376) from groupmax_scores, with their shared _epilogue. The
+// fp32 query is its bit-mask split qh, ql (bf16), or with one plane (K2, K4,
+// K7) its RNE rounding
 // q1 to bf16; the int8 route's q∘s its residual expansion β₁·q₁ + β₂·q₂
 // (ops/fused.int8_query_pair: q₁, q₂ int8, β₁, β₂ f32 per query). For every query q and 128-row group g:
 //     gm[q, g] = max over the rows r of g of  2·acc − vn[r]  (L2)
@@ -39,7 +41,8 @@
 // 0.081 ms). K2 reads K1's bytes for half its products (0.027 ms): bytes
 // bind it more than any other. K7 reads K1's bytes for K1's products (two
 // terms, 0.054 ms): the bytes bound it, but its decode in shared memory and
-// its products bind it (scripts/k3_variants.py no_load). K5 reads 128 MB of
+// its products bind it (scripts/k3_variants.py no_load). K4 reads K3's bytes
+// for two thirds of its products (0.054 ms): the bytes bind it. K5 reads 128 MB of
 // codes (0.040 ms) for 2 × 104 × 1M × 128 int8 MACs on the integer tensor
 // cores (wgmma s8 × s8, s32 accumulate: 0.027 ms at 1979 TOP/s). Design:
 //   - one block per SM (persistent): two consumer warpgroups, one per 64
@@ -86,14 +89,15 @@
 //   - K1, K2: the two warpgroups take turns issuing a tile's products
 //     (named barriers), so that one's epilogue runs under the other's
 //     products;
-//   - one db plane in the products (K1, K2, K5), or one query plane (K7):
-//     where the query planes fit 8 k-steps (K1, K2, K7 at 64 < d ≤ 128,
+//   - one db plane in the products (K1, K2, K5), or one query plane (K4,
+//     K7): where the query planes fit 8 k-steps (K1, K2, K4, K7 at 64 < d ≤ 128,
 //     the main path's 128; K5 at d ≤ 128, one chunk) they are wgmma A
 //     fragments in registers (read once from device memory, used by every
 //     term), which halves the shared-memory reads of the products;
-//   - one query plane (K2, K7): one A operand, a query tile of 16 KB a
+//   - one query plane (K2, K4, K7): one A operand, a query tile of 16 KB a
 //     chunk in place of 32, and one accumulator set a db plane (K2 one,
-//     K7 two: q1·dh and q1·dl); the rest is K1's, or K6's;
+//     K4 and K7 two: q1·dh and q1·dl); the rest is K1's, K3's or K6's (K4
+//     is K7 without the decode warps: the producer loads both planes);
 //   - a d that is not a multiple of KC gets its k-tail zero-filled by TMA
 //     (out-of-bounds fill): its k-steps add exact zeros (an f16 zero
 //     decodes to the pair (0, 0)).
@@ -142,7 +146,11 @@
 // statistics) err ≤ 36·⌈d/16⌉·u·(Q+R)·V and ≤ 36·⌈d/16⌉·u·(Q+R)·s0, and
 // their one round-to-nearest add ≤ u·(Q+R)·(V+s0): inside
 // (36·⌈d/16⌉ + 2)·u·(Q+R)·(V+s0), the budget with L = 0 (single_pass=True,
-// pair_sweep=True), s1 = 0 on finite data as for K6.
+// pair_sweep=True), s1 = 0 on finite data as for K6. K4 is the same two
+// terms over the f32 rows' planes (‖dl‖ ≤ s0, the f32 split statistics):
+// the same budget, each term in its own accumulator and the two added once,
+// round to nearest (a single accumulator over both terms would need another
+// derivation).
 // tests/test_torch_mma_eps.py emulates the model's truncating block sums on
 // adversarial rows. A k-step past d adds exact zeros to D, the largest
 // addend, and loses nothing: ⌈d/16⌉ steps are charged.
@@ -579,7 +587,7 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
   float m0 = -INFINITY, m1 = -INFINITY, bm0 = -INFINITY, bm1 = -INFINITY;
   using T = typename S::acc_t;
   using Acc = T[S::TERMS][S::ACC];   // K3, K6: qh·dh, qh·dl, ql·dh; K1:
-                                     // qh·v, ql·v; K2: q1·v; K7: q1·dh,
+                                     // qh·v, ql·v; K2: q1·v; K4, K7: q1·dh,
                                      // q1·dl; K5: q₁·v, q₂·v
   using Norms = float2[S::BN / 8];
   // the (β₁, β₂) of the thread's two queries (K5)
@@ -800,13 +808,13 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const Args& a,
 }
 
 // The instance for the metric and the query planes' place: A fragments in
-// registers where the planes take RS_KC chunks (K1 and K2 at N = 64, and
-// K7: two, 64 < d ≤ 128; K5: one, d ≤ 128), else from shared memory.
+// registers where the planes take RS_KC chunks (K1 and K2 at N = 64, K4
+// and K7: two, 64 < d ≤ 128; K5: one, d ≤ 128), else from shared memory.
 template <int F, int QP = 2>
 cudaError_t launch_metric(const CUtensorMap (&maps)[4], const Args& a, int l2,
                           cudaStream_t stream) {
   constexpr int RS_KC = F == BF16_ROWS && K1_BN == 64 ? 2
-                        : F == F16_BITS && QP == 1    ? 2
+                        : F != INT8_CODES && QP == 1  ? 2
                         : F == INT8_CODES             ? 1
                                                       : 0;
   const int nkc = (a.d + Rows<F, QP>::KC - 1) / Rows<F, QP>::KC;
@@ -820,8 +828,8 @@ cudaError_t launch_metric(const CUtensorMap (&maps)[4], const Args& a, int l2,
 
 }  // namespace
 
-// fmt (enum Fmt): BF16_ROWS (K1; K2 with q_lo null), F32_PLANES (K3),
-// F16_BITS (K6; K7 with q_lo null) or INT8_CODES (K5). q_hi, q_lo: (nq, d)
+// fmt (enum Fmt): BF16_ROWS (K1; K2 with q_lo null), F32_PLANES (K3; K4
+// with q_lo null), F16_BITS (K6; K7 with q_lo null) or INT8_CODES (K5). q_hi, q_lo: (nq, d)
 // query planes, bf16
 // (qh, ql; q1 and null: one plane) or int8 (q₁, q₂); db: (≥ ngroups·128,
 // d) rows: bf16 rows, the f32 rows' bf16 hi
@@ -841,7 +849,7 @@ extern "C" int ft_sweep_mma(int fmt, const void* q_hi, const void* q_lo,
       || static_cast<long long>(ngroups) * ft::GROUP >= (1LL << 31)
       || (bmax != nullptr && ngroups % 8 != 0)
       || (fmt == F32_PLANES && db_lo == nullptr)
-      || ((fmt == F32_PLANES || int8) && q_lo == nullptr)
+      || (int8 && q_lo == nullptr)
       || (int8 && beta == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const ft::EncodeTiled enc = ft::encoder();
@@ -872,7 +880,10 @@ extern "C" int ft_sweep_mma(int fmt, const void* q_hi, const void* q_lo,
       e = q_lo != nullptr ? launch_metric<BF16_ROWS>(maps, a, l2, s)
                           : launch_metric<BF16_ROWS, 1>(maps, a, l2, s);
       break;
-    case F32_PLANES: e = launch_metric<F32_PLANES>(maps, a, l2, s); break;
+    case F32_PLANES:
+      e = q_lo != nullptr ? launch_metric<F32_PLANES>(maps, a, l2, s)
+                          : launch_metric<F32_PLANES, 1>(maps, a, l2, s);
+      break;
     case F16_BITS:
       e = q_lo != nullptr ? launch_metric<F16_BITS>(maps, a, l2, s)
                           : launch_metric<F16_BITS, 1>(maps, a, l2, s);
@@ -880,4 +891,9 @@ extern "C" int ft_sweep_mma(int fmt, const void* q_hi, const void* q_lo,
     default: e = launch_metric<INT8_CODES>(maps, a, l2, s); break;
   }
   return static_cast<int>(e);
+}
+
+// The message of a code the entry points return (a cudaError_t).
+extern "C" const char* ft_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

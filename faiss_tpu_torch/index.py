@@ -410,10 +410,7 @@ class TorchIndexFlat:
         st = self.store
         nt = self.ntotal
         nv_eff = _round_up(nt, ROW_TILE)
-        d_pad = st.d_pad
-        k_eff = min(k, nv_eff)
         is_int8 = st.storage is StorageType.INT8
-        is_f16 = st.storage is StorageType.FLOAT16
         use_direct = self._use_direct(nv_eff, nq_pad)
         # hi_exact: the exact split statistics (mirrored to the host by
         # add, so reading them here waits for nothing) prove the lo and
@@ -424,22 +421,45 @@ class TorchIndexFlat:
                      and not use_direct
                      and fused.fused_path_eligible(
                          metric=self.metric, k=k, nv_eff=nv_eff,
-                         d_pad=d_pad, nq_pad=nq_pad,
+                         d_pad=st.d_pad, nq_pad=nq_pad,
                          itemsize=4 if pair_sweep else 1 if is_int8 else 2,
                          dtype=st.row_dtype))
+        # f16 is not pair storage for this policy (one plane at large
+        # nq_pad, as bf16), though its certificate is the pair ε
+        passes = 2 if (full_sweep or nq_pad in self._no_reduced_sweep) \
+            else fused.pick_sweep_passes(nq_pad, pair_sweep or is_int8)
+        vals, ids, cert = self._search_local(
+            q, k, use_fused=use_fused, passes=passes, hi_exact=stats_zero,
+            use_direct=use_direct, sel=sel)
+        dists, labels = _finalize(vals, ids, nt, k, self.metric)
+        return (_pack(dists, labels, cert), use_fused,
+                use_fused and passes == 1)
+
+    def _search_local(self, q: torch.Tensor, k: int, *, use_fused: bool,
+                      passes: int, hi_exact: bool, use_direct: bool,
+                      sel: Optional[torch.Tensor]):
+        """One search of the padded queries ``q`` on this index's device,
+        the route decided by the caller: (scores (nq_pad, min(k, nv_eff))
+        best first, with −‖q‖² for L2; their positional ids; the per-query
+        certificate, all True on the plain path). ``hi_exact`` (f32 only)
+        takes the hi-plane dispatch where the split statistics allow it.
+        The sharded index calls this on every shard with one decision for
+        all of them."""
+        st = self.store
+        nt = self.ntotal
+        nv_eff = _round_up(nt, ROW_TILE)
+        k_eff = min(k, nv_eff)
         if use_fused:
-            # f16 is not pair storage for this policy (one plane at large
-            # nq_pad, as bf16), though its certificate is the pair ε
-            passes = 2 if (full_sweep or nq_pad in self._no_reduced_sweep) \
-                else fused.pick_sweep_passes(nq_pad, pair_sweep or is_int8)
             split = {}
             if st.has_split:
                 split = dict(db_split=(st.db_hi, st.db_lo),
                              pair_only=st.pair_only,
-                             split_stats=st.split_stats, hi_exact=stats_zero)
-            elif is_f16:
+                             split_stats=st.split_stats,
+                             hi_exact=hi_exact and st.split_stats_host()
+                             == (0.0, 0.0))
+            elif st.storage is StorageType.FLOAT16:
                 split = dict(split_stats=st.split_stats)
-            elif is_int8:
+            elif st.storage is StorageType.INT8:
                 split = dict(scales=st.scales, int_norm_max=st.int_norm_max)
             vals, ids, cert = fused.fused_search(
                 q, st.db if st.db is not None else st.db_hi, st.norms, nt,
@@ -448,8 +468,7 @@ class TorchIndexFlat:
             if self.metric is MetricType.L2:
                 # the kernels' scores omit the rank-invariant −‖q‖²
                 vals = vals - torch.sum(q * q, dim=-1)[:, None]
-            dists, labels = _finalize(vals, ids, nt, k, self.metric)
-            return _pack(dists, labels, cert), True, passes == 1
+            return vals, ids, cert
 
         def block(start: int, width: int) -> torch.Tensor:
             return self._scores_block(q, start, width, use_direct=use_direct,
@@ -468,9 +487,8 @@ class TorchIndexFlat:
                                                 k_eff)
         else:
             vals, ids = topk_ops.topk_scores(block(0, nv_eff), k_eff)
-        dists, labels = _finalize(vals, ids, nt, k, self.metric)
-        cert = torch.ones((nq_pad,), dtype=torch.bool, device=q.device)
-        return _pack(dists, labels, cert), False, False
+        cert = torch.ones((q.shape[0],), dtype=torch.bool, device=q.device)
+        return vals, ids, cert
 
     def _sel_stream(self, params) -> Optional[torch.Tensor]:
         """``params``' selector over the positional ids, as a (capacity,)
@@ -561,10 +579,12 @@ class TorchIndexFlat:
 
     # -- range search ---------------------------------------------------------
     def _run_range(self, q: torch.Tensor, nq_pad: int, thr: float, cap: int,
-                   sel: Optional[torch.Tensor]):
+                   sel: Optional[torch.Tensor],
+                   use_direct: Optional[bool] = None):
         """One pass over the plain-path score chunks: per chunk the exact
         count of scores > thr and the top-``cap`` of them. Returns host
-        (counts (nchunks, nq_pad), vals, ids (nchunks, nq_pad, cap), cap)."""
+        (counts (nchunks, nq_pad), vals, ids (nchunks, nq_pad, cap), cap).
+        ``use_direct``: the plain path's form (None: by the shape)."""
         nv_eff = _round_up(self.ntotal, ROW_TILE)
         chunk = min(self.tuning.chunk_v, nv_eff)
         while nv_eff % chunk:       # the largest ≤ chunk_v divisor of nv_eff
@@ -575,7 +595,8 @@ class TorchIndexFlat:
                 "range_search result buffers would exceed 2 GB "
                 f"(~{(nv_eff // chunk) * nq_pad * cap} candidate slots); "
                 "split the query batch or tighten the radius")
-        use_direct = self._use_direct(nv_eff, nq_pad)
+        if use_direct is None:
+            use_direct = self._use_direct(nv_eff, nq_pad)
         counts, vals, ids = [], [], []
         for start in range(0, nv_eff, chunk):
             s = self._scores_block(q, start, chunk, use_direct=use_direct,

@@ -301,30 +301,38 @@ class TorchIndexIVFFlat:
         if self.ntotal + n > np.iinfo(np.int32).max:
             raise ValueError("index size would exceed 2^31-1 vectors")
         xd, assign = self._coarse_assign(x)
+        self._add_preassigned(*self._encode(x, xd), assign)
+
+    def _encode(self, x: np.ndarray, xd: torch.Tensor):
+        """(rows in the stored dtype, their stored norms) of the batch ``x``
+        (host) and ``xd`` (the same rows padded to d_pad, on the device)."""
         if self.storage_type is StorageType.INT8:
             # on the card with the frozen scales; norms of the DECODED rows
             codes, norms, _, clip = quantize_int8(xd, self._scales)
             self._int8_clipped = (clip if self._int8_clipped is None
                                   else self._int8_clipped + clip)
-            self._int8_elems += n * self.d
-            self._add_preassigned(codes, norms, assign)
-            return
+            self._int8_elems += x.shape[0] * self.d
+            return codes, norms
         # pre-quantization norms, summed in f64 on the host (the storage
         # contract every oracle subtracts), 65,536 rows at a time
-        norms = np.empty(n, np.float32)
-        for i0 in range(0, n, 1 << 16):
+        norms = np.empty(x.shape[0], np.float32)
+        for i0 in range(0, x.shape[0], 1 << 16):
             norms[i0:i0 + (1 << 16)] = (
                 x[i0:i0 + (1 << 16)].astype(np.float64) ** 2).sum(1)
         rows = f32_to_bf16(xd) if self._dtype == torch.bfloat16 else xd
-        self._add_preassigned(rows, torch.from_numpy(norms), assign)
+        return rows, torch.from_numpy(norms)
 
     def _add_preassigned(self, rows: torch.Tensor, norms: torch.Tensor,
-                         assign: np.ndarray) -> None:
+                         assign: np.ndarray,
+                         global_ids: Optional[np.ndarray] = None) -> None:
         """Insert rows whose list is already decided: add, merge_from and
         the loader (which restores a saved routing, never re-routes).
         ``rows`` (n, d_pad) in the stored dtype, ``norms`` (n,) f32 as
         stored, ``assign`` (n,) host list ids. Slots are host arithmetic on
-        the counts mirror, stable within each list."""
+        the counts mirror, stable within each list. ``global_ids``: what
+        the device id column records for these rows (the sharded index
+        stores global ids, so its merge needs no translation); by default
+        the insertion ids."""
         n = rows.shape[0]
         assign = np.asarray(assign, np.int64)
         new_counts = self._counts.astype(np.int64) + np.bincount(
@@ -353,8 +361,11 @@ class TorchIndexIVFFlat:
         sl = torch.from_numpy(slots).to(self.device)
         self._data[sl] = rows.to(self.device)
         self._norms[sl] = norms.to(self.device)
-        self._ids[sl] = torch.arange(self.ntotal, self.ntotal + n,
-                                     dtype=torch.int32, device=self.device)
+        self._ids[sl] = (
+            torch.arange(self.ntotal, self.ntotal + n, dtype=torch.int32)
+            if global_ids is None
+            else torch.from_numpy(np.asarray(global_ids, np.int32))
+        ).to(self.device)
         if self.storage_type is StorageType.INT8:
             # running max ‖codes‖: the dense fused route's certificate
             q = rows.to(torch.float32)
@@ -525,13 +536,8 @@ class TorchIndexIVFFlat:
         q, nq, _, nprobe, nbudget, sel = self._prep_search(x, params)
         if self.ntotal == 0:
             return None, nq, None
-        cert = None
-        if nprobe < self.nlist:
-            v, lab = self._fine_scan(q, k, nprobe, nbudget, sel)
-        elif self._dense_fused_ok() and not force_plain_dense:
-            v, lab, cert = self._dense_fused(q, k, sel)
-        else:
-            v, lab = self._dense_plain(q, k, sel)
+        v, lab, cert = self._search_local(q, k, nprobe, nbudget, sel,
+                                          force_plain_dense)
         dists, labels = _finalize(v, lab, self.ntotal, k, self.metric)
         if cert is None:
             return (_pack(dists, labels, torch.ones_like(dists[:, 0],
@@ -554,6 +560,19 @@ class TorchIndexIVFFlat:
             return d_out, i_out
 
         return _pack(dists, labels, cert), nq, fallback
+
+    def _search_local(self, q, k: int, nprobe: int, nbudget: int, sel,
+                      force_plain_dense: bool = False):
+        """The route for ``nprobe`` on this index's device: (scores with
+        −‖q‖², the id column's labels, the certificate or None where the
+        route is exact): the fine scan below nlist, else the dense fused
+        route (bf16, int8) or the plain dense sweep. The sharded index
+        calls this on every shard."""
+        if nprobe < self.nlist:
+            return (*self._fine_scan(q, k, nprobe, nbudget, sel), None)
+        if self._dense_fused_ok() and not force_plain_dense:
+            return self._dense_fused(q, k, sel)
+        return (*self._dense_plain(q, k, sel), None)
 
     def _nq_cap(self, nprobe: int) -> Optional[int]:
         """Most query rows per gather dispatch: the fine scan materializes

@@ -464,9 +464,9 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
     any stored row: ``faiss_tpu``'s _sweep_eps, derived for this port's
     own arithmetic. ``accum`` names the sweep's accumulation: "fmaf" (the
     default, and the JAX bound) or "mma", the tensor-core sweeps with float
-    sums (csrc/sweep_split_mma.cu: the f32 planes' with two query planes,
-    and the bf16 rows' and the f16 pair's with one or two; ``sweep_accum``
-    picks it by route); only term (2) differs.
+    sums (csrc/sweep_split_mma.cu: the bf16 rows', the f32 planes' and the
+    f16 pair's, with one or two query planes; ``sweep_accum`` picks it by
+    route); only term (2) differs.
 
     Notation: u = 2^-24; Q = ‖q‖; R = ‖q − Σ q_planes‖ (computed exactly:
     the bit-mask split makes the subtractions exact); L = ‖q_lo‖;
@@ -478,10 +478,11 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
           pair sweep, also                    L·s0 + (Q+R)·s1
           (q_lo·v_lo, and (q_hi + q_lo)·(v − v_hi − v_lo))
       (2) sweep accumulation                  (d+2)·u·[(Q+R)·(V+s0) + L·V]
-          csrc/sweep_groupmax.cu: per product term a sequential fmaf chain
-          of exact bf16×bf16 products (a·b errs ≤ d·u·‖a‖·‖b‖, round to
-          nearest; ‖q_hi‖, ‖q_rne‖ ≤ Q+R, ‖v_hi‖ ≤ V, ‖v_lo‖ ≤ s0), the
-          ≤ 3 terms added once (+2·u); bf16 rows: s0 = 0
+          the JAX bound's: per product term a sequential chain of exact
+          bf16×bf16 products, round to nearest (a·b errs ≤ d·u·‖a‖·‖b‖;
+          ‖q_hi‖, ‖q_rne‖ ≤ Q+R, ‖v_hi‖ ≤ V, ‖v_lo‖ ≤ s0), the ≤ 3 terms
+          added once (+2·u); bf16 rows: s0 = 0. Every CPU tensor (the
+          plain versions) is charged it
           accum="mma":                 (36·⌈d/16⌉ + 2)·u·[(Q+R)·(V+s0) + L·V]
           csrc/sweep_split_mma.cu: per product term one fp32 wgmma
           accumulator over ⌈d/16⌉ k-steps, each adding 16 exact bf16×bf16
@@ -503,7 +504,15 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
           plane (K7, single_pass, pair_sweep): the terms q1·dh and q1·dl
           err ≤ 36·⌈d/16⌉·u·(Q+R)·V and ≤ 36·⌈d/16⌉·u·(Q+R)·s0, and their
           one round-to-nearest add ≤ u·(Q+R)·(V+s0), inside the budget
-          with L = 0
+          with L = 0; the f32 planes with one query plane (K4,
+          single_pass, pair_sweep) are K7's case over the f32 split
+          statistics: q1·dh errs ≤ 36·⌈d/16⌉·u·(Q+R)·V (‖q1‖ ≤ Q+R,
+          ‖dh‖ ≤ V), q1·dl ≤ 36·⌈d/16⌉·u·(Q+R)·s0 (‖dl‖ ≤ s0, the exact
+          statistic of ``st.split_stats``), each in its own accumulator,
+          and their one round-to-nearest add ≤ u·(Q+R)·(V+s0): in all
+          (36·⌈d/16⌉ + 1)·u·(Q+R)·(V+s0), inside the budget with L = 0
+          (one accumulator over both terms would need another
+          derivation)
       (3) rescore accumulation                2·d·u·Q·V
           csrc/rescore_groups.cu: a sequential fmaf chain of fp32 q times
           exactly widened rows, ≤ d·u·Q·V; f32 stage 3b: an fp32 product
@@ -544,19 +553,16 @@ SWEEP_ROUTES = ("bf16", "pair", "hi_exact", "f16", "int8")
 def sweep_accum(route: str, sweep_passes: int, device) -> str:
     """The accumulation ``_sweep_eps`` must charge for the sweep that
     ``route`` ran: "mma" where it ran on the tensor cores with float sums
-    on the card: over bf16 rows or the f16 pair with one or two query
-    planes (K2, K1: "bf16", and "hi_exact", whose sweep is the bf16 kernel
-    over the hi plane; K7, K6: "f16"), and with two query planes over the
-    f32 planes (K3, "pair"); "fmaf" for one query plane over the f32 planes
-    (K4: fmaf chains), the int8 route (exact integer sums, certified by
-    ``_sweep_eps_int8``), and every CPU tensor (the plain versions; the JAX
-    bound)."""
+    on the card, with one or two query planes: over bf16 rows (K2, K1:
+    "bf16", and "hi_exact", whose sweep is the bf16 kernel over the hi
+    plane), the f32 planes (K4, K3: "pair") or the f16 pair (K7, K6:
+    "f16"); "fmaf" for the int8 route (exact integer sums, certified by
+    ``_sweep_eps_int8``) and every CPU tensor (the plain versions; the JAX
+    bound). ``sweep_passes`` (1 or 2) changes no route's answer."""
     if route not in SWEEP_ROUTES:
         raise ValueError(f"route must be one of {SWEEP_ROUTES}, got {route!r}")
     on_card = torch.device(device).type == "cuda"
-    mma = on_card and (route in ("bf16", "hi_exact", "f16")
-                       or (sweep_passes == 2 and route == "pair"))
-    return "mma" if mma else "fmaf"
+    return "mma" if on_card and route != "int8" else "fmaf"
 
 
 def _accum_coeff(d_pad: int, accum: str) -> float:

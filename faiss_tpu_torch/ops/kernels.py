@@ -46,9 +46,7 @@ GROUP = 128   # rows per candidate group (csrc/common.cuh ft::GROUP)
 _lib_handle: Optional[ctypes.CDLL] = None
 
 launches = {
-    # every sweep runs on the tensor cores (csrc/sweep_split_mma.cu) but the
-    # f32 planes' with one query plane, on the CUDA cores
-    # (csrc/sweep_groupmax.cu)
+    # every sweep runs on the tensor cores (csrc/sweep_split_mma.cu)
     "sweep_groupmax_1": 0,   # bf16 rows, one query plane  (_kernel_q1)
     "sweep_groupmax_2": 0,   # bf16 rows, two query planes (_kernel_qpair)
     "sweep_split_3": 0,      # f32 (hi, lo) planes, 3 terms (_kernel_split)
@@ -169,7 +167,6 @@ def _lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
         sigs = {
-            "ft_sweep_groupmax": [P, P, P, P, P, P, I, I, I, I, P],
             "ft_sweep_mma": [I, P, P, P, P, P, P, P, P, I, I, I, I, P],
             "ft_select_groups": [P, P, P, I, I, I, P],
             "ft_rescore_groups": [P, P, P, P, P, P, I, I, I, I, I, I, P,
@@ -231,16 +228,15 @@ def _launch(name: str, fn_name: str, *args) -> None:
 
 def _sweep_outputs(nq: int, ngroups: int, device, with_block_max: bool):
     """The group-max output and, with ``with_block_max``, the supergroup
-    maxes filled with −inf, into which the CUDA-core sweeps fold by an
-    atomic max (the tensor-core ones write every entry); None otherwise."""
+    maxes (the kernel writes every entry of both); None otherwise."""
     gm = torch.empty((nq, ngroups), dtype=torch.float32, device=device)
     if not with_block_max:
         return gm, None
     if ngroups % SUPERGROUP:
         raise ValueError(f"block max needs ngroups % {SUPERGROUP} == 0 "
                          f"(ngroups={ngroups})")
-    return gm, torch.full((nq, ngroups // SUPERGROUP), float("-inf"),
-                          dtype=torch.float32, device=device)
+    return gm, torch.empty((nq, ngroups // SUPERGROUP), dtype=torch.float32,
+                           device=device)
 
 
 def _sweep_result(gm, bmax):
@@ -293,28 +289,18 @@ def sweep_groupmax(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
 def sweep_split(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
                 db_hi: torch.Tensor, db_lo: torch.Tensor, vn: torch.Tensor,
                 *, metric: MetricType, with_block_max: bool = False):
-    """Group maxes of the f32 pair sweep over the bf16 (hi, lo) planes:
-    qh·dh + qh·dl + ql·dh with two query planes (3 terms, on the tensor
-    cores: certify with ``_sweep_eps(accum="mma")``), q1·dh + q1·dl when
-    ``q_lo`` is None (2 terms, fmaf chains: K4)."""
+    """Group maxes of the f32 pair sweep over the bf16 (hi, lo) planes, on
+    the tensor cores (certify with ``_sweep_eps(accum="mma")``): qh·dh +
+    qh·dl + ql·dh with two query planes (3 terms, K3), q1·dh + q1·dl when
+    ``q_lo`` is None (2 terms, each in its own accumulator, added once:
+    K4)."""
     planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
     if not _on_cuda(*planes, db_hi, db_lo, vn):
         from .fused import sweep_split_plain
         return sweep_split_plain(q_hi, q_lo, db_hi, db_lo, vn, metric=metric,
                                  with_block_max=with_block_max)
-    if q_lo is not None:
-        return _sweep_mma("sweep_split_3", MMA_F32_PLANES, (q_hi, q_lo),
-                          (db_hi, db_lo), vn, metric, with_block_max)
-    nq, d, ngroups = _check_sweep((q_hi,), (db_hi, db_lo), vn,
-                                  q_dtype=torch.bfloat16,
-                                  db_dtype=torch.bfloat16, align=8)
-    gm, bmax = _sweep_outputs(nq, ngroups, db_hi.device, with_block_max)
-    with torch.cuda.device(db_hi.device):
-        _launch("sweep_split_2", "ft_sweep_groupmax", q_hi.data_ptr(),
-                db_hi.data_ptr(), db_lo.data_ptr(), vn.data_ptr(),
-                gm.data_ptr(), None if bmax is None else bmax.data_ptr(), nq,
-                d, ngroups, int(metric is MetricType.L2))
-    return _sweep_result(gm, bmax)
+    return _sweep_mma(f"sweep_split_{len(planes) + 1}", MMA_F32_PLANES,
+                      planes, (db_hi, db_lo), vn, metric, with_block_max)
 
 
 # ft_sweep_mma's formats: (query dtype, row dtype, d multiple)
@@ -328,7 +314,8 @@ def _sweep_mma(counter, fmt, planes, dbs, vn, metric, with_block_max,
                beta=None):
     """Launch ft_sweep_mma, the tensor-core sweep over the query
     ``planes`` in row format ``fmt``: bf16 rows (K1; K2 with one plane), the
-    f32 planes ``dbs`` = (hi, lo) (K3), f16 bits (K6; K7 with one plane), or
+    f32 planes ``dbs`` = (hi, lo) (K3; K4 with one plane), f16 bits (K6; K7
+    with one plane), or
     int8 codes against (q₁, q₂) with ``beta`` (K5). Its float accumulation is what
     ``_sweep_eps(accum="mma")`` charges; K5's sums are exact."""
     q_dtype, db_dtype, align = _MMA_DTYPES[fmt]

@@ -1,0 +1,497 @@
+"""ShardedIndexFlat: flat exact search over a database sharded across a
+list of torch devices, after ``faiss_tpu/parallel/sharded.py``.
+
+One process drives every shard. ``devices`` is a list of torch devices,
+which may name one device more than once (["cpu"] * 8 in the tests,
+["cuda:0"] * 4 on one card); with ``num_replicas = R`` and ``num_shards =
+P`` its first R·P entries form an (R, P) grid, row r the devices of replica
+group r:
+
+  * each shard is a TorchIndexFlat on its device, plus an int32 global-id
+    column on the same device (ids are int32 on the device and int64 at
+    the API, as everywhere in the port);
+  * ``add`` splits a batch contiguously over the shards, balanced to ±1
+    row with a rotating start for the remainder, and appends on each
+    device; contiguous global-id extents per shard back ``reconstruct``
+    and the dense renumbering of ``remove_ids``;
+  * ``search`` makes one dispatch decision for every shard (the cost gate
+    at the largest shard's size, hi_exact only where every shard's split
+    statistics are zero, one query-plane count), enqueues each shard's own
+    fused or plain search on its device (the port's kernels, K1–K10 as the
+    storage picks them), maps the local ids to global ids on the device,
+    gathers the (k, gid) lists onto the first device and merges them there
+    by (score desc, gid asc): gids do not follow shard order across add
+    batches, so equal scores break by global id, as the single index
+    breaks them by position. The per-shard certificates are ANDed per
+    query, and the uncertified rows re-run through the index's two-tier
+    fallback (``index.make_selective_fallback``);
+  * with R > 1 the query batch splits across the replica groups; a replica
+    on a device other than replica 0's holds a copy of the shard, made at
+    its first search after a change.
+
+What stays behind from the JAX class: the ``shard_map`` / ``Mesh``
+program and ``_assemble``'s capacity equalisation, which only fed
+``make_array_from_single_device_arrays``; no ``torch.distributed``.
+``range_search`` runs on replica 0's shards over the whole query batch.
+"""
+
+from __future__ import annotations
+
+import bisect
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import selector as sel_mod
+from ..dtypes import MetricType, StorageType, worst_distance
+from ..index import (NQ_PAD, TorchIndexFlat, TorchSearchToken,
+                     make_selective_fallback, _pack, _range_csr)
+from ..ops import distance as dist_ops
+from ..ops import fused
+from ..storage import ROW_TILE, _round_up
+
+__all__ = ["ShardedIndexFlat", "resolve_devices", "merge_shard_lists",
+           "balanced_counts"]
+
+
+def resolve_devices(devices) -> List[torch.device]:
+    """``devices`` as torch devices; None: every visible CUDA device, and
+    a RuntimeError where there is none (pass ["cpu"] * P to run the
+    kernels' plain versions)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass devices=['cpu'] "
+                               "* P to run the plain versions of the kernels")
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    out = [torch.device(d) for d in devices]
+    if not out:
+        raise ValueError("devices is empty")
+    if any(d.type == "cuda" for d in out) and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available")
+    return out
+
+
+def balanced_counts(n: int, p: int, start: int) -> List[int]:
+    """A contiguous split of n rows over p shards, balanced to ±1: the
+    remainder goes to the ``rem`` shards from ``start`` on (rotating)."""
+    base, rem = divmod(n, p)
+    return [base + (1 if (i - start) % p < rem else 0) for i in range(p)]
+
+
+def merge_shard_lists(parts, k: int, metric: MetricType, device):
+    """Merge the per-shard lists ``parts`` = [(scores (nq, k_i) best first,
+    global ids (nq, k_i) int32, −1 where invalid)] on ``device``: the k best
+    by (score desc, gid asc), as distances and int32 labels, (nq, k),
+    sentinels where fewer than k rows exist."""
+    av = torch.cat([v.to(device) for v, _ in parts], dim=1)
+    ag = torch.cat([g.to(device, torch.int32) for _, g in parts], dim=1)
+    av = av.masked_fill(ag < 0, float("-inf"))
+    # two stable sorts: by gid, then by score: ties keep the gid order
+    o = torch.sort(ag, dim=1, stable=True).indices
+    av, ag = torch.gather(av, 1, o), torch.gather(ag, 1, o)
+    o = torch.sort(av, dim=1, descending=True, stable=True).indices[:, :k]
+    tv, tg = torch.gather(av, 1, o), torch.gather(ag, 1, o)
+    ok = (tg >= 0) & (tv > float("-inf"))
+    dists = dist_ops.scores_to_distances(tv, metric).masked_fill(
+        ~ok, worst_distance(metric))
+    tg = tg.masked_fill(~ok, -1)
+    if tg.shape[1] < k:
+        pad = (tg.shape[0], k - tg.shape[1])
+        dists = torch.cat([dists, dists.new_full(pad, worst_distance(metric))],
+                          dim=1)
+        tg = torch.cat([tg, tg.new_full(pad, -1)], dim=1)
+    return dists, tg
+
+
+class _ShardStore:
+    """One shard: a TorchIndexFlat on its device and the int32 global ids
+    of its rows (host mirror, and a (capacity,) device column, −1 past
+    ntotal)."""
+
+    def __init__(self, index: TorchIndexFlat):
+        self.index = index
+        self.gids_host = np.empty(0, np.int32)
+        self.gids: Optional[torch.Tensor] = None
+
+    @property
+    def store(self):
+        return self.index.store
+
+    @property
+    def device(self) -> torch.device:
+        return self.index.device
+
+    def set_gids(self, gids_host: np.ndarray) -> None:
+        self.gids_host = np.asarray(gids_host, np.int32)
+        col = np.full((max(self.store.capacity, 1),), -1, np.int32)
+        col[: self.gids_host.size] = self.gids_host
+        self.gids = torch.from_numpy(col).to(self.device)
+
+    def to_global(self, vals: torch.Tensor, ids: torch.Tensor):
+        """Local ids → global ids on the device; −1 past ntotal and on rows
+        that scored −inf (or NaN)."""
+        nt = self.store.ntotal
+        ids = ids.to(torch.int64)
+        valid = (ids >= 0) & (ids < nt) & (vals > float("-inf"))
+        g = self.gids[ids.clamp(0, self.gids.shape[0] - 1)]
+        return torch.where(valid, g, torch.full_like(g, -1))
+
+    def copy_to(self, device: torch.device) -> "_ShardStore":
+        """The same shard on another device: stored bits, norms and
+        statistics as they are (``DeviceStore.merge_storage``)."""
+        ix = self.index
+        twin = TorchIndexFlat(ix.d, metric=ix.metric, storage=ix.storage_type,
+                              device=device, tuning=ix.tuning,
+                              keep_master=ix.store.keep_master)
+        if ix.store.scales is not None:
+            twin.store.set_scales(ix.store.scales[: ix.d].cpu().numpy())
+        twin.store.merge_storage(ix.store)
+        out = _ShardStore(twin)
+        out.set_gids(self.gids_host)
+        return out
+
+
+class ShardedIndexFlat:
+    """Flat exact index over an (R, P) grid of torch devices: the database
+    row-sharded over P shards, replicated R times, the query batch split
+    over the R replica groups. The API is TorchIndexFlat's; ``devices``
+    defaults to every visible CUDA device."""
+
+    def __init__(self, d: int, metric=MetricType.L2,
+                 storage=StorageType.FLOAT32, num_shards: Optional[int] = None,
+                 num_replicas: int = 1, keep_master: bool = True,
+                 devices=None, tuning=None):
+        self.metric = MetricType.coerce(metric)
+        self.storage_type = StorageType.coerce(storage)
+        devs = resolve_devices(devices)
+        r = int(num_replicas)
+        p = num_shards or len(devs) // max(r, 1)
+        if r < 1 or p < 1 or r * p > len(devs):
+            raise ValueError(f"num_replicas={r} × num_shards={p} exceeds "
+                             f"{len(devs)} devices")
+        self.num_replicas = r
+        self.grid = [devs[i * p: (i + 1) * p] for i in range(r)]
+        self.devices = self.grid[0]      # replica 0's devices own the shards
+        self.d = int(d)
+        self.keep_master = bool(keep_master)
+        self.shards: List[_ShardStore] = [
+            _ShardStore(TorchIndexFlat(d, metric=self.metric,
+                                       storage=self.storage_type, device=dev,
+                                       tuning=tuning,
+                                       keep_master=keep_master))
+            for dev in self.devices]
+        self.ntotal = 0
+        self._next_shard = 0   # rotating remainder start of the split
+        # (gid_start, gid_end, shard, local_start), sorted by gid_start:
+        # every mutation appends contiguous gid runs per shard
+        self._extents: List[Tuple[int, int, int, int]] = []
+        self._replicas = {}    # (r, i) → a copy on replica r's device
+        self._force_plain = False
+        self.fused_fallbacks = 0
+        self._no_reduced_sweep: set = set()
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def is_trained(self) -> bool:
+        return self.shards[0].store.is_trained
+
+    def set_force_plain(self, force: bool) -> None:
+        """Run every shard's plain path (cross-path testing; the
+        counterpart of set_force_xla)."""
+        self._force_plain = bool(force)
+
+    def train(self, x: np.ndarray) -> None:
+        """int8: one set of per-dimension scales, frozen in every shard
+        from the same sample (one quantization grid: results do not depend
+        on the shard count)."""
+        for s in self.shards:
+            s.store.train(x)
+        self._changed()
+
+    def _changed(self) -> None:
+        self._replicas = {}
+
+    # -- mutation -----------------------------------------------------------
+    def add(self, x: np.ndarray) -> None:
+        x = np.ascontiguousarray(x, dtype=np.float32)
+        if x.ndim != 2 or x.shape[1] != self.d:
+            raise ValueError(f"expected (n, {self.d}) array, got {x.shape}")
+        n = x.shape[0]
+        if n == 0:
+            return
+        if not self.is_trained:
+            self.train(x)   # auto-train on the first batch, as TorchIndexFlat
+        if self.ntotal + n > np.iinfo(np.int32).max:
+            raise ValueError("total index size would exceed 2^31-1 (int32 "
+                             "device ids)")
+        p = self.num_shards
+        counts = balanced_counts(n, p, self._next_shard)
+        self._next_shard = (self._next_shard + n % p) % p
+        self._append(lambda s, lo, hi: s.index.add(x[lo:hi]), counts)
+
+    def _append(self, put, counts) -> None:
+        """Give shard i the next counts[i] rows (``put(shard, lo, hi)``
+        stores rows [lo, hi) of the batch), with global ids from ntotal."""
+        off, gid0 = 0, self.ntotal
+        for i, c in enumerate(counts):
+            if c == 0:
+                continue
+            s = self.shards[i]
+            l0 = s.store.ntotal
+            self._extents.append((gid0 + off, gid0 + off + c, i, l0))
+            put(s, off, off + c)
+            s.set_gids(np.concatenate([
+                s.gids_host,
+                np.arange(gid0 + off, gid0 + off + c, dtype=np.int32)]))
+            off += c
+        self.ntotal += off
+        self._changed()
+
+    def reset(self) -> None:
+        for s in self.shards:
+            s.index.reset()
+            s.set_gids(np.empty(0, np.int32))
+        self.ntotal = 0
+        self._next_shard = 0
+        self._extents = []
+        self._no_reduced_sweep.clear()
+        self._changed()
+
+    def remove_ids(self, ids) -> int:
+        """Remove global ids with faiss's stable renumbering (survivors keep
+        their order, ids shift down); returns the number removed. The
+        bookkeeping is host arithmetic over the gid extents: each shard
+        compacts its rows in place, and its gid column takes the dense
+        renumbering (within one old extent the survivors stay contiguous
+        in both numberings, so each maps to one new extent)."""
+        ids = np.unique(np.asarray(ids, np.int64).ravel())
+        if ids.size == 0:
+            return 0
+        if ids[0] < 0 or ids[-1] >= self.ntotal:
+            raise IndexError(f"remove_ids: ids outside [0, {self.ntotal}): "
+                             f"[{ids[0]}, {ids[-1]}]")
+        p = self.num_shards
+        keep_local = [[] for _ in range(p)]
+        new_gids = [[] for _ in range(p)]
+        new_extents = []
+        off = [0] * p
+        for g0, g1, si, l0 in self._extents:
+            gs = np.arange(g0, g1, dtype=np.int64)
+            gk = gs[~np.isin(gs, ids, assume_unique=True)]
+            if gk.size == 0:
+                continue
+            keep_local[si].append(l0 + (gk - g0))
+            ng0 = int(gk[0] - np.searchsorted(ids, gk[0]))
+            new_gids[si].append(np.arange(ng0, ng0 + gk.size, dtype=np.int32))
+            new_extents.append((ng0, ng0 + int(gk.size), si, off[si]))
+            off[si] += int(gk.size)
+        for si, s in enumerate(self.shards):
+            keep = (np.concatenate(keep_local[si]) if keep_local[si]
+                    else np.empty(0, np.int64))
+            if keep.size != s.store.ntotal:
+                s.store.remove_rows(keep)
+            s.set_gids(np.concatenate(new_gids[si]) if new_gids[si]
+                       else np.empty(0, np.int32))
+        self._extents = new_extents
+        self.ntotal -= int(ids.size)
+        self._no_reduced_sweep.clear()   # new data, new margins
+        self._changed()
+        return int(ids.size)
+
+    def reconstruct(self, key: int) -> np.ndarray:
+        """The stored row of global id ``key``: a bisect over the gid
+        extents, then one row from its shard."""
+        if not 0 <= key < self.ntotal:
+            raise IndexError(f"key {key} out of range [0, {self.ntotal})")
+        pos = bisect.bisect_right(self._extents, (key, self.ntotal + 1)) - 1
+        if pos >= 0:
+            g0, g1, si, l0 = self._extents[pos]
+            if g0 <= key < g1:
+                return self.shards[si].store.reconstruct(l0 + (key - g0))
+        raise KeyError(f"global id {key} not found")
+
+    # -- search -------------------------------------------------------------
+    def _prep_queries(self, x: np.ndarray):
+        """Pad on the host to a multiple of 8 rows per replica group, then
+        one transfer to the first device."""
+        x = np.asarray(x, dtype=np.float32)
+        if x.ndim == 1:
+            x = x[None, :]
+        if x.ndim != 2 or x.shape[1] != self.d:
+            raise ValueError(f"expected (n, {self.d}) queries, got {x.shape}")
+        nq = x.shape[0]
+        unit = NQ_PAD * self.num_replicas
+        nq_pad = max(unit, _round_up(nq, unit))
+        dev = self.devices[0]
+        q = torch.zeros((nq_pad, self.shards[0].store.d_pad),
+                        dtype=torch.float32, pin_memory=dev.type == "cuda")
+        q[:nq, : self.d] = torch.from_numpy(x)
+        return q.to(dev, non_blocking=True), nq, nq_pad
+
+    def _sel_streams(self, params):
+        """``params``' selector over the global ids, as one (capacity,)
+        bool stream per shard on its device, or None when nothing is
+        filtered. Host evaluation over the gid extents."""
+        sel_mod.reject_ivf_params(params)
+        if sel_mod.selector_mask(params, np.empty(0, np.int64)) is None:
+            return None
+        masks = [np.zeros((s.store.capacity,), bool) for s in self.shards]
+        excluded = False
+        for g0, g1, si, l0 in self._extents:
+            m = sel_mod.selector_mask(params,
+                                      np.arange(g0, g1, dtype=np.int64))
+            masks[si][l0: l0 + (g1 - g0)] = m
+            excluded = excluded or not m.all()
+        if not excluded:
+            return None
+        return [torch.from_numpy(m).to(s.device)
+                for m, s in zip(masks, self.shards)]
+
+    def _shard(self, r: int, i: int) -> _ShardStore:
+        """Shard i as replica group r searches it: the shard itself on its
+        own device, else its copy on replica r's device."""
+        dev = self.grid[r][i]
+        if dev == self.devices[i]:
+            return self.shards[i]
+        if (r, i) not in self._replicas:
+            self._replicas[(r, i)] = self.shards[i].copy_to(dev)
+        return self._replicas[(r, i)]
+
+    def _run_search_fn(self, q: torch.Tensor, k: int, nq_pad: int, *,
+                       force_plain: bool, full_sweep: bool = False,
+                       sel=None):
+        """Enqueue one sharded search of the padded queries ``q`` (on the
+        first device) over the rows the per-shard selector streams ``sel``
+        admit. Returns (packed result on the first device, whether the
+        fused path ran, whether it ran the one-plane sweep): the signature
+        ``make_selective_fallback`` reruns through."""
+        st0 = self.shards[0].store
+        live = [i for i, s in enumerate(self.shards) if s.store.ntotal]
+        nv_eff = _round_up(max(s.store.ntotal for s in self.shards), ROW_TILE)
+        nq_local = nq_pad // self.num_replicas
+        is_int8 = self.storage_type is StorageType.INT8
+        # hi_exact needs every non-empty shard's split statistics zero
+        stats_zero = st0.has_split and all(
+            self.shards[i].store.split_stats_host() == (0.0, 0.0)
+            for i in live)
+        pair_sweep = st0.has_split and not stats_zero
+        use_fused = (not force_plain and not self._force_plain
+                     and fused.fused_path_eligible(
+                         metric=self.metric, k=k, nv_eff=nv_eff,
+                         d_pad=st0.d_pad, nq_pad=nq_local,
+                         itemsize=4 if pair_sweep else 1 if is_int8 else 2,
+                         dtype=st0.row_dtype))
+        passes = 2 if (full_sweep or nq_local in self._no_reduced_sweep) \
+            else fused.pick_sweep_passes(nq_local, pair_sweep or is_int8)
+        out_dev = self.devices[0]
+        dists, labels, certs = [], [], []
+        for r in range(self.num_replicas):
+            q_r = q[r * nq_local: (r + 1) * nq_local]
+            parts = []
+            cert = torch.ones((nq_local,), dtype=torch.bool, device=out_dev)
+            for i in live:
+                s = self._shard(r, i)
+                sel_i = None if sel is None else sel[i].to(s.device)
+                vals, ids, c = s.index._search_local(
+                    q_r.to(s.device), k, use_fused=use_fused, passes=passes,
+                    hi_exact=stats_zero, use_direct=False, sel=sel_i)
+                parts.append((vals, s.to_global(vals, ids)))
+                cert &= c.to(out_dev)
+            d_r, l_r = merge_shard_lists(parts, k, self.metric, out_dev)
+            dists.append(d_r)
+            labels.append(l_r)
+            certs.append(cert)
+        packed = _pack(torch.cat(dists), torch.cat(labels), torch.cat(certs))
+        return packed, use_fused, use_fused and passes == 1
+
+    def _empty_result(self, nq: int, k: int):
+        return (np.full((nq, k), worst_distance(self.metric), np.float32),
+                np.full((nq, k), -1, np.int64))
+
+    def search_async(self, x: np.ndarray, k: int,
+                     params=None) -> TorchSearchToken:
+        """Non-blocking search: returns once every shard's search is
+        enqueued; ``wait()`` runs the certificate fallback."""
+        if k <= 0:
+            raise ValueError(f"k must be positive, got {k}")
+        q, nq, nq_pad = self._prep_queries(x)
+        if self.ntotal == 0:
+            sel_mod.selector_mask(params, np.empty(0, np.int64))  # validate
+            return TorchSearchToken(None, nq, k,
+                                    result=self._empty_result(nq, k))
+        sel = self._sel_streams(params)
+        packed, use_fused, reduced = self._run_search_fn(
+            q, k, nq_pad, force_plain=False, sel=sel)
+        fallback = None
+        if use_fused:
+            fallback = make_selective_fallback(
+                self, q, nq, k, pad_unit=NQ_PAD * self.num_replicas,
+                pin_key=nq_pad // self.num_replicas, reduced=reduced,
+                sel=sel)
+        return TorchSearchToken(packed, nq, k, fallback=fallback)
+
+    def search(self, x: np.ndarray, k: int,
+               params=None) -> Tuple[np.ndarray, np.ndarray]:
+        return self.search_async(x, k, params=params).wait()
+
+    def assign(self, x: np.ndarray, k: int = 1) -> np.ndarray:
+        """Labels-only search (faiss::Index::assign)."""
+        return self.search(x, k)[1]
+
+    # -- range search ---------------------------------------------------------
+    def _run_range(self, q, nq_pad: int, thr: float, cap: int, sel):
+        """Every shard's plain-path chunks (the expanded form, as the JAX
+        class's), their hit ids made global, stacked on the chunk axis: the
+        CSR assembly cannot tell shards from chunks."""
+        counts, vals, ids, caps = [], [], [], []
+        for i, s in enumerate(self.shards):
+            if not s.store.ntotal:
+                continue
+            c, v, li, used = s.index._run_range(
+                q.to(s.device), nq_pad, thr, cap,
+                None if sel is None else sel[i], use_direct=False)
+            counts.append(c)
+            vals.append(v)
+            ids.append(s.gids_host[np.clip(li, 0, s.gids_host.size - 1)])
+            caps.append(used)
+        width = max(caps)
+
+        def pad(a, fill):
+            return np.pad(a, ((0, 0), (0, 0), (0, width - a.shape[2])),
+                          constant_values=fill)
+
+        return (np.concatenate(counts),
+                np.concatenate([pad(v, -np.inf) for v in vals]),
+                np.concatenate([pad(i, -1) for i in ids]), width)
+
+    def range_search(self, x: np.ndarray, radius: float, params=None):
+        """All rows within ``radius`` (faiss CSR: lims, D, I), the strict
+        criterion of TorchIndexFlat.range_search, ids global; each shard
+        contributes all its hits, so the union is complete."""
+        q, nq, nq_pad = self._prep_queries(x)
+        if self.ntotal == 0:
+            sel_mod.selector_mask(params, np.empty(0, np.int64))  # validate
+            return (np.zeros(nq + 1, np.int64), np.empty(0, np.float32),
+                    np.empty(0, np.int64))
+        sel = self._sel_streams(params)
+        thr = float(np.float32(-radius if self.metric is MetricType.L2
+                               else radius))
+        return _range_csr(
+            lambda cap: self._run_range(q, nq_pad, thr, cap, sel), nq,
+            self.metric)
+
+    def describe(self) -> str:
+        per = [s.store.ntotal for s in self.shards]
+        nbytes = sum(s.store.nbytes() for s in self.shards)
+        return (f"ShardedIndexFlat(d={self.d}, metric={self.metric.value}, "
+                f"storage={self.storage_type.value}, ntotal={self.ntotal}, "
+                f"shards={self.num_shards}, replicas={self.num_replicas}, "
+                f"per_shard={per}, devices={[str(d) for d in self.devices]}, "
+                f"bytes={nbytes}, pair_only={self.shards[0].store.pair_only}, "
+                f"force_plain={self._force_plain}, "
+                f"fused_fallbacks={self.fused_fallbacks})")

@@ -1,17 +1,18 @@
 """The tensor-core sweeps (csrc/sweep_split_mma.cu: K3 over the f32 planes,
 K1 and, with one query plane, K2 over bf16 rows, K6 and, with one query
 plane, K7 over f16 bits, K5 over int8 codes) against variants of
-themselves, on one CUDA card.
+themselves, on one CUDA card; K4, the f32 planes with one query plane,
+too.
 
-    python scripts/k3_variants.py [--kernels k3,k1,k6,k5,k2,k7] [--only a,b]
+    python scripts/k3_variants.py [--kernels k3,k1,k6,k5,k2,k7,k4] [--only a,b]
                                   [--nv 1000448,10000384] [--d 128,256]
                                   [--reps 10]
 
 Each variant is a patched copy of the kernel's source, built with nvcc into
 its own library and called through ``ft_sweep_mma`` on the same inputs (nq
 104, d 128 or the --d list, L2, with the supergroup maxes; Gaussian rows:
-K3 their f32 planes, K1 and K2 their bf16 values, K6 and K7 their f16
-bits; K5
+K3 and K4 their f32 planes, K1 and K2 their bf16 values, K6 and K7 their
+f16 bits; K5
 random codes and query planes in [-127, 127]):
 
   kernel        the source as it is
@@ -30,7 +31,9 @@ random codes and query planes in [-127, 127]):
   wait0         each stage released only once its own products have ended
                 (wgmma.wait_group 0), not once the next chunk's are issued
   even_split    the groups split evenly over the blocks, a supergroup
-                shared by two blocks folded with ft::atomic_max_f32
+                shared by two blocks folded with an fp32 atomic max (the
+                variant's own copy of the one K4's CUDA-core kernel used
+                until it moved onto this template)
   K1 only:
   no_rs         the query planes' A fragments from shared memory (TMA), as
                 at d > 128 and in K3, not from registers
@@ -66,13 +69,14 @@ random codes and query planes in [-127, 127]):
                 fragments in registers for both terms
   ndec96        three decode warps (K6's), not four: 384 threads
   ndec224       seven decode warps (512 threads; 128 registers a thread)
+  K4: the kernel and the cuts above (no_mma: its products left out).
 
 Times are graph replays (chip_smoke.graph_ms) in two rounds; every variant
 that computes must give the kernel's group maxes bit for bit, and supergroup
 maxes equal to block_max_plain of them (one that does not is reported, left
 untimed, and makes the script exit 1). Last, each float kernel (through
 kernels.sweep_split, kernels.sweep_groupmax, kernels.sweep_f16) on the
-truncation adversary of tests/test_torch_mma_eps.py (K2 and K7 with one
+truncation adversary of tests/test_torch_mma_eps.py (K2, K4 and K7 with one
 query plane): its error, in units
 of ‖q‖·‖v‖·u (u = 2^-24), where a sum that truncates every addend at the
 largest one's exponent loses ≈ 254 and round to nearest ≈ 0 (K5's integer
@@ -269,8 +273,23 @@ def _rs_hi(text):
     ])
 
 
+# the fp32 atomic max that even_split folds a shared supergroup with: a value
+# with the sign bit clear wins by a signed-integer max of the bits, one with
+# it set by an unsigned min (the exact max in any order on non-NaN values)
+ATOMIC_MAX = """__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
+  if (__float_as_uint(v) >> 31)
+    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
+  else
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+}
+
+"""
+KERNEL_AT = "// -- the kernel ----"
+
+
 def _even_split(text):
     return _patch(text, [
+        (KERNEL_AT, ATOMIC_MAX + KERNEL_AT),
         ("""  const int nsg = (ngroups + 7) / 8;
   const int sg0 = static_cast<int>(
       static_cast<long long>(blockIdx.x) * nsg / gridDim.x);
@@ -288,7 +307,7 @@ def _even_split(text):
         const bool whole = (g & 7) == 7 && g - 7 >= g0;
         auto fold = [&](int q, float m) {
           float* out = bmax + q * nsgs + g / 8;
-          if (whole) *out = m; else ft::atomic_max_f32(out, m);
+          if (whole) *out = m; else atomic_max_f32(out, m);
         };
         if (writer && q0 < nq) fold(q0, bm0);
         if (writer && q1 < nq) fold(q1, bm1);"""),
@@ -316,7 +335,8 @@ def _cuts(text):
 
 
 def variants(text, kernel):
-    """{name: source}: the variants of ``kernel`` (k3, k1, k6, k5)."""
+    """{name: source}: the variants of ``kernel`` (k3, k1, k6, k5, k2, k7,
+    k4)."""
     base = {"kernel": text, **_cuts(text), "norms_ldg": _norms_ldg(text)}
     late = [(NORMS, ""), (WAIT_ALL, WAIT_ALL + NORMS)]
     free = _patch(text, [(ORDERED, "static constexpr bool ORDERED = false;")])
@@ -399,7 +419,7 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
     rows [1, −s, …, −s] scaled by 2^j in group j (s = 2^-12·1.4140625: s² is
     just under ulp(1) = 2^-23), IP, over ‖q‖·‖v‖·u of the row's group: K3
     over the rows' f32 planes, K1 and K2 over the rows in bf16, K6 over
-    their f16 bits (exact in both); K2 and K7 with one query plane."""
+    their f16 bits (exact in both); K2, K4 and K7 with one query plane."""
     d, nq, ng = 128, 8, 8
     s = 2.0 ** -12 * 1.4140625
     a = torch.full((d,), s, dtype=torch.float64)
@@ -424,6 +444,8 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
         gm = kernels.sweep_f16(qh, ql, x.to(dev).to(torch.float16), vn,
                                metric=ip)
     else:
+        if kernel == "k4":   # a bf16-valued query: q1 is qh
+            ql = None
         hi, lo = split_f32_bf16(x.float().to(dev))
         gm = kernels.sweep_split(qh, ql, hi, lo, vn, metric=ip)
     exact = (x[::128] @ a).to(dev)
@@ -431,7 +453,8 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
     return float(((gm.double() - exact) / unit.to(dev)).abs().max())
 
 
-FMT = {"k1": 0, "k3": 1, "k6": 2, "k5": 3, "k2": 0, "k7": 2}   # enum Fmt
+FMT = {"k1": 0, "k3": 1, "k6": 2, "k5": 3, "k2": 0, "k7": 2,
+       "k4": 1}   # enum Fmt
 
 
 def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
@@ -467,7 +490,7 @@ def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
     else:
         qh, ql = fused.query_planes(
             torch.randn((nq, d), device=dev, generator=gen),
-            1 if kernel in ("k2", "k7") else 2)
+            1 if kernel in ("k2", "k7", "k4") else 2)
     ng = nv // 128
     gm = torch.empty((nq, ng), device=dev)
     bm = torch.empty((nq, ng // 8), device=dev)

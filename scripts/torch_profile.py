@@ -36,10 +36,10 @@ from pathlib import Path
 import numpy as np
 
 D, NQ, K = 128, 100, 10
-# the sweeps: CUDA-core (K4) and tensor-core (K1, K2, K3, K5, K6, K7, one
-# template); the rescores: K10 by (query, rank) (bf16, int8), its pair and
-# f16 modes streamed, and its f32 rows' grouping pass and chunk-major kernel
-PARTS = (("sweep", ("sweep_groupmax_kernel", "sweep_split_mma_kernel")),
+# the sweeps: the tensor-core template (K1 to K7); the rescores: K10 by
+# (query, rank) (bf16, int8), its pair and f16 modes streamed, and its f32
+# rows' grouping pass and chunk-major kernel
+PARTS = (("sweep", ("sweep_split_mma_kernel",)),
          ("select_groups", ("select_groups_kernel",)),
          ("rescore", ("rescore_groups_kernel", "rescore_stream_kernel",
                       "rescore_f32_kernel", "f32_count", "f32_runs",

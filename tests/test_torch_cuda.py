@@ -36,11 +36,12 @@ K10's pair mode (``rescore_groups_pair``, stage 3a, streamed by TMA
 through persistent blocks) within ε₂ at d 8 to 256 and kg 1 to 40, on ids
 repeated across and within queries and clamped ids.
 
-K3, K1, K2, K6 and K7 run on the tensor cores (``csrc/sweep_split_mma.cu``):
+K3, K4, K1, K2, K6 and K7 run on the tensor cores (``csrc/sweep_split_mma.cu``):
 they are held to ``_sweep_eps(accum="mma")`` (the budget of
 tests/test_torch_mma_eps.py, which ``fused.sweep_accum`` picks for them),
 their supergroup maxes bit for bit, also on the truncation adversary's
-rows; K5 runs there on the integer tensor cores, bit for bit. K9 (``csrc/final_select.cu``) and K8 (``csrc/select_groups.cu``),
+rows; K5 runs there on the integer tensor cores, bit for bit. The sharded
+indexes over one card named P times give the unsharded index's ids. K9 (``csrc/final_select.cu``) and K8 (``csrc/select_groups.cu``),
 both one pass, equal their plain versions bit for bit (K8's t by value on
 a NaN row) on tie-heavy, −inf, NaN, ±0 and +inf rows and K8's −inf
 re-pick; K11 and K10 → K9 agree bit for bit on a −0.0 / +0.0 tie.
@@ -453,11 +454,11 @@ def check_sweep_eps_sound(dev, case: int, nq: int = 64) -> None:
     s.scatter_(1, ids.to(torch.int64), vals)
     assert not bool(s.isnan().any())
     resc_gmax = s.view(nq, nv // 128, 128).amax(-1)
-    mma = dev.type == "cuda" and passes == 2
     eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
                            single_pass=passes == 1, pair_sweep=True,
                            split_stats=stats,
-                           accum="mma" if mma else "fmaf")[:, None]
+                           accum=fused.sweep_accum("pair", passes,
+                                                   dev))[:, None]
     gap = (resc_gmax - gm).abs()
     assert bool((gap <= eps).all()), float((gap - eps).max())
     assert float(eps.max()) >= float(gap.max())
@@ -490,8 +491,8 @@ def check_pair_eps_sound(dev, case: int, nq: int = 64) -> None:
 @pytest.mark.parametrize("nq,d,passes", [(8, 8, 1), (37, 136, 2),
                                          (37, 136, 1), (104, 128, 2)])
 def test_split_sweep_and_pair_rescore_match_plain(dev, metric, nq, d, passes):
-    """K3 (two query planes, tensor cores: the MMA ε) and K4 (one) against
-    sweep_split_plain, and the pair rescore against its plain version, at
+    """K3 (two query planes) and K4 (one), both on the tensor cores (the
+    MMA ε), against sweep_split_plain, and the pair rescore against its plain version, at
     odd shapes: nq 37, d 136, and a last group only partly stored (ntotal
     8000 of 8192)."""
     nv, ntotal = 8192, 8000
@@ -508,8 +509,7 @@ def test_split_sweep_and_pair_rescore_match_plain(dev, metric, nq, d, passes):
     assert kernels.launches[name] == n0 + 1
     eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
                            single_pass=passes == 1, pair_sweep=True,
-                           split_stats=stats,
-                           accum="mma" if passes == 2 else "fmaf")
+                           split_stats=stats, accum="mma")
     _within_eps(gm, fused.sweep_split_plain(qh, ql, hi, lo, vn, metric=metric),
                 eps)
     gidx, _ = kernels.select_groups(gm, 14)
@@ -563,6 +563,87 @@ def test_k3_tensor_core_sweep_matches_plain(dev, metric, nq, d):
     one = kernels.sweep_split(qh, ql, hi, lo, vn, metric=metric)
     assert torch.equal(gm.view(torch.int32), one.view(torch.int32))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("d", [8, 72, 128, 136, 1024, 2048])
+@pytest.mark.parametrize("nq", [8, 104, 300])
+def test_k4_tensor_core_sweep_matches_plain(dev, metric, nq, d):
+    """K4 (one query plane over the f32 planes) on the tensor cores against
+    sweep_split_plain within _sweep_eps(single_pass=True, accum="mma"),
+    with a last group partly stored (ntotal 8000 of 8192) and one wholly
+    past ntotal; its supergroup maxes equal block_max_plain of the same
+    launch's gm bit for bit, and that gm the one-output launch's; it counts
+    as sweep_split_2 and launches no K3. d 72 and 136: the zero-filled
+    k-tail; d 128: q1 as A fragments in registers; d ≥ 1024: the query
+    plane rides the ring."""
+    nv, ntotal = 8192, 8000
+    g = torch.Generator().manual_seed(nq * 10_000 + d + 7)
+    x = torch.randn((nv, d), generator=g) * 3.0
+    x[ntotal:] = 0
+    db, hi, lo, stats, norms = _f32_db(x.numpy(), dev)
+    q = torch.randn((nq, d), generator=torch.Generator().manual_seed(nq + 1))
+    q = q.to(dev)
+    vn = fused._premask_norms(norms, ntotal, nv, metric)
+    q1, none = fused.query_planes(q, 1)
+    assert none is None
+    n0 = dict(kernels.launches)
+    gm, bmax = kernels.sweep_split(q1, None, hi, lo, vn, metric=metric,
+                                   with_block_max=True)
+    assert kernels.launches["sweep_split_2"] == n0["sweep_split_2"] + 1
+    assert kernels.launches["sweep_split_3"] == n0["sweep_split_3"]
+    assert fused.sweep_accum("pair", 1, dev) == "mma"
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                           single_pass=True, pair_sweep=True,
+                           split_stats=stats, accum="mma")
+    _within_eps(gm, fused.sweep_split_plain(q1, None, hi, lo, vn,
+                                            metric=metric), eps)
+    assert bool(torch.isneginf(gm[:, -1]).all())
+    assert not bool(torch.isneginf(gm[:, :-1]).any())
+    assert torch.equal(bmax.view(torch.int32),
+                       fused.block_max_plain(gm).view(torch.int32))
+    one = kernels.sweep_split(q1, None, hi, lo, vn, metric=metric)
+    assert torch.equal(gm.view(torch.int32), one.view(torch.int32))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+def test_k4_truncation_adversary_within_mma_eps(dev, metric):
+    """The truncation adversary of tests/test_torch_mma_eps.py on K4: the
+    bf16-valued query [1, s, …, s] (q1 is the query itself) against f32
+    rows w·(1 + 2^-12), w = [1, −s, …, −s] scaled per group by 2^j, so that
+    both planes are non-zero (dh = w, dl = w·2^-12): |group max − exact
+    score| ≤ _sweep_eps(single_pass=True, accum="mma") pointwise (every row
+    of a group is the same), and the supergroup maxes bit for bit."""
+    d, nv, nq = 128, 1024, 8
+    s = np.float32(2.0 ** -12 * 1.4140625)
+    a = np.full(d, s, np.float32)
+    a[0] = 1.0
+    row = -a
+    row[0] = 1.0
+    scale = np.repeat(2.0 ** np.arange(nv // 128), 128).astype(np.float32)
+    xb = (row[None, :] * scale[:, None]
+          * np.float32(1.0 + 2.0 ** -12)).astype(np.float32)
+    db, hi, lo, stats, norms = _f32_db(xb, dev)
+    assert bool((lo != 0).any())
+    q = torch.from_numpy(np.tile(a, (nq, 1))).to(dev)
+    vn = fused._premask_norms(norms, nv, nv, metric)
+    q1, _ = fused.query_planes(q, 1)
+    n0 = kernels.launches["sweep_split_2"]
+    gm, bmax = kernels.sweep_split(q1, None, hi, lo, vn, metric=metric,
+                                   with_block_max=True)
+    assert kernels.launches["sweep_split_2"] == n0 + 1
+    dot = (xb[::128].astype(np.float64) @ a.astype(np.float64))
+    exact = torch.from_numpy(dot).to(dev)[None, :].expand(nq, -1)
+    if metric is MetricType.L2:
+        exact = 2.0 * exact - norms[::128].double()[None, :]
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
+                           single_pass=True, pair_sweep=True,
+                           split_stats=stats, accum="mma")
+    gap = (gm.double() - exact).abs()
+    assert bool((gap <= eps[:, None].double()).all()), float(gap.max())
+    assert torch.equal(bmax.view(torch.int32),
+                       fused.block_max_plain(gm).view(torch.int32))
 
 
 @pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
@@ -1998,3 +2079,64 @@ def test_nan_rows_ivf_bf16_on_the_card_equals_the_cpu(dev, metric, nprobe,
     (Dc, Ic), (Dg, Ig) = cpu.search(xq, NAN_K), gpu.search(xq, NAN_K)
     np.testing.assert_array_equal(Ig, Ic)
     np.testing.assert_allclose(Dg, Dc, rtol=1e-4, atol=1e-3)
+
+
+# -- sharded flat and IVF over one card named P times ------------------------
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "f16", "int8"])
+@pytest.mark.parametrize("p", [1, 3, 4])
+def test_sharded_flat_on_card_matches_unsharded(dev, monkeypatch, p,
+                                                 storage):
+    """ShardedIndexFlat over ["cuda:0"] * P: ids equal to the unsharded
+    index's on the same card (the fused path from 8192 rows a shard, so
+    every shard takes it), launch counts of the storage's kernels and
+    never K4 (no index route reaches it)."""
+    from faiss_tpu_torch import ShardedIndexFlat
+
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    rng = np.random.default_rng(31 + p)
+    xb = rng.standard_normal((40_000, 64)).astype(np.float32)
+    xq = rng.standard_normal((40, 64)).astype(np.float32)
+    single = TorchIndexFlat(64, storage=storage, device=dev)
+    sh = ShardedIndexFlat(64, storage=storage, num_shards=p,
+                          devices=["cuda:0"] * p)
+    for idx in (single, sh):
+        idx.add(xb[:15_000])
+        idx.add(xb[15_000:])
+    D1, I1 = single.search(xq, 10)
+    n0 = dict(kernels.launches)
+    Ds, Is = sh.search(xq, 10)
+    n = {k: v - n0[k] for k, v in kernels.launches.items()}
+    np.testing.assert_array_equal(Is, I1)
+    np.testing.assert_allclose(Ds, D1, rtol=1e-4, atol=1e-3)
+    assert n["select_groups"] >= p and n["sweep_split_2"] == 0, n
+    assert sh.fused_fallbacks == single.fused_fallbacks
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_sharded_ivf_on_card_matches_single(dev, storage, tmp_path):
+    """A TorchIndexIVFFlat saved and reloaded with load_index(sharded=True)
+    over ["cuda:0"] * 3: ids equal to the single index's at nprobe 4 (the
+    fine scan on K10) and 16 = nlist (the dense route)."""
+    from faiss_tpu_torch import TorchIndexIVFFlat, load_index, save_index
+
+    rng = np.random.default_rng(41)
+    xb = rng.integers(0, 64, (6000, 32)).astype(np.float32)
+    xq = rng.integers(0, 64, (12, 32)).astype(np.float32)
+    single = TorchIndexIVFFlat(32, 16, storage=storage, device=dev)
+    single.train(xb)
+    single.add(xb)
+    path = str(tmp_path / "ivf.npz")
+    save_index(single, path)
+    sh = load_index(path, sharded=True, devices=["cuda:0"] * 3)
+    assert sh.num_shards == 3
+    for nprobe in (4, 16):
+        single.nprobe = sh.nprobe = nprobe
+        D1, I1 = single.search(xq, 7)
+        Ds, Is = sh.search(xq, 7)
+        np.testing.assert_array_equal(Is, I1)
+        np.testing.assert_allclose(Ds, D1, rtol=1e-5)
+    torch.cuda.synchronize()

@@ -2,8 +2,8 @@
 CPU.
 
 The tensor-core sweeps on the card with float sums
-(``csrc/sweep_split_mma.cu``: K3 over the f32 planes, K1 and, with one
-query plane, K2 over bf16 rows, K6 and, with one query plane, K7 over the
+(``csrc/sweep_split_mma.cu``: K3 and, with one query plane, K4 over the
+f32 planes, K1 and, with one query plane, K2 over bf16 rows, K6 and, with one query plane, K7 over the
 f16 rows' exact bf16 pair) sum
 their bf16×bf16 products on the tensor cores, whose fp32 accumulation is
 not proven round-to-nearest.
@@ -23,7 +23,8 @@ adversarial rows: its error stays within the new term (2), and on the
 truncation adversary exceeds the fmaf term, so the new budget is needed
 for that arithmetic; the emulated pair sweep (three accumulators), bf16
 sweep (two), one-plane bf16 sweep (one), f16 pair sweep (three, over f16
-rows) and one-plane f16 sweep (two) stay within the whole ε. tests/test_torch_cuda.py holds the
+rows), one-plane f16 sweep (two) and one-plane pair sweep (two, over f32
+rows with both planes non-zero) stay within the whole ε. tests/test_torch_cuda.py holds the
 kernels themselves to the budget on the card.
 """
 
@@ -165,15 +166,14 @@ def test_unknown_accumulation_is_refused():
 
 
 # (route, query planes, device) → the accumulation its sweep charges: on
-# the card the bf16 rows, hi_exact's hi plane and the f16 pair run on the
-# tensor cores with one or two query planes (K2, K1; K7, K6), the f32
-# planes with two (K3); one plane over the f32 planes (K4: fmaf chains),
-# int8 (K5: exact integer sums, its own ε) and every CPU tensor keep the
-# fmaf bound
+# the card the bf16 rows, hi_exact's hi plane, the f32 planes and the f16
+# pair run on the tensor cores with one or two query planes (K2, K1; K4,
+# K3; K7, K6); int8 (K5: exact integer sums, its own ε) and every CPU
+# tensor keep the fmaf bound
 ACCUM_CASES = [
     ("pair", 2, "cuda", "mma"), ("bf16", 2, "cuda", "mma"),
     ("hi_exact", 2, "cuda", "mma"), ("f16", 2, "cuda", "mma"),
-    ("pair", 1, "cuda", "fmaf"), ("bf16", 1, "cuda", "mma"),
+    ("pair", 1, "cuda", "mma"), ("bf16", 1, "cuda", "mma"),
     ("hi_exact", 1, "cuda", "mma"), ("f16", 1, "cuda", "mma"),
     ("int8", 2, "cuda", "fmaf"),
 ] + [(r, p, "cpu", "fmaf") for r in fused.SWEEP_ROUTES for p in (1, 2)]
@@ -420,6 +420,59 @@ def test_emulated_one_plane_sweep_within_mma_eps(metric, jmetric, adversary,
         if name == "truncation":
             fmaf_term = ((d + 2) * U * np.linalg.norm(q1[i])
                          * np.linalg.norm(rows, axis=1))
+            assert bool((err > (2.0 if l2 else 1.0) * fmaf_term)[:2].all())
+
+
+@pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
+@pytest.mark.parametrize("adversary", ["truncation", "cancellation", "skewed"])
+@pytest.mark.parametrize("d", [128, 136])
+def test_emulated_f32_one_plane_sweep_within_mma_eps(metric, jmetric,
+                                                     adversary, d):
+    """K4's arithmetic emulated: f32 rows v = w·(1 + 2^-12) for the
+    adversary's bf16-valued rows w, so that both planes are non-zero (the
+    bit-mask split gives dh = w and dl = w·2^-12, exactly), q1 the query
+    rounded to bf16 (RNE), the two accumulators q1·dh and q1·dl of the
+    model's worst case (``mma_chain``) added once in fp32, and the
+    epilogue, against the exact score of the stored f32 row: within
+    _sweep_eps(single_pass=True, pair_sweep=True, accum="mma") with the
+    f32 split statistics on the truncation, cancellation and skewed
+    adversaries. On the truncation adversary the emulated error exceeds
+    the fmaf budget's accumulation term, so the tensor-core term is needed
+    for K4 too."""
+    name, a, rows = [c for c in _adversaries(d) if c[0] == adversary][0]
+    db = torch.from_numpy((rows * (1.0 + 2.0 ** -12)).astype(np.float32))
+    hi, lo = split_f32_bf16(db)
+    dh, dl = hi.double().numpy(), lo.double().numpy()
+    v = db.double().numpy()
+    assert np.array_equal(dh, rows) and np.array_equal(dh + dl, v)
+    assert np.abs(dl).sum() > 0
+    stats = split_stats(db, hi, lo)
+    # fp32 queries that round to the bf16-valued a (the first is a itself)
+    rng = np.random.default_rng(d + 2)
+    xq = np.stack([a] + [a * (1.0 + rng.uniform(-1, 1, a.shape) * 2.0 ** -10)
+                         for _ in range(2)]).astype(np.float32)
+    q = torch.from_numpy(xq)
+    q1 = q.to(torch.bfloat16).double().numpy()
+    assert np.array_equal(q1[0], a)
+    norms = (db * db).sum(-1)
+    n = v.shape[0]
+    eps = fused._sweep_eps(q, norms, n, metric=metric, d_pad=d,
+                           single_pass=True, pair_sweep=True,
+                           split_stats=stats, accum="mma").double().numpy()
+    l2 = metric.value == "l2"
+    vn = norms.numpy() if l2 else np.zeros(n, np.float32)
+    for i in range(len(xq)):
+        acc = (mma_chain(q1[i], dh).astype(np.float32)
+               + mma_chain(q1[i], dl).astype(np.float32))     # fp32, RN
+        got = (np.float32(2) * acc if l2 else acc) - vn
+        exact = v @ xq[i].astype(np.float64)
+        if l2:
+            exact = 2.0 * exact - vn.astype(np.float64)
+        err = np.abs(got - exact)
+        assert bool((err <= eps[i]).all()), (name, i)
+        if name == "truncation":
+            fmaf_term = ((d + 2) * U * np.linalg.norm(q1[i])
+                         * np.linalg.norm(v, axis=1))
             assert bool((err > (2.0 if l2 else 1.0) * fmaf_term)[:2].all())
 
 

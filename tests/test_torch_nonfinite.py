@@ -20,6 +20,11 @@ result is −1 / −inf; the port scores the fp32 query and returns the rows
 that score +inf, lowest id first, which is what both packages return on
 f32 storage. Both outputs are pinned.
 
+Subnormal remainders: the port's f32 splits keep the subnormal
+remainders that XLA flushes (the lo planes differ in bits), yet flat f32,
+f32 ``keep_master=False`` and IVF f32 return faiss_tpu's ids on data made
+of subnormals and of normals whose remainder is subnormal.
+
 Sizes stay below faiss_tpu's native host conversion (``NATIVE_CONVERT_MIN
 _ELEMS`` elements a batch), so JAX converts with ``astype`` as held here.
 """
@@ -224,6 +229,108 @@ def test_nan_rows_ivf_bf16_ids_match_jax(queries, metric, jmetric, nprobe,
     D_t, I_t = tidx.search(queries, K)
     np.testing.assert_array_equal(I_t, I_j)
     np.testing.assert_allclose(D_t, D_j, rtol=5e-2, atol=5e-2)
+
+
+# -- subnormal remainders: the splits keep what XLA flushes ------------------
+
+
+def _subnormal_rows(n, seed, scale_exp):
+    """Gaussian rows times 2^scale_exp, a quarter of their components
+    replaced by normal values in [2^-126, 2^-111) (whose bf16 remainder
+    x − hi is subnormal) and a tenth by subnormals of either sign."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((n, D)) * 2.0 ** scale_exp).astype(np.float32)
+    pick = rng.random((n, D))
+    mag = 2.0 ** rng.uniform(-126, -111, (n, D))
+    small = (mag * np.sign(rng.standard_normal((n, D)))).astype(np.float32)
+    sub = (rng.integers(1, 1 << 23, (n, D)).astype(np.uint32)
+           | (rng.integers(0, 2, (n, D)).astype(np.uint32) << 31)
+           ).view(np.float32)
+    return np.where(pick < 0.25, small,
+                    np.where(pick > 0.9, sub, x)).astype(np.float32)
+
+
+# (row scale, query scale) as powers of two: Gaussian data with the planted
+# components, and rows made of such components (most remainders subnormal)
+# against large queries, where a remainder moves an IP score by up to 2^-8
+# of it
+SUBNORMAL_REGIMES = {"gauss": (0, 0), "tiny": (-118, 60)}
+NV_SUB = 2048   # flat rows; the fused path from 1024 rows here
+
+
+@pytest.fixture(scope="module")
+def subnormal_indexes(tmp_path_factory):
+    """build(regime, store, jmetric, metric) → (JAX index, the port's,
+    queries), each built once for the module (both routes search the
+    same pair)."""
+    built = {}
+
+    def build(regime, store, jmetric, metric):
+        key = (regime, store, metric)
+        if key in built:
+            return built[key]
+        rexp, qexp = SUBNORMAL_REGIMES[regime]
+        x = _subnormal_rows(NV_IVF if store == "ivf_f32" else NV_SUB, 11,
+                            rexp)
+        xq = _subnormal_rows(NQ, 12, qexp)
+        want_lo = _jax_bits(jstorage.split_f32_bf16(jnp.asarray(x))[1])
+        got_lo = bits_of(storage.split_f32_bf16(torch.from_numpy(x))[1])
+        assert (want_lo != got_lo).any()
+        if store == "ivf_f32":
+            # the rows cross in JAX's file, so both hold JAX's routing (its
+            # coarse GEMM flushes subnormal inputs: a row may take another
+            # list in the port's own add)
+            jidx = TpuIndexIVFFlat(D, NLIST, metric=jmetric, nprobe=NLIST,
+                                   seed=3)
+            jidx.train(x)
+            jidx.add(x)
+            path = str(tmp_path_factory.mktemp("sub") / "ivf.npz")
+            faiss_tpu.save_index(jidx, path)
+            tidx = load_index(path, device="cpu")
+        else:
+            kw = {"keep_master": False} if store == "pair" else {}
+            jidx = TpuIndexFlat(D, metric=jmetric, **kw)
+            tidx = TorchIndexFlat(D, metric=metric, device="cpu", **kw)
+            jidx.add(x)
+            tidx.add(x)
+        built[key] = (jidx, tidx, xq)
+        return built[key]
+
+    return build
+
+
+@pytest.mark.parametrize("route", ["fused", "plain"])
+@pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
+@pytest.mark.parametrize("store", ["f32", "pair", "ivf_f32"])
+@pytest.mark.parametrize("regime", list(SUBNORMAL_REGIMES))
+def test_subnormal_remainders_ids_match_jax(monkeypatch, subnormal_indexes,
+                                            regime, store, metric, jmetric,
+                                            route):
+    """Rows and queries holding subnormal components and normal components
+    whose bf16 remainder is subnormal: the port's splits keep those
+    remainders where XLA flushes them to +0 (the stored lo planes differ in
+    bits, asserted here), yet the ids of flat f32, f32 keep_master=False
+    and IVF16 f32 (fused and plain; IVF: its K10 fine scan at nprobe 4,
+    ``fused``, and its dense sweep, ``plain``, with JAX's routing) equal
+    faiss_tpu's, under L2 and IP, distances within tests/common.py's
+    ladder. ε does not depend on the flush: s0 and s1 are the exact
+    statistics of what each package stores."""
+    gate = lambda **kw: kw["nv_eff"] >= 1024  # noqa: E731
+    monkeypatch.setattr(pf, "fused_path_eligible", gate)
+    monkeypatch.setattr(fused, "fused_path_eligible", gate)
+    jidx, tidx, xq = subnormal_indexes(regime, store, jmetric, metric)
+    if store == "ivf_f32":
+        jidx.nprobe = tidx.nprobe = 4 if route == "fused" else NLIST
+    else:
+        jidx.set_force_xla(route == "plain")
+        tidx.set_force_plain(route == "plain")
+    D_j, I_j = jidx.search(xq, K)
+    D_t, I_t = tidx.search(xq, K)
+    np.testing.assert_array_equal(I_t, I_j)
+    # tests/common.py's ladder (XLA also flushes the subnormal inputs of
+    # its plain products, which the port's keep)
+    np.testing.assert_allclose(D_t, D_j, atol=0,
+                               rtol=1e-3 if metric is MetricType.L2 else 1e-2)
 
 
 # -- fault 2 of the reference: a ±inf query component under IP --------------
