@@ -44,13 +44,33 @@ it. Each path's launch counts are zeroed just before it and read just after:
             the ivf_1m f32 index saved and reloaded with
             load_index(sharded=True, num_shards=4): at nprobe 16 its ids
             equal the single index's
+  native    the native host runtime (g++, at first call): the 1M bf16 and
+            f16 adds above take its route (host norms and conversion, one
+            2-byte upload), shown by its call counts; one 1M batch of each
+            added by both routes, timed, with equal row bits and the
+            norms' differences in ulps
+  loader_1m build_index_from_file at DEFAULT_BATCH_ROWS (4 add batches):
+            the Gaussian rows as .fvecs (f32, L2 and IP; and sharded over
+            ["cuda:0"] * 4) and as .npy (bf16, every batch through the
+            native route), the integer rows as .bvecs (f32, hi_exact):
+            the in-memory indexes' ids, recall 1.0
+  interop   index_cpu_to_torch / index_torch_to_cpu through a stand-in
+            faiss module: the f32 index's ids, its rows bit for bit
+  profiling bench_grid over the whole DEFAULT_GRID (14 configs, k up to
+            2048, d up to 1536; faiss_tpu's data) on the card, recall over
+            every query (1.0 on the f32 configs); measure_search on the 1M
+            f32 index at depths 1, 8 and 32; a torch.profiler trace of one
+            search, which names the sweep kernel
 
 plus nq=8 (two-plane bf16 sweep) and a duplicated-vector index whose
 certificate fails, so both fallback tiers run. First, nan_repair holds the
 bf16 NaN repair on the card (``storage.f32_to_bf16``: its bits on the card
 equal its bits on the CPU; rows holding NaNs stored as bf16 rows, f32
 pair-only planes and an IVF bf16 pool with the CPU port's bits, and their
-searches return the CPU port's ids). Before the searches each
+searches return the CPU port's ids) and the f16 one (``encode_f16_bits``
+on the card equals the CPU, negative NaNs included; f16 rows with
+negative NaNs stored with the CPU's bits). The card's capabilities
+(``describe_capabilities``) print on an early line. Before the searches each
 kernel is held against its plain PyTorch version at the main paths' shapes
 (nq_pad 104, d 128, nv_eff 1,000,448, kg 14, k 10; K9 also at the f32
 path's 32 candidates, K8 at its stage-3a 1792 candidates with m = 32, K3
@@ -1544,7 +1564,7 @@ def phase_nan_repair(torch, ft):
 
     from faiss_tpu_torch import MetricType
     from faiss_tpu_torch.ops import fused
-    from faiss_tpu_torch.storage import f32_to_bf16
+    from faiss_tpu_torch.storage import encode_f16_bits, f32_to_bf16
 
     rng = np.random.default_rng(SEED + 5)
     x = np.concatenate([
@@ -1555,6 +1575,20 @@ def phase_nan_repair(torch, ft):
     check(torch.equal(f32_to_bf16(t.cuda()).view(torch.int16).cpu(),
                       f32_to_bf16(t).view(torch.int16)),
           "f32_to_bf16: the card's bits differ from the CPU's")
+    # f16: the card's own conversion turns every NaN into 0x7fff (+inf in
+    # the f16 contract); encode_f16_bits writes the NaN lanes from the
+    # input's bits, as the CPU, XLA and the native runtime do
+    f16 = encode_f16_bits(t.cuda()).view(torch.int16).cpu()
+    check(torch.equal(f16, encode_f16_bits(t).view(torch.int16)),
+          "encode_f16_bits: the card's bits differ from the CPU's")
+    check(int(f16[1]) == -512, "encode_f16_bits: a negative NaN lost its "
+          "sign on the card")
+    nan = torch.isnan(t)
+    raw = t.cuda().to(torch.float16).view(torch.int16).cpu()[nan]
+    raw_diff = int((raw != t.to(torch.float16).view(torch.int16)[nan]).sum())
+    print(f"nan_repair: Tensor.to(float16) on the card differs from the CPU "
+          f"on {raw_diff} of {int(nan.sum())} NaN lanes (card patterns "
+          f"{sorted({hex(v & 0xFFFF) for v in raw.tolist()})})", flush=True)
     n, d, snan = 20_000, 64, np.uint32(0x7F800001).view(np.float32)
     xb = rng.integers(-8, 9, (n, d)).astype(np.float32)
     xb[[5, 300, 9000, n - 1], [1, 7, 63, 0]] = [np.nan, snan, np.nan, snan]
@@ -1578,8 +1612,9 @@ def phase_nan_repair(torch, ft):
                                        ("db_hi", "db_lo"))):
                 idx = [ft.TorchIndexFlat(d, metric=metric, device=dev, **kw)
                        for dev in ("cpu", "cuda")]
-                for i in idx:
-                    i.add(xb)
+                for i in idx:   # two batches below the native threshold:
+                    i.add(xb[: n // 2])   # the conversion on the card
+                    i.add(xb[n // 2:])
                 for p in planes:
                     check(torch.equal(bits(getattr(idx[0].store, p)[:n]),
                                       bits(getattr(idx[1].store, p)[:n])),
@@ -1590,6 +1625,19 @@ def phase_nan_repair(torch, ft):
                     same(idx[0].search(xq, K), idx[1].search(xq, K),
                          f"{label} {metric.value} plain={plain}")
                     runs += 1
+            # f16 rows with NaNs of both signs: the card's stored bits are
+            # the CPU's (a negative NaN decodes to -inf on both)
+            xs = xb.copy()
+            xs[[7, 4000], [2, 9]] = np.array([0xFFC00000, 0xFF800001],
+                                             np.uint32).view(np.float32)
+            f16s = [ft.TorchIndexFlat(d, metric=metric, storage="f16",
+                                      device=dev) for dev in ("cpu", "cuda")]
+            for i in f16s:
+                i.add(xs[: n // 2])
+                i.add(xs[n // 2:])
+            check(torch.equal(bits(f16s[0].store.db[:n]),
+                              bits(f16s[1].store.db[:n])),
+                  "NaN rows f16: stored bits differ")
             cpu = ft.TorchIndexIVFFlat(d, 16, metric=metric, storage="bf16",
                                        device="cpu")
             cpu.train(rng.integers(-8, 9, (4096, d)).astype(np.float32))
@@ -1611,10 +1659,323 @@ def phase_nan_repair(torch, ft):
                 runs += 1
     finally:
         fused.fused_path_eligible = gate
-    print(f"nan_repair: f32_to_bf16 equal on the card and the CPU over "
-          f"{x.size} values; rows with NaNs stored with the CPU's bits (bf16 "
-          f"rows, pair planes, IVF bf16 pool); {runs} searches with the CPU "
-          f"port's ids and distances", flush=True)
+    print(f"nan_repair: f32_to_bf16 and encode_f16_bits equal on the card "
+          f"and the CPU over {x.size} values (a negative NaN keeps its sign "
+          f"in f16); rows with NaNs stored with the CPU's bits (bf16 rows, "
+          f"pair planes, f16 rows with negative NaNs, IVF bf16 pool); {runs} "
+          f"searches with the CPU port's ids and distances", flush=True)
+
+
+def phase_native(torch, ft, xb, build_calls):
+    """The native host runtime on the card's host: the 1M bf16 and f16
+    adds of the main paths took its route (``build_calls``, its call counts
+    over those builds); then one 1M batch of each storage added by both
+    routes, timed (host clock, from the empty index to the rows on the
+    card): the native route (host norms and conversion, one 2-byte upload)
+    and the device route (the batch below a raised threshold: a 4-byte
+    upload, norms and conversion on the card). Both store the same row
+    bits (no NaN in these rows); the norms' differences are printed in
+    ulps (double against fp32 accumulation)."""
+    from faiss_tpu_torch import native, storage
+
+    want = {"f32_to_bf16": 2, "f32_to_f16": 2, "l2_norms": 4}
+    check(all(build_calls[k] == n for k, n in want.items()),
+          f"native: the 1M bf16 and f16 adds did not take the native route: "
+          f"{build_calls}")
+    print(f"native: {native.build()} (ft_version "
+          f"{native._load().ft_version()}); the "
+          f"main paths' 1M bf16 and f16 adds called it {build_calls}",
+          flush=True)
+    for st in ("bf16", "f16"):
+        out = {}
+        for route in ("native", "device"):
+            saved = storage.NATIVE_CONVERT_MIN_ELEMS
+            if route == "device":
+                storage.NATIVE_CONVERT_MIN_ELEMS = xb.size + 1
+            native.reset_calls()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                idx = ft.TorchIndexFlat(D, storage=st, device="cuda")
+                idx.add(xb)
+                torch.cuda.synchronize()
+                out[route] = (idx.store, time.perf_counter() - t0)
+            finally:
+                storage.NATIVE_CONVERT_MIN_ELEMS = saved
+            check((native.calls["l2_norms"] == 1) == (route == "native"),
+                  f"native: the {st} add did not take the {route} route")
+        (a, ta), (b, tb) = out["native"], out["device"]
+        check(torch.equal(a.db[:NV].view(torch.int16),
+                          b.db[:NV].view(torch.int16)),
+              f"native: {st} row bits differ between the routes")
+        ulps = (a.norms[:NV].view(torch.int32).long()
+                - b.norms[:NV].view(torch.int32).long()).abs()
+        print(f"native {st} 1M×{D} add: native route {ta:.3f} s, device "
+              f"route {tb:.3f} s (host clock); row bits equal; norms differ "
+              f"in {int((ulps > 0).sum())} of {NV} rows, at most "
+              f"{int(ulps.max())} ulp", flush=True)
+        del a, b, out, idx
+        # the parts of each route, one at a time (host clock)
+        conv = native.f32_to_bf16 if st == "bf16" else native.f32_to_f16
+        parts = {}
+        for part, fn in (("norms", lambda: native.l2_norms(xb)),
+                         ("conversion", lambda: conv(xb)),
+                         ("upload 2 B", lambda: torch.from_numpy(
+                             bits.view(np.int16)).to("cuda")),
+                         ("upload 4 B", lambda: torch.from_numpy(xb).to(
+                             "cuda"))):
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            parts[part] = time.perf_counter() - t0
+            if part == "conversion":
+                bits = r
+            del r
+        print(f"native {st} parts: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in parts.items()), flush=True)
+    torch.cuda.empty_cache()
+
+
+def write_fvecs(path, x):
+    """TexMex .fvecs: per row, int32 d then d float32s."""
+    rows = np.empty((x.shape[0], x.shape[1] + 1), np.float32)
+    rows[:, 0] = np.int32(x.shape[1]).view(np.float32)
+    rows[:, 1:] = x
+    rows.tofile(path)
+
+
+def write_bvecs(path, x):
+    """.bvecs: per row, int32 d then d uint8s."""
+    rows = np.empty((x.shape[0], x.shape[1] + 4), np.uint8)
+    rows[:, :4] = np.frombuffer(np.int32(x.shape[1]).tobytes(), np.uint8)
+    rows[:, 4:] = x
+    rows.tofile(path)
+
+
+def phase_loader_1m(torch, ft, xb, xq, xb_i, xq_i, refs):
+    """loader.build_index_from_file at DEFAULT_BATCH_ROWS (4 add batches
+    of 1M rows) from three files written here: the Gaussian rows as .fvecs
+    (f32, L2 and IP) and as .npy (bf16: every batch converts on the host),
+    the integer rows as .bvecs (f32 L2: hi_exact across the batches, split
+    statistics (0, 0)), and the .fvecs sharded over ["cuda:0"] * 4. Each
+    index returns the in-memory index's ids (``refs``: the same rows and
+    storage, one batch) with recall 1.0 against the fp64 oracle over that
+    index's stored rows, which are the loaded index's. Counts zeroed just
+    before the builds and read just after the last search."""
+    import os
+
+    from faiss_tpu_torch import MetricType, loader, native
+    from faiss_tpu_torch.ops import kernels
+
+    L2, IP = MetricType.L2, MetricType.INNER_PRODUCT
+    runs = [("fvecs", "f32", {}, (L2, IP), xq),
+            ("bvecs", "f32_sift", {}, (L2,), xq_i),
+            ("npy", "bf16", {"storage": "bf16"}, (L2, IP), xq),
+            ("fvecs", "f32 sharded", {"sharded": True,
+                                      "devices": ["cuda:0"] * 4}, (L2, IP),
+             xq)]
+    want = {(label, m): refs[label.split()[0]][m].search(q, K)
+            for _, label, _, metrics, q in runs for m in metrics}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {ext: os.path.join(tmp, f"base.{ext}")
+                 for ext in ("fvecs", "bvecs", "npy")}
+        t0 = time.perf_counter()
+        write_fvecs(paths["fvecs"], xb)
+        write_bvecs(paths["bvecs"], xb_i.astype(np.uint8))
+        np.save(paths["npy"], xb)
+        print(f"loader_1m: wrote " + ", ".join(
+            f"{ext} {os.path.getsize(p) / 1e6:.1f} MB"
+            for ext, p in paths.items())
+            + f" in {time.perf_counter() - t0:.3f} s", flush=True)
+        kernels.reset_launches()
+        native.reset_calls()
+        for ext, label, kw, metrics, q in runs:
+            ref = refs[label.split()[0]]
+            for m in metrics:
+                t0 = time.perf_counter()
+                idx = loader.build_index_from_file(paths[ext], metric=m,
+                                                   **kw)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                check(idx.ntotal == NV, f"loader_1m {label}: ntotal "
+                      f"{idx.ntotal}")
+                if label == "f32_sift":
+                    check(idx.store.split_stats_host() == (0.0, 0.0),
+                          f"loader_1m {label}: split statistics "
+                          f"{idx.store.split_stats_host()}, not (0, 0)")
+                D_, I_ = idx.search(q, K)
+                Dr, Ir = want[(label, m)]
+                check(np.array_equal(I_, Ir), f"loader_1m {label} "
+                      f"{m.value}: ids differ from the in-memory index's")
+                rec, rel = oracle_check(torch, ref[m], q, m, D_, I_)
+                check(rec == 1.0 and rel <= 1.0, f"loader_1m {label} "
+                      f"{m.value}: recall@{K} {rec}, error {rel:.2e} ε")
+                print(f"loader_1m {ext} -> {label} {m.value}: built in "
+                      f"{secs:.3f} s (read, {-(-NV // loader.DEFAULT_BATCH_ROWS)}"
+                      f" add batches, on the card), ids = the in-memory "
+                      f"index's, recall@{K}={rec}, max |D - D_oracle| = "
+                      f"{rel:.2e} ε", flush=True)
+                del idx
+    counts = dict(kernels.launches)
+    check(native.calls["f32_to_bf16"] == 8,
+          f"loader_1m: the bf16 batches did not all convert on the host: "
+          f"{native.calls}")
+    print(f"launches in the loader_1m run: {counts}; native calls "
+          f"{native.calls}", flush=True)
+    for key in ("sweep_split_3", "sweep_groupmax_1", "sweep_groupmax_2",
+                "select_groups", "rescore_groups", "rescore_groups_pair",
+                "final_select"):
+        check(counts[key] > 0, f"loader_1m: kernel {key} was never launched")
+    torch.cuda.empty_cache()
+    return counts
+
+
+class _StandInIndexFlat:
+    """The faiss IndexFlat members the interop reads and writes."""
+
+    def __init__(self, d, metric):
+        self.d, self.metric_type, self.ntotal = d, metric, 0
+        self._xb = np.zeros((0, d), np.float32)
+
+    def add(self, x):
+        x = np.ascontiguousarray(x, np.float32).reshape(-1, self.d)
+        self._xb = np.concatenate([self._xb, x])
+        self.ntotal = len(self._xb)
+
+    def reconstruct_n(self, i0, n):
+        return self._xb[i0:i0 + n].copy()
+
+
+def phase_interop(torch, ft, xb, xq, f32):
+    """index_cpu_to_torch / index_torch_to_cpu through a stand-in faiss
+    module (an IndexFlat and faiss's metric constants, METRIC_L2 = 1,
+    METRIC_INNER_PRODUCT = 0) in sys.modules: the 1M f32 rows of a CPU
+    IndexFlat become a TorchIndexFlat on the card that returns the f32
+    index's ids, and the f32 index goes back to a CPU IndexFlat with its
+    rows bit for bit."""
+    import types
+
+    from faiss_tpu_torch import MetricType
+    from faiss_tpu_torch.ops import kernels
+
+    mod = types.ModuleType("faiss")
+    mod.METRIC_L2, mod.METRIC_INNER_PRODUCT = 1, 0
+    mod.IndexFlat = _StandInIndexFlat
+    saved = sys.modules.get("faiss")
+    sys.modules["faiss"] = mod
+    _, I_ref = f32.search(xq, K)
+    try:
+        kernels.reset_launches()
+        cpu = mod.IndexFlat(D, mod.METRIC_L2)
+        cpu.add(xb)
+        t0 = time.perf_counter()
+        idx = ft.index_cpu_to_torch(cpu)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(idx.device.type == "cuda" and idx.metric is MetricType.L2,
+              "interop: the converted index is not L2 on the card")
+        check(np.array_equal(idx.search(xq, K)[1], I_ref),
+              "interop: index_cpu_to_torch's ids differ from the f32 index's")
+        counts = dict(kernels.launches)
+        t0 = time.perf_counter()
+        back = ft.index_torch_to_cpu(f32)
+        secs_back = time.perf_counter() - t0
+        check(back.metric_type == mod.METRIC_L2 and back.ntotal == NV
+              and np.array_equal(back.reconstruct_n(0, NV).view(np.uint32),
+                                 xb.view(np.uint32)),
+              "interop: index_torch_to_cpu did not give back the rows")
+    finally:
+        if saved is None:
+            sys.modules.pop("faiss", None)
+        else:
+            sys.modules["faiss"] = saved
+    print(f"interop: index_cpu_to_torch over {NV} f32 rows {secs:.3f} s, "
+          f"ids = the f32 index's; index_torch_to_cpu {secs_back:.3f} s, "
+          f"rows bit for bit; launches {counts}", flush=True)
+    del idx, back, cpu
+    return counts
+
+
+def _grid_data_at(i):
+    """(xb, xq) of DEFAULT_GRID[i], replayed from bench_grid's generator."""
+    from faiss_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(42)
+    for cfg in profiling.DEFAULT_GRID[: i + 1]:
+        xb, xq = profiling.grid_data(rng, cfg)
+    return xb, xq
+
+
+def phase_profiling(torch, ft, f32, xq):
+    """utils.profiling on the card: bench_grid over the whole DEFAULT_GRID
+    (14 configs, faiss_tpu's data from default_rng(42)) with TorchIndexFlat
+    on cuda, recall against the fp64 oracle over every query (the f32
+    configs must give 1.0; a miss prints the score gap at rank k and
+    fails); measure_search on the 1M f32 index at depths 1, 8 and 32; a
+    trace around one 1M f32 search that names the sweep kernel. Counts
+    zeroed just before the grid and read just after the trace."""
+    from faiss_tpu_torch.ops import kernels
+    from faiss_tpu_torch.utils import profiling
+
+    def factory(d, metric, storage):
+        return ft.TorchIndexFlat(d, metric=metric, storage=storage,
+                                 device="cuda")
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = profiling.bench_grid(factory, profiling.DEFAULT_GRID)
+    secs = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    check(len(res) == 14, f"profiling: {len(res)} grid lines")
+    bad = [(i, r) for i, (cfg, r) in enumerate(zip(profiling.DEFAULT_GRID,
+                                                   res))
+           if cfg["storage"] == "f32" and r.recall_at_k != 1.0]
+    for i, r in bad:
+        cfg = profiling.DEFAULT_GRID[i]
+        xb, q = _grid_data_at(i)
+        idx = factory(cfg["d"], cfg.get("metric", "l2"), "f32")
+        idx.add(xb)
+        _, I_ = idx.search(q, cfg["k"])
+        s = q.astype(np.float64) @ xb.astype(np.float64).T
+        if cfg.get("metric", "l2") == "l2":
+            s = 2 * s - (xb.astype(np.float64) ** 2).sum(1)
+        for qi in range(len(q)):
+            top = np.sort(s[qi])[::-1]
+            got = s[qi][I_[qi]].min()
+            if got < top[cfg["k"] - 1]:
+                print(f"profiling {cfg['name']}: query {qi} fp64 score at "
+                      f"rank k {top[cfg['k'] - 1]!r}, rank k+1 "
+                      f"{top[cfg['k']]!r}, gap {top[cfg['k'] - 1] - top[cfg['k']]!r}; "
+                      f"worst returned {got!r}", flush=True)
+                break
+        del idx
+    check(not bad, "profiling: f32 grid configs below recall 1.0: "
+          + ", ".join(f"{r.name} {r.recall_at_k}" for _, r in bad))
+    print(f"profiling: bench_grid over DEFAULT_GRID took {secs:.1f} s (the "
+          f"fp64 oracle on the host included)", flush=True)
+    for depth in (1, 8, 32):
+        lat, pipe = profiling.measure_search(f32, xq, K, depth=depth)
+        print(f"profiling measure_search 1M f32 L2 nq={len(xq)} k={K} depth "
+              f"{depth}: blocking {lat:.4f} ms, pipelined {pipe:.4f} ms a "
+              f"search (host clock)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            f32.search(xq, K)
+        path = Path(prof.trace_file)
+        check(path.exists(), "profiling: trace wrote no file")
+        text = path.read_text()
+        check("sweep_split_mma_kernel" in text,
+              "profiling: the trace does not name the sweep kernel")
+        print(f"profiling trace: {path.name}, {path.stat().st_size} bytes, "
+              f"names sweep_split_mma_kernel", flush=True)
+    counts = dict(kernels.launches)
+    print(f"launches in the profiling run: {counts}", flush=True)
+    for key in ("sweep_split_3", "sweep_groupmax_1", "sweep_groupmax_2",
+                "sweep_int8", "select_groups", "rescore_groups",
+                "rescore_groups_pair", "rescore_groups_int8",
+                "final_select"):
+        check(counts[key] > 0, f"profiling: kernel {key} was never launched")
+    return counts
 
 
 def build_index(torch, ft, xb, metric, **kw):
@@ -1644,6 +2005,7 @@ def main() -> int:
     smi = ft.gpu_name_and_power_limit()
     print(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    print(ft.describe_capabilities(), flush=True)
 
     t0 = time.perf_counter()
     kv = k10_variants()
@@ -1664,12 +2026,17 @@ def main() -> int:
     xq = rng.standard_normal((NQ, D), dtype=np.float32)
     xb_i = rng.integers(0, 256, (NV, D)).astype(np.float32)
     xq_i = rng.integers(0, 256, (NQ, D)).astype(np.float32)
+    # the native host runtime builds here (g++), before the adds are timed;
+    # the 1M bf16 and f16 adds below take its route
+    check(ft.native.available(), "native: the host runtime is not available")
+    ft.native.reset_calls()
     bf16 = {m: build_index(torch, ft, xb, m, storage="bf16") for m in (L2, IP)}
     f32 = {m: build_index(torch, ft, xb, m) for m in (L2, IP)}
     sift = build_index(torch, ft, xb_i, L2)
     pair = build_index(torch, ft, xb, L2, keep_master=False)
     int8 = {m: build_index(torch, ft, xb, m, storage="int8") for m in (L2, IP)}
     f16 = {m: build_index(torch, ft, xb, m, storage="f16") for m in (L2, IP)}
+    native_build_calls = dict(ft.native.calls)
     check("hi_exact=True" in sift.describe(), "f32_sift is not hi_exact")
     check("hi_exact=False" in f32[L2].describe(), "Gaussian f32 is hi_exact")
     check(all(i.is_trained for i in int8.values()), "int8 is not trained")
@@ -1784,6 +2151,15 @@ def main() -> int:
     print(f"duplicates: both fallback tiers ran, fused_fallbacks="
           f"{dup.fused_fallbacks}, ids = plain path's; launches {nd}",
           flush=True)
+
+    # the native route against the device route; the loader, the faiss
+    # interop and the profiling harness over the 1M rows and DEFAULT_GRID
+    phase_native(torch, ft, xb, native_build_calls)
+    counts["loader_1m"] = phase_loader_1m(
+        torch, ft, xb, xq, xb_i, xq_i,
+        {"f32": f32, "f32_sift": {L2: sift}, "bf16": bf16})
+    counts["interop"] = phase_interop(torch, ft, xb, xq, f32[L2])
+    counts["profiling"] = phase_profiling(torch, ft, f32[L2], xq)
 
     # the 10M main path, the surface, then the IVF slice's main path; each
     # frees what it builds

@@ -14,6 +14,8 @@ Counterpart of ``faiss_tpu/index.py``'s TpuIndexFlat:
     reconstruct(_n) / vectors_numpy  reconstruct(_n) / vectors_numpy
     set_force_xla(bool)            set_force_plain(bool)
     index_numpy_to_tpu             index_numpy_to_torch
+    index_cpu_to_tpu / _tpu_to_cpu   index_cpu_to_torch / _torch_to_cpu
+    is_float16_storage, is_bfloat16_storage (the same names)
 
 Behaviour kept:
   * k is clamped to ntotal with sentinel fill beyond (+inf / -inf distance,
@@ -285,6 +287,12 @@ class TorchIndexFlat:
         """Freeze int8 per-dimension scales from a sample (a no-op for float
         storage; a second train raises)."""
         self.store.train(x)
+
+    def is_float16_storage(self) -> bool:
+        return self.storage_type is StorageType.FLOAT16
+
+    def is_bfloat16_storage(self) -> bool:
+        return self.storage_type is StorageType.BFLOAT16
 
     def set_force_plain(self, force: bool) -> None:
         """Run the plain path even where the fused path is eligible
@@ -658,3 +666,44 @@ def index_numpy_to_torch(xb: np.ndarray, metric=MetricType.L2,
                          device=device)
     idx.add(xb)
     return idx
+
+
+def _faiss():
+    try:
+        import faiss  # type: ignore
+        return faiss
+    except ImportError as e:
+        raise ImportError(
+            "faiss is not installed; use index_numpy_to_torch / "
+            "vectors_numpy for numpy-based interchange"
+        ) from e
+
+
+def index_cpu_to_torch(cpu_index, storage=StorageType.FLOAT32,
+                       device="cuda") -> TorchIndexFlat:
+    """CPU faiss.IndexFlat → TorchIndexFlat (copies the vectors to
+    ``device``)."""
+    faiss = _faiss()
+    metric = (MetricType.L2 if cpu_index.metric_type == faiss.METRIC_L2
+              else MetricType.INNER_PRODUCT)
+    xb = cpu_index.reconstruct_n(0, cpu_index.ntotal)
+    idx = TorchIndexFlat(cpu_index.d, metric=metric, storage=storage,
+                         device=device)
+    idx.add(np.asarray(xb, dtype=np.float32).reshape(cpu_index.ntotal,
+                                                     cpu_index.d))
+    return idx
+
+
+def index_torch_to_cpu(index: TorchIndexFlat):
+    """TorchIndexFlat → CPU faiss.IndexFlat. f32 storage round-trips
+    exactly; reduced precision goes through the decode (reconstruct_n)."""
+    faiss = _faiss()
+    metric = (faiss.METRIC_L2 if index.metric is MetricType.L2
+              else faiss.METRIC_INNER_PRODUCT)
+    cpu = faiss.IndexFlat(index.d, metric)
+    if index.ntotal:
+        xb = index.vectors_numpy()
+        if xb is None:
+            xb = index.reconstruct_n(0, index.ntotal)
+        cpu.add(xb)
+    return cpu

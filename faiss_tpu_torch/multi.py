@@ -6,6 +6,15 @@ its own, every sub-search enqueued before the first ``wait()``, and the
 per-index k-lists merge on the host. The merge is the numpy stable-argsort
 merge of ``faiss_tpu.native.merge_topk``'s fallback: on equal distances the
 list merged first wins, so ties go to the lower sub-index.
+
+``faiss_tpu`` merges with the native two-pointer merge (``native
+.merge_topk``), which assumes every list sorted best-first. Where that
+holds the two merges are equal bit for bit. A sub-index holding a NaN row
+returns (−inf, −1) or (+inf, −1) at rank 0 ahead of its real results, and
+the two-pointer merge then never reaches those results; the stable merge
+still returns the exact top k of the rows that score. So the port keeps
+the stable merge (ROADMAP §3, faults of the reference repaired in the
+port).
 """
 
 from __future__ import annotations

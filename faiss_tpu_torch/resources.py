@@ -72,6 +72,14 @@ def query_device_capabilities(device) -> DeviceCapabilities:
     raise ValueError(f"unsupported device {device}")
 
 
+def describe_capabilities(caps=None, device="cuda") -> str:
+    """``caps.describe()``, or that of ``device``'s capabilities; ``caps``
+    may also name the device (``describe_capabilities("cpu")``)."""
+    if caps is None or isinstance(caps, (str, torch.device)):
+        caps = query_device_capabilities(device if caps is None else caps)
+    return caps.describe()
+
+
 def gpu_name_and_power_limit() -> str:
     """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``,
     the line every reported number stands beside (a card may be capped

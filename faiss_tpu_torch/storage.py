@@ -9,8 +9,15 @@ Counterpart of ``faiss_tpu/storage.py``:
     norms of the DECODED rows instead (see below);
   * bf16 conversion is ``f32_to_bf16`` (round to nearest even, every NaN
     to sign | 0x7fc0, bit for bit ``jnp.astype(jnp.bfloat16)`` on the CPU
-    and on the card); f16 conversion is ``Tensor.to``, round to nearest
-    even.
+    and on the card); f16 conversion is ``encode_f16_bits``, round to
+    nearest even with the NaN lanes written from the input's bits;
+  * a bf16 or f16 add batch of at least ``NATIVE_CONVERT_MIN_ELEMS``
+    elements converts on the host instead, as ``faiss_tpu``'s does
+    (``faiss_tpu/storage.py:540-543``, ``:647-662``): norms by
+    ``native.l2_norms`` (double accumulation), the rows padded to d_pad and
+    converted by the native runtime, one 2-byte upload. Its bf16 NaN lanes
+    keep the native runtime's bits (sign | (x >> 16) | 0x40, payload kept),
+    which is what ``faiss_tpu`` stores at that batch size.
 
 Device layout by storage mode (bytes per vector element):
   bf16                 db bf16                                      2 B
@@ -54,9 +61,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import native
 from .dtypes import StorageType
 
 MIN_CAPACITY = 1024     # first allocation floor, then doubling
+# bf16 and f16 add batches of at least this many elements convert on the
+# host (native/): faiss_tpu's NATIVE_CONVERT_MIN_ELEMS
+NATIVE_CONVERT_MIN_ELEMS = 1 << 20
 ROW_TILE = 1024         # capacity granularity (a multiple of the 128-row group)
 D_ALIGN = 8             # bf16 / f16 elements per 16-byte row chunk
 D_ALIGN_INT8 = 16       # int8 codes per 16-byte row chunk
@@ -128,8 +139,19 @@ def split3_f32_bf16(x: torch.Tensor):
 
 def encode_f16_bits(x: torch.Tensor) -> torch.Tensor:
     """fp32 → f16 (round to nearest even), as a float16 tensor whose bits
-    are those of ``faiss_tpu.storage.encode_f16_bits``."""
-    return x.to(torch.float32).to(torch.float16)
+    are those of ``faiss_tpu.storage.encode_f16_bits``. ``Tensor.to``
+    rounds alike on the CPU and on the card, but the card turns every NaN
+    into 0x7fff, which the f16 contract decodes to +inf whatever the NaN's
+    sign. The NaN lanes are written here from the input's bits, sign |
+    0x7c00 | 0x200 | mantissa >> 13, as XLA, the CPU and the native
+    ``f32_to_f16`` write them."""
+    x = x.to(torch.float32).contiguous()
+    u = x.view(torch.int32)
+    nan = (((u >> 16) & -0x8000) | 0x7E00 | ((u >> 13) & 0x3FF)).to(
+        torch.int16)
+    return torch.where(torch.isnan(x), nan,
+                       x.to(torch.float16).view(torch.int16)
+                       ).view(torch.float16)
 
 
 def flush_f16_subnormals(x: torch.Tensor) -> torch.Tensor:
@@ -315,6 +337,15 @@ class DeviceStore:
                 self.train(x)   # auto-train on the first batch, as JAX does
             self._append_int8(torch.from_numpy(x).to(self.device))
             return
+        if (self.storage in (StorageType.BFLOAT16, StorageType.FLOAT16)
+                and x.size >= NATIVE_CONVERT_MIN_ELEMS
+                and native.available()):
+            rows, norms = self._convert_host(x)
+            if self.storage is StorageType.FLOAT16:
+                self._append_f16(rows, norms)
+            else:
+                self._append(norms, db=rows)
+            return
         xd = torch.from_numpy(x).to(self.device)
         norms = torch.sum(xd * xd, dim=-1)
         if self.has_split:
@@ -323,6 +354,21 @@ class DeviceStore:
             self._append_f16(encode_f16_bits(xd), norms)
         else:
             self._append(norms, db=f32_to_bf16(xd))
+
+    def _convert_host(self, x: np.ndarray):
+        """The native route: fp32 norms of the unpadded rows in double,
+        then the rows padded to d_pad and converted on host threads, and
+        one upload of 2 bytes an element (rows, then norms)."""
+        norms = native.l2_norms(x)
+        if self.d_pad != self.d:
+            xp = np.zeros((x.shape[0], self.d_pad), np.float32)
+            xp[:, : self.d] = x
+            x = xp
+        if self.storage is StorageType.BFLOAT16:
+            rows = native.bf16_tensor(native.f32_to_bf16(x))
+        else:
+            rows = torch.from_numpy(native.f32_to_f16(x))
+        return rows.to(self.device), torch.from_numpy(norms).to(self.device)
 
     def add_raw(self, rows: torch.Tensor, norms: torch.Tensor) -> None:
         """Append rows already in the stored dtype (f32, bf16, f16 bits or
@@ -402,8 +448,9 @@ class DeviceStore:
     def _append(self, norms: torch.Tensor, **rows: torch.Tensor) -> None:
         n = norms.shape[0]
         self._ensure_capacity(self.ntotal + n)
-        for name, vecs in rows.items():
-            getattr(self, name)[self.ntotal: self.ntotal + n, : self.d] = vecs
+        for name, vecs in rows.items():   # d or d_pad columns
+            getattr(self, name)[self.ntotal: self.ntotal + n,
+                                : vecs.shape[1]] = vecs
         self.norms[self.ntotal: self.ntotal + n] = norms
         self.ntotal += n
 

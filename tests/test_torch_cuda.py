@@ -19,6 +19,11 @@ the rescores within the rescore term of their bound (``rescore_term``);
 the in-kernel f16 decode equals the plain decode on all 65,536 patterns,
 in K10 and in K6.
 
+f16 NaN sign: ``encode_f16_bits`` on the card equals the CPU (the card's
+own f32 → f16 conversion turns every NaN into 0x7fff, so a negative NaN
+would decode to +inf), and a bf16 or f16 store holds the CPU's bits on the
+device route and on the native host route.
+
 K10's f32-rows mode (``rescore_groups_f32``, the IVF fine scan, chunk-major
 after a grouping pass on the card) within the rescore term, on random and
 adversarial rows, with chunk ids past the pool clamped, runs longer than a
@@ -2140,3 +2145,66 @@ def test_sharded_ivf_on_card_matches_single(dev, storage, tmp_path):
         np.testing.assert_array_equal(Is, I1)
         np.testing.assert_allclose(Ds, D1, rtol=1e-5)
     torch.cuda.synchronize()
+
+
+F16_NAN_PATS = [0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF800001, 0x7FC00001,
+                0x7FFFFFFF, 0xFFFFFFFF, 0x7FA00000, 0xFFA00001, 0x7F810000,
+                0xFF810000, 0x7F800000, 0xFF800000, 0, 0x80000000, 1,
+                0x80000001, 0x33800000, 0xB3800000, 0x477FE000, 0x477FF000,
+                0x3F802000, 0x3F806000]
+
+
+def test_encode_f16_bits_on_the_card_equals_the_cpu(dev):
+    """storage.encode_f16_bits gives the same bits for a CUDA tensor as for
+    a CPU tensor, NaN payloads of both signs included (the card's own
+    conversion turns every NaN into 0x7fff), ±inf, ±0, subnormals, the
+    overflow edge and the halfway cases, and random values of every
+    magnitude."""
+    rng = np.random.default_rng(1)
+    x = np.concatenate([np.array(F16_NAN_PATS, np.uint32).view(np.float32),
+                        (rng.standard_normal(1 << 16) * 2.0 ** rng
+                         .integers(-30, 20, 1 << 16)).astype(np.float32)])
+    t = torch.from_numpy(x)
+    want = encode_f16_bits(t).view(torch.int16)
+    got = encode_f16_bits(t.to(dev)).view(torch.int16).cpu()
+    assert torch.equal(got, want)
+    assert got[0] == 0x7E00 and got[1] == -512      # sign | 0x7e00
+    assert got[7] == 0x7F00 and got[8] == -256      # payload kept
+
+
+@pytest.mark.parametrize("n", [4096, 8192], ids=["device_route",
+                                                 "native_route"])
+@pytest.mark.parametrize("storage", ["f16", "bf16"])
+def test_reduced_store_on_the_card_equals_the_cpu(dev, storage, n):
+    """A bf16 or f16 store of one batch with NaNs of both signs and
+    subnormals: the card's row bits equal the CPU's on both routes (4096
+    rows × 128 convert on the device, 8192 × 128 on the host); the norms
+    bit for bit on the native route (the same host code), within 4 ulps on
+    the device route (another summation order). A negative NaN decodes to
+    −inf in f16 on both."""
+    from faiss_tpu_torch import native
+
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((n, 128)).astype(np.float32)
+    pats = np.array(F16_NAN_PATS, np.uint32).view(np.float32)
+    x[np.arange(len(pats)) * 31 + 3, np.arange(len(pats)) * 5] = pats
+    native.reset_calls()
+    idx = [TorchIndexFlat(128, storage=storage, device=d)
+           for d in ("cpu", "cuda")]
+    for i in idx:
+        i.add(x)
+    assert native.calls["l2_norms"] == (2 if n == 8192 else 0)
+    bits = [i.store.db[:n].contiguous().view(torch.int16).cpu() for i in idx]
+    assert torch.equal(bits[1], bits[0])
+    norms = [i.store.norms[:n].cpu().view(torch.int32) for i in idx]
+    if n == 8192:
+        assert torch.equal(norms[1], norms[0])
+    else:
+        fin = torch.isfinite(idx[0].store.norms[:n])
+        ulps = (norms[1][fin].long() - norms[0][fin].long()).abs()
+        assert int(ulps.max()) <= 4
+    if storage == "f16":
+        r = 1 * 31 + 3   # the row of 0xFFC00000
+        for i in idx:
+            assert float(decode_f16_bits(i.store.db[r, 5:6].cpu())) \
+                == float("-inf")

@@ -215,13 +215,21 @@ def test_duplicated_vectors_fall_back_like_jax(open_gate, nq):
 
 
 def test_import_leaves_jax_out():
-    """The port imports torch and numpy, never jax or faiss_tpu."""
+    """The port imports torch and numpy, never jax or faiss_tpu, and
+    importing it builds and loads no library (neither the CUDA kernels nor
+    the native host runtime)."""
     code = ("import sys, faiss_tpu_torch; "
+            "import faiss_tpu_torch.loader, faiss_tpu_torch.native, "
+            "faiss_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'faiss_tpu')]; "
             "assert not bad, bad; "
             "from faiss_tpu_torch.ops import kernels; "
-            "assert kernels._lib_handle is None")
+            "assert kernels._lib_handle is None; "
+            "from faiss_tpu_torch import native; "
+            "assert native._lib is None; "
+            "maps = open('/proc/self/maps').read(); "
+            "assert 'faiss_tpu_native' not in maps, 'native library mapped'")
     root = Path(__file__).resolve().parent.parent
     r = subprocess.run([sys.executable, "-c", code], cwd=root,
                        capture_output=True, text=True, timeout=300)

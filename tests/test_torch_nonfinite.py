@@ -27,6 +27,8 @@ of subnormals and of normals whose remainder is subnormal.
 
 Sizes stay below faiss_tpu's native host conversion (``NATIVE_CONVERT_MIN
 _ELEMS`` elements a batch), so JAX converts with ``astype`` as held here.
+The batches at or above it, where both packages convert on the host, are
+held in tests/test_torch_native.py.
 """
 
 import numpy as np
