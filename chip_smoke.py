@@ -61,6 +61,19 @@ it. Each path's launch counts are zeroed just before it and read just after:
             every query (1.0 on the f32 configs); measure_search on the 1M
             f32 index at depths 1, 8 and 32; a torch.profiler trace of one
             search, which names the sweep kernel
+  programs  the search programs of TorchResources' cache (each search a
+            CUDA graph captured once per shape and replayed; every search
+            above and below runs through them): for f32, f32_sift, pair,
+            bf16, int8 and f16 at 1M (L2), f32_10m (in its phase) and
+            ivf_1m's f32 lists at nprobe 1, 16 and 64 (in its phase), the
+            index's programs dropped and the cold first batch timed (eager
+            warm-up and capture), the first batch and two replays held
+            against the eager search (the uncached function) bit for bit,
+            distances, id bits and certificates; host ms/batch eager and
+            replayed in turns (eager, replay, replay, eager), the same
+            pipelined at depth 16, the device idle share over 20 replayed
+            searches under torch.profiler (whose trace must name the sweep,
+            or K10's f32 kernel, on the card) and cache_info()
 
 plus nq=8 (two-plane bf16 sweep) and a duplicated-vector index whose
 certificate fails, so both fallback tiers run. First, nan_repair holds the
@@ -853,9 +866,10 @@ def phase_f32_10m(torch, ft, xb, xq):
     default_rng(SEED + 2) in 1M batches, so the host never holds more than
     2M rows at once). 78,128 groups: the 3-term pair sweep also writes its
     supergroup maxes and phase 2 ranks those first. Counts zeroed just
-    before the search loop and read just after; then the pipelined time and
-    the plain path's time at the same size, with its ids. Frees the index
-    before it returns."""
+    before the search loop and read just after; then the pipelined time,
+    the programs row and the plain path's time at the same size, with its
+    ids. Frees the index before it returns (counts, the K3 row, the
+    programs row)."""
     from faiss_tpu_torch import MetricType
     from faiss_tpu_torch.ops import kernels
 
@@ -881,6 +895,8 @@ def phase_f32_10m(torch, ft, xb, xq):
     for key in ("select_groups", "rescore_groups_pair", "final_select"):
         check(counts[key] > 0, f"f32_10m: kernel {key} was never launched")
     pipelined(torch, "f32_10m", [(idx, xq, L2)])
+    prog = programs_row(torch, "f32_10m", idx, *_flat_runs(idx, xq),
+                        "sweep_split_mma_kernel")
     k3_row = _k3_block_max_10m(torch, idx, xq)
     idx.set_force_plain(True)
     idx.search(xq, K)
@@ -895,7 +911,7 @@ def phase_f32_10m(torch, ft, xb, xq):
           flush=True)
     del idx
     torch.cuda.empty_cache()
-    return counts, k3_row
+    return counts, k3_row, prog
 
 
 def _k3_block_max_10m(torch, idx, xq):
@@ -1393,8 +1409,8 @@ def _sharded_ivf(torch, ft, ivf, xq):
 def phase_ivf_1m(torch, ft):
     """The IVF slice's main path (see the module docstring). Returns (the
     launch counts of its counted runs, the K10 f32 kernel row, the counts
-    of the sharded reload's run, ``_sharded_ivf``). Frees what it
-    builds."""
+    of the sharded reload's run, ``_sharded_ivf``, the programs rows of
+    the f32 lists at nprobe 1, 16, 64). Frees what it builds."""
     import tempfile
 
     from faiss_tpu_torch import MetricType
@@ -1441,6 +1457,9 @@ def phase_ivf_1m(torch, ft):
     print(f"launches in the ivf_1m main-path runs: {counts}", flush=True)
 
     f32 = ivf["f32"]
+    prog = {f"ivf_1m_nprobe{npb}": programs_row(
+        torch, f"ivf_1m nprobe={npb}", f32, *_ivf_runs(ft, f32, xq, npb),
+        "rescore_f32_kernel") for npb in (1, 16, 64)}
     f32.nprobe = 16
     k10 = _k10_f32_row(torch, f32, xq)
 
@@ -1538,7 +1557,7 @@ def phase_ivf_1m(torch, ft):
               ("rescore_groups_f32",), {}, reps=3)
     del ivf, f32, int8, bf16
     torch.cuda.empty_cache()
-    return counts, k10, sharded_counts
+    return counts, k10, sharded_counts, prog
 
 
 # f32 patterns whose bf16 bits the NaN repair holds on the card: NaN
@@ -1978,6 +1997,123 @@ def phase_profiling(torch, ft, f32, xq):
     return counts
 
 
+# -- the search programs: CUDA graphs replayed from the cache ---------------
+
+
+def _flat_runs(idx, xq):
+    """(eager, cached) first passes of one flat search of ``xq`` (the
+    queries' copy to the card included): the uncached function, and the
+    program of the index's TorchResources."""
+    def run(cached):
+        q, _, nq_pad = idx._prep_queries(xq)
+        fn = idx._run_search_fn if cached else idx._run_search_uncached
+        return fn(q, K, nq_pad, force_plain=False)[0]
+
+    return (lambda: run(False)), (lambda: run(True))
+
+
+def _ivf_runs(ft, ivf, xq, nprobe):
+    p = ft.SearchParams(nprobe=nprobe)
+    return (lambda: ivf._search_packed_uncached(xq, K, p),
+            lambda: ivf._search_packed(xq, K, p)[0])
+
+
+def _host_ms(fn, reps):
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn().cpu()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _pipelined_host_ms(fn, depth, blocks=3):
+    """``depth`` searches enqueued back to back, then each copied back:
+    host clock per search, the best of ``blocks``."""
+    best = float("inf")
+    for _ in range(blocks):
+        t0 = time.perf_counter()
+        outs = [fn() for _ in range(depth)]
+        for o in outs:
+            o.cpu()
+        best = min(best, (time.perf_counter() - t0) / depth)
+    return best * 1e3
+
+
+def _idle_share(torch, fn, reps):
+    """torch.profiler over ``reps`` calls of fn, each ending in its copy
+    back: (device busy ms a call, host wall ms a call, idle share, the
+    kernel names the trace shows on the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn().cpu()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn().cpu()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps * 1e3
+    busy, names = 0.0, set()
+    for evt in prof.events():
+        if (evt.device_type == DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            busy += evt.time_range.elapsed_us()
+            names.add(evt.name)
+    busy = busy / reps / 1e3
+    return busy, wall, 1.0 - busy / wall, names
+
+
+def programs_row(torch, label, idx, eager, cached, kernel):
+    """The programs phase for one configuration: the index's programs
+    dropped (a new generation), the cold first batch (eager warm-up and
+    capture: the capture time), the replays against the eager search bit
+    for bit, host ms/batch eager and replayed in turns (eager, replay,
+    replay, eager), pipelined at depth 16 in the same turns, and the
+    device idle share over 20 replayed searches under torch.profiler,
+    whose trace must name ``kernel`` on the card. Returns the row."""
+    idx._mutated()
+    torch.cuda.synchronize()
+    n0 = idx.res.cache_info()["entries"]
+    t0 = time.perf_counter()
+    first = cached().cpu()
+    cold = (time.perf_counter() - t0) * 1e3
+    check(idx.res.cache_info()["entries"] == n0 + 1,
+          f"programs {label}: the search built no program")
+    ref = eager().cpu().view(torch.int32)
+    for name, got in (("the first batch", first), ("a replay", cached()),
+                      ("a replay", cached())):
+        check(torch.equal(got.cpu().view(torch.int32), ref),
+              f"programs {label}: {name} differs from the eager search")
+    turns = {"eager": eager, "replay": cached}
+    host = {"eager": [], "replay": []}
+    pipe = {"eager": [], "replay": []}
+    for mode in ("eager", "replay", "replay", "eager"):
+        host[mode].append(_host_ms(turns[mode], REPS))
+    for mode in ("eager", "replay", "replay", "eager"):
+        pipe[mode].append(_pipelined_host_ms(turns[mode], 16))
+    busy, wall, idle, names = _idle_share(torch, cached, 20)
+    named = any(kernel in n for n in names)
+    check(named, f"programs {label}: the trace of the replays names no "
+          f"{kernel} on the card ({sorted(names)[:8]})")
+    row = {"capture_ms": cold, "host_ms": host, "pipelined_ms_16": pipe,
+           "profiled": {"device_busy_ms": busy, "host_wall_ms": wall,
+                        "idle_share": idle, "kernels_named": named},
+           "cache_info": idx.res.cache_info()}
+    print(f"programs {label}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_programs(torch, runs):
+    """The programs phase over the 1M flat configurations ``runs``
+    [(label, index, queries)], L2."""
+    out = {}
+    for label, idx, xq in runs:
+        out[label] = programs_row(torch, label, idx, *_flat_runs(idx, xq),
+                                  "sweep_split_mma_kernel")
+    return out
+
+
 def build_index(torch, ft, xb, metric, **kw):
     t0 = time.perf_counter()
     idx = ft.TorchIndexFlat(D, metric=metric, device="cuda", **kw)
@@ -2152,6 +2288,13 @@ def main() -> int:
           f"{dup.fused_fallbacks}, ids = plain path's; launches {nd}",
           flush=True)
 
+    # the search programs: each 1M configuration's CUDA graphs against
+    # its eager search (f32_10m and ivf_1m add theirs in their phases)
+    programs = phase_programs(torch, [
+        ("f32", f32[L2], xq), ("f32_sift", sift, xq_i), ("pair", pair, xq),
+        ("bf16", bf16[L2], xq), ("int8", int8[L2], xq),
+        ("f16", f16[L2], xq)])
+
     # the native route against the device route; the loader, the faiss
     # interop and the profiling harness over the 1M rows and DEFAULT_GRID
     phase_native(torch, ft, xb, native_build_calls)
@@ -2163,8 +2306,8 @@ def main() -> int:
 
     # the 10M main path, the surface, then the IVF slice's main path; each
     # frees what it builds
-    counts["f32_10m"], rows["sweep_block_max"] = phase_f32_10m(torch, ft, xb,
-                                                               xq)
+    (counts["f32_10m"], rows["sweep_block_max"],
+     programs["f32_10m"]) = phase_f32_10m(torch, ft, xb, xq)
     counts["surface"] = phase_surface(torch, ft, xb, xq, f32[L2], bf16[L2],
                                       int8[L2], f16[L2])
     del bf16, sift, pair, f16, dup, idx
@@ -2174,7 +2317,9 @@ def main() -> int:
     del f32, int8
     torch.cuda.empty_cache()
     (counts["ivf_1m"], rows["rescore_groups_f32"],
-     counts["sharded_ivf"]) = phase_ivf_1m(torch, ft)
+     counts["sharded_ivf"], prog) = phase_ivf_1m(torch, ft)
+    programs.update(prog)
+    print(f"programs: {json.dumps(programs)}", flush=True)
 
     k11_note = ("reached through fused_search(rescore_select=True): "
                 "launches counted in the surface phase")

@@ -24,9 +24,11 @@ the first); the native host runtime (g++, built at first call: host
 bf16 / f16 conversion and norms for large add batches), the dataset
 loader (.npy, .fvecs, .bvecs), the profiling harness (bench_grid over
 faiss_tpu's DEFAULT_GRID, measure_search, a torch.profiler trace) and the
-faiss IndexFlat interop. With these the port has the counterpart of every
-name ``faiss_tpu`` exports, but TpuResources (no compiled-function cache
-or mesh to manage here).
+faiss IndexFlat interop; and TorchResources, the devices and the cache of
+search programs that the flat and IVF searches run through (on a CUDA
+device each search captured once per shape as a CUDA graph and replayed,
+``programs.py``). With these the port has the counterpart of every name
+``faiss_tpu`` exports.
 
     TorchIndexFlat, TorchSearchToken, index_numpy_to_torch,
     index_cpu_to_torch, index_torch_to_cpu
@@ -38,8 +40,8 @@ or mesh to manage here).
     SearchParametersIVF)
     MetricType, StorageType
     save_index, load_index, index_from_arrays  (faiss_tpu's .npz format)
-    query_device_capabilities, describe_capabilities,
-    gpu_name_and_power_limit
+    TorchResources, default_resources, query_device_capabilities,
+    describe_capabilities, gpu_name_and_power_limit
     loader, native, utils (modules)
 """
 
@@ -52,9 +54,9 @@ from .io import index_from_arrays, load_index, save_index
 from .ivf import TorchIndexIVFFlat
 from .multi import IndexShardsHost, merge_search_results
 from .parallel import ShardedIndexFlat, ShardedIndexIVFFlat
-from .resources import (DeviceCapabilities, KernelTuning,
-                        describe_capabilities, gpu_name_and_power_limit,
-                        query_device_capabilities)
+from .resources import (DeviceCapabilities, KernelTuning, TorchResources,
+                        default_resources, describe_capabilities,
+                        gpu_name_and_power_limit, query_device_capabilities)
 from .selector import (IDSelector, IDSelectorAnd, IDSelectorBatch,
                        IDSelectorMask, IDSelectorNot, IDSelectorOr,
                        IDSelectorRange, SearchParameters, SearchParametersIVF,
@@ -75,7 +77,8 @@ __all__ = [
     "IDSelectorNot", "IDSelectorAnd", "IDSelectorOr", "SearchParams",
     "SearchParameters", "SearchParametersIVF", "reject_ivf_params",
     "index_from_arrays", "load_index", "save_index",
-    "DeviceCapabilities", "KernelTuning", "gpu_name_and_power_limit",
+    "DeviceCapabilities", "KernelTuning", "TorchResources",
+    "default_resources", "gpu_name_and_power_limit",
     "query_device_capabilities", "describe_capabilities",
     "loader", "native", "utils", "__version__",
 ]

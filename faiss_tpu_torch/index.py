@@ -5,7 +5,8 @@ Counterpart of ``faiss_tpu/index.py``'s TpuIndexFlat:
 
     faiss_tpu                      faiss_tpu_torch
     ---------                      ---------------
-    TpuIndexFlat(d, metric, ...)   TorchIndexFlat(d, metric, device="cuda")
+    TpuIndexFlat(d, metric, ...,   TorchIndexFlat(d, metric, ...,
+      resources=TpuResources)        device="cuda", resources=TorchResources)
     search / search_async          search / search_async -> TorchSearchToken
       (params=SearchParams(sel))     (params=SearchParams(sel))
     range_search(x, radius)        range_search(x, radius) -> (lims, D, I)
@@ -49,25 +50,33 @@ Behaviour kept:
     scores (strict ``s > thr``), at a capacity that reruns once when a
     chunk holds more hits.
 
-PyTorch runs eagerly, so there is no compiled-program cache: each search
-launches its kernels on the current stream and copies one packed result
-tensor back when the token is waited on.
+Each search runs through the program that ``self.res`` (a TorchResources)
+caches for its shape and route, as ``faiss_tpu``'s searches run through
+its compiled programs: on a CUDA device the search captured once as a CUDA
+graph and replayed on the current stream (``programs.py``), on the CPU the
+eager function. The key holds what ``faiss_tpu``'s holds, the index's
+identity and its generation, which every mutation bumps (dropping the
+index's programs: a graph bakes the store's addresses and ntotal). The
+token copies one packed result tensor back when it is waited on.
 """
 
 from __future__ import annotations
 
+import weakref
 from collections import deque
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import programs
 from . import selector as sel_mod
 from .dtypes import MetricType, StorageType, worst_distance
 from .ops import distance as dist_ops
 from .ops import fused
 from .ops import topk as topk_ops
-from .resources import KernelTuning, query_device_capabilities
+from .resources import (KernelTuning, TorchResources, canonical_device,
+                        default_resources, query_device_capabilities)
 from .storage import ROW_TILE, DeviceStore, _round_up, decode_f16_bits
 
 # queries pad to a multiple of this many rows
@@ -246,18 +255,24 @@ class TorchIndexFlat:
     ``device`` defaults to "cuda" and raises when CUDA is absent; "cpu"
     runs every kernel's plain PyTorch version (how the tests run it).
     ``keep_master=False`` (f32 only) keeps the exact rows in host memory
-    for reconstruct and only the bf16 (hi, lo) planes on the device."""
+    for reconstruct and only the bf16 (hi, lo) planes on the device.
+    ``resources``: the TorchResources whose program cache the searches
+    go through (``device`` must be one of its devices); by default the
+    process-wide one of the device's type."""
 
     def __init__(self, d: int, metric=MetricType.L2,
                  storage=StorageType.FLOAT32, device="cuda",
                  tuning: Optional[KernelTuning] = None,
-                 keep_master: bool = True):
+                 keep_master: bool = True,
+                 resources: Optional[TorchResources] = None):
         self.metric = MetricType.coerce(metric)
         self.storage_type = StorageType.coerce(storage)
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available; pass device='cpu' to "
-                               "run the plain versions of the kernels")
+        self.res = (resources if resources is not None
+                    else default_resources(self.device))
+        if canonical_device(self.device) not in self.res.devices:
+            raise ValueError(f"device {self.device} is not one of the "
+                             f"resources' devices {self.res.devices}")
         self.caps = query_device_capabilities(self.device)
         self.tuning = tuning if tuning is not None else self.caps.tuning
         self.store = DeviceStore(d, self.device, self.storage_type,
@@ -268,6 +283,12 @@ class TorchIndexFlat:
         # nq_pad shapes where the one-plane sweep failed to certify on this
         # data: they run the two-plane sweep from then on (reset() clears)
         self._no_reduced_sweep: set = set()
+        # the programs' keys: (kind, owner, generation, shape and route)
+        self._owner = programs.new_owner()
+        self._gen = 0
+        self._store_version = self.store.version
+        weakref.finalize(self, self.res.discard,
+                         programs.owned_by(self._owner))
 
     @property
     def d(self) -> int:
@@ -287,6 +308,7 @@ class TorchIndexFlat:
         """Freeze int8 per-dimension scales from a sample (a no-op for float
         storage; a second train raises)."""
         self.store.train(x)
+        self._mutated()
 
     def is_float16_storage(self) -> bool:
         return self.storage_type is StorageType.FLOAT16
@@ -298,13 +320,23 @@ class TorchIndexFlat:
         """Run the plain path even where the fused path is eligible
         (cross-path testing; the counterpart of set_force_xla)."""
         self._force_plain = bool(force)
+        self._mutated()
 
     def add(self, x: np.ndarray) -> None:
         self.store.add(x)
+        self._mutated()
 
     def reset(self) -> None:
         self.store.reset()
         self._no_reduced_sweep.clear()  # new data, new margins
+        self._mutated()
+
+    def _mutated(self) -> None:
+        """A new generation: the captured programs baked the old store's
+        addresses, ntotal and statistics, so the index's entries go."""
+        self._gen += 1
+        self._store_version = self.store.version
+        self.res.discard(programs.owned_by(self._owner))
 
     def remove_ids(self, ids) -> int:
         """Remove the given positional ids; the others keep their order and
@@ -321,6 +353,7 @@ class TorchIndexFlat:
                             assume_unique=True)
         self.store.remove_rows(keep)
         self._no_reduced_sweep.clear()  # new data, new margins
+        self._mutated()
         return int(ids.size)
 
     def merge_from(self, other: "TorchIndexFlat") -> None:
@@ -336,6 +369,7 @@ class TorchIndexFlat:
                 f"vs ({other.d}, {other.metric}))")
         self.store.merge_storage(other.store)
         self._no_reduced_sweep.clear()  # new data, new margins
+        self._mutated()
         other.reset()
 
     def reconstruct(self, key: int) -> np.ndarray:
@@ -412,12 +446,60 @@ class TorchIndexFlat:
                        force_plain: bool, full_sweep: bool = False,
                        sel: Optional[torch.Tensor] = None):
         """Enqueue one search of the padded queries ``q`` over the rows the
-        selector stream ``sel`` admits (None: all). Returns (packed result
-        tensor, whether the fused path ran, whether it ran the one-plane
-        sweep); nothing is copied to the host."""
+        selector stream ``sel`` admits (None: all), through the program
+        cached for its shape and route. Returns (packed result tensor,
+        whether the fused path ran, whether it ran the one-plane sweep);
+        nothing is copied to the host."""
+        nv_eff, route = self._route(k, nq_pad, force_plain=force_plain,
+                                    full_sweep=full_sweep)
         st = self.store
-        nt = self.ntotal
-        nv_eff = _round_up(nt, ROW_TILE)
+        if st.version != self._store_version:
+            self._mutated()    # the store changed under the index
+        key = ("flat_search", self._owner, self._gen, nv_eff, st.d_pad,
+               nq_pad, int(k), self.metric, self.storage_type,
+               route["use_direct"], route["use_fused"], self.tuning.chunk_v,
+               st.pair_only, route["passes"], route["hi_exact"],
+               sel is not None)
+        packed = programs.run(self.res, key, self._program_fn(k, route),
+                              (q,) if sel is None else (q, sel),
+                              self.device)
+        return (packed, route["use_fused"],
+                route["use_fused"] and route["passes"] == 1)
+
+    def _run_search_uncached(self, q: torch.Tensor, k: int, nq_pad: int, *,
+                             force_plain: bool, full_sweep: bool = False,
+                             sel: Optional[torch.Tensor] = None):
+        """``_run_search_fn`` run eagerly, with no program: what a replay
+        must equal bit for bit (the card tests and chip_smoke)."""
+        _, route = self._route(k, nq_pad, force_plain=force_plain,
+                               full_sweep=full_sweep)
+        return (self._packed(q, k, sel=sel, **route), route["use_fused"],
+                route["use_fused"] and route["passes"] == 1)
+
+    def _program_fn(self, k: int, route: dict):
+        """The search as a function of (q[, sel]) alone; it holds the
+        index weakly, so a cached program never keeps the index alive."""
+        ref = weakref.ref(self)
+
+        def search(q, sel=None):
+            return ref()._packed(q, k, sel=sel, **route)
+
+        return search
+
+    def _packed(self, q: torch.Tensor, k: int, *,
+                sel: Optional[torch.Tensor], **route) -> torch.Tensor:
+        """One search on the route, packed (no host synchronisation)."""
+        vals, ids, cert = self._search_local(q, k, sel=sel, **route)
+        dists, labels = _finalize(vals, ids, self.ntotal, k, self.metric)
+        return _pack(dists, labels, cert)
+
+    def _route(self, k: int, nq_pad: int, *, force_plain: bool,
+               full_sweep: bool):
+        """(nv_eff, the route: use_fused, passes, hi_exact, use_direct),
+        decided on the host from the shape and the store's host
+        mirrors."""
+        st = self.store
+        nv_eff = _round_up(self.ntotal, ROW_TILE)
         is_int8 = st.storage is StorageType.INT8
         use_direct = self._use_direct(nv_eff, nq_pad)
         # hi_exact: the exact split statistics (mirrored to the host by
@@ -436,12 +518,8 @@ class TorchIndexFlat:
         # nq_pad, as bf16), though its certificate is the pair ε
         passes = 2 if (full_sweep or nq_pad in self._no_reduced_sweep) \
             else fused.pick_sweep_passes(nq_pad, pair_sweep or is_int8)
-        vals, ids, cert = self._search_local(
-            q, k, use_fused=use_fused, passes=passes, hi_exact=stats_zero,
-            use_direct=use_direct, sel=sel)
-        dists, labels = _finalize(vals, ids, nt, k, self.metric)
-        return (_pack(dists, labels, cert), use_fused,
-                use_fused and passes == 1)
+        return nv_eff, dict(use_fused=use_fused, passes=passes,
+                            hi_exact=stats_zero, use_direct=use_direct)
 
     def _search_local(self, q: torch.Tensor, k: int, *, use_fused: bool,
                       passes: int, hi_exact: bool, use_direct: bool,
@@ -654,16 +732,17 @@ class TorchIndexFlat:
             f"fused_fallbacks={self.fused_fallbacks}, "
             f"reduced_sweep_disabled_shapes={sorted(self._no_reduced_sweep)}, "
             f"{note}pair_only={st.pair_only}, "
-            f"bytes={st.nbytes()})\n" + self.caps.describe())
+            f"bytes={st.nbytes()})\n" + self.res.describe())
 
 
 def index_numpy_to_torch(xb: np.ndarray, metric=MetricType.L2,
-                         storage=StorageType.FLOAT32,
-                         device="cuda") -> TorchIndexFlat:
+                         storage=StorageType.FLOAT32, device="cuda",
+                         resources: Optional[TorchResources] = None
+                         ) -> TorchIndexFlat:
     """Build a TorchIndexFlat directly from an (n, d) fp32 matrix."""
     xb = np.ascontiguousarray(xb, dtype=np.float32)
     idx = TorchIndexFlat(xb.shape[1], metric=metric, storage=storage,
-                         device=device)
+                         device=device, resources=resources)
     idx.add(xb)
     return idx
 
@@ -680,7 +759,9 @@ def _faiss():
 
 
 def index_cpu_to_torch(cpu_index, storage=StorageType.FLOAT32,
-                       device="cuda") -> TorchIndexFlat:
+                       device="cuda",
+                       resources: Optional[TorchResources] = None
+                       ) -> TorchIndexFlat:
     """CPU faiss.IndexFlat → TorchIndexFlat (copies the vectors to
     ``device``)."""
     faiss = _faiss()
@@ -688,7 +769,7 @@ def index_cpu_to_torch(cpu_index, storage=StorageType.FLOAT32,
               else MetricType.INNER_PRODUCT)
     xb = cpu_index.reconstruct_n(0, cpu_index.ntotal)
     idx = TorchIndexFlat(cpu_index.d, metric=metric, storage=storage,
-                         device=device)
+                         device=device, resources=resources)
     idx.add(np.asarray(xb, dtype=np.float32).reshape(cpu_index.ntotal,
                                                      cpu_index.d))
     return idx

@@ -34,7 +34,13 @@ Counterpart of ``faiss_tpu/ivf.py``'s TpuIndexIVFFlat:
     the occupancy as its selector) with the certificate, whose failed
     queries re-run on the plain dense sweep when the token is waited on;
   * range_search gathers the probed chunks' rows in blocks of 8 queries
-    (``_probed_scores``) and reuses the flat index's ``_range_csr``.
+    (``_probed_scores``) and reuses the flat index's ``_range_csr``;
+  * every search route (the fine scan, the dense fused route, the plain
+    dense sweep and the fused route's fallback rerun) runs through the
+    program ``self.res`` caches under ``faiss_tpu``'s ``ivf_search`` key
+    plus the index's identity and generation (on a CUDA device a captured
+    CUDA graph, replayed: ``programs.py``); add, remove_ids, merge_from,
+    reset and train start a new generation and drop the index's programs.
 
 Distances are exact within the probed lists (fp32-true against the stored
 rows), so nprobe == nlist reproduces the flat index; smaller nprobe trades
@@ -50,11 +56,13 @@ from __future__ import annotations
 
 import contextlib
 import time
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import programs
 from . import selector as sel_mod
 from .clustering import Kmeans, balance_centroids
 from .dtypes import MetricType, StorageType, worst_distance
@@ -64,6 +72,7 @@ from .ops import distance as dist_ops
 from .ops import fused, kernels
 from .ops.distance import exact_fp32_matmul
 from .ops.topk import chunked_topk_scores, topk_scores
+from .resources import TorchResources, canonical_device, default_resources
 from .storage import (D_ALIGN, D_ALIGN_INT8, _round_up, f32_to_bf16,
                       quantize_int8)
 
@@ -129,12 +138,15 @@ class TorchIndexIVFFlat:
     B/element; per-dimension scales frozen by ``train``, norms of the
     decoded rows, exact distances against the decoded database).
     ``device`` defaults to "cuda" and raises without a card; "cpu" runs
-    every kernel's plain version."""
+    every kernel's plain version. ``resources``: the TorchResources whose
+    program cache the searches go through (``device`` must be one of its
+    devices); by default the process-wide one of the device's type."""
 
     def __init__(self, d: int, nlist: int, metric=MetricType.L2,
                  storage=StorageType.FLOAT32, nprobe: int = 1,
                  device="cuda", train_niter: int = 10, seed: int = 1234,
-                 balance: float = 2.0):
+                 balance: float = 2.0,
+                 resources: Optional[TorchResources] = None):
         self.d, self.nlist = int(d), int(nlist)
         if self.d <= 0 or self.nlist <= 0:
             raise ValueError(f"bad IVF config: d={d}, nlist={nlist}")
@@ -145,9 +157,11 @@ class TorchIndexIVFFlat:
                 "TorchIndexIVFFlat supports f32/bf16/int8 storage (f16 is a "
                 "flat-index feature)")
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available; pass device='cpu' to "
-                               "run the plain versions of the kernels")
+        self.res = (resources if resources is not None
+                    else default_resources(self.device))
+        if canonical_device(self.device) not in self.res.devices:
+            raise ValueError(f"device {self.device} is not one of the "
+                             f"resources' devices {self.res.devices}")
         self.nprobe = int(nprobe)
         self.train_niter = int(train_niter)
         self.seed = int(seed)
@@ -167,6 +181,11 @@ class TorchIndexIVFFlat:
         # what the last train took: Kmeans and balancing seconds (host
         # clock), the objective series, the balancing cap on list sizes
         self.train_stats: dict = {}
+        # the programs' keys: (kind, owner, generation, shape and route)
+        self._owner = programs.new_owner()
+        self._gen = 0
+        weakref.finalize(self, self.res.discard,
+                         programs.owned_by(self._owner))
         self.reset()
 
     @property
@@ -218,6 +237,7 @@ class TorchIndexIVFFlat:
         sp = np.ones((self.d_pad,), np.float32)   # pad dims: q is 0 there
         sp[: self.d] = np.asarray(scales, np.float32)[: self.d]
         self._scales = torch.from_numpy(sp).to(self.device)
+        self._mutated()
 
     def _set_centroids(self, centroids: np.ndarray, quantizer=None) -> None:
         """Install trained centroids (train, the loader, a shared
@@ -228,7 +248,7 @@ class TorchIndexIVFFlat:
                              f"got {centroids.shape}")
         if quantizer is None:
             quantizer = TorchIndexFlat(self.d, metric=self.metric,
-                                       device=self.device)
+                                       device=self.device, resources=self.res)
             quantizer.add(centroids)
         self.quantizer = quantizer
         self._centroids = centroids.copy()
@@ -239,6 +259,14 @@ class TorchIndexIVFFlat:
         cn[: self.nlist] = (centroids.astype(np.float64) ** 2).sum(1)
         self._cents = torch.from_numpy(c).to(self.device)
         self._cnorms = torch.from_numpy(cn).to(self.device)
+        self._mutated()
+
+    def _mutated(self) -> None:
+        """A new generation: the captured programs baked the old tensors'
+        addresses, ntotal and the pool's shape, so the index's entries
+        go."""
+        self._gen += 1
+        self.res.discard(programs.owned_by(self._owner))
 
     # -- add ------------------------------------------------------------------
     def _ensure_pool(self, need_chunks: int, need_maxc: int) -> None:
@@ -377,6 +405,7 @@ class TorchIndexIVFFlat:
         self._counts_dev = torch.from_numpy(new_counts).to(self.device)
         self._slot_of = np.concatenate([self._slot_of, slots])
         self.ntotal += n
+        self._mutated()
 
     def _assignments(self) -> np.ndarray:
         """(ntotal,) list id of every insertion id."""
@@ -528,21 +557,27 @@ class TorchIndexIVFFlat:
 
     def _search_packed(self, x: np.ndarray, k: int, params=None,
                        force_plain_dense: bool = False):
-        """Enqueue one search: (packed result or None for the empty index,
-        nq, the certificate fallback or None). Nothing waits for the
-        device."""
+        """Enqueue one search through the program cached for its shape and
+        route: (packed result or None for the empty index, nq, the
+        certificate fallback or None). Nothing waits for the device."""
         if k <= 0:
             raise ValueError(f"k must be positive, got {k}")
-        q, nq, _, nprobe, nbudget, sel = self._prep_search(x, params)
+        q, nq, nq_pad, nprobe, nbudget, sel = self._prep_search(x, params)
         if self.ntotal == 0:
             return None, nq, None
-        v, lab, cert = self._search_local(q, k, nprobe, nbudget, sel,
-                                          force_plain_dense)
-        dists, labels = _finalize(v, lab, self.ntotal, k, self.metric)
-        if cert is None:
-            return (_pack(dists, labels, torch.ones_like(dists[:, 0],
-                                                         dtype=torch.bool)),
-                    nq, None)
+        dense = nprobe >= self.nlist
+        dense_fused = (dense and self._dense_fused_ok()
+                       and not force_plain_dense)
+        key = ("ivf_search", self._owner, self._gen, self.nlist, self.npool,
+               self.maxc, nprobe, nbudget, self._nsweep() if dense else 0,
+               nq_pad, int(k), self.d_pad, self.metric, self.storage_type,
+               sel is not None, dense_fused)
+        packed = programs.run(
+            self.res, key,
+            self._program_fn(k, nprobe, nbudget, force_plain_dense),
+            (q,) if sel is None else (q, sel), self.device)
+        if not dense_fused:
+            return packed, nq, None
         x_host = np.ascontiguousarray(x, np.float32).reshape(-1, self.d)
 
         def fallback(cert_h, d0, i0):
@@ -559,7 +594,40 @@ class TorchIndexIVFFlat:
             i_out[bad] = i2[: bad.size]
             return d_out, i_out
 
-        return _pack(dists, labels, cert), nq, fallback
+        return packed, nq, fallback
+
+    def _search_packed_uncached(self, x: np.ndarray, k: int, params=None,
+                                force_plain_dense: bool = False):
+        """The first pass of ``_search_packed`` run eagerly, with no
+        program: what a replay must equal bit for bit (the card tests and
+        chip_smoke). The packed result, None for the empty index."""
+        q, _, _, nprobe, nbudget, sel = self._prep_search(x, params)
+        if self.ntotal == 0:
+            return None
+        return self._packed(q, k, nprobe, nbudget, force_plain_dense, sel)
+
+    def _program_fn(self, k: int, nprobe: int, nbudget: int,
+                    force_plain_dense: bool):
+        """The search as a function of (q[, sel]) alone; it holds the
+        index weakly, so a cached program never keeps the index alive."""
+        ref = weakref.ref(self)
+
+        def search(q, sel=None):
+            return ref()._packed(q, k, nprobe, nbudget, force_plain_dense,
+                                 sel)
+
+        return search
+
+    def _packed(self, q, k: int, nprobe: int, nbudget: int,
+                force_plain_dense: bool, sel) -> torch.Tensor:
+        """One search on the route, packed, the certificate all True on
+        the exact routes (no host synchronisation)."""
+        v, lab, cert = self._search_local(q, k, nprobe, nbudget, sel,
+                                          force_plain_dense)
+        dists, labels = _finalize(v, lab, self.ntotal, k, self.metric)
+        if cert is None:
+            cert = torch.ones_like(dists[:, 0], dtype=torch.bool)
+        return _pack(dists, labels, cert)
 
     def _search_local(self, q, k: int, nprobe: int, nbudget: int, sel,
                       force_plain_dense: bool = False):
@@ -735,6 +803,7 @@ class TorchIndexIVFFlat:
         slot_of[new_ids_flat[new_slots_sorted]] = new_slots_sorted
         self._slot_of = slot_of
         self.ntotal = keep.size
+        self._mutated()
         return int(ids.size)
 
     def merge_from(self, other: "TorchIndexIVFFlat") -> None:
@@ -791,6 +860,7 @@ class TorchIndexIVFFlat:
         self._int8_clipped = None
         self._int8_elems = 0
         self._int8_qn = None    # running max ‖codes‖ (device scalar)
+        self._mutated()
 
     def list_sizes(self) -> np.ndarray:
         """Per-list occupancy (faiss invlists->list_size)."""

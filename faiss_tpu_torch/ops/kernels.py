@@ -16,7 +16,9 @@ writes into outputs the wrapper allocates; the C entry point returns
 ``cudaGetLastError()`` and the wrapper raises if it is not 0.
 
 ``launches`` counts kernel launches per wrapper (never the plain versions),
-so a run can show that the main path went through each kernel.
+so a run can show that the main path went through each kernel. A replay
+of a captured search (``programs.py``) runs no wrapper: the program adds
+the counts its capture recorded, once per replay.
 """
 
 from __future__ import annotations

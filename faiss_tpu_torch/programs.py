@@ -1,0 +1,157 @@
+"""Search programs: a search captured once per shape as a CUDA graph, then
+replayed.
+
+Counterpart of the compiled programs that ``faiss_tpu``'s TpuResources
+caches (``faiss_tpu/index.py`` ``_build_search_fn``, ``ivf.py``
+``_build_ivf_search_fn``): the whole search as one program, built once per
+shape key, with no host work between its stages.
+
+``build(fn, inputs, device)`` takes an eager function of static-shaped
+tensors and the first call's inputs, and returns (program, the first
+call's result). On the CPU the program is ``fn`` itself, which runs the
+kernels' plain versions (the counterpart of ``interpret=True``). On a CUDA
+device:
+
+  * the inputs are copied into the program's static buffers on the
+    current stream;
+  * ``fn`` runs once eagerly on a side stream (the warm-up: the kernels'
+    library is loaded and their attributes set before any capture), and
+    its result is the first call's result;
+  * ``fn`` is captured on that stream into a ``torch.cuda.CUDAGraph``. The
+    capture runs nothing. It bakes the addresses of every tensor ``fn``
+    reads and every Python number it was built with, so the caller keys a
+    program by all of them (the index's identity and generation
+    included);
+  * each later call copies its inputs into the static buffers on the
+    current stream, replays the graph there and returns a clone of the
+    static output, which the next replay cannot overwrite: tokens in
+    flight each hold their own result.
+
+A host synchronisation inside the capture raises; nothing falls back to
+eager. Kernel launches are counted in Python (``ops.kernels.launches``),
+which a replay does not run: a program records the counts its capture
+would have added and adds them on every replay, so the counts stay those
+of an eager run.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import torch
+
+from .ops import kernels
+
+# one capture at a time: each runs in "thread_local" mode, which forbids
+# unsafe calls on the capturing thread only
+_CAPTURE_LOCK = threading.Lock()
+_owners = itertools.count()
+
+
+def new_owner() -> int:
+    """A process-unique id for the programs of one index (keys are
+    (kind, owner, generation, ...))."""
+    return next(_owners)
+
+
+def owned_by(owner: int) -> Callable[[object], bool]:
+    """The predicate of ``TorchResources.discard`` for ``owner``'s keys."""
+    return lambda key: (isinstance(key, tuple) and len(key) > 1
+                        and key[1] == owner)
+
+
+class GraphProgram:
+    """One captured search: static inputs, the graph, its static output
+    and the launch counts of one replay."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph,
+                 static_in: List[torch.Tensor], static_out: torch.Tensor,
+                 launches: Dict[str, int], device: torch.device):
+        self.graph = graph
+        self.static_in = static_in
+        self.static_out = static_out
+        self.launches = launches
+        self.device = device
+        # inputs, replay and clone of one call are enqueued together, and
+        # a call on another stream first waits for the last one's stream
+        self._lock = threading.Lock()
+        self._stream = None
+
+    def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
+        with torch.cuda.device(self.device), self._lock:
+            stream = torch.cuda.current_stream()
+            if self._stream is not None and self._stream != stream:
+                stream.wait_stream(self._stream)
+            self._stream = stream
+            for dst, src in zip(self.static_in, inputs):
+                dst.copy_(src, non_blocking=True)
+            self.graph.replay()
+            out = self.static_out.clone()
+            for name, n in self.launches.items():
+                kernels.launches[name] += n
+        return out
+
+
+def _capture(fn, static_in):
+    """(graph, static output, the launch counts the capture added), the
+    counts taken back out: a capture launches nothing."""
+    graph = torch.cuda.CUDAGraph()
+    with _CAPTURE_LOCK:
+        before = dict(kernels.launches)
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = fn(*static_in)
+        except BaseException:
+            try:
+                graph.capture_end()     # leave capture mode on the stream
+            except RuntimeError:
+                pass                    # the capture is invalid: the first
+            raise                       # error is the one to report
+        finally:
+            delta = {n: kernels.launches[n] - c for n, c in before.items()
+                     if kernels.launches[n] != c}
+            for n, c in delta.items():
+                kernels.launches[n] -= c
+        graph.capture_end()
+    return graph, out, delta
+
+
+def build(fn: Callable[..., torch.Tensor], inputs: Sequence[torch.Tensor],
+          device) -> Tuple[Callable[..., torch.Tensor], torch.Tensor]:
+    """(program, first result) of ``fn`` over ``inputs`` on ``device``: the
+    eager ``fn`` on the CPU, a ``GraphProgram`` on a CUDA device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return fn, fn(*inputs)
+    with torch.cuda.device(device):
+        cur = torch.cuda.current_stream()
+        static_in = [torch.empty(t.shape, dtype=t.dtype, device=device)
+                     for t in inputs]
+        for dst, src in zip(static_in, inputs):
+            dst.copy_(src, non_blocking=True)
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            first = fn(*static_in)
+            graph, static_out, delta = _capture(fn, static_in)
+        cur.wait_stream(side)
+        first.record_stream(cur)
+    return GraphProgram(graph, static_in, static_out, delta, device), first
+
+
+def run(res, key, fn: Callable[..., torch.Tensor],
+        inputs: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """``fn``'s result on ``inputs`` through the program ``res`` caches
+    under ``key``: built on a miss (its first result is then this call's),
+    else replayed."""
+    first = []
+
+    def builder():
+        prog, out = build(fn, inputs, device)
+        first.append(out)
+        return prog
+
+    prog = res.cached(key, builder)
+    return first[0] if first else prog(*inputs)

@@ -1,9 +1,13 @@
-"""Device capability probe and the plain path's tuning.
+"""Devices, capability probe, the plain path's tuning and the program cache.
 
-Counterpart of ``faiss_tpu/resources.py``. PyTorch runs eagerly, so there is
-no compiled-function cache and no mesh here; what is left is a description
-of the card (for ``describe()`` and for every reported number) and the one
-tunable the plain path reads, ``chunk_v``.
+Counterpart of ``faiss_tpu/resources.py``: a description of the card (for
+``describe()`` and for every reported number), the one tunable the plain
+path reads (``chunk_v``), and ``TorchResources``, which owns the devices
+and the cache of search programs. On a CUDA device a search program is
+the search captured once per shape as a CUDA graph and replayed
+(``programs.py``), the counterpart of ``faiss_tpu``'s one compiled program
+per shape; on the CPU it is the eager function, which runs the kernels'
+plain versions (the counterpart of ``interpret=True``).
 """
 
 from __future__ import annotations
@@ -11,7 +15,8 @@ from __future__ import annotations
 import dataclasses
 import shutil
 import subprocess
-from typing import Optional
+import threading
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -91,3 +96,138 @@ def gpu_name_and_power_limit() -> str:
         [exe, "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip()
+
+
+def _resolve_devices(devices) -> List[torch.device]:
+    """``devices`` as torch devices with their index ("cuda" names the
+    current card); None: every visible CUDA device, and a RuntimeError
+    where there is none."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass devices=['cpu'] "
+                               "to run the plain versions of the kernels")
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    out = [canonical_device(d) for d in devices]
+    if not out:
+        raise ValueError("devices is empty")
+    return out
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with its index: "cuda" is the current card, "cuda:1"
+    stays itself; every CPU device is "cpu"."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.device(device.type)
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the plain versions of the kernels")
+    if device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class TorchResources:
+    """Devices and the cache of search programs; one object that indexes
+    share (``faiss_tpu``'s TpuResources).
+
+    ``devices`` defaults to every visible CUDA device and raises without
+    one; ``["cpu"]`` runs the plain versions (the tests). ``cached(key,
+    builder)`` builds each key's program once: the builder runs outside
+    the one lock under a per-key event, so a slow build (a capture) never
+    blocks another key's lookup, concurrent callers of one key wait for
+    its build, and when the owner's builder raises, the waiters build
+    again. ``discard(pred)`` drops the entries whose key ``pred`` accepts
+    (an index's entries when it changes or is collected); a dropped CUDA
+    graph frees its private memory pool (a replay in flight completes
+    first).
+
+    ``faiss_tpu``'s ``mesh`` has no counterpart: the port's sharding is one
+    process over a list of devices (``ShardedIndexFlat``), not a mesh."""
+
+    def __init__(self, devices: Optional[Sequence] = None):
+        self._devices = _resolve_devices(devices)
+        self._caps = query_device_capabilities(self._devices[0])
+        self._cache: Dict[Any, Any] = {}
+        self._pending: Dict[Any, threading.Event] = {}
+        # re-entrant: a collected index's finalizer discards its entries,
+        # and the collection may run inside a locked region of this thread
+        self._lock = threading.RLock()
+
+    @property
+    def devices(self) -> List[torch.device]:
+        return list(self._devices)
+
+    @property
+    def capabilities(self) -> DeviceCapabilities:
+        return self._caps
+
+    @property
+    def default_device(self) -> torch.device:
+        return self._devices[0]
+
+    def cached(self, key, builder: Callable[[], Any]):
+        """Return cache[key], building it once if absent (``faiss_tpu``'s
+        semantics, line for line)."""
+        with self._lock:
+            got = self._cache.get(key)
+            if got is None:
+                pending = self._pending.get(key)
+                if pending is None:
+                    pending = self._pending[key] = threading.Event()
+                    owner = True
+                else:
+                    owner = False
+        if got is not None:
+            return got
+        if not owner:
+            pending.wait()
+            with self._lock:
+                if key in self._cache:
+                    return self._cache[key]
+            # the owner's builder raised: build in this thread
+            return self.cached(key, builder)
+        try:
+            fn = builder()
+        except BaseException:
+            with self._lock:
+                self._pending.pop(key, None)
+            pending.set()
+            raise
+        with self._lock:
+            self._cache[key] = fn
+            self._pending.pop(key, None)
+        pending.set()
+        return fn
+
+    def discard(self, pred: Callable[[Any], bool]) -> int:
+        """Drop every entry whose key ``pred`` accepts; returns how many."""
+        with self._lock:
+            gone = [self._cache.pop(k) for k in list(self._cache) if pred(k)]
+        return len(gone)
+
+    def cache_info(self) -> Dict[str, int]:
+        with self._lock:
+            return {"entries": len(self._cache)}
+
+    def describe(self) -> str:
+        return (self._caps.describe()
+                + f"\n  fn-cache entries    : {self.cache_info()['entries']}")
+
+
+_default_resources: Dict[str, TorchResources] = {}
+_default_lock = threading.Lock()
+
+
+def default_resources(device="cuda") -> TorchResources:
+    """The process-wide TorchResources of ``device``'s type: every visible
+    CUDA device (raises without one), or ``["cpu"]`` for "cpu". Indexes
+    built without ``resources=`` share it."""
+    kind = torch.device(device).type
+    with _default_lock:
+        res = _default_resources.get(kind)
+        if res is None:
+            res = _default_resources[kind] = TorchResources(
+                None if kind == "cuda" else [kind])
+        return res

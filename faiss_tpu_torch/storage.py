@@ -230,6 +230,10 @@ class DeviceStore:
         self.keep_master = bool(keep_master)
         self.ntotal = 0
         self.capacity = 0
+        # bumped by every change of what a search reads (rows, norms,
+        # scales, statistics, ntotal, buffer addresses): the index keys its
+        # captured search programs by it
+        self.version = 0
         # (capacity, d_pad): stored rows, the f32 master, or None (pair only)
         self.db: Optional[torch.Tensor] = None
         self.norms: Optional[torch.Tensor] = None   # (capacity,) f32 ‖v‖²
@@ -290,6 +294,7 @@ class DeviceStore:
         sp = np.ones((self.d_pad,), np.float32)
         sp[: self.d] = np.asarray(scales, np.float32)[: self.d]
         self.scales = torch.from_numpy(sp).to(self.device)
+        self.version += 1
 
     def _buffers(self):
         """(name, dtype, row shape) of every per-row device buffer."""
@@ -453,6 +458,7 @@ class DeviceStore:
                                 : vecs.shape[1]] = vecs
         self.norms[self.ntotal: self.ntotal + n] = norms
         self.ntotal += n
+        self.version += 1
 
     def split_stats_host(self) -> Tuple[float, float]:
         """Host copy of the exact (max‖v_lo‖, max‖v − hi − lo‖); (inf, inf)
@@ -497,6 +503,7 @@ class DeviceStore:
         self._int8_elems = 0
         self._host_rows = []
         self.ntotal = self.capacity = 0
+        self.version += 1
 
     def merge_storage(self, other: "DeviceStore") -> None:
         """Append ``other``'s rows as they are stored (the device half of
@@ -516,6 +523,7 @@ class DeviceStore:
             theirs = other.scales.to(self.device)
             if not self.is_trained and self.ntotal == 0:
                 self.scales = theirs.clone()        # adopt the grid
+                self.version += 1
             elif not torch.equal(self.scales, theirs):
                 raise ValueError(
                     "merge: int8 indexes must share the trained scales "
@@ -571,6 +579,7 @@ class DeviceStore:
             rows = self.reconstruct_n(0, self.ntotal)
             self._host_rows = [rows[keep]]
         self.ntotal = n_new
+        self.version += 1
 
     def reconstruct_n(self, i0: int, n: int) -> np.ndarray:
         """(n, d) fp32 decode of stored rows [i0, i0 + n): the bf16 or f16

@@ -8,8 +8,9 @@ Builds each configuration at SIFT1M shape (nv×128, nq=100, k=10; data from
 numpy.random.default_rng(42) as chip_smoke.py and bench.py make it; f32_10m
 is f32 over 10·nv rows, the nv of the others then 9·nv from
 default_rng(44) in batches of nv, as chip_smoke.py's main path), runs
-two warm-up searches (the first may pin the one-plane shape), then
-torch.profiler over ``--searches`` synchronous ``search`` calls. Prints one
+two warm-up searches (the first may pin the one-plane shape, and builds the
+shape's program), then torch.profiler over ``--searches`` synchronous
+``search`` calls, each a replay of the search's CUDA graph. Prints one
 line per configuration: device time per batch by part (the sweep kernel,
 the group select, the rescore, the final select, torch's sorts, every other
 kernel and copy), device busy, host wall per batch (profiler on) and the device's idle
@@ -24,7 +25,9 @@ For ivf_1m the line also splits the device time by stage (``stages``):
 the kernel time inside the span on the card of each profiler range that
 ``TorchIndexIVFFlat`` opens in its gather search (``ivf.coarse_gemm``,
 ``ivf.top_nprobe``, ``ivf.chunk_ids``, ``ivf.k10`` with its pre-masked
-norms, ``ivf.top_k`` with the slot → id map), read from the same profile.
+norms, ``ivf.top_k`` with the slot → id map), read from a second profile of
+the eager search (``_search_packed_uncached``): the ranges open while a
+program is captured, not when it is replayed.
 """
 
 import argparse
@@ -92,8 +95,13 @@ def device_events(torch, fn, reps: int):
 
 def profile(torch, idx, xq, searches: int) -> dict:
     idx.search(xq, K)       # with device_events' warm-up: two searches
-    events, wall, stages = device_events(torch, lambda: idx.search(xq, K),
-                                         searches)
+    events, wall, _ = device_events(torch, lambda: idx.search(xq, K),
+                                    searches)
+    stages = {}
+    if hasattr(idx, "_search_packed_uncached"):
+        _, _, stages = device_events(
+            torch, lambda: idx._search_packed_uncached(xq, K).cpu(),
+            searches)
     out = {name: 0.0 for name, _ in PARTS}
     other = 0.0
     for name, us in events:

@@ -50,6 +50,14 @@ indexes over one card named P times give the unsharded index's ids. K9 (``csrc/f
 both one pass, equal their plain versions bit for bit (K8's t by value on
 a NaN row) on tie-heavy, −inf, NaN, ±0 and +inf rows and K8's −inf
 re-pick; K11 and K10 → K9 agree bit for bit on a −0.0 / +0.0 tie.
+
+The search programs (``programs.py``): every flat search (f32, pair, bf16,
+f16, int8; L2 and IP; with a selector; both fallback tiers, also on
+duplicated rows whose certificate fails at nq = 100) and every IVF route
+is a CUDA graph in the index's TorchResources, and its replays equal the
+eager search bit for bit (distances, id bits, certificate); 16 tokens in
+flight each keep their own result; a replay adds the launch counts of an
+eager run; a capture that meets a host synchronisation raises.
 """
 
 import time
@@ -2208,3 +2216,170 @@ def test_reduced_store_on_the_card_equals_the_cpu(dev, storage, n):
         for i in idx:
             assert float(decode_f16_bits(i.store.db[r, 5:6].cpu())) \
                 == float("-inf")
+
+
+# -- the search programs: CUDA graphs replayed from TorchResources' cache ----
+
+
+def _graphs_of(idx):
+    """The index's cached programs (every one must be a CUDA graph)."""
+    from faiss_tpu_torch.programs import GraphProgram
+
+    progs = [p for key, p in idx.res._cache.items()
+             if isinstance(key, tuple) and key[1] == idx._owner]
+    assert progs and all(isinstance(p, GraphProgram) for p in progs)
+    return progs
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _replays_equal_eager(idx, xq, k, params=None, **route):
+    """Three calls of the cached search (the build's warm-up result, then
+    two replays) against the eager search, bit for bit: distances, id
+    bits and the certificate."""
+    q, _, nq_pad = idx._prep_queries(xq)
+    sel = idx._sel_stream(params)
+    ref = idx._run_search_uncached(q, k, nq_pad, sel=sel, **route)
+    for _ in range(3):
+        got = idx._run_search_fn(q, k, nq_pad, sel=sel, **route)
+        assert got[1:] == ref[1:]
+        assert torch.equal(_bits(got[0]), _bits(ref[0]))
+    return ref[1]
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+@pytest.mark.parametrize("storage,kw", [
+    ("f32", {}), ("f32", {"keep_master": False}), ("bf16", {}),
+    ("f16", {}), ("int8", {})], ids=["f32", "pair", "bf16", "f16", "int8"])
+def test_replayed_flat_search_equals_eager(dev, metric, storage, kw,
+                                           monkeypatch):
+    from faiss_tpu_torch import IDSelectorRange, SearchParams
+
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    rng = np.random.default_rng(21)
+    xb = rng.standard_normal((30_000, 64), dtype=np.float32)
+    xq = rng.standard_normal((40, 64), dtype=np.float32)
+    idx = TorchIndexFlat(64, metric=metric, storage=storage, device=dev,
+                         **kw)
+    idx.add(xb)
+    sel = SearchParams(sel=IDSelectorRange(1000, 21_000))
+    for nq in (8, 40):
+        for params in (None, sel):
+            assert _replays_equal_eager(idx, xq[:nq], 10, params,
+                                        force_plain=False)
+            # the fallback's tiers: the two-plane sweep, the plain path
+            _replays_equal_eager(idx, xq[:nq], 10, params,
+                                 force_plain=False, full_sweep=True)
+            assert not _replays_equal_eager(idx, xq[:nq], 10, params,
+                                            force_plain=True)
+    _graphs_of(idx)
+    D1, I1 = idx.search(xq, 10, params=sel)
+    D2, I2 = idx.search(xq, 10, params=sel)
+    np.testing.assert_array_equal(I1, I2)
+    np.testing.assert_array_equal(D1, D2)
+    torch.cuda.synchronize()
+
+
+def test_replayed_fallback_tiers_on_duplicates(dev, monkeypatch):
+    """Every score ties: the one-plane bf16 search at nq = 100 fails its
+    certificate, tier 1 (two planes) fails, tier 2 (plain) answers; each
+    tier a replayed graph, equal to its eager run."""
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    row = np.random.default_rng(22).standard_normal(64).astype(np.float32)
+    dup = TorchIndexFlat(64, storage="bf16", device=dev)
+    dup.add(np.tile(row, (50_000, 1)))
+    xq = np.random.default_rng(23).standard_normal((100, 64)).astype(
+        np.float32)
+    D, I = dup.search(xq, 10)
+    assert dup.fused_fallbacks == 1 and dup._no_reduced_sweep == {104}
+    np.testing.assert_array_equal(I, np.tile(np.arange(10), (100, 1)))
+    _replays_equal_eager(dup, xq, 10, force_plain=False)
+    _replays_equal_eager(dup, xq, 10, force_plain=False, full_sweep=True)
+    _replays_equal_eager(dup, xq, 10, force_plain=True)
+    # the one-plane search, then (pinned) the two-plane one, which tier 1
+    # shares, and the plain path
+    assert len(_graphs_of(dup)) == 3
+    D2, I2 = dup.search(xq, 10)
+    np.testing.assert_array_equal(I2, I)
+    np.testing.assert_array_equal(D2, D)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_replayed_ivf_search_equals_eager(dev, storage):
+    from faiss_tpu_torch import (IDSelectorRange, SearchParams,
+                                 TorchIndexIVFFlat)
+
+    rng = np.random.default_rng(24)
+    xb = rng.standard_normal((20_000, 64), dtype=np.float32)
+    xq = rng.standard_normal((30, 64), dtype=np.float32)
+    ivf = TorchIndexIVFFlat(64, 32, storage=storage, device=dev)
+    ivf.train(xb)
+    ivf.add(xb)
+    for nprobe in (1, 8, 32):           # fine scan, fine scan, dense
+        for sel in (None, IDSelectorRange(500, 15_000)):
+            p = SearchParams(sel=sel, nprobe=nprobe)
+            for force in (False, True):
+                ref = ivf._search_packed_uncached(xq, 10, p,
+                                                  force_plain_dense=force)
+                for _ in range(3):
+                    got = ivf._search_packed(xq, 10, p,
+                                             force_plain_dense=force)[0]
+                    assert torch.equal(_bits(got), _bits(ref))
+    _graphs_of(ivf)
+    D1, I1 = ivf.search(xq, 10, params=SearchParams(nprobe=32))
+    D2, I2 = ivf.search(xq, 10, params=SearchParams(nprobe=32))
+    np.testing.assert_array_equal(I1, I2)
+    np.testing.assert_array_equal(D1, D2)
+
+
+def test_pipelined_tokens_hold_their_own_results(dev):
+    """16 tokens in flight on one program, each with its own queries: each
+    returns its own result (a replay never overwrites another's)."""
+    rng = np.random.default_rng(25)
+    idx = TorchIndexFlat(64, storage="bf16", device=dev)
+    idx.add(rng.standard_normal((100_000, 64), dtype=np.float32))
+    batches = [rng.standard_normal((8, 64), dtype=np.float32)
+               for _ in range(16)]
+    want = [idx.search(b, 10) for b in batches]
+    assert len(_graphs_of(idx)) == 1
+    toks = [idx.search_async(b, 10) for b in batches]
+    for t, (D, I) in zip(toks, want):
+        Dt, It = t.wait()
+        np.testing.assert_array_equal(It, I)
+        np.testing.assert_array_equal(Dt, D)
+
+
+def test_replay_counts_launches_as_eager(dev, monkeypatch):
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    rng = np.random.default_rng(26)
+    idx = TorchIndexFlat(64, device=dev)
+    idx.add(rng.standard_normal((30_000, 64), dtype=np.float32))
+    q, _, nq_pad = idx._prep_queries(
+        rng.standard_normal((8, 64), dtype=np.float32))
+    counts = []
+    for run in (idx._run_search_uncached, idx._run_search_fn,
+                idx._run_search_fn):     # eager, build, replay
+        kernels.reset_launches()
+        run(q, 10, nq_pad, force_plain=False)
+        counts.append(dict(kernels.launches))
+    assert counts[0]["sweep_split_3"] == 1
+    assert counts[0]["rescore_groups_pair"] == 1
+    assert counts[1] == counts[0] and counts[2] == counts[0]
+
+
+def test_capture_meeting_a_host_sync_raises(dev):
+    from faiss_tpu_torch import programs
+
+    x = torch.ones(8, device=dev)
+    with pytest.raises(RuntimeError):
+        programs.build(lambda t: t * float(t.sum()), [x], dev)
+    # no quiet fallback, and the card works on
+    prog, first = programs.build(lambda t: t * 2.0, [x], dev)
+    assert torch.equal(prog(x + 1.0), torch.full((8,), 4.0, device=dev))
+    assert torch.equal(first, torch.full((8,), 2.0, device=dev))
+    torch.cuda.synchronize()

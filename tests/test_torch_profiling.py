@@ -117,9 +117,9 @@ def test_describe_capabilities():
     assert "device              : cpu" in text
 
 
-# faiss_tpu's names that stay behind by design: TpuResources manages a
-# compiled-function cache and a device mesh, neither of which exists here
-LEFT_BEHIND = {"TpuResources"}
+# faiss_tpu's names without a counterpart: none (TpuResources is
+# TorchResources, its program cache the CUDA graphs of the searches)
+LEFT_BEHIND = set()
 RENAMED = {"TpuDeviceCapabilities": "DeviceCapabilities"}
 
 
