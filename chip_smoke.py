@@ -43,7 +43,8 @@ it. Each path's launch counts are zeroed just before it and read just after:
             the unsharded index's, recall 1.0, the merge's device ms; and
             the ivf_1m f32 index saved and reloaded with
             load_index(sharded=True, num_shards=4): at nprobe 16 its ids
-            equal the single index's
+            equal the single index's; each a programs row (one CUDA graph
+            a search: four shard searches and the merge)
   native    the native host runtime (g++, at first call): the 1M bf16 and
             f16 adds above take its route (host norms and conversion, one
             2-byte upload), shown by its call counts; one 1M batch of each
@@ -64,16 +65,24 @@ it. Each path's launch counts are zeroed just before it and read just after:
   programs  the search programs of TorchResources' cache (each search a
             CUDA graph captured once per shape and replayed; every search
             above and below runs through them): for f32, f32_sift, pair,
-            bf16, int8 and f16 at 1M (L2), f32_10m (in its phase) and
-            ivf_1m's f32 lists at nprobe 1, 16 and 64 (in its phase), the
-            index's programs dropped and the cold first batch timed (eager
-            warm-up and capture), the first batch and two replays held
-            against the eager search (the uncached function) bit for bit,
-            distances, id bits and certificates; host ms/batch eager and
-            replayed in turns (eager, replay, replay, eager), the same
-            pipelined at depth 16, the device idle share over 20 replayed
-            searches under torch.profiler (whose trace must name the sweep,
-            or K10's f32 kernel, on the card) and cache_info()
+            bf16, int8 and f16 at 1M (L2), f32_10m (in its phase), the
+            f32 flat range pass at 1M after the surface phase (a second
+            radius must replay it; 3 reps, depth 4),
+            sharded_1m's f32 and int8 indexes and the sharded IVF reload
+            (in theirs), ivf_1m's f32 lists at nprobe 1, 16 and 64, its
+            range pass at nprobe 16 and the coarse assign of its 1M add (in
+            its phase), the index's programs dropped and the cold first
+            batch timed (eager warm-up and capture), the first batch and
+            two replays held against the eager search (the uncached
+            function) bit for bit, distances, id bits and certificates;
+            host ms/batch eager and replayed in turns (eager, replay,
+            replay, eager), the same pipelined at depth 16 (the range pass
+            and the assign: 3 reps, depth 4), the device idle share over
+            20 replayed searches
+            under torch.profiler (whose trace must name the sweep, or K10's
+            f32 kernel, on the card; the range passes and the assign, torch
+            GEMMs and sorts alone, print the kernels it names) and
+            cache_info()
 
 plus nq=8 (two-plane bf16 sweep) and a duplicated-vector index whose
 certificate fails, so both fallback tiers run. First, nan_repair holds the
@@ -1292,7 +1301,9 @@ def phase_sharded_1m(torch, ft, xb, xq, singles):
     = 1.0 against the fp64 oracle over the stored rows, fused_fallbacks as
     the unsharded index's. Counts zeroed just before each storage's
     searches and read just after. Prints the host ms/batch, the pipelined
-    ms and the merge's device ms; no scaling claim (one card)."""
+    ms and the merge's device ms, then each index's programs row (one
+    CUDA graph a search: the four shard searches and the merge); no
+    scaling claim (one card). Returns (counts, the programs rows)."""
     from faiss_tpu_torch import MetricType
     from faiss_tpu_torch.ops import kernels
     from faiss_tpu_torch.parallel.sharded import merge_shard_lists
@@ -1302,7 +1313,7 @@ def phase_sharded_1m(torch, ft, xb, xq, singles):
                     "final_select"),
             "int8": ("sweep_int8", "select_groups", "rescore_groups_int8",
                      "final_select")}
-    counts = {}
+    counts, rows = {}, {}
     for storage, single in singles.items():
         t0 = time.perf_counter()
         sh = ft.ShardedIndexFlat(D, storage=storage, devices=["cuda:0"] * 4)
@@ -1345,6 +1356,9 @@ def phase_sharded_1m(torch, ft, xb, xq, singles):
             parts.append((v, s.to_global(v, i)))
         merge = cuda_ms(torch, lambda: merge_shard_lists(
             parts, K, L2, q.device), REPS)
+        rows[f"sharded_1m_{storage}"] = programs_row(
+            torch, f"sharded_1m {storage} P=4", sh, *_flat_runs(sh, xq),
+            "sweep_split_mma_kernel", drop=sh._changed)
         print(f"search sharded_1m {storage} L2 P=4 on cuda:0 nq={len(xq)} "
               f"k={K}: ids = the unsharded index's, recall@{K}={rec}, max "
               f"|D - D_oracle| = {rel:.2e} ε; add {add_s:.3f} s, "
@@ -1356,7 +1370,7 @@ def phase_sharded_1m(torch, ft, xb, xq, singles):
               f"{({k: v for k, v in n.items() if v})}", flush=True)
         del sh, parts
         torch.cuda.empty_cache()
-    return counts
+    return counts, rows
 
 
 def _sharded_ivf(torch, ft, ivf, xq):
@@ -1365,7 +1379,8 @@ def _sharded_ivf(torch, ft, ivf, xq):
     four times (the saved routing, ids kept), searched at nprobe 16 with
     the counts zeroed just before and read just after: ids equal to the
     single index's, recall@10 = 1.0 against the fp64 oracle over the
-    probed lists. Returns the counts."""
+    probed lists; then its programs row. Returns (the counts, the
+    row)."""
     import tempfile
 
     from faiss_tpu_torch.ops import kernels
@@ -1395,6 +1410,9 @@ def _sharded_ivf(torch, ft, ivf, xq):
     rec = _recall(Is, ref_i)
     check(rec == 1.0, f"sharded ivf: recall@{K} {rec} != 1.0")
     pipe = cuda_ms(torch, lambda: sh._search_packed(xq, K), REPS)
+    row = programs_row(torch, "sharded_1m ivf f32 P=4 nprobe=16", sh,
+                       *_ivf_runs(ft, sh, xq, 16), "rescore_f32_kernel",
+                       drop=sh._changed)
     print(f"search sharded_1m ivf f32 P=4 on cuda:0 nprobe=16 nq={len(xq)} "
           f"k={K}: ids = the single index's, recall@{K}={rec} over the "
           f"probed lists; save + sharded load {load_s:.3f} s, per_shard="
@@ -1403,17 +1421,20 @@ def _sharded_ivf(torch, ft, ivf, xq):
           f"{({k: v for k, v in n.items() if v})}", flush=True)
     del sh
     torch.cuda.empty_cache()
-    return n
+    return n, row
 
 
 def phase_ivf_1m(torch, ft):
     """The IVF slice's main path (see the module docstring). Returns (the
     launch counts of its counted runs, the K10 f32 kernel row, the counts
-    of the sharded reload's run, ``_sharded_ivf``, the programs rows of
-    the f32 lists at nprobe 1, 16, 64). Frees what it builds."""
+    of the sharded reload's run, ``_sharded_ivf``, the programs rows: the
+    f32 lists at nprobe 1, 16, 64, their sharded reload, their range pass
+    at nprobe 16 and the coarse assign of their 1M add). Frees what it
+    builds."""
     import tempfile
 
-    from faiss_tpu_torch import MetricType
+    from faiss_tpu_torch import MetricType, programs
+    from faiss_tpu_torch.index import RANGE_CAP0, range_threshold
     from faiss_tpu_torch.ops import kernels
 
     xb, xq = ivf_data()
@@ -1463,7 +1484,7 @@ def phase_ivf_1m(torch, ft):
     f32.nprobe = 16
     k10 = _k10_f32_row(torch, f32, xq)
 
-    sharded_counts = _sharded_ivf(torch, ft, f32, xq)
+    sharded_counts, prog["sharded_1m_ivf"] = _sharded_ivf(torch, ft, f32, xq)
 
     # -- the surface at 1M, as checks ----------------------------------------
     D16, I16 = f32.search(xq, K)
@@ -1486,6 +1507,25 @@ def phase_ivf_1m(torch, ft):
           f"{lims[-1] / len(xq):.1f} hits a query, the fp64 oracle's set "
           f"within the probed lists but for {near} rows within 1e-4·radius",
           flush=True)
+    q, _, _, nprobe, nbudget, _ = f32._prep_search(xq, None)
+    prog["ivf_1m_range_nprobe16"] = programs_row(
+        torch, f"ivf_1m range nprobe=16 radius {radius:.4f}", f32,
+        *_range_runs(f32, q, nprobe, nbudget,
+                     range_threshold(radius, f32.metric), RANGE_CAP0, None),
+        None)
+    n = f32.res.cache_info()["entries"]
+    f32.range_search(xq, radius * 1.01)
+    check(f32.res.cache_info()["entries"] == n,
+          "programs ivf_1m range: another radius built another program")
+    # the coarse assign of a 1M add (its copy to the card included), under
+    # the assign's own owner: an add keeps it
+    prog["ivf_1m_assign"] = programs_row(
+        torch, f"ivf_1m assign n={NV}", f32,
+        lambda: f32._assign_padded(xb, cached=False)[1],
+        lambda: f32._assign_padded(xb)[1], None,
+        drop=lambda: f32.res.discard(
+            programs.owned_by(f32._assign_owner)),
+        reps=3, depth=4, prof_reps=3)
 
     rng = np.random.default_rng(SEED + 4)
     sel = (ft.IDSelectorRange(0, NV // 2)
@@ -1984,7 +2024,9 @@ def phase_profiling(torch, ft, f32, xq):
         check(path.exists(), "profiling: trace wrote no file")
         text = path.read_text()
         check("sweep_split_mma_kernel" in text,
-              "profiling: the trace does not name the sweep kernel")
+              f"profiling: the trace does not name the sweep kernel "
+              f"({len(text)} bytes, {text.count('\"cat\": \"kernel\"')} "
+              f"kernel events)")
         print(f"profiling trace: {path.name}, {path.stat().st_size} bytes, "
               f"names sweep_split_mma_kernel", flush=True)
     counts = dict(kernels.launches)
@@ -2064,15 +2106,19 @@ def _idle_share(torch, fn, reps):
     return busy, wall, 1.0 - busy / wall, names
 
 
-def programs_row(torch, label, idx, eager, cached, kernel):
+def programs_row(torch, label, idx, eager, cached, kernel, drop=None,
+                 reps=REPS, depth=16, prof_reps=20):
     """The programs phase for one configuration: the index's programs
-    dropped (a new generation), the cold first batch (eager warm-up and
-    capture: the capture time), the replays against the eager search bit
-    for bit, host ms/batch eager and replayed in turns (eager, replay,
-    replay, eager), pipelined at depth 16 in the same turns, and the
-    device idle share over 20 replayed searches under torch.profiler,
-    whose trace must name ``kernel`` on the card. Returns the row."""
-    idx._mutated()
+    dropped (a new generation; ``drop``, default ``idx._mutated``), the
+    cold first batch (eager warm-up and capture: the capture time), the
+    replays against the eager search bit for bit, host ms/batch eager and
+    replayed in turns (eager, replay, replay, eager; ``reps`` each),
+    pipelined at ``depth`` in the same turns, and the device idle share
+    over ``prof_reps`` replayed searches under torch.profiler, whose trace
+    must name ``kernel`` on the card (None: any kernel, for the programs
+    of torch's GEMMs and sorts alone; their names are printed). Returns
+    the row."""
+    (drop or idx._mutated)()
     torch.cuda.synchronize()
     n0 = idx.res.cache_info()["entries"]
     t0 = time.perf_counter()
@@ -2089,19 +2135,29 @@ def programs_row(torch, label, idx, eager, cached, kernel):
     host = {"eager": [], "replay": []}
     pipe = {"eager": [], "replay": []}
     for mode in ("eager", "replay", "replay", "eager"):
-        host[mode].append(_host_ms(turns[mode], REPS))
+        host[mode].append(_host_ms(turns[mode], reps))
     for mode in ("eager", "replay", "replay", "eager"):
-        pipe[mode].append(_pipelined_host_ms(turns[mode], 16))
-    busy, wall, idle, names = _idle_share(torch, cached, 20)
-    named = any(kernel in n for n in names)
+        pipe[mode].append(_pipelined_host_ms(turns[mode], depth))
+    busy, wall, idle, names = _idle_share(torch, cached, prof_reps)
+    named = any(kernel is None or kernel in n for n in names)
     check(named, f"programs {label}: the trace of the replays names no "
-          f"{kernel} on the card ({sorted(names)[:8]})")
-    row = {"capture_ms": cold, "host_ms": host, "pipelined_ms_16": pipe,
+          f"{kernel or 'kernel'} on the card ({sorted(names)[:8]})")
+    row = {"capture_ms": cold, "host_ms": host,
+           f"pipelined_ms_{depth}": pipe,
            "profiled": {"device_busy_ms": busy, "host_wall_ms": wall,
                         "idle_share": idle, "kernels_named": named},
            "cache_info": idx.res.cache_info()}
+    if kernel is None:
+        row["profiled"]["kernels"] = sorted(names)[:12]
     print(f"programs {label}: {json.dumps(row)}", flush=True)
     return row
+
+
+def _range_runs(idx, q, *args):
+    """(eager, cached) packed range passes of ``idx`` (flat: q, nq_pad,
+    thr, cap, sel; IVF: q, nprobe, nbudget, thr, rcap, sel)."""
+    return (lambda: idx._range_packed(q, *args, cached=False)[0],
+            lambda: idx._range_packed(q, *args)[0])
 
 
 def phase_programs(torch, runs):
@@ -2112,6 +2168,30 @@ def phase_programs(torch, runs):
         out[label] = programs_row(torch, label, idx, *_flat_runs(idx, xq),
                                   "sweep_split_mma_kernel")
     return out
+
+
+def range_programs_row(torch, idx, xq):
+    """The flat range pass of the 1M f32 index at the median
+    10th-neighbour distance as a programs row (a pass takes about half a
+    second on an H100: 3 reps, depth 4); a second radius must replay the
+    program."""
+    from faiss_tpu_torch.index import RANGE_CAP0, range_threshold
+
+    D10, _ = idx.search(xq, K)
+    radius = float(np.median(D10[:, -1]))
+    q, _, nq_pad = idx._prep_queries(xq)
+    thr = range_threshold(radius, idx.metric)
+    row = programs_row(
+        torch, f"range_1m f32 radius {radius:.4f}", idx,
+        *_range_runs(idx, q, nq_pad, thr, RANGE_CAP0, None), None,
+        reps=3, depth=4, prof_reps=3)
+    n = idx.res.cache_info()["entries"]
+    lims, _, _ = idx.range_search(xq, radius * 1.01)
+    check(idx.res.cache_info()["entries"] == n,
+          "programs range_1m: another radius built another program")
+    print(f"programs range_1m: radius {radius * 1.01:.4f} replayed the "
+          f"program ({lims[-1] / len(xq):.1f} hits a query)", flush=True)
+    return row
 
 
 def build_index(torch, ft, xb, metric, **kw):
@@ -2310,10 +2390,12 @@ def main() -> int:
      programs["f32_10m"]) = phase_f32_10m(torch, ft, xb, xq)
     counts["surface"] = phase_surface(torch, ft, xb, xq, f32[L2], bf16[L2],
                                       int8[L2], f16[L2])
+    programs["range_1m"] = range_programs_row(torch, f32[L2], xq)
     del bf16, sift, pair, f16, dup, idx
     torch.cuda.empty_cache()
-    counts["sharded_1m"] = phase_sharded_1m(
+    counts["sharded_1m"], prog = phase_sharded_1m(
         torch, ft, xb, xq, {"f32": f32[L2], "int8": int8[L2]})
+    programs.update(prog)
     del f32, int8
     torch.cuda.empty_cache()
     (counts["ivf_1m"], rows["rescore_groups_f32"],

@@ -40,6 +40,7 @@ from .dtypes import MetricType
 from .ops import distance as dist_ops
 from .ops.distance import exact_fp32_matmul
 from .ops.topk import topk_scores
+from .resources import TorchResources, bind_device
 from .storage import _round_up
 
 __all__ = ["Kmeans", "balance_centroids", "kmeans_clustering", "knn",
@@ -220,8 +221,9 @@ class Kmeans:
     After ``train(x)``: ``centroids`` (k, d) fp32, ``obj`` (niter,) the
     per-iteration objective of the best redo (the sum of squared distances
     for L2, the negated summed similarity for IP: faiss's "to minimize"),
-    and ``index``, a TorchIndexFlat over the centroids on the same device,
-    so ``assign`` runs the index's search. ``device`` defaults to "cuda"
+    and ``index``, a TorchIndexFlat over the centroids on the same device
+    and ``resources``, so ``assign`` runs the index's search. ``device``
+    defaults to "cuda" (the default device of ``resources`` where given)
     and raises without a card; "cpu" runs the same code on the CPU."""
 
     def __init__(self, d: int, k: int, *, niter: int = 25, nredo: int = 1,
@@ -229,7 +231,8 @@ class Kmeans:
                  metric=MetricType.L2,
                  min_points_per_centroid: int = 39,
                  max_points_per_centroid: int = 256,
-                 verbose: bool = False, device="cuda"):
+                 verbose: bool = False, device=None,
+                 resources: Optional[TorchResources] = None):
         if k <= 0 or d <= 0 or niter <= 0 or nredo <= 0:
             raise ValueError(f"bad Kmeans config: {d=} {k=} {niter=} {nredo=}")
         self.d, self.k = int(d), int(k)
@@ -239,7 +242,7 @@ class Kmeans:
         self.min_points_per_centroid = int(min_points_per_centroid)
         self.max_points_per_centroid = int(max_points_per_centroid)
         self.verbose = bool(verbose)
-        self.device = _check_device(device)
+        self.device, self.resources = bind_device(device, resources)
         self.centroids: Optional[np.ndarray] = None
         self.obj: Optional[np.ndarray] = None
         self.index = None
@@ -284,7 +287,8 @@ class Kmeans:
         from .index import TorchIndexFlat
 
         self.index = TorchIndexFlat(self.d, metric=self.metric,
-                                    device=self.device)
+                                    device=self.device,
+                                    resources=self.resources)
         self.index.add(self.centroids)
         return final
 

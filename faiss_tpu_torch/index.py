@@ -75,8 +75,8 @@ from .dtypes import MetricType, StorageType, worst_distance
 from .ops import distance as dist_ops
 from .ops import fused
 from .ops import topk as topk_ops
-from .resources import (KernelTuning, TorchResources, canonical_device,
-                        default_resources, query_device_capabilities)
+from .resources import (KernelTuning, TorchResources, bind_device,
+                        query_device_capabilities)
 from .storage import ROW_TILE, DeviceStore, _round_up, decode_f16_bits
 
 # queries pad to a multiple of this many rows
@@ -176,6 +176,26 @@ class ConcatSearchToken:
             t.is_ready() for t in self._toks)
 
 
+def range_threshold(radius: float, metric: MetricType) -> float:
+    """The score threshold of ``radius`` (−radius for L2), rounded to
+    fp32 as the scores are."""
+    return float(np.float32(-radius if metric is MetricType.L2 else radius))
+
+
+def _pack_range(counts, vals, ids) -> torch.Tensor:
+    """One (nblocks, nq_pad, 1 + 2·cap) f32 tensor holding a range pass's
+    int32 counts' bits, its scores and its int32 ids' bits, so that the
+    pass needs one device-to-host copy."""
+    return torch.cat([counts[..., None].view(torch.float32), vals,
+                      ids.to(torch.int32).view(torch.float32)], dim=-1)
+
+
+def _unpack_range(packed: np.ndarray, cap: int):
+    counts = np.ascontiguousarray(packed[..., 0]).view(np.int32)
+    ids = np.ascontiguousarray(packed[..., 1 + cap:]).view(np.int32)
+    return counts, packed[..., 1: 1 + cap], ids
+
+
 def _range_csr(run_range, nq: int, metric: MetricType):
     """range_search's passes and CSR assembly (``faiss_tpu``'s _range_csr):
     ``run_range(cap)`` returns host (counts (nchunks, nq_pad), vals, ids,
@@ -252,8 +272,9 @@ class TorchIndexFlat:
     """Flat exact-search index over f32, bf16, f16 or int8 rows on one
     device.
 
-    ``device`` defaults to "cuda" and raises when CUDA is absent; "cpu"
-    runs every kernel's plain PyTorch version (how the tests run it).
+    ``device`` defaults to "cuda" (the default device of ``resources``
+    where given) and raises when CUDA is absent; "cpu" runs every kernel's
+    plain PyTorch version (how the tests run it).
     ``keep_master=False`` (f32 only) keeps the exact rows in host memory
     for reconstruct and only the bf16 (hi, lo) planes on the device.
     ``resources``: the TorchResources whose program cache the searches
@@ -261,18 +282,13 @@ class TorchIndexFlat:
     process-wide one of the device's type."""
 
     def __init__(self, d: int, metric=MetricType.L2,
-                 storage=StorageType.FLOAT32, device="cuda",
+                 storage=StorageType.FLOAT32, device=None,
                  tuning: Optional[KernelTuning] = None,
                  keep_master: bool = True,
                  resources: Optional[TorchResources] = None):
         self.metric = MetricType.coerce(metric)
         self.storage_type = StorageType.coerce(storage)
-        self.device = torch.device(device)
-        self.res = (resources if resources is not None
-                    else default_resources(self.device))
-        if canonical_device(self.device) not in self.res.devices:
-            raise ValueError(f"device {self.device} is not one of the "
-                             f"resources' devices {self.res.devices}")
+        self.device, self.res = bind_device(device, resources)
         self.caps = query_device_capabilities(self.device)
         self.tuning = tuning if tuning is not None else self.caps.tuning
         self.store = DeviceStore(d, self.device, self.storage_type,
@@ -527,10 +543,10 @@ class TorchIndexFlat:
         """One search of the padded queries ``q`` on this index's device,
         the route decided by the caller: (scores (nq_pad, min(k, nv_eff))
         best first, with −‖q‖² for L2; their positional ids; the per-query
-        certificate, all True on the plain path). ``hi_exact`` (f32 only)
-        takes the hi-plane dispatch where the split statistics allow it.
-        The sharded index calls this on every shard with one decision for
-        all of them."""
+        certificate, all True on the plain path). ``hi_exact`` (f32 only):
+        the hi-plane dispatch, which the caller takes only where the split
+        statistics are zero. The sharded index calls this on every shard
+        with one decision for all of them."""
         st = self.store
         nt = self.ntotal
         nv_eff = _round_up(nt, ROW_TILE)
@@ -538,11 +554,11 @@ class TorchIndexFlat:
         if use_fused:
             split = {}
             if st.has_split:
+                # hi_exact: the caller read the split statistics on the
+                # host (a read here would be a host sync inside a capture)
                 split = dict(db_split=(st.db_hi, st.db_lo),
                              pair_only=st.pair_only,
-                             split_stats=st.split_stats,
-                             hi_exact=hi_exact and st.split_stats_host()
-                             == (0.0, 0.0))
+                             split_stats=st.split_stats, hi_exact=hi_exact)
             elif st.storage is StorageType.FLOAT16:
                 split = dict(split_stats=st.split_stats)
             elif st.storage is StorageType.INT8:
@@ -666,10 +682,23 @@ class TorchIndexFlat:
     # -- range search ---------------------------------------------------------
     def _run_range(self, q: torch.Tensor, nq_pad: int, thr: float, cap: int,
                    sel: Optional[torch.Tensor],
-                   use_direct: Optional[bool] = None):
-        """One pass over the plain-path score chunks: per chunk the exact
-        count of scores > thr and the top-``cap`` of them. Returns host
-        (counts (nchunks, nq_pad), vals, ids (nchunks, nq_pad, cap), cap).
+                   use_direct: Optional[bool] = None, cached: bool = True):
+        """One pass over the plain-path score chunks (``_range_packed``),
+        then one copy back: host (counts (nchunks, nq_pad), vals, ids
+        (nchunks, nq_pad, cap), cap used)."""
+        packed, cap = self._range_packed(q, nq_pad, thr, cap, sel,
+                                         use_direct, cached)
+        return (*_unpack_range(packed.cpu().numpy(), cap), cap)
+
+    def _range_packed(self, q: torch.Tensor, nq_pad: int, thr: float,
+                      cap: int, sel: Optional[torch.Tensor],
+                      use_direct: Optional[bool] = None,
+                      cached: bool = True):
+        """One range pass through the program cached for its shape
+        (``cached=False``: run eagerly): per chunk the exact count of
+        scores > thr and the top-``cap`` of them, packed on the device
+        (``_pack_range``), and the capacity used. ``thr`` enters the
+        program as a 0-d tensor, so one program serves every radius.
         ``use_direct``: the plain path's form (None: by the shape)."""
         nv_eff = _round_up(self.ntotal, ROW_TILE)
         chunk = min(self.tuning.chunk_v, nv_eff)
@@ -683,18 +712,48 @@ class TorchIndexFlat:
                 "split the query batch or tighten the radius")
         if use_direct is None:
             use_direct = self._use_direct(nv_eff, nq_pad)
-        counts, vals, ids = [], [], []
-        for start in range(0, nv_eff, chunk):
-            s = self._scores_block(q, start, chunk, use_direct=use_direct,
-                                   sel=sel)
-            hit = s > thr   # strict: faiss's dist < radius (L2), > (IP)
-            counts.append(hit.sum(dim=-1, dtype=torch.int32))
-            v, i = topk_ops.topk_scores(s.masked_fill(~hit, float("-inf")),
-                                        cap)
-            vals.append(v)
-            ids.append(i + start)
-        out = [torch.stack(t).cpu().numpy() for t in (counts, vals, ids)]
-        return (*out, cap)
+        st = self.store
+        if st.version != self._store_version:
+            self._mutated()    # the store changed under the index
+        fn = self._range_fn(nv_eff, chunk, cap, use_direct)
+        inputs = (q, torch.full((), thr, dtype=torch.float32,
+                                device=self.device))
+        inputs += () if sel is None else (sel,)
+        if cached:
+            key = ("range_search", self._owner, self._gen, nv_eff, st.d_pad,
+                   nq_pad, self.metric, self.storage_type, use_direct, chunk,
+                   cap, st.pair_only, sel is not None)
+            return programs.run(self.res, key, fn, inputs, self.device), cap
+        return fn(*inputs), cap
+
+    def _run_range_uncached(self, q: torch.Tensor, nq_pad: int, thr: float,
+                            cap: int, sel: Optional[torch.Tensor],
+                            use_direct: Optional[bool] = None):
+        """``_run_range`` run eagerly, with no program: what a replay must
+        equal bit for bit (the card tests and chip_smoke)."""
+        return self._run_range(q, nq_pad, thr, cap, sel, use_direct,
+                               cached=False)
+
+    def _range_fn(self, nv_eff: int, chunk: int, cap: int, use_direct: bool):
+        """The range pass as a function of (q, thr[, sel]) alone, returning
+        the packed (counts, vals, ids); it holds the index weakly."""
+        ref = weakref.ref(self)
+
+        def range_pass(q, thr, sel=None):
+            counts, vals, ids = [], [], []
+            for start in range(0, nv_eff, chunk):
+                s = ref()._scores_block(q, start, chunk,
+                                        use_direct=use_direct, sel=sel)
+                hit = s > thr   # strict: faiss's dist < radius (L2), > (IP)
+                counts.append(hit.sum(dim=-1, dtype=torch.int32))
+                v, i = topk_ops.topk_scores(
+                    s.masked_fill(~hit, float("-inf")), cap)
+                vals.append(v)
+                ids.append(i + start)
+            return _pack_range(torch.stack(counts), torch.stack(vals),
+                               torch.stack(ids))
+
+        return range_pass
 
     def range_search(self, x: np.ndarray, radius: float, params=None):
         """All rows within ``radius`` of each query, faiss's CSR layout:
@@ -709,8 +768,7 @@ class TorchIndexFlat:
             return (np.zeros(nq + 1, np.int64), np.empty(0, np.float32),
                     np.empty(0, np.int64))
         sel = self._sel_stream(params)
-        thr = float(np.float32(-radius if self.metric is MetricType.L2
-                               else radius))
+        thr = range_threshold(radius, self.metric)
         return _range_csr(
             lambda cap: self._run_range(q, nq_pad, thr, cap, sel), nq,
             self.metric)

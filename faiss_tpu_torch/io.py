@@ -171,7 +171,7 @@ def save_index(index, path: str) -> None:
 
 
 def _ivf_from_arrays(meta: dict, vectors, norms, device, scales,
-                     centroids, assign, sharding=None):
+                     centroids, assign, sharding=None, resources=None):
     """A TorchIndexIVFFlat with the file's centroids (and int8 scales),
     each row restored into its saved list, bits and norms as stored; with
     ``sharding`` = (devices, num_shards) a ShardedIndexIVFFlat holding the
@@ -180,7 +180,7 @@ def _ivf_from_arrays(meta: dict, vectors, norms, device, scales,
         raise ValueError("an IVF file needs its centroids and assign")
     kw = dict(metric=MetricType.coerce(meta["metric"]),
               storage=StorageType.coerce(meta["storage"]),
-              nprobe=int(meta["nprobe"]))
+              nprobe=int(meta["nprobe"]), resources=resources)
     if sharding is None:
         idx = TorchIndexIVFFlat(int(meta["d"]), int(meta["nlist"]),
                                 device=device, **kw)
@@ -219,13 +219,13 @@ def _ivf_from_arrays(meta: dict, vectors, norms, device, scales,
 
 
 def _flat_from_arrays(meta: dict, vectors, norms, device, keep_master,
-                      scales, sharding=None):
+                      scales, sharding=None, resources=None):
     """A TorchIndexFlat holding the file's rows, bits and norms as stored
     (int8: its scales); with ``sharding`` = (devices, num_shards) a
     ShardedIndexFlat holding them in balanced contiguous splits."""
     kw = dict(metric=MetricType.coerce(meta["metric"]),
               storage=StorageType.coerce(meta["storage"]),
-              keep_master=keep_master)
+              keep_master=keep_master, resources=resources)
     if sharding is None:
         idx = TorchIndexFlat(int(meta["d"]), device=device, **kw)
         stores = [idx.store]
@@ -256,11 +256,12 @@ def _flat_from_arrays(meta: dict, vectors, norms, device, keep_master,
 
 
 def index_from_arrays(meta: dict, vectors: np.ndarray, norms: np.ndarray,
-                      device="cuda", keep_master: bool = True,
+                      device=None, keep_master: bool = True,
                       scales: np.ndarray = None, id_map: np.ndarray = None,
                       centroids: np.ndarray = None,
                       assign: np.ndarray = None, sharded: bool = False,
-                      devices=None, num_shards: int = None):
+                      devices=None, num_shards: int = None,
+                      resources=None):
     """TorchIndexFlat, or TorchIndexIVFFlat for an IVF file (``centroids``
     and ``assign``), from the arrays of a saved index (``scales``: int8
     only), inside its TorchIndexIDMap(2) when the file has one
@@ -268,8 +269,11 @@ def index_from_arrays(meta: dict, vectors: np.ndarray, norms: np.ndarray,
     storage. ``sharded=True``: a ShardedIndexFlat or ShardedIndexIVFFlat
     over ``devices`` (default: every visible CUDA device) and
     ``num_shards``, the rows redistributed in balanced contiguous splits.
-    The arrays of a ``faiss_tpu`` file carry its state across: an IVF index
-    routes every row to the list the JAX index put it in."""
+    ``resources``: the TorchResources of every index built (``device``,
+    default its default device, and ``devices``, default its devices,
+    must be among its devices). The arrays of a ``faiss_tpu`` file carry
+    its state across: an IVF index routes every row to the list the JAX
+    index put it in."""
     if meta.get("format") != _FORMAT_VERSION:
         raise ValueError(f"unsupported index format {meta.get('format')}")
     kind = meta.get("kind", "flat")
@@ -288,10 +292,10 @@ def index_from_arrays(meta: dict, vectors: np.ndarray, norms: np.ndarray,
     sharding = (devices, num_shards) if sharded else None
     if kind == "ivf":
         idx = _ivf_from_arrays(meta, vectors, norms, device, scales,
-                               centroids, assign, sharding)
+                               centroids, assign, sharding, resources)
     else:
         idx = _flat_from_arrays(meta, vectors, norms, device, keep_master,
-                                scales, sharding)
+                                scales, sharding, resources)
     if wrapper is None:
         return idx
     out = (TorchIndexIDMap2 if wrapper == "idmap2" else TorchIndexIDMap)(idx)
@@ -299,14 +303,18 @@ def index_from_arrays(meta: dict, vectors: np.ndarray, norms: np.ndarray,
     return out
 
 
-def load_index(path: str, device="cuda", keep_master: bool = True,
-               sharded: bool = False, devices=None, num_shards: int = None):
+def load_index(path: str, device=None, keep_master: bool = True,
+               sharded: bool = False, devices=None, num_shards: int = None,
+               resources=None):
     """Load a flat or IVF index, or an IDMap / IDMap2 over one, written by
     ``save_index`` or ``faiss_tpu.save_index`` (any storage, sharded or
-    not). ``sharded=True`` loads it into a ShardedIndexFlat or
+    not), on ``device`` (default "cuda", or the default device of
+    ``resources``). ``sharded=True`` loads it into a ShardedIndexFlat or
     ShardedIndexIVFFlat over ``devices`` (a list of torch devices, default
-    every visible CUDA device; ``device`` is then unused) and
-    ``num_shards``."""
+    the devices of ``resources``, else every visible CUDA device;
+    ``device`` is then unused) and ``num_shards``. ``resources``: the
+    TorchResources whose program cache the index's searches go through
+    (faiss_tpu's ``resources=``)."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
         arrays = {name: z[name] if name in z.files else None
@@ -315,4 +323,4 @@ def load_index(path: str, device="cuda", keep_master: bool = True,
     return index_from_arrays(meta, vectors, norms, device=device,
                              keep_master=keep_master, sharded=sharded,
                              devices=devices, num_shards=num_shards,
-                             **arrays)
+                             resources=resources, **arrays)

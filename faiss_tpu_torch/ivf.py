@@ -36,11 +36,15 @@ Counterpart of ``faiss_tpu/ivf.py``'s TpuIndexIVFFlat:
   * range_search gathers the probed chunks' rows in blocks of 8 queries
     (``_probed_scores``) and reuses the flat index's ``_range_csr``;
   * every search route (the fine scan, the dense fused route, the plain
-    dense sweep and the fused route's fallback rerun) runs through the
-    program ``self.res`` caches under ``faiss_tpu``'s ``ivf_search`` key
+    dense sweep and the fused route's fallback rerun), each range pass
+    (the probe included; the radius an input tensor) and the coarse
+    assign of ``add`` run through the programs ``self.res`` caches under
+    ``faiss_tpu``'s keys (``ivf_search``, ``ivf_range``, ``ivf_assign``)
     plus the index's identity and generation (on a CUDA device a captured
     CUDA graph, replayed: ``programs.py``); add, remove_ids, merge_from,
-    reset and train start a new generation and drop the index's programs.
+    reset and train start a new generation and drop the index's programs,
+    but for the assign's, which read only the centroids: they are keyed
+    by the centroids' generation and go when the centroids change.
 
 Distances are exact within the probed lists (fp32-true against the stored
 rows), so nprobe == nlist reproduces the flat index; smaller nprobe trades
@@ -67,12 +71,13 @@ from . import selector as sel_mod
 from .clustering import Kmeans, balance_centroids
 from .dtypes import MetricType, StorageType, worst_distance
 from .index import (NQ_PAD, ConcatSearchToken, TorchIndexFlat,
-                    TorchSearchToken, _finalize, _pack, _range_csr, _unpack)
+                    TorchSearchToken, _finalize, _pack, _pack_range,
+                    _range_csr, _unpack, _unpack_range, range_threshold)
 from .ops import distance as dist_ops
 from .ops import fused, kernels
 from .ops.distance import exact_fp32_matmul
 from .ops.topk import chunked_topk_scores, topk_scores
-from .resources import TorchResources, canonical_device, default_resources
+from .resources import TorchResources, bind_device
 from .storage import (D_ALIGN, D_ALIGN_INT8, _round_up, f32_to_bf16,
                       quantize_int8)
 
@@ -137,14 +142,15 @@ class TorchIndexIVFFlat:
     (2 B/element, distances fp32-true to the stored rows) or int8 (1
     B/element; per-dimension scales frozen by ``train``, norms of the
     decoded rows, exact distances against the decoded database).
-    ``device`` defaults to "cuda" and raises without a card; "cpu" runs
-    every kernel's plain version. ``resources``: the TorchResources whose
-    program cache the searches go through (``device`` must be one of its
-    devices); by default the process-wide one of the device's type."""
+    ``device`` defaults to "cuda" (the default device of ``resources``
+    where given) and raises without a card; "cpu" runs every kernel's
+    plain version. ``resources``: the TorchResources whose program cache
+    the searches go through (``device`` must be one of its devices); by
+    default the process-wide one of the device's type."""
 
     def __init__(self, d: int, nlist: int, metric=MetricType.L2,
                  storage=StorageType.FLOAT32, nprobe: int = 1,
-                 device="cuda", train_niter: int = 10, seed: int = 1234,
+                 device=None, train_niter: int = 10, seed: int = 1234,
                  balance: float = 2.0,
                  resources: Optional[TorchResources] = None):
         self.d, self.nlist = int(d), int(nlist)
@@ -156,12 +162,7 @@ class TorchIndexIVFFlat:
             raise ValueError(
                 "TorchIndexIVFFlat supports f32/bf16/int8 storage (f16 is a "
                 "flat-index feature)")
-        self.device = torch.device(device)
-        self.res = (resources if resources is not None
-                    else default_resources(self.device))
-        if canonical_device(self.device) not in self.res.devices:
-            raise ValueError(f"device {self.device} is not one of the "
-                             f"resources' devices {self.res.devices}")
+        self.device, self.res = bind_device(device, resources)
         self.nprobe = int(nprobe)
         self.train_niter = int(train_niter)
         self.seed = int(seed)
@@ -181,11 +182,16 @@ class TorchIndexIVFFlat:
         # what the last train took: Kmeans and balancing seconds (host
         # clock), the objective series, the balancing cap on list sizes
         self.train_stats: dict = {}
-        # the programs' keys: (kind, owner, generation, shape and route)
+        # the programs' keys: (kind, owner, generation, shape and route);
+        # the coarse assign's under an owner of their own and the
+        # centroids' generation, so that they outlive an add
         self._owner = programs.new_owner()
         self._gen = 0
-        weakref.finalize(self, self.res.discard,
-                         programs.owned_by(self._owner))
+        self._assign_owner = programs.new_owner()
+        self._cgen = 0
+        for owner in (self._owner, self._assign_owner):
+            weakref.finalize(self, self.res.discard,
+                             programs.owned_by(owner))
         self.reset()
 
     @property
@@ -211,7 +217,7 @@ class TorchIndexIVFFlat:
         t0 = time.perf_counter()
         km = Kmeans(self.d, self.nlist, niter=self.train_niter,
                     seed=self.seed, metric=self.metric, spherical=spherical,
-                    device=self.device)
+                    device=self.device, resources=self.res)
         km.train(x)      # ends on a copy to the host: the time is the card's
         self.train_stats = {"kmeans_s": time.perf_counter() - t0,
                             "obj": km.obj, "balance_s": 0.0}
@@ -259,6 +265,8 @@ class TorchIndexIVFFlat:
         cn[: self.nlist] = (centroids.astype(np.float64) ** 2).sum(1)
         self._cents = torch.from_numpy(c).to(self.device)
         self._cnorms = torch.from_numpy(cn).to(self.device)
+        self._cgen += 1
+        self.res.discard(programs.owned_by(self._assign_owner))
         self._mutated()
 
     def _mutated(self) -> None:
@@ -299,21 +307,53 @@ class TorchIndexIVFFlat:
                 self._ctable_host, ((0, 0), (0, new_maxc - self.maxc)))
             self.maxc = new_maxc
 
-    def _coarse_assign(self, x: np.ndarray):
+    def _coarse_assign(self, x: np.ndarray, cached: bool = True):
         """(the batch padded to d_pad on the device, (n,) int64 host list
-        ids): one copy to the card, then the coarse GEMM and the first
-        argmax in blocks of _ASSIGN_BLK rows (the quantizer's arithmetic;
-        padded centroid rows score −inf)."""
+        ids): ``_assign_padded``, then one copy back."""
+        xd, assign = self._assign_padded(x, cached)
         n = x.shape[0]
-        xp = torch.zeros((n, self.d_pad), dtype=torch.float32)
-        xp[:, : self.d] = torch.from_numpy(x)
+        return xd[:n], assign[:n].cpu().numpy()
+
+    def _coarse_assign_uncached(self, x: np.ndarray):
+        """``_coarse_assign`` run eagerly, with no program: what a replay
+        must equal bit for bit (the card tests)."""
+        return self._coarse_assign(x, cached=False)
+
+    def _assign_padded(self, x: np.ndarray, cached: bool = True):
+        """(the batch padded to (n_pad, d_pad) on the device, (n_pad,)
+        int64 list ids on the device): one copy to the card, then the
+        coarse GEMM and the first argmax (the quantizer's arithmetic;
+        padded centroid rows score −inf) through the program cached for
+        the padded batch (``cached=False``: run eagerly). The batch pads
+        as ``faiss_tpu``'s does, to whole blocks of ``blk`` rows, so one
+        program serves every batch that pads alike."""
+        n = x.shape[0]
+        blk = min(_ASSIGN_BLK, max(_QB, _round_up(n, _QB)))
+        n_pad = _round_up(n, blk)
+        xp = torch.zeros((n_pad, self.d_pad), dtype=torch.float32)
+        xp[:n, : self.d] = torch.from_numpy(x)
         xd = xp.to(self.device)
-        assign = torch.cat([
-            torch.argmax(dist_ops.matmul_scores(
-                xd[i0:i0 + _ASSIGN_BLK], self._cents, self._cnorms,
-                self.metric), dim=-1)
-            for i0 in range(0, n, _ASSIGN_BLK)])
-        return xd, assign.cpu().numpy()
+        fn = self._assign_fn(blk)
+        if cached:
+            key = ("ivf_assign", self._assign_owner, self._cgen, n_pad,
+                   self.d_pad, self.nlist, self.metric)
+            return xd, programs.run(self.res, key, fn, (xd,), self.device)
+        return xd, fn(xd)
+
+    def _assign_fn(self, blk: int):
+        """The coarse assign as a function of the padded batch alone, in
+        blocks of ``blk`` rows; it holds the index weakly."""
+        ref = weakref.ref(self)
+
+        def assign(xd):
+            ix = ref()
+            return torch.cat([
+                torch.argmax(dist_ops.matmul_scores(
+                    xd[i0:i0 + blk], ix._cents, ix._cnorms, ix.metric),
+                    dim=-1)
+                for i0 in range(0, xd.shape[0], blk)])
+
+        return assign
 
     def add(self, x: np.ndarray) -> None:
         if not self.is_trained:
@@ -720,29 +760,73 @@ class TorchIndexIVFFlat:
             raise ValueError(
                 f"IVF range_search would gather too much per block "
                 f"(nprobe={nprobe}, chunk budget={nbudget}); lower nprobe")
-        thr = float(np.float32(-radius if self.metric is MetricType.L2
-                               else radius))
-        probe = self._probe(q, nprobe)
-        qeff = self._qeff(q)
-        qn = torch.sum(q * q, dim=-1)
-        ncand = nbudget * _CHUNK
+        thr = range_threshold(radius, self.metric)
+        return _range_csr(
+            lambda rcap: self._run_range(q, nprobe, nbudget, thr, rcap, sel),
+            nq, self.metric)
 
-        def run(rcap: int):
-            rc = min(rcap, ncand)
+    def _run_range(self, q, nprobe: int, nbudget: int, thr: float,
+                   rcap: int, sel, cached: bool = True):
+        """One range pass over the probed chunks (``_range_packed``), then
+        one copy back: host (counts (1, nq_pad), vals, ids (1, nq_pad,
+        rc), rc)."""
+        packed, rc = self._range_packed(q, nprobe, nbudget, thr, rcap, sel,
+                                        cached)
+        return (*_unpack_range(packed.cpu().numpy(), rc), rc)
+
+    def _range_packed(self, q, nprobe: int, nbudget: int, thr: float,
+                      rcap: int, sel, cached: bool = True):
+        """One range pass at capacity ``rcap`` through the program cached
+        for its shape (``cached=False``: run eagerly), the probe inside it
+        and ``thr`` a 0-d input tensor (one program serves every radius):
+        the packed (counts, vals, ids) on the device and the capacity
+        used."""
+        nq_pad = q.shape[0]
+        rc = min(rcap, nbudget * _CHUNK)
+        fn = self._range_fn(nprobe, nbudget, rc)
+        inputs = (q, torch.full((), thr, dtype=torch.float32,
+                                device=self.device))
+        inputs += () if sel is None else (sel,)
+        if cached:
+            key = ("ivf_range", self._owner, self._gen, self.nlist,
+                   self.npool, self.maxc, nprobe, nbudget, nq_pad, rcap,
+                   self.d_pad, self.metric, self.storage_type,
+                   sel is not None)
+            return programs.run(self.res, key, fn, inputs, self.device), rc
+        return fn(*inputs), rc
+
+    def _run_range_uncached(self, q, nprobe: int, nbudget: int, thr: float,
+                            rcap: int, sel):
+        """``_run_range`` run eagerly, with no program: what a replay must
+        equal bit for bit (the card tests and chip_smoke)."""
+        return self._run_range(q, nprobe, nbudget, thr, rcap, sel,
+                               cached=False)
+
+    def _range_fn(self, nprobe: int, nbudget: int, rc: int):
+        """The range pass as a function of (q, thr[, sel]) alone, returning
+        the packed (counts, vals, ids); it holds the index weakly."""
+        ref = weakref.ref(self)
+
+        def range_pass(q, thr, sel=None):
+            ix = ref()
+            nq_pad = q.shape[0]
+            probe = ix._probe(q, nprobe)
+            qeff = ix._qeff(q)
+            qn = torch.sum(q * q, dim=-1)
             nh, vs, gs = [], [], []
             for b in range(0, nq_pad, _QB):
-                s, cid = self._probed_scores(qeff[b:b + _QB], qn[b:b + _QB],
-                                             probe[b:b + _QB], nbudget, sel)
+                s, cid = ix._probed_scores(qeff[b:b + _QB], qn[b:b + _QB],
+                                           probe[b:b + _QB], nbudget, sel)
                 hit = s > thr            # strict, as the flat index
                 nh.append(hit.sum(dim=-1, dtype=torch.int32))
                 v, i = topk_scores(s.masked_fill(~hit, float("-inf")), rc)
                 vs.append(v)
                 gs.append(torch.gather(cid, 1, i.to(torch.int64)))
-            return (torch.cat(nh).view(1, nq_pad).cpu().numpy(),
-                    torch.cat(vs).view(1, nq_pad, rc).cpu().numpy(),
-                    torch.cat(gs).view(1, nq_pad, rc).cpu().numpy(), rc)
+            return _pack_range(torch.cat(nh).view(1, nq_pad),
+                               torch.cat(vs).view(1, nq_pad, rc),
+                               torch.cat(gs).view(1, nq_pad, rc))
 
-        return _range_csr(run, nq, self.metric)
+        return range_pass
 
     # -- the rest of the surface ---------------------------------------------
     def remove_ids(self, ids) -> int:

@@ -102,14 +102,17 @@ def build_index_from_file(
     metric="l2",
     storage="float32",
     sharded: bool = False,
-    device="cuda",
+    device=None,
     devices=None,
     batch_rows: int = DEFAULT_BATCH_ROWS,
     d: Optional[int] = None,
+    resources=None,
 ):
-    """Build a TorchIndexFlat on ``device``, or with ``sharded=True`` a
-    ShardedIndexFlat over ``devices`` (None: every visible CUDA device), by
-    streaming a dataset file."""
+    """Build a TorchIndexFlat on ``device`` (None: "cuda", or the default
+    device of ``resources``), or with ``sharded=True`` a ShardedIndexFlat
+    over ``devices`` (None: the devices of ``resources``, else every
+    visible CUDA device), by streaming a dataset file. ``resources``: the
+    TorchResources of the index built (faiss_tpu's ``resources=``)."""
     from .index import TorchIndexFlat
     from .parallel.sharded import ShardedIndexFlat
 
@@ -120,10 +123,10 @@ def build_index_from_file(
     dim = first.shape[1] if first is not None else d
     if sharded:
         idx = ShardedIndexFlat(dim, metric=metric, storage=storage,
-                               devices=devices)
+                               devices=devices, resources=resources)
     else:
         idx = TorchIndexFlat(dim, metric=metric, storage=storage,
-                             device=device)
+                             device=device, resources=resources)
     if first is not None:
         idx.add(first)
         add_batches(idx, batches)

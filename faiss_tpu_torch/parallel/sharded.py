@@ -16,7 +16,7 @@ group r:
     and the dense renumbering of ``remove_ids``;
   * ``search`` makes one dispatch decision for every shard (the cost gate
     at the largest shard's size, hi_exact only where every shard's split
-    statistics are zero, one query-plane count), enqueues each shard's own
+    statistics are zero, one query-plane count), runs each shard's own
     fused or plain search on its device (the port's kernels, K1–K10 as the
     storage picks them), maps the local ids to global ids on the device,
     gathers the (k, gid) lists onto the first device and merges them there
@@ -25,41 +25,60 @@ group r:
     breaks them by position. The per-shard certificates are ANDed per
     query, and the uncertified rows re-run through the index's two-tier
     fallback (``index.make_selective_fallback``);
+  * the search runs as one program a distinct device of the grid
+    (``run_by_device``), cached by the index's TorchResources under
+    ``faiss_tpu``'s ``sharded_search`` key plus the index's identity, its
+    generation and the device: the program of a device runs every shard
+    search that lives there, for every replica group; the first device's
+    also takes the other devices' (scores, gids) as inputs and merges. On
+    one card named P times the whole search is one CUDA graph replayed.
+    Every mutation, and a change made on a shard's store alone
+    (``DeviceStore.version``), starts a new generation and drops the
+    index's programs;
   * with R > 1 the query batch splits across the replica groups; a replica
     on a device other than replica 0's holds a copy of the shard, made at
-    its first search after a change.
+    the first search after a change (before any capture).
 
 What stays behind from the JAX class: the ``shard_map`` / ``Mesh``
 program and ``_assemble``'s capacity equalisation, which only fed
 ``make_array_from_single_device_arrays``; no ``torch.distributed``.
-``range_search`` runs on replica 0's shards over the whole query batch.
+``range_search`` runs on replica 0's shards over the whole query batch,
+each shard's pass through that shard index's own range program.
 """
 
 from __future__ import annotations
 
 import bisect
+import weakref
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import programs
 from .. import selector as sel_mod
 from ..dtypes import MetricType, StorageType, worst_distance
 from ..index import (NQ_PAD, TorchIndexFlat, TorchSearchToken,
-                     make_selective_fallback, _pack, _range_csr)
+                     make_selective_fallback, _pack, _range_csr,
+                     range_threshold)
 from ..ops import distance as dist_ops
 from ..ops import fused
+from ..resources import canonical_device, default_resources
 from ..storage import ROW_TILE, _round_up
 
 __all__ = ["ShardedIndexFlat", "resolve_devices", "merge_shard_lists",
-           "balanced_counts"]
+           "balanced_counts", "run_by_device"]
 
 
-def resolve_devices(devices) -> List[torch.device]:
-    """``devices`` as torch devices; None: every visible CUDA device, and
-    a RuntimeError where there is none (pass ["cpu"] * P to run the
-    kernels' plain versions)."""
+def resolve_devices(devices, resources=None) -> List[torch.device]:
+    """``devices`` as torch devices; None: the devices of ``resources``
+    (repeats kept), else every visible CUDA device, and a RuntimeError
+    where there is none (pass ["cpu"] * P to run the kernels' plain
+    versions). With ``resources``, every device must be one of its devices
+    (ValueError)."""
     if devices is None:
+        if resources is not None:
+            return resources.devices
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass devices=['cpu'] "
                                "* P to run the plain versions of the kernels")
@@ -70,7 +89,73 @@ def resolve_devices(devices) -> List[torch.device]:
         raise ValueError("devices is empty")
     if any(d.type == "cuda" for d in out) and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
+    if resources is not None:
+        bad = [str(d) for d in out
+               if canonical_device(d) not in resources.devices]
+        if bad:
+            raise ValueError(f"devices {bad} are not among the resources' "
+                             f"devices {resources.devices}")
     return out
+
+
+def run_by_device(res, key, jobs, search, merge, q: torch.Tensor,
+                  out_dev: torch.device, cached: bool):
+    """A sharded search as one program a distinct device (the port's
+    graphs are per device: a CUDA graph captures one device's stream).
+
+    ``jobs`` = [(item, device, selector stream on that device or None)];
+    ``search(item, q, sel)`` is one job's (scores, gids, certificate) on
+    its device; ``merge(parts)`` takes every job's triple, in ``jobs``
+    order, on ``out_dev`` and returns the packed result. The program of a
+    device other than ``out_dev`` runs its jobs and returns their triples,
+    which are copied to ``out_dev``; ``out_dev``'s program runs its own
+    jobs, takes those copies as inputs and merges. Each is cached in
+    ``res`` under ``key + (device,)`` (``cached=False``: every function
+    runs eagerly). The functions read only ``jobs``' items, never their
+    tensors, so a cached program serves later calls of the same key."""
+    items = [item for item, _, _ in jobs]
+    with_sel = jobs[0][2] is not None if jobs else False
+    groups = {}
+    for j, (_, dev, _) in enumerate(jobs):
+        groups.setdefault(dev, []).append(j)
+
+    def call(dev, fn, inputs):
+        if cached:
+            return programs.run(res, key + (dev,), fn, inputs, dev)
+        return fn(*inputs)
+
+    def run_jobs(js, q_dev, sels):
+        return [search(items[j], q_dev, sels[n] if with_sel else None)
+                for n, j in enumerate(js)]
+
+    def sels_of(js, dev):
+        if not with_sel:
+            return ()
+        return tuple(jobs[j][2].to(dev, non_blocking=True) for j in js)
+
+    remote, copies = [], []
+    for dev, js in groups.items():
+        if dev == out_dev:
+            continue
+
+        def local(q_dev, *sels, js=js):
+            return tuple(t for part in run_jobs(js, q_dev, sels) for t in part)
+
+        outs = call(dev, local, (q.to(dev, non_blocking=True),)
+                    + sels_of(js, dev))
+        remote += js
+        copies += [t.to(out_dev, non_blocking=True) for t in outs]
+    own = groups.get(out_dev, [])
+
+    def first(q0, *rest):
+        nsel = len(own) if with_sel else 0
+        parts = dict(zip(own, run_jobs(own, q0, rest[:nsel])))
+        got = rest[nsel:]
+        for n, j in enumerate(remote):
+            parts[j] = tuple(got[3 * n: 3 * n + 3])
+        return merge([parts[j] for j in range(len(jobs))])
+
+    return call(out_dev, first, (q,) + sels_of(own, out_dev) + tuple(copies))
 
 
 def balanced_counts(n: int, p: int, start: int) -> List[int]:
@@ -144,7 +229,8 @@ class _ShardStore:
         ix = self.index
         twin = TorchIndexFlat(ix.d, metric=ix.metric, storage=ix.storage_type,
                               device=device, tuning=ix.tuning,
-                              keep_master=ix.store.keep_master)
+                              keep_master=ix.store.keep_master,
+                              resources=ix.res)
         if ix.store.scales is not None:
             twin.store.set_scales(ix.store.scales[: ix.d].cpu().numpy())
         twin.store.merge_storage(ix.store)
@@ -157,15 +243,21 @@ class ShardedIndexFlat:
     """Flat exact index over an (R, P) grid of torch devices: the database
     row-sharded over P shards, replicated R times, the query batch split
     over the R replica groups. The API is TorchIndexFlat's; ``devices``
-    defaults to every visible CUDA device."""
+    defaults to the devices of ``resources`` (a list that may repeat a
+    device), else every visible CUDA device. ``resources``: the
+    TorchResources whose program cache the searches go through, shared
+    with every shard (each device must be one of its devices); by default
+    the process-wide one of the first device's type."""
 
     def __init__(self, d: int, metric=MetricType.L2,
                  storage=StorageType.FLOAT32, num_shards: Optional[int] = None,
                  num_replicas: int = 1, keep_master: bool = True,
-                 devices=None, tuning=None):
+                 devices=None, tuning=None, resources=None):
         self.metric = MetricType.coerce(metric)
         self.storage_type = StorageType.coerce(storage)
-        devs = resolve_devices(devices)
+        devs = resolve_devices(devices, resources)
+        self.res = (resources if resources is not None
+                    else default_resources(devs[0]))
         r = int(num_replicas)
         p = num_shards or len(devs) // max(r, 1)
         if r < 1 or p < 1 or r * p > len(devs):
@@ -180,7 +272,8 @@ class ShardedIndexFlat:
             _ShardStore(TorchIndexFlat(d, metric=self.metric,
                                        storage=self.storage_type, device=dev,
                                        tuning=tuning,
-                                       keep_master=keep_master))
+                                       keep_master=keep_master,
+                                       resources=self.res))
             for dev in self.devices]
         self.ntotal = 0
         self._next_shard = 0   # rotating remainder start of the split
@@ -191,6 +284,12 @@ class ShardedIndexFlat:
         self._force_plain = False
         self.fused_fallbacks = 0
         self._no_reduced_sweep: set = set()
+        # the programs' keys: (kind, owner, generation, ..., device)
+        self._owner = programs.new_owner()
+        self._gen = 0
+        self._versions = self._store_versions()
+        weakref.finalize(self, self.res.discard,
+                         programs.owned_by(self._owner))
 
     @property
     def num_shards(self) -> int:
@@ -204,6 +303,7 @@ class ShardedIndexFlat:
         """Run every shard's plain path (cross-path testing; the
         counterpart of set_force_xla)."""
         self._force_plain = bool(force)
+        self._changed()
 
     def train(self, x: np.ndarray) -> None:
         """int8: one set of per-dimension scales, frozen in every shard
@@ -213,8 +313,23 @@ class ShardedIndexFlat:
             s.store.train(x)
         self._changed()
 
+    def _store_versions(self):
+        return tuple(s.store.version for s in self.shards)
+
     def _changed(self) -> None:
+        """A new generation: the programs baked the shards' stores, gid
+        columns and ntotals, and the replica copies are stale, so both
+        go."""
         self._replicas = {}
+        self._gen += 1
+        self._versions = self._store_versions()
+        self.res.discard(programs.owned_by(self._owner))
+
+    def _check_shards(self) -> None:
+        """A change made on a shard's store alone (not through this index)
+        starts a new generation too."""
+        if self._store_versions() != self._versions:
+            self._changed()
 
     # -- mutation -----------------------------------------------------------
     def add(self, x: np.ndarray) -> None:
@@ -364,18 +479,22 @@ class ShardedIndexFlat:
 
     def _run_search_fn(self, q: torch.Tensor, k: int, nq_pad: int, *,
                        force_plain: bool, full_sweep: bool = False,
-                       sel=None):
+                       sel=None, cached: bool = True):
         """Enqueue one sharded search of the padded queries ``q`` (on the
         first device) over the rows the per-shard selector streams ``sel``
-        admit. Returns (packed result on the first device, whether the
-        fused path ran, whether it ran the one-plane sweep): the signature
-        ``make_selective_fallback`` reruns through."""
+        admit, through the programs cached for its shape and route, one a
+        device (``cached=False``: run eagerly). Returns (packed result on
+        the first device, whether the fused path ran, whether it ran the
+        one-plane sweep): the signature ``make_selective_fallback`` reruns
+        through."""
+        self._check_shards()
         st0 = self.shards[0].store
         live = [i for i, s in enumerate(self.shards) if s.store.ntotal]
         nv_eff = _round_up(max(s.store.ntotal for s in self.shards), ROW_TILE)
         nq_local = nq_pad // self.num_replicas
         is_int8 = self.storage_type is StorageType.INT8
-        # hi_exact needs every non-empty shard's split statistics zero
+        # hi_exact needs every non-empty shard's split statistics zero; they
+        # are read here, on the host, never inside a capture
         stats_zero = st0.has_split and all(
             self.shards[i].store.split_stats_host() == (0.0, 0.0)
             for i in live)
@@ -388,26 +507,61 @@ class ShardedIndexFlat:
                          dtype=st0.row_dtype))
         passes = 2 if (full_sweep or nq_local in self._no_reduced_sweep) \
             else fused.pick_sweep_passes(nq_local, pair_sweep or is_int8)
-        out_dev = self.devices[0]
-        dists, labels, certs = [], [], []
-        for r in range(self.num_replicas):
-            q_r = q[r * nq_local: (r + 1) * nq_local]
-            parts = []
-            cert = torch.ones((nq_local,), dtype=torch.bool, device=out_dev)
-            for i in live:
-                s = self._shard(r, i)
-                sel_i = None if sel is None else sel[i].to(s.device)
-                vals, ids, c = s.index._search_local(
-                    q_r.to(s.device), k, use_fused=use_fused, passes=passes,
-                    hi_exact=stats_zero, use_direct=False, sel=sel_i)
-                parts.append((vals, s.to_global(vals, ids)))
-                cert &= c.to(out_dev)
-            d_r, l_r = merge_shard_lists(parts, k, self.metric, out_dev)
-            dists.append(d_r)
-            labels.append(l_r)
-            certs.append(cert)
-        packed = _pack(torch.cat(dists), torch.cat(labels), torch.cat(certs))
+        f16_clean = (self.storage_type is StorageType.FLOAT16 and all(
+            self.shards[i].store.f16_clean() for i in live))
+        key = ("sharded_search", self._owner, self._gen, self.num_shards,
+               self.num_replicas, nv_eff,
+               max(s.store.capacity for s in self.shards), st0.d_pad,
+               nq_pad, int(k), self.metric, self.storage_type,
+               self.shards[0].index.tuning.chunk_v, use_fused,
+               (st0.has_split or is_int8) and (is_int8 or use_fused
+                                               or st0.pair_only),
+               st0.pair_only, passes, stats_zero, f16_clean, sel is not None)
+        # replica copies are made here, before any capture
+        jobs = [((r, i), self._shard(r, i).device,
+                 None if sel is None else sel[i])
+                for r in range(self.num_replicas) for i in live]
+        out_dev, metric, nrep = self.devices[0], self.metric, self.num_replicas
+        ref = weakref.ref(self)     # a cached program never holds the index
+        route = dict(use_fused=use_fused, passes=passes, hi_exact=stats_zero,
+                     use_direct=False)
+
+        def search(item, q_dev, sel_i):
+            r, i = item
+            s = ref()._shard(r, i)
+            vals, ids, c = s.index._search_local(
+                q_dev[r * nq_local: (r + 1) * nq_local], k, sel=sel_i,
+                **route)
+            return vals, s.to_global(vals, ids), c
+
+        def merge(parts):
+            dists, labels, certs = [], [], []
+            for r in range(nrep):
+                mine = parts[r * len(live): (r + 1) * len(live)]
+                cert = torch.ones((nq_local,), dtype=torch.bool,
+                                  device=out_dev)
+                for _, _, c in mine:
+                    cert &= c
+                d_r, l_r = merge_shard_lists([(v, g) for v, g, _ in mine],
+                                             k, metric, out_dev)
+                dists.append(d_r)
+                labels.append(l_r)
+                certs.append(cert)
+            return _pack(torch.cat(dists), torch.cat(labels),
+                         torch.cat(certs))
+
+        packed = run_by_device(self.res, key, jobs, search, merge, q,
+                               out_dev, cached)
         return packed, use_fused, use_fused and passes == 1
+
+    def _run_search_uncached(self, q: torch.Tensor, k: int, nq_pad: int, *,
+                             force_plain: bool, full_sweep: bool = False,
+                             sel=None):
+        """``_run_search_fn`` run eagerly, with no program: what a replay
+        must equal bit for bit (the card tests and chip_smoke)."""
+        return self._run_search_fn(q, k, nq_pad, force_plain=force_plain,
+                                   full_sweep=full_sweep, sel=sel,
+                                   cached=False)
 
     def _empty_result(self, nq: int, k: int):
         return (np.full((nq, k), worst_distance(self.metric), np.float32),
@@ -446,8 +600,10 @@ class ShardedIndexFlat:
     # -- range search ---------------------------------------------------------
     def _run_range(self, q, nq_pad: int, thr: float, cap: int, sel):
         """Every shard's plain-path chunks (the expanded form, as the JAX
-        class's), their hit ids made global, stacked on the chunk axis: the
+        class's), each through that shard index's own range program, their
+        hit ids made global on the host, stacked on the chunk axis: the
         CSR assembly cannot tell shards from chunks."""
+        self._check_shards()
         counts, vals, ids, caps = [], [], [], []
         for i, s in enumerate(self.shards):
             if not s.store.ntotal:
@@ -479,8 +635,7 @@ class ShardedIndexFlat:
             return (np.zeros(nq + 1, np.int64), np.empty(0, np.float32),
                     np.empty(0, np.int64))
         sel = self._sel_streams(params)
-        thr = float(np.float32(-radius if self.metric is MetricType.L2
-                               else radius))
+        thr = range_threshold(radius, self.metric)
         return _range_csr(
             lambda cap: self._run_range(q, nq_pad, thr, cap, sel), nq,
             self.metric)

@@ -15,7 +15,14 @@
     and int8, with its certificate, or the plain dense sweep), and the
     (k, gid) lists merge on the first device by (score desc, gid asc),
     ShardedIndexFlat's merge. Rows a dense certificate leaves unproven
-    re-run on the plain dense sweep when the token is waited on.
+    re-run on the plain dense sweep when the token is waited on;
+  * the search runs as one program a distinct device (``run_by_device``:
+    each device's shard searches and label masking, the merge and the
+    packing on the first), cached by the index's TorchResources under
+    ``faiss_tpu``'s ``sharded_ivf`` key plus the index's identity, its
+    generation, the device and the dense fallback's flag; every mutation,
+    and one made on a shard directly (its generation), starts a new
+    generation and drops the index's programs.
 
 Also: reconstruct by global id (``_id_shard``, ``_id_local``), selectors
 over global ids, the per-query nprobe override, ``search_async``,
@@ -27,36 +34,46 @@ budget alone.
 
 from __future__ import annotations
 
+import weakref
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import programs
 from .. import selector as sel_mod
 from ..dtypes import MetricType, StorageType, worst_distance
 from ..index import (NQ_PAD, ConcatSearchToken, TorchSearchToken, _pack,
                      _unpack)
 from ..ivf import _CHUNK, _GATHER_BUDGET, TorchIndexIVFFlat, _chunk_budget
+from ..resources import default_resources
 from ..storage import _round_up
-from .sharded import balanced_counts, merge_shard_lists, resolve_devices
+from .sharded import (balanced_counts, merge_shard_lists, resolve_devices,
+                      run_by_device)
 
 __all__ = ["ShardedIndexIVFFlat"]
 
 
 class ShardedIndexIVFFlat:
-    """IVF-Flat with its rows sharded over ``devices`` (default: every
-    visible CUDA device; a list may repeat a device), one quantizer shared
-    by every shard. The API is TorchIndexIVFFlat's search surface."""
+    """IVF-Flat with its rows sharded over ``devices`` (default: the
+    devices of ``resources``, else every visible CUDA device; a list may
+    repeat a device), one quantizer shared by every shard. The API is
+    TorchIndexIVFFlat's search surface. ``resources``: the TorchResources
+    whose program cache the searches go through, shared with every shard
+    (each device must be one of its devices); by default the process-wide
+    one of the first device's type."""
 
     def __init__(self, d: int, nlist: int, metric=MetricType.L2,
                  storage=StorageType.FLOAT32, nprobe: int = 1,
                  num_shards: Optional[int] = None, devices=None,
                  train_niter: int = 10, seed: int = 1234,
-                 balance: float = 2.0):
+                 balance: float = 2.0, resources=None):
         self.d, self.nlist = int(d), int(nlist)
         self.metric = MetricType.coerce(metric)
         self.storage_type = StorageType.coerce(storage)
-        devs = resolve_devices(devices)
+        devs = resolve_devices(devices, resources)
+        self.res = (resources if resources is not None
+                    else default_resources(devs[0]))
         p = num_shards or len(devs)
         if p < 1 or p > len(devs):
             raise ValueError(f"num_shards={p} exceeds {len(devs)} devices")
@@ -65,11 +82,16 @@ class ShardedIndexIVFFlat:
             TorchIndexIVFFlat(d, nlist, metric=self.metric,
                               storage=self.storage_type, nprobe=nprobe,
                               device=dev, train_niter=train_niter, seed=seed,
-                              balance=balance)
+                              balance=balance, resources=self.res)
             for dev in self.devices]
         self.d_pad = self.shards[0].d_pad
         self.nprobe = int(nprobe)
         self.fused_fallbacks = 0   # searches whose dense certificate failed
+        # the programs' keys: (kind, owner, generation, ..., device)
+        self._owner = programs.new_owner()
+        self._gen = 0
+        weakref.finalize(self, self.res.discard,
+                         programs.owned_by(self._owner))
         self.reset()
 
     @property
@@ -100,6 +122,17 @@ class ShardedIndexIVFFlat:
                 s._set_scales(s0._scales[: self.d].cpu().numpy())
             s._set_centroids(s0._centroids, quantizer=(
                 s0.quantizer if s.device == s0.device else None))
+        self._changed()
+
+    def _shard_gens(self):
+        return tuple(s._gen for s in self.shards)
+
+    def _changed(self) -> None:
+        """A new generation: the programs baked the shards' pools, page
+        tables and ntotals, so they go."""
+        self._gen += 1
+        self._gens = self._shard_gens()
+        self.res.discard(programs.owned_by(self._owner))
 
     # -- mutation -----------------------------------------------------------
     def add(self, x: np.ndarray) -> None:
@@ -145,6 +178,7 @@ class ShardedIndexIVFFlat:
         self._id_shard = np.concatenate([self._id_shard, id_shard])
         self._id_local = np.concatenate([self._id_local, id_local])
         self.ntotal += n
+        self._changed()
 
     def reset(self) -> None:
         """Drop the vectors; the trained quantizer and scales stay."""
@@ -155,6 +189,7 @@ class ShardedIndexIVFFlat:
         # global id → (shard, local insertion id): reconstruct, selectors
         self._id_shard = np.empty(0, np.int16)
         self._id_local = np.empty(0, np.int64)
+        self._changed()
 
     def reconstruct(self, key: int) -> np.ndarray:
         if not 0 <= key < self.ntotal:
@@ -186,10 +221,11 @@ class ShardedIndexIVFFlat:
         return out
 
     def _search_packed(self, x: np.ndarray, k: int, params=None,
-                       force_plain_dense: bool = False):
-        """Enqueue one sharded search: (packed result on the first device
-        or None for the empty index, nq, the dense certificate's fallback
-        or None)."""
+                       force_plain_dense: bool = False, cached: bool = True):
+        """Enqueue one sharded search through the programs cached for its
+        shape and route, one a device (``cached=False``: run eagerly):
+        (packed result on the first device or None for the empty index,
+        nq, the dense certificate's fallback or None)."""
         if not self.is_trained:
             raise RuntimeError("IndexIVFFlat requires train() before search")
         if k <= 0:
@@ -203,35 +239,57 @@ class ShardedIndexIVFFlat:
         sel = self._sel_streams(params)
         if self.ntotal == 0:
             return None, nq, None
+        if self._shard_gens() != self._gens:
+            self._changed()    # a shard changed under the index
         nprobe = self._nprobe(params)
         nq_pad = max(NQ_PAD, _round_up(nq, NQ_PAD))
         q = torch.zeros((nq_pad, self.d_pad), dtype=torch.float32)
         q[:nq, : self.d] = torch.from_numpy(x)
-        out_dev = self.devices[0]
-        parts = []
-        cert = torch.ones((nq_pad,), dtype=torch.bool, device=out_dev)
-        proven = True
-        for i, sh in enumerate(self.shards):
-            if not sh.ntotal:
-                continue
-            nbudget = _chunk_budget(sh._counts, nprobe)
+        live = [i for i, sh in enumerate(self.shards) if sh.ntotal]
+        nbudget = {i: _chunk_budget(self.shards[i]._counts, nprobe)
+                   for i in live}
+        for i in live:
             if nprobe < self.nlist and \
-                    nq_pad * nbudget * _CHUNK * 4 > _GATHER_BUDGET:
+                    nq_pad * nbudget[i] * _CHUNK * 4 > _GATHER_BUDGET:
                 raise ValueError(
                     f"IVF fine scan working set would be "
-                    f"{(nq_pad * nbudget * _CHUNK * 4) >> 20} MB on shard "
-                    f"{i} (nprobe={nprobe}, chunk budget={nbudget}); lower "
-                    "nprobe")
-            v, lab, c = sh._search_local(
-                q.to(sh.device), k, nprobe, nbudget,
-                None if sel is None else sel[i], force_plain_dense)
+                    f"{(nq_pad * nbudget[i] * _CHUNK * 4) >> 20} MB on shard "
+                    f"{i} (nprobe={nprobe}, chunk budget={nbudget[i]}); "
+                    "lower nprobe")
+        # the dense fused route ships a certificate; the others are exact
+        proven = not (nprobe >= self.nlist and not force_plain_dense and any(
+            self.shards[i]._dense_fused_ok() for i in live))
+        key = ("sharded_ivf", self._owner, self._gen, self.num_shards,
+               self.nlist, tuple(s.npool for s in self.shards),
+               tuple(s.maxc for s in self.shards), nprobe,
+               tuple(nbudget.values()), nq_pad, int(k), self.d_pad,
+               self.metric, self.storage_type, sel is not None,
+               force_plain_dense)
+        out_dev = self.devices[0]
+        jobs = [(i, self.shards[i].device, None if sel is None else sel[i])
+                for i in live]
+        ref = weakref.ref(self)
+        metric = self.metric
+
+        def search(i, q_dev, sel_i):
+            v, lab, c = ref().shards[i]._search_local(
+                q_dev, k, nprobe, nbudget[i], sel_i, force_plain_dense)
             lab = lab.to(torch.int32).masked_fill(~(v > float("-inf")), -1)
-            parts.append((v, lab))
-            if c is not None:
-                cert &= c.to(out_dev)
-                proven = False
-        dists, labels = merge_shard_lists(parts, k, self.metric, out_dev)
-        packed = _pack(dists, labels, cert)
+            if c is None:
+                c = torch.ones((nq_pad,), dtype=torch.bool,
+                               device=q_dev.device)
+            return v, lab, c
+
+        def merge(parts):
+            cert = torch.ones((nq_pad,), dtype=torch.bool, device=out_dev)
+            for _, _, c in parts:
+                cert &= c
+            dists, labels = merge_shard_lists(
+                [(v, lab) for v, lab, _ in parts], k, metric, out_dev)
+            return _pack(dists, labels, cert)
+
+        packed = run_by_device(self.res, key, jobs, search, merge,
+                               q.to(out_dev), out_dev, cached)
         if proven:
             return packed, nq, None
 
@@ -250,6 +308,14 @@ class ShardedIndexIVFFlat:
             return d_out, i_out
 
         return packed, nq, fallback
+
+    def _search_packed_uncached(self, x: np.ndarray, k: int, params=None,
+                                force_plain_dense: bool = False):
+        """The first pass of ``_search_packed`` run eagerly, with no
+        program: what a replay must equal bit for bit (the card tests and
+        chip_smoke). The packed result, None for the empty index."""
+        return self._search_packed(x, k, params, force_plain_dense,
+                                   cached=False)[0]
 
     def _nq_cap(self, nprobe: int) -> Optional[int]:
         """Most query rows per dispatch: the fattest shard's fine scan

@@ -7,8 +7,9 @@ caches (``faiss_tpu/index.py`` ``_build_search_fn``, ``ivf.py``
 shape key, with no host work between its stages.
 
 ``build(fn, inputs, device)`` takes an eager function of static-shaped
-tensors and the first call's inputs, and returns (program, the first
-call's result). On the CPU the program is ``fn`` itself, which runs the
+tensors, returning a tensor or a tuple of tensors, and the first call's
+inputs, and returns (program, the first call's result). On the CPU the
+program is ``fn`` itself, which runs the
 kernels' plain versions (the counterpart of ``interpret=True``). On a CUDA
 device:
 
@@ -24,8 +25,8 @@ device:
     included);
   * each later call copies its inputs into the static buffers on the
     current stream, replays the graph there and returns a clone of the
-    static output, which the next replay cannot overwrite: tokens in
-    flight each hold their own result.
+    static output (of each, for a tuple), which the next replay cannot
+    overwrite: tokens in flight each hold their own result.
 
 A host synchronisation inside the capture raises; nothing falls back to
 eager. Kernel launches are counted in Python (``ops.kernels.launches``),
@@ -38,7 +39,7 @@ from __future__ import annotations
 
 import itertools
 import threading
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -48,6 +49,8 @@ from .ops import kernels
 # unsafe calls on the capturing thread only
 _CAPTURE_LOCK = threading.Lock()
 _owners = itertools.count()
+
+Outputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 
 def new_owner() -> int:
@@ -64,10 +67,10 @@ def owned_by(owner: int) -> Callable[[object], bool]:
 
 class GraphProgram:
     """One captured search: static inputs, the graph, its static output
-    and the launch counts of one replay."""
+    (a tensor or a tuple of them) and the launch counts of one replay."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph,
-                 static_in: List[torch.Tensor], static_out: torch.Tensor,
+                 static_in: List[torch.Tensor], static_out: Outputs,
                  launches: Dict[str, int], device: torch.device):
         self.graph = graph
         self.static_in = static_in
@@ -79,7 +82,7 @@ class GraphProgram:
         self._lock = threading.Lock()
         self._stream = None
 
-    def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
+    def __call__(self, *inputs: torch.Tensor) -> Outputs:
         with torch.cuda.device(self.device), self._lock:
             stream = torch.cuda.current_stream()
             if self._stream is not None and self._stream != stream:
@@ -88,7 +91,10 @@ class GraphProgram:
             for dst, src in zip(self.static_in, inputs):
                 dst.copy_(src, non_blocking=True)
             self.graph.replay()
-            out = self.static_out.clone()
+            if isinstance(self.static_out, tuple):
+                out = tuple(t.clone() for t in self.static_out)
+            else:
+                out = self.static_out.clone()
             for name, n in self.launches.items():
                 kernels.launches[name] += n
         return out
@@ -118,8 +124,8 @@ def _capture(fn, static_in):
     return graph, out, delta
 
 
-def build(fn: Callable[..., torch.Tensor], inputs: Sequence[torch.Tensor],
-          device) -> Tuple[Callable[..., torch.Tensor], torch.Tensor]:
+def build(fn: Callable[..., Outputs], inputs: Sequence[torch.Tensor],
+          device) -> Tuple[Callable[..., Outputs], Outputs]:
     """(program, first result) of ``fn`` over ``inputs`` on ``device``: the
     eager ``fn`` on the CPU, a ``GraphProgram`` on a CUDA device."""
     device = torch.device(device)
@@ -137,12 +143,13 @@ def build(fn: Callable[..., torch.Tensor], inputs: Sequence[torch.Tensor],
             first = fn(*static_in)
             graph, static_out, delta = _capture(fn, static_in)
         cur.wait_stream(side)
-        first.record_stream(cur)
+        for t in (first if isinstance(first, tuple) else (first,)):
+            t.record_stream(cur)
     return GraphProgram(graph, static_in, static_out, delta, device), first
 
 
-def run(res, key, fn: Callable[..., torch.Tensor],
-        inputs: Sequence[torch.Tensor], device) -> torch.Tensor:
+def run(res, key, fn: Callable[..., Outputs],
+        inputs: Sequence[torch.Tensor], device) -> Outputs:
     """``fn``'s result on ``inputs`` through the program ``res`` caches
     under ``key``: built on a miss (its first result is then this call's),
     else replayed."""

@@ -216,6 +216,22 @@ class TorchResources:
                 + f"\n  fn-cache entries    : {self.cache_info()['entries']}")
 
 
+def bind_device(device, resources: Optional[TorchResources]):
+    """(device, resources) of an index, a Kmeans or a loader: ``device``
+    None takes the resources' default device ("cuda" without resources),
+    ``resources`` None the process-wide one of the device's type
+    (``default_resources``); a device outside the resources' devices
+    raises ValueError."""
+    if device is None:
+        device = "cuda" if resources is None else resources.default_device
+    device = torch.device(device)
+    res = resources if resources is not None else default_resources(device)
+    if canonical_device(device) not in res.devices:
+        raise ValueError(f"device {device} is not one of the resources' "
+                         f"devices {res.devices}")
+    return device, res
+
+
 _default_resources: Dict[str, TorchResources] = {}
 _default_lock = threading.Lock()
 

@@ -10,8 +10,10 @@ other cards): ids equal to the unsharded index's; f32 also filtered and
 range_search. IVF: a TorchIndexIVFFlat (1024 lists, f32) saved and loaded
 with load_index(sharded=True), and a ShardedIndexIVFFlat (bf16) trained
 and filled across the cards, ids equal to the single index's at nprobe 16
-and 1024. Prints the host ms a batch of each (20 searches after one
-warm-up), the launch counts, and ALL OK, or exits 1 on a mismatch."""
+and 1024. Each search runs as one CUDA graph a card (the first card's
+also merges): its replays must equal the eager search bit for bit
+(``replays equal``). Prints the host ms a batch of each (20 searches after
+one warm-up), the launch counts, and ALL OK, or exits 1 on a mismatch."""
 import sys
 import tempfile
 import time
@@ -29,6 +31,14 @@ print(ft.gpu_name_and_power_limit(), flush=True)
 rng = np.random.default_rng(42)
 xb = rng.standard_normal((1_000_000, 128)).astype(np.float32)
 xq = rng.standard_normal((100, 128)).astype(np.float32)
+
+def replays_equal(cached, eager):
+    """Two calls of the cached search (a build, then a replay) against the
+    eager one, bit for bit."""
+    ref = eager().contiguous().view(torch.int32)
+    return all(torch.equal(cached().contiguous().view(torch.int32), ref)
+               for _ in range(2))
+
 
 def host_ms(fn, reps=20):
     fn()
@@ -48,11 +58,16 @@ for st in ("f32", "int8", "bf16"):
         kernels.reset_launches()
         Ds, Is = sh.search(xq, 10)
         launches = {k: v for k, v in kernels.launches.items() if v}
+        q, _, nq_pad = sh._prep_queries(xq)
+        rep = replays_equal(
+            lambda: sh._run_search_fn(q, 10, nq_pad, force_plain=False)[0],
+            lambda: sh._run_search_uncached(q, 10, nq_pad,
+                                            force_plain=False)[0])
         same = np.array_equal(Is, I1)
-        ok &= same
+        ok &= same and rep
         print(f"{st} R={reps_} P={sh.num_shards} devices={[str(d) for d in sh.devices]}: ids equal {same}, "
               f"max|dD| {np.abs(Ds - D1).max():.3e}, fallbacks {sh.fused_fallbacks}/{single.fused_fallbacks}, "
-              f"copies {len(sh._replicas)}; host ms sharded {host_ms(lambda: sh.search(xq, 10)):.3f} "
+              f"copies {len(sh._replicas)}, replays equal {rep}; host ms sharded {host_ms(lambda: sh.search(xq, 10)):.3f} "
               f"single {host_ms(lambda: single.search(xq, 10)):.3f}; launches {launches}", flush=True)
         if st == "f32" and reps_ == 1:
             sel = ft.SearchParams(sel=ft.IDSelectorRange(100_000, 700_000))
@@ -76,8 +91,10 @@ with tempfile.TemporaryDirectory() as tmp:
     shi = ft.load_index(f"{tmp}/ivf.npz", sharded=True)
 Ds, Is = shi.search(xq, 10)
 same = np.array_equal(Is, I1)
-ok &= same
-print(f"ivf f32 nprobe 16 P={shi.num_shards}: ids equal {same}; host ms sharded "
+rep = replays_equal(lambda: shi._search_packed(xq, 10)[0],
+                    lambda: shi._search_packed_uncached(xq, 10))
+ok &= same and rep
+print(f"ivf f32 nprobe 16 P={shi.num_shards}: ids equal {same}, replays equal {rep}; host ms sharded "
       f"{host_ms(lambda: shi.search(xq, 10)):.3f} single {host_ms(lambda: ivf.search(xq, 10)):.3f}", flush=True)
 shi2 = ft.ShardedIndexIVFFlat(128, 1024, nprobe=16, storage="bf16")
 shi2.train(xb[:200_000]); shi2.add(xb)

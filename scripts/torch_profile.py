@@ -1,7 +1,8 @@
 """Where the time of one faiss_tpu_torch search goes, on one CUDA card.
 
     python scripts/torch_profile.py [--configs bf16,f32,f32_sift,pair,int8,f16,
-                                               f32_10m,ivf_1m,ivf_1m_dense]
+                                               f32_10m,ivf_1m,ivf_1m_dense,
+                                               sharded_f32,f32_range]
                                     [--searches 20] [--nv 1000000]
 
 Builds each configuration at SIFT1M shape (nv×128, nq=100, k=10; data from
@@ -14,8 +15,15 @@ shape's program), then torch.profiler over ``--searches`` synchronous
 line per configuration: device time per batch by part (the sweep kernel,
 the group select, the rescore, the final select, torch's sorts, every other
 kernel and copy), device busy, host wall per batch (profiler on) and the device's idle
-share, plus the card's name and power limit. Imports nothing of jax or
-faiss_tpu; exits 1 without a card.
+share, the five kernels that took the most device time, plus the card's
+name and power limit. Imports nothing of jax or faiss_tpu; exits 1 without
+a card.
+
+sharded_f32 is ShardedIndexFlat over ["cuda:0"] * 4 with the f32 rows
+(one CUDA graph a search: four shard searches and the merge, whose sorts
+count under "sorts"); f32_range the f32 index's ``range_search`` at the
+median 10th-neighbour distance (one range pass, a replayed graph: the
+GEMM, then a stable sort of each (nq_pad, chunk) score block).
 
 ivf_1m is chip_smoke.py's IVF main path: TorchIndexIVFFlat(128, 4096), f32
 lists, trained and filled with the nv rows of chip_smoke.ivf_data (the
@@ -49,8 +57,10 @@ PARTS = (("sweep", ("sweep_split_mma_kernel",)),
                       "f32_order")),
          ("final_select", ("final_select_kernel",)),
          # torch's stable sorts: phase 2 past the select kernel's limits
-         # (_top_groups, _top_groups_from_bmax) and topk_scores
-         ("sorts", ("RadixSort", "radix_sort", "SortKernel", "sort_")))
+         # (_top_groups, _top_groups_from_bmax), topk_scores and the sharded
+         # merge (rows of up to 4096 sort in place: SortKVInPlace)
+         ("sorts", ("RadixSort", "radix_sort", "SortKernel", "sort_",
+                    "SortKVInPlace")))
 
 
 def device_events(torch, fn, reps: int):
@@ -93,10 +103,12 @@ def device_events(torch, fn, reps: int):
     return events, wall, stages
 
 
-def profile(torch, idx, xq, searches: int) -> dict:
-    idx.search(xq, K)       # with device_events' warm-up: two searches
-    events, wall, _ = device_events(torch, lambda: idx.search(xq, K),
-                                    searches)
+def profile(torch, idx, xq, searches: int, call=None) -> dict:
+    """``call`` (default: ``idx.search(xq, K)``) profiled ``searches``
+    times after two warm-ups."""
+    call = call or (lambda: idx.search(xq, K))
+    call()                  # with device_events' warm-up: two calls
+    events, wall, _ = device_events(torch, call, searches)
     stages = {}
     if hasattr(idx, "_search_packed_uncached"):
         _, _, stages = device_events(
@@ -104,7 +116,9 @@ def profile(torch, idx, xq, searches: int) -> dict:
             searches)
     out = {name: 0.0 for name, _ in PARTS}
     other = 0.0
+    by_name = {}
     for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
         part = next((p for p, keys in PARTS
                      if any(k in name for k in keys)), None)
         if part is None:
@@ -120,6 +134,8 @@ def profile(torch, idx, xq, searches: int) -> dict:
     if stages:
         out["stages"] = {k[len("ivf."):]: v / searches / 1e3
                          for k, v in stages.items()}
+    out["top"] = [(name[:80], us / searches / 1e3) for name, us in
+                  sorted(by_name.items(), key=lambda kv: -kv[1])[:5]]
     return out
 
 
@@ -163,7 +179,9 @@ def main() -> int:
                "pair": (xb, xq, dict(keep_master=False)),
                "int8": (xb, xq, dict(storage="int8")),
                "f16": (xb, xq, dict(storage="f16")),
-               "f32_10m": (xb, xq, {})}
+               "f32_10m": (xb, xq, {}),
+               "sharded_f32": (xb, xq, {}),
+               "f32_range": (xb, xq, {})}
     print(ft.gpu_name_and_power_limit(), flush=True)
     ivf = None
     for name in args.configs.split(","):
@@ -178,14 +196,21 @@ def main() -> int:
                               "ms_per_batch": row}), flush=True)
             continue
         base, queries, kw = configs[name]
-        idx = ft.TorchIndexFlat(D, device="cuda", **kw)
+        if name == "sharded_f32":
+            idx = ft.ShardedIndexFlat(D, devices=["cuda:0"] * 4)
+        else:
+            idx = ft.TorchIndexFlat(D, device="cuda", **kw)
         idx.add(base)
         if name == "f32_10m":
             more = np.random.default_rng(44)
             for _ in range(9):
                 idx.add(more.standard_normal((args.nv, D), dtype=np.float32))
         torch.cuda.synchronize()
-        row = profile(torch, idx, queries, args.searches)
+        call = None
+        if name == "f32_range":
+            radius = float(np.median(idx.search(queries, K)[0][:, -1]))
+            call = lambda: idx.range_search(queries, radius)  # noqa: E731
+        row = profile(torch, idx, queries, args.searches, call)
         print(json.dumps({"config": name, "metric": "l2",
                           "ntotal": idx.ntotal, "ms_per_batch": row}),
               flush=True)

@@ -57,7 +57,14 @@ duplicated rows whose certificate fails at nq = 100) and every IVF route
 is a CUDA graph in the index's TorchResources, and its replays equal the
 eager search bit for bit (distances, id bits, certificate); 16 tokens in
 flight each keep their own result; a replay adds the launch counts of an
-eager run; a capture that meets a host synchronisation raises.
+eager run; a capture that meets a host synchronisation raises. So do the
+sites that followed: the sharded flat search over one card named P times
+(f32, int8, f16, a selector, both fallback tiers: one graph a search), the
+sharded IVF search (the fine scan and the dense routes), flat and IVF
+range passes at two radii (the second replays, no new program) and at the
+rerun's capacity, and the IVF coarse assign; a shard changed under a
+sharded index drops its programs, and a sharded capture that meets a host
+synchronisation raises with nothing cached.
 """
 
 import time
@@ -2382,4 +2389,219 @@ def test_capture_meeting_a_host_sync_raises(dev):
     prog, first = programs.build(lambda t: t * 2.0, [x], dev)
     assert torch.equal(prog(x + 1.0), torch.full((8,), 4.0, device=dev))
     assert torch.equal(first, torch.full((8,), 2.0, device=dev))
+    torch.cuda.synchronize()
+
+
+# -- the sites that followed: sharded, range passes, the coarse assign --------
+
+
+def _graphs_owned(res, owner):
+    """The programs of ``owner`` (every one must be a CUDA graph)."""
+    from faiss_tpu_torch.programs import GraphProgram
+
+    progs = [p for key, p in res._cache.items() if key[1] == owner]
+    assert progs and all(isinstance(p, GraphProgram) for p in progs)
+    return progs
+
+
+def _equal_tuples(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8", "f16"])
+def test_replayed_sharded_flat_equals_eager(dev, storage, monkeypatch):
+    """ShardedIndexFlat over cuda:0 named three times: one CUDA graph a
+    search, its replays equal to the eager search bit for bit, with a
+    selector and on both fallback tiers."""
+    from faiss_tpu_torch import IDSelectorRange, SearchParams, ShardedIndexFlat
+
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    rng = np.random.default_rng(27)
+    xb = rng.standard_normal((36_000, 64), dtype=np.float32)
+    xq = rng.standard_normal((40, 64), dtype=np.float32)
+    sh = ShardedIndexFlat(64, storage=storage, devices=["cuda:0"] * 3)
+    sh.add(xb[:20_000])
+    sh.add(xb[20_000:])
+    sel = SearchParams(sel=IDSelectorRange(1000, 25_000))
+    for nq in (8, 40):
+        q, _, nq_pad = sh._prep_queries(xq[:nq])
+        for params in (None, sel):
+            s = sh._sel_streams(params)
+            for kw in (dict(force_plain=False),
+                       dict(force_plain=False, full_sweep=True),
+                       dict(force_plain=True)):
+                ref = sh._run_search_uncached(q, 10, nq_pad, sel=s, **kw)
+                for _ in range(3):
+                    got = sh._run_search_fn(q, 10, nq_pad, sel=s, **kw)
+                    assert got[1:] == ref[1:]
+                    assert torch.equal(_bits(got[0]), _bits(ref[0]))
+    # one device: one program a shape and route
+    progs = _graphs_owned(sh.res, sh._owner)
+    assert all(key[-1] == torch.device("cuda", 0)
+               for key in sh.res._cache if key[1] == sh._owner)
+    D1, I1 = sh.search(xq, 10, params=sel)
+    D2, I2 = sh.search(xq, 10, params=sel)
+    np.testing.assert_array_equal(I1, I2)
+    np.testing.assert_array_equal(D1, D2)
+    assert len(_graphs_owned(sh.res, sh._owner)) == len(progs)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+def test_replayed_sharded_ivf_equals_eager(dev, storage, tmp_path):
+    """A TorchIndexIVFFlat reloaded sharded over cuda:0 named three times:
+    the fine scan at nprobe 16 and the dense route (bf16: the fused one
+    with its certificate, and its forced plain rerun) replay the eager
+    search bit for bit."""
+    from faiss_tpu_torch import (IDSelectorRange, SearchParams,
+                                 TorchIndexIVFFlat, load_index, save_index)
+
+    rng = np.random.default_rng(28)
+    xb = rng.standard_normal((20_000, 64), dtype=np.float32)
+    xq = rng.standard_normal((30, 64), dtype=np.float32)
+    single = TorchIndexIVFFlat(64, 32, storage=storage, device=dev)
+    single.train(xb)
+    single.add(xb)
+    path = str(tmp_path / "ivf.npz")
+    save_index(single, path)
+    sh = load_index(path, sharded=True, devices=["cuda:0"] * 3)
+    for nprobe in (16, 32):
+        for sel in (None, IDSelectorRange(500, 15_000)):
+            p = SearchParams(sel=sel, nprobe=nprobe)
+            for force in (False, True):
+                ref = sh._search_packed_uncached(xq, 10, p,
+                                                 force_plain_dense=force)
+                for _ in range(3):
+                    got = sh._search_packed(xq, 10, p,
+                                            force_plain_dense=force)[0]
+                    assert torch.equal(_bits(got), _bits(ref))
+        Ds, Is = sh.search(xq, 10, params=SearchParams(nprobe=nprobe))
+        D1, I1 = single.search(xq, 10, params=SearchParams(nprobe=nprobe))
+        np.testing.assert_array_equal(Is, I1)
+    _graphs_owned(sh.res, sh._owner)
+    torch.cuda.synchronize()
+
+
+def test_replayed_flat_range_equals_eager(dev):
+    """The flat range pass at two radii is one graph (the second radius
+    replays it: no new program), and the rerun's capacity another; each
+    equals the eager pass bit for bit."""
+    from faiss_tpu_torch.index import range_threshold
+
+    rng = np.random.default_rng(29)
+    xb = rng.standard_normal((30_000, 64), dtype=np.float32)
+    xq = rng.standard_normal((20, 64), dtype=np.float32)
+    idx = TorchIndexFlat(64, device=dev)
+    idx.add(xb)
+    q, _, nq_pad = idx._prep_queries(xq)
+    for i, radius in enumerate((75.0, 85.0)):
+        thr = range_threshold(radius, idx.metric)
+        for cap in (1024, 4096):
+            ref = idx._run_range_uncached(q, nq_pad, thr, cap, None)
+            for _ in range(2):
+                _equal_tuples(idx._run_range(q, nq_pad, thr, cap, None),
+                              ref)
+        assert len(_graphs_owned(idx.res, idx._owner)) == 2
+    lims, _, _ = idx.range_search(xq, 110.0)     # past 1024 hits a chunk
+    assert np.diff(lims).max() > 1024
+    lims2, D2, I2 = idx.range_search(xq, 110.0)
+    np.testing.assert_array_equal(lims, lims2)
+    torch.cuda.synchronize()
+
+
+def test_replayed_ivf_range_and_assign_equal_eager(dev):
+    """The IVF range pass (the probe inside it) at two radii is one graph
+    a capacity; the coarse assign of add one a padded batch size; each
+    equals its eager run bit for bit, and an add keeps the assign's."""
+    from faiss_tpu_torch import TorchIndexIVFFlat
+    from faiss_tpu_torch.index import range_threshold
+
+    rng = np.random.default_rng(30)
+    xb = rng.standard_normal((20_000, 64), dtype=np.float32)
+    xq = rng.standard_normal((20, 64), dtype=np.float32)
+    ivf = TorchIndexIVFFlat(64, 32, nprobe=8, device=dev)
+    ivf.train(xb)
+    for n0, n1 in ((0, 9000), (9000, 20_000)):   # pads to 16,384 rows both
+        x = xb[n0:n1]
+        _, want = ivf._coarse_assign_uncached(x)
+        for _ in range(3):
+            xd, got = ivf._coarse_assign(x)
+            np.testing.assert_array_equal(got, want)
+            assert xd.shape[0] == n1 - n0
+        ivf.add(x)
+    assert len(_graphs_owned(ivf.res, ivf._assign_owner)) == 1
+    q, _, _, nprobe, nbudget, sel = ivf._prep_search(xq, None)
+    for radius in (95.0, 105.0):
+        thr = range_threshold(radius, ivf.metric)
+        for rcap in (1024, 64):
+            ref = ivf._run_range_uncached(q, nprobe, nbudget, thr, rcap, sel)
+            for _ in range(2):
+                _equal_tuples(ivf._run_range(q, nprobe, nbudget, thr, rcap,
+                                             sel), ref)
+    assert len(_graphs_owned(ivf.res, ivf._owner)) == 2
+    lims, D, I = ivf.range_search(xq, 100.0)
+    assert lims[-1] > 0
+    torch.cuda.synchronize()
+
+
+def test_sharded_shard_change_drops_the_programs(dev, monkeypatch):
+    """A change made through the sharded index, or on a shard's store
+    alone, drops the sharded index's graphs; the next search captures
+    anew and equals a fresh index built by the same adds."""
+    from faiss_tpu_torch import ShardedIndexFlat
+
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    rng = np.random.default_rng(31)
+    xb = rng.standard_normal((30_000, 64), dtype=np.float32)
+    xq = rng.standard_normal((16, 64), dtype=np.float32)
+    sh = ShardedIndexFlat(64, devices=["cuda:0"] * 2)
+    sh.add(xb[:20_000])
+    sh.search(xq, 10)
+    _graphs_owned(sh.res, sh._owner)
+    sh.add(xb[20_000:])
+    assert not any(key[1] == sh._owner for key in sh.res._cache)
+    D1, I1 = sh.search(xq, 10)
+    fresh = ShardedIndexFlat(64, devices=["cuda:0"] * 2)
+    fresh.add(xb[:20_000])
+    fresh.add(xb[20_000:])
+    D2, I2 = fresh.search(xq, 10)
+    np.testing.assert_array_equal(I1, I2)
+    np.testing.assert_array_equal(D1, D2)
+    gen = sh._gen
+    sh.shards[1].store.add(xb[:10])       # a shard's store changed alone
+    sh.search(xq, 10)
+    assert sh._gen > gen and len(_graphs_owned(sh.res, sh._owner)) == 1
+    torch.cuda.synchronize()
+
+
+def test_sharded_capture_meeting_a_host_sync_raises(dev, monkeypatch):
+    """A shard search that synchronises with the host inside the sharded
+    capture raises; nothing is cached and nothing ran eagerly in its
+    place."""
+    from faiss_tpu_torch import ShardedIndexFlat
+
+    rng = np.random.default_rng(32)
+    sh = ShardedIndexFlat(64, devices=["cuda:0"] * 2)
+    sh.add(rng.standard_normal((10_000, 64), dtype=np.float32))
+    xq = rng.standard_normal((8, 64), dtype=np.float32)
+    local = TorchIndexFlat._search_local
+
+    def syncing(self, q, k, **kw):
+        vals, ids, cert = local(self, q, k, **kw)
+        return vals * float(vals[0, 0].item() != 0.0), ids, cert
+
+    monkeypatch.setattr(TorchIndexFlat, "_search_local", syncing)
+    with pytest.raises(RuntimeError):
+        sh.search(xq, 10)
+    assert not any(key[1] == sh._owner for key in sh.res._cache)
+    monkeypatch.setattr(TorchIndexFlat, "_search_local", local)
+    D, I = sh.search(xq, 10)
+    assert (I >= 0).all()
     torch.cuda.synchronize()

@@ -384,7 +384,10 @@ def test_ivf_mutation_drops_the_programs(mutation):
         ivf.reset()
         ivf.add(extra)
         rows = extra
-    assert res.cache_info()["entries"] == n_other
+    # the searches' entries went; the coarse assign's (keyed by the
+    # centroids) stay, and an add of another padded size builds one more
+    assert res.cache_info()["entries"] == n_other + (
+        mutation in ("add", "reset"))
     for nprobe in (2, 8):
         p = SearchParams(nprobe=nprobe)
         D1, I1 = ivf.search(xq, K, params=p)
@@ -420,7 +423,7 @@ def test_a_collected_index_leaves_no_entry(open_gate):
     # a token in flight holds its index (its fallback may search again);
     # once waited on, only its result
     tok = idx.search_async(xq, K)
-    assert res.cache_info()["entries"] == 2
+    assert res.cache_info()["entries"] == 3     # the IVF add's assign too
     D1, I1 = tok.wait()
     del idx, ivf
     gc.collect()
