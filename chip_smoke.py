@@ -67,7 +67,7 @@ it. Each path's launch counts are zeroed just before it and read just after:
             above and below runs through them): for f32, f32_sift, pair,
             bf16, int8 and f16 at 1M (L2), f32_10m (in its phase), the
             f32 flat range pass at 1M after the surface phase (a second
-            radius must replay it; 3 reps, depth 4),
+            radius must replay it),
             sharded_1m's f32 and int8 indexes and the sharded IVF reload
             (in theirs), ivf_1m's f32 lists at nprobe 1, 16 and 64, its
             range pass at nprobe 16 and the coarse assign of its 1M add (in
@@ -76,12 +76,7 @@ it. Each path's launch counts are zeroed just before it and read just after:
             two replays held against the eager search (the uncached
             function) bit for bit, distances, id bits and certificates;
             host ms/batch eager and replayed in turns (eager, replay,
-            replay, eager), the same pipelined at depth 16 (the range pass
-            and the assign: 3 reps, depth 4), the device idle share over
-            20 replayed searches
-            under torch.profiler (whose trace must name the sweep, or K10's
-            f32 kernel, on the card; the range passes and the assign, torch
-            GEMMs and sorts alone, print the kernels it names) and
+            replay, eager; the range pass and the assign: 3 reps) and
             cache_info()
 
 plus nq=8 (two-plane bf16 sweep) and a duplicated-vector index whose
@@ -904,8 +899,7 @@ def phase_f32_10m(torch, ft, xb, xq):
     for key in ("select_groups", "rescore_groups_pair", "final_select"):
         check(counts[key] > 0, f"f32_10m: kernel {key} was never launched")
     pipelined(torch, "f32_10m", [(idx, xq, L2)])
-    prog = programs_row(torch, "f32_10m", idx, *_flat_runs(idx, xq),
-                        "sweep_split_mma_kernel")
+    prog = programs_row(torch, "f32_10m", idx, *_flat_runs(idx, xq))
     k3_row = _k3_block_max_10m(torch, idx, xq)
     idx.set_force_plain(True)
     idx.search(xq, K)
@@ -1358,7 +1352,7 @@ def phase_sharded_1m(torch, ft, xb, xq, singles):
             parts, K, L2, q.device), REPS)
         rows[f"sharded_1m_{storage}"] = programs_row(
             torch, f"sharded_1m {storage} P=4", sh, *_flat_runs(sh, xq),
-            "sweep_split_mma_kernel", drop=sh._changed)
+            drop=sh._changed)
         print(f"search sharded_1m {storage} L2 P=4 on cuda:0 nq={len(xq)} "
               f"k={K}: ids = the unsharded index's, recall@{K}={rec}, max "
               f"|D - D_oracle| = {rel:.2e} ε; add {add_s:.3f} s, "
@@ -1411,8 +1405,7 @@ def _sharded_ivf(torch, ft, ivf, xq):
     check(rec == 1.0, f"sharded ivf: recall@{K} {rec} != 1.0")
     pipe = cuda_ms(torch, lambda: sh._search_packed(xq, K), REPS)
     row = programs_row(torch, "sharded_1m ivf f32 P=4 nprobe=16", sh,
-                       *_ivf_runs(ft, sh, xq, 16), "rescore_f32_kernel",
-                       drop=sh._changed)
+                       *_ivf_runs(ft, sh, xq, 16), drop=sh._changed)
     print(f"search sharded_1m ivf f32 P=4 on cuda:0 nprobe=16 nq={len(xq)} "
           f"k={K}: ids = the single index's, recall@{K}={rec} over the "
           f"probed lists; save + sharded load {load_s:.3f} s, per_shard="
@@ -1479,8 +1472,8 @@ def phase_ivf_1m(torch, ft):
 
     f32 = ivf["f32"]
     prog = {f"ivf_1m_nprobe{npb}": programs_row(
-        torch, f"ivf_1m nprobe={npb}", f32, *_ivf_runs(ft, f32, xq, npb),
-        "rescore_f32_kernel") for npb in (1, 16, 64)}
+        torch, f"ivf_1m nprobe={npb}", f32, *_ivf_runs(ft, f32, xq, npb))
+        for npb in (1, 16, 64)}
     f32.nprobe = 16
     k10 = _k10_f32_row(torch, f32, xq)
 
@@ -1511,8 +1504,7 @@ def phase_ivf_1m(torch, ft):
     prog["ivf_1m_range_nprobe16"] = programs_row(
         torch, f"ivf_1m range nprobe=16 radius {radius:.4f}", f32,
         *_range_runs(f32, q, nprobe, nbudget,
-                     range_threshold(radius, f32.metric), RANGE_CAP0, None),
-        None)
+                     range_threshold(radius, f32.metric), RANGE_CAP0, None))
     n = f32.res.cache_info()["entries"]
     f32.range_search(xq, radius * 1.01)
     check(f32.res.cache_info()["entries"] == n,
@@ -1522,10 +1514,10 @@ def phase_ivf_1m(torch, ft):
     prog["ivf_1m_assign"] = programs_row(
         torch, f"ivf_1m assign n={NV}", f32,
         lambda: f32._assign_padded(xb, cached=False)[1],
-        lambda: f32._assign_padded(xb)[1], None,
+        lambda: f32._assign_padded(xb)[1],
         drop=lambda: f32.res.discard(
             programs.owned_by(f32._assign_owner)),
-        reps=3, depth=4, prof_reps=3)
+        reps=3)
 
     rng = np.random.default_rng(SEED + 4)
     sel = (ft.IDSelectorRange(0, NV // 2)
@@ -2067,57 +2059,13 @@ def _host_ms(fn, reps):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def _pipelined_host_ms(fn, depth, blocks=3):
-    """``depth`` searches enqueued back to back, then each copied back:
-    host clock per search, the best of ``blocks``."""
-    best = float("inf")
-    for _ in range(blocks):
-        t0 = time.perf_counter()
-        outs = [fn() for _ in range(depth)]
-        for o in outs:
-            o.cpu()
-        best = min(best, (time.perf_counter() - t0) / depth)
-    return best * 1e3
-
-
-def _idle_share(torch, fn, reps):
-    """torch.profiler over ``reps`` calls of fn, each ending in its copy
-    back: (device busy ms a call, host wall ms a call, idle share, the
-    kernel names the trace shows on the card)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn().cpu()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn().cpu()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps * 1e3
-    busy, names = 0.0, set()
-    for evt in prof.events():
-        if (evt.device_type == DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)):
-            busy += evt.time_range.elapsed_us()
-            names.add(evt.name)
-    busy = busy / reps / 1e3
-    return busy, wall, 1.0 - busy / wall, names
-
-
-def programs_row(torch, label, idx, eager, cached, kernel, drop=None,
-                 reps=REPS, depth=16, prof_reps=20):
+def programs_row(torch, label, idx, eager, cached, drop=None, reps=REPS):
     """The programs phase for one configuration: the index's programs
     dropped (a new generation; ``drop``, default ``idx._mutated``), the
     cold first batch (eager warm-up and capture: the capture time), the
-    replays against the eager search bit for bit, host ms/batch eager and
-    replayed in turns (eager, replay, replay, eager; ``reps`` each),
-    pipelined at ``depth`` in the same turns, and the device idle share
-    over ``prof_reps`` replayed searches under torch.profiler, whose trace
-    must name ``kernel`` on the card (None: any kernel, for the programs
-    of torch's GEMMs and sorts alone; their names are printed). Returns
-    the row."""
+    replays against the eager search bit for bit, and host ms/batch eager
+    and replayed in turns (eager, replay, replay, eager; ``reps`` each).
+    Returns the row."""
     (drop or idx._mutated)()
     torch.cuda.synchronize()
     n0 = idx.res.cache_info()["entries"]
@@ -2133,22 +2081,10 @@ def programs_row(torch, label, idx, eager, cached, kernel, drop=None,
               f"programs {label}: {name} differs from the eager search")
     turns = {"eager": eager, "replay": cached}
     host = {"eager": [], "replay": []}
-    pipe = {"eager": [], "replay": []}
     for mode in ("eager", "replay", "replay", "eager"):
         host[mode].append(_host_ms(turns[mode], reps))
-    for mode in ("eager", "replay", "replay", "eager"):
-        pipe[mode].append(_pipelined_host_ms(turns[mode], depth))
-    busy, wall, idle, names = _idle_share(torch, cached, prof_reps)
-    named = any(kernel is None or kernel in n for n in names)
-    check(named, f"programs {label}: the trace of the replays names no "
-          f"{kernel or 'kernel'} on the card ({sorted(names)[:8]})")
     row = {"capture_ms": cold, "host_ms": host,
-           f"pipelined_ms_{depth}": pipe,
-           "profiled": {"device_busy_ms": busy, "host_wall_ms": wall,
-                        "idle_share": idle, "kernels_named": named},
            "cache_info": idx.res.cache_info()}
-    if kernel is None:
-        row["profiled"]["kernels"] = sorted(names)[:12]
     print(f"programs {label}: {json.dumps(row)}", flush=True)
     return row
 
@@ -2165,8 +2101,7 @@ def phase_programs(torch, runs):
     [(label, index, queries)], L2."""
     out = {}
     for label, idx, xq in runs:
-        out[label] = programs_row(torch, label, idx, *_flat_runs(idx, xq),
-                                  "sweep_split_mma_kernel")
+        out[label] = programs_row(torch, label, idx, *_flat_runs(idx, xq))
     return out
 
 
@@ -2183,8 +2118,7 @@ def range_programs_row(torch, idx, xq):
     thr = range_threshold(radius, idx.metric)
     row = programs_row(
         torch, f"range_1m f32 radius {radius:.4f}", idx,
-        *_range_runs(idx, q, nq_pad, thr, RANGE_CAP0, None), None,
-        reps=3, depth=4, prof_reps=3)
+        *_range_runs(idx, q, nq_pad, thr, RANGE_CAP0, None), reps=3)
     n = idx.res.cache_info()["entries"]
     lims, _, _ = idx.range_search(xq, radius * 1.01)
     check(idx.res.cache_info()["entries"] == n,

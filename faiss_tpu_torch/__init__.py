@@ -28,7 +28,8 @@ faiss IndexFlat interop; and TorchResources, the devices and the cache of
 search programs that the flat and IVF searches run through (on a CUDA
 device each search captured once per shape as a CUDA graph and replayed,
 ``programs.py``). With these the port has the counterpart of every name
-``faiss_tpu`` exports.
+``faiss_tpu`` exports. Beside them, ``tracing``: spans at the search
+path's layer boundaries, live only while a ``torch.profiler`` records.
 
     TorchIndexFlat, TorchSearchToken, index_numpy_to_torch,
     index_cpu_to_torch, index_torch_to_cpu
@@ -42,7 +43,7 @@ device each search captured once per shape as a CUDA graph and replayed,
     save_index, load_index, index_from_arrays  (faiss_tpu's .npz format)
     TorchResources, default_resources, query_device_capabilities,
     describe_capabilities, gpu_name_and_power_limit
-    loader, native, utils (modules)
+    loader, native, tracing, utils (modules)
 """
 
 from .clustering import Kmeans, kmeans_clustering, knn, pairwise_distances
@@ -61,7 +62,7 @@ from .selector import (IDSelector, IDSelectorAnd, IDSelectorBatch,
                        IDSelectorMask, IDSelectorNot, IDSelectorOr,
                        IDSelectorRange, SearchParameters, SearchParametersIVF,
                        SearchParams, reject_ivf_params)
-from . import loader, native, utils
+from . import loader, native, tracing, utils
 
 __version__ = "0.1.0"
 

@@ -71,6 +71,7 @@ import torch
 
 from . import programs
 from . import selector as sel_mod
+from . import tracing
 from .dtypes import MetricType, StorageType, worst_distance
 from .ops import distance as dist_ops
 from .ops import fused
@@ -132,16 +133,32 @@ class TorchSearchToken:
         if packed is not None and packed.is_cuda:
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(packed.device))
+        # the call id that search_async's span minted (None untraced)
+        self._call = tracing.current_call()
 
     def wait(self) -> Tuple[np.ndarray, np.ndarray]:
         if self._result is None:
-            d, i, cert = _unpack(self._packed.cpu().numpy(), self._k)
-            if self._fallback is not None and not cert.all():
-                self._result = self._fallback(cert, d, i)
-            else:
-                self._result = (
-                    np.ascontiguousarray(d[: self._nq], np.float32),
-                    np.ascontiguousarray(i[: self._nq], np.int64))
+            with tracing.span("token.wait", self._call):
+                if self._event is not None and tracing.recording():
+                    # traced only: splits the wait into this call's own
+                    # work and the copy's, which queues behind every call
+                    # enqueued after this one (the same device work in all)
+                    with tracing.span("token.sync"):
+                        self._event.synchronize()
+                with tracing.span("token.copy"):
+                    host = self._packed.cpu().numpy()
+                with tracing.span("token.unpack"):
+                    d, i, cert = _unpack(host, self._k)
+                    # a failed padding row changes no answer: no rerun
+                    rerun = (self._fallback is not None
+                             and not cert[: self._nq].all())
+                    if not rerun:
+                        self._result = (
+                            np.ascontiguousarray(d[: self._nq], np.float32),
+                            np.ascontiguousarray(i[: self._nq], np.int64))
+                if rerun:
+                    with tracing.span("token.fallback"):
+                        self._result = self._fallback(cert, d, i)
             self._packed = self._fallback = self._event = None
         return self._result
 
@@ -408,12 +425,13 @@ class TorchIndexFlat:
             raise ValueError(f"expected (n, {self.d}) queries, got {x.shape}")
         nq = x.shape[0]
         nq_pad = max(NQ_PAD, _round_up(nq, NQ_PAD))
-        q = torch.zeros((nq_pad, self.store.d_pad), dtype=torch.float32,
-                        pin_memory=self.device.type == "cuda")
-        q[:nq, : self.d] = torch.from_numpy(x)
-        # from pinned memory the copy is asynchronous: enqueueing a search
-        # never waits for the device
-        return q.to(self.device, non_blocking=True), nq, nq_pad
+        with tracing.span("index.prep_queries"):
+            q = torch.zeros((nq_pad, self.store.d_pad), dtype=torch.float32,
+                            pin_memory=self.device.type == "cuda")
+            q[:nq, : self.d] = torch.from_numpy(x)
+            # from pinned memory the copy is asynchronous: enqueueing a
+            # search never waits for the device
+            return q.to(self.device, non_blocking=True), nq, nq_pad
 
     def _use_direct(self, nv_eff: int, nq_pad: int) -> bool:
         """The plain path's direct (unexpanded) L2 form, for small shapes."""
@@ -602,14 +620,15 @@ class TorchIndexFlat:
         # validate first: no id vector for a search without a selector
         if sel_mod.selector_mask(params, np.empty(0, np.int64)) is None:
             return None
-        mask = sel_mod.selector_mask(params,
-                                     np.arange(self.ntotal, dtype=np.int64))
-        if mask.all():
-            return None
-        pad = torch.zeros((self.store.capacity,), dtype=torch.bool,
-                          pin_memory=self.device.type == "cuda")
-        pad[: self.ntotal] = torch.from_numpy(mask)
-        return pad.to(self.device, non_blocking=True)
+        with tracing.span("index.sel_stream"):
+            mask = sel_mod.selector_mask(
+                params, np.arange(self.ntotal, dtype=np.int64))
+            if mask.all():
+                return None
+            pad = torch.zeros((self.store.capacity,), dtype=torch.bool,
+                              pin_memory=self.device.type == "cuda")
+            pad[: self.ntotal] = torch.from_numpy(mask)
+            return pad.to(self.device, non_blocking=True)
 
     def _empty_result(self, nq: int, k: int):
         return (np.full((nq, k), worst_distance(self.metric), np.float32),
@@ -622,20 +641,22 @@ class TorchIndexFlat:
         admits."""
         if k <= 0:
             raise ValueError(f"k must be positive, got {k}")
-        q, nq, nq_pad = self._prep_queries(x)
-        if self.ntotal == 0:
-            sel_mod.selector_mask(params, np.empty(0, np.int64))  # validate
-            return TorchSearchToken(None, nq, k,
-                                    result=self._empty_result(nq, k))
-        sel = self._sel_stream(params)
-        packed, use_fused, reduced = self._run_search_fn(
-            q, k, nq_pad, force_plain=False, sel=sel)
-        fallback = None
-        if use_fused:
-            fallback = make_selective_fallback(
-                self, q, nq, k, pad_unit=NQ_PAD, pin_key=nq_pad,
-                reduced=reduced, sel=sel)
-        return TorchSearchToken(packed, nq, k, fallback=fallback)
+        with tracing.span("index.search_async", mint=True):
+            q, nq, nq_pad = self._prep_queries(x)
+            if self.ntotal == 0:
+                # validate the params
+                sel_mod.selector_mask(params, np.empty(0, np.int64))
+                return TorchSearchToken(None, nq, k,
+                                        result=self._empty_result(nq, k))
+            sel = self._sel_stream(params)
+            packed, use_fused, reduced = self._run_search_fn(
+                q, k, nq_pad, force_plain=False, sel=sel)
+            fallback = None
+            if use_fused:
+                fallback = make_selective_fallback(
+                    self, q, nq, k, pad_unit=NQ_PAD, pin_key=nq_pad,
+                    reduced=reduced, sel=sel)
+            return TorchSearchToken(packed, nq, k, fallback=fallback)
 
     def search(self, x: np.ndarray, k: int,
                params=None) -> Tuple[np.ndarray, np.ndarray]:

@@ -58,7 +58,6 @@ fused dense route on any non-empty bf16 / int8 pool.
 
 from __future__ import annotations
 
-import contextlib
 import time
 import weakref
 from typing import Optional, Tuple
@@ -68,6 +67,7 @@ import torch
 
 from . import programs
 from . import selector as sel_mod
+from . import tracing
 from .clustering import Kmeans, balance_centroids
 from .dtypes import MetricType, StorageType, worst_distance
 from .index import (NQ_PAD, ConcatSearchToken, TorchIndexFlat,
@@ -89,14 +89,6 @@ _POOL0 = 8                    # first pool capacity (chunks), then doubling
 _GATHER_BUDGET = 512 << 20    # bytes of fine-scan scores per dispatch
 _ASSIGN_BLK = 8192            # coarse-assign rows per GEMM block
 _DENSE_BLOCK = 256 << 20      # bytes of one dense-sweep score block
-
-
-def _stage(name: str):
-    """A profiler range around one stage of the gather search (``ivf.*``,
-    read by scripts/torch_profile.py); no work when no profiler is on."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 def _chunk_ids(probe: torch.Tensor, counts: torch.Tensor,
@@ -473,12 +465,13 @@ class TorchIndexIVFFlat:
         sel = None
         # validate first: no id vector for a search without a selector
         if sel_mod.selector_mask(params, np.empty(0, np.int64)) is not None:
-            mask = sel_mod.selector_mask(
-                params, np.arange(self.ntotal, dtype=np.int64))
-            if not mask.all():
-                s = np.zeros((self.npool * _CHUNK,), bool)
-                s[self._slot_of[mask]] = True
-                sel = torch.from_numpy(s).to(self.device)
+            with tracing.span("index.sel_stream"):
+                mask = sel_mod.selector_mask(
+                    params, np.arange(self.ntotal, dtype=np.int64))
+                if not mask.all():
+                    s = np.zeros((self.npool * _CHUNK,), bool)
+                    s[self._slot_of[mask]] = True
+                    sel = torch.from_numpy(s).to(self.device)
         req = getattr(params, "nprobe", None) if params is not None else None
         nprobe = min(req if req is not None else self.nprobe, self.nlist)
         nbudget = _chunk_budget(self._counts, nprobe) if self.npool else 1
@@ -490,19 +483,20 @@ class TorchIndexIVFFlat:
                 f"(nprobe={nprobe}, chunk budget={nbudget}); lower nprobe "
                 "(oversized query batches are split automatically: hitting "
                 "this means even one 8-query block exceeds the budget)")
-        q = torch.zeros((nq_pad, self.d_pad), dtype=torch.float32,
-                        pin_memory=self.device.type == "cuda")
-        q[:nq, : self.d] = torch.from_numpy(x)
-        return (q.to(self.device, non_blocking=True), nq, nq_pad, nprobe,
-                nbudget, sel)
+        with tracing.span("index.prep_queries"):
+            q = torch.zeros((nq_pad, self.d_pad), dtype=torch.float32,
+                            pin_memory=self.device.type == "cuda")
+            q[:nq, : self.d] = torch.from_numpy(x)
+            q = q.to(self.device, non_blocking=True)
+        return q, nq, nq_pad, nprobe, nbudget, sel
 
     def _probe(self, q: torch.Tensor, nprobe: int) -> torch.Tensor:
         """The coarse step: (nq_pad, nprobe) int32 list ids, best first,
         ties to the lowest list id (the quantizer's arithmetic)."""
-        with _stage("ivf.coarse_gemm"):
+        with tracing.span("ivf.coarse_gemm"):
             cs = dist_ops.matmul_scores(q, self._cents, self._cnorms,
                                         self.metric)
-        with _stage("ivf.top_nprobe"):
+        with tracing.span("ivf.top_nprobe"):
             return topk_scores(cs, nprobe)[1]
 
     def _qeff(self, q: torch.Tensor) -> torch.Tensor:
@@ -513,10 +507,10 @@ class TorchIndexIVFFlat:
         """The gather route: K10 over the probed chunks → (scores (nq_pad,
         k_eff) with −‖q‖², insertion ids (nq_pad, k_eff))."""
         probe = self._probe(q, nprobe)
-        with _stage("ivf.chunk_ids"):
+        with tracing.span("ivf.chunk_ids"):
             cidx, okc = _chunk_ids(probe, self._counts_dev, self._ctable,
                                    nbudget)
-        with _stage("ivf.k10"):
+        with tracing.span("ivf.k10"):
             occ = self._ids >= 0             # slot validity (adds, removals)
             nslots = self._data.shape[0]
             vn = fused._premask_norms(self._norms, nslots, nslots,
@@ -524,7 +518,7 @@ class TorchIndexIVFFlat:
                                       occ if sel is None else occ & sel)
             s = kernels.rescore_groups(self._qeff(q), self._data, vn, cidx,
                                        metric=self.metric)
-        with _stage("ivf.top_k"):
+        with tracing.span("ivf.top_k"):
             # dead budget positions point at chunk 0: mask them after the
             # kernel
             s = s.masked_fill(~okc.repeat_interleave(_CHUNK, dim=1),
@@ -708,12 +702,14 @@ class TorchIndexIVFFlat:
                 return ConcatSearchToken([
                     self.search_async(xa[i0:i0 + cap], k, params=params)
                     for i0 in range(0, xa.shape[0], cap)])
-        packed, nq, fallback = self._search_packed(x, k, params)
-        if packed is None:
-            return TorchSearchToken(None, nq, k, result=(
-                np.full((nq, k), worst_distance(self.metric), np.float32),
-                np.full((nq, k), -1, np.int64)))
-        return TorchSearchToken(packed, nq, k, fallback=fallback)
+        with tracing.span("index.search_async", mint=True):
+            packed, nq, fallback = self._search_packed(x, k, params)
+            if packed is None:
+                return TorchSearchToken(None, nq, k, result=(
+                    np.full((nq, k), worst_distance(self.metric),
+                            np.float32),
+                    np.full((nq, k), -1, np.int64)))
+            return TorchSearchToken(packed, nq, k, fallback=fallback)
 
     def search(self, x: np.ndarray, k: int,
                params=None) -> Tuple[np.ndarray, np.ndarray]:

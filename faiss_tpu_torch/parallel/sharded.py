@@ -57,6 +57,7 @@ import torch
 
 from .. import programs
 from .. import selector as sel_mod
+from .. import tracing
 from ..dtypes import MetricType, StorageType, worst_distance
 from ..index import (NQ_PAD, TorchIndexFlat, TorchSearchToken,
                      make_selective_fallback, _pack, _range_csr,
@@ -443,10 +444,12 @@ class ShardedIndexFlat:
         unit = NQ_PAD * self.num_replicas
         nq_pad = max(unit, _round_up(nq, unit))
         dev = self.devices[0]
-        q = torch.zeros((nq_pad, self.shards[0].store.d_pad),
-                        dtype=torch.float32, pin_memory=dev.type == "cuda")
-        q[:nq, : self.d] = torch.from_numpy(x)
-        return q.to(dev, non_blocking=True), nq, nq_pad
+        with tracing.span("index.prep_queries"):
+            q = torch.zeros((nq_pad, self.shards[0].store.d_pad),
+                            dtype=torch.float32,
+                            pin_memory=dev.type == "cuda")
+            q[:nq, : self.d] = torch.from_numpy(x)
+            return q.to(dev, non_blocking=True), nq, nq_pad
 
     def _sel_streams(self, params):
         """``params``' selector over the global ids, as one (capacity,)
@@ -455,17 +458,19 @@ class ShardedIndexFlat:
         sel_mod.reject_ivf_params(params)
         if sel_mod.selector_mask(params, np.empty(0, np.int64)) is None:
             return None
-        masks = [np.zeros((s.store.capacity,), bool) for s in self.shards]
-        excluded = False
-        for g0, g1, si, l0 in self._extents:
-            m = sel_mod.selector_mask(params,
-                                      np.arange(g0, g1, dtype=np.int64))
-            masks[si][l0: l0 + (g1 - g0)] = m
-            excluded = excluded or not m.all()
-        if not excluded:
-            return None
-        return [torch.from_numpy(m).to(s.device)
-                for m, s in zip(masks, self.shards)]
+        with tracing.span("index.sel_stream"):
+            masks = [np.zeros((s.store.capacity,), bool)
+                     for s in self.shards]
+            excluded = False
+            for g0, g1, si, l0 in self._extents:
+                m = sel_mod.selector_mask(params,
+                                          np.arange(g0, g1, dtype=np.int64))
+                masks[si][l0: l0 + (g1 - g0)] = m
+                excluded = excluded or not m.all()
+            if not excluded:
+                return None
+            return [torch.from_numpy(m).to(s.device)
+                    for m, s in zip(masks, self.shards)]
 
     def _shard(self, r: int, i: int) -> _ShardStore:
         """Shard i as replica group r searches it: the shard itself on its
@@ -573,21 +578,23 @@ class ShardedIndexFlat:
         enqueued; ``wait()`` runs the certificate fallback."""
         if k <= 0:
             raise ValueError(f"k must be positive, got {k}")
-        q, nq, nq_pad = self._prep_queries(x)
-        if self.ntotal == 0:
-            sel_mod.selector_mask(params, np.empty(0, np.int64))  # validate
-            return TorchSearchToken(None, nq, k,
-                                    result=self._empty_result(nq, k))
-        sel = self._sel_streams(params)
-        packed, use_fused, reduced = self._run_search_fn(
-            q, k, nq_pad, force_plain=False, sel=sel)
-        fallback = None
-        if use_fused:
-            fallback = make_selective_fallback(
-                self, q, nq, k, pad_unit=NQ_PAD * self.num_replicas,
-                pin_key=nq_pad // self.num_replicas, reduced=reduced,
-                sel=sel)
-        return TorchSearchToken(packed, nq, k, fallback=fallback)
+        with tracing.span("index.search_async", mint=True):
+            q, nq, nq_pad = self._prep_queries(x)
+            if self.ntotal == 0:
+                # validate the params
+                sel_mod.selector_mask(params, np.empty(0, np.int64))
+                return TorchSearchToken(None, nq, k,
+                                        result=self._empty_result(nq, k))
+            sel = self._sel_streams(params)
+            packed, use_fused, reduced = self._run_search_fn(
+                q, k, nq_pad, force_plain=False, sel=sel)
+            fallback = None
+            if use_fused:
+                fallback = make_selective_fallback(
+                    self, q, nq, k, pad_unit=NQ_PAD * self.num_replicas,
+                    pin_key=nq_pad // self.num_replicas, reduced=reduced,
+                    sel=sel)
+            return TorchSearchToken(packed, nq, k, fallback=fallback)
 
     def search(self, x: np.ndarray, k: int,
                params=None) -> Tuple[np.ndarray, np.ndarray]:

@@ -42,6 +42,7 @@ import torch
 
 from .. import programs
 from .. import selector as sel_mod
+from .. import tracing
 from ..dtypes import MetricType, StorageType, worst_distance
 from ..index import (NQ_PAD, ConcatSearchToken, TorchSearchToken, _pack,
                      _unpack)
@@ -207,18 +208,19 @@ class ShardedIndexIVFFlat:
         on its device, or None when nothing is filtered."""
         if sel_mod.selector_mask(params, np.empty(0, np.int64)) is None:
             return None
-        mask = sel_mod.selector_mask(params,
-                                     np.arange(self.ntotal, dtype=np.int64))
-        if mask.all():
-            return None
-        gids = np.nonzero(mask)[0]
-        out = []
-        for i, sh in enumerate(self.shards):
-            s = np.zeros((sh.npool * _CHUNK,), bool)
-            s[sh._slot_of[self._id_local[gids[self._id_shard[gids] == i]]]] \
-                = True
-            out.append(torch.from_numpy(s).to(sh.device))
-        return out
+        with tracing.span("index.sel_stream"):
+            mask = sel_mod.selector_mask(
+                params, np.arange(self.ntotal, dtype=np.int64))
+            if mask.all():
+                return None
+            gids = np.nonzero(mask)[0]
+            out = []
+            for i, sh in enumerate(self.shards):
+                s = np.zeros((sh.npool * _CHUNK,), bool)
+                s[sh._slot_of[
+                    self._id_local[gids[self._id_shard[gids] == i]]]] = True
+                out.append(torch.from_numpy(s).to(sh.device))
+            return out
 
     def _search_packed(self, x: np.ndarray, k: int, params=None,
                        force_plain_dense: bool = False, cached: bool = True):
@@ -243,8 +245,11 @@ class ShardedIndexIVFFlat:
             self._changed()    # a shard changed under the index
         nprobe = self._nprobe(params)
         nq_pad = max(NQ_PAD, _round_up(nq, NQ_PAD))
-        q = torch.zeros((nq_pad, self.d_pad), dtype=torch.float32)
-        q[:nq, : self.d] = torch.from_numpy(x)
+        out_dev = self.devices[0]
+        with tracing.span("index.prep_queries"):
+            q = torch.zeros((nq_pad, self.d_pad), dtype=torch.float32)
+            q[:nq, : self.d] = torch.from_numpy(x)
+            q = q.to(out_dev)
         live = [i for i, sh in enumerate(self.shards) if sh.ntotal]
         nbudget = {i: _chunk_budget(self.shards[i]._counts, nprobe)
                    for i in live}
@@ -265,7 +270,6 @@ class ShardedIndexIVFFlat:
                tuple(nbudget.values()), nq_pad, int(k), self.d_pad,
                self.metric, self.storage_type, sel is not None,
                force_plain_dense)
-        out_dev = self.devices[0]
         jobs = [(i, self.shards[i].device, None if sel is None else sel[i])
                 for i in live]
         ref = weakref.ref(self)
@@ -288,8 +292,8 @@ class ShardedIndexIVFFlat:
                 [(v, lab) for v, lab, _ in parts], k, metric, out_dev)
             return _pack(dists, labels, cert)
 
-        packed = run_by_device(self.res, key, jobs, search, merge,
-                               q.to(out_dev), out_dev, cached)
+        packed = run_by_device(self.res, key, jobs, search, merge, q,
+                               out_dev, cached)
         if proven:
             return packed, nq, None
 
@@ -335,12 +339,14 @@ class ShardedIndexIVFFlat:
                 return ConcatSearchToken([
                     self.search_async(xa[i0:i0 + cap], k, params=params)
                     for i0 in range(0, xa.shape[0], cap)])
-        packed, nq, fallback = self._search_packed(x, k, params)
-        if packed is None:
-            return TorchSearchToken(None, nq, k, result=(
-                np.full((nq, k), worst_distance(self.metric), np.float32),
-                np.full((nq, k), -1, np.int64)))
-        return TorchSearchToken(packed, nq, k, fallback=fallback)
+        with tracing.span("index.search_async", mint=True):
+            packed, nq, fallback = self._search_packed(x, k, params)
+            if packed is None:
+                return TorchSearchToken(None, nq, k, result=(
+                    np.full((nq, k), worst_distance(self.metric),
+                            np.float32),
+                    np.full((nq, k), -1, np.int64)))
+            return TorchSearchToken(packed, nq, k, fallback=fallback)
 
     def search(self, x: np.ndarray, k: int,
                params=None) -> Tuple[np.ndarray, np.ndarray]:

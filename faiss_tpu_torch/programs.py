@@ -43,6 +43,7 @@ from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 
+from . import tracing
 from .ops import kernels
 
 # one capture at a time: each runs in "thread_local" mode, which forbids
@@ -151,14 +152,18 @@ def build(fn: Callable[..., Outputs], inputs: Sequence[torch.Tensor],
 def run(res, key, fn: Callable[..., Outputs],
         inputs: Sequence[torch.Tensor], device) -> Outputs:
     """``fn``'s result on ``inputs`` through the program ``res`` caches
-    under ``key``: built on a miss (its first result is then this call's),
-    else replayed."""
+    under ``key``: built on a miss (its first result is then this call's;
+    a ``programs.capture`` span), else replayed (``programs.replay``)."""
     first = []
 
     def builder():
-        prog, out = build(fn, inputs, device)
+        with tracing.span("programs.capture"):
+            prog, out = build(fn, inputs, device)
         first.append(out)
         return prog
 
     prog = res.cached(key, builder)
-    return first[0] if first else prog(*inputs)
+    if first:
+        return first[0]
+    with tracing.span("programs.replay"):
+        return prog(*inputs)

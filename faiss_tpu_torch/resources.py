@@ -151,6 +151,7 @@ class TorchResources:
         self._caps = query_device_capabilities(self._devices[0])
         self._cache: Dict[Any, Any] = {}
         self._pending: Dict[Any, threading.Event] = {}
+        self._hits = self._misses = 0
         # re-entrant: a collected index's finalizer discards its entries,
         # and the collection may run inside a locked region of this thread
         self._lock = threading.RLock()
@@ -172,11 +173,14 @@ class TorchResources:
         semantics, line for line)."""
         with self._lock:
             got = self._cache.get(key)
-            if got is None:
+            if got is not None:
+                self._hits += 1
+            else:
                 pending = self._pending.get(key)
                 if pending is None:
                     pending = self._pending[key] = threading.Event()
                     owner = True
+                    self._misses += 1
                 else:
                     owner = False
         if got is not None:
@@ -185,6 +189,7 @@ class TorchResources:
             pending.wait()
             with self._lock:
                 if key in self._cache:
+                    self._hits += 1
                     return self._cache[key]
             # the owner's builder raised: build in this thread
             return self.cached(key, builder)
@@ -210,6 +215,14 @@ class TorchResources:
     def cache_info(self) -> Dict[str, int]:
         with self._lock:
             return {"entries": len(self._cache)}
+
+    def program_stats(self) -> Dict[str, int]:
+        """Lookups of ``cached`` since the resources were made: ``hits``
+        found the key's program (built, or built meanwhile by another
+        caller), ``misses`` built it. A deployment whose shapes have
+        settled adds hits only."""
+        with self._lock:
+            return {"hits": self._hits, "misses": self._misses}
 
     def describe(self) -> str:
         return (self._caps.describe()

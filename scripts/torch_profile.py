@@ -15,9 +15,12 @@ shape's program), then torch.profiler over ``--searches`` synchronous
 line per configuration: device time per batch by part (the sweep kernel,
 the group select, the rescore, the final select, torch's sorts, every other
 kernel and copy), device busy, host wall per batch (profiler on) and the device's idle
-share, the five kernels that took the most device time, plus the card's
-name and power limit. Imports nothing of jax or faiss_tpu; exits 1 without
-a card.
+share, the five kernels that took the most device time, each program span's
+mean host ms and count a batch (``spans``: ``faiss_tpu_torch.tracing``'s
+ranges, on the profiler's clock) and each idle gap of the card past 0.5 ms
+with the innermost program span open on the host at its middle
+(``idle_gaps``), plus the card's name and power limit. Imports nothing of
+jax or faiss_tpu; exits 1 without a card.
 
 sharded_f32 is ShardedIndexFlat over ["cuda:0"] * 4 with the f32 rows
 (one CUDA graph a search: four shard searches and the merge, whose sorts
@@ -30,15 +33,16 @@ lists, trained and filled with the nv rows of chip_smoke.ivf_data (the
 Gaussian mixture), searched at nprobe 16 (the fine scan on K10's f32
 rows); ivf_1m_dense the same index at nprobe 4096 (the plain dense sweep).
 For ivf_1m the line also splits the device time by stage (``stages``):
-the kernel time inside the span on the card of each profiler range that
+the device time of the operations launched inside each span that
 ``TorchIndexIVFFlat`` opens in its gather search (``ivf.coarse_gemm``,
 ``ivf.top_nprobe``, ``ivf.chunk_ids``, ``ivf.k10`` with its pre-masked
 norms, ``ivf.top_k`` with the slot → id map), read from a second profile of
-the eager search (``_search_packed_uncached``): the ranges open while a
+the eager search (``_search_packed_uncached``): the spans open while a
 program is captured, not when it is replayed.
 """
 
 import argparse
+import bisect
 import json
 import sys
 import time
@@ -63,10 +67,71 @@ PARTS = (("sweep", ("sweep_split_mma_kernel",)),
                     "SortKVInPlace")))
 
 
+def program_spans(prof):
+    """[(name, start µs, end µs)] of the port's spans (``tracing.SPANS``)
+    among a stopped profiler's host events, by start."""
+    from faiss_tpu_torch.tracing import SPANS
+
+    return sorted(((e.name, e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.name in SPANS),
+                  key=lambda x: x[1])
+
+
+def span_means(spans, reps: int) -> dict:
+    """{span: [host ms a call, spans a call]} of ``program_spans``."""
+    out = {}
+    for name, a, b in spans:
+        tot = out.setdefault(name, [0.0, 0])
+        tot[0] += (b - a) * 1e-3
+        tot[1] += 1
+    return {k: [ms / reps, n / reps] for k, (ms, n) in out.items()}
+
+
+def innermost(spans):
+    """A function of a host time ``t`` (µs, or None): the innermost of
+    ``spans`` open at ``t``, "none" where none is. Spans nest within one
+    thread, so the innermost open one is the latest to start before ``t``
+    among those not ended: a look back over the few spans that started
+    just before ``t``."""
+    spans = sorted(spans, key=lambda x: x[1])
+    starts = [s for _, s, _ in spans]
+
+    def at(t):
+        if t is not None:
+            i = bisect.bisect_right(starts, t)
+            for name, _, e in reversed(spans[max(0, i - 32):i]):
+                if e >= t:
+                    return name
+        return "none"
+
+    return at
+
+
+def idle_gaps(work, spans, min_ms: float = 0.5):
+    """[[ms, span]]: each idle gap of the card longer than ``min_ms``
+    between its first and its last operation, longest first, with the
+    innermost program span open on the host at the gap's middle ("none"
+    outside every span); ``work`` the device's (start, end) µs, all on the
+    profiler's one clock."""
+    busy = []
+    for a, b in sorted(work):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    label = innermost(spans)
+    out = [[(b - a) * 1e-3, label(0.5 * (a + b))]
+           for (_, a), (b, _) in zip(busy, busy[1:])
+           if (b - a) * 1e-3 > min_ms]
+    return sorted(out, reverse=True)
+
+
 def device_events(torch, fn, reps: int):
     """torch.profiler over ``reps`` calls of fn (after one warm-up): the
     (name, µs) of every kernel, copy and set the card ran, the host wall
-    time per call in ms, and the device µs under each ``ivf.*`` range."""
+    time per call in ms, the device µs under each ``ivf.*`` range, each
+    program span's host ms and count a call (``span_means``) and the
+    device's idle gaps past 0.5 ms (``idle_gaps``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -80,27 +145,27 @@ def device_events(torch, fn, reps: int):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / reps * 1e3
-    events, work, spans = [], [], []
+    # each device operation's launch on the host: the CUDA runtime call
+    # that shares its correlation id (a ctypes wrapper's kernels hang under
+    # no torch op, so the host tree misses them)
+    launch = {e.id: e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CPU
+              and e.name.startswith(("cuda", "cu"))}
+    host = program_spans(prof)
+    label = innermost(host)
+    events, work, stages = [], [], {}
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
+        if (evt.device_type != DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
             continue
         tr = evt.time_range
-        if getattr(evt, "is_user_annotation", False):
-            # a range's span on the card, from its first kernel's start to
-            # its last one's end: not work itself
-            if evt.name.startswith("ivf."):
-                spans.append((evt.name, tr.start, tr.end))
-        else:
-            events.append((evt.name, tr.elapsed_us()))
-            work.append((tr.start, tr.end))
-    # one stream, launched in order by one thread: the work inside a
-    # range's span is the work that range launched (the kernels of the
-    # ctypes wrappers hang under no torch op, so the host tree misses them)
-    stages = {}
-    for name, a, b in spans:
-        stages[name] = stages.get(name, 0.0) + sum(
-            e - s for s, e in work if a <= s and e <= b)
-    return events, wall, stages
+        events.append((evt.name, tr.elapsed_us()))
+        work.append((tr.start, tr.end))
+        stage = label(launch.get(evt.id))
+        if stage.startswith("ivf."):
+            stages[stage] = stages.get(stage, 0.0) + tr.elapsed_us()
+    return (events, wall, stages, span_means(host, reps),
+            idle_gaps(work, host))
 
 
 def profile(torch, idx, xq, searches: int, call=None) -> dict:
@@ -108,10 +173,10 @@ def profile(torch, idx, xq, searches: int, call=None) -> dict:
     times after two warm-ups."""
     call = call or (lambda: idx.search(xq, K))
     call()                  # with device_events' warm-up: two calls
-    events, wall, _ = device_events(torch, call, searches)
+    events, wall, _, span_ms, gaps = device_events(torch, call, searches)
     stages = {}
     if hasattr(idx, "_search_packed_uncached"):
-        _, _, stages = device_events(
+        _, _, stages, _, _ = device_events(
             torch, lambda: idx._search_packed_uncached(xq, K).cpu(),
             searches)
     out = {name: 0.0 for name, _ in PARTS}
@@ -136,6 +201,8 @@ def profile(torch, idx, xq, searches: int, call=None) -> dict:
                          for k, v in stages.items()}
     out["top"] = [(name[:80], us / searches / 1e3) for name, us in
                   sorted(by_name.items(), key=lambda kv: -kv[1])[:5]]
+    out["spans"] = span_ms
+    out["idle_gaps"] = gaps
     return out
 
 
