@@ -57,7 +57,9 @@ graph and replayed on the current stream (``programs.py``), on the CPU the
 eager function. The key holds what ``faiss_tpu``'s holds, the index's
 identity and its generation, which every mutation bumps (dropping the
 index's programs: a graph bakes the store's addresses and ntotal). The
-token copies one packed result tensor back when it is waited on.
+token enqueues the copy of its one packed result tensor into pinned host
+memory right behind the search, so that waiting on it never waits for the
+searches enqueued after it.
 """
 
 from __future__ import annotations
@@ -118,10 +120,13 @@ def _unpack(packed: np.ndarray, k: int):
 
 
 class TorchSearchToken:
-    """Async search handle. ``search_async`` returns once the search is
-    enqueued; ``wait()`` makes the one device-to-host copy, runs the
-    certificate fallback for the uncertified rows only, and returns (D, I);
-    ``is_ready()`` polls a CUDA event recorded after the search."""
+    """Async search handle. ``search_async`` returns once the search and
+    the one device-to-host copy of its packed result are enqueued, the copy
+    right behind the search on the same stream, into pinned host memory
+    (PyTorch's caching host allocator); ``wait()`` waits for that copy,
+    runs the certificate fallback for the uncertified rows only, and
+    returns (D, I), arrays of their own; ``is_ready()`` polls a CUDA event
+    recorded after the copy."""
 
     def __init__(self, packed: Optional[torch.Tensor], nq: int, k: int,
                  fallback=None, result=None):
@@ -129,10 +134,20 @@ class TorchSearchToken:
         self._nq, self._k = nq, k
         self._fallback = fallback
         self._result = result
-        self._event = None
+        self._event = self._copy_event = None
         if packed is not None and packed.is_cuda:
+            # no device guard (≈ 10 µs a call on the H100's host): a copy
+            # from a CUDA tensor runs on its own device's current stream
+            stream = torch.cuda.current_stream(packed.device)
             self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(packed.device))
+            self._event.record(stream)
+            # in stream order: the copy runs before the next call's work,
+            # and the host block is not reused until it is done
+            self._packed = torch.empty(packed.shape, dtype=packed.dtype,
+                                       pin_memory=True)
+            self._packed.copy_(packed, non_blocking=True)
+            self._copy_event = torch.cuda.Event()
+            self._copy_event.record(stream)
         # the call id that search_async's span minted (None untraced)
         self._call = tracing.current_call()
 
@@ -141,31 +156,33 @@ class TorchSearchToken:
             with tracing.span("token.wait", self._call):
                 if self._event is not None and tracing.recording():
                     # traced only: splits the wait into this call's own
-                    # work and the copy's, which queues behind every call
-                    # enqueued after this one (the same device work in all)
+                    # work and the copy's, enqueued right behind it
                     with tracing.span("token.sync"):
                         self._event.synchronize()
                 with tracing.span("token.copy"):
-                    host = self._packed.cpu().numpy()
+                    if self._copy_event is not None:
+                        self._copy_event.synchronize()
+                    host = self._packed.numpy()
                 with tracing.span("token.unpack"):
                     d, i, cert = _unpack(host, self._k)
                     # a failed padding row changes no answer: no rerun
                     rerun = (self._fallback is not None
                              and not cert[: self._nq].all())
                     if not rerun:
-                        self._result = (
-                            np.ascontiguousarray(d[: self._nq], np.float32),
-                            np.ascontiguousarray(i[: self._nq], np.int64))
+                        # copies: the host block goes back to its pool
+                        self._result = (np.array(d[: self._nq], np.float32),
+                                        np.array(i[: self._nq], np.int64))
                 if rerun:
                     with tracing.span("token.fallback"):
                         self._result = self._fallback(cert, d, i)
-            self._packed = self._fallback = self._event = None
+            self._packed = self._fallback = None
+            self._event = self._copy_event = None
         return self._result
 
     def is_ready(self) -> bool:
-        if self._result is not None or self._event is None:
+        if self._result is not None or self._copy_event is None:
             return True
-        return self._event.query()
+        return self._copy_event.query()
 
 
 class ConcatSearchToken:

@@ -38,7 +38,7 @@ SPANS = (
     "programs.replay",      # a hit: input copies, replay, output clones
     "token.wait",           # the whole wait
     "token.sync",           # the wait for this call's own work (traced only)
-    "token.copy",           # the packed result's copy to the host
+    "token.copy",           # the wait for the result's copy, its view
     "token.unpack",         # the result arrays
     "token.fallback",       # the rerun of the uncertified queries
     "ivf.coarse_gemm",      # the IVF gather search's stages

@@ -2354,10 +2354,86 @@ def test_pipelined_tokens_hold_their_own_results(dev):
     want = [idx.search(b, 10) for b in batches]
     assert len(_graphs_of(idx)) == 1
     toks = [idx.search_async(b, 10) for b in batches]
-    for t, (D, I) in zip(toks, want):
-        Dt, It = t.wait()
+    got = [t.wait() for t in toks]
+    for (Dt, It), (D, I) in zip(got, want):
         np.testing.assert_array_equal(It, I)
         np.testing.assert_array_equal(Dt, D)
+    # 16 more calls on other queries, each waited: their pinned copies
+    # reuse the host blocks that the first 16 tokens gave back, and the
+    # first results, arrays of their own, stay as they were
+    others = [rng.standard_normal((8, 64), dtype=np.float32)
+              for _ in range(16)]
+    for t in [idx.search_async(b, 10) for b in others]:
+        t.wait()
+    for (Dt, It), (D, I) in zip(got, want):
+        np.testing.assert_array_equal(It, I)
+        np.testing.assert_array_equal(Dt, D)
+
+
+def test_pipelined_tokens_sync_before_their_copy(dev):
+    """Under the profiler, 16 tokens in flight: each wait's ``token.sync``
+    (the call's own work) ends before its ``token.copy`` (the copy that
+    search_async enqueued behind it) begins."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from faiss_tpu_torch import tracing
+
+    rng = np.random.default_rng(27)
+    idx = TorchIndexFlat(64, storage="bf16", device=dev)
+    idx.add(rng.standard_normal((100_000, 64), dtype=np.float32))
+    batches = [rng.standard_normal((8, 64), dtype=np.float32)
+               for _ in range(16)]
+    want = [idx.search(b, 10) for b in batches]
+    with profile(activities=[ProfilerActivity.CPU]):
+        toks = [idx.search_async(b, 10) for b in batches]
+        got = [t.wait() for t in toks]
+    for (Dt, It), (D, I) in zip(got, want):
+        np.testing.assert_array_equal(It, I)
+    recs = tracing.spans()
+    syncs = {r.call: r for r in recs if r.name == "token.sync"}
+    copies = {r.call: r for r in recs if r.name == "token.copy"}
+    assert sorted(syncs) == sorted(copies) == sorted(t._call for t in toks)
+    for call, sync in syncs.items():
+        assert sync.t1_ns <= copies[call].t0_ns
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+def test_token_wait_does_not_queue_behind_later_work(dev, storage,
+                                                     monkeypatch):
+    """A token's copy back is enqueued right behind its own search: with
+    a long sleep and a second search enqueued after it, the first token's
+    wait returns once its own work and copy are done, and the second
+    token is not ready yet."""
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    rng = np.random.default_rng(28)
+    idx = TorchIndexFlat(64, storage=storage, device=dev)
+    idx.add(rng.standard_normal((20_000, 64), dtype=np.float32))
+    xa, xb = (rng.standard_normal((16, 64), dtype=np.float32)
+              for _ in range(2))
+    want = idx.search(xa, 10)
+    idx.search(xb, 10)
+    # the sleep's length on this card
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    torch.cuda._sleep(1_000_000_000)
+    t1.record()
+    t1.synchronize()
+    sleep_s = t0.elapsed_time(t1) * 1e-3
+    a = idx.search_async(xa, 10)
+    torch.cuda._sleep(1_000_000_000)
+    t = time.perf_counter()
+    b = idx.search_async(xb, 10)
+    enqueue_s = time.perf_counter() - t
+    D, I = a.wait()
+    wait_s = time.perf_counter() - t
+    assert not b.is_ready()
+    assert enqueue_s < sleep_s / 10, (enqueue_s, sleep_s)
+    assert wait_s < sleep_s / 10, (wait_s, sleep_s)
+    np.testing.assert_array_equal(I, want[1])
+    np.testing.assert_array_equal(D, want[0])
+    b.wait()
+    assert idx.fused_fallbacks == 0
 
 
 def test_replay_counts_launches_as_eager(dev, monkeypatch):

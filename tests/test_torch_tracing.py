@@ -150,6 +150,24 @@ def test_token_sync_runs_only_while_tracing(traced):
     np.testing.assert_array_equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("nq", [1, NQ])
+@pytest.mark.parametrize("kind", KINDS)
+def test_token_returns_arrays_of_their_own(kind, nq):
+    """wait() copies the result out of the packed tensor (one query's
+    distances are a contiguous row of it, which a view would alias), and a
+    second wait() returns the same arrays."""
+    idx = make_index(kind)
+    want = idx.search(XQ[:nq], K)
+    tok = idx.search_async(XQ[:nq], K)
+    packed = tok._packed.numpy()
+    got = tok.wait()
+    for a, b in zip(got, want):
+        assert not np.shares_memory(a, packed)
+        np.testing.assert_array_equal(a, b)
+    again = tok.wait()
+    assert again[0] is got[0] and again[1] is got[1]
+
+
 def test_a_second_profiled_stretch_replaces_the_first():
     idx = make_index("flat")
     with _profiled():
