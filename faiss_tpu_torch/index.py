@@ -106,11 +106,26 @@ def _finalize(vals, ids, ntotal: int, k: int, metric: MetricType):
     return dists, ids
 
 
-def _pack(dists, labels, cert):
+def _pack(dists, labels, cert, counts=None):
     """One (nq_pad, 2k+1) f32 tensor holding dists, the int32 labels' bits
-    and the certificate, so that a search needs one device-to-host copy."""
-    return torch.cat([dists, labels.to(torch.int32).view(torch.float32),
-                      cert.to(torch.float32)[:, None]], dim=1)
+    and the certificate, so that a search needs one device-to-host copy.
+    ``counts``: a (c,) int32 tensor of program counters (c ≤ 2k+1), whose
+    bits then follow as one more row (``TorchSearchToken``'s
+    ``counters``)."""
+    packed = torch.cat([dists, labels.to(torch.int32).view(torch.float32),
+                        cert.to(torch.float32)[:, None]], dim=1)
+    if counts is None:
+        return packed
+    row = torch.zeros((1, packed.shape[1]), dtype=torch.int32,
+                      device=packed.device)
+    row[0, :counts.numel()] = counts
+    return torch.cat([packed, row.view(torch.float32)])
+
+
+def _unpack_counts(packed: np.ndarray, n: int) -> np.ndarray:
+    """The ``n`` program counters of a host copy of ``_pack(..., counts)``
+    (its last row), int32."""
+    return np.ascontiguousarray(packed[-1, :n]).view(np.int32)
 
 
 def _unpack(packed: np.ndarray, k: int):
@@ -126,14 +141,17 @@ class TorchSearchToken:
     (PyTorch's caching host allocator); ``wait()`` waits for that copy,
     runs the certificate fallback for the uncertified rows only, and
     returns (D, I), arrays of their own; ``is_ready()`` polls a CUDA event
-    recorded after the copy."""
+    recorded after the copy. ``counters``: the names of the program
+    counters in the packed result's last row (``_pack``), which ``wait()``
+    records under the call's id while a profiler records."""
 
     def __init__(self, packed: Optional[torch.Tensor], nq: int, k: int,
-                 fallback=None, result=None):
+                 fallback=None, result=None, counters=()):
         self._packed = packed
         self._nq, self._k = nq, k
         self._fallback = fallback
         self._result = result
+        self._counters = counters
         self._event = self._copy_event = None
         if packed is not None and packed.is_cuda:
             # no device guard (≈ 10 µs a call on the H100's host): a copy
@@ -164,6 +182,10 @@ class TorchSearchToken:
                         self._copy_event.synchronize()
                     host = self._packed.numpy()
                 with tracing.span("token.unpack"):
+                    if self._counters and tracing.recording():
+                        for name, v in zip(self._counters, _unpack_counts(
+                                host, len(self._counters))):
+                            tracing.count(name, v, self._call)
                     d, i, cert = _unpack(host, self._k)
                     # a failed padding row changes no answer: no rerun
                     rerun = (self._fallback is not None

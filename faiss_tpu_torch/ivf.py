@@ -27,7 +27,11 @@ Counterpart of ``faiss_tpu/ivf.py``'s TpuIndexIVFFlat:
     with ``ngroups`` = the pool's capacity and slot validity (``ids ≥ 0``,
     and the selector) folded into the pre-masked norm stream. Dead budget
     positions point at chunk 0 and are masked to −inf after the kernel;
-    then the top-k by ``topk_scores``, slot → id, and −‖q‖² restored;
+    then the top-k by ``topk_scores``, slot → id, and −‖q‖² restored. The
+    program also counts the live and the budgeted positions and the
+    distinct chunks K10 read (``_scan_counts``): one more row of the packed
+    result, which the token records under the profiler (``tracing.
+    COUNTERS``);
   * nprobe == nlist takes the DENSE route over the used pool prefix: f32
     sweeps ``matmul_scores`` block by block into ``chunked_topk_scores``;
     bf16 and int8 take the flat ``fused.fused_search`` (two query planes,
@@ -111,6 +115,20 @@ def _chunk_ids(probe: torch.Tensor, counts: torch.Tensor,
     lst = torch.gather(probe.to(torch.int64), 1, li)
     cidx = ctable.reshape(-1)[lst * maxc + torch.where(okc, within, 0)]
     return torch.where(okc, cidx, 0), okc
+
+
+def _scan_counts(cidx: torch.Tensor, okc: torch.Tensor,
+                 npool: int) -> torch.Tensor:
+    """The fine scan's counters (``tracing.COUNTERS``), a (3,) int32 tensor
+    made on the device with no synchronisation: the live budget positions,
+    the budgeted positions, and the distinct pool chunks K10 reads (dead
+    positions read chunk 0)."""
+    read = torch.zeros((npool,), dtype=torch.int32, device=cidx.device)
+    read.index_fill_(0, cidx.reshape(-1).to(torch.int64), 1)
+    return torch.stack([
+        okc.sum(), torch.full((), okc.numel(), dtype=torch.int64,
+                              device=okc.device),
+        read.sum()]).to(torch.int32)
 
 
 def _round_budget(b: int) -> int:
@@ -472,12 +490,11 @@ class TorchIndexIVFFlat:
                     s = np.zeros((self.npool * _CHUNK,), bool)
                     s[self._slot_of[mask]] = True
                     sel = torch.from_numpy(s).to(self.device)
-        req = getattr(params, "nprobe", None) if params is not None else None
-        nprobe = min(req if req is not None else self.nprobe, self.nlist)
+        nprobe = self._nprobe(params)
         nbudget = _chunk_budget(self._counts, nprobe) if self.npool else 1
         nq_pad = max(NQ_PAD, _round_up(nq, NQ_PAD))
         footprint = nq_pad * nbudget * _CHUNK * 4
-        if nprobe < self.nlist and footprint > _GATHER_BUDGET:
+        if self._fine_route(nprobe) and footprint > _GATHER_BUDGET:
             raise ValueError(
                 f"IVF fine scan working set would be {footprint >> 20} MB "
                 f"(nprobe={nprobe}, chunk budget={nbudget}); lower nprobe "
@@ -489,6 +506,12 @@ class TorchIndexIVFFlat:
             q[:nq, : self.d] = torch.from_numpy(x)
             q = q.to(self.device, non_blocking=True)
         return q, nq, nq_pad, nprobe, nbudget, sel
+
+    def _nprobe(self, params) -> int:
+        """A search's probe width: ``params.nprobe`` where given, else the
+        index's, at most nlist."""
+        req = getattr(params, "nprobe", None) if params is not None else None
+        return min(req if req is not None else self.nprobe, self.nlist)
 
     def _probe(self, q: torch.Tensor, nprobe: int) -> torch.Tensor:
         """The coarse step: (nq_pad, nprobe) int32 list ids, best first,
@@ -503,13 +526,16 @@ class TorchIndexIVFFlat:
         """The dot-side query: q, or q∘s against int8 codes."""
         return q * self._scales[None, :] if self._scales is not None else q
 
-    def _fine_scan(self, q, k: int, nprobe: int, nbudget: int, sel):
+    def _fine_scan(self, q, k: int, nprobe: int, nbudget: int, sel,
+                   counted: bool):
         """The gather route: K10 over the probed chunks → (scores (nq_pad,
-        k_eff) with −‖q‖², insertion ids (nq_pad, k_eff))."""
+        k_eff) with −‖q‖², insertion ids (nq_pad, k_eff), its counters
+        (``_scan_counts``) where ``counted``, else None)."""
         probe = self._probe(q, nprobe)
         with tracing.span("ivf.chunk_ids"):
             cidx, okc = _chunk_ids(probe, self._counts_dev, self._ctable,
                                    nbudget)
+            counts = _scan_counts(cidx, okc, self.npool) if counted else None
         with tracing.span("ivf.k10"):
             occ = self._ids >= 0             # slot validity (adds, removals)
             nslots = self._data.shape[0]
@@ -530,7 +556,7 @@ class TorchIndexIVFFlat:
             if self.metric is MetricType.L2:
                 # the kernel's scores omit the rank-invariant −‖q‖²
                 v = v - torch.sum(q * q, dim=-1)[:, None]
-            return v, self._ids[slot]
+            return v, self._ids[slot], counts
 
     def _nsweep(self) -> int:
         """The dense route's sweep width: the used chunk prefix rounded by
@@ -599,7 +625,7 @@ class TorchIndexIVFFlat:
         q, nq, nq_pad, nprobe, nbudget, sel = self._prep_search(x, params)
         if self.ntotal == 0:
             return None, nq, None
-        dense = nprobe >= self.nlist
+        dense = not self._fine_route(nprobe)
         dense_fused = (dense and self._dense_fused_ok()
                        and not force_plain_dense)
         key = ("ivf_search", self._owner, self._gen, self.nlist, self.npool,
@@ -655,32 +681,41 @@ class TorchIndexIVFFlat:
     def _packed(self, q, k: int, nprobe: int, nbudget: int,
                 force_plain_dense: bool, sel) -> torch.Tensor:
         """One search on the route, packed, the certificate all True on
-        the exact routes (no host synchronisation)."""
-        v, lab, cert = self._search_local(q, k, nprobe, nbudget, sel,
-                                          force_plain_dense)
+        the exact routes (no host synchronisation); the fine scan's ends in
+        the row of its counters."""
+        v, lab, cert, counts = self._search_local(
+            q, k, nprobe, nbudget, sel, force_plain_dense, counted=True)
         dists, labels = _finalize(v, lab, self.ntotal, k, self.metric)
         if cert is None:
             cert = torch.ones_like(dists[:, 0], dtype=torch.bool)
-        return _pack(dists, labels, cert)
+        return _pack(dists, labels, cert, counts)
 
     def _search_local(self, q, k: int, nprobe: int, nbudget: int, sel,
-                      force_plain_dense: bool = False):
+                      force_plain_dense: bool = False, counted: bool = False):
         """The route for ``nprobe`` on this index's device: (scores with
         −‖q‖², the id column's labels, the certificate or None where the
-        route is exact): the fine scan below nlist, else the dense fused
-        route (bf16, int8) or the plain dense sweep. The sharded index
-        calls this on every shard."""
-        if nprobe < self.nlist:
-            return (*self._fine_scan(q, k, nprobe, nbudget, sel), None)
+        route is exact, the fine scan's counters where ``counted`` or
+        None): the fine scan below nlist, else the dense fused route (bf16,
+        int8) or the plain dense sweep. The sharded index calls this on
+        every shard, uncounted."""
+        if self._fine_route(nprobe):
+            v, lab, counts = self._fine_scan(q, k, nprobe, nbudget, sel,
+                                             counted)
+            return v, lab, None, counts
         if self._dense_fused_ok() and not force_plain_dense:
-            return self._dense_fused(q, k, sel)
-        return (*self._dense_plain(q, k, sel), None)
+            return (*self._dense_fused(q, k, sel), None)
+        return (*self._dense_plain(q, k, sel), None, None)
+
+    def _fine_route(self, nprobe: int) -> bool:
+        """Whether a search at ``nprobe`` takes the fine scan (and its
+        token carries the counters), else a dense route."""
+        return nprobe < self.nlist
 
     def _nq_cap(self, nprobe: int) -> Optional[int]:
         """Most query rows per gather dispatch: the fine scan materializes
         (nq_pad, nbudget·128) f32 scores, so the batch, not only nprobe,
         drives the working set. Larger batches split on this cap."""
-        if not self.npool or nprobe >= self.nlist:
+        if not self.npool or not self._fine_route(nprobe):
             return None      # the dense route bounds its own blocks
         nbudget = _chunk_budget(self._counts, nprobe)
         cap = _GATHER_BUDGET // max(nbudget * _CHUNK * 4, 1)
@@ -694,10 +729,7 @@ class TorchIndexIVFFlat:
         fused certificate and wait() re-runs its failed queries."""
         xa = np.ascontiguousarray(x, np.float32)
         if xa.ndim == 2 and self.is_trained:
-            req = (getattr(params, "nprobe", None)
-                   if params is not None else None)
-            cap = self._nq_cap(
-                min(req if req is not None else self.nprobe, self.nlist))
+            cap = self._nq_cap(self._nprobe(params))
             if cap is not None and xa.shape[0] > cap:
                 return ConcatSearchToken([
                     self.search_async(xa[i0:i0 + cap], k, params=params)
@@ -709,7 +741,10 @@ class TorchIndexIVFFlat:
                     np.full((nq, k), worst_distance(self.metric),
                             np.float32),
                     np.full((nq, k), -1, np.int64)))
-            return TorchSearchToken(packed, nq, k, fallback=fallback)
+            return TorchSearchToken(
+                packed, nq, k, fallback=fallback,
+                counters=(tracing.COUNTERS
+                          if self._fine_route(self._nprobe(params)) else ()))
 
     def search(self, x: np.ndarray, k: int,
                params=None) -> Tuple[np.ndarray, np.ndarray]:

@@ -276,7 +276,7 @@ class ShardedIndexIVFFlat:
         metric = self.metric
 
         def search(i, q_dev, sel_i):
-            v, lab, c = ref().shards[i]._search_local(
+            v, lab, c, _ = ref().shards[i]._search_local(
                 q_dev, k, nprobe, nbudget[i], sel_i, force_plain_dense)
             lab = lab.to(torch.int32).masked_fill(~(v > float("-inf")), -1)
             if c is None:

@@ -16,6 +16,12 @@ A record carries the id of its call: ``index.search_async`` mints one
 passes to the spans of its ``wait``; every other span takes the id of the
 span that encloses it on its thread, and records that span's name as its
 parent.
+
+``count(name, value, call)`` records one program counter's value for a
+call (``COUNTERS`` names them all), under the same switch and in the same
+stretch as the spans: a counter computed inside a captured program comes
+back with the call's result, and its token records it in ``wait``.
+``counts()`` returns the latest stretch's.
 """
 
 from __future__ import annotations
@@ -47,6 +53,13 @@ SPANS = (
     "ivf.k10",
     "ivf.top_k",
 )
+# every program counter the port records
+COUNTERS = (
+    "ivf.live_chunks",      # the fine scan's budget positions that hold a
+                            # probed list's chunk, over the call's queries
+    "ivf.budget_chunks",    # its budget positions (nq_pad × chunk budget)
+    "ivf.chunks_read",      # the distinct pool chunks K10 read
+)
 # records kept: a profiler left on cannot grow the buffer without end
 MAX_RECORDS = 1 << 17
 
@@ -70,7 +83,14 @@ class Record(NamedTuple):
         return (self.t1_ns - self.t0_ns) * 1e-6
 
 
+class Count(NamedTuple):
+    name: str
+    value: int
+    call: Optional[int]     # the call id, None outside a call
+
+
 _records: deque = deque(maxlen=MAX_RECORDS)
+_counts: deque = deque(maxlen=MAX_RECORDS)
 _skipped = True             # a span was skipped since the last recorded one
 _calls = itertools.count()
 _local = threading.local()
@@ -89,6 +109,15 @@ class _Off:
 _OFF = _Off()
 
 
+def _new_stretch() -> None:
+    """The buffers start over at the first record after a skip."""
+    global _skipped
+    if _skipped:
+        _skipped = False
+        _records.clear()
+        _counts.clear()
+
+
 class _Span:
     __slots__ = ("name", "call", "parent", "stack", "range", "t0")
 
@@ -96,10 +125,7 @@ class _Span:
         self.name, self.call = name, call
 
     def __enter__(self):
-        global _skipped
-        if _skipped:
-            _skipped = False
-            _records.clear()
+        _new_stretch()
         try:
             stack = _local.stack
         except AttributeError:
@@ -140,6 +166,14 @@ def span(name: str, call: Optional[int] = None, *, mint: bool = False):
     return _Span(name, next(_calls) if mint else call)
 
 
+def count(name: str, value: int, call: Optional[int] = None) -> None:
+    """Record a program counter's ``value`` for the call ``call`` while a
+    profiler records; else nothing."""
+    if recording():
+        _new_stretch()
+        _counts.append((name, int(value), call))
+
+
 def current_call() -> Optional[int]:
     """The call id of the innermost span open on this thread, None where
     none is open (always, while no profiler records)."""
@@ -151,3 +185,9 @@ def spans() -> List[Record]:
     """The records of the latest stretch recorded under the profiler, in
     the order the spans ended (at most ``MAX_RECORDS``, the newest)."""
     return [Record._make(r) for r in list(_records)]
+
+
+def counts() -> List[Count]:
+    """The counter records of the latest stretch recorded under the
+    profiler, in the order they were recorded."""
+    return [Count._make(c) for c in list(_counts)]

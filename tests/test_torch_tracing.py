@@ -274,3 +274,66 @@ def test_threads_keep_their_own_parents_and_calls(monkeypatch):
     for r in names["index.prep_queries"] + names["programs.replay"]:
         assert r.parent == "index.search_async"
     assert tracing.current_call() is None
+
+
+def _scan_counts_by_hand(idx, q, nprobe):
+    """The fine scan's counters from the index's host state: each padded
+    query row's probed lists (the program's probe), their chunks from the
+    page table, the budget from the host counts."""
+    from faiss_tpu_torch.ivf import _CHUNK, _chunk_budget
+
+    probe = idx._probe(q, nprobe).numpy()
+    nchunks = -(-idx.list_sizes().astype(np.int64) // _CHUNK)
+    nbudget = _chunk_budget(idx.list_sizes(), nprobe)
+    live, read = 0, set()
+    for lists in probe:
+        n = int(nchunks[lists].sum())
+        live += n
+        for lst in lists:
+            read.update(idx._ctable_host[lst, :nchunks[lst]].tolist())
+        if n < nbudget:              # dead positions read chunk 0
+            read.add(0)
+    return live, len(probe) * nbudget, len(read)
+
+
+@pytest.mark.parametrize("nprobe", [1, 3])
+def test_the_ivf_fine_scan_records_its_counters(nprobe):
+    """Each profiled fine-scan call records its three counters under its
+    call id, with the values the host state gives; the result is the same
+    as without a profiler."""
+    idx = make_index("ivf")
+    params = SearchParams(nprobe=nprobe)
+    want = idx.search(XQ, K, params=params)
+    with _profiled():
+        toks = [idx.search_async(XQ, K, params=params) for _ in range(2)]
+        got = [t.wait() for t in toks]
+    for g in got:
+        for a, b in zip(g, want):
+            np.testing.assert_array_equal(a, b)
+    q = torch.zeros((8, D))
+    q[:NQ] = torch.from_numpy(XQ)
+    live, budget, read = _scan_counts_by_hand(idx, q, nprobe)
+    assert 0 < live <= budget
+    recs = tracing.counts()
+    assert [c.name for c in recs] == list(tracing.COUNTERS) * 2
+    for i, t in enumerate(toks):
+        assert [(c.value, c.call) for c in recs[3 * i:3 * i + 3]] == [
+            (live, t._call), (budget, t._call), (read, t._call)]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_other_routes_record_no_counters(kind):
+    """The flat, dense IVF and sharded searches carry no counters; without
+    a profiler the fine scan records none either."""
+    idx = make_index(kind)
+    params = SearchParams(nprobe=8) if kind == "ivf" else None
+    with _profiled():
+        idx.search(XQ, K, params=params)
+    assert tracing.counts() == []
+    if kind == "ivf":
+        with _profiled():
+            idx.search(XQ, K)
+        before = tracing.counts()
+        assert len(before) == 3
+        idx.search(XQ, K)
+        assert tracing.counts() == before
