@@ -33,7 +33,8 @@ it. Each path's launch counts are zeroed just before it and read just after:
             with one seed for f32, bf16 and int8 lists (centroids equal bit
             for bit), then searched at nprobe 1, 16, 64 and 4096 (f32) and
             16 and 4096 (bf16, int8): the fine scan on K10 (f32 rows: the
-            last TPU kernel), the dense route on the fused kernels; recall
+            last TPU kernel) and its top-k on budget_select, the dense
+            route on the fused kernels; recall
             1.0 against an fp64 oracle over the probed lists of the index's
             own coarse step; a flat f32 index over the same rows as the
             control; then range_search, remove_ids, merge_from, a filtered
@@ -92,8 +93,9 @@ kernel is held against its plain PyTorch version at the main paths' shapes
 (nq_pad 104, d 128, nv_eff 1,000,448, kg 14, k 10; K9 also at the f32
 path's 32 candidates, K8 at its stage-3a 1792 candidates with m = 32, K3
 with its supergroup maxes also at 10M): the sweeps' supergroup-max output
-(every format, both metrics), K8, K9, K5 (int8, on the integer tensor
-cores) and the rescore-select kernel (bf16, int8, f16) bit for bit, K3,
+(every format, both metrics), K8, K9, budget_select (at the IVF cell's
+shape, 104 × 131,072 scores), K5 (int8, on the integer tensor cores) and
+the rescore-select kernel (bf16, int8, f16) bit for bit, K3,
 K4, K1, K2, K6 and K7 (the tensor-core sweeps with float sums) within their
 ε with the tensor-core term (``_sweep_eps(accum="mma")``), and K3, K4, K1,
 K6, K7 also on the truncation adversary of tests/test_torch_mma_eps.py,
@@ -1267,6 +1269,45 @@ def _k10_f32_row(torch, idx, xq):
     return row
 
 
+def _budget_select_row(torch):
+    """The IVF fine scan's top-k (``kernels.budget_select``) at the IVF
+    cell's shape: nq_pad 104, nbudget 1,024 chunks (131,072 scores a row),
+    k 10, Gaussian scores with 43 % of the chunks dead at the end of each
+    row, as ``ivf._chunk_ids`` lays them out; bit for bit its plain version
+    (the masked stable sort). The bound reads the live chunks' scores and
+    okc once and writes the result; the library calls are the masked
+    ``topk_scores`` it replaces (``sort_ms``, by graph replay) and
+    ``torch.topk`` of the masked scores."""
+    from faiss_tpu_torch import MetricType
+    from faiss_tpu_torch.ops import kernels
+
+    nq, nbudget = 104, 1024
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    s = torch.randn((nq, nbudget * 128), device="cuda", generator=g)
+    live = torch.round(nbudget * 0.57 * (0.8 + 0.4 * torch.rand(
+        (nq, 1), device="cuda", generator=g)))
+    okc = torch.arange(nbudget, device="cuda")[None] < live
+    vals, pos = kernels.budget_select(s, okc, K)
+    vals_p, pos_p = kernels.budget_select_plain(s, okc, K)
+    check(torch.equal(vals.view(torch.int32), vals_p.view(torch.int32))
+          and torch.equal(pos, pos_p),
+          "budget_select at the IVF cell's shape differs from its plain "
+          "version")
+    masked = s.masked_fill(~okc.repeat_interleave(128, 1), float("-inf"))
+    n_live = int(okc.sum()) * 128
+    row = _row(torch, 0.0, lambda: kernels.budget_select(s, okc, K),
+               lambda: kernels.budget_select_plain(s, okc, K), 50,
+               _bound(n_live * 4 + _nbytes(okc, vals, pos), 0, "fp32"),
+               lambda: torch.topk(masked, K))
+    sort_ms = graph_ms(torch, lambda: kernels.budget_select_plain(s, okc, K),
+                       20)
+    print(f"budget_select at ({nq}, {nbudget}·128), k {K}, live share "
+          f"{n_live / s.numel():.4f}: the masked stable sort it replaces "
+          f"{sort_ms:.4f} ms by graph replay", flush=True)
+    _print_rows(MetricType.L2, {"budget_select": row})
+    return row, sort_ms
+
+
 def _build_ivf(torch, ft, xb, storage):
     t0 = time.perf_counter()
     idx = ft.TorchIndexIVFFlat(D, NLIST, storage=storage, device="cuda")
@@ -1456,8 +1497,9 @@ def phase_ivf_1m(torch, ft):
           "centroids", flush=True)
 
     counts = {}
-    gather = {"f32": ("rescore_groups_f32",), "bf16": ("rescore_groups",),
-              "int8": ("rescore_groups_int8",)}
+    gather = {"f32": ("rescore_groups_f32", "budget_select"),
+              "bf16": ("rescore_groups", "budget_select"),
+              "int8": ("rescore_groups_int8", "budget_select")}
     dense = {"f32": (),
              "bf16": ("sweep_groupmax_2", "select_groups", "rescore_groups",
                       "final_select"),
@@ -2335,6 +2377,7 @@ def main() -> int:
     (counts["ivf_1m"], rows["rescore_groups_f32"],
      counts["sharded_ivf"], prog) = phase_ivf_1m(torch, ft)
     programs.update(prog)
+    rows["budget_select"], budget_sort_ms = _budget_select_row(torch)
     print(f"programs: {json.dumps(programs)}", flush=True)
 
     k11_note = ("reached through fused_search(rescore_select=True): "
@@ -2358,6 +2401,10 @@ def main() -> int:
                                "the IVF fine scan: launches counted in the "
                                "ivf_1m phase"),
         "final_select": ("final_select.cu", f"{PF}:809", None),
+        "budget_select": ("budget_select.cu", "none (faiss_tpu/ivf.py:414-420:"
+                          " jnp.where + lax.top_k)",
+                          "the IVF fine scan's top-k: launches counted in "
+                          "the ivf_1m phase, timed at the IVF cell's shape"),
         "sweep_block_max": ("sweep_split_mma.cu", f"{PF}:155",
                             "timed on K3 at 10M (the f32_10m phase), its "
                             "main path; every sweep writes it"),
@@ -2377,6 +2424,8 @@ def main() -> int:
                  "library_ms": lms}
         if note:
             entry["note"] = note
+        if key == "budget_select":   # the masked stable sort it replaces
+            entry["sort_ms"] = budget_sort_ms
         if key in legacy["ms"]:   # PR 10's kernel, timed in this run
             entry["legacy_ms"] = legacy["ms"][key]
         # K9 at the f32 path's stage-3b width, (nq_pad, k + 22); K8 at its

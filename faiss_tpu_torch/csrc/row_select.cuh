@@ -1,6 +1,7 @@
 // The one-pass row select shared by the group select (K8, select_groups.cu),
-// the final top-k (K9, final_select.cu) and the rescore-select (K11,
-// rescore_select.cu; steps 2-4 over its scores in shared memory).
+// the final top-k (K9, final_select.cu), the rescore-select (K11,
+// rescore_select.cu; steps 2-4 over its scores in shared memory) and the
+// IVF budget select (budget_select.cu; steps 3-4 over keys of its own).
 //
 // A row of fp32 scores is held by WPR warps (one warp, or a block of WPR
 // warps for one row); warp `sub` of a row owns the columns [c0, c1) =
@@ -176,16 +177,18 @@ __device__ __forceinline__ uint32_t kth_key(const uint32_t (&key)[PER],
 // memory), in column order by ballots and prefix counts: slots [0, k - need)
 // take the keys above t (or, when exact, ≥ t), slots [k - need, k) the
 // lowest-column keys equal to t; a warp's first slots follow those of the
-// warps before it (t + 1 does not wrap: t ≤ +inf's key 0xff800000). The
-// slots are in no order of key: the caller orders them.
-template <int PER, int WPR>
+// warps before it. The slots are in no order of key: the caller orders
+// them. t + 1 does not wrap for order_key's keys (t ≤ +inf's key
+// 0xff800000); WIDE keys take every 32-bit value, and none is above
+// 0xffffffff.
+template <int PER, int WPR, bool WIDE = false>
 __device__ __forceinline__ void collect(const uint32_t (&key)[PER],
                                         uint32_t t, bool exact, int c0,
                                         int lane, int sub, uint32_t* xch,
                                         int half, int k, uint32_t* skey,
                                         uint32_t* scol) {
   const uint32_t n_above =
-      __reduce_add_sync(FULL, count_ge(key, t + 1u));
+      WIDE && t == FULL ? 0u : __reduce_add_sync(FULL, count_ge(key, t + 1u));
   const uint32_t n_from_t = __reduce_add_sync(FULL, count_ge(key, t));
   const uint32_t w_up = exact ? n_from_t : n_above;
   const uint32_t w_eq = exact ? 0u : n_from_t - n_above;

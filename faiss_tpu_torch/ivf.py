@@ -26,12 +26,12 @@ Counterpart of ``faiss_tpu/ivf.py``'s TpuIndexIVFFlat:
     rescore_groups``: f32 rows, bf16 rows, or int8 codes against q∘s),
     with ``ngroups`` = the pool's capacity and slot validity (``ids ≥ 0``,
     and the selector) folded into the pre-masked norm stream. Dead budget
-    positions point at chunk 0 and are masked to −inf after the kernel;
-    then the top-k by ``topk_scores``, slot → id, and −‖q‖² restored. The
-    program also counts the live and the budgeted positions and the
-    distinct chunks K10 read (``_scan_counts``): one more row of the packed
-    result, which the token records under the profiler (``tracing.
-    COUNTERS``);
+    positions point at chunk 0; the top-k (``kernels.budget_select`` at k ≤
+    40, else ``budget_select_plain``, the stable sort) ranks their columns
+    as −inf; then slot → id, and −‖q‖² restored. The program also counts
+    the live and the budgeted positions and the distinct chunks K10 read
+    (``_scan_counts``): one more row of the packed result, which the token
+    records under the profiler (``tracing.COUNTERS``);
   * nprobe == nlist takes the DENSE route over the used pool prefix: f32
     sweeps ``matmul_scores`` block by block into ``chunked_topk_scores``;
     bf16 and int8 take the flat ``fused.fused_search`` (two query planes,
@@ -545,11 +545,13 @@ class TorchIndexIVFFlat:
             s = kernels.rescore_groups(self._qeff(q), self._data, vn, cidx,
                                        metric=self.metric)
         with tracing.span("ivf.top_k"):
-            # dead budget positions point at chunk 0: mask them after the
-            # kernel
-            s = s.masked_fill(~okc.repeat_interleave(_CHUNK, dim=1),
-                              float("-inf"))
-            v, pos = topk_scores(s, min(k, s.shape[1]))
+            # dead budget positions point at chunk 0: the select masks them
+            # (past the kernel's k, the masked stable sort)
+            kk = min(k, s.shape[1])
+            select = (kernels.budget_select
+                      if kk <= kernels.BUDGET_SELECT_MAX_K
+                      else kernels.budget_select_plain)
+            v, pos = select(s, okc, kk)
             pos = pos.to(torch.int64)
             slot = (torch.gather(cidx, 1, pos // _CHUNK).to(torch.int64)
                     * _CHUNK + pos % _CHUNK)

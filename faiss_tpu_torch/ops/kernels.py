@@ -9,11 +9,13 @@ library), and loaded with ``ctypes``. Importing this module builds
 nothing.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor goes to
-the kernel's plain PyTorch version in ``ops/fused.py``; a CUDA tensor goes
-to the kernel, or the wrapper raises. There is no fallback from one to the
-other. A launch runs on PyTorch's current stream, does not synchronise, and
-writes into outputs the wrapper allocates; the C entry point returns
-``cudaGetLastError()`` and the wrapper raises if it is not 0.
+the kernel's plain PyTorch version in ``ops/fused.py`` (the IVF budget
+select's, ``budget_select_plain``, sits beside its wrapper here); a CUDA
+tensor goes to the kernel, or the wrapper raises. There is no fallback
+from one to the other. A launch runs on PyTorch's current stream, does not
+synchronise, and writes into outputs the wrapper allocates; the C entry
+point returns ``cudaGetLastError()`` and the wrapper raises if it is not
+0.
 
 ``launches`` counts kernel launches per wrapper (never the plain versions),
 so a run can show that the main path went through each kernel. A replay
@@ -35,6 +37,7 @@ from typing import Optional
 import torch
 
 from ..dtypes import MetricType
+from .topk import topk_scores
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -65,6 +68,7 @@ launches = {
                                # streamed (rescore_stream_kernel)
     "rescore_groups_f32": 0,   # f32 rows: the IVF fine scan (f32 mode)
     "final_select": 0,
+    "budget_select": 0,        # the IVF fine scan's top-k (no TPU kernel)
     # rescore + final top-k in one kernel (_rescore_select_kernel), by rows
     "rescore_select": 0,       # bf16 rows
     "rescore_select_int8": 0,  # int8 codes against q∘s
@@ -94,6 +98,7 @@ RESCORE_SELECT_MAX_CAND = 36 * GROUP   # csrc/rescore_select.cu MAX_CAND
 # of it (csrc/rescore_groups.cu F32_CAP)
 RESCORE_F32_CAP = 16
 FINAL_SELECT_MAX_K = 40   # csrc/final_select.cu MAX_K (fused.SELECT_MAX_KG)
+BUDGET_SELECT_MAX_K = 40  # csrc/budget_select.cu MAX_K
 # what the group select takes (csrc/select_groups.cu MAX_KG, MAX_COLS):
 # faiss_tpu's SELECT_MAX_KG and SELECT_MAX_GROUPS
 SELECT_MAX_KG = 40
@@ -174,6 +179,7 @@ def _lib() -> ctypes.CDLL:
             "ft_rescore_groups": [P, P, P, P, P, P, I, I, I, I, I, I, P,
                                   P],
             "ft_final_select": [P, P, P, I, I, I, P],
+            "ft_budget_select": [P, P, P, P, P, I, I, I, P],
             "ft_rescore_select": [P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                                   P],
         }
@@ -185,6 +191,8 @@ def _lib() -> ctypes.CDLL:
         lib.ft_error_string.restype = ctypes.c_char_p
         lib.ft_rescore_f32_work.argtypes = [I, I, I]
         lib.ft_rescore_f32_work.restype = ctypes.c_longlong
+        lib.ft_budget_select_work.argtypes = [I, I, I]
+        lib.ft_budget_select_work.restype = ctypes.c_longlong
         _lib_handle = lib
     return _lib_handle
 
@@ -463,6 +471,42 @@ def final_select(s: torch.Tensor, k: int):
     with torch.cuda.device(s.device):
         _launch("final_select", "ft_final_select", s.data_ptr(),
                 vals.data_ptr(), pos.data_ptr(), _int32(nq, "nq"), ncand, k)
+    return vals, pos
+
+
+def budget_select_plain(s: torch.Tensor, okc: torch.Tensor, k: int):
+    """The IVF fine scan's top-k: ``topk_scores`` of the budget scores ``s``
+    (nq, nbudget·128) with the columns of the dead chunks (``okc`` (nq,
+    nbudget) False) set to −inf. (Descending values (nq, k) f32, their
+    columns (nq, k) int32) in the fp32 total order, ties to the lowest
+    column."""
+    dead = ~okc.repeat_interleave(GROUP, dim=1)
+    return topk_scores(s.masked_fill(dead, float("-inf")), k)
+
+
+def budget_select(s: torch.Tensor, okc: torch.Tensor, k: int):
+    """``budget_select_plain`` bit for bit, 0 < k ≤ 40, in one hand-written
+    select (csrc/budget_select.cu) that reads no column of a dead chunk."""
+    if not _on_cuda(s, okc):
+        return budget_select_plain(s, okc, k)
+    _check(s, "s", torch.float32, 2)
+    _check(okc, "okc", torch.bool, 2)
+    nq, ncols = s.shape
+    nbudget = okc.shape[1]
+    if okc.shape[0] != nq or ncols != nbudget * GROUP:
+        raise ValueError(f"s {tuple(s.shape)} and okc {tuple(okc.shape)} "
+                         f"disagree: need s (nq, nbudget·{GROUP})")
+    if not 0 < k <= BUDGET_SELECT_MAX_K:
+        raise ValueError(f"need 0 < k ≤ {BUDGET_SELECT_MAX_K} (k={k})")
+    _int32(nq * ncols, "nq·ncols")
+    vals = torch.empty((nq, k), dtype=torch.float32, device=s.device)
+    pos = torch.empty((nq, k), dtype=torch.int32, device=s.device)
+    with torch.cuda.device(s.device):
+        work = torch.empty((_lib().ft_budget_select_work(nq, nbudget, k),),
+                           dtype=torch.int32, device=s.device)
+        _launch("budget_select", "ft_budget_select", s.data_ptr(),
+                okc.data_ptr(), vals.data_ptr(), pos.data_ptr(),
+                work.data_ptr(), _int32(nq, "nq"), nbudget, k)
     return vals, pos
 
 

@@ -1828,7 +1828,7 @@ def test_ivf_on_card_matches_cpu(dev, metric, storage):
     n = dict(kernels.launches)
     gather = {"f32": "rescore_groups_f32", "bf16": "rescore_groups",
               "int8": "rescore_groups_int8"}[storage]
-    assert n[gather] >= 2
+    assert n[gather] >= 2 and n["budget_select"] == 2
     if storage != "f32":
         assert n["select_groups"] > 0 and n["final_select"] > 0
     cpu.nprobe = gpu.nprobe = 5
@@ -2223,6 +2223,183 @@ def test_reduced_store_on_the_card_equals_the_cpu(dev, storage, n):
         for i in idx:
             assert float(decode_f16_bits(i.store.db[r, 5:6].cpu())) \
                 == float("-inf")
+
+
+# -- the IVF fine scan's top-k: budget_select (csrc/budget_select.cu) --------
+
+BUDGET_CASES = ["normal", "ties", "zeros", "inf", "nan", "dead"]
+# NaN bit patterns of both signs; 0xffffffff is key 0 under the total order
+# (row_select.cuh's "no column"), 0x7fffffff the largest key
+BUDGET_NANS = [0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF800001, 0x7FFFFFFF,
+               0xFFFFFFFF, 0x7FA00000]
+NEG_INF_BITS, POS_INF_BITS = 0xFF800000, 0x7F800000
+
+
+def budget_rows(case: str, nq: int, nbudget: int, seed: int = 0,
+                dead: float = 0.43):
+    """(s (nq, nbudget·128) f32, okc (nq, nbudget) bool) on the CPU: the
+    fine scan's budget scores and live chunks, ``dead`` the share of dead
+    chunks. "normal": Gaussian scores, the dead chunks at the end of each
+    row as ``ivf._chunk_ids`` lays them out; the other cases scatter them:
+    "ties" a few values, every chunk edge at the top one; "zeros" ±0.0
+    with a few ±1; "inf" ±inf among Gaussians; "nan" NaNs of both signs
+    (``BUDGET_NANS``), a row of 0xffffffff, one of 0x7fffffff and one with
+    41 of them; "dead" a row all dead, one with 5 finite live columns,
+    one whose live columns are −inf (tied with the dead), one whose live
+    columns are −NaN (below the dead chunks' −inf)."""
+    rng = np.random.default_rng(seed)
+    n = nbudget * 128
+    s = rng.standard_normal((nq, n)).astype(np.float32)
+    if case == "normal":
+        live = np.clip(np.round(nbudget * (1 - dead)
+                                * rng.uniform(0.8, 1.2, nq)), 1, nbudget)
+        okc = np.arange(nbudget)[None] < live[:, None]
+    else:
+        okc = rng.random((nq, nbudget)) >= dead
+    bits = s.view(np.uint32)
+    if case == "normal":
+        pass
+    elif case == "ties":
+        s[:] = rng.integers(-2, 3, (nq, n))
+        s[:, 127::128] = 3.0
+        s[:, ::128] = 3.0
+    elif case == "zeros":
+        s[:] = rng.choice(np.float32([0.0, -0.0, 0.0, -0.0, 1.0, -1.0]),
+                          (nq, n))
+    elif case == "inf":
+        u = rng.random((nq, n))
+        bits[u < 0.3] = NEG_INF_BITS
+        bits[u > 0.98] = POS_INF_BITS
+    elif case == "nan":
+        u = rng.random((nq, n))
+        pick = rng.integers(0, len(BUDGET_NANS), (nq, n))
+        bits[u < 0.1] = np.uint32(BUDGET_NANS)[pick[u < 0.1]]
+        for r, b in zip(range(nq), (0xFFFFFFFF, 0x7FFFFFFF)):
+            bits[r] = b
+        if nq > 2:
+            bits[2, rng.choice(n, min(41, n), replace=False)] = 0x7FFFFFFF
+    elif case == "dead":
+        for r in range(min(nq, 4)):
+            okc[r] = False
+        if nq > 1:
+            okc[1, 0] = True
+            bits[1, :128] = NEG_INF_BITS
+            bits[1, rng.choice(128, 5, replace=False)] = 0x3F800000
+        if nq > 2:
+            okc[2, ::2] = True
+            bits[2] = NEG_INF_BITS
+        if nq > 3:
+            okc[3, 1::2] = True
+            bits[3] = 0xFFFFFFFF
+    else:
+        raise ValueError(case)
+    return torch.from_numpy(s), torch.from_numpy(okc)
+
+
+def budget_reference(s: torch.Tensor, okc: torch.Tensor, k: int):
+    """The contract of ``kernels.budget_select`` in numpy: per row the k
+    columns largest in the fp32 total order, the dead chunks' columns
+    −inf, ties to the lowest column. → (value bits (nq, k) uint32, columns
+    (nq, k) int32)."""
+    b = s.cpu().numpy().view(np.uint32).astype(np.int64)
+    dead = ~np.repeat(okc.cpu().numpy(), 128, axis=1)
+    b = np.where(dead, NEG_INF_BITS, b)
+    key = np.where(b & 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
+    cols = np.arange(b.shape[1])
+    order = np.stack([np.lexsort((cols, -key[r]))[:k]
+                      for r in range(b.shape[0])])
+    return (np.take_along_axis(b, order, 1).astype(np.uint32),
+            order.astype(np.int32))
+
+
+def assert_budget_select(vals, pos, s, okc, k, what=""):
+    """vals, pos bit for bit the contract (``budget_reference``)."""
+    want_v, want_p = budget_reference(s, okc, k)
+    np.testing.assert_array_equal(pos.cpu().numpy(), want_p, what)
+    np.testing.assert_array_equal(
+        vals.cpu().numpy().view(np.uint32), want_v, what)
+
+
+@pytest.mark.parametrize("nbudget", [1, 5, 1024, 1280])
+@pytest.mark.parametrize("k", [1, 10, 40])
+@pytest.mark.parametrize("case", BUDGET_CASES)
+def test_budget_select_adversarial_rows(dev, case, k, nbudget):
+    """The kernel on ties across chunk edges, ±0.0, ±inf, ±NaN (the bits
+    0xffffffff and 0x7fffffff whole rows), all-dead rows and rows of fewer
+    than k live finite columns: bit for bit the numpy contract and the
+    plain version (the masked stable sort) on the card."""
+    s, okc = budget_rows(case, 6, nbudget, seed=nbudget + k)
+    sd, od = s.to(dev), okc.to(dev)
+    n0 = kernels.launches["budget_select"]
+    v, p = kernels.budget_select(sd, od, k)
+    assert kernels.launches["budget_select"] == n0 + 1
+    assert_budget_select(v, p, s, okc, k, f"{case} k={k} nbudget={nbudget}")
+    v_p, p_p = kernels.budget_select_plain(sd, od, k)
+    assert torch.equal(_bits(v), _bits(v_p)) and torch.equal(p, p_p)
+
+
+@pytest.mark.parametrize("nq,nbudget,k", [
+    (104, 1024, 10),          # the IVF cell: 32 tiles a row, 43 % dead
+    (104, 1280, 10),          # 40 tiles
+    (104, 1048, 40),          # 33 tiles, the last of 24 chunks
+    (13, 130, 7),             # 5 tiles, the last of 2 chunks
+    (8, 32, 10),              # one tile: one launch writes the result
+    (2, 60_000, 40),          # 1,875 tiles: a second reduction round
+    (1, 131_072, 40),         # 4,096 tiles, the gather budget's widest row
+])
+def test_budget_select_matches_plain_bitwise(dev, nq, nbudget, k):
+    """Gaussian scores with ~43 % of the chunks dead at the end of each
+    row: the kernel against its plain version on the card and the numpy
+    contract, bit for bit, at the cell's width and ragged ones."""
+    s, okc = budget_rows("normal", nq, nbudget, seed=nq * nbudget)
+    sd, od = s.to(dev), okc.to(dev)
+    v, p = kernels.budget_select(sd, od, k)
+    v_p, p_p = kernels.budget_select_plain(sd, od, k)
+    assert torch.equal(_bits(v), _bits(v_p)) and torch.equal(p, p_p)
+    if nq * nbudget <= 200_000:
+        assert_budget_select(v, p, s, okc, k)
+    torch.cuda.synchronize()
+
+
+def test_budget_select_checks_inputs(dev):
+    s = torch.zeros((4, 256), device=dev)
+    okc = torch.ones((4, 2), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        kernels.budget_select(s, okc, 41)
+    with pytest.raises(ValueError):
+        kernels.budget_select(s, okc[:, :1].contiguous(), 10)
+    with pytest.raises(TypeError):
+        kernels.budget_select(s.double(), okc, 10)
+    with pytest.raises(ValueError):
+        kernels.budget_select(s, okc.cpu(), 10)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_captured_ivf_search_launches_budget_select_once(dev, storage):
+    """Each IVF fine-scan search at k ≤ 40 launches budget_select once,
+    eager, captured or replayed, with the eager answers bit for bit; k 41
+    keeps the sort and launches none."""
+    from faiss_tpu_torch import SearchParams, TorchIndexIVFFlat
+
+    rng = np.random.default_rng(31)
+    xb = rng.standard_normal((20_000, 64), dtype=np.float32)
+    xq = rng.standard_normal((30, 64), dtype=np.float32)
+    ivf = TorchIndexIVFFlat(64, 32, storage=storage, device=dev)
+    ivf.train(xb)
+    ivf.add(xb)
+    for nprobe in (1, 8):
+        p = SearchParams(nprobe=nprobe)
+        for k in (10, 40, 41):
+            kernels.reset_launches()
+            ref = ivf._search_packed_uncached(xq, k, p)
+            counts = [kernels.launches["budget_select"]]
+            for _ in range(2):                  # build, replay
+                kernels.reset_launches()
+                got = ivf._search_packed(xq, k, p)[0]
+                counts.append(kernels.launches["budget_select"])
+                assert torch.equal(_bits(got), _bits(ref))
+            assert counts == [int(k <= 40)] * 3, (nprobe, k, counts)
+    torch.cuda.synchronize()
 
 
 # -- the search programs: CUDA graphs replayed from TorchResources' cache ----

@@ -36,10 +36,13 @@ from faiss_tpu_torch import (IDSelectorRange, SearchParams, TorchIndexIDMap2,
 from faiss_tpu_torch import ivf as tivf
 from faiss_tpu_torch.index import ConcatSearchToken
 from faiss_tpu_torch.ops import fused, kernels
+from faiss_tpu_torch.ops.topk import topk_scores
 
 from common import compare_results
 from test_ivf import int_data, ivf_oracle
-from test_torch_cuda import rescore_term, rescore_term_rows
+from test_torch_cuda import (BUDGET_CASES, assert_budget_select,
+                             budget_rows, rescore_term,
+                             rescore_term_rows)
 from torch_parity import (METRIC_IDS, METRICS, assert_ids_match,
                           assert_within_eps)
 
@@ -427,6 +430,53 @@ def test_batch_split_matches_unsplit(monkeypatch):
     np.testing.assert_array_equal(I0, I1)
     np.testing.assert_array_equal(D0, D1)
     np.testing.assert_array_equal(I0, ix.search(xq, 5)[1])
+
+
+@pytest.mark.parametrize("nbudget", [1, 5, 1024, 1280])
+@pytest.mark.parametrize("k", [1, 10, 40])
+@pytest.mark.parametrize("case", BUDGET_CASES)
+def test_budget_select_plain_is_the_masked_total_order_top_k(case, k,
+                                                             nbudget):
+    """The fine scan's top-k (``kernels.budget_select`` on the CPU, its
+    plain version) against the numpy contract and the masked stable sort
+    it replaced, bit for bit: ties across chunk edges, ±0.0, ±inf, ±NaN
+    (whole rows of the bits 0xffffffff and 0x7fffffff), all-dead rows and
+    rows with fewer than k live finite columns."""
+    s, okc = budget_rows(case, 6, nbudget, seed=nbudget + k)
+    v, p = kernels.budget_select(s, okc, k)
+    assert_budget_select(v, p, s, okc, k, f"{case} k={k} nbudget={nbudget}")
+    v_s, p_s = topk_scores(
+        s.masked_fill(~okc.repeat_interleave(tivf._CHUNK, 1), float("-inf")),
+        k)
+    assert torch.equal(v.view(torch.int32), v_s.view(torch.int32))
+    assert torch.equal(p, p_s)
+    assert kernels.launches["budget_select"] == 0
+
+
+@pytest.mark.parametrize("k", [1, 10, 40, 41])
+def test_fine_scan_top_k_routes_by_k(k, monkeypatch):
+    """k ≤ 40 ranks the budget through ``kernels.budget_select``, k 41
+    through the masked stable sort (``budget_select_plain`` called
+    directly); on integer data either gives the float64 IVF oracle's
+    distances, and its ids up to ties at the k-th distance."""
+    xb, xq = int_data(4000, 8, 16, seed=5, hi=16)
+    ix = TorchIndexIVFFlat(16, 16, nprobe=4, seed=3, device="cpu")
+    ix.train(xb)
+    ix.add(xb)
+    calls = {"budget_select": [], "budget_select_plain": []}
+    for name in calls:
+        fn = getattr(kernels, name)
+        monkeypatch.setattr(kernels, name,
+                            lambda s, okc, kk, fn=fn, name=name:
+                            calls[name].append(kk) or fn(s, okc, kk))
+    D_t, I_t = ix.search(xq, k)
+    assert calls["budget_select"] == ([k] if k <= 40 else [])
+    assert calls["budget_select_plain"] == [k]
+    refD, refI = ivf_oracle(ix, xb, xq, k, 4)
+    np.testing.assert_array_equal(D_t, refD)
+    for qi in range(len(xq)):
+        below = refD[qi] < refD[qi, -1]
+        assert set(I_t[qi][below]) == set(refI[qi][below]), qi
 
 
 def test_skewed_lists_budget_and_chunk_layout():
