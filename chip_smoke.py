@@ -1468,7 +1468,7 @@ def phase_ivf_1m(torch, ft):
     import tempfile
 
     from faiss_tpu_torch import MetricType, programs
-    from faiss_tpu_torch.index import RANGE_CAP0, range_threshold
+    from faiss_tpu_torch.calls import RANGE_CAP0, range_threshold
     from faiss_tpu_torch.ops import kernels
 
     xb, xq = ivf_data()
@@ -1555,7 +1555,7 @@ def phase_ivf_1m(torch, ft):
     # the assign's own owner: an add keeps it
     prog["ivf_1m_assign"] = programs_row(
         torch, f"ivf_1m assign n={NV}", f32,
-        lambda: f32._assign_padded(xb, cached=False)[1],
+        _eagerly(lambda: f32._assign_padded(xb)[1]),
         lambda: f32._assign_padded(xb)[1],
         drop=lambda: f32.res.discard(
             programs.owned_by(f32._assign_owner)),
@@ -2076,22 +2076,36 @@ def phase_profiling(torch, ft, f32, xq):
 # -- the search programs: CUDA graphs replayed from the cache ---------------
 
 
+def _eagerly(fn):
+    """``fn`` run under ``programs.eager()``: the search with no program
+    and no cache entry (what a replay must equal bit for bit)."""
+    from faiss_tpu_torch import programs
+
+    def run():
+        with programs.eager():
+            return fn()
+
+    return run
+
+
 def _flat_runs(idx, xq):
     """(eager, cached) first passes of one flat search of ``xq`` (the
-    queries' copy to the card included): the uncached function, and the
+    queries' copy to the card included): the eager search, and the
     program of the index's TorchResources."""
-    def run(cached):
+    def run():
         q, _, nq_pad = idx._prep_queries(xq)
-        fn = idx._run_search_fn if cached else idx._run_search_uncached
-        return fn(q, K, nq_pad, force_plain=False)[0]
+        return idx._run_search_fn(q, K, nq_pad, force_plain=False)[0]
 
-    return (lambda: run(False)), (lambda: run(True))
+    return _eagerly(run), run
 
 
 def _ivf_runs(ft, ivf, xq, nprobe):
     p = ft.SearchParams(nprobe=nprobe)
-    return (lambda: ivf._search_packed_uncached(xq, K, p),
-            lambda: ivf._search_packed(xq, K, p)[0])
+
+    def run():
+        return ivf._search_packed(xq, K, p)[0]
+
+    return _eagerly(run), run
 
 
 def _host_ms(fn, reps):
@@ -2134,8 +2148,10 @@ def programs_row(torch, label, idx, eager, cached, drop=None, reps=REPS):
 def _range_runs(idx, q, *args):
     """(eager, cached) packed range passes of ``idx`` (flat: q, nq_pad,
     thr, cap, sel; IVF: q, nprobe, nbudget, thr, rcap, sel)."""
-    return (lambda: idx._range_packed(q, *args, cached=False)[0],
-            lambda: idx._range_packed(q, *args)[0])
+    def run():
+        return idx._range_packed(q, *args)[0]
+
+    return _eagerly(run), run
 
 
 def phase_programs(torch, runs):
@@ -2152,7 +2168,7 @@ def range_programs_row(torch, idx, xq):
     10th-neighbour distance as a programs row (a pass takes about half a
     second on an H100: 3 reps, depth 4); a second radius must replay the
     program."""
-    from faiss_tpu_torch.index import RANGE_CAP0, range_threshold
+    from faiss_tpu_torch.calls import RANGE_CAP0, range_threshold
 
     D10, _ = idx.search(xq, K)
     radius = float(np.median(D10[:, -1]))

@@ -49,8 +49,9 @@ path's layer boundaries, live only while a ``torch.profiler`` records.
 from .clustering import Kmeans, kmeans_clustering, knn, pairwise_distances
 from .dtypes import MetricType, StorageType
 from .idmap import TorchIndexIDMap, TorchIndexIDMap2
-from .index import (TorchIndexFlat, TorchSearchToken, index_cpu_to_torch,
-                    index_numpy_to_torch, index_torch_to_cpu)
+from .calls import TorchSearchToken
+from .index import (TorchIndexFlat, index_cpu_to_torch, index_numpy_to_torch,
+                    index_torch_to_cpu)
 from .io import index_from_arrays, load_index, save_index
 from .ivf import TorchIndexIVFFlat
 from .multi import IndexShardsHost, merge_search_results

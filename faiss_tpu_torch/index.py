@@ -51,30 +51,23 @@ Behaviour kept:
     chunk holds more hits.
 
 Each search runs through the program that ``self.res`` (a TorchResources)
-caches for its shape and route, as ``faiss_tpu``'s searches run through
-its compiled programs: on a CUDA device the search captured once as a CUDA
-graph and replayed on the current stream (``programs.py``), on the CPU the
-eager function. The key holds what ``faiss_tpu``'s holds, the index's
-identity and its generation, which every mutation bumps (dropping the
-index's programs: a graph bakes the store's addresses and ntotal). The
-token enqueues the copy of its one packed result tensor into pinned host
-memory right behind the search, so that waiting on it never waits for the
-searches enqueued after it.
+caches for it (``programs.call``), as ``faiss_tpu``'s searches run through
+its compiled programs; every mutation starts a new generation (a graph
+bakes the store's addresses and ntotal). The host side of a call (the
+upload, the selector stream, the token) is ``calls.py``'s.
 """
 
 from __future__ import annotations
 
-import weakref
 from collections import deque
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
-from . import programs
-from . import selector as sel_mod
-from . import tracing
-from .dtypes import MetricType, StorageType, worst_distance
+from . import calls, programs
+from .calls import NQ_PAD
+from .dtypes import MetricType, StorageType
 from .ops import distance as dist_ops
 from .ops import fused
 from .ops import topk as topk_ops
@@ -82,249 +75,138 @@ from .resources import (KernelTuning, TorchResources, bind_device,
                         query_device_capabilities)
 from .storage import ROW_TILE, DeviceStore, _round_up, decode_f16_bits
 
-# queries pad to a multiple of this many rows
-NQ_PAD = 8
 # cap on nq·nv·d elements for the direct (per-pair, unexpanded) L2 path
 DIRECT_PATH_MAX_ELEMS = 1 << 24
-# range_search: first per-(query, chunk) hit capacity; one rerun at the next
-# power of two when a chunk holds more (its counts are exact either way)
-RANGE_CAP0 = 1024
 
 
-def _finalize(vals, ids, ntotal: int, k: int, metric: MetricType):
-    """Sentinel mapping and k > nv_eff padding: invalid slots get the
-    metric's worst distance and label -1."""
-    invalid = (ids < 0) | (ids >= ntotal) | ~(vals > float("-inf"))
-    dists = dist_ops.scores_to_distances(vals, metric).masked_fill(
-        invalid, worst_distance(metric))
-    ids = ids.masked_fill(invalid, -1)
-    if ids.shape[1] < k:
-        pad = (ids.shape[0], k - ids.shape[1])
-        dists = torch.cat([dists, dists.new_full(pad, worst_distance(metric))],
-                          dim=1)
-        ids = torch.cat([ids, ids.new_full(pad, -1)], dim=1)
-    return dists, ids
+def direct_form(metric: MetricType, store: DeviceStore, nv_eff: int,
+                nq_pad: int) -> bool:
+    """The plain path's direct (unexpanded) L2 form, for small shapes."""
+    return (metric is MetricType.L2
+            and store.storage is not StorageType.INT8
+            and nv_eff <= dist_ops.DIRECT_PATH_MAX_NV * 4
+            and nq_pad * nv_eff * store.d_pad <= DIRECT_PATH_MAX_ELEMS)
 
 
-def _pack(dists, labels, cert, counts=None):
-    """One (nq_pad, 2k+1) f32 tensor holding dists, the int32 labels' bits
-    and the certificate, so that a search needs one device-to-host copy.
-    ``counts``: a (c,) int32 tensor of program counters (c ≤ 2k+1), whose
-    bits then follow as one more row (``TorchSearchToken``'s
-    ``counters``)."""
-    packed = torch.cat([dists, labels.to(torch.int32).view(torch.float32),
-                        cert.to(torch.float32)[:, None]], dim=1)
-    if counts is None:
-        return packed
-    row = torch.zeros((1, packed.shape[1]), dtype=torch.int32,
-                      device=packed.device)
-    row[0, :counts.numel()] = counts
-    return torch.cat([packed, row.view(torch.float32)])
-
-
-def _unpack_counts(packed: np.ndarray, n: int) -> np.ndarray:
-    """The ``n`` program counters of a host copy of ``_pack(..., counts)``
-    (its last row), int32."""
-    return np.ascontiguousarray(packed[-1, :n]).view(np.int32)
-
-
-def _unpack(packed: np.ndarray, k: int):
-    d = packed[:, :k]
-    i = np.ascontiguousarray(packed[:, k: 2 * k]).view(np.int32)
-    return d, i, packed[:, 2 * k] != 0
-
-
-class TorchSearchToken:
-    """Async search handle. ``search_async`` returns once the search and
-    the one device-to-host copy of its packed result are enqueued, the copy
-    right behind the search on the same stream, into pinned host memory
-    (PyTorch's caching host allocator); ``wait()`` waits for that copy,
-    runs the certificate fallback for the uncertified rows only, and
-    returns (D, I), arrays of their own; ``is_ready()`` polls a CUDA event
-    recorded after the copy. ``counters``: the names of the program
-    counters in the packed result's last row (``_pack``), which ``wait()``
-    records under the call's id while a profiler records."""
-
-    def __init__(self, packed: Optional[torch.Tensor], nq: int, k: int,
-                 fallback=None, result=None, counters=()):
-        self._packed = packed
-        self._nq, self._k = nq, k
-        self._fallback = fallback
-        self._result = result
-        self._counters = counters
-        self._event = self._copy_event = None
-        if packed is not None and packed.is_cuda:
-            # no device guard (≈ 10 µs a call on the H100's host): a copy
-            # from a CUDA tensor runs on its own device's current stream
-            stream = torch.cuda.current_stream(packed.device)
-            self._event = torch.cuda.Event()
-            self._event.record(stream)
-            # in stream order: the copy runs before the next call's work,
-            # and the host block is not reused until it is done
-            self._packed = torch.empty(packed.shape, dtype=packed.dtype,
-                                       pin_memory=True)
-            self._packed.copy_(packed, non_blocking=True)
-            self._copy_event = torch.cuda.Event()
-            self._copy_event.record(stream)
-        # the call id that search_async's span minted (None untraced)
-        self._call = tracing.current_call()
-
-    def wait(self) -> Tuple[np.ndarray, np.ndarray]:
-        if self._result is None:
-            with tracing.span("token.wait", self._call):
-                if self._event is not None and tracing.recording():
-                    # traced only: splits the wait into this call's own
-                    # work and the copy's, enqueued right behind it
-                    with tracing.span("token.sync"):
-                        self._event.synchronize()
-                with tracing.span("token.copy"):
-                    if self._copy_event is not None:
-                        self._copy_event.synchronize()
-                    host = self._packed.numpy()
-                with tracing.span("token.unpack"):
-                    if self._counters and tracing.recording():
-                        for name, v in zip(self._counters, _unpack_counts(
-                                host, len(self._counters))):
-                            tracing.count(name, v, self._call)
-                    d, i, cert = _unpack(host, self._k)
-                    # a failed padding row changes no answer: no rerun
-                    rerun = (self._fallback is not None
-                             and not cert[: self._nq].all())
-                    if not rerun:
-                        # copies: the host block goes back to its pool
-                        self._result = (np.array(d[: self._nq], np.float32),
-                                        np.array(i[: self._nq], np.int64))
-                if rerun:
-                    with tracing.span("token.fallback"):
-                        self._result = self._fallback(cert, d, i)
-            self._packed = self._fallback = None
-            self._event = self._copy_event = None
-        return self._result
-
-    def is_ready(self) -> bool:
-        if self._result is not None or self._copy_event is None:
-            return True
-        return self._copy_event.query()
-
-
-class ConcatSearchToken:
-    """Handle over the row-chunk tokens of ONE logical search (the IVF
-    index splits a query batch whose score array would pass its gather
-    budget; ``faiss_tpu``'s ConcatSearchToken). Every chunk is enqueued
-    before this is returned; ``wait()`` concatenates their results in query
-    order."""
-
-    def __init__(self, toks):
-        self._toks = toks
-        self._result = None
-
-    def wait(self) -> Tuple[np.ndarray, np.ndarray]:
-        if self._result is None:
-            parts = [t.wait() for t in self._toks]
-            self._result = (
-                np.concatenate([p[0] for p in parts], axis=0),
-                np.concatenate([p[1] for p in parts], axis=0))
-            self._toks = None
-        return self._result
-
-    def is_ready(self) -> bool:
-        return self._result is not None or all(
-            t.is_ready() for t in self._toks)
-
-
-def range_threshold(radius: float, metric: MetricType) -> float:
-    """The score threshold of ``radius`` (−radius for L2), rounded to
-    fp32 as the scores are."""
-    return float(np.float32(-radius if metric is MetricType.L2 else radius))
-
-
-def _pack_range(counts, vals, ids) -> torch.Tensor:
-    """One (nblocks, nq_pad, 1 + 2·cap) f32 tensor holding a range pass's
-    int32 counts' bits, its scores and its int32 ids' bits, so that the
-    pass needs one device-to-host copy."""
-    return torch.cat([counts[..., None].view(torch.float32), vals,
-                      ids.to(torch.int32).view(torch.float32)], dim=-1)
-
-
-def _unpack_range(packed: np.ndarray, cap: int):
-    counts = np.ascontiguousarray(packed[..., 0]).view(np.int32)
-    ids = np.ascontiguousarray(packed[..., 1 + cap:]).view(np.int32)
-    return counts, packed[..., 1: 1 + cap], ids
-
-
-def _range_csr(run_range, nq: int, metric: MetricType):
-    """range_search's passes and CSR assembly (``faiss_tpu``'s _range_csr):
-    ``run_range(cap)`` returns host (counts (nchunks, nq_pad), vals, ids,
-    cap used), counts exact whatever the cap, so one rerun at the next
-    power of two suffices; then one lexsort keyed (query, score descending,
-    id ascending) merges the chunks' runs best-first."""
-    counts, vals, ids, cap = run_range(RANGE_CAP0)
-    cmax = int(counts[:, :nq].max()) if nq else 0
-    if cmax > cap:
-        counts, vals, ids, cap = run_range(1 << (cmax - 1).bit_length())
-        assert int(counts[:, :nq].max()) <= cap
-    counts_q = counts[:, :nq].astype(np.int64)          # (nchunks, nq)
-    lims = np.zeros(nq + 1, np.int64)
-    np.cumsum(counts_q.sum(axis=0), out=lims[1:])
-    valid = np.arange(cap)[None, None, :] < counts_q.T[:, :, None]
-    qq, ch, pp = np.nonzero(valid)                      # CSR segment order
-    D = vals[ch, qq, pp].astype(np.float32, copy=False)
-    I = ids[ch, qq, pp].astype(np.int64)
-    order = np.lexsort((I, -D, qq))
-    D, I = D[order], I[order]
-    if metric is MetricType.L2:
-        np.negative(D, out=D)  # scores → squared distances
-    return lims, D, I
+def flat_route(stores, metric: MetricType, k: int, nq_pad: int, *,
+               plain: bool, full_sweep: bool = False, pinned=(),
+               direct: bool = True):
+    """The route of a flat search of ``nq_pad`` query rows over ``stores``
+    (one index's store, or every live shard's, which then share one
+    decision), decided on the host from the shape and the stores' host
+    mirrors: (use_fused, passes, hi_exact, use_direct). The cost gate sees
+    the largest store. ``plain``: the plain path, whatever the gate says;
+    ``full_sweep``: two query planes, as do the shapes in ``pinned``;
+    ``direct``: the plain path may take its direct L2 form."""
+    st = stores[0]
+    # hi_exact: every store's exact split statistics (mirrored to the host
+    # by add, so reading them here waits for nothing) prove the lo and
+    # residual planes zero; the sweep then reads 2 bytes per element
+    nt, stats_zero = 0, st.has_split
+    for s in stores:
+        nt = max(nt, s.ntotal)
+        stats_zero = stats_zero and s.split_stats_host() == (0.0, 0.0)
+    nv_eff = _round_up(nt, ROW_TILE)
+    is_int8 = st.storage is StorageType.INT8
+    use_direct = direct and direct_form(metric, st, nv_eff, nq_pad)
+    pair_sweep = st.has_split and not stats_zero
+    use_fused = (not plain and not use_direct
+                 and fused.fused_path_eligible(
+                     metric=metric, k=k, nv_eff=nv_eff, d_pad=st.d_pad,
+                     nq_pad=nq_pad,
+                     itemsize=4 if pair_sweep else 1 if is_int8 else 2,
+                     dtype=st.row_dtype))
+    # f16 is not pair storage for this policy (one plane at large nq_pad,
+    # as bf16), though its certificate is the pair ε
+    passes = 2 if (full_sweep or nq_pad in pinned) \
+        else fused.pick_sweep_passes(nq_pad, pair_sweep or is_int8)
+    return use_fused, passes, stats_zero, use_direct
 
 
 def make_selective_fallback(index, queries: torch.Tensor, nq: int, k: int, *,
                             pad_unit: int, pin_key: int, reduced: bool,
-                            sel: Optional[torch.Tensor] = None):
-    """Tier-1/tier-2 fallback for the rows whose certificate failed.
+                            sel=None):
+    """Tier-1/tier-2 fallback of a flat search (``index`` a TorchIndexFlat
+    or a ShardedIndexFlat) for the rows whose certificate failed
+    (``calls.certificate_fallback``).
 
     The failed rows are gathered into a small pad_unit-aligned batch and
-    re-run; their results are patched into the certified ones. Tier 1 (only
-    when this search ran the one-plane sweep): the two-plane fused sweep,
-    and ``pin_key`` is pinned in ``index._no_reduced_sweep`` so the shape
-    stops paying tier-1 reruns. Tier 2: the plain path, exact by
+    re-run. Tier 1 (only when this search ran the one-plane sweep): the
+    two-plane fused sweep, and ``pin_key`` is pinned in
+    ``index._no_reduced_sweep`` so the shape stops paying tier-1 reruns.
+    Tier 2, for the rows tier 1 left uncertified: the plain path, exact by
     construction. Both tiers take the search's selector stream ``sel``, so
-    a rerun keeps filtering. Failures in padding rows alone change nothing
-    and are not counted in ``index.fused_fallbacks``."""
+    a rerun keeps filtering."""
 
-    def fallback(cert, d0, i0):
-        d_out = np.array(d0[:nq], np.float32)
-        i_out = np.array(i0[:nq], np.int64)
-        bad = np.nonzero(~cert[:nq])[0]
-        if bad.size == 0:
-            return d_out, i_out
-        index.fused_fallbacks += 1
+    def rerun(bad):
         nb_pad = max(pad_unit, _round_up(bad.size, pad_unit))
         qb = torch.zeros((nb_pad, queries.shape[1]), dtype=torch.float32,
                          device=queries.device)
         qb[: bad.size] = queries[torch.as_tensor(bad, device=queries.device)]
-        todo = np.arange(bad.size)
         if reduced:
             index._no_reduced_sweep.add(pin_key)
-            packed, uf2, _ = index._run_search_fn(
+            packed, fused_ran, _ = index._run_search_fn(
                 qb, k, nb_pad, force_plain=False, full_sweep=True, sel=sel)
-            d2, i2, c2 = _unpack(packed.cpu().numpy(), k)
-            ok = todo[c2[todo]] if uf2 else todo
-            d_out[bad[ok]] = d2[ok]
-            i_out[bad[ok]] = i2[ok]
-            todo = todo[~c2[todo]] if uf2 else todo[:0]
+            d, i, cert = calls.unpack(packed.cpu().numpy(), k)
+            if not fused_ran:
+                return d, i
+            todo = np.nonzero(~cert[: bad.size])[0]
             if todo.size == 0:
-                return d_out, i_out
+                return d, i
         packed, _, _ = index._run_search_fn(qb, k, nb_pad, force_plain=True,
                                             sel=sel)
-        d2, i2, _ = _unpack(packed.cpu().numpy(), k)
-        d_out[bad[todo]] = d2[todo]
-        i_out[bad[todo]] = i2[todo]
-        return d_out, i_out
+        d2, i2, _ = calls.unpack(packed.cpu().numpy(), k)
+        if not reduced:
+            return d2, i2
+        d[todo], i[todo] = d2[todo], i2[todo]
+        return d, i
 
-    return fallback
+    return calls.certificate_fallback(index, nq, rerun)
 
 
-class TorchIndexFlat:
+class FlatCalls(calls.SearchCalls):
+    """The call layer of the flat indexes (TorchIndexFlat,
+    ShardedIndexFlat) over their ``_prep_queries``, ``_sel_stream``,
+    ``_run_search_fn`` and ``_run_range``: a query batch pads to NQ_PAD
+    rows for each of ``num_replicas`` groups."""
+
+    num_replicas = 1
+
+    def _search_packed(self, x: np.ndarray, k: int, params=None):
+        """Enqueue one search (``calls.SearchCalls``): (packed result or
+        None for the empty index, nq, the certificate fallback or None, no
+        counters)."""
+        q, nq, nq_pad = self._prep_queries(x)
+        sel = self._sel_stream(params)
+        if self.ntotal == 0:
+            return None, nq, None, ()
+        packed, use_fused, reduced = self._run_search_fn(
+            q, k, nq_pad, force_plain=False, sel=sel)
+        if not use_fused:
+            return packed, nq, None, ()
+        r = self.num_replicas
+        return packed, nq, make_selective_fallback(
+            self, q, nq, k, pad_unit=NQ_PAD * r, pin_key=nq_pad // r,
+            reduced=reduced, sel=sel), ()
+
+    def range_search(self, x: np.ndarray, radius: float, params=None):
+        """All rows within ``radius`` of each query, faiss's CSR layout:
+        (lims (nq+1,) int64, D (lims[nq],) f32, I (lims[nq],) int64), query
+        i's hits in D[lims[i]:lims[i+1]] best first (ties to the lowest
+        id). faiss::IndexFlat's strict criterion: squared L2 distance
+        < radius, inner product > radius, in the plain path's arithmetic
+        (what search would rank for the same rows)."""
+        q, nq, nq_pad = self._prep_queries(x)
+        sel = self._sel_stream(params)
+        if self.ntotal == 0:
+            return calls.empty_range(nq)
+        thr = calls.range_threshold(radius, self.metric)
+        return calls.range_csr(
+            lambda cap: self._run_range(q, nq_pad, thr, cap, sel), nq,
+            self.metric)
+
+
+class TorchIndexFlat(FlatCalls):
     """Flat exact-search index over f32, bf16, f16 or int8 rows on one
     device.
 
@@ -355,12 +237,9 @@ class TorchIndexFlat:
         # nq_pad shapes where the one-plane sweep failed to certify on this
         # data: they run the two-plane sweep from then on (reset() clears)
         self._no_reduced_sweep: set = set()
-        # the programs' keys: (kind, owner, generation, shape and route)
-        self._owner = programs.new_owner()
+        self._owner = programs.new_owner(self)
         self._gen = 0
         self._store_version = self.store.version
-        weakref.finalize(self, self.res.discard,
-                         programs.owned_by(self._owner))
 
     @property
     def d(self) -> int:
@@ -456,28 +335,8 @@ class TorchIndexFlat:
 
     # -- search ------------------------------------------------------------
     def _prep_queries(self, x: np.ndarray):
-        """Pad on the host, then make one transfer to the device."""
-        x = np.asarray(x, dtype=np.float32)
-        if x.ndim == 1:
-            x = x[None, :]
-        if x.ndim != 2 or x.shape[1] != self.d:
-            raise ValueError(f"expected (n, {self.d}) queries, got {x.shape}")
-        nq = x.shape[0]
-        nq_pad = max(NQ_PAD, _round_up(nq, NQ_PAD))
-        with tracing.span("index.prep_queries"):
-            q = torch.zeros((nq_pad, self.store.d_pad), dtype=torch.float32,
-                            pin_memory=self.device.type == "cuda")
-            q[:nq, : self.d] = torch.from_numpy(x)
-            # from pinned memory the copy is asynchronous: enqueueing a
-            # search never waits for the device
-            return q.to(self.device, non_blocking=True), nq, nq_pad
-
-    def _use_direct(self, nv_eff: int, nq_pad: int) -> bool:
-        """The plain path's direct (unexpanded) L2 form, for small shapes."""
-        return (self.metric is MetricType.L2
-                and self.store.storage is not StorageType.INT8
-                and nv_eff <= dist_ops.DIRECT_PATH_MAX_NV * 4
-                and nq_pad * nv_eff * self.store.d_pad <= DIRECT_PATH_MAX_ELEMS)
+        """(queries padded to NQ_PAD rows on the device, nq, nq_pad)."""
+        return calls.prep_queries(x, self.d, self.store.d_pad, self.device)
 
     def _scores_block(self, q: torch.Tensor, start: int, width: int, *,
                       use_direct: bool,
@@ -523,76 +382,26 @@ class TorchIndexFlat:
         cached for its shape and route. Returns (packed result tensor,
         whether the fused path ran, whether it ran the one-plane sweep);
         nothing is copied to the host."""
-        nv_eff, route = self._route(k, nq_pad, force_plain=force_plain,
-                                    full_sweep=full_sweep)
-        st = self.store
-        if st.version != self._store_version:
+        route = flat_route([self.store], self.metric, k, nq_pad,
+                           plain=force_plain or self._force_plain,
+                           full_sweep=full_sweep,
+                           pinned=self._no_reduced_sweep)
+        if self.store.version != self._store_version:
             self._mutated()    # the store changed under the index
-        key = ("flat_search", self._owner, self._gen, nv_eff, st.d_pad,
-               nq_pad, int(k), self.metric, self.storage_type,
-               route["use_direct"], route["use_fused"], self.tuning.chunk_v,
-               st.pair_only, route["passes"], route["hi_exact"],
-               sel is not None)
-        packed = programs.run(self.res, key, self._program_fn(k, route),
-                              (q,) if sel is None else (q, sel),
-                              self.device)
-        return (packed, route["use_fused"],
-                route["use_fused"] and route["passes"] == 1)
+        packed = programs.call(self, "flat_search", TorchIndexFlat._packed,
+                               (int(k), *route),
+                               (q,) if sel is None else (q, sel))
+        return packed, route[0], route[0] and route[1] == 1
 
-    def _run_search_uncached(self, q: torch.Tensor, k: int, nq_pad: int, *,
-                             force_plain: bool, full_sweep: bool = False,
-                             sel: Optional[torch.Tensor] = None):
-        """``_run_search_fn`` run eagerly, with no program: what a replay
-        must equal bit for bit (the card tests and chip_smoke)."""
-        _, route = self._route(k, nq_pad, force_plain=force_plain,
-                               full_sweep=full_sweep)
-        return (self._packed(q, k, sel=sel, **route), route["use_fused"],
-                route["use_fused"] and route["passes"] == 1)
-
-    def _program_fn(self, k: int, route: dict):
-        """The search as a function of (q[, sel]) alone; it holds the
-        index weakly, so a cached program never keeps the index alive."""
-        ref = weakref.ref(self)
-
-        def search(q, sel=None):
-            return ref()._packed(q, k, sel=sel, **route)
-
-        return search
-
-    def _packed(self, q: torch.Tensor, k: int, *,
-                sel: Optional[torch.Tensor], **route) -> torch.Tensor:
+    def _packed(self, k: int, use_fused: bool, passes: int, hi_exact: bool,
+                use_direct: bool, q: torch.Tensor,
+                sel: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One search on the route, packed (no host synchronisation)."""
-        vals, ids, cert = self._search_local(q, k, sel=sel, **route)
-        dists, labels = _finalize(vals, ids, self.ntotal, k, self.metric)
-        return _pack(dists, labels, cert)
-
-    def _route(self, k: int, nq_pad: int, *, force_plain: bool,
-               full_sweep: bool):
-        """(nv_eff, the route: use_fused, passes, hi_exact, use_direct),
-        decided on the host from the shape and the store's host
-        mirrors."""
-        st = self.store
-        nv_eff = _round_up(self.ntotal, ROW_TILE)
-        is_int8 = st.storage is StorageType.INT8
-        use_direct = self._use_direct(nv_eff, nq_pad)
-        # hi_exact: the exact split statistics (mirrored to the host by
-        # add, so reading them here waits for nothing) prove the lo and
-        # residual planes zero; the sweep then reads 2 bytes per element
-        stats_zero = st.has_split and st.split_stats_host() == (0.0, 0.0)
-        pair_sweep = st.has_split and not stats_zero
-        use_fused = (not force_plain and not self._force_plain
-                     and not use_direct
-                     and fused.fused_path_eligible(
-                         metric=self.metric, k=k, nv_eff=nv_eff,
-                         d_pad=st.d_pad, nq_pad=nq_pad,
-                         itemsize=4 if pair_sweep else 1 if is_int8 else 2,
-                         dtype=st.row_dtype))
-        # f16 is not pair storage for this policy (one plane at large
-        # nq_pad, as bf16), though its certificate is the pair ε
-        passes = 2 if (full_sweep or nq_pad in self._no_reduced_sweep) \
-            else fused.pick_sweep_passes(nq_pad, pair_sweep or is_int8)
-        return nv_eff, dict(use_fused=use_fused, passes=passes,
-                            hi_exact=stats_zero, use_direct=use_direct)
+        vals, ids, cert = self._search_local(
+            q, k, use_fused=use_fused, passes=passes, hi_exact=hi_exact,
+            use_direct=use_direct, sel=sel)
+        dists, labels = calls.finalize(vals, ids, self.ntotal, k, self.metric)
+        return calls.pack(dists, labels, cert)
 
     def _search_local(self, q: torch.Tensor, k: int, *, use_fused: bool,
                       passes: int, hi_exact: bool, use_direct: bool,
@@ -651,57 +460,12 @@ class TorchIndexFlat:
 
     def _sel_stream(self, params) -> Optional[torch.Tensor]:
         """``params``' selector over the positional ids, as a (capacity,)
-        bool device stream, or None when nothing is filtered (the selector
-        that admits every row keeps the unfiltered program: the result is
-        the same). Rows past ntotal are False. Evaluated on the host, then
-        one copy from pinned memory, so enqueueing does not wait."""
-        sel_mod.reject_ivf_params(params)
-        # validate first: no id vector for a search without a selector
-        if sel_mod.selector_mask(params, np.empty(0, np.int64)) is None:
-            return None
-        with tracing.span("index.sel_stream"):
-            mask = sel_mod.selector_mask(
-                params, np.arange(self.ntotal, dtype=np.int64))
-            if mask.all():
-                return None
-            pad = torch.zeros((self.store.capacity,), dtype=torch.bool,
-                              pin_memory=self.device.type == "cuda")
-            pad[: self.ntotal] = torch.from_numpy(mask)
-            return pad.to(self.device, non_blocking=True)
-
-    def _empty_result(self, nq: int, k: int):
-        return (np.full((nq, k), worst_distance(self.metric), np.float32),
-                np.full((nq, k), -1, np.int64))
-
-    def search_async(self, x: np.ndarray, k: int,
-                     params=None) -> TorchSearchToken:
-        """Non-blocking search: returns once the work is enqueued.
-        ``params`` (``SearchParams``): restrict it to the rows its selector
-        admits."""
-        if k <= 0:
-            raise ValueError(f"k must be positive, got {k}")
-        with tracing.span("index.search_async", mint=True):
-            q, nq, nq_pad = self._prep_queries(x)
-            if self.ntotal == 0:
-                # validate the params
-                sel_mod.selector_mask(params, np.empty(0, np.int64))
-                return TorchSearchToken(None, nq, k,
-                                        result=self._empty_result(nq, k))
-            sel = self._sel_stream(params)
-            packed, use_fused, reduced = self._run_search_fn(
-                q, k, nq_pad, force_plain=False, sel=sel)
-            fallback = None
-            if use_fused:
-                fallback = make_selective_fallback(
-                    self, q, nq, k, pad_unit=NQ_PAD, pin_key=nq_pad,
-                    reduced=reduced, sel=sel)
-            return TorchSearchToken(packed, nq, k, fallback=fallback)
-
-    def search(self, x: np.ndarray, k: int,
-               params=None) -> Tuple[np.ndarray, np.ndarray]:
-        """Exact top-k search: (distances f32 (nq, k), labels i64 (nq, k)),
-        over the rows ``params``' selector admits."""
-        return self.search_async(x, k, params=params).wait()
+        bool device stream (False past ntotal), or None when nothing is
+        filtered (``calls.selector_streams``)."""
+        return calls.selector_streams(
+            params, self.ntotal, lambda mask: calls.bool_stream(
+                self.store.capacity, self.device, slice(0, self.ntotal),
+                mask), flat=True)
 
     def assign(self, x: np.ndarray, k: int = 1) -> np.ndarray:
         """Labels-only search (faiss::Index::assign), (nq, k) int64. A large
@@ -742,24 +506,23 @@ class TorchIndexFlat:
     # -- range search ---------------------------------------------------------
     def _run_range(self, q: torch.Tensor, nq_pad: int, thr: float, cap: int,
                    sel: Optional[torch.Tensor],
-                   use_direct: Optional[bool] = None, cached: bool = True):
+                   use_direct: Optional[bool] = None):
         """One pass over the plain-path score chunks (``_range_packed``),
         then one copy back: host (counts (nchunks, nq_pad), vals, ids
         (nchunks, nq_pad, cap), cap used)."""
         packed, cap = self._range_packed(q, nq_pad, thr, cap, sel,
-                                         use_direct, cached)
-        return (*_unpack_range(packed.cpu().numpy(), cap), cap)
+                                         use_direct)
+        return (*calls.unpack_range(packed.cpu().numpy(), cap), cap)
 
     def _range_packed(self, q: torch.Tensor, nq_pad: int, thr: float,
                       cap: int, sel: Optional[torch.Tensor],
-                      use_direct: Optional[bool] = None,
-                      cached: bool = True):
-        """One range pass through the program cached for its shape
-        (``cached=False``: run eagerly): per chunk the exact count of
-        scores > thr and the top-``cap`` of them, packed on the device
-        (``_pack_range``), and the capacity used. ``thr`` enters the
-        program as a 0-d tensor, so one program serves every radius.
-        ``use_direct``: the plain path's form (None: by the shape)."""
+                      use_direct: Optional[bool] = None):
+        """One range pass through the program cached for its shape: per
+        chunk the exact count of scores > thr and the top-``cap`` of them,
+        packed on the device (``calls.pack_range``), and the capacity used.
+        ``thr`` enters the program as a 0-d tensor, so one program serves
+        every radius. ``use_direct``: the plain path's form (None: by the
+        shape)."""
         nv_eff = _round_up(self.ntotal, ROW_TILE)
         chunk = min(self.tuning.chunk_v, nv_eff)
         while nv_eff % chunk:       # the largest ≤ chunk_v divisor of nv_eff
@@ -771,67 +534,32 @@ class TorchIndexFlat:
                 f"(~{(nv_eff // chunk) * nq_pad * cap} candidate slots); "
                 "split the query batch or tighten the radius")
         if use_direct is None:
-            use_direct = self._use_direct(nv_eff, nq_pad)
-        st = self.store
-        if st.version != self._store_version:
+            use_direct = direct_form(self.metric, self.store, nv_eff, nq_pad)
+        if self.store.version != self._store_version:
             self._mutated()    # the store changed under the index
-        fn = self._range_fn(nv_eff, chunk, cap, use_direct)
         inputs = (q, torch.full((), thr, dtype=torch.float32,
                                 device=self.device))
         inputs += () if sel is None else (sel,)
-        if cached:
-            key = ("range_search", self._owner, self._gen, nv_eff, st.d_pad,
-                   nq_pad, self.metric, self.storage_type, use_direct, chunk,
-                   cap, st.pair_only, sel is not None)
-            return programs.run(self.res, key, fn, inputs, self.device), cap
-        return fn(*inputs), cap
+        return programs.call(self, "range_search", TorchIndexFlat._range_pass,
+                             (nv_eff, chunk, cap, use_direct), inputs), cap
 
-    def _run_range_uncached(self, q: torch.Tensor, nq_pad: int, thr: float,
-                            cap: int, sel: Optional[torch.Tensor],
-                            use_direct: Optional[bool] = None):
-        """``_run_range`` run eagerly, with no program: what a replay must
-        equal bit for bit (the card tests and chip_smoke)."""
-        return self._run_range(q, nq_pad, thr, cap, sel, use_direct,
-                               cached=False)
-
-    def _range_fn(self, nv_eff: int, chunk: int, cap: int, use_direct: bool):
-        """The range pass as a function of (q, thr[, sel]) alone, returning
-        the packed (counts, vals, ids); it holds the index weakly."""
-        ref = weakref.ref(self)
-
-        def range_pass(q, thr, sel=None):
-            counts, vals, ids = [], [], []
-            for start in range(0, nv_eff, chunk):
-                s = ref()._scores_block(q, start, chunk,
-                                        use_direct=use_direct, sel=sel)
-                hit = s > thr   # strict: faiss's dist < radius (L2), > (IP)
-                counts.append(hit.sum(dim=-1, dtype=torch.int32))
-                v, i = topk_ops.topk_scores(
-                    s.masked_fill(~hit, float("-inf")), cap)
-                vals.append(v)
-                ids.append(i + start)
-            return _pack_range(torch.stack(counts), torch.stack(vals),
-                               torch.stack(ids))
-
-        return range_pass
-
-    def range_search(self, x: np.ndarray, radius: float, params=None):
-        """All rows within ``radius`` of each query, faiss's CSR layout:
-        (lims (nq+1,) int64, D (lims[nq],) f32, I (lims[nq],) int64), query
-        i's hits in D[lims[i]:lims[i+1]] best first (ties to the lowest
-        id). faiss::IndexFlat's strict criterion: squared L2 distance
-        < radius, inner product > radius, in the plain path's arithmetic
-        (what search would rank for the same rows)."""
-        q, nq, nq_pad = self._prep_queries(x)
-        if self.ntotal == 0:
-            sel_mod.selector_mask(params, np.empty(0, np.int64))  # validate
-            return (np.zeros(nq + 1, np.int64), np.empty(0, np.float32),
-                    np.empty(0, np.int64))
-        sel = self._sel_stream(params)
-        thr = range_threshold(radius, self.metric)
-        return _range_csr(
-            lambda cap: self._run_range(q, nq_pad, thr, cap, sel), nq,
-            self.metric)
+    def _range_pass(self, nv_eff: int, chunk: int, cap: int,
+                    use_direct: bool, q: torch.Tensor, thr: torch.Tensor,
+                    sel: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The range pass over the first ``nv_eff`` rows in chunks of
+        ``chunk``, packed (counts, vals, ids)."""
+        counts, vals, ids = [], [], []
+        for start in range(0, nv_eff, chunk):
+            s = self._scores_block(q, start, chunk, use_direct=use_direct,
+                                   sel=sel)
+            hit = s > thr   # strict: faiss's dist < radius (L2), > (IP)
+            counts.append(hit.sum(dim=-1, dtype=torch.int32))
+            v, i = topk_ops.topk_scores(
+                s.masked_fill(~hit, float("-inf")), cap)
+            vals.append(v)
+            ids.append(i + start)
+        return calls.pack_range(torch.stack(counts), torch.stack(vals),
+                                torch.stack(ids))
 
     def describe(self) -> str:
         st = self.store

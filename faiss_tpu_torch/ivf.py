@@ -38,17 +38,12 @@ Counterpart of ``faiss_tpu/ivf.py``'s TpuIndexIVFFlat:
     the occupancy as its selector) with the certificate, whose failed
     queries re-run on the plain dense sweep when the token is waited on;
   * range_search gathers the probed chunks' rows in blocks of 8 queries
-    (``_probed_scores``) and reuses the flat index's ``_range_csr``;
-  * every search route (the fine scan, the dense fused route, the plain
-    dense sweep and the fused route's fallback rerun), each range pass
-    (the probe included; the radius an input tensor) and the coarse
-    assign of ``add`` run through the programs ``self.res`` caches under
-    ``faiss_tpu``'s keys (``ivf_search``, ``ivf_range``, ``ivf_assign``)
-    plus the index's identity and generation (on a CUDA device a captured
-    CUDA graph, replayed: ``programs.py``); add, remove_ids, merge_from,
-    reset and train start a new generation and drop the index's programs,
-    but for the assign's, which read only the centroids: they are keyed
-    by the centroids' generation and go when the centroids change.
+    (``_probed_scores``) and assembles them with ``calls.range_csr``;
+  * every search route, each range pass (the probe included; the radius
+    an input tensor) and the coarse assign of ``add`` run through
+    ``programs.call`` (``ivf_search``, ``ivf_range``, ``ivf_assign``); the
+    assign's programs, which read only the centroids, are owned apart and
+    keyed by the centroids' generation, so that an add keeps them.
 
 Distances are exact within the probed lists (fp32-true against the stored
 rows), so nprobe == nlist reproduces the flat index; smaller nprobe trades
@@ -63,20 +58,16 @@ fused dense route on any non-empty bf16 / int8 pool.
 from __future__ import annotations
 
 import time
-import weakref
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from . import programs
-from . import selector as sel_mod
-from . import tracing
+from . import calls, programs, tracing
+from .calls import NQ_PAD
 from .clustering import Kmeans, balance_centroids
-from .dtypes import MetricType, StorageType, worst_distance
-from .index import (NQ_PAD, ConcatSearchToken, TorchIndexFlat,
-                    TorchSearchToken, _finalize, _pack, _pack_range,
-                    _range_csr, _unpack, _unpack_range, range_threshold)
+from .dtypes import MetricType, StorageType
+from .index import TorchIndexFlat
 from .ops import distance as dist_ops
 from .ops import fused, kernels
 from .ops.distance import exact_fp32_matmul
@@ -147,7 +138,21 @@ def _chunk_budget(counts: np.ndarray, nprobe: int) -> int:
     return _round_budget(int(top.sum()))
 
 
-class TorchIndexIVFFlat:
+def dense_fallback(index, x, nq: int, k: int, params):
+    """The dense fused route's certificate fallback of a search of ``x``
+    (``calls.certificate_fallback``): the failed queries searched again
+    through ``index._search_packed`` on the plain dense sweep."""
+    x_host = np.ascontiguousarray(x, np.float32).reshape(-1, index.d)
+
+    def rerun(bad):
+        packed = index._search_packed(x_host[bad], k, params,
+                                      force_plain_dense=True)[0]
+        return calls.unpack(packed.cpu().numpy(), k)[:2]
+
+    return calls.certificate_fallback(index, nq, rerun)
+
+
+class TorchIndexIVFFlat(calls.SearchCalls):
     """faiss::IndexIVFFlat. ``storage``: f32 (exact fp32 distances), bf16
     (2 B/element, distances fp32-true to the stored rows) or int8 (1
     B/element; per-dimension scales frozen by ``train``, norms of the
@@ -192,16 +197,12 @@ class TorchIndexIVFFlat:
         # what the last train took: Kmeans and balancing seconds (host
         # clock), the objective series, the balancing cap on list sizes
         self.train_stats: dict = {}
-        # the programs' keys: (kind, owner, generation, shape and route);
-        # the coarse assign's under an owner of their own and the
+        # the coarse assign's programs: an owner of their own and the
         # centroids' generation, so that they outlive an add
-        self._owner = programs.new_owner()
+        self._owner = programs.new_owner(self)
         self._gen = 0
-        self._assign_owner = programs.new_owner()
+        self._assign_owner = programs.new_owner(self)
         self._cgen = 0
-        for owner in (self._owner, self._assign_owner):
-            weakref.finalize(self, self.res.discard,
-                             programs.owned_by(owner))
         self.reset()
 
     @property
@@ -282,8 +283,9 @@ class TorchIndexIVFFlat:
     def _mutated(self) -> None:
         """A new generation: the captured programs baked the old tensors'
         addresses, ntotal and the pool's shape, so the index's entries
-        go."""
+        go, and so do the chunk budgets of the old list sizes."""
         self._gen += 1
+        self._budgets = {}
         self.res.discard(programs.owned_by(self._owner))
 
     # -- add ------------------------------------------------------------------
@@ -317,53 +319,40 @@ class TorchIndexIVFFlat:
                 self._ctable_host, ((0, 0), (0, new_maxc - self.maxc)))
             self.maxc = new_maxc
 
-    def _coarse_assign(self, x: np.ndarray, cached: bool = True):
+    def _coarse_assign(self, x: np.ndarray):
         """(the batch padded to d_pad on the device, (n,) int64 host list
         ids): ``_assign_padded``, then one copy back."""
-        xd, assign = self._assign_padded(x, cached)
+        xd, assign = self._assign_padded(x)
         n = x.shape[0]
         return xd[:n], assign[:n].cpu().numpy()
 
-    def _coarse_assign_uncached(self, x: np.ndarray):
-        """``_coarse_assign`` run eagerly, with no program: what a replay
-        must equal bit for bit (the card tests)."""
-        return self._coarse_assign(x, cached=False)
-
-    def _assign_padded(self, x: np.ndarray, cached: bool = True):
+    def _assign_padded(self, x: np.ndarray):
         """(the batch padded to (n_pad, d_pad) on the device, (n_pad,)
         int64 list ids on the device): one copy to the card, then the
         coarse GEMM and the first argmax (the quantizer's arithmetic;
         padded centroid rows score −inf) through the program cached for
-        the padded batch (``cached=False``: run eagerly). The batch pads
-        as ``faiss_tpu``'s does, to whole blocks of ``blk`` rows, so one
-        program serves every batch that pads alike."""
+        the padded batch, under the assign's own owner and the centroids'
+        generation. The batch pads as ``faiss_tpu``'s does, to whole blocks
+        of ``blk`` rows, so one program serves every batch that pads
+        alike."""
         n = x.shape[0]
         blk = min(_ASSIGN_BLK, max(_QB, _round_up(n, _QB)))
         n_pad = _round_up(n, blk)
         xp = torch.zeros((n_pad, self.d_pad), dtype=torch.float32)
         xp[:n, : self.d] = torch.from_numpy(x)
         xd = xp.to(self.device)
-        fn = self._assign_fn(blk)
-        if cached:
-            key = ("ivf_assign", self._assign_owner, self._cgen, n_pad,
-                   self.d_pad, self.nlist, self.metric)
-            return xd, programs.run(self.res, key, fn, (xd,), self.device)
-        return xd, fn(xd)
+        return xd, programs.call(self, "ivf_assign", TorchIndexIVFFlat._assign,
+                                 (blk,), (xd,), owner=self._assign_owner,
+                                 gen=self._cgen)
 
-    def _assign_fn(self, blk: int):
-        """The coarse assign as a function of the padded batch alone, in
-        blocks of ``blk`` rows; it holds the index weakly."""
-        ref = weakref.ref(self)
-
-        def assign(xd):
-            ix = ref()
-            return torch.cat([
-                torch.argmax(dist_ops.matmul_scores(
-                    xd[i0:i0 + blk], ix._cents, ix._cnorms, ix.metric),
-                    dim=-1)
-                for i0 in range(0, xd.shape[0], blk)])
-
-        return assign
+    def _assign(self, blk: int, xd: torch.Tensor) -> torch.Tensor:
+        """The coarse assign of the padded batch, in blocks of ``blk``
+        rows."""
+        return torch.cat([
+            torch.argmax(dist_ops.matmul_scores(
+                xd[i0:i0 + blk], self._cents, self._cnorms, self.metric),
+                dim=-1)
+            for i0 in range(0, xd.shape[0], blk)])
 
     def add(self, x: np.ndarray) -> None:
         if not self.is_trained:
@@ -469,30 +458,25 @@ class TorchIndexIVFFlat:
 
     # -- search ---------------------------------------------------------------
     def _prep_search(self, x: np.ndarray, params):
-        """Validation, the probe width, the chunk budget, the selector
-        stream (by SLOT, through the id → slot map) and the queries padded
-        to 8 rows on the device."""
+        """Validation, the queries padded to NQ_PAD rows on the device, the
+        selector stream (by SLOT, through the id → slot map), the probe
+        width and the chunk budget: (q, nq, nq_pad, nprobe, nbudget,
+        sel)."""
         if not self.is_trained:
             raise RuntimeError("IndexIVFFlat requires train() before search")
-        x = np.ascontiguousarray(x, np.float32)
-        if x.ndim == 1:
-            x = x[None, :]
-        if x.ndim != 2 or x.shape[1] != self.d:
-            raise ValueError(f"expected (n, {self.d}) queries, got {x.shape}")
-        nq = x.shape[0]
-        sel = None
-        # validate first: no id vector for a search without a selector
-        if sel_mod.selector_mask(params, np.empty(0, np.int64)) is not None:
-            with tracing.span("index.sel_stream"):
-                mask = sel_mod.selector_mask(
-                    params, np.arange(self.ntotal, dtype=np.int64))
-                if not mask.all():
-                    s = np.zeros((self.npool * _CHUNK,), bool)
-                    s[self._slot_of[mask]] = True
-                    sel = torch.from_numpy(s).to(self.device)
+        q, nq, nq_pad = calls.prep_queries(x, self.d, self.d_pad, self.device)
+        sel = calls.selector_streams(
+            params, self.ntotal, lambda mask: calls.bool_stream(
+                self.npool * _CHUNK, self.device, self._slot_of[mask]))
         nprobe = self._nprobe(params)
-        nbudget = _chunk_budget(self._counts, nprobe) if self.npool else 1
-        nq_pad = max(NQ_PAD, _round_up(nq, NQ_PAD))
+        self._check_footprint(nq_pad, nprobe)
+        return q, nq, nq_pad, nprobe, self._budget(nprobe), sel
+
+    def _check_footprint(self, nq_pad: int, nprobe: int) -> None:
+        """Raise where the fine scan of ``nq_pad`` query rows would hold
+        more scores than the gather budget (``_nq_cap`` splits a batch
+        before it gets here)."""
+        nbudget = self._budget(nprobe)
         footprint = nq_pad * nbudget * _CHUNK * 4
         if self._fine_route(nprobe) and footprint > _GATHER_BUDGET:
             raise ValueError(
@@ -500,12 +484,16 @@ class TorchIndexIVFFlat:
                 f"(nprobe={nprobe}, chunk budget={nbudget}); lower nprobe "
                 "(oversized query batches are split automatically: hitting "
                 "this means even one 8-query block exceeds the budget)")
-        with tracing.span("index.prep_queries"):
-            q = torch.zeros((nq_pad, self.d_pad), dtype=torch.float32,
-                            pin_memory=self.device.type == "cuda")
-            q[:nq, : self.d] = torch.from_numpy(x)
-            q = q.to(self.device, non_blocking=True)
-        return q, nq, nq_pad, nprobe, nbudget, sel
+
+    def _budget(self, nprobe: int) -> int:
+        """The fine scan's chunk budget at ``nprobe`` (``_chunk_budget`` of
+        the list sizes; 1 for an empty pool), worked out once per
+        generation and nprobe."""
+        b = self._budgets.get(nprobe)
+        if b is None:
+            b = self._budgets[nprobe] = (
+                _chunk_budget(self._counts, nprobe) if self.npool else 1)
+        return b
 
     def _nprobe(self, params) -> int:
         """A search's probe width: ``params.nprobe`` where given, else the
@@ -620,77 +608,34 @@ class TorchIndexIVFFlat:
     def _search_packed(self, x: np.ndarray, k: int, params=None,
                        force_plain_dense: bool = False):
         """Enqueue one search through the program cached for its shape and
-        route: (packed result or None for the empty index, nq, the
-        certificate fallback or None). Nothing waits for the device."""
-        if k <= 0:
-            raise ValueError(f"k must be positive, got {k}")
-        q, nq, nq_pad, nprobe, nbudget, sel = self._prep_search(x, params)
+        route (``calls.SearchCalls``): (packed result or None for the
+        empty index, nq, the certificate fallback or None, the names of
+        the counters in the result's last row: the fine scan's). Nothing
+        waits for the device."""
+        q, nq, _, nprobe, nbudget, sel = self._prep_search(x, params)
         if self.ntotal == 0:
-            return None, nq, None
-        dense = not self._fine_route(nprobe)
-        dense_fused = (dense and self._dense_fused_ok()
+            return None, nq, None, ()
+        fine = self._fine_route(nprobe)
+        dense_fused = (not fine and self._dense_fused_ok()
                        and not force_plain_dense)
-        key = ("ivf_search", self._owner, self._gen, self.nlist, self.npool,
-               self.maxc, nprobe, nbudget, self._nsweep() if dense else 0,
-               nq_pad, int(k), self.d_pad, self.metric, self.storage_type,
-               sel is not None, dense_fused)
-        packed = programs.run(
-            self.res, key,
-            self._program_fn(k, nprobe, nbudget, force_plain_dense),
-            (q,) if sel is None else (q, sel), self.device)
+        packed = programs.call(self, "ivf_search", TorchIndexIVFFlat._packed,
+                               (int(k), nprobe, nbudget, dense_fused),
+                               (q,) if sel is None else (q, sel))
         if not dense_fused:
-            return packed, nq, None
-        x_host = np.ascontiguousarray(x, np.float32).reshape(-1, self.d)
+            return packed, nq, None, tracing.COUNTERS if fine else ()
+        return packed, nq, dense_fallback(self, x, nq, k, params), ()
 
-        def fallback(cert_h, d0, i0):
-            d_out = np.array(d0[:nq], np.float32)
-            i_out = np.array(i0[:nq], np.int64)
-            bad = np.nonzero(~cert_h[:nq])[0]
-            if bad.size == 0:           # only padding rows failed
-                return d_out, i_out
-            self.fused_fallbacks += 1
-            packed, _, _ = self._search_packed(x_host[bad], k, params,
-                                               force_plain_dense=True)
-            d2, i2, _ = _unpack(packed.cpu().numpy(), k)
-            d_out[bad] = d2[: bad.size]
-            i_out[bad] = i2[: bad.size]
-            return d_out, i_out
-
-        return packed, nq, fallback
-
-    def _search_packed_uncached(self, x: np.ndarray, k: int, params=None,
-                                force_plain_dense: bool = False):
-        """The first pass of ``_search_packed`` run eagerly, with no
-        program: what a replay must equal bit for bit (the card tests and
-        chip_smoke). The packed result, None for the empty index."""
-        q, _, _, nprobe, nbudget, sel = self._prep_search(x, params)
-        if self.ntotal == 0:
-            return None
-        return self._packed(q, k, nprobe, nbudget, force_plain_dense, sel)
-
-    def _program_fn(self, k: int, nprobe: int, nbudget: int,
-                    force_plain_dense: bool):
-        """The search as a function of (q[, sel]) alone; it holds the
-        index weakly, so a cached program never keeps the index alive."""
-        ref = weakref.ref(self)
-
-        def search(q, sel=None):
-            return ref()._packed(q, k, nprobe, nbudget, force_plain_dense,
-                                 sel)
-
-        return search
-
-    def _packed(self, q, k: int, nprobe: int, nbudget: int,
-                force_plain_dense: bool, sel) -> torch.Tensor:
+    def _packed(self, k: int, nprobe: int, nbudget: int, dense_fused: bool,
+                q, sel=None) -> torch.Tensor:
         """One search on the route, packed, the certificate all True on
         the exact routes (no host synchronisation); the fine scan's ends in
         the row of its counters."""
         v, lab, cert, counts = self._search_local(
-            q, k, nprobe, nbudget, sel, force_plain_dense, counted=True)
-        dists, labels = _finalize(v, lab, self.ntotal, k, self.metric)
+            q, k, nprobe, nbudget, sel, not dense_fused, counted=True)
+        dists, labels = calls.finalize(v, lab, self.ntotal, k, self.metric)
         if cert is None:
             cert = torch.ones_like(dists[:, 0], dtype=torch.bool)
-        return _pack(dists, labels, cert, counts)
+        return calls.pack(dists, labels, cert, counts)
 
     def _search_local(self, q, k: int, nprobe: int, nbudget: int, sel,
                       force_plain_dense: bool = False, counted: bool = False):
@@ -719,44 +664,11 @@ class TorchIndexIVFFlat:
         drives the working set. Larger batches split on this cap."""
         if not self.npool or not self._fine_route(nprobe):
             return None      # the dense route bounds its own blocks
-        nbudget = _chunk_budget(self._counts, nprobe)
-        cap = _GATHER_BUDGET // max(nbudget * _CHUNK * 4, 1)
+        cap = _GATHER_BUDGET // max(self._budget(nprobe) * _CHUNK * 4, 1)
         return max(NQ_PAD, cap // NQ_PAD * NQ_PAD)
 
-    def search_async(self, x: np.ndarray, k: int, params=None):
-        """Non-blocking search: a TorchSearchToken, or a ConcatSearchToken
-        over the row chunks of a batch whose scores would pass the gather
-        budget (all chunks enqueued up front). The gather routes are exact
-        within the probed lists; the bf16 / int8 dense route ships the
-        fused certificate and wait() re-runs its failed queries."""
-        xa = np.ascontiguousarray(x, np.float32)
-        if xa.ndim == 2 and self.is_trained:
-            cap = self._nq_cap(self._nprobe(params))
-            if cap is not None and xa.shape[0] > cap:
-                return ConcatSearchToken([
-                    self.search_async(xa[i0:i0 + cap], k, params=params)
-                    for i0 in range(0, xa.shape[0], cap)])
-        with tracing.span("index.search_async", mint=True):
-            packed, nq, fallback = self._search_packed(x, k, params)
-            if packed is None:
-                return TorchSearchToken(None, nq, k, result=(
-                    np.full((nq, k), worst_distance(self.metric),
-                            np.float32),
-                    np.full((nq, k), -1, np.int64)))
-            return TorchSearchToken(
-                packed, nq, k, fallback=fallback,
-                counters=(tracing.COUNTERS
-                          if self._fine_route(self._nprobe(params)) else ()))
-
-    def search(self, x: np.ndarray, k: int,
-               params=None) -> Tuple[np.ndarray, np.ndarray]:
-        """Top-k over the nprobe closest lists: exact distances within them
-        (nprobe == nlist is exhaustive). ``params``: a selector (filtered
-        rows mask out like empty slots) and / or an nprobe override."""
-        return self.search_async(x, k, params=params).wait()
-
-    def assign(self, x: np.ndarray, k: int = 1) -> np.ndarray:
-        return self.search(x, k)[1]
+    def _split_rows(self, params) -> Optional[int]:
+        return self._nq_cap(self._nprobe(params))
 
     # -- range search -----------------------------------------------------------
     def _probed_scores(self, qeff, qn, probe, nbudget: int, sel):
@@ -785,81 +697,59 @@ class TorchIndexIVFFlat:
         IndexIVF::range_search: complete within the probe; nprobe == nlist
         is exhaustive), faiss's CSR layout (lims, D, I), best first, ties
         to the lowest id; the strict criterion of the flat index."""
-        q, nq, nq_pad, nprobe, nbudget, sel = self._prep_search(x, params)
+        q, nq, _, nprobe, nbudget, sel = self._prep_search(x, params)
         if self.ntotal == 0:
-            return (np.zeros(nq + 1, np.int64), np.empty(0, np.float32),
-                    np.empty(0, np.int64))
+            return calls.empty_range(nq)
         if _QB * nbudget * _CHUNK * self.d_pad * 4 > _GATHER_BUDGET:
             raise ValueError(
                 f"IVF range_search would gather too much per block "
                 f"(nprobe={nprobe}, chunk budget={nbudget}); lower nprobe")
-        thr = range_threshold(radius, self.metric)
-        return _range_csr(
+        thr = calls.range_threshold(radius, self.metric)
+        return calls.range_csr(
             lambda rcap: self._run_range(q, nprobe, nbudget, thr, rcap, sel),
             nq, self.metric)
 
     def _run_range(self, q, nprobe: int, nbudget: int, thr: float,
-                   rcap: int, sel, cached: bool = True):
+                   rcap: int, sel):
         """One range pass over the probed chunks (``_range_packed``), then
         one copy back: host (counts (1, nq_pad), vals, ids (1, nq_pad,
         rc), rc)."""
-        packed, rc = self._range_packed(q, nprobe, nbudget, thr, rcap, sel,
-                                        cached)
-        return (*_unpack_range(packed.cpu().numpy(), rc), rc)
+        packed, rc = self._range_packed(q, nprobe, nbudget, thr, rcap, sel)
+        return (*calls.unpack_range(packed.cpu().numpy(), rc), rc)
 
     def _range_packed(self, q, nprobe: int, nbudget: int, thr: float,
-                      rcap: int, sel, cached: bool = True):
+                      rcap: int, sel):
         """One range pass at capacity ``rcap`` through the program cached
-        for its shape (``cached=False``: run eagerly), the probe inside it
-        and ``thr`` a 0-d input tensor (one program serves every radius):
-        the packed (counts, vals, ids) on the device and the capacity
-        used."""
-        nq_pad = q.shape[0]
+        for its shape, the probe inside it and ``thr`` a 0-d input tensor
+        (one program serves every radius): the packed (counts, vals, ids)
+        on the device and the capacity used."""
         rc = min(rcap, nbudget * _CHUNK)
-        fn = self._range_fn(nprobe, nbudget, rc)
         inputs = (q, torch.full((), thr, dtype=torch.float32,
                                 device=self.device))
         inputs += () if sel is None else (sel,)
-        if cached:
-            key = ("ivf_range", self._owner, self._gen, self.nlist,
-                   self.npool, self.maxc, nprobe, nbudget, nq_pad, rcap,
-                   self.d_pad, self.metric, self.storage_type,
-                   sel is not None)
-            return programs.run(self.res, key, fn, inputs, self.device), rc
-        return fn(*inputs), rc
+        return programs.call(self, "ivf_range", TorchIndexIVFFlat._range_pass,
+                             (nprobe, nbudget, rc), inputs), rc
 
-    def _run_range_uncached(self, q, nprobe: int, nbudget: int, thr: float,
-                            rcap: int, sel):
-        """``_run_range`` run eagerly, with no program: what a replay must
-        equal bit for bit (the card tests and chip_smoke)."""
-        return self._run_range(q, nprobe, nbudget, thr, rcap, sel,
-                               cached=False)
-
-    def _range_fn(self, nprobe: int, nbudget: int, rc: int):
-        """The range pass as a function of (q, thr[, sel]) alone, returning
-        the packed (counts, vals, ids); it holds the index weakly."""
-        ref = weakref.ref(self)
-
-        def range_pass(q, thr, sel=None):
-            ix = ref()
-            nq_pad = q.shape[0]
-            probe = ix._probe(q, nprobe)
-            qeff = ix._qeff(q)
-            qn = torch.sum(q * q, dim=-1)
-            nh, vs, gs = [], [], []
-            for b in range(0, nq_pad, _QB):
-                s, cid = ix._probed_scores(qeff[b:b + _QB], qn[b:b + _QB],
-                                           probe[b:b + _QB], nbudget, sel)
-                hit = s > thr            # strict, as the flat index
-                nh.append(hit.sum(dim=-1, dtype=torch.int32))
-                v, i = topk_scores(s.masked_fill(~hit, float("-inf")), rc)
-                vs.append(v)
-                gs.append(torch.gather(cid, 1, i.to(torch.int64)))
-            return _pack_range(torch.cat(nh).view(1, nq_pad),
-                               torch.cat(vs).view(1, nq_pad, rc),
-                               torch.cat(gs).view(1, nq_pad, rc))
-
-        return range_pass
+    def _range_pass(self, nprobe: int, nbudget: int, rc: int, q, thr,
+                    sel=None) -> torch.Tensor:
+        """The range pass of the padded queries over their probed chunks,
+        packed (counts, vals, ids), in blocks of _QB queries."""
+        nq_pad = q.shape[0]
+        probe = self._probe(q, nprobe)
+        qeff = self._qeff(q)
+        qn = torch.sum(q * q, dim=-1)
+        nh, vs, gs = [], [], []
+        for b in range(0, nq_pad, _QB):
+            s, cid = self._probed_scores(qeff[b:b + _QB], qn[b:b + _QB],
+                                         probe[b:b + _QB], nbudget, sel)
+            hit = s > thr            # strict, as the flat index
+            nh.append(hit.sum(dim=-1, dtype=torch.int32))
+            v, i = topk_scores(s.masked_fill(~hit, float("-inf")), rc)
+            vs.append(v)
+            gs.append(torch.gather(cid, 1, i.to(torch.int64)))
+        return calls.pack_range(torch.cat(nh).view(1, nq_pad),
+                                torch.cat(vs).view(1, nq_pad, rc),
+                                torch.cat(gs).view(1, nq_pad, rc))
 
     # -- the rest of the surface ---------------------------------------------
     def remove_ids(self, ids) -> int:

@@ -14,27 +14,25 @@ group r:
     row with a rotating start for the remainder, and appends on each
     device; contiguous global-id extents per shard back ``reconstruct``
     and the dense renumbering of ``remove_ids``;
-  * ``search`` makes one dispatch decision for every shard (the cost gate
-    at the largest shard's size, hi_exact only where every shard's split
-    statistics are zero, one query-plane count), runs each shard's own
-    fused or plain search on its device (the port's kernels, K1–K10 as the
-    storage picks them), maps the local ids to global ids on the device,
-    gathers the (k, gid) lists onto the first device and merges them there
-    by (score desc, gid asc): gids do not follow shard order across add
-    batches, so equal scores break by global id, as the single index
-    breaks them by position. The per-shard certificates are ANDed per
-    query, and the uncertified rows re-run through the index's two-tier
-    fallback (``index.make_selective_fallback``);
+  * ``search`` makes one dispatch decision for every shard
+    (``index.flat_route``: the cost gate at the largest shard's size,
+    hi_exact only where every shard's split statistics are zero, one
+    query-plane count), runs each shard's own fused or plain search on its
+    device (the port's kernels, K1–K10 as the storage picks them), maps
+    the local ids to global ids on the device, gathers the (k, gid) lists
+    onto the first device and merges them there by (score desc, gid asc):
+    gids do not follow shard order across add batches, so equal scores
+    break by global id, as the single index breaks them by position. The
+    per-shard certificates are ANDed per query, and the uncertified rows
+    re-run through the flat indexes' two-tier fallback
+    (``index.make_selective_fallback``);
   * the search runs as one program a distinct device of the grid
-    (``run_by_device``), cached by the index's TorchResources under
-    ``faiss_tpu``'s ``sharded_search`` key plus the index's identity, its
-    generation and the device: the program of a device runs every shard
-    search that lives there, for every replica group; the first device's
-    also takes the other devices' (scores, gids) as inputs and merges. On
-    one card named P times the whole search is one CUDA graph replayed.
-    Every mutation, and a change made on a shard's store alone
-    (``DeviceStore.version``), starts a new generation and drops the
-    index's programs;
+    (``run_by_device``, each through ``programs.call``): the program of a
+    device runs every shard search that lives there, for every replica
+    group; the first device's also takes the other devices' (scores,
+    gids) as inputs and merges. On one card named P times the whole search
+    is one CUDA graph replayed. A change made on a shard's store alone
+    (``DeviceStore.version``) starts a new generation too;
   * with R > 1 the query batch splits across the replica groups; a replica
     on a device other than replica 0's holds a copy of the shard, made at
     the first search after a change (before any capture).
@@ -49,23 +47,16 @@ each shard's pass through that shard index's own range program.
 from __future__ import annotations
 
 import bisect
-import weakref
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import programs
-from .. import selector as sel_mod
-from .. import tracing
-from ..dtypes import MetricType, StorageType, worst_distance
-from ..index import (NQ_PAD, TorchIndexFlat, TorchSearchToken,
-                     make_selective_fallback, _pack, _range_csr,
-                     range_threshold)
-from ..ops import distance as dist_ops
-from ..ops import fused
+from .. import calls, programs
+from ..calls import NQ_PAD
+from ..dtypes import MetricType, StorageType
+from ..index import FlatCalls, TorchIndexFlat, flat_route
 from ..resources import canonical_device, default_resources
-from ..storage import ROW_TILE, _round_up
 
 __all__ = ["ShardedIndexFlat", "resolve_devices", "merge_shard_lists",
            "balanced_counts", "run_by_device"]
@@ -99,34 +90,36 @@ def resolve_devices(devices, resources=None) -> List[torch.device]:
     return out
 
 
-def run_by_device(res, key, jobs, search, merge, q: torch.Tensor,
-                  out_dev: torch.device, cached: bool):
+def run_by_device(index, kind: str, static: tuple, jobs, q: torch.Tensor,
+                  out_dev: torch.device):
     """A sharded search as one program a distinct device (the port's
     graphs are per device: a CUDA graph captures one device's stream).
 
-    ``jobs`` = [(item, device, selector stream on that device or None)];
-    ``search(item, q, sel)`` is one job's (scores, gids, certificate) on
-    its device; ``merge(parts)`` takes every job's triple, in ``jobs``
-    order, on ``out_dev`` and returns the packed result. The program of a
+    ``jobs`` = [(item, device, selector stream on that device or None)],
+    the jobs of ``index.num_replicas`` query groups in turn, as many each;
+    ``index._job(item, q, sel, *static)`` is one job's (scores, gids,
+    certificate) on its device, and ``static[0]`` is k. The program of a
     device other than ``out_dev`` runs its jobs and returns their triples,
     which are copied to ``out_dev``; ``out_dev``'s program runs its own
-    jobs, takes those copies as inputs and merges. Each is cached in
-    ``res`` under ``key + (device,)`` (``cached=False``: every function
-    runs eagerly). The functions read only ``jobs``' items, never their
+    jobs, takes those copies as inputs and merges them all
+    (``merge_packed``). Each goes through ``programs.call`` under ``kind`` and
+    ``static``, the device the key's suffix. The functions read the jobs'
+    items and devices (which the index's generation pins), never their
     tensors, so a cached program serves later calls of the same key."""
     items = [item for item, _, _ in jobs]
+    njobs = len(jobs)
     with_sel = jobs[0][2] is not None if jobs else False
+    ns = len(static)
     groups = {}
     for j, (_, dev, _) in enumerate(jobs):
         groups.setdefault(dev, []).append(j)
 
     def call(dev, fn, inputs):
-        if cached:
-            return programs.run(res, key + (dev,), fn, inputs, dev)
-        return fn(*inputs)
+        return programs.call(index, kind, fn, static, inputs, device=dev,
+                             suffix=(dev,))
 
-    def run_jobs(js, q_dev, sels):
-        return [search(items[j], q_dev, sels[n] if with_sel else None)
+    def run_jobs(ix, st, js, q_dev, sels):
+        return [ix._job(items[j], q_dev, sels[n] if with_sel else None, *st)
                 for n, j in enumerate(js)]
 
     def sels_of(js, dev):
@@ -139,8 +132,10 @@ def run_by_device(res, key, jobs, search, merge, q: torch.Tensor,
         if dev == out_dev:
             continue
 
-        def local(q_dev, *sels, js=js):
-            return tuple(t for part in run_jobs(js, q_dev, sels) for t in part)
+        def local(ix, *args, js=js):
+            q_dev, *sels = args[ns:]
+            return tuple(t for part in run_jobs(ix, args[:ns], js, q_dev, sels)
+                         for t in part)
 
         outs = call(dev, local, (q.to(dev, non_blocking=True),)
                     + sels_of(js, dev))
@@ -148,13 +143,15 @@ def run_by_device(res, key, jobs, search, merge, q: torch.Tensor,
         copies += [t.to(out_dev, non_blocking=True) for t in outs]
     own = groups.get(out_dev, [])
 
-    def first(q0, *rest):
+    def first(ix, *args):
+        st, (q0, *rest) = args[:ns], args[ns:]
         nsel = len(own) if with_sel else 0
-        parts = dict(zip(own, run_jobs(own, q0, rest[:nsel])))
+        parts = dict(zip(own, run_jobs(ix, st, own, q0, rest[:nsel])))
         got = rest[nsel:]
         for n, j in enumerate(remote):
             parts[j] = tuple(got[3 * n: 3 * n + 3])
-        return merge([parts[j] for j in range(len(jobs))])
+        return merge_packed([parts[j] for j in range(njobs)], st[0],
+                            ix.metric, out_dev, ix.num_replicas)
 
     return call(out_dev, first, (q,) + sels_of(own, out_dev) + tuple(copies))
 
@@ -178,17 +175,30 @@ def merge_shard_lists(parts, k: int, metric: MetricType, device):
     o = torch.sort(ag, dim=1, stable=True).indices
     av, ag = torch.gather(av, 1, o), torch.gather(ag, 1, o)
     o = torch.sort(av, dim=1, descending=True, stable=True).indices[:, :k]
-    tv, tg = torch.gather(av, 1, o), torch.gather(ag, 1, o)
-    ok = (tg >= 0) & (tv > float("-inf"))
-    dists = dist_ops.scores_to_distances(tv, metric).masked_fill(
-        ~ok, worst_distance(metric))
-    tg = tg.masked_fill(~ok, -1)
-    if tg.shape[1] < k:
-        pad = (tg.shape[0], k - tg.shape[1])
-        dists = torch.cat([dists, dists.new_full(pad, worst_distance(metric))],
-                          dim=1)
-        tg = torch.cat([tg, tg.new_full(pad, -1)], dim=1)
-    return dists, tg
+    return calls.finalize(torch.gather(av, 1, o), torch.gather(ag, 1, o),
+                          np.iinfo(np.int32).max, k, metric)
+
+
+def merge_packed(parts, k: int, metric: MetricType, device,
+                 nrep: int = 1) -> torch.Tensor:
+    """The packed result of a sharded search: ``parts`` = every job's
+    (scores, gids, certificate), ``nrep`` query groups of as many jobs in
+    turn; each group's lists merged on ``device`` (``merge_shard_lists``)
+    and its certificates ANDed per query."""
+    per = len(parts) // nrep
+    dists, labels, certs = [], [], []
+    for r in range(nrep):
+        mine = parts[r * per: (r + 1) * per]
+        cert = torch.ones((mine[0][2].shape[0],), dtype=torch.bool,
+                          device=device)
+        for _, _, c in mine:
+            cert &= c
+        d_r, l_r = merge_shard_lists([(v, g) for v, g, _ in mine], k, metric,
+                                     device)
+        dists.append(d_r)
+        labels.append(l_r)
+        certs.append(cert)
+    return calls.pack(torch.cat(dists), torch.cat(labels), torch.cat(certs))
 
 
 class _ShardStore:
@@ -240,7 +250,7 @@ class _ShardStore:
         return out
 
 
-class ShardedIndexFlat:
+class ShardedIndexFlat(FlatCalls):
     """Flat exact index over an (R, P) grid of torch devices: the database
     row-sharded over P shards, replicated R times, the query batch split
     over the R replica groups. The API is TorchIndexFlat's; ``devices``
@@ -285,12 +295,9 @@ class ShardedIndexFlat:
         self._force_plain = False
         self.fused_fallbacks = 0
         self._no_reduced_sweep: set = set()
-        # the programs' keys: (kind, owner, generation, ..., device)
-        self._owner = programs.new_owner()
+        self._owner = programs.new_owner(self)
         self._gen = 0
         self._versions = self._store_versions()
-        weakref.finalize(self, self.res.discard,
-                         programs.owned_by(self._owner))
 
     @property
     def num_shards(self) -> int:
@@ -433,44 +440,20 @@ class ShardedIndexFlat:
 
     # -- search -------------------------------------------------------------
     def _prep_queries(self, x: np.ndarray):
-        """Pad on the host to a multiple of 8 rows per replica group, then
-        one transfer to the first device."""
-        x = np.asarray(x, dtype=np.float32)
-        if x.ndim == 1:
-            x = x[None, :]
-        if x.ndim != 2 or x.shape[1] != self.d:
-            raise ValueError(f"expected (n, {self.d}) queries, got {x.shape}")
-        nq = x.shape[0]
-        unit = NQ_PAD * self.num_replicas
-        nq_pad = max(unit, _round_up(nq, unit))
-        dev = self.devices[0]
-        with tracing.span("index.prep_queries"):
-            q = torch.zeros((nq_pad, self.shards[0].store.d_pad),
-                            dtype=torch.float32,
-                            pin_memory=dev.type == "cuda")
-            q[:nq, : self.d] = torch.from_numpy(x)
-            return q.to(dev, non_blocking=True), nq, nq_pad
+        """(queries padded to NQ_PAD rows a replica group on the first
+        device, nq, nq_pad)."""
+        return calls.prep_queries(x, self.d, self.shards[0].store.d_pad,
+                                  self.devices[0],
+                                  unit=NQ_PAD * self.num_replicas)
 
-    def _sel_streams(self, params):
+    def _sel_stream(self, params):
         """``params``' selector over the global ids, as one (capacity,)
-        bool stream per shard on its device, or None when nothing is
-        filtered. Host evaluation over the gid extents."""
-        sel_mod.reject_ivf_params(params)
-        if sel_mod.selector_mask(params, np.empty(0, np.int64)) is None:
-            return None
-        with tracing.span("index.sel_stream"):
-            masks = [np.zeros((s.store.capacity,), bool)
-                     for s in self.shards]
-            excluded = False
-            for g0, g1, si, l0 in self._extents:
-                m = sel_mod.selector_mask(params,
-                                          np.arange(g0, g1, dtype=np.int64))
-                masks[si][l0: l0 + (g1 - g0)] = m
-                excluded = excluded or not m.all()
-            if not excluded:
-                return None
-            return [torch.from_numpy(m).to(s.device)
-                    for m, s in zip(masks, self.shards)]
+        bool stream per shard on its device (a shard's local rows through
+        their gids), or None when nothing is filtered."""
+        return calls.selector_streams(params, self.ntotal, lambda mask: [
+            calls.bool_stream(s.store.capacity, s.device,
+                              slice(0, s.gids_host.size), mask[s.gids_host])
+            for s in self.shards], flat=True)
 
     def _shard(self, r: int, i: int) -> _ShardStore:
         """Shard i as replica group r searches it: the shard itself on its
@@ -484,125 +467,41 @@ class ShardedIndexFlat:
 
     def _run_search_fn(self, q: torch.Tensor, k: int, nq_pad: int, *,
                        force_plain: bool, full_sweep: bool = False,
-                       sel=None, cached: bool = True):
+                       sel=None):
         """Enqueue one sharded search of the padded queries ``q`` (on the
         first device) over the rows the per-shard selector streams ``sel``
         admit, through the programs cached for its shape and route, one a
-        device (``cached=False``: run eagerly). Returns (packed result on
-        the first device, whether the fused path ran, whether it ran the
-        one-plane sweep): the signature ``make_selective_fallback`` reruns
-        through."""
+        device. One route for every shard (``flat_route`` over the live
+        shards' stores, at the per-replica nq_pad; never the direct form).
+        Returns (packed result on the first device, whether the fused path
+        ran, whether it ran the one-plane sweep): the signature
+        ``make_selective_fallback`` reruns through."""
         self._check_shards()
-        st0 = self.shards[0].store
         live = [i for i, s in enumerate(self.shards) if s.store.ntotal]
-        nv_eff = _round_up(max(s.store.ntotal for s in self.shards), ROW_TILE)
-        nq_local = nq_pad // self.num_replicas
-        is_int8 = self.storage_type is StorageType.INT8
-        # hi_exact needs every non-empty shard's split statistics zero; they
-        # are read here, on the host, never inside a capture
-        stats_zero = st0.has_split and all(
-            self.shards[i].store.split_stats_host() == (0.0, 0.0)
-            for i in live)
-        pair_sweep = st0.has_split and not stats_zero
-        use_fused = (not force_plain and not self._force_plain
-                     and fused.fused_path_eligible(
-                         metric=self.metric, k=k, nv_eff=nv_eff,
-                         d_pad=st0.d_pad, nq_pad=nq_local,
-                         itemsize=4 if pair_sweep else 1 if is_int8 else 2,
-                         dtype=st0.row_dtype))
-        passes = 2 if (full_sweep or nq_local in self._no_reduced_sweep) \
-            else fused.pick_sweep_passes(nq_local, pair_sweep or is_int8)
-        f16_clean = (self.storage_type is StorageType.FLOAT16 and all(
-            self.shards[i].store.f16_clean() for i in live))
-        key = ("sharded_search", self._owner, self._gen, self.num_shards,
-               self.num_replicas, nv_eff,
-               max(s.store.capacity for s in self.shards), st0.d_pad,
-               nq_pad, int(k), self.metric, self.storage_type,
-               self.shards[0].index.tuning.chunk_v, use_fused,
-               (st0.has_split or is_int8) and (is_int8 or use_fused
-                                               or st0.pair_only),
-               st0.pair_only, passes, stats_zero, f16_clean, sel is not None)
+        route = flat_route([self.shards[i].store for i in live], self.metric,
+                           k, nq_pad // self.num_replicas,
+                           plain=force_plain or self._force_plain,
+                           full_sweep=full_sweep,
+                           pinned=self._no_reduced_sweep, direct=False)
         # replica copies are made here, before any capture
         jobs = [((r, i), self._shard(r, i).device,
                  None if sel is None else sel[i])
                 for r in range(self.num_replicas) for i in live]
-        out_dev, metric, nrep = self.devices[0], self.metric, self.num_replicas
-        ref = weakref.ref(self)     # a cached program never holds the index
-        route = dict(use_fused=use_fused, passes=passes, hi_exact=stats_zero,
-                     use_direct=False)
+        packed = run_by_device(self, "sharded_search", (int(k), *route), jobs,
+                               q, self.devices[0])
+        return packed, route[0], route[0] and route[1] == 1
 
-        def search(item, q_dev, sel_i):
-            r, i = item
-            s = ref()._shard(r, i)
-            vals, ids, c = s.index._search_local(
-                q_dev[r * nq_local: (r + 1) * nq_local], k, sel=sel_i,
-                **route)
-            return vals, s.to_global(vals, ids), c
-
-        def merge(parts):
-            dists, labels, certs = [], [], []
-            for r in range(nrep):
-                mine = parts[r * len(live): (r + 1) * len(live)]
-                cert = torch.ones((nq_local,), dtype=torch.bool,
-                                  device=out_dev)
-                for _, _, c in mine:
-                    cert &= c
-                d_r, l_r = merge_shard_lists([(v, g) for v, g, _ in mine],
-                                             k, metric, out_dev)
-                dists.append(d_r)
-                labels.append(l_r)
-                certs.append(cert)
-            return _pack(torch.cat(dists), torch.cat(labels),
-                         torch.cat(certs))
-
-        packed = run_by_device(self.res, key, jobs, search, merge, q,
-                               out_dev, cached)
-        return packed, use_fused, use_fused and passes == 1
-
-    def _run_search_uncached(self, q: torch.Tensor, k: int, nq_pad: int, *,
-                             force_plain: bool, full_sweep: bool = False,
-                             sel=None):
-        """``_run_search_fn`` run eagerly, with no program: what a replay
-        must equal bit for bit (the card tests and chip_smoke)."""
-        return self._run_search_fn(q, k, nq_pad, force_plain=force_plain,
-                                   full_sweep=full_sweep, sel=sel,
-                                   cached=False)
-
-    def _empty_result(self, nq: int, k: int):
-        return (np.full((nq, k), worst_distance(self.metric), np.float32),
-                np.full((nq, k), -1, np.int64))
-
-    def search_async(self, x: np.ndarray, k: int,
-                     params=None) -> TorchSearchToken:
-        """Non-blocking search: returns once every shard's search is
-        enqueued; ``wait()`` runs the certificate fallback."""
-        if k <= 0:
-            raise ValueError(f"k must be positive, got {k}")
-        with tracing.span("index.search_async", mint=True):
-            q, nq, nq_pad = self._prep_queries(x)
-            if self.ntotal == 0:
-                # validate the params
-                sel_mod.selector_mask(params, np.empty(0, np.int64))
-                return TorchSearchToken(None, nq, k,
-                                        result=self._empty_result(nq, k))
-            sel = self._sel_streams(params)
-            packed, use_fused, reduced = self._run_search_fn(
-                q, k, nq_pad, force_plain=False, sel=sel)
-            fallback = None
-            if use_fused:
-                fallback = make_selective_fallback(
-                    self, q, nq, k, pad_unit=NQ_PAD * self.num_replicas,
-                    pin_key=nq_pad // self.num_replicas, reduced=reduced,
-                    sel=sel)
-            return TorchSearchToken(packed, nq, k, fallback=fallback)
-
-    def search(self, x: np.ndarray, k: int,
-               params=None) -> Tuple[np.ndarray, np.ndarray]:
-        return self.search_async(x, k, params=params).wait()
-
-    def assign(self, x: np.ndarray, k: int = 1) -> np.ndarray:
-        """Labels-only search (faiss::Index::assign)."""
-        return self.search(x, k)[1]
+    def _job(self, item, q: torch.Tensor, sel, k: int, use_fused: bool,
+             passes: int, hi_exact: bool, use_direct: bool):
+        """Shard ``i``'s search for replica group ``r`` (``item`` = (r, i))
+        on its device: (scores, global ids, certificate)."""
+        r, i = item
+        nq_local = q.shape[0] // self.num_replicas
+        s = self._shard(r, i)
+        vals, ids, c = s.index._search_local(
+            q[r * nq_local: (r + 1) * nq_local], k, use_fused=use_fused,
+            passes=passes, hi_exact=hi_exact, use_direct=use_direct, sel=sel)
+        return vals, s.to_global(vals, ids), c
 
     # -- range search ---------------------------------------------------------
     def _run_range(self, q, nq_pad: int, thr: float, cap: int, sel):
@@ -631,21 +530,6 @@ class ShardedIndexFlat:
         return (np.concatenate(counts),
                 np.concatenate([pad(v, -np.inf) for v in vals]),
                 np.concatenate([pad(i, -1) for i in ids]), width)
-
-    def range_search(self, x: np.ndarray, radius: float, params=None):
-        """All rows within ``radius`` (faiss CSR: lims, D, I), the strict
-        criterion of TorchIndexFlat.range_search, ids global; each shard
-        contributes all its hits, so the union is complete."""
-        q, nq, nq_pad = self._prep_queries(x)
-        if self.ntotal == 0:
-            sel_mod.selector_mask(params, np.empty(0, np.int64))  # validate
-            return (np.zeros(nq + 1, np.int64), np.empty(0, np.float32),
-                    np.empty(0, np.int64))
-        sel = self._sel_streams(params)
-        thr = range_threshold(radius, self.metric)
-        return _range_csr(
-            lambda cap: self._run_range(q, nq_pad, thr, cap, sel), nq,
-            self.metric)
 
     def describe(self) -> str:
         per = [s.store.ntotal for s in self.shards]

@@ -18,11 +18,8 @@
     re-run on the plain dense sweep when the token is waited on;
   * the search runs as one program a distinct device (``run_by_device``:
     each device's shard searches and label masking, the merge and the
-    packing on the first), cached by the index's TorchResources under
-    ``faiss_tpu``'s ``sharded_ivf`` key plus the index's identity, its
-    generation, the device and the dense fallback's flag; every mutation,
-    and one made on a shard directly (its generation), starts a new
-    generation and drops the index's programs.
+    packing on the first); a change made on a shard directly (its
+    generation) starts a new generation too.
 
 Also: reconstruct by global id (``_id_shard``, ``_id_local``), selectors
 over global ids, the per-query nprobe override, ``search_async``,
@@ -34,28 +31,21 @@ budget alone.
 
 from __future__ import annotations
 
-import weakref
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from .. import programs
-from .. import selector as sel_mod
-from .. import tracing
-from ..dtypes import MetricType, StorageType, worst_distance
-from ..index import (NQ_PAD, ConcatSearchToken, TorchSearchToken, _pack,
-                     _unpack)
-from ..ivf import _CHUNK, _GATHER_BUDGET, TorchIndexIVFFlat, _chunk_budget
+from .. import calls, programs
+from ..dtypes import MetricType, StorageType
+from ..ivf import _CHUNK, TorchIndexIVFFlat, dense_fallback
 from ..resources import default_resources
-from ..storage import _round_up
-from .sharded import (balanced_counts, merge_shard_lists, resolve_devices,
-                      run_by_device)
+from .sharded import balanced_counts, resolve_devices, run_by_device
 
 __all__ = ["ShardedIndexIVFFlat"]
 
 
-class ShardedIndexIVFFlat:
+class ShardedIndexIVFFlat(calls.SearchCalls):
     """IVF-Flat with its rows sharded over ``devices`` (default: the
     devices of ``resources``, else every visible CUDA device; a list may
     repeat a device), one quantizer shared by every shard. The API is
@@ -63,6 +53,8 @@ class ShardedIndexIVFFlat:
     whose program cache the searches go through, shared with every shard
     (each device must be one of its devices); by default the process-wide
     one of the first device's type."""
+
+    num_replicas = 1     # one query group (``run_by_device``)
 
     def __init__(self, d: int, nlist: int, metric=MetricType.L2,
                  storage=StorageType.FLOAT32, nprobe: int = 1,
@@ -88,11 +80,8 @@ class ShardedIndexIVFFlat:
         self.d_pad = self.shards[0].d_pad
         self.nprobe = int(nprobe)
         self.fused_fallbacks = 0   # searches whose dense certificate failed
-        # the programs' keys: (kind, owner, generation, ..., device)
-        self._owner = programs.new_owner()
+        self._owner = programs.new_owner(self)
         self._gen = 0
-        weakref.finalize(self, self.res.discard,
-                         programs.owned_by(self._owner))
         self.reset()
 
     @property
@@ -199,163 +188,70 @@ class ShardedIndexIVFFlat:
             int(self._id_local[key]))
 
     # -- search -------------------------------------------------------------
-    def _nprobe(self, params) -> int:
-        req = getattr(params, "nprobe", None) if params is not None else None
-        return min(req if req is not None else self.nprobe, self.nlist)
+    _nprobe = TorchIndexIVFFlat._nprobe      # its own nprobe and nlist
 
-    def _sel_streams(self, params):
+    def _sel_stream(self, params):
         """The global admit mask as one slot-indexed bool stream per shard
         on its device, or None when nothing is filtered."""
-        if sel_mod.selector_mask(params, np.empty(0, np.int64)) is None:
-            return None
-        with tracing.span("index.sel_stream"):
-            mask = sel_mod.selector_mask(
-                params, np.arange(self.ntotal, dtype=np.int64))
-            if mask.all():
-                return None
+
+        def place(mask):
             gids = np.nonzero(mask)[0]
-            out = []
-            for i, sh in enumerate(self.shards):
-                s = np.zeros((sh.npool * _CHUNK,), bool)
-                s[sh._slot_of[
-                    self._id_local[gids[self._id_shard[gids] == i]]]] = True
-                out.append(torch.from_numpy(s).to(sh.device))
-            return out
+            return [calls.bool_stream(
+                sh.npool * _CHUNK, sh.device,
+                sh._slot_of[self._id_local[gids[self._id_shard[gids] == i]]])
+                for i, sh in enumerate(self.shards)]
+
+        return calls.selector_streams(params, self.ntotal, place)
 
     def _search_packed(self, x: np.ndarray, k: int, params=None,
-                       force_plain_dense: bool = False, cached: bool = True):
+                       force_plain_dense: bool = False):
         """Enqueue one sharded search through the programs cached for its
-        shape and route, one a device (``cached=False``: run eagerly):
-        (packed result on the first device or None for the empty index,
-        nq, the dense certificate's fallback or None)."""
+        shape and route, one a device (``calls.SearchCalls``): (packed
+        result on the first device or None for the empty index, nq, the
+        dense certificate's fallback or None, no counters)."""
         if not self.is_trained:
             raise RuntimeError("IndexIVFFlat requires train() before search")
-        if k <= 0:
-            raise ValueError(f"k must be positive, got {k}")
-        x = np.ascontiguousarray(x, np.float32)
-        if x.ndim == 1:
-            x = x[None, :]
-        if x.ndim != 2 or x.shape[1] != self.d:
-            raise ValueError(f"expected (n, {self.d}) queries, got {x.shape}")
-        nq = x.shape[0]
-        sel = self._sel_streams(params)
+        out_dev = self.devices[0]
+        q, nq, nq_pad = calls.prep_queries(x, self.d, self.d_pad, out_dev)
+        sel = self._sel_stream(params)
         if self.ntotal == 0:
-            return None, nq, None
+            return None, nq, None, ()
         if self._shard_gens() != self._gens:
             self._changed()    # a shard changed under the index
         nprobe = self._nprobe(params)
-        nq_pad = max(NQ_PAD, _round_up(nq, NQ_PAD))
-        out_dev = self.devices[0]
-        with tracing.span("index.prep_queries"):
-            q = torch.zeros((nq_pad, self.d_pad), dtype=torch.float32)
-            q[:nq, : self.d] = torch.from_numpy(x)
-            q = q.to(out_dev)
         live = [i for i, sh in enumerate(self.shards) if sh.ntotal]
-        nbudget = {i: _chunk_budget(self.shards[i]._counts, nprobe)
-                   for i in live}
         for i in live:
-            if nprobe < self.nlist and \
-                    nq_pad * nbudget[i] * _CHUNK * 4 > _GATHER_BUDGET:
-                raise ValueError(
-                    f"IVF fine scan working set would be "
-                    f"{(nq_pad * nbudget[i] * _CHUNK * 4) >> 20} MB on shard "
-                    f"{i} (nprobe={nprobe}, chunk budget={nbudget[i]}); "
-                    "lower nprobe")
-        # the dense fused route ships a certificate; the others are exact
-        proven = not (nprobe >= self.nlist and not force_plain_dense and any(
-            self.shards[i]._dense_fused_ok() for i in live))
-        key = ("sharded_ivf", self._owner, self._gen, self.num_shards,
-               self.nlist, tuple(s.npool for s in self.shards),
-               tuple(s.maxc for s in self.shards), nprobe,
-               tuple(nbudget.values()), nq_pad, int(k), self.d_pad,
-               self.metric, self.storage_type, sel is not None,
-               force_plain_dense)
+            self.shards[i]._check_footprint(nq_pad, nprobe)
+        nbudgets = tuple(sh._budget(nprobe) for sh in self.shards)
         jobs = [(i, self.shards[i].device, None if sel is None else sel[i])
                 for i in live]
-        ref = weakref.ref(self)
-        metric = self.metric
+        packed = run_by_device(self, "sharded_ivf", (
+            int(k), nprobe, nbudgets, force_plain_dense), jobs, q, out_dev)
+        # the dense fused route ships a certificate; the others are exact
+        if nprobe < self.nlist or force_plain_dense or not any(
+                self.shards[i]._dense_fused_ok() for i in live):
+            return packed, nq, None, ()
+        return packed, nq, dense_fallback(self, x, nq, k, params), ()
 
-        def search(i, q_dev, sel_i):
-            v, lab, c, _ = ref().shards[i]._search_local(
-                q_dev, k, nprobe, nbudget[i], sel_i, force_plain_dense)
-            lab = lab.to(torch.int32).masked_fill(~(v > float("-inf")), -1)
-            if c is None:
-                c = torch.ones((nq_pad,), dtype=torch.bool,
-                               device=q_dev.device)
-            return v, lab, c
+    def _job(self, i: int, q: torch.Tensor, sel, k: int, nprobe: int,
+             nbudgets: tuple, force_plain_dense: bool):
+        """Shard ``i``'s route on its device: (scores, its labels, −1 past
+        the valid ones, the certificate, all True on the exact routes)."""
+        v, lab, c, _ = self.shards[i]._search_local(
+            q, k, nprobe, nbudgets[i], sel, force_plain_dense)
+        lab = lab.to(torch.int32).masked_fill(~(v > float("-inf")), -1)
+        if c is None:
+            c = torch.ones((q.shape[0],), dtype=torch.bool, device=q.device)
+        return v, lab, c
 
-        def merge(parts):
-            cert = torch.ones((nq_pad,), dtype=torch.bool, device=out_dev)
-            for _, _, c in parts:
-                cert &= c
-            dists, labels = merge_shard_lists(
-                [(v, lab) for v, lab, _ in parts], k, metric, out_dev)
-            return _pack(dists, labels, cert)
-
-        packed = run_by_device(self.res, key, jobs, search, merge, q,
-                               out_dev, cached)
-        if proven:
-            return packed, nq, None
-
-        def fallback(cert_h, d0, i0):
-            d_out = np.array(d0[:nq], np.float32)
-            i_out = np.array(i0[:nq], np.int64)
-            bad = np.nonzero(~cert_h[:nq])[0]
-            if bad.size == 0:          # only padding rows failed
-                return d_out, i_out
-            self.fused_fallbacks += 1
-            packed2, _, _ = self._search_packed(x[bad], k, params,
-                                                force_plain_dense=True)
-            d2, i2, _ = _unpack(packed2.cpu().numpy(), k)
-            d_out[bad] = d2[: bad.size]
-            i_out[bad] = i2[: bad.size]
-            return d_out, i_out
-
-        return packed, nq, fallback
-
-    def _search_packed_uncached(self, x: np.ndarray, k: int, params=None,
-                                force_plain_dense: bool = False):
-        """The first pass of ``_search_packed`` run eagerly, with no
-        program: what a replay must equal bit for bit (the card tests and
-        chip_smoke). The packed result, None for the empty index."""
-        return self._search_packed(x, k, params, force_plain_dense,
-                                   cached=False)[0]
-
-    def _nq_cap(self, nprobe: int) -> Optional[int]:
-        """Most query rows per dispatch: the fattest shard's fine scan
+    def _split_rows(self, params) -> Optional[int]:
+        """Most query rows per call: the fattest shard's fine scan
         materializes (nq_pad, nbudget·128) f32 scores (the gather budget
         alone: the JAX class's SMEM split is a v5e limit)."""
-        caps = [s._nq_cap(nprobe) for s in self.shards]
-        caps = [c for c in caps if c is not None]
+        nprobe = self._nprobe(params)
+        caps = [c for c in (s._nq_cap(nprobe) for s in self.shards)
+                if c is not None]
         return min(caps) if caps else None
-
-    def search_async(self, x: np.ndarray, k: int, params=None):
-        """Non-blocking search: a TorchSearchToken, or a ConcatSearchToken
-        over the row chunks of a batch past the gather budget."""
-        xa = np.ascontiguousarray(x, np.float32)
-        if xa.ndim == 2 and self.is_trained:
-            cap = self._nq_cap(self._nprobe(params))
-            if cap is not None and xa.shape[0] > cap:
-                return ConcatSearchToken([
-                    self.search_async(xa[i0:i0 + cap], k, params=params)
-                    for i0 in range(0, xa.shape[0], cap)])
-        with tracing.span("index.search_async", mint=True):
-            packed, nq, fallback = self._search_packed(x, k, params)
-            if packed is None:
-                return TorchSearchToken(None, nq, k, result=(
-                    np.full((nq, k), worst_distance(self.metric),
-                            np.float32),
-                    np.full((nq, k), -1, np.int64)))
-            return TorchSearchToken(packed, nq, k, fallback=fallback)
-
-    def search(self, x: np.ndarray, k: int,
-               params=None) -> Tuple[np.ndarray, np.ndarray]:
-        """Top-k over the nprobe closest lists (exact within them), ids
-        global; ``params``: a selector and / or an nprobe override."""
-        return self.search_async(x, k, params=params).wait()
-
-    def assign(self, x: np.ndarray, k: int = 1) -> np.ndarray:
-        return self.search(x, k)[1]
 
     def list_sizes(self) -> np.ndarray:
         """Per-list occupancy summed over the shards (the single index's

@@ -6,6 +6,11 @@ caches (``faiss_tpu/index.py`` ``_build_search_fn``, ``ivf.py``
 ``_build_ivf_search_fn``): the whole search as one program, built once per
 shape key, with no host work between its stages.
 
+``call(index, kind, fn, static, inputs)`` is how an index runs one, keyed
+by what its function is built from: the static numbers it reads, the
+inputs' shapes and the index's generation, which every mutation bumps.
+Under ``eager()`` the function runs directly, with no program.
+
 ``build(fn, inputs, device)`` takes an eager function of static-shaped
 tensors, returning a tensor or a tuple of tensors, and the first call's
 inputs, and returns (program, the first call's result). On the CPU the
@@ -20,9 +25,8 @@ device:
     its result is the first call's result;
   * ``fn`` is captured on that stream into a ``torch.cuda.CUDAGraph``. The
     capture runs nothing. It bakes the addresses of every tensor ``fn``
-    reads and every Python number it was built with, so the caller keys a
-    program by all of them (the index's identity and generation
-    included);
+    reads and every Python number it was built with, so a program is keyed
+    by all of them (``call``'s key);
   * each later call copies its inputs into the static buffers on the
     current stream, replays the graph there and returns a clone of the
     static output (of each, for a tuple), which the next replay cannot
@@ -37,8 +41,10 @@ of an eager run.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
+import weakref
 from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
@@ -51,13 +57,23 @@ from .ops import kernels
 _CAPTURE_LOCK = threading.Lock()
 _owners = itertools.count()
 
+
+class _Local(threading.local):
+    eager = False       # per thread: ``call`` runs its functions eagerly
+
+
+_local = _Local()
+
 Outputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 
-def new_owner() -> int:
-    """A process-unique id for the programs of one index (keys are
-    (kind, owner, generation, ...))."""
-    return next(_owners)
+def new_owner(index) -> int:
+    """A process-unique id for programs of ``index`` (keys are (kind,
+    owner, generation, ...)), whose entries leave ``index.res`` when the
+    index is collected."""
+    owner = next(_owners)
+    weakref.finalize(index, index.res.discard, owned_by(owner))
+    return owner
 
 
 def owned_by(owner: int) -> Callable[[object], bool]:
@@ -149,21 +165,48 @@ def build(fn: Callable[..., Outputs], inputs: Sequence[torch.Tensor],
     return GraphProgram(graph, static_in, static_out, delta, device), first
 
 
-def run(res, key, fn: Callable[..., Outputs],
-        inputs: Sequence[torch.Tensor], device) -> Outputs:
-    """``fn``'s result on ``inputs`` through the program ``res`` caches
-    under ``key``: built on a miss (its first result is then this call's;
-    a ``programs.capture`` span), else replayed (``programs.replay``)."""
+def call(index, kind: str, fn: Callable[..., Outputs], static: tuple,
+         inputs: Sequence[torch.Tensor], *, owner=None, gen=None,
+         device=None, suffix: tuple = ()) -> Outputs:
+    """``fn(index, *static, *inputs)`` through the program that
+    ``index.res`` caches under (kind, owner, gen, static, the inputs'
+    shapes and dtypes) + ``suffix``: the owner and generation default to
+    ``index._owner`` and ``index._gen``, the device to ``index.device``.
+    ``static`` holds every Python number ``fn`` reads; everything else it
+    reads is the index's own state, which the generation pins. Built on a
+    miss (its first result is then this call's; a ``programs.capture``
+    span), else replayed (``programs.replay``). Under ``eager()``: ``fn``
+    run directly."""
+    if _local.eager:
+        return fn(index, *static, *inputs)
+    key = (kind, index._owner if owner is None else owner,
+           index._gen if gen is None else gen, static,
+           tuple([(t.shape, t.dtype) for t in inputs])) + suffix
     first = []
 
     def builder():
+        ref = weakref.ref(index)
         with tracing.span("programs.capture"):
-            prog, out = build(fn, inputs, device)
+            prog, out = build(lambda *ins: fn(ref(), *static, *ins), inputs,
+                              index.device if device is None else device)
         first.append(out)
         return prog
 
-    prog = res.cached(key, builder)
+    prog = index.res.cached(key, builder)
     if first:
         return first[0]
     with tracing.span("programs.replay"):
         return prog(*inputs)
+
+
+@contextlib.contextmanager
+def eager():
+    """Within: every ``call`` on this thread runs its function eagerly,
+    with no program and no cache entry (what a replay must equal bit for
+    bit: the tests and ``chip_smoke.py``)."""
+    before = _local.eager
+    _local.eager = True
+    try:
+        yield
+    finally:
+        _local.eager = before

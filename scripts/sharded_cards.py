@@ -23,6 +23,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import faiss_tpu_torch as ft  # noqa: E402
+from faiss_tpu_torch import programs  # noqa: E402
 from faiss_tpu_torch.ops import kernels  # noqa: E402
 
 n = torch.cuda.device_count()
@@ -38,6 +39,14 @@ def replays_equal(cached, eager):
     ref = eager().contiguous().view(torch.int32)
     return all(torch.equal(cached().contiguous().view(torch.int32), ref)
                for _ in range(2))
+
+
+def eagerly(fn):
+    """``fn`` run under ``programs.eager()``: no program, no cache entry."""
+    def run():
+        with programs.eager():
+            return fn()
+    return run
 
 
 def host_ms(fn, reps=20):
@@ -61,8 +70,8 @@ for st in ("f32", "int8", "bf16"):
         q, _, nq_pad = sh._prep_queries(xq)
         rep = replays_equal(
             lambda: sh._run_search_fn(q, 10, nq_pad, force_plain=False)[0],
-            lambda: sh._run_search_uncached(q, 10, nq_pad,
-                                            force_plain=False)[0])
+            eagerly(lambda: sh._run_search_fn(q, 10, nq_pad,
+                                              force_plain=False)[0]))
         same = np.array_equal(Is, I1)
         ok &= same and rep
         print(f"{st} R={reps_} P={sh.num_shards} devices={[str(d) for d in sh.devices]}: ids equal {same}, "
@@ -92,7 +101,7 @@ with tempfile.TemporaryDirectory() as tmp:
 Ds, Is = shi.search(xq, 10)
 same = np.array_equal(Is, I1)
 rep = replays_equal(lambda: shi._search_packed(xq, 10)[0],
-                    lambda: shi._search_packed_uncached(xq, 10))
+                    eagerly(lambda: shi._search_packed(xq, 10)[0]))
 ok &= same and rep
 print(f"ivf f32 nprobe 16 P={shi.num_shards}: ids equal {same}, replays equal {rep}; host ms sharded "
       f"{host_ms(lambda: shi.search(xq, 10)):.3f} single {host_ms(lambda: ivf.search(xq, 10)):.3f}", flush=True)

@@ -37,8 +37,8 @@ the device time of the operations launched inside each span that
 ``TorchIndexIVFFlat`` opens in its gather search (``ivf.coarse_gemm``,
 ``ivf.top_nprobe``, ``ivf.chunk_ids``, ``ivf.k10`` with its pre-masked
 norms, ``ivf.top_k`` with the slot → id map), read from a second profile of
-the eager search (``_search_packed_uncached``): the spans open while a
-program is captured, not when it is replayed.
+the eager search (``_search_packed`` under ``programs.eager()``): the
+spans open while a program is captured, not when it is replayed.
 """
 
 import argparse
@@ -175,10 +175,14 @@ def profile(torch, idx, xq, searches: int, call=None) -> dict:
     call()                  # with device_events' warm-up: two calls
     events, wall, _, span_ms, gaps = device_events(torch, call, searches)
     stages = {}
-    if hasattr(idx, "_search_packed_uncached"):
-        _, _, stages, _, _ = device_events(
-            torch, lambda: idx._search_packed_uncached(xq, K).cpu(),
-            searches)
+    if hasattr(idx, "_prep_search"):      # the IVF index
+        from faiss_tpu_torch import programs
+
+        def eager():
+            with programs.eager():
+                return idx._search_packed(xq, K)[0].cpu()
+
+        _, _, stages, _, _ = device_events(torch, eager, searches)
     out = {name: 0.0 for name, _ in PARTS}
     other = 0.0
     by_name = {}

@@ -4,10 +4,11 @@ TorchResources' program cache, on the CPU.
 faiss_tpu runs six more sites through ``TpuResources.cached``: the sharded
 flat search and range search, the sharded IVF search, the flat and IVF
 range passes and the IVF coarse assign of ``add``. The port runs each
-through ``programs.run`` (on the card a CUDA graph, on the CPU the eager
-function), with an eager helper beside it. On the CPU a cached result must
-equal its helper's bit for bit, and agree with faiss_tpu on the same
-seeded numpy data: ids equal up to near-ties (``assert_ids_match``),
+through ``programs.call`` (on the card a CUDA graph, on the CPU the eager
+function), and under ``programs.eager()`` with no program. On the CPU a
+cached result must equal its eager run's bit for bit, and agree with
+faiss_tpu on the same seeded numpy data: ids equal up to near-ties
+(``assert_ids_match``),
 distances within tests/common.py's ladder. The entry counts are held
 against ``TpuResources``' for the same call sequences: two radii on one
 shape make one entry, and so do two add batches that pad alike. A
@@ -33,7 +34,8 @@ import faiss_tpu_torch as ft
 from faiss_tpu_torch import (Kmeans, ShardedIndexFlat, ShardedIndexIVFFlat,
                              TorchIndexFlat, TorchIndexIVFFlat,
                              TorchResources, kmeans_clustering, load_index)
-from faiss_tpu_torch.index import range_threshold
+from faiss_tpu_torch import programs
+from faiss_tpu_torch.calls import range_threshold
 from faiss_tpu_torch.loader import build_index_from_file
 from faiss_tpu_torch.ops import distance as dist_ops
 from faiss_tpu_torch.ops import fused
@@ -89,7 +91,8 @@ def owned(res, owner):
 
 def _sharded_pair(t, q, nq_pad, sel, **kw):
     a = t._run_search_fn(q, K, nq_pad, sel=sel, **kw)
-    b = t._run_search_uncached(q, K, nq_pad, sel=sel, **kw)
+    with programs.eager():
+        b = t._run_search_fn(q, K, nq_pad, sel=sel, **kw)
     assert a[1:] == b[1:]
     assert torch.equal(bits(a[0]), bits(b[0]))
     return a[1], a[2]
@@ -115,7 +118,7 @@ def test_sharded_flat_cached_equals_uncached_and_jax(open_gate, storage):
     assert tres.cache_info() == jres.cache_info() == {"entries": 2}
     q, _, nq_pad = t._prep_queries(XQ)
     for params in (None, sel_t):
-        sel = t._sel_streams(params)
+        sel = t._sel_stream(params)
         for _ in range(2):            # built above, then the cached one
             use_fused, reduced = _sharded_pair(t, q, nq_pad, sel,
                                                force_plain=False)
@@ -236,8 +239,9 @@ def test_sharded_ivf_cached_equals_uncached_and_jax(ivf_file, nprobe):
         for force in (False, True):
             for _ in range(2):
                 a = t._search_packed(XQ, K, pt, force_plain_dense=force)[0]
-                b = t._search_packed_uncached(XQ, K, pt,
-                                              force_plain_dense=force)
+                with programs.eager():
+                    b = t._search_packed(XQ, K, pt,
+                                         force_plain_dense=force)[0]
                 assert torch.equal(bits(a), bits(b))
     # f32 lists: one exact route, the forced flag a key of its own
     assert owned(res, t._owner) == 4
@@ -307,7 +311,8 @@ def test_flat_range_search_one_program_for_every_radius():
         thr = range_threshold(r, t.metric)
         for cap, s in ((1024, None), (2048, None), (1024, sel)):
             a = t._run_range(q, nq_pad, thr, cap, s)
-            b = t._run_range_uncached(q, nq_pad, thr, cap, s)
+            with programs.eager():
+                b = t._run_range(q, nq_pad, thr, cap, s)
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x, y)
     assert tres.cache_info()["entries"] == 3
@@ -329,7 +334,8 @@ def test_ivf_range_search_one_program_for_every_radius(ivf_file):
         thr = range_threshold(r, t.metric)
         for rcap in (1024, 64):     # the first pass, a smaller capacity
             a = t._run_range(q, nprobe, nbudget, thr, rcap, sel)
-            b = t._run_range_uncached(q, nprobe, nbudget, thr, rcap, sel)
+            with programs.eager():
+                b = t._run_range(q, nprobe, nbudget, thr, rcap, sel)
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x, y)
     assert res.cache_info()["entries"] - n0 == 2
@@ -355,7 +361,8 @@ def test_ivf_assign_one_program_a_padded_size(tmp_path):
     for n, grew in ((300, 1), (301, 1), (500, 2), (9000, 3), (10000, 3)):
         x = rng.standard_normal((n, D)).astype(np.float32)
         xd, a = t._coarse_assign(x)
-        _, b = t._coarse_assign_uncached(x)
+        with programs.eager():
+            _, b = t._coarse_assign(x)
         np.testing.assert_array_equal(a, b)
         assert xd.shape == (n, t.d_pad)
         xu = torch.zeros((n, t.d_pad))

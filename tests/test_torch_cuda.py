@@ -67,13 +67,14 @@ sharded index drops its programs, and a sharded capture that meets a host
 synchronisation raises with nothing cached.
 """
 
+import contextlib
 import time
 
 import numpy as np
 import pytest
 import torch
 
-from faiss_tpu_torch import MetricType, TorchIndexFlat
+from faiss_tpu_torch import MetricType, TorchIndexFlat, programs
 from faiss_tpu_torch.ops import distance, fused, kernels
 from faiss_tpu_torch.storage import (decode_f16_bits, encode_f16_bits,
                                      flush_f16_subnormals,
@@ -2391,7 +2392,8 @@ def test_captured_ivf_search_launches_budget_select_once(dev, storage):
         p = SearchParams(nprobe=nprobe)
         for k in (10, 40, 41):
             kernels.reset_launches()
-            ref = ivf._search_packed_uncached(xq, k, p)
+            with programs.eager():
+                ref = ivf._search_packed(xq, k, p)[0]
             counts = [kernels.launches["budget_select"]]
             for _ in range(2):                  # build, replay
                 kernels.reset_launches()
@@ -2425,7 +2427,8 @@ def _replays_equal_eager(idx, xq, k, params=None, **route):
     bits and the certificate."""
     q, _, nq_pad = idx._prep_queries(xq)
     sel = idx._sel_stream(params)
-    ref = idx._run_search_uncached(q, k, nq_pad, sel=sel, **route)
+    with programs.eager():
+        ref = idx._run_search_fn(q, k, nq_pad, sel=sel, **route)
     for _ in range(3):
         got = idx._run_search_fn(q, k, nq_pad, sel=sel, **route)
         assert got[1:] == ref[1:]
@@ -2507,8 +2510,9 @@ def test_replayed_ivf_search_equals_eager(dev, storage):
         for sel in (None, IDSelectorRange(500, 15_000)):
             p = SearchParams(sel=sel, nprobe=nprobe)
             for force in (False, True):
-                ref = ivf._search_packed_uncached(xq, 10, p,
-                                                  force_plain_dense=force)
+                with programs.eager():
+                    ref = ivf._search_packed(xq, 10, p,
+                                             force_plain_dense=force)[0]
                 for _ in range(3):
                     got = ivf._search_packed(xq, 10, p,
                                              force_plain_dense=force)[0]
@@ -2622,10 +2626,10 @@ def test_replay_counts_launches_as_eager(dev, monkeypatch):
     q, _, nq_pad = idx._prep_queries(
         rng.standard_normal((8, 64), dtype=np.float32))
     counts = []
-    for run in (idx._run_search_uncached, idx._run_search_fn,
-                idx._run_search_fn):     # eager, build, replay
+    for eager in (True, False, False):  # eager, build, replay
         kernels.reset_launches()
-        run(q, 10, nq_pad, force_plain=False)
+        with programs.eager() if eager else contextlib.nullcontext():
+            idx._run_search_fn(q, 10, nq_pad, force_plain=False)
         counts.append(dict(kernels.launches))
     assert counts[0]["sweep_split_3"] == 1
     assert counts[0]["rescore_groups_pair"] == 1
@@ -2633,8 +2637,6 @@ def test_replay_counts_launches_as_eager(dev, monkeypatch):
 
 
 def test_capture_meeting_a_host_sync_raises(dev):
-    from faiss_tpu_torch import programs
-
     x = torch.ones(8, device=dev)
     with pytest.raises(RuntimeError):
         programs.build(lambda t: t * float(t.sum()), [x], dev)
@@ -2685,11 +2687,12 @@ def test_replayed_sharded_flat_equals_eager(dev, storage, monkeypatch):
     for nq in (8, 40):
         q, _, nq_pad = sh._prep_queries(xq[:nq])
         for params in (None, sel):
-            s = sh._sel_streams(params)
+            s = sh._sel_stream(params)
             for kw in (dict(force_plain=False),
                        dict(force_plain=False, full_sweep=True),
                        dict(force_plain=True)):
-                ref = sh._run_search_uncached(q, 10, nq_pad, sel=s, **kw)
+                with programs.eager():
+                    ref = sh._run_search_fn(q, 10, nq_pad, sel=s, **kw)
                 for _ in range(3):
                     got = sh._run_search_fn(q, 10, nq_pad, sel=s, **kw)
                     assert got[1:] == ref[1:]
@@ -2728,8 +2731,9 @@ def test_replayed_sharded_ivf_equals_eager(dev, storage, tmp_path):
         for sel in (None, IDSelectorRange(500, 15_000)):
             p = SearchParams(sel=sel, nprobe=nprobe)
             for force in (False, True):
-                ref = sh._search_packed_uncached(xq, 10, p,
-                                                 force_plain_dense=force)
+                with programs.eager():
+                    ref = sh._search_packed(xq, 10, p,
+                                            force_plain_dense=force)[0]
                 for _ in range(3):
                     got = sh._search_packed(xq, 10, p,
                                             force_plain_dense=force)[0]
@@ -2745,7 +2749,7 @@ def test_replayed_flat_range_equals_eager(dev):
     """The flat range pass at two radii is one graph (the second radius
     replays it: no new program), and the rerun's capacity another; each
     equals the eager pass bit for bit."""
-    from faiss_tpu_torch.index import range_threshold
+    from faiss_tpu_torch.calls import range_threshold
 
     rng = np.random.default_rng(29)
     xb = rng.standard_normal((30_000, 64), dtype=np.float32)
@@ -2756,7 +2760,8 @@ def test_replayed_flat_range_equals_eager(dev):
     for i, radius in enumerate((75.0, 85.0)):
         thr = range_threshold(radius, idx.metric)
         for cap in (1024, 4096):
-            ref = idx._run_range_uncached(q, nq_pad, thr, cap, None)
+            with programs.eager():
+                ref = idx._run_range(q, nq_pad, thr, cap, None)
             for _ in range(2):
                 _equal_tuples(idx._run_range(q, nq_pad, thr, cap, None),
                               ref)
@@ -2773,7 +2778,7 @@ def test_replayed_ivf_range_and_assign_equal_eager(dev):
     a capacity; the coarse assign of add one a padded batch size; each
     equals its eager run bit for bit, and an add keeps the assign's."""
     from faiss_tpu_torch import TorchIndexIVFFlat
-    from faiss_tpu_torch.index import range_threshold
+    from faiss_tpu_torch.calls import range_threshold
 
     rng = np.random.default_rng(30)
     xb = rng.standard_normal((20_000, 64), dtype=np.float32)
@@ -2782,7 +2787,8 @@ def test_replayed_ivf_range_and_assign_equal_eager(dev):
     ivf.train(xb)
     for n0, n1 in ((0, 9000), (9000, 20_000)):   # pads to 16,384 rows both
         x = xb[n0:n1]
-        _, want = ivf._coarse_assign_uncached(x)
+        with programs.eager():
+            _, want = ivf._coarse_assign(x)
         for _ in range(3):
             xd, got = ivf._coarse_assign(x)
             np.testing.assert_array_equal(got, want)
@@ -2793,7 +2799,8 @@ def test_replayed_ivf_range_and_assign_equal_eager(dev):
     for radius in (95.0, 105.0):
         thr = range_threshold(radius, ivf.metric)
         for rcap in (1024, 64):
-            ref = ivf._run_range_uncached(q, nprobe, nbudget, thr, rcap, sel)
+            with programs.eager():
+                ref = ivf._run_range(q, nprobe, nbudget, thr, rcap, sel)
             for _ in range(2):
                 _equal_tuples(ivf._run_range(q, nprobe, nbudget, thr, rcap,
                                              sel), ref)

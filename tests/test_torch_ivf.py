@@ -34,7 +34,7 @@ from faiss_tpu.ops import pallas_fused as pf
 from faiss_tpu_torch import (IDSelectorRange, SearchParams, TorchIndexIDMap2,
                              TorchIndexIVFFlat, load_index, save_index)
 from faiss_tpu_torch import ivf as tivf
-from faiss_tpu_torch.index import ConcatSearchToken
+from faiss_tpu_torch.calls import ConcatSearchToken
 from faiss_tpu_torch.ops import fused, kernels
 from faiss_tpu_torch.ops.topk import topk_scores
 
@@ -432,6 +432,30 @@ def test_batch_split_matches_unsplit(monkeypatch):
     np.testing.assert_array_equal(I0, ix.search(xq, 5)[1])
 
 
+def test_the_chunk_budget_is_kept_until_a_mutation():
+    """``_budget`` works the chunk budget out once per nprobe and keeps it
+    until the index changes: it equals ``_chunk_budget`` of the list sizes,
+    a search reads the kept one, and an add or a remove_ids clears it."""
+    xb, xq = mixture(3000, 4, D, seed=21)
+    ix = TorchIndexIVFFlat(D, NLIST, nprobe=2, device="cpu")
+    ix.train(xb)
+    ix.add(xb[:1000])
+    assert ix._budgets == {}
+    for nprobe in (1, 4, NLIST):
+        assert ix._budget(nprobe) == tivf._chunk_budget(ix.list_sizes(),
+                                                        nprobe)
+    assert sorted(ix._budgets) == [1, 4, NLIST]
+    ix._budgets[4] += 1               # a kept budget is what a search reads
+    assert ix._prep_search(xq, SearchParams(nprobe=4))[4] == ix._budget(4)
+    for mutate in (lambda: ix.add(xb[1000:]),
+                   lambda: ix.remove_ids(np.arange(0, 1500, 2))):
+        mutate()
+        assert ix._budgets == {}
+        for nprobe in (1, 4, NLIST):
+            assert ix._budget(nprobe) == tivf._chunk_budget(
+                ix.list_sizes(), nprobe)
+
+
 @pytest.mark.parametrize("nbudget", [1, 5, 1024, 1280])
 @pytest.mark.parametrize("k", [1, 10, 40])
 @pytest.mark.parametrize("case", BUDGET_CASES)
@@ -580,7 +604,7 @@ def test_dense_fused_fallback_reruns_on_the_plain_sweep():
     ix.add(xb)
     D1, I1 = ix.search(xq, K)
     assert ix.fused_fallbacks >= 1
-    packed, nq, fb = ix._search_packed(xq, K, force_plain_dense=True)
+    packed, nq, fb, _ = ix._search_packed(xq, K, force_plain_dense=True)
     assert fb is None
     np.testing.assert_array_equal(I1, packed[:nq, K:2 * K].contiguous().view(
         torch.int32).numpy())

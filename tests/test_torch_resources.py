@@ -24,9 +24,13 @@ from faiss_tpu import IDSelectorRange as JIDSelectorRange
 from faiss_tpu import SearchParams as JSearchParams
 from faiss_tpu import TpuIndexFlat
 from faiss_tpu.resources import TpuResources
-from faiss_tpu_torch import (IDSelectorRange, SearchParams, TorchIndexFlat,
+from faiss_tpu_torch import (IDSelectorRange, SearchParams, ShardedIndexFlat,
+                             ShardedIndexIVFFlat, TorchIndexFlat,
                              TorchIndexIVFFlat, TorchResources,
-                             default_resources, index_numpy_to_torch)
+                             default_resources, index_numpy_to_torch,
+                             programs)
+from faiss_tpu_torch import calls
+from faiss_tpu_torch.index import flat_route
 from faiss_tpu_torch.ops import fused
 
 torch.set_num_threads(2)
@@ -190,7 +194,8 @@ def _packed_pair(idx, xq, k, params=None, **kw):
     q, _, nq_pad = idx._prep_queries(xq)
     sel = idx._sel_stream(params)
     a = idx._run_search_fn(q, k, nq_pad, sel=sel, **kw)
-    b = idx._run_search_uncached(q, k, nq_pad, sel=sel, **kw)
+    with programs.eager():
+        b = idx._run_search_fn(q, k, nq_pad, sel=sel, **kw)
     assert a[1:] == b[1:]
     return a[0], b[0], a[1]
 
@@ -244,10 +249,11 @@ def test_ivf_search_through_the_cache_is_the_eager_search(storage):
             for force in (False, True):
                 for _ in range(2):
                     a = ivf._search_packed(xq, K, p, force_plain_dense=force)
-                    b = ivf._search_packed_uncached(xq, K, p,
-                                                    force_plain_dense=force)
+                    with programs.eager():
+                        b = ivf._search_packed(xq, K, p,
+                                               force_plain_dense=force)
                     assert torch.equal(a[0].view(torch.int32),
-                                       b.view(torch.int32))
+                                       b[0].view(torch.int32))
     # below nlist the forced dense flag changes nothing: one program each;
     # at nlist f32 takes the plain sweep either way, bf16 / int8 two routes
     n_dense = 2 if storage == "f32" else 4
@@ -505,3 +511,113 @@ def test_threads_share_one_index_through_the_cache():
     assert not any(t.is_alive() for t in ts)
     assert not errors, errors[0]
     assert res.cache_info()["entries"] == len(shapes)
+
+
+# -- the call layer: the programs' keys, the split, the empty answer ---------
+
+KIND_OF = {"flat": "flat_search", "ivf": "ivf_search",
+           "sharded": "sharded_search", "sharded_ivf": "sharded_ivf"}
+
+
+def _index(kind, res, xb, metric="L2", add=True):
+    """An index of ``kind`` on the CPU (two shards on one device where
+    sharded, IVF at 8 lists, nprobe 2), trained on ``xb`` where IVF, and
+    filled with it where ``add``."""
+    if kind == "flat":
+        idx = TorchIndexFlat(D, metric=metric, device="cpu", resources=res)
+    elif kind == "ivf":
+        idx = TorchIndexIVFFlat(D, 8, metric=metric, nprobe=2, device="cpu",
+                                resources=res)
+    elif kind == "sharded":
+        idx = ShardedIndexFlat(D, metric=metric, devices=["cpu"] * 2,
+                               resources=res)
+    else:
+        idx = ShardedIndexIVFFlat(D, 8, metric=metric, nprobe=2,
+                                  devices=["cpu"] * 2, resources=res)
+    if kind in ("ivf", "sharded_ivf"):
+        idx.train(xb)
+    if add:
+        idx.add(xb)
+    return idx
+
+
+def _static(kind, idx):
+    """The static numbers of a search of 8 query rows at k = K."""
+    if kind == "flat":
+        return (K, *flat_route([idx.store], idx.metric, K, 8, plain=False))
+    if kind == "sharded":
+        return (K, *flat_route([s.store for s in idx.shards], idx.metric, K,
+                               8, plain=False, direct=False))
+    if kind == "ivf":
+        return (K, 2, idx._budget(2), False)
+    return (K, 2, tuple(s._budget(2) for s in idx.shards), False)
+
+
+@pytest.mark.parametrize("kind", list(KIND_OF))
+def test_a_program_key_is_what_its_function_is_built_from(kind):
+    """A search's program is keyed (kind, owner, generation, the static
+    numbers its function reads, the inputs' shapes and dtypes), plus the
+    device for a sharded index; a second call of the same shape and route
+    replays it (a hit, no entry); under ``programs.eager()`` a call makes
+    no entry and no lookup, and answers the same."""
+    res = TorchResources(["cpu"])
+    xb, xq = _data(4, nv=3000)
+    idx = _index(kind, res, xb)
+    want = idx.search(xq, K)
+
+    def owned():
+        return [key for key in res._cache if key[1] == idx._owner]
+
+    (key,) = owned()
+    q_in = ((8, D), torch.float32)
+    tail = (torch.device("cpu"),) if kind.startswith("sharded") else ()
+    assert key == (KIND_OF[kind], idx._owner, idx._gen, _static(kind, idx),
+                   (q_in,)) + tail
+    stats = res.program_stats()
+    got = idx.search(xq, K)
+    assert res.program_stats() == {"hits": stats["hits"] + 1,
+                                   "misses": stats["misses"]}
+    assert owned() == [key]
+    with programs.eager():
+        eager = idx.search(xq, K)
+    assert res.program_stats()["hits"] == stats["hits"] + 1
+    assert owned() == [key]
+    for a, b, c in zip(want, got, eager):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    # a selector: its stream(s) another input, of their own dtype
+    idx.search(xq, K, params=SearchParams(sel=IDSelectorRange(0, 2000)))
+    (fkey,) = [k for k in owned() if k != key]
+    assert fkey[:4] == key[:4] and fkey[5:] == tail
+    assert fkey[4][0] == q_in and len(fkey[4]) > 1
+    assert all(dt == torch.bool for _, dt in fkey[4][1:])
+
+
+@pytest.mark.parametrize("metric", ["L2", "IP"])
+@pytest.mark.parametrize("kind", list(KIND_OF))
+def test_a_split_batch_and_an_empty_index_answer_as_one_call(kind, metric):
+    """A batch past the index's cap (``_split_rows``, here 8 rows) is
+    enqueued in row chunks, all up front, under one ConcatSearchToken whose
+    answer equals the unsplit search's, row for row. An empty index
+    answers sentinels: the metric's worst distance and label −1, f32 and
+    int64, (nq, k)."""
+    res = TorchResources(["cpu"])
+    xb, xq = _data(5, nv=3000, nq=21)
+    idx = _index(kind, res, xb, metric)
+    want = idx.search(xq, K)
+    idx._split_rows = lambda params: 8
+    tok = idx.search_async(xq, K)
+    assert isinstance(tok, calls.ConcatSearchToken)
+    assert len(tok._toks) == 3
+    got = tok.wait()
+    assert tok.is_ready()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    empty = _index(kind, res, xb, metric, add=False)
+    for nq in (1, 21):
+        De, Ie = empty.search(xq[:nq], K)
+        assert De.dtype == np.float32 and Ie.dtype == np.int64
+        assert De.shape == Ie.shape == (nq, K)
+        assert (Ie == -1).all()
+        assert (De == (np.inf if metric == "L2" else -np.inf)).all()

@@ -104,6 +104,23 @@ def test_a_profiled_search_records_its_spans(kind, filtered):
     assert set(names) <= events
 
 
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("kind", KINDS)
+def test_each_call_uploads_its_queries_once(kind, filtered):
+    """Every call of every index records exactly one ``index.prep_queries``
+    span, under its own call id (the sharded IVF's upload included)."""
+    idx = make_index(kind)
+    params = SEL if filtered else None
+    with _profiled():
+        toks = [idx.search_async(XQ, K, params=params) for _ in range(3)]
+        for t in toks:
+            t.wait()
+    names = by_name(tracing.spans())
+    ids = sorted(r.call for r in names["index.search_async"])
+    assert ids == sorted(t._call for t in toks) and len(set(ids)) == 3
+    assert sorted(r.call for r in names["index.prep_queries"]) == ids
+
+
 def test_no_profiler_records_nothing():
     idx = make_index("flat")
     with _profiled():
