@@ -24,8 +24,9 @@ Counterpart of ``faiss_tpu/ivf.py``'s TpuIndexIVFFlat:
     budget (``_chunk_budget``: the nprobe fattest lists, rounded to two
     significant bits) and fed as group ids to K10 (``kernels.
     rescore_groups``: f32 rows, bf16 rows, or int8 codes against q∘s),
-    with ``ngroups`` = the pool's capacity and slot validity (``ids ≥ 0``,
-    and the selector) folded into the pre-masked norm stream. Dead budget
+    with ``ngroups`` = the pool's capacity and slot validity (``ids ≥ 0``)
+    folded into the pre-masked norm stream, which the index keeps per
+    generation (``_mutated``); a selector folds in per call. Dead budget
     positions point at chunk 0; the top-k (``kernels.budget_select`` at k ≤
     40, else ``budget_select_plain``, the stable sort) ranks their columns
     as −inf; then slot → id, and −‖q‖² restored. The program also counts
@@ -194,6 +195,7 @@ class TorchIndexIVFFlat(calls.SearchCalls):
         self._cnorms = None    # (nlist_pad,) f32, +inf on the pad rows
         self._scales = None    # int8: (d_pad,) f32 device, frozen
         self.fused_fallbacks = 0   # dense-fused certificate reruns
+        self.norm_stream_builds = 0   # builds of the fine scan's _vn
         # what the last train took: Kmeans and balancing seconds (host
         # clock), the objective series, the balancing cap on list sizes
         self.train_stats: dict = {}
@@ -283,10 +285,20 @@ class TorchIndexIVFFlat(calls.SearchCalls):
     def _mutated(self) -> None:
         """A new generation: the captured programs baked the old tensors'
         addresses, ntotal and the pool's shape, so the index's entries
-        go, and so do the chunk budgets of the old list sizes."""
+        go, and so do the chunk budgets of the old list sizes. The fine
+        scan's norm stream ``_vn`` is built anew: ‖v‖² (L2) or 0 (IP) on
+        occupied slots, +inf on empty and removed ones; None while the
+        pool is empty. Every write to ``_norms`` or ``_ids`` ends here."""
         self._gen += 1
         self._budgets = {}
         self.res.discard(programs.owned_by(self._owner))
+        self._vn = None
+        if self._ids is not None:
+            with tracing.span("ivf.norm_stream"):
+                nslots = self._ids.shape[0]
+                self._vn = fused._premask_norms(
+                    self._norms, nslots, nslots, self.metric, self._ids >= 0)
+            self.norm_stream_builds += 1
 
     # -- add ------------------------------------------------------------------
     def _ensure_pool(self, need_chunks: int, need_maxc: int) -> None:
@@ -525,11 +537,9 @@ class TorchIndexIVFFlat(calls.SearchCalls):
                                    nbudget)
             counts = _scan_counts(cidx, okc, self.npool) if counted else None
         with tracing.span("ivf.k10"):
-            occ = self._ids >= 0             # slot validity (adds, removals)
-            nslots = self._data.shape[0]
-            vn = fused._premask_norms(self._norms, nslots, nslots,
-                                      self.metric,
-                                      occ if sel is None else occ & sel)
+            # the generation's stream; a selector folds in per call
+            vn = (self._vn if sel is None
+                  else self._vn.masked_fill(~sel, float("inf")))
             s = kernels.rescore_groups(self._qeff(q), self._data, vn, cidx,
                                        metric=self.metric)
         with tracing.span("ivf.top_k"):

@@ -52,6 +52,7 @@ SPANS = (
     "ivf.chunk_ids",
     "ivf.k10",
     "ivf.top_k",
+    "ivf.norm_stream",      # the fine scan's norm stream, once a generation
 )
 # every program counter the port records
 COUNTERS = (

@@ -31,8 +31,9 @@ import faiss_tpu
 from faiss_tpu import TpuIndexIVFFlat
 from faiss_tpu import ivf as jivf
 from faiss_tpu.ops import pallas_fused as pf
-from faiss_tpu_torch import (IDSelectorRange, SearchParams, TorchIndexIDMap2,
-                             TorchIndexIVFFlat, load_index, save_index)
+from faiss_tpu_torch import (IDSelectorBatch, IDSelectorRange, SearchParams,
+                             TorchIndexIDMap2, TorchIndexIVFFlat, load_index,
+                             save_index)
 from faiss_tpu_torch import ivf as tivf
 from faiss_tpu_torch.calls import ConcatSearchToken
 from faiss_tpu_torch.ops import fused, kernels
@@ -454,6 +455,133 @@ def test_the_chunk_budget_is_kept_until_a_mutation():
         for nprobe in (1, 4, NLIST):
             assert ix._budget(nprobe) == tivf._chunk_budget(
                 ix.list_sizes(), nprobe)
+
+
+def twin(ix):
+    """An empty index with ``ix``'s centroids (and int8 scales)."""
+    t = TorchIndexIVFFlat(ix.d, ix.nlist, metric=ix.metric,
+                          storage=ix.storage_type, nprobe=ix.nprobe,
+                          device="cpu")
+    if ix._scales is not None:
+        t._set_scales(ix._scales.numpy()[: ix.d])
+    t._set_centroids(ix._centroids)
+    return t
+
+
+def premask_of(ix, sel=None):
+    """The norm stream the fine scan built on every call before the index
+    kept it: ``fused._premask_norms`` of the pool's norms with the slot
+    validity (and the slot selector ``sel``) folded in."""
+    nslots = ix._ids.shape[0]
+    ok = ix._ids >= 0
+    return fused._premask_norms(ix._norms, nslots, nslots, ix.metric,
+                                ok if sel is None else ok & sel)
+
+
+def assert_same_bits(a, b, what):
+    assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape, what
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
+
+
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("metric", [m for m, _ in METRICS], ids=METRIC_IDS)
+def test_the_norm_stream_follows_every_mutation(storage, metric):
+    """The fine scan's norm stream is index state: after an add that grows
+    the pool, a second add, remove_ids and merge_from it equals the
+    per-call premask of the pool's norms and ids bit for bit; an empty
+    pool (before the first add, after reset) has none."""
+    xb, _ = mixture(3000, 4, D, seed=31)
+    ix = TorchIndexIVFFlat(D, NLIST, metric=metric, storage=storage,
+                           nprobe=4, device="cpu")
+    ix.train(xb)
+    assert ix._vn is None
+    ix.add(xb[:400])
+    assert ix.npool > 0
+    assert_same_bits(ix._vn, premask_of(ix), "first add")
+    npool = ix.npool
+    ix.add(xb[400:2000])
+    assert ix.npool > npool
+    assert_same_bits(ix._vn, premask_of(ix), "second add")
+    ix.remove_ids(np.arange(0, 2000, 3))
+    assert (ix._ids < 0).any()
+    assert_same_bits(ix._vn, premask_of(ix), "remove_ids")
+    other = twin(ix)
+    other.add(xb[2000:])
+    ix.merge_from(other)
+    assert_same_bits(ix._vn, premask_of(ix), "merge_from")
+    assert other._vn is None
+    ix.reset()
+    assert ix._vn is None
+
+
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("metric", [m for m, _ in METRICS], ids=METRIC_IDS)
+def test_the_norm_stream_is_built_once_a_generation(storage, metric,
+                                                    monkeypatch):
+    """Searches without a selector read the kept stream and build nothing;
+    each mutation builds it once. After remove_ids the search returns no
+    removed row and equals a fresh index over the kept rows (no stale
+    stream); with an IDSelectorBatch, K10 reads the per-call premask of
+    the occupancy and the selector, bit for bit, and the answers are
+    those of that premask."""
+    xb, xq = mixture(3000, 8, D, seed=32)
+    ix = TorchIndexIVFFlat(D, NLIST, metric=metric, storage=storage,
+                           nprobe=4, device="cpu")
+    ix.train(xb)
+    assert ix.norm_stream_builds == 0
+    ix.add(xb[:2000])
+    assert ix.norm_stream_builds == 1
+    for _ in range(3):
+        ix.search(xq, K)
+    assert ix.norm_stream_builds == 1
+    rm = np.arange(0, 2000, 3)
+    ix.remove_ids(rm)
+    assert ix.norm_stream_builds == 2
+    keep = np.setdiff1d(np.arange(2000), rm)
+    fresh = twin(ix)
+    fresh.add(xb[keep])
+    D_r, I_r = ix.search(xq, K)
+    D_f, I_f = fresh.search(xq, K)
+    assert (I_r >= 0).all() and not np.isin(keep[I_r], rm).any()
+    np.testing.assert_array_equal(I_r, I_f)
+    np.testing.assert_array_equal(D_r, D_f)
+
+    ids = np.arange(1, ix.ntotal, 2)
+    slot_sel = torch.zeros(ix._ids.shape[0], dtype=torch.bool)
+    slot_sel[torch.from_numpy(ix._slot_of[ids])] = True
+    want = premask_of(ix, slot_sel)
+    real, seen = kernels.rescore_groups, []
+
+    def spy(q, db, vn, gidx, **kw):
+        seen.append(vn)
+        return real(q, db, vn, gidx, **kw)
+
+    params = SearchParams(IDSelectorBatch(ids))
+    monkeypatch.setattr(kernels, "rescore_groups", spy)
+    D_s, I_s = ix.search(xq, K, params=params)
+    assert len(seen) == 1
+    assert_same_bits(seen[0], want, "selector stream")
+    monkeypatch.setattr(kernels, "rescore_groups",
+                        lambda q, db, vn, gidx, **kw: real(q, db, want, gidx,
+                                                           **kw))
+    D_o, I_o = ix.search(xq, K, params=params)
+    monkeypatch.undo()
+    np.testing.assert_array_equal(I_s, I_o)
+    np.testing.assert_array_equal(D_s, D_o)
+    assert np.isin(I_s[I_s >= 0], ids).all()
+    assert ix.norm_stream_builds == 2
+
+    other = twin(ix)
+    other.add(xb[2000:])
+    builds = other.norm_stream_builds
+    ix.merge_from(other)
+    assert ix.norm_stream_builds == 3
+    assert other.norm_stream_builds == builds and other._vn is None
+    ix.add(xb[:10])
+    assert ix.norm_stream_builds == 4
+    ix.search(xq, K)
+    ix.reset()
+    assert ix.norm_stream_builds == 4 and ix._vn is None
 
 
 @pytest.mark.parametrize("nbudget", [1, 5, 1024, 1280])
