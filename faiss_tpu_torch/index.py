@@ -65,7 +65,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import calls, programs
+from . import calls, programs, tracing
 from .calls import NQ_PAD
 from .dtypes import MetricType, StorageType
 from .ops import distance as dist_ops
@@ -136,26 +136,38 @@ def make_selective_fallback(index, queries: torch.Tensor, nq: int, k: int, *,
     ``index._no_reduced_sweep`` so the shape stops paying tier-1 reruns.
     Tier 2, for the rows tier 1 left uncertified: the plain path, exact by
     construction. Both tiers take the search's selector stream ``sel``, so
-    a rerun keeps filtering."""
+    a rerun keeps filtering. Under the profiler each tier is a span
+    (``fallback.tier1``, ``fallback.tier2``) and counts the queries it
+    re-ran (``flat.tier1_rows``, ``flat.tier2_rows``), and a new pin counts
+    in ``flat.reduced_pins``, under the call of the wait that ran it."""
 
     def rerun(bad):
         nb_pad = max(pad_unit, _round_up(bad.size, pad_unit))
         qb = torch.zeros((nb_pad, queries.shape[1]), dtype=torch.float32,
                          device=queries.device)
         qb[: bad.size] = queries[torch.as_tensor(bad, device=queries.device)]
+        call = tracing.current_call()
+        todo = bad
         if reduced:
-            index._no_reduced_sweep.add(pin_key)
-            packed, fused_ran, _ = index._run_search_fn(
-                qb, k, nb_pad, force_plain=False, full_sweep=True, sel=sel)
-            d, i, cert = calls.unpack(packed.cpu().numpy(), k)
+            with tracing.span("fallback.tier1"):
+                tracing.count("flat.tier1_rows", bad.size, call)
+                if pin_key not in index._no_reduced_sweep:
+                    index._no_reduced_sweep.add(pin_key)
+                    tracing.count("flat.reduced_pins", 1, call)
+                packed, fused_ran, _ = index._run_search_fn(
+                    qb, k, nb_pad, force_plain=False, full_sweep=True,
+                    sel=sel)
+                d, i, cert = calls.unpack(packed.cpu().numpy(), k)
             if not fused_ran:
                 return d, i
             todo = np.nonzero(~cert[: bad.size])[0]
             if todo.size == 0:
                 return d, i
-        packed, _, _ = index._run_search_fn(qb, k, nb_pad, force_plain=True,
-                                            sel=sel)
-        d2, i2, _ = calls.unpack(packed.cpu().numpy(), k)
+        with tracing.span("fallback.tier2"):
+            tracing.count("flat.tier2_rows", todo.size, call)
+            packed, _, _ = index._run_search_fn(qb, k, nb_pad,
+                                                force_plain=True, sel=sel)
+            d2, i2, _ = calls.unpack(packed.cpu().numpy(), k)
         if not reduced:
             return d2, i2
         d[todo], i[todo] = d2[todo], i2[todo]

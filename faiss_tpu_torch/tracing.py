@@ -20,7 +20,9 @@ parent.
 ``count(name, value, call)`` records one program counter's value for a
 call (``COUNTERS`` names them all), under the same switch and in the same
 stretch as the spans: a counter computed inside a captured program comes
-back with the call's result, and its token records it in ``wait``.
+back with the call's result, and its token records it in ``wait``. A
+counter of the host's own work (``HOST_COUNTERS``: a flat rerun's) is
+recorded where the work runs, under the enclosing span's call.
 ``counts()`` returns the latest stretch's.
 """
 
@@ -47,6 +49,8 @@ SPANS = (
     "token.copy",           # the wait for the result's copy, its view
     "token.unpack",         # the result arrays
     "token.fallback",       # the rerun of the uncertified queries
+    "fallback.tier1",       # a flat rerun on the two-plane sweep
+    "fallback.tier2",       # a flat rerun on the plain path
     "ivf.coarse_gemm",      # the IVF gather search's stages
     "ivf.top_nprobe",
     "ivf.chunk_ids",
@@ -60,6 +64,13 @@ COUNTERS = (
                             # probed list's chunk, over the call's queries
     "ivf.budget_chunks",    # its budget positions (nq_pad × chunk budget)
     "ivf.chunks_read",      # the distinct pool chunks K10 read
+)
+# every counter of the host's own work, recorded where the work runs
+HOST_COUNTERS = (
+    "flat.tier1_rows",      # a flat call's queries re-run on the two-plane
+                            # sweep (by its wait)
+    "flat.tier2_rows",      # and on the plain path
+    "flat.reduced_pins",    # shapes pinned to the two-plane sweep
 )
 # records kept: a profiler left on cannot grow the buffer without end
 MAX_RECORDS = 1 << 17
@@ -168,8 +179,8 @@ def span(name: str, call: Optional[int] = None, *, mint: bool = False):
 
 
 def count(name: str, value: int, call: Optional[int] = None) -> None:
-    """Record a program counter's ``value`` for the call ``call`` while a
-    profiler records; else nothing."""
+    """Record a counter's ``value`` (``COUNTERS``, ``HOST_COUNTERS``) for
+    the call ``call`` while a profiler records; else nothing."""
     if recording():
         _new_stretch()
         _counts.append((name, int(value), call))

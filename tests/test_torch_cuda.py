@@ -2865,3 +2865,90 @@ def test_sharded_capture_meeting_a_host_sync_raises(dev, monkeypatch):
     D, I = sh.search(xq, 10)
     assert (I >= 0).all()
     torch.cuda.synchronize()
+
+
+# -- an f16 index past 65,536 groups (the float16 benchmark cell's shape) ---
+
+F16_HIER_ROWS = 8_400_000   # 65,632 groups: hierarchical phase 2
+
+
+def _mixture_rows(dev, n, d, g, cents):
+    """n normalised rows of a Gaussian mixture around ``cents``."""
+    x = cents[torch.randint(0, cents.shape[0], (n,), generator=g,
+                            device=dev)]
+    x = x + 0.6 * torch.randn((n, d), generator=g, device=dev)
+    return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+
+def test_f16_index_past_65536_groups(dev):
+    """An f16 inner-product index of 8.4M normalised mixture rows (65,632
+    groups, so the sweeps also write the supergroup maxes and phase 2 ranks
+    them first) searched by 100 queries (nq_pad 104). On each sweep route,
+    K7 (one query plane) and K6 (two: tier 1 and a pinned shape), the
+    eager search launches that sweep and the block max once, its replays
+    equal it bit for bit, and every certified row returns the plain path's
+    ids, distances within the rescore term. K11 over K7's nominated groups
+    equals K10 → K9 bit for bit and the plain version's ids, and the
+    supergroup maxes equal block_max_plain of the same launch's gm."""
+    from faiss_tpu_torch import calls
+
+    d, k = 96, 10
+    g = torch.Generator(device=dev).manual_seed(24)
+    cents = torch.randn((1024, d), generator=g, device=dev)
+    idx = TorchIndexFlat(d, metric="IP", storage="f16", device=dev)
+    for i0 in range(0, F16_HIER_ROWS, 1_000_000):
+        n = min(1_000_000, F16_HIER_ROWS - i0)
+        idx.add(_mixture_rows(dev, n, d, g, cents).cpu().numpy())
+    xq = _mixture_rows(dev, 100, d, g, cents).cpu().numpy()
+    q, nq, nq_pad = idx._prep_queries(xq)
+    st, nv_eff = idx.store, 8_400_896
+    assert nq_pad == 104 and nv_eff // 128 == 65_632
+    with programs.eager():
+        plain = idx._run_search_fn(q, k, nq_pad, force_plain=True)
+    d_p, i_p, _ = calls.unpack(plain[0].cpu().numpy(), k)
+    tol = rescore_term(q[:nq], torch.sqrt(torch.amax(st.norms[:nv_eff])),
+                       st.norms, nv_eff, d, MetricType.INNER_PRODUCT)
+    for full_sweep, name in ((False, "sweep_f16_1"), (True, "sweep_f16_2")):
+        n0 = dict(kernels.launches)
+        with programs.eager():
+            ref = idx._run_search_fn(q, k, nq_pad, force_plain=False,
+                                     full_sweep=full_sweep)
+        assert ref[1] and ref[2] == (not full_sweep)
+        assert kernels.launches[name] == n0[name] + 1
+        assert kernels.launches["sweep_block_max"] == \
+            n0["sweep_block_max"] + 1
+        assert _replays_equal_eager(idx, xq, k, force_plain=False,
+                                    full_sweep=full_sweep)
+        d_f, i_f, cert = calls.unpack(ref[0].cpu().numpy(), k)
+        cert = cert[:nq]
+        print(f"{name}: {int(cert.sum())} of {nq} queries certified")
+        assert cert.any()
+        np.testing.assert_array_equal(i_f[:nq][cert], i_p[:nq][cert])
+        err = np.abs(d_f[:nq] - d_p[:nq]).max(axis=1)
+        assert (err[cert] <= tol.cpu().numpy()[cert]).all()
+    # K7's launch, its supergroup maxes, phase 2 over them, then K11
+    metric = MetricType.INNER_PRODUCT
+    vn = fused._premask_norms(st.norms, idx.ntotal, nv_eff, metric)
+    q1, _ = fused.query_planes(q, 1)
+    gm, bmax = kernels.sweep_f16(q1, None, st.db, vn, metric=metric,
+                                 with_block_max=True)
+    assert torch.equal(bmax.view(torch.int32),
+                       fused.block_max_plain(gm).view(torch.int32))
+    gidx, _ = fused._top_groups_from_bmax(gm, bmax, k + fused.GROUP_PAD,
+                                          nv_eff // 128)
+    gidx = torch.sort(gidx, dim=-1).values.to(torch.int32).contiguous()
+    n0 = kernels.launches["rescore_select_f16"]
+    vals, ids = kernels.rescore_select_groups(q, st.db, vn, gidx, idx.ntotal,
+                                              k=k, metric=metric)
+    assert kernels.launches["rescore_select_f16"] == n0 + 1
+    cols = fused.candidate_columns(gidx)
+    s = kernels.rescore_groups(q, st.db, vn, gidx, metric=metric)
+    v2, p2 = kernels.final_select(
+        s.masked_fill(fused.candidate_drop(gidx, idx.ntotal),
+                      float("-inf")), k)
+    assert torch.equal(vals.view(torch.int32), v2.view(torch.int32))
+    assert torch.equal(ids, torch.gather(cols, 1, p2.to(torch.int64)))
+    _, ip = fused.rescore_select_groups_plain(q, st.db, vn, gidx, idx.ntotal,
+                                              k=k, metric=metric)
+    assert torch.equal(ids, ip)
+    torch.cuda.synchronize()
