@@ -21,6 +21,10 @@ it. Each path's launch counts are zeroed just before it and read just after:
             default_rng(SEED + 2) in 1M batches): 78,128 groups, so the
             sweep also writes its supergroup maxes and phase 2 goes
             hierarchical; its plain path's time at the same size beside it
+  f16_cell  K6 alone at the f16 cell's shape: 10M normalised f16 rows
+            at d 96 (the k-steps past d in the last chunk not issued), IP,
+            nq_pad 104, with its supergroup maxes, against its plain
+            version; its launch counts zeroed just before it
   surface   the flat surface at 1M through its entry points: filtered f32
             and bf16 searches, a k=64 f32 search, rescore_select=True on the
             bf16, int8 and f16 stores, merge_from, remove_ids, range_search,
@@ -623,11 +627,27 @@ def _k10_f16_legacy(torch, q, db, vn, gidx, metric, s, legacy):
         legacy["ms"]["rescore_groups_f16"] = graph_ms(torch, run_legacy, 50)
 
 
+def _f16_sweep_planes(q, passes):
+    """((q_hi, q_lo, scales), f16_planes) of the f16 rows' sweep on the
+    card, as ``fused_search`` makes them: two passes sweep the f16 split
+    (K6), which the certificate also reads; one pass the bf16 plane (K7)."""
+    from faiss_tpu_torch.ops import fused
+    from faiss_tpu_torch.storage import split_f32_f16
+
+    accum = fused.sweep_accum("f16", passes, q.device)
+    if fused.sweep_query_split("f16", passes, accum) == "f16":
+        planes = split_f32_f16(q)
+        return planes, planes
+    return (*fused.query_planes(q, passes), None), None
+
+
 def phase_f16_kernels(torch, idx, xq, metric, legacy):
-    """K6 (two query planes) and K7 (one), both on the tensor cores
-    (accum="mma"), against their plain version within the pair ε with the
-    f16 split statistics (single_pass for K7), K10's f16 mode within its
-    rescore term and bit for bit PR 10's kernel."""
+    """K6 (two f16 query planes over the stored rows) and K7 (one bf16
+    plane over the decoded pair), both on the tensor cores (accum="mma"),
+    against their plain version within the ε of their split (K6: the f16
+    split's; K7: the pair ε with the f16 split statistics, single_pass),
+    K10's f16 mode within its rescore term and bit for bit the
+    thread-per-row kernel it replaced."""
     from faiss_tpu_torch.ops import fused, kernels
 
     q, nq_pad, nv_eff, vn = _shapes(idx, xq, metric)
@@ -635,24 +655,30 @@ def phase_f16_kernels(torch, idx, xq, metric, legacy):
     db = st.db
     rows = {}
     for passes in (2, 1):
-        qh, ql = fused.query_planes(q, passes)
+        (qh, ql, sc), f16_planes = _f16_sweep_planes(q, passes)
         eps = fused._sweep_eps(q, st.norms, idx.ntotal, metric=metric,
                                d_pad=st.d_pad, single_pass=passes == 1,
                                pair_sweep=True, split_stats=st.split_stats,
                                accum=fused.sweep_accum("f16", passes,
-                                                       q.device))[:, None]
-        gm = kernels.sweep_f16(qh, ql, db, vn, metric=metric)
-        gm_p = fused.sweep_f16_plain(qh, ql, db, vn, metric=metric)
+                                                       q.device),
+                               f16_planes=f16_planes)[:, None]
+        gm = kernels.sweep_f16(qh, ql, db, vn, metric=metric, scales=sc)
+        gm_p = fused.sweep_f16_plain(qh, ql, db, vn, metric=metric,
+                                     scales=sc)
         name = f"sweep_f16_{passes}"
         planes = (qh,) if ql is None else (qh, ql)
+        # K6: qh·v + ql·v; K7: q1·dh + q1·dl
         rows[name] = _row(
             torch, _within(torch, gm, gm_p, eps, name),
-            lambda: kernels.sweep_f16(qh, ql, db, vn, metric=metric),
-            lambda: fused.sweep_f16_plain(qh, ql, db, vn, metric=metric),
-            20, _sweep_bound(planes, (db,), vn, gm, passes + 1, "f16"))
+            lambda: kernels.sweep_f16(qh, ql, db, vn, metric=metric,
+                                      scales=sc),
+            lambda: fused.sweep_f16_plain(qh, ql, db, vn, metric=metric,
+                                          scales=sc),
+            20, _sweep_bound(planes, (db,), vn, gm, 2, "f16"))
         _block_max(torch, name,
                    lambda bm: kernels.sweep_f16(qh, ql, db, vn, metric=metric,
-                                                with_block_max=bm))
+                                                with_block_max=bm,
+                                                scales=sc))
         if passes == 2:
             gidx, _ = kernels.select_groups(gm, K + fused.GROUP_PAD)
     v_max = torch.sqrt(torch.amax(st.norms)) * fused._QUANT_V
@@ -673,8 +699,8 @@ def phase_f16_kernels(torch, idx, xq, metric, legacy):
 
 def phase_truncation_adversary(torch, dev="cuda"):
     """The tensor-core sweeps with float sums (K3 and K4, with one query
-    plane, over the f32 planes, K1 over bf16 rows, K6 and K7, with one
-    query plane, over f16 bits) on the
+    plane, over the f32 planes, K1 over bf16 rows, K6 (against the f16
+    query split) and K7, with one query plane, over f16 bits) on the
     truncation adversary of tests/test_torch_mma_eps.py: the query
     [1, s, …, s] against rows [1, −s, …, −s] scaled by 2^j in group j
     (s = 2^-12·1.4140625, s² just under ulp(1) = 2^-23; exact in bf16 and
@@ -715,13 +741,18 @@ def phase_truncation_adversary(torch, dev="cuda"):
             "sweep_f16_1": (kernels.sweep_f16, (x.to(torch.float16),),
                             stats, 1)}
     errs = {}
+    (fh, fl, sc), f16_planes = _f16_sweep_planes(q, 2)
     for name, (fn, dbs, st, passes) in runs.items():
         planes = (qh, ql) if passes == 2 else fused.query_planes(q, 1)
-        gap = (fn(*planes, *dbs, vn, metric=ip).double() - exact).abs()
+        kw, fp = {}, None
+        if name == "sweep_f16_2":
+            planes, kw, fp = (fh, fl), dict(scales=sc), f16_planes
+        gap = (fn(*planes, *dbs, vn, metric=ip, **kw).double()
+               - exact).abs()
         eps = fused._sweep_eps(q, (x * x).sum(-1), ng * 128, metric=ip,
                                d_pad=d, single_pass=passes == 1,
                                pair_sweep=st is not None, split_stats=st,
-                               accum="mma")[:, None]
+                               accum="mma", f16_planes=fp)[:, None]
         check(bool((gap <= eps.double()).all()),
               f"{name}: beyond the mma ε on the truncation adversary")
         errs[name] = float((gap / unit).max())
@@ -959,6 +990,79 @@ def _k3_block_max_10m(torch, idx, xq):
     del gm, bmax
     torch.cuda.empty_cache()
     return row
+
+
+def _k6_at_the_cell_width(torch, dev="cuda"):
+    """K6 at the f16 cell's shape (benchmark/configs/deep10m-ip-f16.json:
+    10M normalised rows in f16 at d 96, IP, 100 normalised queries padded
+    with zero rows to nq_pad 104) with its supergroup maxes, as
+    fused_search launches it there: the query planes in registers and the
+    k-steps of the last chunk that lie wholly past d 96 not issued. Launch
+    counts zeroed just before its one eager launch: one sweep_f16_2 with
+    its block max, no sweep_f16_1. Its gm within
+    _sweep_eps(accum="mma", f16_planes=) of sweep_f16_plain on the same
+    planes and scales (timed once: ≈ 17 GB of fp32 copies and products),
+    its block max bit for bit against block_max_plain of that gm, the
+    kernel by graph replay; the table's ``sweep_f16_2`` entry's
+    ``at_d96_10m``. Returns (counts, row)."""
+    from faiss_tpu_torch import MetricType
+    from faiss_tpu_torch.ops import fused, kernels
+    from faiss_tpu_torch.storage import (ROW_TILE, _round_up,
+                                         encode_f16_bits,
+                                         flush_f16_subnormals, split_f32_f16)
+
+    ip, d = MetricType.INNER_PRODUCT, 96
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def normalised(n):
+        x = torch.randn((n, d), generator=g, device=dev)
+        return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+    nv_eff = _round_up(NV_10M, ROW_TILE)
+    db = torch.zeros((nv_eff, d), dtype=torch.float16, device=dev)
+    norms = torch.zeros((nv_eff,), device=dev)
+    for i0 in range(0, NV_10M, NV):
+        x = normalised(NV)
+        db[i0:i0 + NV] = flush_f16_subnormals(encode_f16_bits(x))
+        norms[i0:i0 + NV] = (x * x).sum(-1)
+    q = torch.zeros((104, d), device=dev)
+    q[:NQ] = normalised(NQ)
+    vn = fused._premask_norms(norms, NV_10M, nv_eff, ip)
+    planes = split_f32_f16(q)
+    qh, ql, sc = planes
+    check(fused.sweep_query_split("f16", 2, fused.sweep_accum(
+        "f16", 2, q.device)) == "f16", "f16 cell: K6 does not take the "
+          "f16 split")
+
+    def launch():
+        return kernels.sweep_f16(qh, ql, db, vn, metric=ip,
+                                 with_block_max=True, scales=sc)
+
+    def plain():
+        return fused.sweep_f16_plain(qh, ql, db, vn, metric=ip,
+                                     with_block_max=True, scales=sc)
+
+    kernels.reset_launches()
+    gm, bmax = launch()
+    counts = dict(kernels.launches)
+    check(counts["sweep_f16_2"] == 1 and counts["sweep_block_max"] == 1
+          and counts["sweep_f16_1"] == 0,
+          f"f16 cell: expected one K6 launch with its block max, {counts}")
+    check(torch.equal(bmax.view(torch.int32),
+                      fused.block_max_plain(gm).view(torch.int32)),
+          "f16 cell: K6's block max differs from amax of its group maxes")
+    eps = fused._sweep_eps(q, norms, NV_10M, metric=ip, d_pad=d,
+                           accum="mma", f16_planes=planes)[:, None]
+    err = _within(torch, gm, plain()[0], eps, "f16 cell sweep_f16_2")
+    row = _row(torch, err, launch, plain, 10,
+               _sweep_bound((qh, ql), (db,), vn, gm, 2, "f16",
+                            extra=(bmax,)), plain_reps=1)
+    print(f"K6 + block max at the f16 cell's shape (d {d}, nq_pad 104, "
+          f"nv_eff {nv_eff}):", flush=True)
+    _print_rows(ip, {"sweep_f16_2": row})
+    del db, norms, gm, bmax
+    torch.cuda.empty_cache()
+    return counts, row
 
 
 def _fused_call(idx, xq, **kw):
@@ -2380,6 +2484,8 @@ def main() -> int:
     # frees what it builds
     (counts["f32_10m"], rows["sweep_block_max"],
      programs["f32_10m"]) = phase_f32_10m(torch, ft, xb, xq)
+    counts["f16_cell_k6"], rows["sweep_f16_2_d96"] = \
+        _k6_at_the_cell_width(torch)
     counts["surface"] = phase_surface(torch, ft, xb, xq, f32[L2], bf16[L2],
                                       int8[L2], f16[L2])
     programs["range_1m"] = range_programs_row(torch, f32[L2], xq)
@@ -2445,9 +2551,11 @@ def main() -> int:
         if key in legacy["ms"]:   # PR 10's kernel, timed in this run
             entry["legacy_ms"] = legacy["ms"][key]
         # K9 at the f32 path's stage-3b width, (nq_pad, k + 22); K8 at its
-        # stage-3a shape, (nq_pad, kg·128) with m = k + 22
+        # stage-3a shape, (nq_pad, kg·128) with m = k + 22; K6 at the f16
+        # cell's shape
         at = {"final_select": ("at_ncand_32", "final_select_32"),
-              "select_groups": ("at_ncols_1792", "select_groups_1792")}
+              "select_groups": ("at_ncols_1792", "select_groups_1792"),
+              "sweep_f16_2": ("at_d96_10m", "sweep_f16_2_d96")}
         if key in at:
             err, ms, pms, (bms, by), lms = rows[at[key][1]]
             entry[at[key][0]] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,

@@ -5,22 +5,27 @@
 //               K2, the same, one query plane   acc = q1·v
 //   F32_PLANES  K3, the f32 rows' bf16 planes   acc = (qh·dh + qh·dl) + ql·dh
 //               K4, the same, one query plane   acc = q1·dh + q1·dl
-//   F16_BITS    K6, the f16 bits, decoded to    acc = (qh·dh + qh·dl) + ql·dh
-//               their exact bf16 pair (dh, dl)
-//               K7, the same, one query plane   acc = q1·dh + q1·dl
+//   F16_BITS    K6, the f16 rows v as stored,   acc = fl(fl(2^-eh·(qh·v))
+//               f16 query planes                         + fl(2^-el·(ql·v)))
+//               K7, one bf16 query plane, the   acc = q1·dh + q1·dl
+//               rows decoded to their exact
+//               bf16 pair (dh, dl)
 //   INT8_CODES  K5, the int8 codes v            dot = fl(fl(β₁·f32(q₁·v))
 //                                                       + fl(β₂·f32(q₂·v)))
 // (each product term its own accumulator, the terms added once at the end,
-// left to right).
+// left to right; K6 and K5 scale each term by its query's factor first).
 //
 // Replaces faiss_tpu/ops/pallas_fused.py _kernel_qpair (:174), _kernel_q1
 // (:190), _kernel_split (:239), _kernel_split2 (:204), _kernel_f16_pair
 // (:259), _kernel_f16_1 (:281) and _kernel_int8 (:219), launched by
 // _sweep_call (:376) from groupmax_scores, with their shared _epilogue. The
 // fp32 query is its bit-mask split qh, ql (bf16), or with one plane (K2, K4,
-// K7) its RNE rounding
-// q1 to bf16; the int8 route's q∘s its residual expansion β₁·q₁ + β₂·q₂
-// (ops/fused.int8_query_pair: q₁, q₂ int8, β₁, β₂ f32 per query). For every query q and 128-row group g:
+// K7) its RNE rounding q1 to bf16; K6's its f16 split (storage.split_f32_f16:
+// qh·2^-eh holds q's leading 11 bits, ql·2^-el the next 11, each plane
+// scaled per query by a power of two into f16's range, both truncated
+// toward zero); the int8 route's q∘s its residual expansion β₁·q₁ + β₂·q₂
+// (ops/fused.int8_query_pair: q₁, q₂ int8, β₁, β₂ f32 per query). For
+// every query q and 128-row group g:
 //     gm[q, g] = max over the rows r of g of  2·acc − vn[r]  (L2)
 //                                         or    acc − vn[r]  (IP)
 // (acc = dot for int8), with vn the pre-masked norm stream (+inf on padding
@@ -37,8 +42,8 @@
 // same work needs 1.19 ms at the 67 TFLOP/s fp32 peak, so the products run
 // on the tensor cores (wgmma, bf16 in, fp32 accumulate) and the bytes bound
 // it. K1 reads half the bytes (256 MB, 0.079 ms) for two thirds of the
-// products. K6 reads K1's bytes for K3's products (operations bound it:
-// 0.081 ms). K2 reads K1's bytes for half its products (0.027 ms): bytes
+// products. K6 is K1 over f16 rows (f16 in, at the bf16 rate): K1's bytes
+// and products. K2 reads K1's bytes for half its products (0.027 ms): bytes
 // bind it more than any other. K7 reads K1's bytes for K1's products (two
 // terms, 0.054 ms): the bytes bound it, but its decode in shared memory and
 // its products bind it (scripts/k3_variants.py no_load). K4 reads K3's bytes
@@ -47,14 +52,11 @@
 // cores (wgmma s8 × s8, s32 accumulate: 0.027 ms at 1979 TOP/s). Design:
 //   - one block per SM (persistent): two consumer warpgroups, one per 64
 //     queries of the block's 128-query tile (wgmma's M side), one producer
-//     warp and, for F16_BITS, three decode warps beside it in the third
-//     warpgroup (288 or 384 threads: four warps on one of the SM's four
-//     register files would cap a thread at 128 registers, and K6's
-//     consumers need 148); K7 takes four decode warps (416 threads): with
-//     one query plane the decode binds more, and its consumers fit 128
-//     registers (52 bytes of spills with q1 in registers); it runs 13 %
-//     faster than with three, and no faster with seven
-//     (scripts/k3_variants.py ndec96, ndec224; PERF.md);
+//     warp (288 threads) and, for K7, four decode warps beside it in the
+//     third warpgroup (416 threads: with one query plane its consumers fit
+//     128 registers, 52 bytes of spills with q1 in registers; four decode
+//     warps ran 13 % faster than three and no slower than seven,
+//     scripts/k3_variants.py ndec96, ndec224; PERF.md);
 //   - the block walks a contiguous run of whole supergroups (8 groups);
 //     each group is 128 / BN tiles of BN rows (wgmma's N side, 64); each
 //     tile runs over d in chunks of one 128-byte row (KC: 64 two-byte
@@ -68,15 +70,25 @@
 //     barrier) into a ring of their own beside the stages, so no consumer
 //     waits on device memory for them (a per-thread load at each tile's
 //     start measured slower, most for K5's one-chunk tiles);
-//   - F16_BITS: the ring holds the raw f16 tile; the decode warps wait
-//     for it, rewrite it in place as the hi tile and write the lo tile
-//     beside it (the 128-byte swizzle is a function of the byte address
-//     and both types are 2 bytes wide, so element (r, k) has the same
-//     offset in all three: element for element, no index arithmetic),
-//     fence their generic-proxy writes for the async proxy
+//   - K6: a stored f16 row is an exact f16 wgmma operand, so the f16 tile
+//     TMA lands is the B operand as it is, against f16 query planes, and
+//     K6 is K1 with f16 inputs: one 2-byte db plane, two query planes; the
+//     products (f32.f16.f16) run at the bf16 rate, and each term's
+//     accumulator is scaled by its plane's power of two in the epilogue (a
+//     decode to the bf16 pair, as K7's, with K3's three terms would cost
+//     24 KB of shared-memory traffic and a proxy fence for every 8 KB tile
+//     before its first product). Without K1's turns: they made K6 no
+//     faster, and with the k-tail skipped (below) ptxas serializes its
+//     wgmma under them (C7520; scripts/k3_variants.py ordered, ktail);
+//   - K7 (the only decoding sweep): the ring holds the raw f16 tile; the
+//     decode warps wait for it, rewrite it in place as the hi tile and
+//     write the lo tile beside it (the 128-byte swizzle is a function of
+//     the byte address and both types are 2 bytes wide, so element (r, k)
+//     has the same offset in all three: element for element, no index
+//     arithmetic), fence their generic-proxy writes for the async proxy
 //     (fence.proxy.async) and arrive on the stage's decoded mbarrier,
 //     which the consumers wait for in place of the full one; from there
-//     the products are K3's;
+//     the products are K4's;
 //   - a consumer runs its products × 4 k-steps of wgmma per chunk (bf16
 //     m64n64k16, int8 m64n64k32: 32 bytes a step either way, so the
 //     shared-memory descriptor advances by 2), one accumulator set of 32
@@ -89,9 +101,10 @@
 //   - K1, K2: the two warpgroups take turns issuing a tile's products
 //     (named barriers), so that one's epilogue runs under the other's
 //     products;
-//   - one db plane in the products (K1, K2, K5), or one query plane (K4,
-//     K7): where the query planes fit 8 k-steps (K1, K2, K4, K7 at 64 < d ≤ 128,
-//     the main path's 128; K5 at d ≤ 128, one chunk) they are wgmma A
+//   - one db plane in the products (K1, K2, K6, K5), or one query plane
+//     (K4, K7): where the query planes fit 8 k-steps (K1, K2, K4, K6, K7 at
+//     64 < d ≤ 128, the main path's 128 and Deep's 96; K5 at d ≤ 128, one
+//     chunk) they are wgmma A
 //     fragments in registers (read once from device memory, used by every
 //     term), which halves the shared-memory reads of the products;
 //   - one query plane (K2, K4, K7): one A operand, a query tile of 16 KB a
@@ -99,8 +112,10 @@
 //     K4 and K7 two: q1·dh and q1·dl); the rest is K1's, K3's or K6's (K4
 //     is K7 without the decode warps: the producer loads both planes);
 //   - a d that is not a multiple of KC gets its k-tail zero-filled by TMA
-//     (out-of-bounds fill): its k-steps add exact zeros (an f16 zero
-//     decodes to the pair (0, 0)).
+//     (out-of-bounds fill): its k-steps add exact zeros (K7: an f16 zero
+//     decodes to the pair (0, 0)); K6 with A in registers does not issue
+//     the k-steps wholly past d (at d 96 a quarter of its products: 1.21
+//     against 1.36–1.45 ms at the f16 cell's shape, PERF.md §6).
 // scripts/k3_variants.py times each kernel against patched copies of
 // itself (no products, no loads, the rejected designs; CUDA graph replay,
 // NVIDIA H100 80GB HBM3, 700.00 W; PERF.md has the numbers and says what
@@ -117,8 +132,9 @@
 // Arithmetic (what the certificate ops/fused._sweep_eps(accum="mma")
 // assumes for BF16_ROWS, F32_PLANES and F16_BITS). Each product term a·b (a
 // a query plane, b a db plane, d long) accumulates in one fp32 wgmma
-// accumulator over ⌈d/16⌉ k-steps. A k-step adds 16 bf16×bf16 products,
-// each exact in fp32, to the accumulator D; the tensor core's sum is not
+// accumulator over ⌈d/16⌉ k-steps. A k-step adds 16 bf16×bf16 (K6:
+// f16×f16, 11 + 11 significand bits) products, each exact in fp32, to the
+// accumulator D; the tensor core's sum is not
 // proven round-to-nearest and may lack guard bits (Fasi, Higham, Mikaitis,
 // Pranesh, PeerJ CS 2021, on earlier NVIDIA tensor cores: alignment to the
 // largest exponent by truncation, then a truncating normalisation). The
@@ -133,11 +149,18 @@
 // ‖ql‖·‖dh‖ ≤ L·V) then add in two round-to-nearest fp32 adds (≤ 2u·the
 // same sum):
 //     (36·⌈d/16⌉ + 2)·u·[(Q+R)·(V+s0) + L·V],
-// about 2.2× the (d+2)·u of the CUDA-core fmaf chains at d = 128. K6's
-// decoded pair is K3's planes exactly (dh + dl == v, s1 = 0 on finite
-// data), so the same budget holds with the f16 split statistics. K1's two
+// about 2.2× the (d+2)·u of the CUDA-core fmaf chains at d = 128. K1's two
 // (‖qh‖·‖v‖ ≤ (Q+R)·V, ‖ql‖·‖v‖ ≤ L·V) add in one (≤ u·the sum): the same
-// budget with s0 = 0, as _sweep_eps(accum="mma") charges bf16 rows. K2's
+// budget with s0 = 0, as _sweep_eps(accum="mma") charges bf16 rows. K6 is
+// K1's two terms over the stored f16 rows, used whole and exactly (s0 =
+// s1 = 0), with R = ‖q − qh·2^-eh − ql·2^-el‖ and L = ‖ql·2^-el‖ of the f16
+// split (_sweep_eps(f16_planes=...): R ≈ 2^-22·Q where the bf16 pair
+// leaves ≈ 2^-16·Q). The planes are truncations of q toward zero, so
+// ‖qh·2^-eh‖ ≤ Q; a term accumulates in the scaled space, where the model
+// holds as it does unscaled, and its power of two multiplies it exactly
+// (__fmul_rn, barring underflow below fp32's normal range, which no
+// bound here charges); the one round-to-nearest add of the two scaled
+// terms ≤ u·the sum. K2's
 // one term q1·v (‖q1‖ ≤ Q+R, R = ‖q − q1‖; ‖v‖ ≤ V) errs ≤ 36·⌈d/16⌉·u·
 // (Q+R)·V and is added to nothing: the same budget with L = 0 and s0 = 0
 // (single_pass=True), whose +2u is slack. At d = 128 its term (2) is 290u
@@ -146,7 +169,8 @@
 // statistics) err ≤ 36·⌈d/16⌉·u·(Q+R)·V and ≤ 36·⌈d/16⌉·u·(Q+R)·s0, and
 // their one round-to-nearest add ≤ u·(Q+R)·(V+s0): inside
 // (36·⌈d/16⌉ + 2)·u·(Q+R)·(V+s0), the budget with L = 0 (single_pass=True,
-// pair_sweep=True), s1 = 0 on finite data as for K6. K4 is the same two
+// pair_sweep=True), s1 = 0 on finite data (the decoded pair is exact,
+// dh + dl == v). K4 is the same two
 // terms over the f32 rows' planes (‖dl‖ ≤ s0, the f32 split statistics):
 // the same budget, each term in its own accumulator and the two added once,
 // round to nearest (a single accumulator over both terms would need another
@@ -187,13 +211,19 @@ struct Rows {
   static constexpr bool INT8 = F == INT8_CODES;
   static constexpr int EW = INT8 ? 1 : 2;          // bytes an element
   static constexpr int KC = ROW_BYTES / EW;        // elements a k chunk
-  // db planes in the products (K3, K6: dh and dl), and of them the ones
-  // TMA loads (K6 loads the f16 bits into dh's slot and decodes them)
-  static constexpr int PLANES = F == F32_PLANES || F == F16_BITS ? 2 : 1;
+  // K6: the stored f16 tile is the B operand of an f16 wgmma as TMA lands
+  // it, against f16 query planes; K7 decodes it to its exact bf16 pair
+  static constexpr bool F16_MMA = F == F16_BITS && QP == 2;
+  static constexpr bool DECODE = F == F16_BITS && QP == 1;
+  // db planes in the products (K3, K7: dh and dl), and of them the ones
+  // TMA loads (K7 loads the f16 bits into dh's slot and decodes them)
+  static constexpr int PLANES = F == F32_PLANES || DECODE ? 2 : 1;
   static constexpr int LOADS = F == F32_PLANES ? 2 : 1;
-  static constexpr bool DECODE = F == F16_BITS;
   // product terms: each query plane times each db plane, but ql·dl
   static constexpr int TERMS = PLANES == 2 ? QP + 1 : QP;
+  // the epilogue scales each term by its query's factor: K5's β, K6's
+  // powers of two
+  static constexpr bool SCALED = INT8 || F16_MMA;
   static constexpr int A_BYTES = QP * A_PLANE;     // the query planes' chunk
   static constexpr int BN = F == BF16_ROWS ? K1_BN : 64;
   static constexpr int ACC = BN / 2;               // accumulators a term
@@ -204,11 +234,11 @@ struct Rows {
   // stages of ≥ 16 KB: 8 (K3's measured ring); 8 KB tiles: 16
   static constexpr int STAGES = B_BYTES >= 16384 ? 8 : MAX_STAGES;
   // the warpgroups take turns issuing a tile's products (K1, K2; K5 ran
-  // faster without, its tiles one chunk long)
+  // faster without, its tiles one chunk long, and K6 no faster with them)
   static constexpr bool ORDERED = F == BF16_ROWS;
-  // the decode warps: K6 three, K7 four (its one query plane leaves the
-  // decode more to bind: scripts/k3_variants.py ndec96, ndec224)
-  static constexpr int NDEC = DECODE ? (QP == 1 ? 128 : 96) : 0;
+  // K7's four decode warps (its one query plane leaves the decode more to
+  // bind: scripts/k3_variants.py ndec96, ndec224)
+  static constexpr int NDEC = DECODE ? 128 : 0;
   static constexpr int NTHREADS = NCONS + NDEC + 32;
   using acc_t = std::conditional_t<INT8, int, float>;
 };
@@ -239,49 +269,61 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          | (static_cast<uint64_t>(1) << 62);
 }
 
+// the 32 fp32 accumulator operands of a 64×64 wgmma
+#define FT_ACC32                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31])
+// m64n64k16 with fp32 accumulators over inputs of type T (bf16, f16): A
+// and B from shared memory, or A from registers
+#define FT_WGMMA_SS(T)                                                     \
+  "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"                          \
+  " wgmma.mma_async.sync.aligned.m64n64k16.f32." T "." T " "               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+#define FT_WGMMA_RS(T)                                                     \
+  "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"                          \
+  " wgmma.mma_async.sync.aligned.m64n64k16.f32." T "." T " "               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+
 // D (64×64 fp32, 32 registers a thread) = A·B + (scale_d ? D : 0), A 64×16
-// and B 16×64 bf16, both K-major in shared memory.
+// and B 16×64 bf16 (F16: f16), both K-major in shared memory.
+template <bool F16>
 __device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da,
                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (F16)
+    asm volatile(FT_WGMMA_SS("f16") : FT_ACC32
+                 : "l"(da), "l"(db), "r"(scale_d));
+  else
+    asm volatile(FT_WGMMA_SS("bf16") : FT_ACC32
+                 : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // The wgmma of an N = BN tile: m64n64k16 (scripts/k3_variants.py's n128
 // variant adds m64n128k16 for K1_BN 128).
-// D (64×64 fp32) = A·B + (scale_d ? D : 0) with A 64×16 bf16 from
-// registers: a warp's 16 rows as mma.m16n8k16's A fragment (a[0] row
+// D (64×64 fp32) = A·B + (scale_d ? D : 0) with A 64×16 bf16 (F16: f16)
+// from registers: a warp's 16 rows as mma.m16n8k16's A fragment (a[0] row
 // lane/4, columns 2·(lane%4) + {0, 1}; a[1] 8 rows down; a[2], a[3] 8
-// columns on), two bf16 a register, the lower column in the low half.
+// columns on), two elements a register, the lower column in the low half.
+template <bool F16>
 __device__ __forceinline__ void wgmma_rs_64x64(float (&d)[32],
                                                const uint32_t (&a)[4],
                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  if constexpr (F16)
+    asm volatile(FT_WGMMA_RS("f16") : FT_ACC32
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(scale_d));
+  else
+    asm volatile(FT_WGMMA_RS("bf16") : FT_ACC32
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(scale_d));
 }
 
 // D (64×64 s32) = A·B + (scale_d ? D : 0), A 64×32 and B 32×64 int8, both
@@ -328,22 +370,25 @@ __device__ __forceinline__ void wgmma_s8_rs_64x64(int (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-template <int N>
+// F16: f16 inputs (K6), else bf16; the integer forms take int8 alone
+template <int N, bool F16>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
                                       uint64_t db, int scale_d) {
   static_assert(N == 64, "wgmma: N = 64 only");
-  wgmma_64x64(d, da, db, scale_d);
+  wgmma_64x64<F16>(d, da, db, scale_d);
 }
-template <int N>
+template <int N, bool F16>
 __device__ __forceinline__ void wgmma(int (&d)[N / 2], uint64_t da,
                                       uint64_t db, int scale_d) {
   wgmma_s8_64x64(d, da, db, scale_d);
 }
+template <bool F16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  wgmma_rs_64x64(d, a, db, scale_d);
+  wgmma_rs_64x64<F16>(d, a, db, scale_d);
 }
+template <bool F16>
 __device__ __forceinline__ void wgmma_rs(int (&d)[32], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
   wgmma_s8_rs_64x64(d, a, db, scale_d);
@@ -417,18 +462,24 @@ __device__ __forceinline__ void split_f16x8(const uint4 w, uint4& hi,
   split_f16x2(w.w, hi.w, lo.w);
 }
 
-// The score of accumulator entry i: the terms added left to right (int8:
-// β₁·f32(a₁) + β₂·f32(a₂), beta the entry's query's (β₁, β₂)), then the
-// epilogue.
-template <bool L2, int TERMS, int ACC>
+// The score of accumulator entry i: the terms added left to right, or with
+// SCALED each term first times its factor, sc the entry's query's (K6:
+// its planes' powers of two 2^-eh, 2^-el, exact products; int8:
+// β₁·f32(a₁) + β₂·f32(a₂)); then the epilogue.
+template <bool L2, bool SCALED, int TERMS, int ACC>
 __device__ __forceinline__ float score(const float (&acc)[TERMS][ACC], int i,
-                                       float v, float2) {
-  float a = acc[0][i];
-  if constexpr (TERMS >= 2) a = __fadd_rn(a, acc[1][i]);
-  if constexpr (TERMS == 3) a = __fadd_rn(a, acc[2][i]);
+                                       float v, float2 sc) {
+  float a;
+  if constexpr (SCALED) {
+    a = __fadd_rn(__fmul_rn(acc[0][i], sc.x), __fmul_rn(acc[1][i], sc.y));
+  } else {
+    a = acc[0][i];
+    if constexpr (TERMS >= 2) a = __fadd_rn(a, acc[1][i]);
+    if constexpr (TERMS == 3) a = __fadd_rn(a, acc[2][i]);
+  }
   return __fsub_rn(L2 ? __fmul_rn(2.f, a) : a, v);
 }
-template <bool L2, int TERMS, int ACC>
+template <bool L2, bool SCALED, int TERMS, int ACC>
 __device__ __forceinline__ float score(const int (&acc)[TERMS][ACC], int i,
                                        float v, float2 beta) {
   const float a = __fadd_rn(__fmul_rn(__int2float_rn(acc[0][i]), beta.x),
@@ -441,8 +492,9 @@ __device__ __forceinline__ float score(const int (&acc)[TERMS][ACC], int i,
 // Maps: tq_hi, tq_lo the query planes (qh, ql; q₁, q₂; with QP = 1 qh
 // alone, the q1 of K2, and tq_lo unread), tv_hi the db plane TMA loads
 // (the bf16 rows, the hi plane, the f16 bits, the int8 codes), tv_lo the
-// f32 rows' lo plane (unread otherwise). beta: (nq, 2) β₁, β₂ (INT8_CODES
-// only). RSK chunks of the query planes (1, 2; 0: none) are read once from
+// f32 rows' lo plane (unread otherwise). beta: (nq, 2) β₁, β₂ (INT8_CODES),
+// or the f16 query planes' powers of two 2^-eh, 2^-el (K6); unread
+// otherwise. RSK chunks of the query planes (1, 2; 0: none) are read once from
 // q_hi, q_lo (nq, d) into registers as wgmma's A fragments, not by TMA,
 // and only the rows ride the ring (nkc is RSK).
 template <int F, int QP, bool L2, int RSK>
@@ -470,7 +522,7 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
   float* nring = reinterpret_cast<float*>(ring + nstages * stage_bytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(nring + nstages * S::BN);
   uint64_t* empty = full + nstages;
-  uint64_t* decoded = empty + nstages;   // F16_BITS: the decoded tiles
+  uint64_t* decoded = empty + nstages;   // K7: the decoded tiles
   uint64_t* a_bar = decoded + nstages;
   // the consumers' "stage ready": the decoded tile, or the loaded one
   uint64_t* ready = S::DECODE ? decoded : full;
@@ -586,13 +638,14 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
   uint32_t phase = 0;
   float m0 = -INFINITY, m1 = -INFINITY, bm0 = -INFINITY, bm1 = -INFINITY;
   using T = typename S::acc_t;
-  using Acc = T[S::TERMS][S::ACC];   // K3, K6: qh·dh, qh·dl, ql·dh; K1:
+  using Acc = T[S::TERMS][S::ACC];   // K3: qh·dh, qh·dl, ql·dh; K1, K6:
                                      // qh·v, ql·v; K2: q1·v; K4, K7: q1·dh,
                                      // q1·dl; K5: q₁·v, q₂·v
   using Norms = float2[S::BN / 8];
-  // the (β₁, β₂) of the thread's two queries (K5)
+  // the factors of the thread's two queries: (β₁, β₂) (K5), (2^-eh,
+  // 2^-el) (K6)
   float2 be0 = make_float2(0.f, 0.f), be1 = be0;
-  if constexpr (S::INT8) {
+  if constexpr (S::SCALED) {
     if (q0 < nq) be0 = __ldg(reinterpret_cast<const float2*>(beta) + q0);
     if (q1 < nq) be1 = __ldg(reinterpret_cast<const float2*>(beta) + q1);
   }
@@ -622,6 +675,9 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
       }
   }
 
+  // K6, A in registers: the last chunk's k-steps that reach d (d 96: 2 of
+  // 4); the ones past d would add the zero-filled k-tail's exact zeros
+  [[maybe_unused]] const int last_ks = (d - (RSK - 1) * S::KC + 15) / 16;
   // one chunk's products into acc (and, with the tile's first chunk, its
   // norms into w); then, once the chunk before it has been read
   // (wgmma.wait_group 1), that chunk's stage goes back to the producer
@@ -645,21 +701,25 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
     for (int ks = 0; ks < 4; ++ks) {
       const int on = (kc | ks) != 0;   // step 0 starts from zero
       if constexpr (RS) {
-        wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
+        if constexpr (S::F16_MMA)
+          if (kc == RSK - 1 && ks >= last_ks) continue;
+        wgmma_rs<S::F16_MMA>(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
         if constexpr (S::PLANES == 2)
-          wgmma_rs(acc[1], aq[0][4 * kc + ks],
-                   sw128_desc(b + S::B_PLANE) + 2 * ks, on);
+          wgmma_rs<S::F16_MMA>(acc[1], aq[0][4 * kc + ks],
+                               sw128_desc(b + S::B_PLANE) + 2 * ks, on);
         if constexpr (QP == 2)
-          wgmma_rs(acc[S::TERMS - 1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
+          wgmma_rs<S::F16_MMA>(acc[S::TERMS - 1], aq[1][4 * kc + ks],
+                               dvh + 2 * ks, on);
         continue;
       }
-      wgmma<S::BN>(acc[0], dqh + 2 * ks, dvh + 2 * ks, on);
+      wgmma<S::BN, S::F16_MMA>(acc[0], dqh + 2 * ks, dvh + 2 * ks, on);
       if constexpr (S::PLANES == 2) {
         const uint64_t dvl = sw128_desc(b + S::B_PLANE);
-        wgmma<S::BN>(acc[1], dqh + 2 * ks, dvl + 2 * ks, on);
+        wgmma<S::BN, S::F16_MMA>(acc[1], dqh + 2 * ks, dvl + 2 * ks, on);
       }
       if constexpr (QP == 2)
-        wgmma<S::BN>(acc[S::TERMS - 1], dql + 2 * ks, dvh + 2 * ks, on);
+        wgmma<S::BN, S::F16_MMA>(acc[S::TERMS - 1], dql + 2 * ks,
+                                 dvh + 2 * ks, on);
     }
     wgmma_commit();
     wgmma_wait_prev();   // the chunk before this one has been read
@@ -678,10 +738,10 @@ sweep_split_mma_kernel(const __grid_constant__ CUtensorMap tq_hi,
 #pragma unroll
     for (int j = 0; j < S::BN / 8; ++j) {
       const int i = 4 * j;
-      m0 = ft::nan_max(m0, score<L2>(acc, i, w[j].x, be0));
-      m0 = ft::nan_max(m0, score<L2>(acc, i + 1, w[j].y, be0));
-      m1 = ft::nan_max(m1, score<L2>(acc, i + 2, w[j].x, be1));
-      m1 = ft::nan_max(m1, score<L2>(acc, i + 3, w[j].y, be1));
+      m0 = ft::nan_max(m0, score<L2, S::SCALED>(acc, i, w[j].x, be0));
+      m0 = ft::nan_max(m0, score<L2, S::SCALED>(acc, i + 1, w[j].y, be0));
+      m1 = ft::nan_max(m1, score<L2, S::SCALED>(acc, i + 2, w[j].x, be1));
+      m1 = ft::nan_max(m1, score<L2, S::SCALED>(acc, i + 3, w[j].y, be1));
     }
   };
   // the group's max to gm (the 4 lanes of a row hold its 128 columns
@@ -808,12 +868,14 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const Args& a,
 }
 
 // The instance for the metric and the query planes' place: A fragments in
-// registers where the planes take RS_KC chunks (K1 and K2 at N = 64, K4
-// and K7: two, 64 < d ≤ 128; K5: one, d ≤ 128), else from shared memory.
+// registers where the planes take RS_KC chunks (K1 and K2 at N = 64, K4,
+// K6 and K7: two, 64 < d ≤ 128; K5: one, d ≤ 128), else from shared
+// memory.
 template <int F, int QP = 2>
 cudaError_t launch_metric(const CUtensorMap (&maps)[4], const Args& a, int l2,
                           cudaStream_t stream) {
   constexpr int RS_KC = F == BF16_ROWS && K1_BN == 64 ? 2
+                        : F == F16_BITS               ? 2
                         : F != INT8_CODES && QP == 1  ? 2
                         : F == INT8_CODES             ? 1
                                                       : 0;
@@ -829,33 +891,35 @@ cudaError_t launch_metric(const CUtensorMap (&maps)[4], const Args& a, int l2,
 }  // namespace
 
 // fmt (enum Fmt): BF16_ROWS (K1; K2 with q_lo null), F32_PLANES (K3; K4
-// with q_lo null), F16_BITS (K6; K7 with q_lo null) or INT8_CODES (K5). q_hi, q_lo: (nq, d)
-// query planes, bf16
-// (qh, ql; q1 and null: one plane) or int8 (q₁, q₂); db: (≥ ngroups·128,
-// d) rows: bf16 rows, the f32 rows' bf16 hi
-// plane, f16 bit patterns or int8 codes; db_lo: the f32 rows' lo plane
-// (F32_PLANES; else unread); beta: (nq, 2) f32 β₁, β₂ (INT8_CODES; else
-// unread); vn: (ngroups·128,) pre-masked norms; gm: (nq, ngroups) f32 out;
-// bmax: null, or the (nq, ngroups/8) supergroup maxes out (ngroups % 8 ==
-// 0). A row is a multiple of 16 bytes (d % 8 == 0; int8: d % 16 == 0), 16-
-// byte aligned, ngroups·128 < 2^31.
+// with q_lo null), F16_BITS (K6; K7 with q_lo null) or INT8_CODES (K5).
+// q_hi, q_lo: (nq, d) query planes, bf16 (qh, ql; q1 and null: one plane),
+// f16 (K6: qh, ql) or int8 (q₁, q₂); db: (≥ ngroups·128, d) rows: bf16
+// rows, the f32 rows' bf16 hi plane, f16 bit patterns or int8 codes; db_lo:
+// the f32 rows' lo plane (F32_PLANES; else unread); beta: (nq, 2) f32 β₁,
+// β₂ (INT8_CODES) or 2^-eh, 2^-el (K6), else unread; vn: (ngroups·128,)
+// pre-masked norms; gm: (nq, ngroups) f32 out; bmax: null, or the (nq,
+// ngroups/8) supergroup maxes out (ngroups % 8 == 0). A row is a multiple
+// of 16 bytes (d % 8 == 0; int8: d % 16 == 0), 16-byte aligned,
+// ngroups·128 < 2^31.
 extern "C" int ft_sweep_mma(int fmt, const void* q_hi, const void* q_lo,
                             const void* db, const void* db_lo, const void* vn,
                             const void* beta, void* gm, void* bmax, int nq,
                             int d, int ngroups, int l2, void* stream) {
   const bool int8 = fmt == INT8_CODES;
+  const bool f16_mma = fmt == F16_BITS && q_lo != nullptr;   // K6
   if (fmt < BF16_ROWS || fmt > INT8_CODES || nq <= 0 || ngroups <= 0
       || d <= 0 || d % (int8 ? 16 : 8) != 0
       || static_cast<long long>(ngroups) * ft::GROUP >= (1LL << 31)
       || (bmax != nullptr && ngroups % 8 != 0)
       || (fmt == F32_PLANES && db_lo == nullptr)
       || (int8 && q_lo == nullptr)
-      || (int8 && beta == nullptr))
+      || ((int8 || f16_mma) && beta == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const ft::EncodeTiled enc = ft::encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const CUtensorMapDataType qt = int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType qt = int8      ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                 : f16_mma ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const CUtensorMapDataType vt =
       int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
       : fmt == F16_BITS ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16

@@ -42,10 +42,15 @@ ranks by hi + lo and ends after stage 3a; integer-valued data (split
 statistics exactly zero, ``hi_exact``) sweeps and rescores the hi plane alone
 with the bf16 kernels, bit for bit the same scores.
 
-f16 storage sweeps the decoded pair with the pair sweep's arithmetic and
+f16 storage sweeps, with two query planes on the card (K6), the stored
+rows as they are against the query's f16 split (``split_f32_f16``, its
+planes scaled per query by powers of two), certified as bf16 rows with the
+f16 split's residual (``_sweep_eps(f16_planes=)``, s0 = s1 = 0);
+with one query plane (K7), and on the CPU (the JAX package's arithmetic),
+it sweeps the decoded pair with the pair sweep's arithmetic and
 certificate (``_sweep_eps(pair_sweep=True)`` with the f16 split
-statistics; with two query planes on the card the tensor-core term) and
-rescores the decoded rows in one stage. int8 storage sweeps two exact
+statistics; on the card the tensor-core term). It rescores the decoded
+rows in one stage. int8 storage sweeps two exact
 integer passes over the query's residual expansion (``int8_query_pair``),
 rescores the codes against q∘s, and is certified by ``_sweep_eps_int8``:
 both sides score the decoded database s∘v_q.
@@ -74,7 +79,7 @@ import torch
 
 from ..dtypes import MetricType
 from ..storage import (decode_f16_bits, f32_to_bf16, split_f16_bits,
-                       split_f32_bf16)
+                       split_f32_bf16, split_f32_f16)
 from .distance import exact_fp32_matmul
 from .topk import topk_scores
 # the kernel wrappers, under the names of their JAX counterparts' roles
@@ -156,7 +161,7 @@ def query_planes(queries_f32: torch.Tensor, sweep_passes: int):
 def groupmax_scores(queries_f32: torch.Tensor, db: torch.Tensor,
                     vn: torch.Tensor, *, metric: MetricType,
                     sweep_passes: int = 2, db_split=None,
-                    with_block_max: bool = False):
+                    with_block_max: bool = False, f16_planes=None):
     """(nq_pad, nv_eff/128) per-group max of the masked sweep scores, the
     bf16, pair and f16 routes of ``faiss_tpu``'s groupmax_scores. Takes the
     pre-masked norm stream ``vn`` (length nv_eff), which the rescore reuses.
@@ -164,9 +169,15 @@ def groupmax_scores(queries_f32: torch.Tensor, db: torch.Tensor,
     (``db`` unread); over float16 rows (f16 bits) the f16 sweep; else the
     bf16 sweep over ``db``. (int8 rows: ``int8_groupmax_scores``.) With
     ``with_block_max`` it returns (gm, the (nq_pad, nv_eff/1024) supergroup
-    maxes of the same launch)."""
-    q_hi, q_lo = query_planes(queries_f32, sweep_passes)
+    maxes of the same launch). Over f16 rows it sweeps ``f16_planes`` =
+    (q_hi, q_lo, scales), the f16 split ``split_f32_f16`` of the queries
+    (K6: ``fused_search`` passes it where ``sweep_query_split`` says
+    "f16", and certifies with it), else ``query_planes``."""
     kw = dict(metric=metric, with_block_max=with_block_max)
+    if f16_planes is not None:
+        q_hi, q_lo, scales = f16_planes
+        return sweep_f16(q_hi, q_lo, db, vn, scales=scales, **kw)
+    q_hi, q_lo = query_planes(queries_f32, sweep_passes)
     if db_split is not None:
         return sweep_split(q_hi, q_lo, db_split[0], db_split[1], vn, **kw)
     if db.dtype == torch.float16:
@@ -248,11 +259,22 @@ def sweep_split_plain(q_hi, q_lo, db_hi, db_lo, vn, *, metric: MetricType,
 
 
 def sweep_f16_plain(q_hi, q_lo, dbits, vn, *, metric: MetricType,
-                    with_block_max: bool = False):
-    """Plain version of the f16 sweep kernel: the rows decoded and split to
-    the exact (hi, lo) pair (``storage.split_f16_bits``), then the pair
-    sweep's plain version, term for term (_kernel_f16_pair /
-    _kernel_f16_1)."""
+                    with_block_max: bool = False, scales=None):
+    """Plain version of the f16 sweep kernel, by the dtype of its planes.
+    f16 planes (``split_f32_f16``, with their (nq, 2) ``scales``; K6): one
+    fp32 product per plane over the stored rows as IEEE f16 values (f16×f16
+    products are exact in fp32; an e=31 pattern is ±inf or NaN, as the
+    tensor cores read it, where ``decode_f16_bits`` reads NaN as ±inf),
+    each times its power of two, then added, as the kernel's epilogue does.
+    bf16 planes: the rows decoded and split to the exact (hi, lo) pair
+    (``storage.split_f16_bits``), then the pair sweep's plain version, term
+    for term (_kernel_f16_pair / _kernel_f16_1)."""
+    if q_hi.dtype == torch.float16:
+        v = dbits[: vn.shape[0]].to(torch.float32)
+        with exact_fp32_matmul():
+            acc = ((q_hi.to(torch.float32) @ v.T) * scales[:, 0:1]
+                   + (q_lo.to(torch.float32) @ v.T) * scales[:, 1:2])
+        return _plain_epilogue(acc, vn, metric, with_block_max)
     hi, lo = split_f16_bits(dbits[: vn.shape[0]])
     return sweep_split_plain(q_hi, q_lo, hi, lo, vn, metric=metric,
                              with_block_max=with_block_max)
@@ -459,17 +481,29 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
                nv_eff: int, *, metric: MetricType, d_pad: int,
                single_pass: bool = False, pair_sweep: bool = False,
                split_stats: Optional[torch.Tensor] = None,
-               accum: str = "fmaf") -> torch.Tensor:
+               accum: str = "fmaf",
+               f16_planes=None) -> torch.Tensor:
     """Per-query strict upper bound ε on |sweep score − rescore score| for
     any stored row: ``faiss_tpu``'s _sweep_eps, derived for this port's
     own arithmetic. ``accum`` names the sweep's accumulation: "fmaf" (the
     default, and the JAX bound) or "mma", the tensor-core sweeps with float
-    sums (csrc/sweep_split_mma.cu: the bf16 rows', the f32 planes' and the
-    f16 pair's, with one or two query planes; ``sweep_accum`` picks it by
-    route); only term (2) differs.
+    sums (csrc/sweep_split_mma.cu: the bf16 rows', the f32 planes', the
+    f16 rows' and the f16 pair's, with one or two query planes;
+    ``sweep_accum`` picks it by route); only term (2) differs.
+    ``f16_planes`` = (q_hi, q_lo, scales), the f16 split of
+    ``split_f32_f16`` that the f16 rows' two-plane sweep on the card ran
+    (K6, where ``sweep_query_split`` says "f16"; None: the JAX package's
+    bf16 split): the stored f16 rows used whole and exactly, charged as
+    bf16 rows are (s0 = s1 = 0, whatever ``pair_sweep`` says) with R and L
+    of those planes: R ≈ 2^-22·Q where the bf16 split leaves ≈ 2^-16·Q, so
+    ε only shrinks. Its planes are truncations of q toward zero (‖q_hi‖ ≤ Q), a
+    term accumulates on the tensor cores in its plane's scaled space and
+    its power of two multiplies it exactly, so term (2) holds as for bf16
+    rows.
 
     Notation: u = 2^-24; Q = ‖q‖; R = ‖q − Σ q_planes‖ (computed exactly:
-    the bit-mask split makes the subtractions exact); L = ‖q_lo‖;
+    the bit-mask split makes the subtractions exact; the f16 split's too,
+    its planes unscaled); L = ‖q_lo‖;
     N = max stored ‖v‖² (pre-quantization), V = √N·(1+2^-8) ≥ max‖v_stored‖;
     pair sweep: s0 ≥ max‖v_lo‖, s1 ≥ max‖v − v_hi − v_lo‖ (the exact
     running split statistics, else the envelopes 2^-7·V and 2^-15·V).
@@ -495,10 +529,13 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
           the ≤ 2 round-to-nearest adds of the terms give the budget
           (≈ 2.2× the fmaf one at d = 128); the f16 pair: the f32 planes'
           arithmetic, with the f16 statistics; bf16 rows: two terms,
-          s0 = 0; bf16 rows with one query plane (K2, single_pass): the
-          one term q1·v, ‖q1‖ ≤ Q+R, ‖v‖ ≤ V, errs ≤ 36·⌈d/16⌉·u·(Q+R)·V
-          and is added to nothing, inside the budget with L = 0 and
-          s0 = 0 (its +2u is slack): at d = 128 term (2) is 290u·(Q+R)·V
+          s0 = 0; the f16 rows with two f16 query planes (K6,
+          f16_planes): bf16 rows' two terms, 16 exact f16×f16
+          products a k-step; bf16 rows with one query plane (K2,
+          single_pass): the one term q1·v, ‖q1‖ ≤ Q+R, ‖v‖ ≤ V, errs
+          ≤ 36·⌈d/16⌉·u·(Q+R)·V and is added to nothing, inside the
+          budget with L = 0 and s0 = 0 (its +2u is slack): at d = 128
+          term (2) is 290u·(Q+R)·V
           where the fmaf chain's was 130u·(Q+R)·V, and the whole ε grows
           ≈ 1.41× (term (3) stays 256u·Q·V); the f16 pair with one query
           plane (K7, single_pass, pair_sweep): the terms q1·dh and q1·dl
@@ -523,7 +560,19 @@ def _sweep_eps(queries_f32: torch.Tensor, db_norms: torch.Tensor,
           cover the rounding of this computation.
     """
     q = queries_f32
-    if single_pass:
+    if f16_planes is not None:
+        qh, ql, sc = f16_planes
+        if single_pass:
+            raise ValueError("the f16 query split has two planes")
+        if (qh.dtype != torch.float16 or ql.dtype != torch.float16
+                or qh.shape != q.shape or ql.shape != q.shape
+                or sc.shape != (q.shape[0], 2)):
+            raise ValueError("f16_planes must be split_f32_f16 of the "
+                             "queries")
+        lo32 = ql.to(torch.float32) * sc[:, 1:2]
+        resid = q - qh.to(torch.float32) * sc[:, 0:1] - lo32
+        pair_sweep = False
+    elif single_pass:
         resid = q - f32_to_bf16(q).to(torch.float32)
         lo32 = torch.zeros_like(q)
     else:
@@ -555,14 +604,28 @@ def sweep_accum(route: str, sweep_passes: int, device) -> str:
     ``route`` ran: "mma" where it ran on the tensor cores with float sums
     on the card, with one or two query planes: over bf16 rows (K2, K1:
     "bf16", and "hi_exact", whose sweep is the bf16 kernel over the hi
-    plane), the f32 planes (K4, K3: "pair") or the f16 pair (K7, K6:
-    "f16"); "fmaf" for the int8 route (exact integer sums, certified by
-    ``_sweep_eps_int8``) and every CPU tensor (the plain versions; the JAX
-    bound). ``sweep_passes`` (1 or 2) changes no route's answer."""
+    plane), the f32 planes (K4, K3: "pair") or the f16 rows (K7 over the
+    decoded pair, K6 over the stored rows: "f16"); "fmaf" for the int8
+    route (exact integer sums, certified by ``_sweep_eps_int8``) and every
+    CPU tensor (the plain versions; the JAX bound). ``sweep_passes`` (1 or 2) changes no route's answer."""
     if route not in SWEEP_ROUTES:
         raise ValueError(f"route must be one of {SWEEP_ROUTES}, got {route!r}")
     on_card = torch.device(device).type == "cuda"
     return "mma" if on_card and route != "int8" else "fmaf"
+
+
+def sweep_query_split(route: str, sweep_passes: int, accum: str) -> str:
+    """The query split of the sweep that ``route`` runs with ``accum``
+    (``sweep_accum``'s answer): "f16" (``split_f32_f16``, whose planes the
+    sweep and ``_sweep_eps(f16_planes=)`` share) where the f16 rows sweep
+    two query planes on the tensor cores (K6, an f16 wgmma over the stored
+    rows), "bf16" for every other route and every CPU tensor (the JAX
+    package's split, so the CPU route keeps its arithmetic and its
+    certificate)."""
+    if route not in SWEEP_ROUTES:
+        raise ValueError(f"route must be one of {SWEEP_ROUTES}, got {route!r}")
+    return ("f16" if route == "f16" and sweep_passes == 2 and accum == "mma"
+            else "bf16")
 
 
 def _accum_coeff(d_pad: int, accum: str) -> float:
@@ -722,6 +785,14 @@ def fused_search(
     # hi_exact: v == v_hi on every stored row, so the bf16 kernels over the
     # hi plane compute the pair program's scores bit for bit (every dropped
     # term is an exact +0.0); ε with stats (0, 0) charges them nothing
+    is_f16 = db.dtype == torch.float16
+    route = ("int8" if is_int8 else "f16" if is_f16 else "hi_exact"
+             if hi_exact else "pair" if pair_sweep else "bf16")
+    accum = None if is_int8 else sweep_accum(route, sweep_passes,
+                                             queries_f32.device)
+    # the f16 split (K6) is made once, for the sweep and its certificate
+    f16_planes = (split_f32_f16(queries_f32) if sweep_query_split(
+        route, sweep_passes, accum) == "f16" else None)
     if is_int8:
         gm = int8_groupmax_scores(queries_f32, db, vn, scales, metric=metric,
                                   with_block_max=hier)
@@ -730,7 +801,7 @@ def fused_search(
             queries_f32, db_split[0] if hi_exact else db, vn, metric=metric,
             sweep_passes=sweep_passes,
             db_split=None if hi_exact or not pair_sweep else db_split,
-            with_block_max=hier)
+            with_block_max=hier, f16_planes=f16_planes)
     if not hier and kg <= SELECT_MAX_KG and ngroups <= SELECT_MAX_GROUPS:
         gidx, t = select_groups(gm, kg)         # ascending int32 already
     else:
@@ -742,19 +813,17 @@ def fused_search(
         eps = _sweep_eps_int8(queries_f32, scales, int_norm_max, db_norms,
                               nv_eff, metric=metric, d_pad=d_pad)
     else:
-        # f16 sweeps the decoded pair: the pair ε with the f16 statistics;
-        # bf16 rows (K2, K1) and the f16 pair (K7, K6) with one or two
-        # query planes, and two query planes over the f32 planes (K3), ran
-        # on the tensor cores when the queries lie on the card
-        is_f16 = db.dtype == torch.float16
-        route = ("f16" if is_f16 else "hi_exact" if hi_exact
-                 else "pair" if pair_sweep else "bf16")
+        # f16 sweeps the decoded pair (K7; every CPU tensor): the pair ε
+        # with the f16 statistics, or with two query planes on the card
+        # the stored rows against the f16 split (K6: ``f16_planes``);
+        # bf16 rows (K2, K1), the f16 rows (K7, K6) with one or two query
+        # planes, and the f32 planes (K4, K3) ran on the tensor cores
+        # when the queries lie on the card
         eps = _sweep_eps(queries_f32, db_norms, nv_eff, metric=metric,
                          d_pad=d_pad, single_pass=sweep_passes == 1,
                          pair_sweep=pair_sweep or is_f16,
                          split_stats=split_stats,
-                         accum=sweep_accum(route, sweep_passes,
-                                           queries_f32.device))
+                         accum=accum, f16_planes=f16_planes)
     if rescore_select and k_eff <= RESCORE_SELECT_MAX_K and not pair_sweep:
         # bf16 and f16 rows against q, int8 codes against q∘s; the
         # certificate is the sweep's alone, as in faiss_tpu

@@ -57,8 +57,9 @@ launches = {
     "sweep_split_3": 0,      # f32 (hi, lo) planes, 3 terms (_kernel_split)
     "sweep_split_2": 0,      # f32 (hi, lo) planes, 2 terms (_kernel_split2)
     "sweep_int8": 0,         # int8 codes, two exact passes (_kernel_int8)
-    "sweep_f16_2": 0,        # f16 bits, 3 terms (_kernel_f16_pair)
-    "sweep_f16_1": 0,        # f16 bits, 2 terms (_kernel_f16_1)
+    "sweep_f16_2": 0,        # f16 rows, f16 query planes, 2 terms
+                             # (_kernel_f16_pair)
+    "sweep_f16_1": 0,        # f16 bits decoded, 2 terms (_kernel_f16_1)
     "select_groups": 0,
     "rescore_groups": 0,     # bf16 rows (_rescore_kernel)
     "rescore_groups_pair": 0,  # f32 hi + lo planes (_rescore_kernel, db2),
@@ -313,7 +314,8 @@ def sweep_split(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
                       planes, (db_hi, db_lo), vn, metric, with_block_max)
 
 
-# ft_sweep_mma's formats: (query dtype, row dtype, d multiple)
+# ft_sweep_mma's formats: (query dtype, row dtype, d multiple); the f16
+# rows' two query planes are f16 (K6), their one plane bf16 (K7)
 _MMA_DTYPES = {MMA_BF16_ROWS: (torch.bfloat16, torch.bfloat16, 8),
                MMA_F32_PLANES: (torch.bfloat16, torch.bfloat16, 8),
                MMA_F16_BITS: (torch.bfloat16, torch.float16, 8),
@@ -324,11 +326,13 @@ def _sweep_mma(counter, fmt, planes, dbs, vn, metric, with_block_max,
                beta=None):
     """Launch ft_sweep_mma, the tensor-core sweep over the query
     ``planes`` in row format ``fmt``: bf16 rows (K1; K2 with one plane), the
-    f32 planes ``dbs`` = (hi, lo) (K3; K4 with one plane), f16 bits (K6; K7
-    with one plane), or
-    int8 codes against (q₁, q₂) with ``beta`` (K5). Its float accumulation is what
-    ``_sweep_eps(accum="mma")`` charges; K5's sums are exact."""
+    f32 planes ``dbs`` = (hi, lo) (K3; K4 with one plane), f16 bits (K6
+    against two f16 planes scaled by ``beta``; K7 with one plane), or int8
+    codes against (q₁, q₂) with ``beta`` (K5). Its float accumulation is
+    what ``_sweep_eps(accum="mma")`` charges; K5's sums are exact."""
     q_dtype, db_dtype, align = _MMA_DTYPES[fmt]
+    if fmt == MMA_F16_BITS and len(planes) == 2:
+        q_dtype = torch.float16
     nq, d, ngroups = _check_sweep(planes, dbs, vn, q_dtype=q_dtype,
                                   db_dtype=db_dtype, align=align)
     _int32(ngroups * GROUP, "nv_eff")
@@ -351,19 +355,28 @@ def _sweep_mma(counter, fmt, planes, dbs, vn, metric, with_block_max,
 
 def sweep_f16(q_hi: torch.Tensor, q_lo: Optional[torch.Tensor],
               db: torch.Tensor, vn: torch.Tensor, *,
-              metric: MetricType, with_block_max: bool = False):
-    """Group maxes over f16 rows (float16, the stored bits), each decoded
-    to its exact (hi, lo) bf16 pair, on the tensor cores (certify with
-    ``_sweep_eps(accum="mma")``): qh·dh + qh·dl + ql·dh with two query
-    planes (_kernel_f16_pair, K6), q1·dh + q1·dl when ``q_lo`` is None
-    (_kernel_f16_1, K7)."""
+              metric: MetricType, with_block_max: bool = False,
+              scales: Optional[torch.Tensor] = None):
+    """Group maxes over f16 rows (float16, the stored bits) on the tensor
+    cores (certify with ``_sweep_eps(accum="mma")``, given the f16 planes
+    as ``f16_planes``). Two f16 query planes with their (nq, 2) f32 powers
+    of two ``scales`` (``storage.split_f32_f16``):
+    fl(fl(2^-eh·(qh·v)) + fl(2^-el·(ql·v))) over the stored rows as they are, an f16 wgmma with no decode
+    (_kernel_f16_pair, K6). One bf16 plane q1 (``q_lo`` None): q1·dh +
+    q1·dl over each row's exact (hi, lo) bf16 pair, decoded in the kernel
+    (_kernel_f16_1, K7). The plain version also takes two bf16 planes (the
+    CPU route's split): qh·dh + qh·dl + ql·dh over the decoded pair."""
     planes = (q_hi,) if q_lo is None else (q_hi, q_lo)
     if not _on_cuda(*planes, db, vn):
         from .fused import sweep_f16_plain
         return sweep_f16_plain(q_hi, q_lo, db, vn, metric=metric,
-                               with_block_max=with_block_max)
+                               with_block_max=with_block_max, scales=scales)
+    if q_lo is not None and scales is None:
+        raise ValueError("two f16 query planes need their scales "
+                         "(storage.split_f32_f16)")
     return _sweep_mma(f"sweep_f16_{len(planes)}", MMA_F16_BITS, planes, (db,),
-                      vn, metric, with_block_max)
+                      vn, metric, with_block_max,
+                      beta=None if q_lo is None else scales)
 
 
 def sweep_int8(q1: torch.Tensor, q2: torch.Tensor, db: torch.Tensor,

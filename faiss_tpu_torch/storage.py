@@ -74,6 +74,8 @@ D_ALIGN_INT8 = 16       # int8 codes per 16-byte row chunk
 
 _HI_MASK = -65536       # 0xFFFF0000 as int32: keep sign, exponent, 7 mantissa bits
 _BF16_QNAN = 0x7FC0     # the bf16 NaN of jnp.astype, under the input's sign
+_F16_HI_MASK = -8192    # 0xFFFFE000 as int32: keep sign, exponent, 10 mantissa bits
+_F16_TOP = 15           # an f16 plane's largest component lies in [2^15, 2^16)
 
 _ROW_DTYPE = {
     StorageType.FLOAT32: torch.float32,
@@ -135,6 +137,54 @@ def split3_f32_bf16(x: torch.Tensor):
     r1 = x - hi32
     mid32 = _trunc_bf16(r1)
     return (f32_to_bf16(hi32), f32_to_bf16(mid32), f32_to_bf16(r1 - mid32))
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """float32 2^e for int32 e in [-126, 127], written as its bits."""
+    return ((e + 127) << 23).view(torch.float32)
+
+
+def _trunc_f16(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x (|x| < 2^16) truncated toward zero onto the f16 grid: its
+    leading 11 significand bits (bit mask) in f16's normal range, a
+    multiple of 2^-24 below it. The result converts to f16 exactly."""
+    hi = (x.view(torch.int32) & _F16_HI_MASK).view(torch.float32)
+    sub = torch.trunc(x * 2.0 ** 24) * 2.0 ** -24
+    return torch.where(torch.abs(x) < 2.0 ** -14, sub, hi)
+
+
+def _f16_plane(x: torch.Tensor):
+    """(plane float16, scale (n, 1) f32) with plane·scale the truncation of
+    each row of x toward zero: the row times the power of two 2^e that puts
+    its largest |component| in [2^15, 2^16) (e clamped to ±126, so that
+    2^e and 2^-e are normal fp32), onto the f16 grid; scale = 2^-e."""
+    m = torch.amax(torch.abs(x), dim=1, keepdim=True)
+    # floor(log2 m) from m's exponent bits: −127 for 0 and subnormals, 128
+    # for inf and NaN (whose planes are not finite whatever e is)
+    e = torch.clamp(_F16_TOP + 127 - ((m.view(torch.int32) >> 23) & 0xFF),
+                    -126, 126)
+    return _trunc_f16(x * _pow2(e)).to(torch.float16), _pow2(-e)
+
+
+def split_f32_f16(x: torch.Tensor):
+    """Split fp32 rows into two f16 planes and their per-row powers of two:
+    (hi, lo, scales), scales (n, 2) f32 = [2^-eh, 2^-el], with
+    hi·2^-eh the row's leading 11 significand bits and lo·2^-el the next
+    11, each truncated toward zero (so ‖hi·2^-eh‖ ≤ ‖x‖), and
+    x − hi·2^-eh − lo·2^-el (≈ 2^-22·‖x‖) computed exactly in fp32: both
+    subtractions only drop leading bits. Each plane is scaled into f16's
+    range by its row's largest component, so no component of a finite row
+    overflows, and a normalised row's planes hold no f16 subnormals. The
+    query split of the f16 rows' two-plane sweep on the card (K6), whose
+    f16×f16 products are exact in fp32. Every step is exact, so the CPU and
+    the card give the same bits; a row holding ±inf or NaN gives NaN in its
+    lo plane."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"expected float32, got {x.dtype}")
+    x = x.contiguous()
+    hi, s_h = _f16_plane(x)
+    lo, s_l = _f16_plane(x - hi.to(torch.float32) * s_h)
+    return hi, lo, torch.cat([s_h, s_l], dim=1)
 
 
 def encode_f16_bits(x: torch.Tensor) -> torch.Tensor:

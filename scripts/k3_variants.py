@@ -44,14 +44,14 @@ random codes and query planes in [-127, 127]):
   n128          wgmma's N side 128 rows (K1_BN): one m64n128k16 a term over
                 a whole group, 2 × 64 accumulators, 8 stages of 16 KB
   n128_no_mma, n128_no_load   the same two cuts of n128
-  K6 only:
-  no_decode     the decode warps pass each raw tile on undecoded: the
-                loads, the products and the barriers without the decode
-  rs_hi         qh as wgmma A fragments in registers (d ≤ 128) for its two
-                terms, ql from shared memory for the third
-  ndec224       seven decode warps (512 threads; 128 registers a thread)
-  decode_cons   no decode warps: the consumers decode each tile, half
-                each, then a named barrier, before its products
+  K6 only (K1's over the stored f16 rows and f16 query planes, without
+  the turns; time it at --d 96, the f16 cell's width):
+  no_rs         the query planes from shared memory, as K1's no_rs
+  ordered       the two warpgroups take turns, as K1's (ptxas serializes
+                the wgmma under them with the k-tail skipped: C7520)
+  ktail         the last chunk's k-steps past d issued too (zeros)
+  ktail_ordered ktail with the turns: K1's structure as it is
+  kt2           the k-tail skip as a constant, 2 k-steps (d 96 only)
   K5 only:
   no_rs         the query planes from shared memory, as K1's no_rs
   ordered       the two warpgroups take turns, as K1's
@@ -67,7 +67,7 @@ random codes and query planes in [-127, 127]):
   K7 only:
   no_rs         q1 from shared memory (TMA), as at d > 128, not as A
                 fragments in registers for both terms
-  ndec96        three decode warps (K6's), not four: 384 threads
+  ndec96        three decode warps, not four: 384 threads
   ndec224       seven decode warps (512 threads; 128 registers a thread)
   K4: the kernel and the cuts above (no_mma: its products left out).
 
@@ -105,21 +105,25 @@ def _patch(text, pairs):
 
 
 MMA = """      if constexpr (RS) {
-        wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
+        if constexpr (S::F16_MMA)
+          if (kc == RSK - 1 && ks >= last_ks) continue;
+        wgmma_rs<S::F16_MMA>(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
         if constexpr (S::PLANES == 2)
-          wgmma_rs(acc[1], aq[0][4 * kc + ks],
-                   sw128_desc(b + S::B_PLANE) + 2 * ks, on);
+          wgmma_rs<S::F16_MMA>(acc[1], aq[0][4 * kc + ks],
+                               sw128_desc(b + S::B_PLANE) + 2 * ks, on);
         if constexpr (QP == 2)
-          wgmma_rs(acc[S::TERMS - 1], aq[1][4 * kc + ks], dvh + 2 * ks, on);
+          wgmma_rs<S::F16_MMA>(acc[S::TERMS - 1], aq[1][4 * kc + ks],
+                               dvh + 2 * ks, on);
         continue;
       }
-      wgmma<S::BN>(acc[0], dqh + 2 * ks, dvh + 2 * ks, on);
+      wgmma<S::BN, S::F16_MMA>(acc[0], dqh + 2 * ks, dvh + 2 * ks, on);
       if constexpr (S::PLANES == 2) {
         const uint64_t dvl = sw128_desc(b + S::B_PLANE);
-        wgmma<S::BN>(acc[1], dqh + 2 * ks, dvl + 2 * ks, on);
+        wgmma<S::BN, S::F16_MMA>(acc[1], dqh + 2 * ks, dvl + 2 * ks, on);
       }
       if constexpr (QP == 2)
-        wgmma<S::BN>(acc[S::TERMS - 1], dql + 2 * ks, dvh + 2 * ks, on);"""
+        wgmma<S::BN, S::F16_MMA>(acc[S::TERMS - 1], dql + 2 * ks,
+                                 dvh + 2 * ks, on);"""
 ROW_LOADS = """          mbar_expect_tx(full + stage,
                          (resident ? S::B_TX : S::A_BYTES + S::B_TX)
                              + (kc == 0 ? S::BN * 4 : 0));"""
@@ -139,10 +143,6 @@ TURN = "      if (ordered && (wg == 1 || i > 0)) named_sync(1 + wg);\n"
 ROW_TMA = """          tma_load(&tv_hi, st, full + stage, kc * S::KC, row);
           if constexpr (S::LOADS == 2)
             tma_load(&tv_lo, st + S::B_PLANE, full + stage, kc * S::KC, row);"""
-DECODE = """              uint4 hi, lo;
-              split_f16x8(b[i], hi, lo);
-              b[i] = hi;
-              b[i + S::B_PLANE / 16] = lo;"""
 DEFER = """    wgmma_commit();
     wgmma_wait_prev();   // the chunk before this one has been read
     if (prev >= 0 && t == 0) mbar_arrive(empty + prev);
@@ -155,8 +155,15 @@ WAIT0 = """    wgmma_commit();
     if (t == 0) mbar_arrive(empty + stage);
     prev = -1;"""
 K1_N = "constexpr int K1_BN = 64;"
-NDEC = "static constexpr int NDEC = DECODE ? (QP == 1 ? 128 : 96) : 0;"
+KTAIL = """        if constexpr (S::F16_MMA)
+          if (kc == RSK - 1 && ks >= last_ks) continue;
+"""
+LAST_KS = ("  [[maybe_unused]] const int last_ks = "
+           "(d - (RSK - 1) * S::KC + 15) / 16;")
+KT2 = "  constexpr int last_ks = 2;   // d 96 only"
+NDEC = "static constexpr int NDEC = DECODE ? 128 : 0;"
 ORDERED = "static constexpr bool ORDERED = F == BF16_ROWS;"
+K6_TURNS = "static constexpr bool ORDERED = F == BF16_ROWS || F16_MMA;"
 RS_AT = "  if constexpr (RS_KC > 0)\n"
 RS_K1 = "  constexpr int RS_KC = F == BF16_ROWS && K1_BN == 64 ? 2\n"
 RS_K2_AT4 = ("  constexpr int RS_KC = F == BF16_ROWS && K1_BN == 64\n"
@@ -167,9 +174,9 @@ WAIT_ALL = ("      wgmma_wait_all();   // the tile's last chunk, and its "
 NO_MMA = "      (void)on;"
 # n128: the m64n128k16 wgmma (64 accumulators a thread) beside m64n64k16
 WGMMA_N = """  static_assert(N == 64, "wgmma: N = 64 only");
-  wgmma_64x64(d, da, db, scale_d);"""
+  wgmma_64x64<F16>(d, da, db, scale_d);"""
 WGMMA_N128 = """  if constexpr (N == 64)
-    wgmma_64x64(d, da, db, scale_d);
+    wgmma_64x64<F16>(d, da, db, scale_d);
   else
     wgmma_64x128(d, da, db, scale_d);"""
 WGMMA_AT = "// The wgmma of an N = BN tile:"
@@ -218,58 +225,6 @@ def _norms_ldg(text):
   };
 """ + FOLD_AT),
         (TURN, NORMS + TURN),
-    ])
-
-
-def _decode_cons(text):
-    """K6 without decode warps: the consumers decode each tile (half each),
-    fence it for the async proxy, meet at named barrier 3, then issue."""
-    return _patch(text, [
-        (NDEC, "static constexpr int NDEC = 0;"),
-        ("uint64_t* ready = S::DECODE ? decoded : full;",
-         "uint64_t* ready = full;"),
-        ("    mbar_wait(ready + stage, phase);\n",
-         "    mbar_wait(ready + stage, phase);\n"
-         "    if constexpr (S::DECODE) {\n"
-         "      uint4* raw = reinterpret_cast<uint4*>(\n"
-         "          ring + stage * stage_bytes + (resident ? 0 : "
-         "S::A_BYTES));\n"
-         "#pragma unroll\n"
-         "      for (int i = threadIdx.x; i < S::B_PLANE / 16; i += NCONS) {\n"
-         "        uint4 hi, lo;\n"
-         "        split_f16x8(raw[i], hi, lo);\n"
-         "        raw[i] = hi;\n"
-         "        raw[i + S::B_PLANE / 16] = lo;\n"
-         "      }\n"
-         "      fence_proxy_async();\n"
-         "      asm volatile(\"bar.sync 3, 256;\\n\" ::: \"memory\");\n"
-         "    }\n"),
-    ])
-
-
-def _rs_hi(text):
-    """K6 with qh's A fragments in registers for qh·dh and qh·dl."""
-    return _patch(text, [
-        ("""  static_assert(!RS || (S::BN == 64 && (S::PLANES == 1 || QP == 1)),
-                "RS: every A operand from registers, at N = 64");""",
-         """  static_assert(!RS || S::BN == 64, "RS: N = 64");"""),
-        ("resident && !RS", "resident && (!RS || S::PLANES == 2)"),
-        ("resident && RSK == 0", "resident && (RSK == 0 || S::PLANES == 2)"),
-        ("    for (int p = 0; p < QP; ++p)\n",
-         "    for (int p = 0; p < (S::PLANES == 2 ? 1 : QP); ++p)\n"),
-        ("""      if constexpr (RS) {
-        wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);""",
-         """      if constexpr (RS && S::PLANES == 2 && QP == 2) {
-        wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);
-        wgmma_rs(acc[1], aq[0][4 * kc + ks],
-                 sw128_desc(b + S::B_PLANE) + 2 * ks, on);
-        wgmma<S::BN>(acc[2], dql + 2 * ks, dvh + 2 * ks, on);
-        continue;
-      }
-      if constexpr (RS) {
-        wgmma_rs(acc[0], aq[0][4 * kc + ks], dvh + 2 * ks, on);"""),
-        ("                                                      : 0;",
-         "                        : F == F16_BITS ? 2 : 0;"),
     ])
 
 
@@ -348,12 +303,13 @@ def variants(text, kernel):
                      "ndec224": _patch(text, [(NDEC, NDEC.replace("128",
                                                                   "224"))])})
     elif kernel == "k6":
-        base.update({"no_decode": _patch(text, [(DECODE,
-                                                 "              (void)i;")]),
-                     "rs_hi": _rs_hi(text),
-                     "ndec224": _patch(text, [(NDEC, NDEC.replace(
-                         ": 96)", ": 224)"))]),
-                     "decode_cons": _decode_cons(text)})
+        base.update({"no_rs": _patch(text, [(RS_AT,
+                                             "  if constexpr (false)\n")]),
+                     "ordered": _patch(text, [(ORDERED, K6_TURNS)]),
+                     "ktail": _patch(text, [(KTAIL, "")]),
+                     "ktail_ordered": _patch(text, [(KTAIL, ""),
+                                                    (ORDERED, K6_TURNS)]),
+                     "kt2": _patch(text, [(LAST_KS, KT2)])})
     elif kernel == "k2":
         base.update({"no_rs": _patch(text, [(RS_AT,
                                              "  if constexpr (false)\n")]),
@@ -404,7 +360,11 @@ def build(kernels, tmp, srcs):
                        for line in err.splitlines() if "Used " in line})
         if p.returncode != 0:
             raise RuntimeError(f"k3_variants: {name} did not build:\n{err}")
-        print(f"{name}: {', '.join(regs)}", flush=True)
+        ser = sum("C7520" in line or "serialized" in line
+                  for line in err.splitlines())
+        print(f"{name}: {', '.join(regs)}"
+              + (f"; {ser} wgmma serialization notes" if ser else ""),
+              flush=True)
         lib = ctypes.CDLL(str(Path(tmp) / name / "lib.so"))
         lib.ft_sweep_mma.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I,
                                      P]
@@ -419,7 +379,8 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
     rows [1, −s, …, −s] scaled by 2^j in group j (s = 2^-12·1.4140625: s² is
     just under ulp(1) = 2^-23), IP, over ‖q‖·‖v‖·u of the row's group: K3
     over the rows' f32 planes, K1 and K2 over the rows in bf16, K6 over
-    their f16 bits (exact in both); K2, K4 and K7 with one query plane."""
+    their f16 bits (exact in both) against the query's f16 split; K2, K4
+    and K7 with one query plane."""
     d, nq, ng = 128, 8, 8
     s = 2.0 ** -12 * 1.4140625
     a = torch.full((d,), s, dtype=torch.float64)
@@ -439,10 +400,14 @@ def adversary_error(torch, fused, kernels, split_f32_bf16, MetricType,
         gm = kernels.sweep_groupmax(qh, ql, x.to(dev).to(torch.bfloat16), vn,
                                     metric=ip)
     elif kernel in ("k6", "k7"):
+        sc = None
         if kernel == "k7":   # a bf16-valued query: q1 is qh
             ql = None
+        else:
+            from faiss_tpu_torch.storage import split_f32_f16
+            qh, ql, sc = split_f32_f16(qh.float())
         gm = kernels.sweep_f16(qh, ql, x.to(dev).to(torch.float16), vn,
-                               metric=ip)
+                               metric=ip, scales=sc)
     else:
         if kernel == "k4":   # a bf16-valued query: q1 is qh
             ql = None
@@ -465,7 +430,7 @@ def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
     names of the variants that differed (left untimed)."""
     from faiss_tpu_torch.storage import (encode_f16_bits,
                                          flush_f16_subnormals,
-                                         split_f32_bf16)
+                                         split_f32_bf16, split_f32_f16)
 
     dev = torch.device("cuda")
     nq = 104
@@ -487,6 +452,9 @@ def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
     if kernel == "k5":
         qh, ql = (torch.randint(-127, 128, (nq, d), device=dev, generator=gen,
                                 dtype=torch.int8) for _ in range(2))
+    elif kernel == "k6":
+        qh, ql, beta = split_f32_f16(
+            torch.randn((nq, d), device=dev, generator=gen))
     else:
         qh, ql = fused.query_planes(
             torch.randn((nq, d), device=dev, generator=gen),
@@ -514,7 +482,7 @@ def time_variants(torch, chip_smoke, fused, MetricType, libs, kernel, nv,
             run()
             torch.cuda.synchronize()
             note = ""
-            if not name.endswith(("no_mma", "no_load", "no_decode")):
+            if not name.endswith(("no_mma", "no_load")):
                 if ref is None:
                     ref = gm.clone()
                 same = torch.equal(gm.view(torch.int32), ref.view(torch.int32))

@@ -13,11 +13,14 @@ the accumulation error of both sides (f32 planes: the pair sweep's ε, and
 int8 (K5 ``sweep_int8``, K10's int8 mode) and f16 (K6 ``sweep_f16_2``, K7
 ``sweep_f16_1``, K10's f16 mode): K5 equals its plain version bit for bit
 (exact integer dots, then the same three roundings in the same order); the
-f16 sweeps within the pair ε (K6 and K7, on the tensor cores, with
-accum="mma");
-the rescores within the rescore term of their bound (``rescore_term``);
-the in-kernel f16 decode equals the plain decode on all 65,536 patterns,
-in K10 and in K6.
+f16 sweeps on the tensor cores, with accum="mma": K7 within the pair ε,
+K6 (an f16 wgmma over the stored rows against the f16 query split,
+``storage.split_f32_f16``) within the ε of that split
+(``_sweep_eps(f16_planes=)``), its split equal to the CPU's bit for
+bit; the rescores within the rescore term of their bound
+(``rescore_term``); the in-kernel f16 decode equals the plain decode on
+all 65,536 patterns, in K10 and in K7, and K6 reads every pattern as the
+IEEE f16 value its twin reads.
 
 f16 NaN sign: ``encode_f16_bits`` on the card equals the CPU (the card's
 own f32 → f16 conversion turns every NaN into 0x7fff, so a negative NaN
@@ -78,7 +81,8 @@ from faiss_tpu_torch import MetricType, TorchIndexFlat, programs
 from faiss_tpu_torch.ops import distance, fused, kernels
 from faiss_tpu_torch.storage import (decode_f16_bits, encode_f16_bits,
                                      flush_f16_subnormals,
-                                     split_f32_bf16, split_stats)
+                                     split_f32_bf16, split_f32_f16,
+                                     split_stats)
 
 pytestmark = pytest.mark.cuda
 
@@ -1068,6 +1072,18 @@ def f16_db(dev, x: np.ndarray):
             split_stats(v32, *split_f32_bf16(v32)))
 
 
+def f16_sweep_planes(q, passes):
+    """((q_hi, q_lo, scales), f16_planes): the f16 rows' sweep planes as
+    ``fused_search`` makes them on q's device: with two passes on the card
+    the f16 split (K6), which the certificate reads too
+    (``_sweep_eps(f16_planes=)``); else ``query_planes``' bf16 planes."""
+    accum = fused.sweep_accum("f16", passes, q.device)
+    if fused.sweep_query_split("f16", passes, accum) == "f16":
+        planes = split_f32_f16(q)
+        return planes, planes
+    return (*fused.query_planes(q, passes), None), None
+
+
 def all_f16_patterns(dev):
     """The 65,536 f16 bit patterns as a float16 tensor."""
     return torch.arange(-32768, 32768, dtype=torch.int32).to(
@@ -1079,9 +1095,11 @@ def all_f16_patterns(dev):
                                          (37, 136, 2), (104, 128, 1),
                                          (104, 128, 2)])
 def test_f16_sweep_and_rescore_match_plain(dev, metric, nq, d, passes):
-    """K6 (two planes) and K7 (one), both on the tensor cores, within the
-    pair ε with the tensor-core term (``sweep_accum``), K10's f16 mode
-    within its rescore term, on finite rows; a last group partly stored."""
+    """K6 (two f16 planes) and K7 (one bf16 plane), both on the tensor
+    cores, within the ε of their split (``sweep_query_split``: K6's f16
+    split, K7's pair) with the tensor-core term (``sweep_accum``), K10's
+    f16 mode within its rescore term, on finite rows; a last group partly
+    stored."""
     nv, ntotal = 8192, 8000
     g = torch.Generator().manual_seed(d)
     x = torch.randn((nv, d), generator=g) * 3.0
@@ -1089,17 +1107,18 @@ def test_f16_sweep_and_rescore_match_plain(dev, metric, nq, d, passes):
     bits, norms, stats = f16_db(dev, x.numpy())
     q = torch.randn((nq, d), generator=torch.Generator().manual_seed(1)).to(dev)
     vn = fused._premask_norms(norms, ntotal, nv, metric)
-    qh, ql = fused.query_planes(q, passes)
+    (qh, ql, sc), fp = f16_sweep_planes(q, passes)
     name = f"sweep_f16_{passes}"
     n0 = kernels.launches[name]
-    gm = kernels.sweep_f16(qh, ql, bits, vn, metric=metric)
+    gm = kernels.sweep_f16(qh, ql, bits, vn, metric=metric, scales=sc)
     assert kernels.launches[name] == n0 + 1
     eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
                            single_pass=passes == 1, pair_sweep=True,
                            split_stats=stats,
-                           accum=fused.sweep_accum("f16", passes, dev))
-    _within_eps(gm, fused.sweep_f16_plain(qh, ql, bits, vn, metric=metric),
-                eps)
+                           accum=fused.sweep_accum("f16", passes, dev),
+                           f16_planes=fp)
+    _within_eps(gm, fused.sweep_f16_plain(qh, ql, bits, vn, metric=metric,
+                                          scales=sc), eps)
     gidx, _ = kernels.select_groups(gm, 14)
     gidx[:, -1] = nv // 128 - 1
     gidx = torch.sort(gidx, dim=1)[0].contiguous()
@@ -1116,10 +1135,11 @@ def test_f16_sweep_and_rescore_match_plain(dev, metric, nq, d, passes):
 
 @pytest.mark.parametrize("passes", [1, 2])
 def test_f16_sweeps_on_inf_and_nan_patterns(dev, passes):
-    """Rows holding ±inf and NaN patterns (each decodes to ±inf): the
-    kernel's group maxes equal the plain version's in place and kind of
-    every non-finite entry, and within ε elsewhere (the ε of the finite
-    rows: the clean groups)."""
+    """Rows holding ±inf and NaN patterns (each decodes to ±inf for K7;
+    K6 and its twin read them as IEEE f16 values): the kernel's group
+    maxes equal the plain version's in place and kind of every non-finite
+    entry, and within ε elsewhere (the ε of the finite rows: the clean
+    groups)."""
     nv, d, nq = 4096, 64, 40
     rng = np.random.default_rng(passes)
     x = rng.standard_normal((nv, d)).astype(np.float32)
@@ -1134,9 +1154,10 @@ def test_f16_sweeps_on_inf_and_nan_patterns(dev, passes):
     clean_stats = f16_db(dev, x)[2]
     for metric in METRICS:
         vn = fused._premask_norms(norms, nv, nv, metric)
-        qh, ql = fused.query_planes(q, passes)
-        gm = kernels.sweep_f16(qh, ql, dirty, vn, metric=metric)
-        gm_p = fused.sweep_f16_plain(qh, ql, dirty, vn, metric=metric)
+        (qh, ql, sc), fp = f16_sweep_planes(q, passes)
+        gm = kernels.sweep_f16(qh, ql, dirty, vn, metric=metric, scales=sc)
+        gm_p = fused.sweep_f16_plain(qh, ql, dirty, vn, metric=metric,
+                                     scales=sc)
         fin = torch.isfinite(gm_p)
         assert not bool(fin.all())
         assert torch.equal(fin, torch.isfinite(gm))
@@ -1144,7 +1165,8 @@ def test_f16_sweeps_on_inf_and_nan_patterns(dev, passes):
         eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
                                single_pass=passes == 1, pair_sweep=True,
                                split_stats=clean_stats,
-                               accum=fused.sweep_accum("f16", passes, dev))
+                               accum=fused.sweep_accum("f16", passes, dev),
+                               f16_planes=fp)
         err = torch.where(fin, (gm - gm_p).abs(), torch.zeros_like(gm))
         assert bool((err <= eps[:, None]).all())
 
@@ -1181,9 +1203,11 @@ CERT_CASES_F16 = [
 
 
 def check_sweep_eps_sound_f16(dev, case: int, nq: int = 64) -> None:
-    """|f16 sweep group max − best rescore of the group| ≤ the pair ε with
-    the f16 split statistics, for every (query, group); k = nv nominates
-    every group, so the search rescores every row."""
+    """|f16 sweep group max − best rescore of the group| ≤ the ε of the
+    sweep's query split (``sweep_query_split``: the pair ε with the f16
+    split statistics, or on the card with two planes the f16 split's), for
+    every (query, group); k = nv nominates every group, so the search
+    rescores every row."""
     passes, metric, scale, const = CERT_CASES_F16[case]
     nv, d = 2048, 128
     rng = np.random.default_rng(9100 + case)
@@ -1197,7 +1221,9 @@ def check_sweep_eps_sound_f16(dev, case: int, nq: int = 64) -> None:
     q = q.to(dev)
     bits, norms, stats = f16_db(dev, xb)
     vn = fused._premask_norms(norms, nv, nv, metric)
-    gm = fused.groupmax_scores(q, bits, vn, metric=metric, sweep_passes=passes)
+    _, fp = f16_sweep_planes(q, passes)
+    gm = fused.groupmax_scores(q, bits, vn, metric=metric, sweep_passes=passes,
+                               f16_planes=fp)
     vals, ids, cert = fused.fused_search(
         q, bits, norms, nv, k=nv, metric=metric, nv_eff=nv,
         sweep_passes=passes, split_stats=stats)
@@ -1209,7 +1235,8 @@ def check_sweep_eps_sound_f16(dev, case: int, nq: int = 64) -> None:
     eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
                            single_pass=passes == 1, pair_sweep=True,
                            split_stats=stats,
-                           accum=fused.sweep_accum("f16", passes, dev))[:, None]
+                           accum=fused.sweep_accum("f16", passes, dev),
+                           f16_planes=fp)[:, None]
     gap = (resc_gmax - gm).abs()
     assert bool((gap <= eps).all()), float((gap - eps).max())
 
@@ -1223,14 +1250,14 @@ def test_sweep_eps_sound_f16_on_kernels(dev, case):
 @pytest.mark.parametrize("d", [8, 72, 128, 136, 1024])
 @pytest.mark.parametrize("nq", [8, 37, 104, 300])
 def test_k6_tensor_core_sweep_matches_plain(dev, metric, nq, d):
-    """K6 (f16 bits, two query planes) on the tensor cores against
-    sweep_f16_plain within _sweep_eps(accum="mma") with the f16 split
-    statistics, with a last group partly stored (ntotal 8000 of 8192) and
-    one wholly past ntotal; its supergroup maxes equal block_max_plain of
-    the same launch's gm bit for bit, and that gm the one-output launch's.
-    nq 300: three query tiles; d 8, 72 and 136: the zero-filled k-tail
-    (an f16 zero decodes to the pair (0, 0)); d 1024: the query planes ride
-    the ring."""
+    """K6 (f16 rows, two f16 query planes) on the tensor cores against
+    sweep_f16_plain within _sweep_eps(accum="mma", f16_planes=),
+    with a last group partly stored (ntotal 8000 of 8192) and one wholly
+    past ntotal; its supergroup maxes equal block_max_plain of the same
+    launch's gm bit for bit, and that gm the one-output launch's. nq 300:
+    three query tiles; d 8, 72 and 136: the zero-filled k-tail; d 128: the
+    query planes as A fragments in registers, the other widths from shared
+    memory (d 1024: riding the ring)."""
     nv, ntotal = 8192, 8000
     g = torch.Generator().manual_seed(nq * 10_000 + d)
     x = torch.randn((nv, d), generator=g) * 3.0
@@ -1239,22 +1266,25 @@ def test_k6_tensor_core_sweep_matches_plain(dev, metric, nq, d):
     q = torch.randn((nq, d), generator=torch.Generator().manual_seed(nq))
     q = q.to(dev)
     vn = fused._premask_norms(norms, ntotal, nv, metric)
-    qh, ql = fused.query_planes(q, 2)
+    (qh, ql, sc), fp = f16_sweep_planes(q, 2)
+    assert qh.dtype == ql.dtype == torch.float16
     n0 = dict(kernels.launches)
     gm, bmax = kernels.sweep_f16(qh, ql, bits, vn, metric=metric,
-                                 with_block_max=True)
+                                 with_block_max=True, scales=sc)
     assert kernels.launches["sweep_f16_2"] == n0["sweep_f16_2"] + 1
     assert kernels.launches["sweep_f16_1"] == n0["sweep_f16_1"]
     assert fused.sweep_accum("f16", 2, dev) == "mma"
+    assert fused.sweep_query_split("f16", 2, "mma") == "f16"
     eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
-                           pair_sweep=True, split_stats=stats, accum="mma")
-    _within_eps(gm, fused.sweep_f16_plain(qh, ql, bits, vn, metric=metric),
-                eps)
+                           pair_sweep=True, split_stats=stats, accum="mma",
+                           f16_planes=fp)
+    _within_eps(gm, fused.sweep_f16_plain(qh, ql, bits, vn, metric=metric,
+                                          scales=sc), eps)
     assert bool(torch.isneginf(gm[:, -1]).all())
     assert not bool(torch.isneginf(gm[:, :-1]).any())
     assert torch.equal(bmax.view(torch.int32),
                        fused.block_max_plain(gm).view(torch.int32))
-    one = kernels.sweep_f16(qh, ql, bits, vn, metric=metric)
+    one = kernels.sweep_f16(qh, ql, bits, vn, metric=metric, scales=sc)
     assert torch.equal(gm.view(torch.int32), one.view(torch.int32))
     torch.cuda.synchronize()
 
@@ -1262,10 +1292,10 @@ def test_k6_tensor_core_sweep_matches_plain(dev, metric, nq, d):
 @pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
 def test_k6_truncation_adversary_within_mma_eps(dev, metric):
     """The truncation adversary of tests/test_torch_mma_eps.py on K6: f16
-    rows [1, −s, …, −s] scaled per group by 2^j (exact in f16; their lo
-    plane is zero) against the query [1, s, …, s]: |group max − exact
-    score| ≤ _sweep_eps(accum="mma") with the f16 statistics, pointwise
-    (every row of a group is the same)."""
+    rows [1, −s, …, −s] scaled per group by 2^j (exact in f16) against the
+    query [1, s, …, s] (its f16 hi plane the query, scaled; its lo plane
+    zero): |group max − exact score| ≤ _sweep_eps(accum="mma",
+    f16_planes=), pointwise (every row of a group is the same)."""
     d, nv, nq = 128, 1024, 8
     s = np.float32(2.0 ** -12 * 1.4140625)
     a = np.full(d, s, np.float32)
@@ -1278,13 +1308,18 @@ def test_k6_truncation_adversary_within_mma_eps(dev, metric):
     assert torch.equal(decode_f16_bits(bits), torch.from_numpy(xb).to(dev))
     q = torch.from_numpy(np.tile(a, (nq, 1))).to(dev)
     vn = fused._premask_norms(norms, nv, nv, metric)
-    gm = fused.groupmax_scores(q, bits, vn, metric=metric, sweep_passes=2)
+    _, fp = f16_sweep_planes(q, 2)
+    n0 = kernels.launches["sweep_f16_2"]
+    gm = fused.groupmax_scores(q, bits, vn, metric=metric, sweep_passes=2,
+                               f16_planes=fp)
+    assert kernels.launches["sweep_f16_2"] == n0 + 1
     dot = (xb[::128].astype(np.float64) @ a.astype(np.float64))
     exact = torch.from_numpy(dot).to(dev)[None, :].expand(nq, -1)
     if metric is MetricType.L2:
         exact = 2.0 * exact - norms[::128].double()[None, :]
     eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d,
-                           pair_sweep=True, split_stats=stats, accum="mma")
+                           pair_sweep=True, split_stats=stats, accum="mma",
+                           f16_planes=fp)
     gap = (gm.double() - exact).abs()
     assert bool((gap <= eps[:, None].double()).all()), float(gap.max())
 
@@ -1292,12 +1327,14 @@ def test_k6_truncation_adversary_within_mma_eps(dev, metric):
 def test_k6_on_every_f16_pattern(dev):
     """K6 on all 65,536 f16 patterns, each alone in a group of its own (row
     0 of group p holds pattern p in column 0; the other rows are zeros,
-    masked by a +inf norm), IP, against sweep_f16_plain: the query e₀ (no
-    lo plane) scores each finite pattern as its exact value and each e=31
-    pattern NaN (0·inf in ql·dh); the query (1 + 2^-10)·e₀ scores each e=31
-    pattern ±inf by its sign bit. Every finite entry equal, every
-    non-finite one of the same kind (NaN, +inf, −inf): the tensor cores
-    follow IEEE on inf·0 and inf + finite."""
+    masked by a +inf norm), IP, against sweep_f16_plain: K6 reads the
+    stored bits as IEEE f16 values, subnormals included, with no decode.
+    The query e₀ (its f16 lo plane zero) scores each finite pattern as its
+    exact value and each e=31 pattern NaN (0·inf, 0·NaN in ql·v); the
+    query (1 + 2^-11)·e₀ (both planes non-zero) scores ±inf by its sign and
+    NaN as NaN. Every finite entry equal, every non-finite one of the same
+    kind (NaN, +inf, −inf): the tensor cores follow IEEE on inf·0, NaN and
+    inf + finite."""
     pats = all_f16_patterns(dev)
     ng, d = pats.shape[0], 8
     h = torch.zeros((ng * 128, d), dtype=torch.int16, device=dev)
@@ -1307,22 +1344,135 @@ def test_k6_on_every_f16_pattern(dev):
     vn[::128] = 0.0
     q = torch.zeros((2, d), device=dev)
     q[0, 0] = 1.0
-    q[1, 0] = 1.0 + 2.0 ** -10
-    qh, ql = fused.query_planes(q, 2)
-    assert float(ql[1, 0]) == 2.0 ** -10
+    q[1, 0] = 1.0 + 2.0 ** -11
+    (qh, ql, sc), fp = f16_sweep_planes(q, 2)
+    assert float(ql[0].abs().max()) == 0.0
+    assert float(ql[1, 0]) * float(sc[1, 1]) == 2.0 ** -11
     ip = MetricType.INNER_PRODUCT
-    gm = kernels.sweep_f16(qh, ql, bits, vn, metric=ip)
-    want = fused.sweep_f16_plain(qh, ql, bits, vn, metric=ip)
+    n0 = kernels.launches["sweep_f16_2"]
+    gm = kernels.sweep_f16(qh, ql, bits, vn, metric=ip, scales=sc)
+    assert kernels.launches["sweep_f16_2"] == n0 + 1
+    want = fused.sweep_f16_plain(qh, ql, bits, vn, metric=ip, scales=sc)
     fin = torch.isfinite(want)
     assert torch.equal(fin, torch.isfinite(gm))
     assert bool((gm[fin] == want[fin]).all())
     assert torch.equal(gm.isnan(), want.isnan())
     assert torch.equal(gm.isposinf(), want.isposinf())
     assert torch.equal(gm.isneginf(), want.isneginf())
-    e31 = (pats.view(torch.int16) & 0x7C00) == 0x7C00
+    i16 = pats.view(torch.int16)
+    e31 = (i16 & 0x7C00) == 0x7C00
+    nan = e31 & ((i16 & 0x3FF) != 0)
     assert bool(gm[0, e31].isnan().all()) and not bool(gm[0, ~e31].isnan().any())
-    assert bool(gm[1, e31].isinf().all())
+    assert bool(gm[1, nan].isnan().all())
+    inf = e31 & ~nan
+    assert torch.equal(gm[1, inf], decode_f16_bits(pats[inf]))
     assert bool((gm[0, ~e31] == decode_f16_bits(pats[~e31])).all())
+
+
+def _split_rows():
+    """fp32 query rows for the f16 split: normalised, spread over 2^-60 …
+    2^60, at f16's and fp32's limits, zero, and holding ±inf or NaN."""
+    g = torch.Generator().manual_seed(25)
+    x = torch.randn((40, 96), generator=g)
+    x[:16] /= torch.linalg.vector_norm(x[:16], dim=1, keepdim=True)
+    x[16:24] *= torch.exp2(torch.randint(-60, 61, (8, 96), generator=g)
+                           .float())
+    x[24, :8] = torch.tensor([65504.0, 65519.0, 65520.0, 1e5, 6e-8, 5.96e-8,
+                              -1e-30, 3.4e38])
+    x[25, :4] = torch.tensor([1e-40, -2e-41, 1e-45, 5e-39])
+    x[25, 4:] = 0.0
+    x[26] = 0.0
+    x[27, 3], x[28, 5], x[29, 0] = float("inf"), float("-inf"), float("nan")
+    return x
+
+
+def test_f16_split_on_the_card_equals_the_cpu(dev):
+    """``split_f32_f16`` on the card gives the CPU's planes and scales bit
+    for bit on every finite row (every step is exact), and on a row
+    holding ±inf or NaN the same kind of entry in each place (the card's
+    own f32 → f16 conversion writes NaN as 0x7fff); on the card
+    the f16 route with two passes takes this split."""
+    x = _split_rows()
+    cpu = split_f32_f16(x)
+    card = split_f32_f16(x.to(dev))
+    fin = torch.isfinite(x).all(dim=1)
+    for a, b in zip(cpu, card):
+        b = b.cpu()
+        if a.dtype == torch.float16:
+            assert torch.equal(a[fin].view(torch.int16),
+                               b[fin].view(torch.int16))
+        else:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for kind in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(kind(a[~fin]), kind(b[~fin]))
+    assert fused.sweep_query_split(
+        "f16", 2, fused.sweep_accum("f16", 2, dev)) == "f16"
+    planes, fp = f16_sweep_planes(x.to(dev), 2)
+    assert fp is planes
+    for a, b in zip(card, planes):
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+def test_k6_against_fp64_at_the_cell_width(dev, metric):
+    """K6 at d 96 (Deep's width, two k chunks: the query planes as A
+    fragments in registers) and nq 104 over normalised f16 rows, for
+    queries of norm 1, 1e-15 and 1e15 (the planes' powers of two at both
+    ends): |group max − fp64 group max of the stored rows| ≤
+    _sweep_eps(accum="mma", f16_planes=) for every (query, group)."""
+    nv, d, nq = 65536, 96, 104
+    g = torch.Generator().manual_seed(96)
+    x = torch.randn((nv, d), generator=g)
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    bits, norms, _ = f16_db(dev, x.numpy())
+    v = decode_f16_bits(bits).double()
+    q = torch.randn((nq, d), generator=g)
+    q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    q[40:72] *= 1e-15
+    q[72:] *= 1e15
+    q = q.to(dev)
+    vn = fused._premask_norms(norms, nv, nv, metric)
+    _, fp = f16_sweep_planes(q, 2)
+    n0 = kernels.launches["sweep_f16_2"]
+    gm = fused.groupmax_scores(q, bits, vn, metric=metric, sweep_passes=2,
+                               f16_planes=fp)
+    assert kernels.launches["sweep_f16_2"] == n0 + 1
+    dots = q.double() @ v.T
+    s = (2.0 * dots if metric is MetricType.L2 else dots) - vn.double()
+    want = s.view(nq, nv // 128, 128).amax(-1)
+    eps = fused._sweep_eps(q, norms, nv, metric=metric, d_pad=d, accum="mma",
+                           f16_planes=fp)
+    gap = (gm.double() - want).abs()
+    assert bool((gap <= eps.double()[:, None]).all()), float(gap.max())
+
+
+def test_k6_is_the_instance_the_f16_cell_finds(dev):
+    """The f16 cell's sweep route finds K6 in a trace by the name prefix
+    ``sweep_split_mma_kernel<2, 2,`` (benchmark/configs/deep10m-ip-f16.json):
+    one K6 launch at d 96 under the profiler is one kernel of that name,
+    the instance with the query planes in registers (``…, false, 2>``)."""
+    nv, d, nq = 8192, 96, 104
+    rng = np.random.default_rng(3)
+    bits, norms, _ = f16_db(dev, rng.standard_normal((nv, d)).astype(
+        np.float32))
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
+    q = q.to(dev)
+    ip = MetricType.INNER_PRODUCT
+    vn = fused._premask_norms(norms, nv, nv, ip)
+    _, fp = f16_sweep_planes(q, 2)
+    fused.groupmax_scores(q, bits, vn, metric=ip, sweep_passes=2,
+                          f16_planes=fp)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fused.groupmax_scores(q, bits, vn, metric=ip, sweep_passes=2,
+                              f16_planes=fp)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if "sweep_split_mma_kernel" in e.name]
+    assert names and all("sweep_split_mma_kernel<2, 2, false, 2>" in n
+                         for n in names), names
 
 
 @pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
@@ -1538,6 +1688,7 @@ def _sweep_cases(dev, metric, nq, d, seed):
     cases = []
     for passes in (1, 2):
         qh, ql = fused.query_planes(q, passes)
+        (fh, fl, sc), _ = f16_sweep_planes(q, passes)
         cases += [
             (f"sweep_groupmax_{passes}", lambda bm, qh=qh, ql=ql:
              kernels.sweep_groupmax(qh, ql, bf, vn, metric=metric,
@@ -1545,9 +1696,9 @@ def _sweep_cases(dev, metric, nq, d, seed):
             (f"sweep_split_{passes + 1}", lambda bm, qh=qh, ql=ql:
              kernels.sweep_split(qh, ql, hi, lo, vn, metric=metric,
                                  with_block_max=bm)),
-            (f"sweep_f16_{passes}", lambda bm, qh=qh, ql=ql:
-             kernels.sweep_f16(qh, ql, bits, vn, metric=metric,
-                               with_block_max=bm))]
+            (f"sweep_f16_{passes}", lambda bm, fh=fh, fl=fl, sc=sc:
+             kernels.sweep_f16(fh, fl, bits, vn, metric=metric,
+                               with_block_max=bm, scales=sc))]
     q1, q2, b1, b2 = fused.int8_query_pair(q, scales)
     beta = torch.stack([b1, b2], dim=1)
     cases.append(("sweep_int8", lambda bm: kernels.sweep_int8(
@@ -2098,6 +2249,37 @@ def test_nan_rows_ivf_bf16_on_the_card_equals_the_cpu(dev, metric, nprobe,
     assert torch.equal(gpu._rows_by_id()[0].cpu().view(torch.int16),
                        cpu._rows_by_id()[0].view(torch.int16))
     (Dc, Ic), (Dg, Ig) = cpu.search(xq, NAN_K), gpu.search(xq, NAN_K)
+    np.testing.assert_array_equal(Ig, Ic)
+    np.testing.assert_allclose(Dg, Dc, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("nq", [NAN_NQ, 100])
+@pytest.mark.parametrize("metric", METRICS, ids=["l2", "ip"])
+def test_nan_rows_f16_on_the_card_equals_the_cpu(dev, metric, nq,
+                                                 monkeypatch, capsys):
+    """f16 flat storage with the NaN rows: the card's fused search (nq 8:
+    K6 from the start; nq 100: K7, then K6 for the rows it leaves
+    uncertified) returns the CPU route's ids, distances within the rescore
+    tolerance. K6 reads a stored NaN as NaN, so its group turns NaN where
+    the CPU route's decoded pair reads ±inf; the certificate then fails for
+    the query and the plain path re-runs it. The fallbacks of both routes
+    are printed."""
+    monkeypatch.setattr(fused, "fused_path_eligible",
+                        lambda **kw: kw["nv_eff"] >= 8192)
+    x = _nan_rows(NAN_NV, 3)
+    xq = np.random.default_rng(4).standard_normal(
+        (nq, NAN_D)).astype(np.float32)
+    out, falls = [], []
+    for device in ("cpu", "cuda"):
+        idx = TorchIndexFlat(NAN_D, metric=metric, storage="f16",
+                             device=device)
+        idx.add(x)
+        out.append(idx.search(xq, NAN_K))
+        falls.append(idx.fused_fallbacks)
+    (Dc, Ic), (Dg, Ig) = out
+    with capsys.disabled():
+        print(f"\nf16 NaN rows {metric.value} nq {nq}: fused_fallbacks cpu "
+              f"{falls[0]}, card {falls[1]}")
     np.testing.assert_array_equal(Ig, Ic)
     np.testing.assert_allclose(Dg, Dc, rtol=1e-4, atol=1e-3)
 
@@ -2887,7 +3069,7 @@ def test_f16_index_past_65536_groups(dev):
     K7 (one query plane) and K6 (two: tier 1 and a pinned shape), the
     eager search launches that sweep and the block max once, its replays
     equal it bit for bit, and every certified row returns the plain path's
-    ids, distances within the rescore term. K11 over K7's nominated groups
+    ids, distances within the rescore term; K6 certifies all 100. K11 over K7's nominated groups
     equals K10 → K9 bit for bit and the plain version's ids, and the
     supergroup maxes equal block_max_plain of the same launch's gm."""
     from faiss_tpu_torch import calls
@@ -2923,6 +3105,8 @@ def test_f16_index_past_65536_groups(dev):
         cert = cert[:nq]
         print(f"{name}: {int(cert.sum())} of {nq} queries certified")
         assert cert.any()
+        if full_sweep:   # K6 over the f16 split certifies every query
+            assert cert.all()
         np.testing.assert_array_equal(i_f[:nq][cert], i_p[:nq][cert])
         err = np.abs(d_f[:nq] - d_p[:nq]).max(axis=1)
         assert (err[cert] <= tol.cpu().numpy()[cert]).all()

@@ -23,8 +23,11 @@ adversarial rows: its error stays within the new term (2), and on the
 truncation adversary exceeds the fmaf term, so the new budget is needed
 for that arithmetic; the emulated pair sweep (three accumulators), bf16
 sweep (two), one-plane bf16 sweep (one), f16 pair sweep (three, over f16
-rows), one-plane f16 sweep (two) and one-plane pair sweep (two, over f32
-rows with both planes non-zero) stay within the whole ε. tests/test_torch_cuda.py holds the
+rows; the CPU route's arithmetic), f16-native sweep (two, over the stored
+f16 rows against the f16 query split: K6 on the card, within
+``_sweep_eps(f16_planes=)``), one-plane f16 sweep (two) and
+one-plane pair sweep (two, over f32 rows with both planes non-zero) stay
+within the whole ε. tests/test_torch_cuda.py holds the
 kernels themselves to the budget on the card.
 """
 
@@ -40,7 +43,8 @@ from faiss_tpu.ops import pallas_fused as pf
 from faiss_tpu_torch.ops import fused
 from faiss_tpu_torch.storage import (decode_f16_bits, encode_f16_bits,
                                      flush_f16_subnormals, split_f16_bits,
-                                     split_f32_bf16, split_stats)
+                                     split_f32_bf16, split_f32_f16,
+                                     split_stats)
 
 from torch_parity import METRIC_IDS, METRICS
 
@@ -530,6 +534,56 @@ def test_emulated_f16_pair_sweep_within_mma_eps(metric, jmetric, adversary,
         if name == "truncation":
             qn = np.linalg.norm(qh[i]) + np.linalg.norm(ql[i])
             fmaf_term = (d + 2) * U * qn * np.linalg.norm(v, axis=1)
+            assert bool((err > (2.0 if l2 else 1.0) * fmaf_term)[:2].all())
+
+
+@pytest.mark.parametrize("metric,jmetric", METRICS, ids=METRIC_IDS)
+@pytest.mark.parametrize("adversary", ["truncation", "cancellation", "skewed"])
+@pytest.mark.parametrize("d", [96, 128, 136])
+def test_emulated_f16_native_sweep_within_mma_eps(metric, jmetric, adversary,
+                                                  d):
+    """K6's arithmetic emulated: the rows as f16 stores them, used whole
+    (f16×f16 products are exact in fp32); the query's f16 split
+    (``split_f32_f16``): the two accumulators qh·v and ql·v of the model's
+    worst case (``mma_chain``) in each plane's scaled space, each times its
+    power of two (exact) and the two added once in fp32, and the epilogue,
+    against the exact score of the stored f16 row: within
+    _sweep_eps(f16_planes=, accum="mma") on the truncation,
+    cancellation and skewed adversaries (d 96: the f16 cell's width). On
+    the truncation adversary, for the query whose hi plane is its
+    bf16-valued a (lo plane zero), the emulated error exceeds the fmaf
+    budget's accumulation term, so the tensor-core term is needed there
+    too."""
+    name, a, rows = [c for c in _adversaries(d) if c[0] == adversary][0]
+    bits, v, norms = _f16_rows(rows)
+    xq = np.stack([a.astype(np.float32)]
+                  + [_near_bf16_query(a, seed) for seed in range(3)])
+    q = torch.from_numpy(xq)
+    hi, lo, sc = split_f32_f16(q)
+    qh, ql = hi.double().numpy(), lo.double().numpy()
+    sc = sc.numpy()
+    assert np.array_equal(qh[0] * np.float64(sc[0, 0]), a)
+    assert (np.abs(ql[1:]).sum(axis=1) > 0).all()
+    n = v.shape[0]
+    eps = fused._sweep_eps(q, norms, n, metric=metric, d_pad=d,
+                           pair_sweep=True, accum="mma",
+                           f16_planes=(hi, lo, torch.from_numpy(sc))
+                           ).double().numpy()
+    l2 = metric.value == "l2"
+    vn = norms.numpy() if l2 else np.zeros(n, np.float32)
+    for i in range(len(xq)):
+        t1 = mma_chain(qh[i], v).astype(np.float32) * sc[i, 0]
+        t2 = mma_chain(ql[i], v).astype(np.float32) * sc[i, 1]
+        acc = t1 + t2                                        # fp32, RN
+        got = (np.float32(2) * acc if l2 else acc) - vn
+        exact = v @ xq[i].astype(np.float64)
+        if l2:
+            exact = 2.0 * exact - vn.astype(np.float64)
+        err = np.abs(got - exact)
+        assert bool((err <= eps[i]).all()), (name, i)
+        if name == "truncation" and i == 0:
+            fmaf_term = ((d + 2) * U * np.linalg.norm(xq[i].astype(np.float64))
+                         * np.linalg.norm(v, axis=1))
             assert bool((err > (2.0 if l2 else 1.0) * fmaf_term)[:2].all())
 
 
