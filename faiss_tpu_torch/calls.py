@@ -1,9 +1,9 @@
 """The host side of a search, written once under the four index classes
 (``TorchIndexFlat``, ``TorchIndexIVFFlat``, ``ShardedIndexFlat``,
 ``ShardedIndexIVFFlat``): the query upload (``prep_queries``), the
-selector's host evaluation (``selector_streams``; each index places the
-mask on its own layout), the enqueue of one call (the classes' base
-``SearchCalls.search_async``: a batch past the index's cap split into a
+selector's stream (``selector_streams``; each index evaluates it over the
+id vector it keeps on its devices), the enqueue of one call (the classes'
+base ``SearchCalls.search_async``: a batch past the index's cap split into a
 ``ConcatSearchToken``, an empty index answered by ``empty_result``), the
 packed result (``finalize``, ``pack``, ``unpack``) and its token
 (``TorchSearchToken``), the rerun of uncertified rows
@@ -28,8 +28,6 @@ NQ_PAD = 8
 # range_search: first per-(query, chunk) hit capacity; one rerun at the next
 # power of two when a chunk holds more (its counts are exact either way)
 RANGE_CAP0 = 1024
-
-_NO_IDS = np.empty(0, np.int64)
 
 
 def pinned(shape, dtype, device) -> torch.Tensor:
@@ -56,31 +54,25 @@ def prep_queries(x, d: int, d_pad: int, device, unit: int = NQ_PAD):
         return q.to(device, non_blocking=True), nq, nq_pad
 
 
-def bool_stream(n: int, device, where, value=True) -> torch.Tensor:
-    """A (n,) bool stream on ``device``, ``value`` at ``where`` (an index
-    into it) and False elsewhere, copied from pinned memory."""
-    s = pinned((n,), torch.bool, device)
-    s.numpy()[where] = value
-    return s.to(device, non_blocking=True)
-
-
 def selector_streams(params, ntotal: int, place: Callable, *,
                      flat: bool = False):
-    """``params``' selector as the index's device streams: ``place(mask)``
-    of the host mask over the ids [0, ntotal), or None where nothing is
-    filtered (no selector, or one that admits every row: the unfiltered
-    program gives the same result). ``params`` is validated before any id
-    is evaluated; ``flat``: the index has no coarse quantizer, so an
-    nprobe raises. The evaluation and the placement are the
-    ``index.sel_stream`` span."""
+    """``params``' selector as the index's device streams: ``place(sel)``,
+    where ``sel`` evaluates over a device id tensor or over the positions,
+    enqueued (``selector.IDSelector.device_member``, ``positional``), or
+    None where nothing is filtered (no selector, or one that admits every
+    id in [0, ntotal), decided on the host: the unfiltered program gives
+    the same result).
+    ``params`` is validated first; ``flat``: the index has no coarse
+    quantizer, so an nprobe raises. The evaluation and the placement are
+    the ``index.sel_stream`` span; nothing in them waits for the device."""
     if flat:
         sel_mod.reject_ivf_params(params)
-    if sel_mod.selector_mask(params, _NO_IDS) is None:
+    sel = sel_mod.search_selector(params)
+    if sel is None:
         return None
     with tracing.span("index.sel_stream"):
-        mask = sel_mod.selector_mask(params,
-                                     np.arange(ntotal, dtype=np.int64))
-        return None if mask.all() else place(mask)
+        sel = sel_mod.device_selector(sel, ntotal)
+        return None if sel is None else place(sel)
 
 
 def empty_result(nq: int, k: int, metric: MetricType):

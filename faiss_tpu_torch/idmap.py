@@ -8,8 +8,9 @@ IndexShardsHost.
     index's positional labels through the id map on the host, at
     ``wait()`` for a token (after the inner fallback has run); the device
     work is the inner index's own. Label −1 stays −1. A selector speaks
-    custom ids: it is evaluated over the id map and handed to the inner
-    index as a positional mask.
+    custom ids: the inner index evaluates it through the id map
+    (``selector.IDSelectorTranslated``), on the device over the map's
+    copy there, kept until the map changes.
   * ``remove_ids`` removes every position holding one of the custom ids;
     the inner index renumbers stably and the map compacts in step.
   * ``TorchIndexIDMap2`` adds ``reconstruct(custom_id)`` through a reverse
@@ -21,7 +22,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .selector import IDSelectorMask, SearchParams
+from .selector import IDSelectorTranslated, SearchParams
 
 __all__ = ["TorchIndexIDMap", "TorchIndexIDMap2"]
 
@@ -58,6 +59,17 @@ class TorchIndexIDMap:
     def __init__(self, index):
         self.index = index
         self.id_map = np.empty(0, dtype=np.int64)
+
+    @property
+    def id_map(self) -> np.ndarray:
+        """The custom id of each position (int64)."""
+        return self._id_map
+
+    @id_map.setter
+    def id_map(self, ids: np.ndarray) -> None:
+        self._id_map = ids
+        # the map's device copies (IDSelectorTranslated)
+        self._id_map_copies = {}
 
     # -- delegated config/introspection ------------------------------------
     @property
@@ -110,12 +122,12 @@ class TorchIndexIDMap:
     def _translate_params(self, params) -> Optional[SearchParams]:
         """faiss's IDSelectorTranslated discipline (faiss/IndexIDMap.cpp):
         the caller's selector speaks CUSTOM ids, the inner index speaks
-        positions — evaluate the selector over the id map once and hand the
-        inner index the resulting positional mask."""
+        positions — hand the inner index the selector over the id map."""
         if params is None or getattr(params, "sel", None) is None:
             return params
         return SearchParams(
-            IDSelectorMask(params.sel.is_member(self.id_map)),
+            IDSelectorTranslated(params.sel, self.id_map,
+                                 self._id_map_copies),
             nprobe=params.nprobe)  # inner index honors or rejects it
 
     def search(self, x: np.ndarray, k: int,

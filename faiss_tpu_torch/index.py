@@ -472,12 +472,13 @@ class TorchIndexFlat(FlatCalls):
 
     def _sel_stream(self, params) -> Optional[torch.Tensor]:
         """``params``' selector over the positional ids, as a (capacity,)
-        bool device stream (False past ntotal), or None when nothing is
-        filtered (``calls.selector_streams``)."""
+        bool device stream, or None when nothing is filtered
+        (``calls.selector_streams``). Rows past ntotal are left to the
+        search, which masks them with or without a selector."""
         return calls.selector_streams(
-            params, self.ntotal, lambda mask: calls.bool_stream(
-                self.store.capacity, self.device, slice(0, self.ntotal),
-                mask), flat=True)
+            params, self.ntotal,
+            lambda sel: sel.positional(self.store.capacity, self.device),
+            flat=True)
 
     def assign(self, x: np.ndarray, k: int = 1) -> np.ndarray:
         """Labels-only search (faiss::Index::assign), (nq, k) int64. A large

@@ -471,18 +471,26 @@ class TorchIndexIVFFlat(calls.SearchCalls):
     # -- search ---------------------------------------------------------------
     def _prep_search(self, x: np.ndarray, params):
         """Validation, the queries padded to NQ_PAD rows on the device, the
-        selector stream (by SLOT, through the id → slot map), the probe
+        selector stream (by SLOT, over the slot → id map), the probe
         width and the chunk budget: (q, nq, nq_pad, nprobe, nbudget,
         sel)."""
         if not self.is_trained:
             raise RuntimeError("IndexIVFFlat requires train() before search")
         q, nq, nq_pad = calls.prep_queries(x, self.d, self.d_pad, self.device)
-        sel = calls.selector_streams(
-            params, self.ntotal, lambda mask: calls.bool_stream(
-                self.npool * _CHUNK, self.device, self._slot_of[mask]))
+        sel = self._sel_stream(params)
         nprobe = self._nprobe(params)
         self._check_footprint(nq_pad, nprobe)
         return q, nq, nq_pad, nprobe, self._budget(nprobe), sel
+
+    def _sel_stream(self, params) -> Optional[torch.Tensor]:
+        """``params``' selector over the slot → id map, as a (npool ·
+        CHUNK,) bool stream by slot, or None when nothing is filtered
+        (``calls.selector_streams``)."""
+        return calls.selector_streams(params, self.ntotal, self._place_sel)
+
+    def _place_sel(self, sel) -> torch.Tensor:
+        """``sel`` over the slot → id map, False on empty slots."""
+        return sel.device_member(self._ids) & (self._ids >= 0)
 
     def _check_footprint(self, nq_pad: int, nprobe: int) -> None:
         """Raise where the fine scan of ``nq_pad`` query rows would hold

@@ -24,7 +24,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from .dtypes import MetricType
-from .selector import IDSelectorMask, SearchParams, selector_mask
+from .selector import IDSelectorMask, SearchParams, search_selector
 
 
 def _merge_two(va, ia, vb, ib, k: int, largest: bool):
@@ -116,7 +116,7 @@ class IndexShardsHost:
         extent table (the host-composition analog of faiss's
         IDSelectorTranslated; see selector.py)."""
         if params is None or getattr(params, "sel", None) is None:
-            selector_mask(params, np.empty(0, np.int64))  # validate type
+            search_selector(params)  # validate type
             return params
         mask = np.zeros(self.indexes[which].ntotal, dtype=bool)
         lo = 0

@@ -449,10 +449,11 @@ class ShardedIndexFlat(FlatCalls):
     def _sel_stream(self, params):
         """``params``' selector over the global ids, as one (capacity,)
         bool stream per shard on its device (a shard's local rows through
-        their gids), or None when nothing is filtered."""
-        return calls.selector_streams(params, self.ntotal, lambda mask: [
-            calls.bool_stream(s.store.capacity, s.device,
-                              slice(0, s.gids_host.size), mask[s.gids_host])
+        their gids; None for a shard that never held a row), or None when
+        nothing is filtered. Rows past a shard's ntotal (gid −1) are left
+        to its search, which masks them."""
+        return calls.selector_streams(params, self.ntotal, lambda sel: [
+            None if s.gids is None else sel.device_member(s.gids)
             for s in self.shards], flat=True)
 
     def _shard(self, r: int, i: int) -> _ShardStore:

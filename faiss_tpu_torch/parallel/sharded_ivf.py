@@ -38,7 +38,7 @@ import torch
 
 from .. import calls, programs
 from ..dtypes import MetricType, StorageType
-from ..ivf import _CHUNK, TorchIndexIVFFlat, dense_fallback
+from ..ivf import TorchIndexIVFFlat, dense_fallback
 from ..resources import default_resources
 from .sharded import balanced_counts, resolve_devices, run_by_device
 
@@ -191,17 +191,12 @@ class ShardedIndexIVFFlat(calls.SearchCalls):
     _nprobe = TorchIndexIVFFlat._nprobe      # its own nprobe and nlist
 
     def _sel_stream(self, params):
-        """The global admit mask as one slot-indexed bool stream per shard
-        on its device, or None when nothing is filtered."""
-
-        def place(mask):
-            gids = np.nonzero(mask)[0]
-            return [calls.bool_stream(
-                sh.npool * _CHUNK, sh.device,
-                sh._slot_of[self._id_local[gids[self._id_shard[gids] == i]]])
-                for i, sh in enumerate(self.shards)]
-
-        return calls.selector_streams(params, self.ntotal, place)
+        """``params``' selector over each shard's slot → global id map, as
+        one slot-indexed bool stream per shard on its device (None for an
+        empty pool), or None when nothing is filtered."""
+        return calls.selector_streams(params, self.ntotal, lambda sel: [
+            None if sh._ids is None else sh._place_sel(sel)
+            for sh in self.shards])
 
     def _search_packed(self, x: np.ndarray, k: int, params=None,
                        force_plain_dense: bool = False):

@@ -21,9 +21,10 @@ parent.
 call (``COUNTERS`` names them all), under the same switch and in the same
 stretch as the spans: a counter computed inside a captured program comes
 back with the call's result, and its token records it in ``wait``. A
-counter of the host's own work (``HOST_COUNTERS``: a flat rerun's) is
-recorded where the work runs, under the enclosing span's call.
-``counts()`` returns the latest stretch's.
+counter of the host's own work (``HOST_COUNTERS``: a flat rerun's, a
+selector's copy to a device or its host evaluation) is recorded where the
+work runs, under the enclosing span's call. ``counts()`` returns the
+latest stretch's.
 """
 
 from __future__ import annotations
@@ -41,7 +42,9 @@ from torch.autograd import _profiler_enabled
 SPANS = (
     "index.search_async",   # the whole enqueue of one call
     "index.prep_queries",   # queries padded into pinned memory, the upload
-    "index.sel_stream",     # the selector's host evaluation and its copy
+    "index.sel_stream",     # the selector's stream: its evaluation on the
+                            # device, enqueued (a host one where it has no
+                            # device form)
     "programs.capture",     # a miss: the eager warm-up and the capture
     "programs.replay",      # a hit: input copies, replay, output clones
     "token.wait",           # the whole wait
@@ -71,6 +74,8 @@ HOST_COUNTERS = (
                             # sweep (by its wait)
     "flat.tier2_rows",      # and on the plain path
     "flat.reduced_pins",    # shapes pinned to the two-plane sweep
+    "sel.uploads",          # a selector's ids or mask copied to a device
+    "sel.host_evals",       # a selector evaluated on the host
 )
 # records kept: a profiler left on cannot grow the buffer without end
 MAX_RECORDS = 1 << 17

@@ -68,6 +68,13 @@ range passes at two radii (the second replays, no new program) and at the
 rerun's capacity, and the IVF coarse assign; a shard changed under a
 sharded index drops its programs, and a sharded capture that meets a host
 synchronisation raises with nothing cached.
+
+Filtered search at the filtered cell's shape (1M × 96 f32 rows, one
+query, an IDSelectorBatch of 100,000 ids): the enqueue makes no host
+synchronisation (``torch.cuda.set_sync_debug_mode("error")``), a new
+selector's copy included; its replays equal the eager search bit for bit;
+the selector's device form gives the stream and the answers of its host
+evaluation; a cycle over 16 sets copies each set to the card once.
 """
 
 import contextlib
@@ -3135,4 +3142,109 @@ def test_f16_index_past_65536_groups(dev):
     _, ip = fused.rescore_select_groups_plain(q, st.db, vn, gidx, idx.ntotal,
                                               k=k, metric=metric)
     assert torch.equal(ids, ip)
+    torch.cuda.synchronize()
+
+
+# -- filtered search at the filtered cell's shape ------------------------------
+
+CELL_NV, CELL_D, CELL_SETS = 1_000_000, 96, 16
+
+
+@pytest.fixture(scope="module")
+def filtered_cell():
+    """A 1M × 96 f32 L2 index on the card, queries, and 16 sets of
+    100,000 ids (10 % admitted), as ``deep1m-l2.filtered`` runs it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(61)
+    idx = TorchIndexFlat(CELL_D, device="cuda")
+    for _ in range(4):
+        idx.add(rng.standard_normal((CELL_NV // 4, CELL_D),
+                                    dtype=np.float32))
+    xq = rng.standard_normal((CELL_SETS, CELL_D), dtype=np.float32)
+    sets = [np.sort(rng.choice(CELL_NV, CELL_NV // 10, replace=False))
+            for _ in range(CELL_SETS)]
+    return idx, xq, sets
+
+
+def _batch(ids):
+    from faiss_tpu_torch import IDSelectorBatch, SearchParams
+
+    return SearchParams(sel=IDSelectorBatch(ids))
+
+
+def test_filtered_search_async_makes_no_host_sync(dev, filtered_cell):
+    """With the program captured, the enqueue of a filtered call (a new
+    selector's copy to the card included) never waits for the card."""
+    idx, xq, sets = filtered_cell
+    warm, fresh = _batch(sets[0]), _batch(sets[1])
+    idx.search(xq[:1], 10, params=warm)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = [idx.search_async(xq[i:i + 1], 10, params=p)
+                for i, p in enumerate((warm, fresh, warm))]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for tok, s in zip(toks, (sets[0], sets[1], sets[0])):
+        _, I = tok.wait()
+        assert (I >= 0).all() and np.isin(I, s).all()
+
+
+def test_filtered_replay_equals_eager(dev, filtered_cell):
+    idx, xq, sets = filtered_cell
+    for i in range(3):
+        assert _replays_equal_eager(idx, xq[i:i + 1], 10, _batch(sets[i]),
+                                    force_plain=False)
+
+
+def test_filtered_ids_equal_the_host_evaluation(dev, filtered_cell):
+    """The device form against a selector with ``is_member`` alone (the
+    host evaluation and its mask's copy): the same stream, bit for bit,
+    and so the same answers; the ids in the set and the exact top-10 of
+    the admitted rows (fp64 over the stored rows)."""
+    from faiss_tpu_torch import IDSelector, SearchParams
+
+    class HostOnly(IDSelector):
+        def __init__(self, sel):
+            self.sel = sel
+
+        def is_member(self, ids):
+            return self.sel.is_member(ids)
+
+    idx, xq, sets = filtered_cell
+    xb = idx.reconstruct_n(0, CELL_NV).astype(np.float64)
+    for i in range(3):
+        p = _batch(sets[i])
+        host = SearchParams(sel=HostOnly(p.sel))
+        assert torch.equal(idx._sel_stream(p), idx._sel_stream(host))
+        D, I = idx.search(xq[:8], 10, params=p)
+        Dh, Ih = idx.search(xq[:8], 10, params=host)
+        np.testing.assert_array_equal(I, Ih)
+        np.testing.assert_array_equal(D, Dh)
+        rows = xb[sets[i]]
+        d2 = ((xq[:8, None, :].astype(np.float64) - rows[None]) ** 2).sum(-1)
+        want = sets[i][np.argsort(d2, axis=1, kind="stable")[:, :10]]
+        np.testing.assert_array_equal(np.sort(I, 1), np.sort(want, 1))
+
+
+def test_the_sixteen_set_cycle_uploads_each_set_once(dev, filtered_cell):
+    from torch.profiler import ProfilerActivity, profile
+
+    from faiss_tpu_torch import tracing
+
+    idx, xq, sets = filtered_cell
+    params = [_batch(s) for s in sets]
+    idx.search(xq[:1], 10)          # unprofiled: the next stretch is new
+    with profile(activities=[ProfilerActivity.CPU]):
+        for i in range(3 * CELL_SETS):
+            idx.search(xq[i % CELL_SETS: i % CELL_SETS + 1], 10,
+                       params=params[i % CELL_SETS])
+    counts = [c for c in tracing.counts()
+              if c.name in ("sel.uploads", "sel.host_evals")]
+    assert sum(c.value for c in counts if c.name == "sel.uploads") \
+        == CELL_SETS
+    assert not [c for c in counts if c.name == "sel.host_evals"]
+    streams = [r for r in tracing.spans() if r.name == "index.sel_stream"]
+    assert len(streams) == 3 * CELL_SETS
     torch.cuda.synchronize()
